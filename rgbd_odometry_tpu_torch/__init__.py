@@ -1,0 +1,55 @@
+"""rgbd_odometry_tpu_torch — the PyTorch + CUDA port of `rgbd_odometry_tpu`.
+
+Runs the `profiles.production_320` edge-DVO main path on one NVIDIA H100
+(Hopper, sm_90a) with no JAX at run time. The layout mirrors the JAX package
+so every module's counterpart is easy to find (`core/`, `ops/`, `solvers/`,
+`pipeline/`, `io/`), plus `kernels/` + `csrc/` for the two hand-written CUDA
+kernels that replace the JAX package's Pallas kernels:
+
+* `kernels/edt.py` + `csrc/edt.cu` — the squared-L2 distance transform
+  (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed;
+* `kernels/fused_iter.py` + `csrc/fused_gn.cu` — one Gauss-Newton
+  iteration's J^T W J, J^T W eps, energy and visible count (replaces
+  `rgbd_odometry_tpu/pallas/fused_iter.py`).
+
+Idiom: plain functions on tensors with a leading batch dimension (in place
+of `vmap`) and an explicit device. The configuration dataclasses and
+profiles are the JAX package's own jax-free modules, re-exported here.
+"""
+
+from rgbd_odometry_tpu import profiles  # noqa: F401  (jax-free)
+from rgbd_odometry_tpu.config import (  # noqa: F401  (jax-free)
+    CameraConfig,
+    KeyframeConfig,
+    PipelineConfig,
+    PyramidConfig,
+    SolverConfig,
+)
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "align_pair": ("rgbd_odometry_tpu_torch.solvers.edge_dvo", "align_pair"),
+    "EdgeDvoOdometry": ("rgbd_odometry_tpu_torch.pipeline.odometry", "EdgeDvoOdometry"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'rgbd_odometry_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = [
+    "CameraConfig",
+    "KeyframeConfig",
+    "PipelineConfig",
+    "PyramidConfig",
+    "SolverConfig",
+    "profiles",
+    "__version__",
+    *sorted(_LAZY),
+]

@@ -1,0 +1,81 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
+use into `build/rgbd_odometry_tpu_torch/<name>-<hash>.so` beside the
+package (the hash covers the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded). No PyTorch headers are
+involved, which keeps nvcc fast. A missing `nvcc` or a failed
+build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "rgbd_odometry_tpu_torch"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# name -> (ctypes.CDLL, build record); filled on first load in this process
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc was not found on PATH or at /usr/local/cuda/bin/nvcc; the "
+            "CUDA kernels of rgbd_odometry_tpu_torch cannot be built"
+        )
+    return found
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<name>.cu` (built if needed)."""
+    if name in _LOADED:
+        return _LOADED[name][0]
+    src = _CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    key = hashlib.sha256(text + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD / f"{name}-{key}.so"
+    record = {"name": name, "source": str(src), "library": str(so), "built": False,
+              "seconds": 0.0, "ptxas": ""}
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)
+        record.update(built=True, seconds=time.perf_counter() - t0,
+                      ptxas=(proc.stdout + proc.stderr).strip())
+    lib = ctypes.CDLL(str(so))
+    _LOADED[name] = (lib, record)
+    return lib
+
+
+def build_record(name: str) -> dict:
+    """What `load(name)` did in this process: whether it compiled, how long
+    nvcc took, and the ptxas resource report."""
+    load(name)
+    return dict(_LOADED[name][1])
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if code != 0:
+        msg = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

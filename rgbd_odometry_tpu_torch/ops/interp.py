@@ -1,0 +1,45 @@
+"""Bilinear sampling of one bf16 image channel by direct indexing.
+
+Replaces the JAX package's one-hot MXU gathers for the production path
+(`ops/matmul_gather.gather_channels_mm(..., bilinear=True)` and
+`gather_bilinear_value_grad_mm`): coordinates are clamped to [0, n-1],
+i1 = min(i0+1, n-1), and the derivatives are those of the bilinear
+interpolant (exactly 0 across a clamped border). The four bf16 corners are
+read, widened to float32, and blended with float32 weights; the TPU forms
+round the weights (and the matmul outputs) to bf16 instead, a difference of
+the order of bf16's 2^-9 relative step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _corners(n: int, coord: torch.Tensor):
+    """(i0, i1, frac) for clamped coordinates along an axis of length n.
+    NaN coordinates (points behind the camera) are mapped to 0 so the index
+    stays in range; callers mask those points as invisible."""
+    c = torch.clamp(torch.nan_to_num(coord, nan=0.0), 0.0, n - 1.0)
+    f0 = torch.floor(c)
+    i0 = f0.to(torch.long)
+    return i0, torch.clamp(i0 + 1, max=n - 1), c - f0
+
+
+def sample_bilinear_value_grad(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """img (B, H, W) (any float dtype; the last two dims contiguous), u, v
+    (B, K) -> float32 (value, d/du, d/dv), each (B, K)."""
+    b, h, w = img.shape
+    flat = img.reshape(b, h * w) if img.is_contiguous() else img.contiguous().reshape(b, h * w)
+    j0, j1, fu = _corners(w, u)
+    i0, i1, fv = _corners(h, v)
+
+    def at(i, j):
+        return torch.gather(flat, 1, i * w + j).to(torch.float32)
+
+    a00, a01, a10, a11 = at(i0, j0), at(i0, j1), at(i1, j0), at(i1, j1)
+    row0 = (1.0 - fv) * a00 + fv * a10  # bilinear row mix at column j0
+    row1 = (1.0 - fv) * a01 + fv * a11  # ... and at column j1
+    val = (1.0 - fu) * row0 + fu * row1
+    gu = row1 - row0
+    gv = (1.0 - fu) * (a10 - a00) + fu * (a11 - a01)
+    return val, gu, gv

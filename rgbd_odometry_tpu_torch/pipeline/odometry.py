@@ -1,0 +1,297 @@
+"""Streaming edge-DVO odometry: port of
+`rgbd_odometry_tpu/pipeline/odometry.EdgeDvoOdometry`.
+
+Per frame the device builds the pyramid, computes the DT targets and runs
+the coarse-to-fine solve (the JAX fused step); the host holds the control
+flow that is data-dependent across frames: keyframe switches (every-N and
+the optional quality triggers), the rollback re-solve that promotes frame
+n-1, the naive ref update, the divergence guard, and GOP composition in
+float64. The steady-state frame reads its results back in one device->host
+copy. The warm start is the previous relative pose ("hold").
+
+Not ported yet (ROADMAP.md Queue 1): relocalization, the constant-velocity
+motion model, the pipelined `process_stream` and the frame feeder.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from rgbd_odometry_tpu.config import PipelineConfig
+from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+from rgbd_odometry_tpu_torch.core.pyramid import FramePyramid, build_pyramid
+from rgbd_odometry_tpu_torch.device import resolve_device
+from rgbd_odometry_tpu_torch.pipeline.gop import (
+    REASON_FIRST_FRAME,
+    REASON_LAPLACIAN_THRESH,
+    REASON_LOW_VISIBILITY,
+    REASON_PERIODIC,
+    REASON_TOO_FEW_REPROJECTIONS,
+    Gop,
+)
+from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+
+@dataclass
+class FrameMetrics:
+    """Per-frame observability record (the JAX `FrameMetrics`)."""
+
+    frame_num: int
+    solve_ms: float
+    best_energy: float
+    best_iter: int
+    visible_ratio: float
+    b_cap: float  # Laplacian-MLE scale of the residual histogram
+    num_points: int
+    keyframe_reason: int  # 0 = ordinary frame
+    rolled_back: bool = False
+    energy_curve: Optional[np.ndarray] = None
+    diverged: bool = False
+    final_epsilons: Optional[np.ndarray] = None
+    final_valid: Optional[np.ndarray] = None
+
+
+@dataclass
+class _Finest:
+    """Host copy of the finest level's diagnostics for one frame."""
+
+    energy: np.ndarray
+    best_energy: float
+    best_iter: int
+    visible_ratio: float
+    num_points: int
+    final_epsilons: np.ndarray
+    final_valid: np.ndarray
+
+
+def residual_b_cap(epsilons: np.ndarray, count: int) -> float:
+    """Laplace-MLE scale b-hat = sum(|residual|) / count."""
+    return float(np.sum(epsilons) / max(int(count), 1))
+
+
+def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostics):
+    """Pose and finest diagnostics of pair 0 in ONE device->host copy."""
+    f32 = torch.float32
+    parts = [
+        R_d[0].reshape(-1), t_d[0],
+        torch.stack([
+            finest.best_energy[0], finest.best_iter[0].to(f32),
+            finest.visible_ratio[0], finest.num_points[0].to(f32),
+        ]),
+        finest.energy[0], finest.final_epsilons[0], finest.final_valid[0].to(f32),
+    ]
+    host = torch.cat([p.to(f32) for p in parts]).cpu().numpy()
+    n_it = finest.energy.shape[-1]
+    k = finest.final_epsilons.shape[-1]
+    o = 16 + n_it
+    fin = _Finest(
+        energy=host[16:o].copy(),
+        best_energy=float(host[12]),
+        best_iter=int(host[13]),
+        visible_ratio=float(host[14]),
+        num_points=int(host[15]),
+        final_epsilons=host[o : o + k].copy(),
+        final_valid=host[o + k : o + 2 * k] > 0.5,
+    )
+    return host[:9].reshape(3, 3).copy(), host[9:12].copy(), fin
+
+
+class EdgeDvoOdometry:
+    """Streaming odometry over a sequence of RGB-D frames on one device."""
+
+    def __init__(self, config: PipelineConfig | None = None, device=None):
+        self.cfg = config or PipelineConfig()
+        if self.cfg.relocalize.enabled:
+            raise NotImplementedError(
+                "relocalization is not ported to rgbd_odometry_tpu_torch yet; "
+                "see ROADMAP.md Queue 1, 'motion model, relocalization, feeder'"
+            )
+        if self.cfg.motion_model != "hold":
+            raise NotImplementedError(
+                f"motion_model={self.cfg.motion_model!r} is not ported yet; see "
+                "ROADMAP.md Queue 1, 'motion model, relocalization, feeder'"
+            )
+        edge_dvo.check_config(self.cfg.solver)
+        self.device = resolve_device(device)
+        self.intr = Intrinsics.from_config(self.cfg.camera)
+        self.gop = Gop()
+        self.metrics: "deque[FrameMetrics]" = deque(maxlen=self.cfg.metrics_max or None)
+        pyr = self.cfg.pyramid
+        self._max_pts = tuple(pyr.max_points[: pyr.num_levels])
+        self._ref_feats = None
+        self._prev_pyr: Optional[FramePyramid] = None
+        self._prev_targets = None
+        self._frame_num = -1
+        self._last_ref_frame = -1
+        self._R = np.eye(3, dtype=np.float64)
+        self._t = np.zeros(3, dtype=np.float64)
+        # device copy of (_R, _t) as float32 (1, 3, 3), (1, 3); None = the
+        # next frame uploads the host pose once
+        self._warm = None
+        self.keep_residuals = False
+
+    # ------------------------------------------------------------------
+    def process_frame(
+        self,
+        gray0: np.ndarray,
+        depth0_mm: np.ndarray,
+        timestamp: float = 0.0,
+        pose_prior: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Feed one frame (level-0 gray + depth in mm); returns the current
+        global pose (R, t). `pose_prior`, if given, is a delta (R, t)
+        composed onto the warm start."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        pyr = build_pyramid(
+            torch.as_tensor(np.asarray(gray0), **f32)[None],
+            torch.as_tensor(np.asarray(depth0_mm), **f32)[None],
+            self.cfg.pyramid.num_levels,
+        )
+        self._frame_num += 1
+        if pose_prior is not None:
+            dR, dt = pose_prior
+            self._t = self._t + self._R @ np.asarray(dt, np.float64)
+            self._R = self._R @ np.asarray(dR, np.float64)
+            self._warm = None
+        if self._frame_num == 0:
+            return self._bootstrap(pyr, timestamp)
+
+        t_start = time.perf_counter()
+        if self._warm is None:
+            self._warm = (
+                torch.as_tensor(self._R, **f32)[None],
+                torch.as_tensor(self._t, **f32)[None],
+            )
+        scfg = self.cfg.solver
+        targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
+        R_d, t_d, diags = edge_dvo.solve_pyramid(
+            self._ref_feats, targets, self.intr, scfg, *self._warm
+        )
+        return self._resolve(pyr, timestamp, self._frame_num, R_d, t_d, diags[0], targets, t_start)
+
+    def _bootstrap(self, pyr: FramePyramid, timestamp: float):
+        """The first frame becomes the reference keyframe."""
+        self._set_ref(pyr)
+        self._last_ref_frame = 0
+        self.gop.push_keyframe(0, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), timestamp)
+        count = int(self._ref_feats[0].count[0])
+        self.metrics.append(FrameMetrics(0, 0.0, 0.0, -1, 1.0, 0.0, count, REASON_FIRST_FRAME))
+        self._prev_pyr = pyr
+        return self.gop.global_pose(0)
+
+    def _resolve(self, pyr, timestamp, frame_num, R_d, t_d, finest_d, targets, t_start):
+        """Host-side bookkeeping for one solved frame: pull the results,
+        decide keyframes, maybe rollback-resolve, log trajectory + metrics."""
+        R, t, finest = _pull(R_d, t_d, finest_d)
+        solve_ms = (time.perf_counter() - t_start) * 1000.0
+        b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
+        vis = finest.visible_ratio
+        n_reproj = int(finest.final_valid.sum())
+
+        kf_cfg = self.cfg.keyframe
+        reason = 0
+        if kf_cfg.enable_quality_triggers:
+            if b_cap > kf_cfg.laplacian_b_thresh:
+                reason = REASON_LAPLACIAN_THRESH
+            if vis < kf_cfg.min_visible_ratio:
+                reason = REASON_LOW_VISIBILITY
+            if n_reproj < kf_cfg.min_reprojected_pts:
+                reason = REASON_TOO_FEW_REPROJECTIONS
+        if (frame_num - self._last_ref_frame) == kf_cfg.force_every:
+            reason = REASON_PERIODIC
+
+        rolled_back = False
+        if (
+            reason != 0
+            and kf_cfg.rollback_resolve
+            and self._last_ref_frame != (frame_num - 1)
+            and self._prev_pyr is not None
+        ):
+            # rollback re-solve: promote frame n-1 to the reference keyframe,
+            # reset the relative pose, re-run the full pyramid solve
+            self._last_ref_frame = frame_num - 1
+            self._set_ref(self._prev_pyr, targets=self._prev_targets)
+            self.gop.update_most_recent_to_keyframe(reason)
+            R_d, t_d, diags = edge_dvo.solve_pyramid(
+                self._ref_feats, targets, self.intr, self.cfg.solver
+            )
+            R, t, finest = _pull(R_d, t_d, diags[0])
+            rolled_back = True
+            b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
+            vis = finest.visible_ratio
+        elif reason != 0 and not kf_cfg.rollback_resolve:
+            # naive ref update: the current frame becomes the keyframe with
+            # its (possibly bad) estimate kept
+            self.gop.push_keyframe(frame_num, reason, np.asarray(R), np.asarray(t), timestamp)
+            self._last_ref_frame = frame_num
+            self._set_ref(pyr, targets=targets)
+            self._record(frame_num, solve_ms, finest, b_cap, vis, reason, False)
+            self._prev_pyr = pyr
+            self._prev_targets = targets
+            return self.gop.global_pose(-1)
+
+        R_np = np.asarray(R, np.float64)
+        t_np = np.asarray(t, np.float64)
+        # divergence guard: a non-finite estimate never enters the trajectory
+        diverged = not (np.isfinite(R_np).all() and np.isfinite(t_np).all())
+        if not diverged:
+            self._R = R_np
+            self._t = t_np
+            self._warm = (R_d, t_d)
+        else:
+            self._warm = None
+        self.gop.push_ordinary(frame_num, self._R, self._t, timestamp)
+        self._record(frame_num, solve_ms, finest, b_cap, vis, reason, rolled_back, diverged)
+        self._prev_pyr = pyr
+        self._prev_targets = targets
+        return self.gop.global_pose(-1)
+
+    def _set_ref(self, pyr: FramePyramid, targets=None):
+        """Make `pyr` the reference keyframe; with its now-targets at hand
+        their edge maps feed extraction directly (bit-identical)."""
+        edges = tuple(t.edges for t in targets) if targets is not None else None
+        self._ref_feats = edge_dvo.extract_ref_features(
+            pyr.gray, pyr.depth, self.intr, self.cfg.solver, self._max_pts, edges_pyr=edges
+        )
+        self._R = np.eye(3)
+        self._t = np.zeros(3)
+        self._warm = (
+            torch.eye(3, dtype=torch.float32, device=self.device)[None],
+            torch.zeros((1, 3), dtype=torch.float32, device=self.device),
+        )
+
+    def _record(self, frame_num, solve_ms, finest: _Finest, b_cap, vis, reason, rolled_back,
+                diverged=False):
+        keep = self.keep_residuals
+        self.metrics.append(
+            FrameMetrics(
+                frame_num=frame_num,
+                solve_ms=solve_ms,
+                best_energy=finest.best_energy,
+                best_iter=finest.best_iter,
+                visible_ratio=vis,
+                b_cap=b_cap,
+                num_points=finest.num_points,
+                keyframe_reason=reason,
+                rolled_back=rolled_back,
+                energy_curve=finest.energy,
+                diverged=diverged,
+                final_epsilons=finest.final_epsilons if keep else None,
+                final_valid=finest.final_valid if keep else None,
+            )
+        )
+
+    # ------------------------------------------------------------------
+    def trajectory(self):
+        """(T,3,3) R, (T,3) t, (T,) timestamps of the estimated global path."""
+        return self.gop.poses()
+
+    def average_solve_ms(self) -> float:
+        ms = [m.solve_ms for m in self.metrics if m.frame_num > 0]
+        return float(np.mean(ms)) if ms else 0.0
