@@ -1,16 +1,24 @@
 """rgbd_odometry_tpu_torch — the PyTorch + CUDA port of `rgbd_odometry_tpu`.
 
-Runs the `profiles.production_320` edge-DVO main path on one NVIDIA H100
-(Hopper, sm_90a) with no JAX at run time. The layout mirrors the JAX package
-so every module's counterpart is easy to find (`core/`, `ops/`, `solvers/`,
-`pipeline/`, `io/`), plus `kernels/` + `csrc/` for the two hand-written CUDA
-kernels that replace the JAX package's Pallas kernels:
+Runs the edge-DVO odometry on one NVIDIA H100 (Hopper, sm_90a) with no JAX
+at run time: `profiles.production_320` (deferred-accept LM), the `dvo`
+command at its own defaults (`cli.py`: standard LM on the 0-255 normalized
+DT, the frame feeder) and the reference's sub-gradient solver. The layout
+mirrors the JAX package so every module's counterpart is easy to find
+(`core/`, `ops/`, `solvers/`, `pipeline/`, `io/`, `cli.py`), plus
+`kernels/` + `csrc/` for the four hand-written CUDA kernels (the shared
+device code in `csrc/project.cuh`, its plain counterpart `ops/project.py`):
 
 * `kernels/edt.py` + `csrc/edt.cu` — the squared-L2 distance transform
   (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed;
 * `kernels/fused_iter.py` + `csrc/fused_gn.cu` — one Gauss-Newton
   iteration's J^T W J, J^T W eps, energy and visible count (replaces
-  `rgbd_odometry_tpu/pallas/fused_iter.py`).
+  `rgbd_odometry_tpu/pallas/fused_iter.py`), with a per-pair DT scale;
+* `kernels/residual.py` + `csrc/residual.cu` — the residual pass (energy,
+  visible count, per-point residuals) of the LM accept test and the
+  all-point diagnostics (XLA in the JAX package);
+* `kernels/sg_terms.py` + `csrc/sg_terms.cu` — one sub-gradient
+  iteration's J^T W eps with floor gathers (XLA in the JAX package).
 
 Idiom: plain functions on tensors with a leading batch dimension (in place
 of `vmap`) and an explicit device. The configuration dataclasses and

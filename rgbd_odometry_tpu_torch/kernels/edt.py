@@ -29,16 +29,6 @@ def edt_squared_plain(mask: torch.Tensor, radius: int) -> torch.Tensor:
     return edt_l2_squared(mask)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("edt")
-    if lib.edt_squared.argtypes is None:
-        lib.edt_squared.argtypes = _ARGTYPES
-        lib.edt_squared.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def edt_squared(mask: torch.Tensor, radius: int) -> torch.Tensor:
     """Squared distance to the nearest True of `mask` (B, H, W) bool or
     uint8 -> (B, H, W) float32. radius 0 = exact over the whole row, radius
@@ -58,7 +48,7 @@ def edt_squared(mask: torch.Tensor, radius: int) -> torch.Tensor:
     b, h, w = mask.shape
     g2 = torch.empty((b, h, w), dtype=torch.float32, device=mask.device)
     d2 = torch.empty_like(g2)
-    lib = _lib()
+    lib = build.bind("edt", "edt_squared", _ARGTYPES)
     code = lib.edt_squared(
         mask.device.index or 0, mask.data_ptr(), g2.data_ptr(), d2.data_ptr(),
         b, h, w, int(radius), torch.cuda.current_stream(mask.device).cuda_stream,

@@ -7,10 +7,13 @@ flow that is data-dependent across frames: keyframe switches (every-N and
 the optional quality triggers), the rollback re-solve that promotes frame
 n-1, the naive ref update, the divergence guard, and GOP composition in
 float64. The steady-state frame reads its results back in one device->host
-copy. The warm start is the previous relative pose ("hold").
+copy. The warm start is the previous relative pose ("hold") or, with
+`motion_model="constant_velocity"`, that pose extrapolated on the device by
+the last inter-frame motion (`cv_extrapolate`). `process_pyramid` takes an
+already-built pyramid, as `pipeline/feeder.FrameFeeder` delivers it.
 
-Not ported yet (ROADMAP.md Queue 1): relocalization, the constant-velocity
-motion model, the pipelined `process_stream` and the frame feeder.
+Not ported yet (ROADMAP.md Queue 1): relocalization and the pipelined
+`process_stream`.
 """
 
 from __future__ import annotations
@@ -75,6 +78,18 @@ def residual_b_cap(epsilons: np.ndarray, count: int) -> float:
     return float(np.sum(epsilons) / max(int(count), 1))
 
 
+def cv_extrapolate(R0, t0, Rp, tp):
+    """Constant-velocity warm start in the solver's pose parameterization
+    p_now = R (p_ref - t): from the current relative pose T0 = (R0, t0) and
+    the previous frame's Tp = (Rp, tp) (same keyframe), the last
+    inter-frame motion D = T0 Tp^-1 applied once more, D T0:
+    R_warm = R0 Rp^T R0, t_warm = t0 + R0^T Rp (t0 - tp). Batched (B,3,3),
+    (B,3); composed on the device, no host transfer."""
+    Rw = R0 @ (Rp.transpose(-1, -2) @ R0)
+    tw = t0 + (R0.transpose(-1, -2) @ (Rp @ (t0 - tp)[..., None]))[..., 0]
+    return Rw, tw
+
+
 def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostics):
     """Pose and finest diagnostics of pair 0 in ONE device->host copy."""
     f32 = torch.float32
@@ -112,11 +127,6 @@ class EdgeDvoOdometry:
                 "relocalization is not ported to rgbd_odometry_tpu_torch yet; "
                 "see ROADMAP.md Queue 1, 'motion model, relocalization, feeder'"
             )
-        if self.cfg.motion_model != "hold":
-            raise NotImplementedError(
-                f"motion_model={self.cfg.motion_model!r} is not ported yet; see "
-                "ROADMAP.md Queue 1, 'motion model, relocalization, feeder'"
-            )
         edge_dvo.check_config(self.cfg.solver)
         self.device = resolve_device(device)
         self.intr = Intrinsics.from_config(self.cfg.camera)
@@ -134,6 +144,13 @@ class EdgeDvoOdometry:
         # device copy of (_R, _t) as float32 (1, 3, 3), (1, 3); None = the
         # next frame uploads the host pose once
         self._warm = None
+        # constant velocity: the device copy of the previous frame's relative
+        # pose (same keyframe), and the warm pair the current solve started
+        # from (it becomes _prevpose once the frame resolves). None = no
+        # velocity evidence yet: the warm pair stands in (JAX `_step_cv`)
+        self._cv = self.cfg.motion_model == "constant_velocity"
+        self._prevpose = None
+        self._dispatch_warm = None
         self.keep_residuals = False
 
     # ------------------------------------------------------------------
@@ -153,26 +170,41 @@ class EdgeDvoOdometry:
             torch.as_tensor(np.asarray(depth0_mm), **f32)[None],
             self.cfg.pyramid.num_levels,
         )
+        return self.process_pyramid(pyr, timestamp, pose_prior)
+
+    def process_pyramid(
+        self,
+        pyr: FramePyramid,
+        timestamp: float = 0.0,
+        pose_prior: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Feed one already-built pyramid of batch 1 on this driver's device
+        (the entry `FrameFeeder` uses, so the host build and the copy to the
+        card overlap the previous frame's solve)."""
         self._frame_num += 1
         if pose_prior is not None:
             dR, dt = pose_prior
             self._t = self._t + self._R @ np.asarray(dt, np.float64)
             self._R = self._R @ np.asarray(dR, np.float64)
             self._warm = None
+            self._prevpose = None  # the prior is the velocity source
         if self._frame_num == 0:
             return self._bootstrap(pyr, timestamp)
 
         t_start = time.perf_counter()
         if self._warm is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
             self._warm = (
                 torch.as_tensor(self._R, **f32)[None],
                 torch.as_tensor(self._t, **f32)[None],
             )
+        self._dispatch_warm = self._warm
+        R0, t0 = self._warm
+        if self._cv:
+            R0, t0 = cv_extrapolate(R0, t0, *(self._prevpose or self._warm))
         scfg = self.cfg.solver
         targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
-        R_d, t_d, diags = edge_dvo.solve_pyramid(
-            self._ref_feats, targets, self.intr, scfg, *self._warm
-        )
+        R_d, t_d, diags = edge_dvo.solve_pyramid(self._ref_feats, targets, self.intr, scfg, R0, t0)
         return self._resolve(pyr, timestamp, self._frame_num, R_d, t_d, diags[0], targets, t_start)
 
     def _bootstrap(self, pyr: FramePyramid, timestamp: float):
@@ -225,6 +257,9 @@ class EdgeDvoOdometry:
             rolled_back = True
             b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
             vis = finest.visible_ratio
+            # the new ref IS frame n-1, at identity relative pose: the
+            # inter-frame velocity estimate survives the rollback
+            self._dispatch_warm = self._identity()
         elif reason != 0 and not kf_cfg.rollback_resolve:
             # naive ref update: the current frame becomes the keyframe with
             # its (possibly bad) estimate kept
@@ -243,9 +278,13 @@ class EdgeDvoOdometry:
         if not diverged:
             self._R = R_np
             self._t = t_np
+            # the warm pair this frame started from is its predecessor's
+            # resolved pose: the constant-velocity "previous pose"
+            self._prevpose = self._dispatch_warm
             self._warm = (R_d, t_d)
         else:
             self._warm = None
+            self._prevpose = None
         self.gop.push_ordinary(frame_num, self._R, self._t, timestamp)
         self._record(frame_num, solve_ms, finest, b_cap, vis, reason, rolled_back, diverged)
         self._prev_pyr = pyr
@@ -261,7 +300,14 @@ class EdgeDvoOdometry:
         )
         self._R = np.eye(3)
         self._t = np.zeros(3)
-        self._warm = (
+        self._warm = self._identity()
+        # a keyframe switch re-bases the relative poses: velocity evidence
+        # in the old basis is dropped (the rollback restores it at once)
+        self._prevpose = None
+
+    def _identity(self):
+        """Identity pose (1, 3, 3), (1, 3) made on the device."""
+        return (
             torch.eye(3, dtype=torch.float32, device=self.device)[None],
             torch.zeros((1, 3), dtype=torch.float32, device=self.device),
         )

@@ -1,19 +1,26 @@
-"""The edge-alignment DVO solver on the production path: port of
+"""The edge-alignment DVO solver: port of
 `rgbd_odometry_tpu/solvers/edge_dvo.py`.
 
 Reference-keyframe edge points are aligned coarse-to-fine against the
-distance transform of the current frame's edge map with deferred-accept
-Levenberg-Marquardt. Every function takes a leading batch dimension of frame
-pairs where the JAX version is `vmap`ped. The two hot loops run through the
-hand-written CUDA kernels on a CUDA tensor: the EDT (`kernels/edt.py`) in
-`prepare_now_level`, and the per-iteration normal equations
-(`kernels/fused_iter.py`) in `_run_level_lm_deferred`.
+distance transform of the current frame's edge map. Every function takes a
+leading batch dimension of frame pairs where the JAX version is `vmap`ped.
+Three level solvers are ported:
 
-Only the production semantics are ported (`profiles.production_320`):
-Gauss-Newton with deferred-accept LM, pixel-unit DT, interpolant gradients,
-textbook Jacobian, bf16 DT channel, Newton-Schulz re-orthogonalization. Any
-other configuration raises `NotImplementedError` naming the ROADMAP item
-that will port it (`check_config`).
+* deferred-accept Levenberg-Marquardt (`profiles.production_320`);
+* standard LM with an accept/reject residual pass per iteration (the
+  `dvo` command's defaults), optionally on a 0-255 normalized DT;
+* the reference's damped, projected sub-gradient method (`profiles.
+  parity_320`, `SolverConfig()`): momentum, preconditioner, L2 pull on the
+  normalized log-pose, floor gathers of a float32 DT, the "reference"
+  Jacobian.
+
+The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
+the EDT (`kernels/edt.py`) in `prepare_now_level`; the Gauss-Newton normal
+equations (`kernels/fused_iter.py`); the residual pass (`kernels/residual.
+py`) for the LM accept test and the all-point diagnostics; one sub-gradient
+iteration's J^T W eps (`kernels/sg_terms.py`). Configurations outside these
+raise `NotImplementedError` naming the ROADMAP item that will port them
+(`check_config`).
 """
 
 from __future__ import annotations
@@ -29,10 +36,11 @@ from rgbd_odometry_tpu.config import SolverConfig
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.edt import edt_squared
-from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms, project_points
+from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms
+from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
+from rgbd_odometry_tpu_torch.kernels.sg_terms import subgradient_terms
 from rgbd_odometry_tpu_torch.ops.canny import canny
 from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
-from rgbd_odometry_tpu_torch.ops.interp import sample_bilinear_value_grad
 from rgbd_odometry_tpu_torch.ops.linalg6 import chol_solve6
 
 _PARITY = "ROADMAP.md Queue 1, 'reference-parity mode'"
@@ -50,12 +58,12 @@ class RefLevel(NamedTuple):
 class NowLevel(NamedTuple):
     """Distance-transform target of the current frame at one level."""
 
-    dt: torch.Tensor  # (B, H, W) float32, pixel units
+    dt: torch.Tensor  # (B, H, W) float32 (0-255 when cfg.normalize_dt, else pixels)
     dgx: torch.Tensor  # (B, H, W)
     dgy: torch.Tensor  # (B, H, W)
     edges: torch.Tensor  # (B, H, W) bool
     scale: torch.Tensor  # (B,) DT units per pixel (1.0: not normalized)
-    chans: torch.Tensor  # (B, 3, H, W) bfloat16 stacked [dt, dgx, dgy]
+    chans: torch.Tensor  # (B, 3, H, W) stacked [dt, dgx, dgy], bf16 for GN else float32
 
 
 class LevelDiagnostics(NamedTuple):
@@ -71,17 +79,25 @@ class LevelDiagnostics(NamedTuple):
 
 
 def check_config(cfg: SolverConfig) -> None:
-    """Raise NotImplementedError for a configuration outside the production
-    semantics this package ports. (`fuse_level_canny` and `edt_backend`
-    select between bit-identical implementations and are accepted.)"""
+    """Raise NotImplementedError for a configuration outside the semantics
+    this package ports. Accepted: `method` gauss_newton (bilinear bf16
+    gathers with interpolant gradients, textbook Jacobian) or subgradient
+    (floor gathers of a float32 DT, "reference" Jacobian; `gather_mode`
+    "mxu" and "take" are both floor semantics, bit-equal), deferred or
+    standard LM, `normalize_dt` either way. (`fuse_level_canny` and
+    `edt_backend` select between bit-identical implementations.)"""
+    gn = cfg.method == "gauss_newton"
+    jac = cfg.jacobian_mode if cfg.jacobian_mode != "auto" else ("true" if gn else "reference")
     unsupported = [
-        (cfg.method != "gauss_newton", f"method={cfg.method!r}"),
-        (not cfg.lm_deferred_accept, "lm_deferred_accept=False (standard LM)"),
-        (cfg.normalize_dt, "normalize_dt=True"),
-        (cfg.jacobian_mode == "reference", "jacobian_mode='reference'"),
-        (cfg.gather_mode != "mxu", f"gather_mode={cfg.gather_mode!r}"),
-        (cfg.gn_gradient_mode != "interpolant", f"gn_gradient_mode={cfg.gn_gradient_mode!r}"),
-        (cfg.gather_dtype != "bfloat16", f"gather_dtype={cfg.gather_dtype!r}"),
+        (cfg.method not in ("gauss_newton", "subgradient"), f"method={cfg.method!r}"),
+        (cfg.interpolate_dt, "interpolate_dt=True"),
+        (jac != ("true" if gn else "reference"),
+         f"jacobian_mode={cfg.jacobian_mode!r} with method={cfg.method!r}"),
+        (gn and cfg.gather_mode != "mxu", f"gather_mode={cfg.gather_mode!r} for gauss_newton"),
+        (not gn and cfg.gather_mode not in ("mxu", "take"), f"gather_mode={cfg.gather_mode!r}"),
+        (gn and cfg.gn_gradient_mode != "interpolant",
+         f"gn_gradient_mode={cfg.gn_gradient_mode!r}"),
+        (gn and cfg.gather_dtype != "bfloat16", f"gather_dtype={cfg.gather_dtype!r} for gauss_newton"),
         (cfg.rotationize and cfg.rotationize_method != "newton",
          f"rotationize_method={cfg.rotationize_method!r}"),
     ]
@@ -159,7 +175,13 @@ def prepare_now_level(
     gray: torch.Tensor, cfg: SolverConfig, edges: torch.Tensor | None = None
 ) -> NowLevel:
     """Edge map -> squared EDT (kernel 1; +-cfg.edt_window, or the full row
-    when 0) -> sqrt -> central gradients -> bf16 channels, (B, H, W) in."""
+    when 0) -> sqrt -> optional per-image 0-255 min-max normalization ->
+    central gradients -> channels (bf16 for Gauss-Newton with
+    gather_dtype="bfloat16", else float32), (B, H, W) in.
+
+    With `normalize_dt` each image gets its own scale = 255 / max(dmax -
+    dmin, 1e-12), DT units per pixel; an edge-free or all-edge image has
+    dmax == dmin, so its DT is all 0 at scale 255e12, as in JAX."""
     check_config(cfg)
     if edges is None:
         edges = canny(gray, cfg.canny_low, cfg.canny_high)
@@ -168,9 +190,18 @@ def prepare_now_level(
     # not always correctly rounded, which would break exactness with JAX)
     d2 = edt_squared(edges, int(cfg.edt_window))
     dt = torch.sqrt(d2.to(torch.float64)).to(torch.float32)
+    if cfg.normalize_dt:
+        dmin = torch.amin(dt, dim=(-2, -1))
+        span = torch.clamp(torch.amax(dt, dim=(-2, -1)) - dmin, min=1e-12)
+        # a true division, as XLA's 255 / x (torch's `255.0 / span` would
+        # be reciprocal(span) * 255)
+        scale = torch.full_like(span, 255.0) / span
+        dt = (dt - dmin[:, None, None]) * scale[:, None, None]
+    else:
+        scale = torch.ones(dt.shape[0], dtype=dt.dtype, device=dt.device)
     dgx, dgy = central_gradient(dt)
-    chans = torch.stack([dt, dgx, dgy], dim=1).to(torch.bfloat16)
-    scale = torch.ones(dt.shape[0], dtype=dt.dtype, device=dt.device)
+    gn_bf16 = cfg.method == "gauss_newton" and cfg.gather_dtype == "bfloat16"
+    chans = torch.stack([dt, dgx, dgy], dim=1).to(torch.bfloat16 if gn_bf16 else torch.float32)
     return NowLevel(dt=dt, dgx=dgx, dgy=dgy, edges=edges, scale=scale, chans=chans)
 
 
@@ -204,22 +235,6 @@ def prepare_now_targets(
 # --------------------------------------------------------------------------
 
 
-def _project_and_sample(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics):
-    """All-point residual pass at one pose: (eps, visible, energy, vis_ratio).
-    The diagnostics of a level at its returned pose (plain PyTorch; a
-    kernel in a later PR)."""
-    h, w = now.dt.shape[-2:]
-    *_, u, v, visible = project_points(
-        R, t, ref.pts3d, ref.valid, h, w, intr.fx, intr.fy, intr.cx, intr.cy
-    )
-    val, _, _ = sample_bilinear_value_grad(now.chans[:, 0], u, v)
-    eps = torch.where(visible, val, torch.zeros_like(val))
-    energy = torch.sqrt((eps * eps).sum(-1))
-    n_valid = torch.clamp(ref.count, min=1).to(eps.dtype)
-    vis_ratio = visible.sum(-1).to(eps.dtype) / n_valid
-    return eps, visible, energy, vis_ratio
-
-
 def _strided(r: RefLevel, s: int) -> RefLevel:
     return RefLevel(
         pts3d=r.pts3d[:, ::s].contiguous(),
@@ -232,6 +247,55 @@ def _strided(r: RefLevel, s: int) -> RefLevel:
 def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.where with a per-pair (B,) mask broadcast over trailing dims."""
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _diagnostics(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics, cfg: SolverConfig,
+                 energies, best_iter) -> LevelDiagnostics:
+    """All-point diagnostics at the returned pose: one residual pass
+    (kernel 3) over every point of the level (JAX `_project_and_sample`),
+    sampled as JAX `_sample_dt` samples: the bf16 DT channel, bilinear, for
+    Gauss-Newton; the float32 DT, floor, for the sub-gradient."""
+    gn = cfg.method == "gauss_newton"
+    energy, n, eps, visible = residual_pass(
+        R, t, ref.pts3d, ref.valid, now.chans[:, 0] if gn else now.dt, *intr, bilinear=gn,
+        write_points=True,
+    )
+    vis = n.to(energy.dtype) / torch.clamp(ref.count, min=1).to(energy.dtype)
+    return LevelDiagnostics(
+        energy=torch.stack(energies, dim=-1), best_energy=energy, best_iter=best_iter,
+        visible_ratio=vis, final_epsilons=eps, final_valid=visible, num_points=ref.count,
+    )
+
+
+def _trust_region(psi: torch.Tensor, radius: float) -> torch.Tensor:
+    """psi (B,6) scaled back onto the ball |psi| <= radius."""
+    norm = torch.linalg.vector_norm(psi, dim=-1)
+    scale = torch.where(norm > radius, radius / torch.clamp(norm, min=1e-30), torch.ones_like(norm))
+    return psi * scale[:, None]
+
+
+def _lm_psi(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, trust_region: float):
+    """Levenberg-Marquardt step psi = -(H + lam diag(H))^-1 g, projected
+    onto the trust region (JAX `_lm_psi`, :797-816)."""
+    damp = torch.diag_embed(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8))
+    return _trust_region(-chol_solve6(H + lam[:, None, None] * damp, g), trust_region)
+
+
+def _subgradient_step(R, t, g, descent, itr: int, cfg: SolverConfig, precond: torch.Tensor):
+    """The reference's damped, projected sub-gradient step (JAX
+    `_subgradient_step`, :775-794): g = J^T W eps (kernel 4) plus the L2
+    pull toward the unit log-pose, momentum, the preconditioner, the
+    square-summable step 9e-2/(itr-4) past iteration 5 and the trust-region
+    projection. Returns (psi (B,6), descent (B,6))."""
+    if cfg.enable_l2_regularization:
+        cpsi = geo.se3_log(R, t)
+        norm = torch.linalg.vector_norm(cpsi, dim=-1, keepdim=True)
+        cpsi = torch.where(norm > 0, cpsi / torch.clamp(norm, min=1e-30), cpsi)
+        g = g + cfg.l2_lambda * cpsi
+    descent = (1.0 - cfg.momentum) * g + cfg.momentum * descent
+    # float32 division, as JAX divides the float32 step by float32 (itr - 4)
+    step = float(np.float32(cfg.step_length) / np.float32(itr - 4 if itr > 5 else 1))
+    return _trust_region(-step * precond * descent, cfg.trust_region_radius), descent
 
 
 def _run_level_lm_deferred(
@@ -257,7 +321,6 @@ def _run_level_lm_deferred(
     dev, dt = R0.device, R0.dtype
     b = R0.shape[0]
     img = now.chans[:, 0]
-    f = (intr_level.fx, intr_level.fy, intr_level.cx, intr_level.cy)
     R, t = R0, t0
     Rb, tb = R0, t0
     Hb = torch.zeros((b, 6, 6), dtype=dt, device=dev)
@@ -272,7 +335,8 @@ def _run_level_lm_deferred(
     energies = []
     for itr in range(n_iters):
         H, g, energy, _ = fused_gn_terms(
-            R, t, ref_jac.pts3d, ref_jac.valid, img, *f, cfg.gn_weight_sigma2_px
+            R, t, ref_jac.pts3d, ref_jac.valid, img, *intr_level, cfg.gn_weight_sigma2_px,
+            now.scale,
         )
         accept = (~pending) | (energy < eb)
         worse = pending & (energy > eb)
@@ -289,12 +353,7 @@ def _run_level_lm_deferred(
         best_R, best_t = _sel(is_better, R, best_R), _sel(is_better, t, best_t)
         best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
 
-        damp = torch.diag_embed(torch.clamp(torch.diagonal(H_use, dim1=-2, dim2=-1), min=1e-8))
-        psi = -chol_solve6(H_use + lam[:, None, None] * damp, g_use)
-        norm = torch.linalg.vector_norm(psi, dim=-1)
-        tr = cfg.lm_trust_region
-        scale = torch.where(norm > tr, tr / torch.clamp(norm, min=1e-30), torch.ones_like(norm))
-        psi = psi * scale[:, None]
+        psi = _lm_psi(H_use, g_use, lam, cfg.lm_trust_region)
         newly_done = accept & pending & (
             torch.linalg.vector_norm(psi, dim=-1) < cfg.psi_norm_termination
         )
@@ -316,17 +375,124 @@ def _run_level_lm_deferred(
 
     if cfg.rotationize:
         best_R = geo.rotationize_newton(best_R)
-    eps_f, visible_f, energy_f, vis_f = _project_and_sample(best_R, best_t, ref, now, intr_level)
-    diag = LevelDiagnostics(
-        energy=torch.stack(energies, dim=-1),
-        best_energy=energy_f,
-        best_iter=best_iter,
-        visible_ratio=vis_f,
-        final_epsilons=eps_f,
-        final_valid=visible_f,
-        num_points=ref.count,
-    )
-    return best_R.contiguous(), best_t.contiguous(), diag
+    best_R, best_t = best_R.contiguous(), best_t.contiguous()
+    diag = _diagnostics(best_R, best_t, ref, now, intr_level, cfg, energies, best_iter)
+    return best_R, best_t, diag
+
+
+def _run_level_scan(
+    ref: RefLevel,
+    ref_jac: RefLevel,
+    ref_sub: RefLevel,
+    stride: int,
+    now: NowLevel,
+    intr_level: Intrinsics,
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    cfg: SolverConfig,
+    n_iters: int,
+):
+    """The standard level solve (the JAX `lax.scan` body, :493-622): the
+    sub-gradient method, or Levenberg-Marquardt with an accept/reject pass.
+
+    Energy is evaluated at the pose entering each iteration; the best
+    iterate (<=, later ties win) is returned; early termination freezes the
+    pair and zeroes its remaining energy entries. Gauss-Newton runs kernel 2
+    on `ref_jac` at the current pose, then kernel 3 on `ref_sub` at the
+    proposal: a decrease accepts it and lowers lambda, an exact tie neither
+    moves nor raises lambda, an increase raises it; a rejected step never
+    terminates. The sub-gradient runs kernel 4 on all points. With a
+    stride-1 point set the diagnostics are the scan's own at the best
+    iterate (kernel 2 or 4 writes the per-point values in the same pass);
+    otherwise one all-point pass at the returned pose.
+    """
+    lm_mode = cfg.method == "gauss_newton"
+    dev, dt = R0.device, R0.dtype
+    b, k = R0.shape[0], ref_jac.pts3d.shape[1]
+    img = now.chans[:, 0]
+    track = ref_jac is ref  # diagnostics from the scan (jstride == 1)
+    precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dt, device=dev)
+    n_valid = torch.clamp(ref_jac.count, min=1).to(dt)
+    R, t = R0, t0
+    descent = torch.zeros((b, 6), dtype=dt, device=dev)
+    lam = torch.full((b,), cfg.lm_damping, dtype=dt, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    best_energy = torch.full((b,), 1.0e10, dtype=dt, device=dev)
+    best_R = torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3).contiguous()
+    best_t = torch.zeros((b, 3), dtype=dt, device=dev)
+    best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    best_vis = torch.ones((b,), dtype=dt, device=dev)
+    best_eps = torch.zeros((b, k), dtype=dt, device=dev)
+    best_visible = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    f = tuple(intr_level)
+    energies = []
+    for itr in range(n_iters):
+        if lm_mode:
+            H, g, energy, n_vis, *pts_out = fused_gn_terms(
+                R, t, ref_jac.pts3d, ref_jac.valid, img, *f, cfg.gn_weight_sigma2_px, now.scale,
+                write_points=track,
+            )
+            if track:
+                eps, visible = pts_out
+        else:
+            g, energy, n_vis, eps, visible = subgradient_terms(
+                R, t, ref_jac.pts3d, ref_jac.valid, now.dt, *f, cfg.weight_sigma2
+            )
+        is_better = (energy <= best_energy) & (~done)
+        best_energy = torch.where(is_better, energy, best_energy)
+        best_R, best_t = _sel(is_better, R, best_R), _sel(is_better, t, best_t)
+        best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
+        if track:
+            best_vis = torch.where(is_better, n_vis.to(dt) / n_valid, best_vis)
+            best_eps = _sel(is_better, eps, best_eps)
+            best_visible = _sel(is_better, visible, best_visible)
+
+        if lm_mode:
+            psi = _lm_psi(H, g, lam, cfg.lm_trust_region)
+        else:
+            psi, descent_new = _subgradient_step(R, t, g, descent, itr, cfg, precond)
+        psi_norm = torch.linalg.vector_norm(psi, dim=-1)
+        xR, xt = geo.se3_exp(psi)
+        new_t = t + (R @ xt[..., None])[..., 0]
+        new_R = R @ xR
+        if cfg.rotationize:
+            new_R = geo.rotationize_newton(new_R)
+
+        if lm_mode:
+            e_new = residual_pass(new_R, new_t, ref_sub.pts3d, ref_sub.valid, img, *f,
+                                  bilinear=True)[0]
+            # the current energy over the same subset, by the same pass: an
+            # exact tie at an unchanged pose stays a tie (JAX :529-532)
+            e_cur = energy if stride == 1 else residual_pass(
+                R, t, ref_sub.pts3d, ref_sub.valid, img, *f, bilinear=True)[0]
+            accept = e_new < e_cur
+            worse = e_new > e_cur
+            lam_next = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), torch.where(
+                worse, torch.clamp(lam * 4.0, max=1e6), lam))
+            newly_done = accept & (psi_norm < cfg.psi_norm_termination)
+            do_update = (~done) & (~newly_done) & accept
+            lam = torch.where(done, lam, lam_next)
+        else:
+            newly_done = psi_norm < cfg.psi_norm_termination
+            do_update = (~done) & (~newly_done)
+            descent = _sel(done, descent, descent_new)
+
+        energies.append(torch.where(done, torch.zeros_like(energy), energy))
+        R, t = _sel(do_update, new_R, R), _sel(do_update, new_t, t)
+        done = done | newly_done
+
+    if cfg.rotationize:
+        best_R = geo.rotationize_newton(best_R)
+    best_R, best_t = best_R.contiguous(), best_t.contiguous()
+    if not track:
+        diag = _diagnostics(best_R, best_t, ref, now, intr_level, cfg, energies, best_iter)
+    else:
+        diag = LevelDiagnostics(
+            energy=torch.stack(energies, dim=-1), best_energy=best_energy, best_iter=best_iter,
+            visible_ratio=best_vis, final_epsilons=best_eps, final_valid=best_visible,
+            num_points=ref.count,
+        )
+    return best_R, best_t, diag
 
 
 def run_level(
@@ -337,16 +503,30 @@ def run_level(
     t0: torch.Tensor,
     cfg: SolverConfig,
     n_iters: int,
+    collect_trajectory: bool = False,
 ):
-    """One pyramid level. The normal equations use every Nth point,
-    N = max(1, min(lm_jacobian_stride, K // 512)) (JAX `:467`): at the
-    production capacities that is K = 512 points per iteration at every
-    level."""
+    """One pyramid level (JAX `run_level`, :421-622). Gauss-Newton forms
+    the normal equations on every Nth point, N = jstride = max(1,
+    min(lm_jacobian_stride, K // 512)) (:467); when N == 1 the standard LM
+    tests proposals on every Mth point, M = max(1, min(lm_proposal_stride,
+    K // 512)), else on the Jacobian's own subset. The sub-gradient uses
+    every point. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
     check_config(cfg)
+    if collect_trajectory:
+        raise NotImplementedError(
+            f"collect_trajectory is not ported to rgbd_odometry_tpu_torch yet; see {_PARITY}"
+        )
     cap = ref.pts3d.shape[1]
-    jstride = max(1, min(int(cfg.lm_jacobian_stride), cap // 512))
+    lm_mode = cfg.method == "gauss_newton"
+    jstride = max(1, min(int(cfg.lm_jacobian_stride), cap // 512)) if lm_mode else 1
     ref_jac = _strided(ref, jstride) if jstride > 1 else ref
-    return _run_level_lm_deferred(ref, ref_jac, now, intr_level, R0, t0, cfg, n_iters)
+    if lm_mode and cfg.lm_deferred_accept:
+        return _run_level_lm_deferred(ref, ref_jac, now, intr_level, R0, t0, cfg, n_iters)
+    stride = 1
+    if lm_mode and jstride == 1:
+        stride = max(1, min(int(cfg.lm_proposal_stride), cap // 512))
+    ref_sub = _strided(ref, stride) if stride > 1 else ref_jac
+    return _run_level_scan(ref, ref_jac, ref_sub, stride, now, intr_level, R0, t0, cfg, n_iters)
 
 
 def solve_pyramid(

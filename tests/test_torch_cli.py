@@ -1,0 +1,162 @@
+"""The port's command line (`python -m rgbd_odometry_tpu_torch.cli`) on the
+CPU: `dvo` at the JAX CLI's defaults against the JAX `EdgeDvoOdometry` and
+ground truth, `eval`, `--gt` files, a short sub-gradient run, the feeder, TUM replay
+against the JAX `TumSource`, the unported flags, and no JAX at import."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+cv2 = pytest.importorskip("cv2")
+
+from rgbd_odometry_tpu.config import CameraConfig, KeyframeConfig, PipelineConfig, SolverConfig  # noqa: E402
+from rgbd_odometry_tpu.io.stream import TumSource as JaxTumSource  # noqa: E402
+from rgbd_odometry_tpu.pipeline.odometry import EdgeDvoOdometry as JaxOdometry  # noqa: E402
+from rgbd_odometry_tpu_torch.cli import main  # noqa: E402
+from rgbd_odometry_tpu_torch.io.stream import SyntheticCamera, TumSource  # noqa: E402
+from rgbd_odometry_tpu_torch.io.tum import read_trajectory  # noqa: E402
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_cli_dvo_defaults_match_jax_and_eval(tmp_path, capsys):
+    """The JAX CLI test's command (tests/test_cli.py) on the port: the
+    `dvo` defaults (standard LM, normalized DT, full EDT, the feeder)."""
+    est = str(tmp_path / "est.txt")
+    main(["dvo", "--device", "cpu", "--frames", "5", "--iterations", "12,5,3,2", "--out", est])
+    out = capsys.readouterr()
+    stats = _last_json(out.out)
+    assert stats["ate_rmse"] < 0.02
+    assert sum(line.startswith("frame ") for line in out.err.splitlines()) == 5
+    R_p, t_p, ts_p = read_trajectory(est)
+    assert t_p.shape == (5, 3)
+    # the JAX driver on the same frames, configured as its CLI configures it
+    cfg = PipelineConfig(camera=CameraConfig(), keyframe=KeyframeConfig(force_every=5),
+                         solver=SolverConfig(method="gauss_newton", iterations=(12, 5, 3, 2)))
+    jax_odo = JaxOdometry(cfg)
+    for gray, depth, ts in SyntheticCamera(CameraConfig(), num_frames=5).frames():
+        jax_odo.process_frame(gray, depth, ts)
+    R_j, t_j, ts_j = jax_odo.trajectory()
+    np.testing.assert_allclose(ts_p, ts_j, atol=1e-6)
+    assert np.linalg.norm(t_p - t_j, axis=-1).max() < 1e-3
+    assert np.abs(R_p - R_j).max() < 2e-3
+    main(["eval", est, est])
+    ev = _last_json(capsys.readouterr().out)
+    assert ev["ate_rmse_raw"] == 0.0 and ev["frames"] == 5
+
+
+def test_cli_dvo_subgradient_short(capsys):
+    main(["dvo", "--device", "cpu", "--method", "subgradient", "--iterations", "20,10,10,10",
+          "--frames", "3"])
+    stats = _last_json(capsys.readouterr().out)
+    assert stats["ate_rmse"] < 0.025
+
+
+def test_cli_feeder_and_no_feeder_give_the_same_trajectory(tmp_path, capsys):
+    paths = []
+    for flag in ("--feeder", "--no-feeder"):
+        paths.append(str(tmp_path / f"{flag}.txt"))
+        main(["dvo", "--device", "cpu", "--cam-scale", "0.5", "--frames", "4",
+              "--iterations", "12,5,3,2", flag, "--out", paths[-1]])
+    capsys.readouterr()
+    with open(paths[0]) as a, open(paths[1]) as b:
+        assert a.read() == b.read()
+
+
+def test_cli_gt_file_comparison(tmp_path, capsys):
+    """`--gt`: the estimate is paired with a ground-truth file by nearest
+    timestamp (within --gt-max-dt) and rebased, as the JAX CLI does."""
+    from rgbd_odometry_tpu_torch.io.tum import write_trajectory
+
+    cam = CameraConfig().scaled(0.5)
+    R, t = SyntheticCamera(cam, num_frames=4).ground_truth()
+    gt = str(tmp_path / "gt.txt")
+    write_trajectory(gt, R, t, np.arange(4) / 30.0 + 0.005)
+    main(["dvo", "--device", "cpu", "--cam-scale", "0.5", "--frames", "4",
+          "--iterations", "12,5,3,2", "--gt", gt])
+    lines = capsys.readouterr().out.strip().splitlines()
+    vs_file, last = json.loads(lines[-2]), json.loads(lines[-1])
+    assert vs_file["frames_compared"] == 4 and vs_file["ate_rmse_vs_gt_file"] < 0.02
+    assert last["ate_rmse"] < 0.02
+    main(["dvo", "--device", "cpu", "--cam-scale", "0.5", "--frames", "2",
+          "--iterations", "2,1,1,1", "--gt", gt, "--gt-max-dt", "0.001"])
+    assert "no est/GT pairs" in capsys.readouterr().out
+
+
+def _write_tum_dir(root, n=3):
+    """n rendered frames as a TUM directory: 640x480 8-bit PNGs and uint16
+    depth at 5000 units per metre, with rgb.txt and depth.txt."""
+    os.makedirs(root / "rgb")
+    os.makedirs(root / "depth")
+    cam = CameraConfig(width=640, height=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+    rgb_lines, depth_lines = [], []
+    for i, (gray, depth, _) in enumerate(SyntheticCamera(cam, num_frames=n).frames()):
+        ts = 100.0 + i / 30.0
+        cv2.imwrite(str(root / "rgb" / f"{i}.png"), np.clip(gray, 0, 255).astype(np.uint8))
+        cv2.imwrite(str(root / "depth" / f"{i}.png"), (depth * 5.0).astype(np.uint16))
+        rgb_lines.append(f"{ts:.6f} rgb/{i}.png")
+        depth_lines.append(f"{ts + 0.004:.6f} depth/{i}.png")
+    (root / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_lines) + "\n")
+    (root / "depth.txt").write_text("# depth\n" + "\n".join(depth_lines) + "\n")
+
+
+def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
+    root = tmp_path / "seq"
+    _write_tum_dir(root)
+    port = list(TumSource(str(root), native=False).frames())
+    want = list(JaxTumSource(str(root), native=False).frames())
+    assert len(port) == len(want) == 3
+    for (g, d, ts), (gj, dj, tsj) in zip(port, want):
+        assert g.shape == (240, 320) and np.array_equal(g, gj) and np.array_equal(d, dj)
+        assert ts == tsj
+    est = str(tmp_path / "tum_est.txt")
+    main(["dvo", "--device", "cpu", "--source", f"tum:{root}", "--iterations", "6,3,2,2",
+          "--out", est])
+    err = capsys.readouterr().err
+    assert "frame    2" in err
+    _, t, ts = read_trajectory(est)
+    assert t.shape == (3, 3) and np.isfinite(t).all()
+    np.testing.assert_allclose(ts, [100.0, 100.0 + 1 / 30.0, 100.0 + 2 / 30.0], atol=1e-6)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--loop-close"], ["--relocalize"], ["--viz-dir", "v"], ["--checkpoint", "c.npz"],
+    ["--resume", "c.npz"], ["--trace-dir", "t"], ["--pipelined"], ["--map-out", "m.ply"],
+    ["--refine-every", "2"], ["--refine-mode", "graph"], ["--weighted-refine"],
+    ["--source", "xml:dumps"],
+])
+def test_cli_unported_flags_exit_naming_their_roadmap_item(flags):
+    with pytest.raises(SystemExit) as exc:
+        main(["dvo", "--device", "cpu", "--frames", "2", *flags])
+    assert "not ported to rgbd_odometry_tpu_torch" in str(exc.value)
+    assert "ROADMAP.md Queue 1, item" in str(exc.value)
+
+
+def test_cli_runs_without_jax():
+    """`dvo --device cpu` at the CLI defaults and `--method subgradient`
+    in a fresh process: no jax module is ever loaded."""
+    code = (
+        "import runpy, sys\n"
+        "for extra in ([], ['--method', 'subgradient']):\n"
+        "    sys.argv = ['cli', 'dvo', '--device', 'cpu', '--cam-scale', '0.5', '--frames', '2',\n"
+        "                '--iterations', '3,2,2,2', *extra]\n"
+        "    runpy.run_module('rgbd_odometry_tpu_torch.cli', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "print('JAX_MODULES', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count('"ate_rmse"') == 2

@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "rgbd_odometry_tpu_torch.solvers.edge_dvo" in mods
+    for m in ("solvers.edge_dvo", "kernels.residual", "kernels.sg_terms", "pipeline.feeder",
+              "io.stream", "io.tum", "cli"):
+        assert f"rgbd_odometry_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,7 +1,9 @@
 """The PyTorch port's streaming odometry (`EdgeDvoOdometry`) on the CPU, on the
 rendered sequences of tests/test_pipeline.py under production semantics:
 ATE under 8 mm, the same keyframes as the JAX package, rollback re-solves,
-the naive ref update, the quality triggers and the divergence guard."""
+the naive ref update, the quality triggers and the divergence guard; the
+constant-velocity motion model against JAX, the frame feeder, the JAX
+package's default and parity configurations, and what stays unported."""
 
 import dataclasses
 
@@ -10,11 +12,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from rgbd_odometry_tpu import profiles  # noqa: E402
 from rgbd_odometry_tpu.config import (  # noqa: E402
     CameraConfig,
     KeyframeConfig,
     PipelineConfig,
     PyramidConfig,
+    RelocalizeConfig,
+    SolverConfig,
 )
 from rgbd_odometry_tpu.eval.ate import ate_rmse  # noqa: E402
 from rgbd_odometry_tpu.pipeline.odometry import EdgeDvoOdometry as JaxOdometry  # noqa: E402
@@ -144,13 +149,85 @@ def test_divergence_guard_and_pose_prior():
     assert np.isfinite(odo.trajectory()[1]).all()
 
 
-def test_unported_configurations_raise():
+UNPORTED = {
+    "relocalize": dict(relocalize=RelocalizeConfig(enabled=True)),
+    "gn_take": dict(solver=dataclasses.replace(SOLVER, gather_mode="take")),
+    "gn_channels": dict(solver=dataclasses.replace(SOLVER, gn_gradient_mode="channels")),
+    "gn_float32": dict(solver=dataclasses.replace(SOLVER, gather_dtype="float32")),
+    "interpolate_dt": dict(solver=SolverConfig(interpolate_dt=True)),
+    "rotationize_svd": dict(solver=dataclasses.replace(SOLVER, rotationize_method="svd")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_configurations_raise(case):
+    """What stays unported raises NotImplementedError naming its ROADMAP
+    item; the motion model, standard LM and parity defaults now run."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeDvoOdometry(dataclasses.replace(_config(), motion_model="constant_velocity"), device="cpu")
+        EdgeDvoOdometry(dataclasses.replace(_config(), **UNPORTED[case]), device="cpu")
+
+
+def test_collect_trajectory_raises():
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeDvoOdometry(
-            dataclasses.replace(_config(), solver=dataclasses.replace(SOLVER, lm_deferred_accept=False)),
-            device="cpu",
-        )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeDvoOdometry(PipelineConfig(camera=CAM), device="cpu")  # parity defaults
+        ted.run_level(None, None, None, None, None, SolverConfig(), 1, collect_trajectory=True)
+
+
+@pytest.mark.parametrize("which", ["defaults", "parity_320"])
+def test_default_and_parity_configs_run(which):
+    """`PipelineConfig()` (the JAX package's defaults: the sub-gradient on
+    the normalized DT) and `profiles.parity_320`, two frames at 320x240."""
+    if which == "defaults":
+        cfg = PipelineConfig()
+    else:
+        prof = profiles.parity_320()
+        cfg = PipelineConfig(camera=prof.camera, solver=prof.solver,
+                             pyramid=PyramidConfig(max_points=prof.max_points))
+    frames, poses = render_sequence(cfg.camera, _trajectory(n=2, step=0.002), seed=0,
+                                    supersample=1)
+    odo = _run(EdgeDvoOdometry(cfg, device="cpu"), frames)
+    _, t, _ = odo.trajectory()
+    assert np.isfinite(t).all() and np.linalg.norm(t[1] - poses[1][1]) < 0.01
+    assert len(odo.metrics[1].energy_curve) == 50
+
+
+def test_constant_velocity_matches_jax():
+    """motion_model="constant_velocity": the warm start extrapolated on the
+    device from the previous relative pose, as the JAX driver does."""
+    cfg = dataclasses.replace(_config(force_every=5), motion_model="constant_velocity")
+    frames, poses = render_sequence(CAM, _trajectory(n=9), seed=2)
+    port, jax_ = _run(EdgeDvoOdometry(cfg, device="cpu"), frames), _run(JaxOdometry(cfg), frames)
+    hold = _run(EdgeDvoOdometry(_config(force_every=5), device="cpu"), frames)
+    assert port.gop.keyframe_indices() == jax_.gop.keyframe_indices()
+    assert [m.rolled_back for m in port.metrics] == [m.rolled_back for m in jax_.metrics]
+    _, t_p, _ = port.trajectory()
+    _, t_j, _ = jax_.trajectory()
+    assert np.abs(t_p - t_j).max() < 2e-3
+    gt_t = np.stack([p[1] for p in poses])
+    assert ate_rmse(t_p, gt_t, align=False) < 0.008
+    # the extrapolated warm start changes the solves: not the hold path
+    _, t_h, _ = hold.trajectory()
+    assert not np.array_equal(t_p, t_h)
+
+
+def test_feeder_matches_process_frame_and_surfaces_errors():
+    from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+
+    frames, _ = render_sequence(CAM, _trajectory(n=5), seed=0)
+    stream = [(g, d, float(i)) for i, (g, d) in enumerate(frames)]
+    direct = _run(EdgeDvoOdometry(_config(), device="cpu"), frames)
+    fed = EdgeDvoOdometry(_config(), device="cpu")
+    for pyr, ts in FrameFeeder(iter(stream), num_levels=3, depth=1, device="cpu"):
+        fed.process_pyramid(pyr, ts)
+    for a, b in zip(direct.trajectory(), fed.trajectory()):
+        assert np.array_equal(a, b)
+
+    def broken():
+        yield stream[0]
+        raise OSError("decode failed")
+
+    feeder = FrameFeeder(broken(), num_levels=3, device="cpu")
+    next(feeder)
+    with pytest.raises(OSError, match="decode failed"):
+        next(feeder)
