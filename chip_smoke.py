@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from `rgbd_odometry_tpu_torch/csrc/` (one nvcc
+Builds the six CUDA kernels from `rgbd_odometry_tpu_torch/csrc/` (one nvcc
 per source, all at once), holds each against its plain PyTorch version at
 the main paths' shapes, then drives the port's main paths through their user
 entry points:
@@ -18,12 +18,27 @@ entry points:
                    EDT, the frame feeder): unaligned ATE < 20 mm; then again
                    with `--no-feeder`: the same trajectory file and metrics;
   cli_subgradient  `dvo --method subgradient --iterations 50,50,50,50
-                   --frames 10`, the reference's solver: ATE < 25 mm.
+                   --frames 10`, the reference's solver: ATE < 25 mm;
+  loop_closure     `LoopCloser` over a rendered 320x240 out-and-back sequence
+                   (384 keypoints, 64 hypotheses, slot capacity 4, so that
+                   the store doubles): >= 1 closure, each within 2 cm / 0.02
+                   of ground truth, the same closures from a second run;
+  relocalize       the blackout-teleport run through `EdgeDvoOdometry` with
+                   relocalization: a REASON_RELOCALIZED keyframe, the last 3
+                   frames within 25 mm;
+  cli_loop_close   `dvo --frames 30 --loop-close --map-out map.ply`: >= 1
+                   closure, ATE < 20 mm, a PLY with vertices;
+  cli_weighted_refine  `dvo --frames 30 --loop-close --weighted-refine`: the
+                   information-weighted refinement, ATE < 20 mm;
+  cli_refine       `refine` of cli_loop_close's trajectory and closures with
+                   `--robust geman --covariance-out`: no residual norm grows
+                   from one iteration to the next, (N, 6, 6) covariance.
 
-All four kernels' launch counters are zeroed right before the main paths and
-must each be above 0 right after them. Any failed check raises (exit code
-!= 0). The line before the last is the kernel summary as JSON; the last line
-is {"ok": true, "device": {...}}. Without a CUDA device the script exits
+Every kernel's launch counter is read around each phase; each kernel must
+launch on the main paths, and the matching and PnP kernels in each of the
+loop_closure, relocalize, cli_loop_close and cli_weighted_refine phases. Any
+failed check raises (exit code != 0). The line before the last is the
+kernel summary as JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2 and prints no result. Imports no JAX.
 """
 
@@ -46,7 +61,10 @@ RESIDUAL_KS = (512, 2048, 8192)  # LM accept pass; all-point passes up to parity
 SG_KS = (1024, 2048, 4096, 8192)  # the parity capacities, coarse to fine
 BATCH = 64
 STREAM_FRAMES = 30
-KERNELS = ("edt", "fused_gn", "residual", "sg_terms")
+MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
+PNP_K, PNP_HYPOTHESES = 384, 64
+KERNELS = ("edt", "fused_gn", "residual", "sg_terms", "match", "pnp_gn")
+MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
 
 
 def _log(msg: str) -> None:
@@ -135,6 +153,17 @@ def normalized_targets(rng, b: int, method: str, device):
 
     mask = torch.from_numpy(edge_masks(rng, b, 240, 320)).to(device)
     return prepare_now_level(None, SolverConfig(method=method), edges=mask)
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (NaNs included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
 
 
 def _rel(a, b) -> float:
@@ -311,6 +340,154 @@ def check_sg_terms(device, rng) -> dict:
     return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
 
 
+def match_inputs(rng, device):
+    """A query frame's descriptors and a full slot store, from rendered
+    320x240 frames: 32 frames along a path, 16 of them again with sensor
+    noise, the query frame itself (an exact duplicate: every true distance
+    is within a few ulps of 0), the query with noise (a near-duplicate) and
+    14 empty slots. The query is frame 12 of the path."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.ops.features import detect_and_describe
+
+    frames, _ = render_sequence(CameraConfig(), _trajectory(32, step=0.004), seed=3)
+    grays = [g for g, _ in frames]
+    grays += [grays[i] + rng.normal(0, 2.0, grays[i].shape).astype(np.float32)
+              for i in range(0, 32, 2)]
+    query = grays[12]
+    grays += [query, query + rng.normal(0, 1.0, query.shape).astype(np.float32)]
+    kps = [detect_and_describe(torch.from_numpy(g).to(device), MATCH_K) for g in grays]
+    q = kps[-2]
+    empty = MATCH_SLOTS - len(kps)
+    desc = torch.cat([torch.stack([k.desc for k in kps]),
+                      torch.zeros((empty, MATCH_K, 64), device=device)]).contiguous()
+    valid = torch.cat([torch.stack([k.valid for k in kps]),
+                       torch.zeros((empty, MATCH_K), dtype=torch.bool, device=device)]).contiguous()
+    return desc, valid, q.desc.contiguous(), q.valid.contiguous()
+
+
+def check_match(device, rng) -> dict:
+    """Kernel A vs its plain version at S = 64, K = 384, D = 64, at the loop
+    closer's and the relocalizer's gate floors: ref_idx, good and num_good
+    equal except at near-ties (rows whose best two candidates, or whose
+    match's column, lie within 1e-6 in the plain version's d2), dist within
+    1e-6, runs bitwise."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import match
+
+    sd, sv, qd, qv = match_inputs(rng, device)
+    d2 = match.pair_d2(sd, sv, qd, qv)
+    two_r = d2.topk(2, dim=2, largest=False).values
+    two_c = d2.topk(2, dim=1, largest=False).values
+    row_tie = (two_r[..., 1] - two_r[..., 0] <= 1e-6) & (two_r[..., 0] < 5e8)
+    col_tie = (two_c[:, 1] - two_c[:, 0] <= 1e-6) & (two_c[:, 0] < 5e8)
+    worst, out = 0.0, {}
+    for floor in (1e-3, 0.2):
+        args = (sd, sv, qd, qv, 3.0, 0.9, floor)
+        ker = match.match_mutual(*args)
+        again = match.match_mutual(*args)
+        pl = match.match_mutual_plain(*args)
+        torch.cuda.synchronize()
+        what = f"match S={MATCH_SLOTS} K={MATCH_K} floor={floor}"
+        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+        near = row_tie | col_tie.gather(1, pl[0])
+        diff = (ker[0] != pl[0]) | (ker[2] != pl[2])
+        _require(not bool((diff & ~near).any()), f"{what}: rows differ away from near-ties")
+        slack = (diff & near).sum(1)
+        _require(bool(((ker[3] - pl[3]).abs() <= slack).all()), f"{what}: num_good differs")
+        same = ker[0] == pl[0]
+        err = float((ker[1] - pl[1]).abs()[same].max())
+        _require(err <= 1e-6, f"{what}: dist error {err:.2e} > 1e-6")
+        worst = max(worst, err)
+        goods = pl[3].tolist()
+        _require(goods[48] >= 30 and goods[49] >= 20 and max(goods[50:]) == 0,
+                 f"{what}: duplicate / near-duplicate / empty slots give {goods[48:51]}")
+        k_ms = _time_ms(lambda: match.match_mutual(*args), 20)
+        p_ms = _time_ms(lambda: match.match_mutual_plain(*args), 3)
+        _log(f"{what}: {int(near.sum())} near-tie rows, {int(diff.sum())} rows differ, dist err "
+             f"{err:.2e}, runs bitwise equal; good matches duplicate {goods[48]} near-duplicate "
+             f"{goods[49]} path {goods[:32]}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        out[floor] = (k_ms, p_ms)
+    k_ms, p_ms = out[1e-3]
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+
+
+def pnp_inputs(rng, device):
+    """K = 384 correspondences of a PnP problem: points 1-3 m in front of
+    the stored camera, their normalized projections in the query camera
+    with 0.001 noise, 15% gross outliers, 90% valid; 64 four-point
+    hypothesis masks drawn from the valid points."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+
+    k = PNP_K
+    obj = np.stack([rng.uniform(-1.2, 1.2, k), rng.uniform(-0.9, 0.9, k), rng.uniform(1.0, 3.0, k)],
+                   -1).astype(np.float32)
+    R, t = (x.numpy().astype(np.float64) for x in se3_exp(torch.tensor(
+        [0.03, -0.02, 0.01, 0.02, -0.03, 0.01], dtype=torch.float32)))
+    pq = (obj - t) @ R  # R^T (P - t)
+    imn = pq[:, :2] / pq[:, 2:] + rng.normal(0, 0.001, (k, 2))
+    bad = rng.random(k) < 0.15
+    imn[bad] += rng.uniform(-0.1, 0.1, (int(bad.sum()), 2))
+    valid = rng.random(k) < 0.9
+    masks = np.zeros((PNP_HYPOTHESES, k), bool)
+    idx = np.nonzero(valid)[0]
+    for b in range(PNP_HYPOTHESES):
+        masks[b, rng.choice(idx, 4, replace=False)] = True
+    f = lambda a: torch.as_tensor(a).to(device).contiguous()  # noqa: E731
+    return f(obj), f(imn.astype(np.float32)), f(valid), f(masks)
+
+
+def check_pnp(device, rng) -> dict:
+    """Kernel B vs its plain version at both RANSAC phases: B = 64 four-point
+    hypotheses (4 iterations) and B = 1 over the best hypothesis's inliers
+    (5 iterations), K = 384. R and t within 1e-5, counts and inliers equal
+    except for points within 1e-6 of the threshold, runs bitwise."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+
+    obj, imn, valid, masks = pnp_inputs(rng, device)
+    thresh = 0.01
+
+    def phase(name, m, R0, t0, iters):
+        args = (obj, imn, m, R0, t0, iters, thresh, valid)
+        ker = pnp_gn.pnp_gn(*args, write_inliers=True)
+        again = pnp_gn.pnp_gn(*args, write_inliers=True)
+        pl = pnp_gn.pnp_gn_plain(*args, write_inliers=True)
+        torch.cuda.synchronize()
+        what = f"pnp_gn {name} B={m.shape[0]} K={PNP_K} iters={iters}"
+        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+        _require(torch.equal(torch.isfinite(ker[0]), torch.isfinite(pl[0])),
+                 f"{what}: non-finite poses differ")
+        ok = torch.isfinite(pl[0]).flatten(1).all(1) & torch.isfinite(pl[1]).all(1)
+        err = max(float((ker[0] - pl[0]).abs()[ok].max()), float((ker[1] - pl[1]).abs()[ok].max()))
+        _require(err <= 1e-5, f"{what}: pose error {err:.2e} > 1e-5")
+        r0, r1, _, _ = pnp_gn.point_terms(obj, imn, pl[0], pl[1])
+        near = ((torch.sqrt(r0.double() ** 2 + r1.double() ** 2) - thresh).abs() <= 1e-6) & valid
+        _require(not bool(((ker[3] != pl[3]) & ~near).any()), f"{what}: inliers differ")
+        _require(bool(((ker[2] - pl[2]).abs() <= near.sum(1)).all()), f"{what}: counts differ")
+        k_ms = _time_ms(lambda: pnp_gn.pnp_gn(*args), 50)
+        p_ms = _time_ms(lambda: pnp_gn.pnp_gn_plain(*args), 5)
+        _log(f"{what}: pose err {err:.2e}, {int(near.sum())} points within 1e-6 of the "
+             f"threshold, runs bitwise equal; inliers max {int(pl[2].max())} of "
+             f"{int(valid.sum())} valid; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        return pl, err, k_ms, p_ms
+
+    eye = torch.eye(3, device=device).expand(PNP_HYPOTHESES, 3, 3).contiguous()
+    zero = torch.zeros((PNP_HYPOTHESES, 3), device=device)
+    pl, err_h, k_ms, p_ms = phase("hypotheses", masks, eye, zero, 4)
+    b = int(torch.argmax(pl[2]))
+    _require(int(pl[2][b]) >= 250, f"pnp_gn: the best hypothesis has {int(pl[2][b])} inliers")
+    _, err_r, _, _ = phase("refine", pl[3][b : b + 1].contiguous(), pl[0][b : b + 1],
+                           pl[1][b : b + 1], 5)
+    return {"max_abs_err": max(err_h, err_r), "ms": k_ms, "plain_ms": p_ms}
+
+
 def _trajectory(n: int, step: float = 0.002):
     ts = np.arange(n)
     return np.stack(
@@ -417,23 +594,30 @@ def run_batch(device, batch: int = BATCH) -> dict:
     return {"median_mm": float(np.median(err)) * 1000.0, "pairs_per_s": pps}
 
 
-def run_cli(name: str, argv, ate_bar: float) -> dict:
+def run_cli(name: str, argv, ate_bar: float, inspect=None) -> dict:
     """`rgbd_odometry_tpu_torch.cli dvo` on the card as a user runs it, with
-    a trajectory file in a temporary directory; its stdout JSON is checked
-    against the bar. Returns the numbers, the trajectory file's text and the
-    metrics line as printed."""
+    a trajectory file in a temporary directory ("{tmp}" in `argv` names it);
+    its stdout JSON is checked against the bar, and its stderr lines other
+    than the per-frame ones are echoed. `inspect(tmp)` may read what the
+    command wrote there. Returns the numbers, the trajectory file's text,
+    the metrics line as printed, the command's summary and its stderr."""
     from rgbd_odometry_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
         est = os.path.join(tmp, "est.txt")
-        stdout = io.StringIO()
+        stdout, stderr = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            summary = cli.main(["dvo", *argv, "--out", est])
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            summary = cli.main(["dvo", *(a.format(tmp=tmp) for a in argv), "--out", est])
         wall = time.perf_counter() - t0
         rows = np.loadtxt(est, comments="#", ndmin=2)
         with open(est) as fh:
             text = fh.read()
+        extra = inspect(tmp) if inspect is not None else {}
+    err = stderr.getvalue()
+    for ln in err.splitlines():
+        if not ln.startswith("frame "):
+            _log(f"  [{name}] {ln}")
     line = stdout.getvalue().strip().splitlines()[-1]
     stats = json.loads(line)
     ate = stats["ate_rmse"]
@@ -445,7 +629,8 @@ def run_cli(name: str, argv, ate_bar: float) -> dict:
          f"(average over frames 1.., host clock), {wall:.1f} s wall incl. rendering")
     _require(ate < ate_bar, f"{name}: ATE {ate * 1000:.3f} mm >= {ate_bar * 1000:.0f} mm")
     return {"ate_mm": ate * 1000.0, "ms_per_frame": summary["avg_solve_ms"],
-            "keyframes": summary["keyframes"], "trajectory": text, "metrics": line}
+            "keyframes": summary["keyframes"], "trajectory": text, "metrics": line,
+            "summary": summary, "stderr": err, **extra}
 
 
 def run_cli_no_feeder(with_feeder: dict) -> dict:
@@ -464,11 +649,193 @@ def run_cli_no_feeder(with_feeder: dict) -> dict:
     return out
 
 
+def _out_and_back(n: int, amp: float = 0.04):
+    """Absolute twists out and back to the start (tests/test_loop_closure.py):
+    frames t and n-1-t share a pose."""
+    phase = np.sin(np.pi * np.arange(n) / (n - 1))
+    return np.stack([amp * phase, -0.5 * amp * phase, 0.3 * amp * phase,
+                     0.2 * amp * phase, -0.2 * amp * phase, 0.1 * amp * phase],
+                    -1).astype(np.float32)
+
+
+def run_loop_closure(device) -> dict:
+    """`LoopCloser` over a 12-frame out-and-back sequence at 320x240, every
+    frame a keyframe, slot capacity 4 (the store doubles twice on the card):
+    each closure within 2 cm / 0.02 of ground truth; a second run with the
+    same seed finds the same closures. ms per add_keyframe (host clock
+    around a synchronised call; frames already on the card)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig, LoopCloser
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.pipeline.loop_closure import LoopClosureConfig
+
+    cam = CameraConfig()
+    frames, poses = render_sequence(cam, _out_and_back(12), seed=0)
+    dev_frames = [tuple(torch.from_numpy(a).to(device) for a in f) for f in frames]
+    cfg = LoopClosureConfig(min_separation=4, slot_capacity=4)
+
+    def run():
+        lc = LoopCloser(Intrinsics.from_config(cam), cfg, seed=0, device=device)
+        ms = []
+        for i, (g, d) in enumerate(dev_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lc.add_keyframe(i, g, d)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1000.0)
+        return lc, ms
+
+    lc, ms = run()
+    again, _ = run()
+    _require(len(lc.closures) >= 1, "loop_closure: no closure found")
+    _require(lc.matcher.num_slots() == 16, f"loop_closure: {lc.matcher.num_slots()} slots, not 16")
+    for i, j, R_rel, t_rel, n_inl in lc.closures:
+        (R_i, t_i), (R_j, t_j) = poses[i], poses[j]
+        dt = np.linalg.norm(t_rel - R_i.T @ (t_j - t_i))
+        dR = np.linalg.norm(R_rel - R_i.T @ R_j)
+        _require(dt < 0.02 and dR < 0.02 and n_inl >= 20,
+                 f"loop_closure: closure {i}->{j} off by {dt * 1000:.1f} mm / {dR:.4f}")
+    key = [(c[0], c[1], c[4]) for c in lc.closures]
+    _require(key == [(c[0], c[1], c[4]) for c in again.closures]
+             and all(np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+                     for a, b in zip(lc.closures, again.closures)),
+             "loop_closure: a second run with the same seed gives other closures")
+    _log(f"loop_closure: 12 keyframes 320x240, closures (i, j, inliers) {key}, "
+         f"{lc.skipped_candidates} candidates skipped, store {lc.matcher.num_slots()} slots; "
+         f"add_keyframe median {np.median(ms[1:]):.3f} ms, mean {np.mean(ms[1:]):.3f} ms "
+         f"(host clock, synchronised), second run identical")
+    return {"closures": len(key), "ms_per_keyframe": float(np.median(ms[1:]))}
+
+
+def run_relocalize(device) -> dict:
+    """The blackout-teleport run of tests/test_relocalize.py at 320x240: 6
+    fast frames, 3 blank ones, 4 slow frames teleported back near the start,
+    through `EdgeDvoOdometry` with relocalization. ms per relocalize call
+    (host clock around a synchronised call)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import (
+        CameraConfig, EdgeDvoOdometry, KeyframeConfig, PipelineConfig, PyramidConfig,
+        RelocalizeConfig, SolverConfig,
+    )
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.pipeline.gop import REASON_RELOCALIZED
+
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
+    cfg = PipelineConfig(
+        camera=cam,
+        pyramid=PyramidConfig(num_levels=3, max_points=(2048, 1024, 512)),
+        solver=SolverConfig(method="gauss_newton", iterations=(50, 8, 5)),
+        keyframe=KeyframeConfig(force_every=5, enable_quality_triggers=True, rollback_resolve=True),
+        relocalize=RelocalizeConfig(enabled=True, trigger_consecutive=1, min_matches=20,
+                                    min_inliers=12),
+    )
+    frames_a, _ = render_sequence(cam, _trajectory(6, step=0.012), seed=0)
+    frames_b, poses_b = render_sequence(cam, _trajectory(4, step=0.002), seed=0)
+    blank = (np.zeros((240, 320), np.float32),) * 2
+    odo = EdgeDvoOdometry(cfg, device=device)
+    reloc, calls = odo._reloc, []
+    query = reloc.relocalize
+
+    def timed(gray):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = query(gray)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1000.0)
+        return res
+
+    reloc.relocalize = timed
+    for i, (g, d) in enumerate(list(frames_a) + [blank] * 3 + list(frames_b)):
+        odo.process_frame(g, d, timestamp=float(i))
+    _, t_est, _ = odo.trajectory()
+    err = 1000 * np.linalg.norm(t_est[-3:] - np.stack([p[1] for p in poses_b])[-3:], axis=1)
+    reasons = [e.reason for e in odo.gop.elements]
+    _log(f"relocalize: 13 frames 320x240, {reloc.successes}/{reloc.attempts} recoveries, "
+         f"{len(reloc)} keyframes in the database, last 3 frames off by {np.round(err, 3).tolist()} "
+         f"mm; relocalize {np.mean(calls):.3f} ms per call (host clock, synchronised)")
+    _require(REASON_RELOCALIZED in reasons, f"relocalize: no recovery ({reasons})")
+    _require(float(err.max()) < 25.0, f"relocalize: post-recovery error {err.max():.1f} mm")
+    return {"recoveries": reloc.successes, "ms_per_call": float(np.mean(calls))}
+
+
+def _ply_vertices(path: str) -> int:
+    with open(path, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"element vertex"):
+                return int(line.split()[-1])
+            if line.strip() == b"end_header":
+                break
+    return 0
+
+
+def run_cli_loop_close() -> dict:
+    """`dvo --frames 30 --loop-close --map-out map.ply`, beside the JAX CLI
+    on the CPU (4 closures, ATE 11.51 mm, 15036 map points)."""
+    out = run_cli("cli_loop_close", ["--frames", "30", "--loop-close", "--map-out", "{tmp}/map.ply"],
+                  0.020, inspect=lambda tmp: {"vertices": _ply_vertices(f"{tmp}/map.ply")})
+    n = len(out["summary"]["closures"])
+    _log(f"cli_loop_close: {n} closures, ATE {out['ate_mm']:.3f} mm, map {out['vertices']} points "
+         f"(JAX CLI on the CPU: 4 closures, 11.51 mm, 15036 points)")
+    _require(n >= 1, "cli_loop_close: no closure")
+    _require(out["vertices"] > 0 and out["vertices"] == out["summary"]["map_points"],
+             "cli_loop_close: empty map")
+    return out
+
+
+def run_cli_weighted_refine() -> dict:
+    """`dvo --frames 30 --loop-close --weighted-refine` (JAX CLI on the CPU:
+    ATE 5.95 mm)."""
+    out = run_cli("cli_weighted_refine", ["--frames", "30", "--loop-close", "--weighted-refine"],
+                  0.020)
+    _require("(information-weighted odometry edges)" in out["stderr"],
+             "cli_weighted_refine: no information-weighted refinement line")
+    _log(f"cli_weighted_refine: ATE {out['ate_mm']:.3f} mm (JAX CLI on the CPU: 5.95 mm)")
+    return out
+
+
+def run_cli_refine(loop_close: dict) -> dict:
+    """`refine` of cli_loop_close's trajectory with its closures as the
+    constraints file, `--robust geman --covariance-out`."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import cli
+    from rgbd_odometry_tpu_torch.core.geometry import quat_from_rotmat
+
+    summary = loop_close["summary"]
+    with tempfile.TemporaryDirectory() as tmp:
+        est, lc = os.path.join(tmp, "est.txt"), os.path.join(tmp, "lc.txt")
+        with open(est, "w") as fh:
+            fh.write(loop_close["trajectory"])
+        rows = [[i, j, *t, *quat_from_rotmat(torch.as_tensor(R)).numpy(), 3.0]
+                for (i, j, _), (R, t) in zip(summary["closures"], summary["closure_poses"])]
+        np.savetxt(lc, np.asarray(rows))
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli.main(["refine", est, "--constraints", lc, "--out", os.path.join(tmp, "ref.txt"),
+                      "--robust", "geman", "--covariance-out", os.path.join(tmp, "cov.npy")])
+        wall = time.perf_counter() - t0
+        cov = np.load(os.path.join(tmp, "cov.npy"))
+    res = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    norms = res["residual_norms"]
+    _log(f"cli_refine: {res['nodes']} nodes, {res['loop_closures']} closures, residual norms "
+         f"{norms}, closure weights {res.get('closure_robust_weights')}, covariance "
+         f"{cov.shape} trace max {res['covariance_trace_max']}, {wall:.2f} s wall")
+    # the JSON rounds the norms to 6 decimals
+    _require(all(b <= a + 1e-6 for a, b in zip(norms, norms[1:])), "cli_refine: a norm grew")
+    _require(cov.shape == (res["nodes"], 6, 6) and np.isfinite(cov).all(), "cli_refine: covariance")
+    return {"nodes": res["nodes"], "norms": norms}
+
+
 def _launch_counters():
-    from rgbd_odometry_tpu_torch.kernels import edt, fused_iter, residual, sg_terms
+    from rgbd_odometry_tpu_torch.kernels import edt, fused_iter, match, pnp_gn, residual, sg_terms
 
     return {"edt": edt.edt_squared, "gn": fused_iter.fused_gn_terms,
-            "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms}
+            "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
+            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn}
 
 
 def main() -> int:
@@ -503,6 +870,8 @@ def main() -> int:
         "gn": check_fused_gn(device, rng),
         "residual": check_residual(device, rng),
         "sg": check_sg_terms(device, rng),
+        "match": check_match(device, rng),
+        "pnp": check_pnp(device, rng),
     }
 
     counters = _launch_counters()
@@ -516,14 +885,25 @@ def main() -> int:
         ("cli_subgradient", lambda: run_cli(
             "cli_subgradient",
             ["--method", "subgradient", "--iterations", "50,50,50,50", "--frames", "10"], 0.025)),
+        ("loop_closure", lambda: run_loop_closure(device)),
+        ("relocalize", lambda: run_relocalize(device)),
+        ("cli_loop_close", run_cli_loop_close),
+        ("cli_weighted_refine", run_cli_weighted_refine),
+        ("cli_refine", lambda: run_cli_refine(results["cli_loop_close"])),
     )
+    map_phases = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refine")
     results = {}
     for name, phase in phases:
         before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
         results[name] = phase()
         torch.cuda.synchronize()
-        _log(f"launches in {name}: " + ", ".join(
-            f"{k} {fn.launches - before[k]}" for k, fn in counters.items()))
+        n = {k: fn.launches - before[k] for k, fn in counters.items()}
+        _log(f"launches in {name}: " + ", ".join(f"{k} {v}" for k, v in n.items())
+             + f" ({time.perf_counter() - t0:.1f} s)")
+        if name in map_phases:
+            _require(all(n[k] > 0 for k in MAP_KERNELS),
+                     f"{name}: the matching or PnP kernel was not launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
     _require(all(n > 0 for n in launches.values()), "a kernel was not launched on the main paths")
@@ -542,6 +922,12 @@ def main() -> int:
         {"name": "subgradient_terms", "route": "cuda", "source": src + "sg_terms.cu",
          "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:293 (XLA, no Pallas kernel)",
          "launches": launches["sg"], **res["sg"]},
+        {"name": "match_mutual", "route": "cuda", "source": src + "match.cu",
+         "replaces": "rgbd_odometry_tpu/pipeline/kf_matcher.py:103 (XLA, no Pallas kernel)",
+         "launches": launches["match"], **res["match"]},
+        {"name": "pnp_gn", "route": "cuda", "source": src + "pnp_gn.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 (XLA, no Pallas kernel)",
+         "launches": launches["pnp"], **res["pnp"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,11 +3,13 @@
 Runs the edge-DVO odometry on one NVIDIA H100 (Hopper, sm_90a) with no JAX
 at run time: `profiles.production_320` (deferred-accept LM), the `dvo`
 command at its own defaults (`cli.py`: standard LM on the 0-255 normalized
-DT, the frame feeder) and the reference's sub-gradient solver. The layout
-mirrors the JAX package so every module's counterpart is easy to find
-(`core/`, `ops/`, `solvers/`, `pipeline/`, `io/`, `cli.py`), plus
-`kernels/` + `csrc/` for the four hand-written CUDA kernels (the shared
-device code in `csrc/project.cuh`, its plain counterpart `ops/project.py`):
+DT, the frame feeder), the reference's sub-gradient solver, and the map
+backend (loop closure, pose-graph refinement, relocalization, the `refine`
+command). The layout mirrors the JAX package so every module's counterpart
+is easy to find (`core/`, `ops/`, `solvers/`, `pipeline/`, `io/`, `viz/`,
+`cli.py`), plus `kernels/` + `csrc/` for the six hand-written CUDA kernels
+(shared device code in `csrc/project.cuh` and `csrc/se3.cuh`; the plain
+counterpart of the projection in `ops/project.py`):
 
 * `kernels/edt.py` + `csrc/edt.cu` — the squared-L2 distance transform
   (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed;
@@ -18,7 +20,11 @@ device code in `csrc/project.cuh`, its plain counterpart `ops/project.py`):
   visible count, per-point residuals) of the LM accept test and the
   all-point diagnostics (XLA in the JAX package);
 * `kernels/sg_terms.py` + `csrc/sg_terms.cu` — one sub-gradient
-  iteration's J^T W eps with floor gathers (XLA in the JAX package).
+  iteration's J^T W eps with floor gathers (XLA in the JAX package);
+* `kernels/match.py` + `csrc/match.cu` — mutual-nearest descriptor matching
+  of a query against every stored keyframe (XLA in the JAX package);
+* `kernels/pnp_gn.py` + `csrc/pnp_gn.cu` — batched Gauss-Newton PnP with
+  inlier scoring, both RANSAC phases (XLA in the JAX package).
 
 Idiom: plain functions on tensors with a leading batch dimension (in place
 of `vmap`) and an explicit device. The configuration dataclasses and
@@ -31,6 +37,7 @@ from rgbd_odometry_tpu.config import (  # noqa: F401  (jax-free)
     KeyframeConfig,
     PipelineConfig,
     PyramidConfig,
+    RelocalizeConfig,
     SolverConfig,
 )
 
@@ -39,6 +46,11 @@ __version__ = "0.1.0"
 _LAZY = {
     "align_pair": ("rgbd_odometry_tpu_torch.solvers.edge_dvo", "align_pair"),
     "EdgeDvoOdometry": ("rgbd_odometry_tpu_torch.pipeline.odometry", "EdgeDvoOdometry"),
+    "LoopCloser": ("rgbd_odometry_tpu_torch.pipeline.loop_closure", "LoopCloser"),
+    "Relocalizer": ("rgbd_odometry_tpu_torch.pipeline.relocalize", "Relocalizer"),
+    "refine_pose_graph": ("rgbd_odometry_tpu_torch.solvers.pose_graph", "refine_pose_graph"),
+    "information_sqrt": ("rgbd_odometry_tpu_torch.solvers.pose_graph", "information_sqrt"),
+    "marginal_covariance": ("rgbd_odometry_tpu_torch.solvers.pose_graph", "marginal_covariance"),
 }
 
 
@@ -56,6 +68,7 @@ __all__ = [
     "KeyframeConfig",
     "PipelineConfig",
     "PyramidConfig",
+    "RelocalizeConfig",
     "SolverConfig",
     "profiles",
     "__version__",

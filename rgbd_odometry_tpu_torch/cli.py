@@ -1,21 +1,27 @@
-"""Command line of the PyTorch port: the JAX package's `dvo` and `eval`.
+"""Command line of the PyTorch port: the JAX package's `dvo`, `refine` and
+`eval`.
 
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --method subgradient --iterations 50,50,50,50
+    python -m rgbd_odometry_tpu_torch.cli dvo --loop-close --map-out map.ply --out est.txt
+    python -m rgbd_odometry_tpu_torch.cli refine est.txt --constraints lc.txt --out ref.txt
     python -m rgbd_odometry_tpu_torch.cli eval est.txt groundtruth.txt
 
-`dvo` takes the JAX parser's flags and defaults (`rgbd_odometry_tpu/cli.py`)
-plus `--device` (default `cuda`; the CPU runs the kernels' plain versions and
-only when asked for). It prints the same lines: one per frame on stderr, and
-last on stdout the JSON `{"ate_rmse", "drift_mean_per_s", "drift_rms_per_s"}`
-against the synthetic ground truth. The flags of subsystems not ported yet
-exit with an error naming their ROADMAP item instead of being ignored.
-Imports no JAX.
+`dvo` and `refine` take the JAX parser's flags and defaults
+(`rgbd_odometry_tpu/cli.py`) plus `--device` (default `cuda`; the CPU runs
+the kernels' plain versions and only when asked for). They print the same
+lines: for `dvo` one per frame on stderr, the map backend's lines (`loop
+closures: ...`, `online refine @frame ...`, `map: ...`, `relocalizer: ...`),
+and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
+"drift_rms_per_s"}` against the synthetic ground truth; for `refine` its JSON
+summary. The flags of subsystems not ported yet exit with an error naming
+their ROADMAP item instead of being ignored. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import sys
@@ -24,16 +30,10 @@ import numpy as np
 
 _Q1 = "ROADMAP.md Queue 1"
 _UNPORTED = (
-    ("loop_close", "--loop-close", "item 8 'Map backend'"),
-    ("refine_every", "--refine-every", "item 8 'Map backend'"),
-    ("weighted_refine", "--weighted-refine", "item 8 'Map backend'"),
-    ("refine_mode", "--refine-mode", "item 8 'Map backend'"),
-    ("map_out", "--map-out", "item 8 'Map backend'"),
-    ("relocalize", "--relocalize", "item 4 'motion model, relocalization, feeder'"),
-    ("pipelined", "--pipelined", "item 4 'motion model, relocalization, feeder'"),
+    ("pipelined", "--pipelined", "item 1 'pipelined streaming'"),
     ("viz_dir", "--viz-dir", "item 10 'The CLI'"),
-    ("checkpoint", "--checkpoint", "item 10 'The CLI'"),
-    ("resume", "--resume", "item 10 'The CLI'"),
+    ("checkpoint", "--checkpoint", "item 2 'checkpoint'"),
+    ("resume", "--resume", "item 2 'checkpoint'"),
     ("trace_dir", "--trace-dir", "item 10 'The CLI'"),
 )
 
@@ -117,7 +117,9 @@ def cmd_dvo(args):
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr) != args.unported_defaults[attr]:
             _unported(flag, item)
-    from rgbd_odometry_tpu.config import CameraConfig, KeyframeConfig, PipelineConfig, SolverConfig
+    from rgbd_odometry_tpu.config import (
+        CameraConfig, KeyframeConfig, PipelineConfig, RelocalizeConfig, SolverConfig,
+    )
     from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry
 
@@ -131,8 +133,84 @@ def cmd_dvo(args):
         keyframe=KeyframeConfig(force_every=args.keyframe_every),
         motion_model=args.motion_model,
     )
+    if args.relocalize:
+        cfg = dataclasses.replace(cfg, relocalize=RelocalizeConfig(enabled=True))
     device = resolve_device(args.device)
     odo = EdgeDvoOdometry(cfg, device=device)
+    closer = None
+    if args.loop_close:
+        from rgbd_odometry_tpu_torch.pipeline.loop_closure import LoopCloser
+
+        closer = LoopCloser(odo.intr, device=device)
+    # --weighted-refine weights odometry edges, which exist only in graph
+    # mode: it implies the pose-graph path
+    refine_mode = args.refine_mode
+    info_recs = None
+    if args.weighted_refine:
+        if not args.loop_close:
+            sys.exit("--weighted-refine requires --loop-close")
+        refine_mode = "graph"
+        info_recs = []
+    refine_every = int(args.refine_every or 0)
+    if refine_every and not args.loop_close:
+        sys.exit("--refine-every requires --loop-close")
+    map_clouds = [] if args.map_out else None
+    # raw consecutive-frame relative poses, captured before any online
+    # refinement rewrites the trajectory: every (re-)refinement derives its
+    # odometry edges from them (LoopCloser.refine's edge_traj)
+    raw_rels: list = []
+    refine_state = {"kf": 0, "closures": 0}
+
+    def _refine_report(norms) -> str:
+        if refine_mode == "reanchor":
+            if len(norms) == 0:
+                return "no closure passed the re-anchor separation gate"
+            return (f"{len(norms)} re-anchor corrections applied, "
+                    f"{1000.0 * float(np.sum(norms)):.1f} mm total")
+        return f"graph residual {norms[0]:.4f} -> {norms[-1]:.4f}"
+
+    def _capture_raw_rel():
+        els = odo.gop.elements
+        if len(els) >= 2:
+            a, b = els[-2], els[-1]
+            raw_rels.append((a.R.T @ b.R, a.R.T @ (b.t - a.t)))
+
+    def _raw_traj():
+        Rs, ts_ = [np.eye(3)], [np.zeros(3)]
+        for Rr, tr in raw_rels:
+            ts_.append(ts_[-1] + Rs[-1] @ tr)
+            Rs.append(Rs[-1] @ Rr)
+        return np.stack(Rs), np.stack(ts_)
+
+    def _per_frame(gray, depth):
+        """The map backend's work after a frame: the raw chain, the
+        keyframe's registration (closure detection, map cloud, online
+        refinement) and the information record."""
+        if refine_every:
+            _capture_raw_rel()
+        m = odo.metrics[-1]
+        if m.keyframe_reason != 0 and (closer is not None or map_clouds is not None):
+            if closer is not None:
+                closer.add_keyframe(m.frame_num, gray, depth)
+            if map_clouds is not None:
+                map_clouds.append(odo.keyframe_cloud())
+            if refine_every and closer is not None:
+                refine_state["kf"] += 1
+                if (refine_state["kf"] >= refine_every
+                        and len(closer.closures) > refine_state["closures"]
+                        and len(raw_rels) + 1 == len(odo.gop)):
+                    norms = closer.refine_inplace(odo.gop, edge_traj=_raw_traj(),
+                                                  mode=refine_mode)
+                    if norms is not None:
+                        refine_state["kf"] = 0
+                        refine_state["closures"] = len(closer.closures)
+                        odo.sync_reloc_db()
+                        print(f"online refine @frame {m.frame_num}: "
+                              f"{len(closer.closures)} closures, " + _refine_report(norms),
+                              file=sys.stderr)
+        if info_recs is not None:
+            pi = odo.pose_information()
+            info_recs.append(None if pi is None else pi[0] / max(pi[1], 1e-12))
 
     def _after(m):
         print(
@@ -152,17 +230,56 @@ def cmd_dvo(args):
 
         for pyr, ts in FrameFeeder(frames, num_levels=cfg.pyramid.num_levels, device=device):
             odo.process_pyramid(pyr, ts)
+            _per_frame(pyr.gray[0][0], pyr.depth[0][0])
             n += 1
             _after(odo.metrics[-1])
     else:
         for gray, depth, ts in frames:
             odo.process_frame(gray, depth, ts)
+            _per_frame(gray, depth)
             n += 1
             _after(odo.metrics[-1])
     print(f"avg solve: {odo.average_solve_ms():.2f} ms over {n} frames", file=sys.stderr)
-    R, t, ts = odo.trajectory()
     summary = {"frames": n, "keyframes": odo.gop.keyframe_indices(),
                "avg_solve_ms": odo.average_solve_ms()}
+    if odo._reloc is not None:
+        print(f"relocalizer: {len(odo._reloc)} keyframes in database, "
+              f"{odo._reloc.successes}/{odo._reloc.attempts} recoveries", file=sys.stderr)
+        summary["recoveries"] = odo._reloc.successes
+    R, t, ts = odo.trajectory()
+    if closer is not None and len(t) > 1:
+        odo_si = None
+        if info_recs is not None:
+            # edge k (frame k -> k+1) is weighted by frame k+1's information;
+            # frames without a measurement take the batch mean
+            infos = info_recs[1:len(t)]
+            have = [x for x in infos if x is not None]
+            if have:
+                import torch
+
+                from rgbd_odometry_tpu_torch.solvers.pose_graph import normalized_information_sqrt
+
+                fill = np.mean(np.stack(have), axis=0)
+                arr = np.stack([x if x is not None else fill for x in infos])
+                odo_si = normalized_information_sqrt(
+                    torch.as_tensor(arr, dtype=torch.float32)).numpy()
+        R, t, norms = closer.refine(
+            R, t, odo_sqrt_info=odo_si, mode=refine_mode,
+            edge_traj=_raw_traj() if (refine_every and len(raw_rels) + 1 == len(t)) else None,
+        )
+        print(f"loop closures: {len(closer.closures)}; " + _refine_report(norms)
+              + (" (information-weighted odometry edges)" if odo_si is not None else ""),
+              file=sys.stderr)
+        summary["closures"] = [(int(c[0]), int(c[1]), int(c[4])) for c in closer.closures]
+        summary["closure_poses"] = [(c[2], c[3]) for c in closer.closures]
+    if map_clouds:
+        from rgbd_odometry_tpu_torch.viz.pointcloud import compose_map, write_ply
+
+        pts, _ids = compose_map(map_clouds, R, t)
+        write_ply(args.map_out, pts)
+        print(f"map: {len(pts)} edge points from {len(map_clouds)} keyframes -> {args.map_out}",
+              file=sys.stderr)
+        summary["map_points"] = len(pts)
     if args.out:
         from rgbd_odometry_tpu_torch.io.tum import write_trajectory
 
@@ -206,6 +323,63 @@ def cmd_dvo(args):
         }
         print(json.dumps(metrics))
         summary.update(metrics)
+    return summary
+
+
+def cmd_refine(args):
+    """Keyframe pose-graph refinement of a TUM trajectory with odometry edges
+    and optional loop-closure constraints (lines `i j tx ty tz qx qy qz qw
+    [weight]`, the pose of j in i's frame); prints the JAX command's JSON
+    summary and returns it."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.io.tum import read_trajectory, write_trajectory
+    from rgbd_odometry_tpu_torch.solvers.pose_graph import (
+        PoseGraphEdges, concat_edges, edge_robust_weights, marginal_covariance, odometry_edges,
+        refine_pose_graph,
+    )
+
+    device = resolve_device(args.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    R, t, ts = read_trajectory(args.est)
+    R0, t0 = torch.as_tensor(R, **f32), torch.as_tensor(t, **f32)
+    edges = odometry_edges(R0, t0)
+    n_lc = 0
+    if args.constraints:
+        rows = np.loadtxt(args.constraints, comments="#", ndmin=2)
+        w = rows[:, 9] if rows.shape[1] > 9 else np.ones(len(rows))
+        lc = PoseGraphEdges(
+            i=torch.as_tensor(rows[:, 0].astype(np.int64), device=device),
+            j=torch.as_tensor(rows[:, 1].astype(np.int64), device=device),
+            R_rel=geo.rotmat_from_quat(torch.as_tensor(rows[:, 5:9], **f32)),
+            t_rel=torch.as_tensor(rows[:, 2:5], **f32),
+            weight=torch.as_tensor(w, **f32),
+        )
+        edges = concat_edges(edges, lc)
+        n_lc = len(rows)
+    R_f, t_f, norms = refine_pose_graph(R0, t0, edges, iterations=args.iterations,
+                                        robust=args.robust, robust_delta=args.robust_delta)
+    write_trajectory(args.out, R_f.cpu().numpy().astype(np.float64),
+                     t_f.cpu().numpy().astype(np.float64), ts)
+    summary = {
+        "nodes": len(t),
+        "loop_closures": n_lc,
+        "residual_norms": [round(float(x), 6) for x in norms.cpu().numpy()],
+        "out": args.out,
+    }
+    if args.robust and n_lc:
+        w_all = edge_robust_weights(R_f, t_f, edges, args.robust, args.robust_delta).cpu().numpy()
+        summary["closure_robust_weights"] = [round(float(x), 4) for x in w_all[-n_lc:]]
+    if args.covariance_out:
+        cov = marginal_covariance(R_f, t_f, edges, robust=args.robust,
+                                  robust_delta=args.robust_delta).cpu().numpy().astype(np.float64)
+        np.save(args.covariance_out, cov)
+        summary["covariance_out"] = args.covariance_out
+        summary["covariance_trace_max"] = round(
+            float(np.trace(cov, axis1=-2, axis2=-1).max()), 6)
+    print(json.dumps(summary))
     return summary
 
 
@@ -266,14 +440,43 @@ def main(argv=None):
     p.add_argument("--viz-dir", default=None)
     p.add_argument("--viz-every", type=int, default=5)
     p.add_argument("--trace-dir", default=None)
-    p.add_argument("--loop-close", action="store_true")
-    p.add_argument("--refine-mode", default="reanchor", choices=["reanchor", "graph"])
-    p.add_argument("--map-out", default=None)
-    p.add_argument("--refine-every", type=int, default=0)
-    p.add_argument("--weighted-refine", action="store_true")
     p.add_argument("--pipelined", action="store_true")
-    p.add_argument("--relocalize", action="store_true")
+    p.add_argument("--loop-close", action="store_true",
+                   help="detect loop closures between keyframes and refine the trajectory "
+                   "(rigid re-anchoring by default, see --refine-mode)")
+    p.add_argument("--refine-mode", default="reanchor", choices=["reanchor", "graph"],
+                   help="with --loop-close: 'reanchor' applies each closure's correction "
+                   "rigidly at its revisit node; 'graph' runs the pose-graph Gauss-Newton "
+                   "over odometry and closure edges")
+    p.add_argument("--map-out", default=None,
+                   help="write the fused semi-dense edge-point map (PLY), every keyframe's "
+                   "edge cloud composed through the final trajectory")
+    p.add_argument("--refine-every", type=int, default=0, metavar="K",
+                   help="with --loop-close: online refinement every K keyframes when new "
+                   "closures exist, written back into the live trajectory")
+    p.add_argument("--weighted-refine", action="store_true",
+                   help="with --loop-close: weight odometry edges by the solver's per-frame "
+                   "6x6 information matrix (implies the graph mode)")
+    p.add_argument("--relocalize", action="store_true",
+                   help="recover from tracking loss against a database of healthy keyframes")
     p.set_defaults(fn=cmd_dvo, unported_defaults={a: p.get_default(a) for a, _, _ in _UNPORTED})
+
+    p = sub.add_parser("refine", help="pose-graph refinement of a trajectory (+ loop closures)")
+    p.add_argument("est", help="TUM-format trajectory to refine")
+    p.add_argument("--constraints", default=None, help="file: i j tx ty tz qx qy qz qw [weight]")
+    p.add_argument("--out", required=True)
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--robust", default=None, choices=["huber", "geman"],
+                   help="IRLS kernel on edge residuals: huber bounds an outlier edge's pull, "
+                   "geman switches false loop closures off")
+    p.add_argument("--robust-delta", type=float, default=1.0,
+                   help="robust kernel scale in whitened-residual units")
+    p.add_argument("--covariance-out", default=None,
+                   help="save per-node anchor-relative 6x6 marginal covariance blocks (N,6,6 "
+                   ".npy) at the refined solution")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: 'cuda' (default) or 'cpu'")
+    p.set_defaults(fn=cmd_refine)
 
     p = sub.add_parser("eval", help="ATE/RPE/drift vs a GT trajectory (loadGTPath role)")
     p.add_argument("est")

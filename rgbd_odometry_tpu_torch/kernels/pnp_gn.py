@@ -1,0 +1,230 @@
+"""Kernel B: batched Gauss-Newton PnP with inlier scoring (`csrc/pnp_gn.cu`).
+
+Replaces `jax.vmap(gn_pnp)` plus the inlier scoring of `ransac_pnp`
+(`rgbd_odometry_tpu/solvers/pnp.py:46-97`, `:142-158`; XLA, no Pallas
+kernel): B independent problems over the same K correspondences, each a
+fixed number of Gauss-Newton iterations of the reference's normalized-plane
+PnP (`SolvePnP::PnP`, src/SolvePnP.cpp:148-203) on its own point mask, then
+the count of scoring-mask points whose reprojection error is below a
+threshold. One launch serves both RANSAC phases: the hypotheses (B = 64,
+4 iterations on 4-point masks) and the winner's refine (B = 1, 5 iterations
+on its inliers). `pnp_gn` is the entry point: CPU tensors go to the plain
+PyTorch version `pnp_gn_plain`, CUDA tensors to the kernel; anything else
+raises.
+
+The plain version performs the kernel's operations in the kernel's order:
+each per-point term with one rounding per operation, the sums over points
+as each of 128 threads' running sum followed by the kernel's fixed
+pairwise tree, the 6x6 Cholesky and `se3_exp` element by element (sin and
+cos in float64, rounded once; square roots correctly rounded). Kernel and
+plain version therefore agree to the last bit, so that ill-conditioned
+4-point hypotheses cannot amplify a summation-order difference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rgbd_odometry_tpu_torch.kernels import build
+
+THREADS = 128  # the kernel's block size: the partial-sum layout both versions share
+_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 5
+)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root."""
+    return torch.sqrt(x.double()).float()
+
+
+def point_terms(obj, imn, R, t):
+    """Residual (r0, r1) and Jacobian rows (Ju, Jv, six (B,K) tensors each) of
+    the normalized-plane residual r = u_norm - dehom(R^T (P - t)) (the JAX
+    `gn_pnp_step`'s J, rows for u and v), for obj (K,3), imn (K,2) and B
+    poses R (B,3,3), t (B,3); nothing masked."""
+    d = [obj[None, :, c] - t[:, c, None] for c in range(3)]
+    Rc = [[R[:, i, j, None] for j in range(3)] for i in range(3)]
+    pb = [Rc[0][j] * d[0] + Rc[1][j] * d[1] + Rc[2][j] * d[2] for j in range(3)]
+    z = pb[2]
+    zs = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
+    r0 = imn[None, :, 0] - pb[0] / zs
+    r1 = imn[None, :, 1] - pb[1] / zs
+    iz = torch.reciprocal(zs)
+    zz = zs * zs
+    c0 = -pb[0] / zz
+    c1 = -pb[1] / zz
+    ju = [Rc[j][0] * iz + Rc[j][2] * c0 for j in range(3)]
+    ju += [c0 * pb[1], iz * pb[2] - c0 * pb[0], -(iz * pb[1])]
+    jv = [Rc[j][1] * iz + Rc[j][2] * c1 for j in range(3)]
+    jv += [c1 * pb[1] - iz * pb[2], -(c1 * pb[0]), iz * pb[0]]
+    return r0, r1, ju, jv
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, K, C) -> (B, C): the kernel's reduction over K points (thread k
+    % THREADS adds its points in order, then a pairwise tree over threads)."""
+    b, k, c = x.shape
+    m = -(-k // THREADS)
+    x = torch.nn.functional.pad(x, (0, 0, 0, m * THREADS - k)).reshape(b, m, THREADS, c)
+    acc = x[:, 0]
+    for i in range(1, m):
+        acc = acc + x[:, i]
+    s = THREADS // 2
+    while s >= 1:
+        acc = acc[:, :s] + acc[:, s : 2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
+_UPPER = [(i, j) for i in range(6) for j in range(i, 6)]
+
+
+def _chol_solve6(H, g):
+    """Solve H x = g, H a 6x6 nested list of (B,) tensors, g a list of 6, by
+    the port's `ops/linalg6.chol_solve6` factorization (1e-20 pivot floor),
+    element by element in the kernel's order."""
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = []
+        for r in range(j, 6):
+            acc = torch.zeros_like(g[0])
+            for c in range(j):
+                acc = acc + L[r][c] * L[j][c]
+            s.append(H[r][j] - acc)
+        d = _sqrt(torch.clamp(s[0], min=1e-20))
+        L[j][j] = d
+        inv = torch.reciprocal(d)
+        for r in range(j + 1, 6):
+            L[r][j] = s[r - j] * inv
+    y = [None] * 6
+    for i in range(6):
+        acc = torch.zeros_like(g[0])
+        for c in range(i):
+            acc = acc + L[i][c] * y[c]
+        y[i] = (g[i] - acc) / L[i][i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        acc = torch.zeros_like(g[0])
+        for c in range(i + 1, 6):
+            acc = acc + L[c][i] * x[c]
+        x[i] = (y[i] - acc) / L[i][i]
+    return x
+
+
+def _mat3(A, B):
+    return [[A[i][0] * B[0][j] + A[i][1] * B[1][j] + A[i][2] * B[2][j] for j in range(3)]
+            for i in range(3)]
+
+
+def _se3_exp(psi):
+    """Twist [v, w] (six (B,) tensors) -> (R 3x3, t 3) nested lists, the
+    port's `core/geometry.se3_exp` written element by element."""
+    v, w = psi[:3], psi[3:]
+    theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+    theta = _sqrt(theta2 + 1e-16)
+    small = theta2 < 1e-8
+    sin = torch.sin(theta.double()).float()
+    cos = torch.cos(theta.double()).float()
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin) / (theta2 * theta))
+    z = torch.zeros_like(theta2)
+    W = [[z, -w[2], w[1]], [w[2], z, -w[0]], [-w[1], w[0], z]]
+    WW = _mat3(W, W)
+    eye = [[torch.ones_like(z) if i == j else z for j in range(3)] for i in range(3)]
+    R = [[eye[i][j] + a * W[i][j] + b * WW[i][j] for j in range(3)] for i in range(3)]
+    V = [[eye[i][j] + b * W[i][j] + c * WW[i][j] for j in range(3)] for i in range(3)]
+    t = [V[i][0] * v[0] + V[i][1] * v[1] + V[i][2] * v[2] for i in range(3)]
+    return R, t
+
+
+def gn_step_plain(obj, imn, R, t, mask):
+    """One Gauss-Newton iteration for B problems: (R (B,3,3), t (B,3)) after
+    the right-multiplied update T <- T exp(delta), delta = -(J^T J + 1e-9
+    I)^-1 J^T r over the points in mask (B,K)."""
+    r0, r1, ju, jv = point_terms(obj, imn, R, t)
+    zero = torch.zeros_like(r0)
+    r0, r1 = torch.where(mask, r0, zero), torch.where(mask, r1, zero)
+    ju = [torch.where(mask, x, zero) for x in ju]
+    jv = [torch.where(mask, x, zero) for x in jv]
+    terms = [ju[i] * ju[j] + jv[i] * jv[j] for i, j in _UPPER]
+    terms += [ju[i] * r0 + jv[i] * r1 for i in range(6)]
+    sums = _block_sum(torch.stack(terms, dim=-1))
+    H = [[None] * 6 for _ in range(6)]
+    for n, (i, j) in enumerate(_UPPER):
+        H[i][j] = H[j][i] = sums[:, n]
+    for i in range(6):
+        H[i][i] = H[i][i] + 1e-9
+    x = _chol_solve6(H, [sums[:, 21 + i] for i in range(6)])
+    xR, xt = _se3_exp([-xi for xi in x])
+    Rl = [[R[:, i, j] for j in range(3)] for i in range(3)]
+    t_new = [t[:, i] + (Rl[i][0] * xt[0] + Rl[i][1] * xt[1] + Rl[i][2] * xt[2]) for i in range(3)]
+    R_new = _mat3(Rl, xR)
+    return (torch.stack([torch.stack(row, -1) for row in R_new], -2),
+            torch.stack(t_new, -1))
+
+
+def score_plain(obj, imn, R, t, score_mask, inlier_thresh):
+    """Inliers (B,K): score_mask & |r| < inlier_thresh at poses (R, t)."""
+    r0, r1, _, _ = point_terms(obj, imn, R, t)
+    err = _sqrt(r0 * r0 + r1 * r1)
+    return score_mask[None, :] & (err < inlier_thresh)
+
+
+def pnp_gn_plain(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask,
+                 write_inliers=False):
+    """The plain PyTorch version: (R (B,3,3), t (B,3), counts (B,) int32,
+    inliers (B,K) bool | None)."""
+    R, t = R0, t0
+    for _ in range(iters):
+        R, t = gn_step_plain(obj, imn, R, t, masks)
+    inl = score_plain(obj, imn, R, t, score_mask, inlier_thresh)
+    return R, t, inl.sum(-1, dtype=torch.int32), inl if write_inliers else None
+
+
+def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inliers=False):
+    """B Gauss-Newton PnP problems over shared correspondences obj (K,3)
+    (metres, the stored keyframe's camera frame) and imn (K,2) (the query's
+    normalized image points): problem b starts at (R0[b], t0[b]) and runs
+    `iters` iterations on the points of masks[b] (B,K) bool; then counts the
+    points of score_mask (K,) bool with reprojection error < inlier_thresh.
+    Returns (R (B,3,3), t (B,3), counts (B,) int32, inliers (B,K) bool when
+    write_inliers, else None), in the solver's p_query = R (p - t)
+    convention."""
+    if obj.device.type == "cpu":
+        return pnp_gn_plain(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask,
+                            write_inliers)
+    if obj.device.type != "cuda":
+        raise ValueError(f"pnp_gn: unsupported device {obj.device}")
+    dev = obj.device
+    if obj.dim() != 2 or masks.dim() != 2:
+        raise ValueError("pnp_gn: obj must be (K, 3) and masks (B, K)")
+    b, k = masks.shape
+    fn = "pnp_gn"
+    build.check_arg(fn, "obj", obj, (k, 3), torch.float32, dev)
+    build.check_arg(fn, "imn", imn, (k, 2), torch.float32, dev)
+    build.check_arg(fn, "masks", masks, (b, k), torch.bool, dev)
+    build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
+    build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
+    build.check_arg(fn, "score_mask", score_mask, (k,), torch.bool, dev)
+    R = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    counts = torch.empty((b,), dtype=torch.int32, device=dev)
+    inl = torch.empty((b, k), dtype=torch.bool, device=dev) if write_inliers else None
+    lib = build.bind("pnp_gn", fn, _ARGTYPES)
+    code = lib.pnp_gn(
+        dev.index or 0, obj.data_ptr(), imn.data_ptr(), masks.data_ptr(), R0.data_ptr(),
+        t0.data_ptr(), score_mask.data_ptr(), b, k, int(iters), float(inlier_thresh),
+        R.data_ptr(), t.data_ptr(), counts.data_ptr(), inl.data_ptr() if write_inliers else None,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, code, "pnp_gn launch")
+    pnp_gn.launches += 1
+    return R, t, counts, inl
+
+
+pnp_gn.launches = 0

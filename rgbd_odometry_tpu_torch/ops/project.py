@@ -9,13 +9,15 @@ from __future__ import annotations
 import torch
 
 
-def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """a * b + c for float32 `a` rounded once to float32 (a fused
     multiply-add, CUDA's __fmaf_rn). a * b is exact in float64; the float64
     sum is made round-to-odd from its exact TwoSum error, after which the
-    cast to float32 rounds exactly as a single rounding would. The scalars
-    are taken as float32, as the kernels receive them."""
-    b, c = (torch.tensor(x, dtype=torch.float32).item() for x in (b, c))
+    cast to float32 rounds exactly as a single rounding would. `b` and `c`
+    are float32 tensors (broadcast against `a`) or scalars, which are taken
+    as float32, as the kernels receive them."""
+    b, c = (x.double() if torch.is_tensor(x) else torch.tensor(x, dtype=torch.float32).item()
+            for x in (b, c))
     p = a.double() * b
     s = p + c
     bb = s - p

@@ -10,10 +10,12 @@ float64. The steady-state frame reads its results back in one device->host
 copy. The warm start is the previous relative pose ("hold") or, with
 `motion_model="constant_velocity"`, that pose extrapolated on the device by
 the last inter-frame motion (`cv_extrapolate`). `process_pyramid` takes an
-already-built pyramid, as `pipeline/feeder.FrameFeeder` delivers it.
+already-built pyramid, as `pipeline/feeder.FrameFeeder` delivers it. With
+`RelocalizeConfig(enabled=True)` healthy keyframes feed the appearance
+database of `pipeline/relocalize.py`, and a streak of lost frames triggers a
+recovery query that re-anchors the trajectory (REASON_RELOCALIZED).
 
-Not ported yet (ROADMAP.md Queue 1): relocalization and the pipelined
-`process_stream`.
+Not ported yet (ROADMAP.md Queue 1): the pipelined `process_stream`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from rgbd_odometry_tpu_torch.pipeline.gop import (
     REASON_LAPLACIAN_THRESH,
     REASON_LOW_VISIBILITY,
     REASON_PERIODIC,
+    REASON_RELOCALIZED,
     REASON_TOO_FEW_REPROJECTIONS,
     Gop,
 )
@@ -122,11 +125,6 @@ class EdgeDvoOdometry:
 
     def __init__(self, config: PipelineConfig | None = None, device=None):
         self.cfg = config or PipelineConfig()
-        if self.cfg.relocalize.enabled:
-            raise NotImplementedError(
-                "relocalization is not ported to rgbd_odometry_tpu_torch yet; "
-                "see ROADMAP.md Queue 1, 'motion model, relocalization, feeder'"
-            )
         edge_dvo.check_config(self.cfg.solver)
         self.device = resolve_device(device)
         self.intr = Intrinsics.from_config(self.cfg.camera)
@@ -152,6 +150,14 @@ class EdgeDvoOdometry:
         self._prevpose = None
         self._dispatch_warm = None
         self.keep_residuals = False
+        # relocalization after tracking loss: `trigger_consecutive` lost
+        # frames in a row query the appearance database
+        self._reloc = None
+        self._bad_streak = 0
+        if self.cfg.relocalize.enabled:
+            from rgbd_odometry_tpu_torch.pipeline.relocalize import Relocalizer
+
+            self._reloc = Relocalizer(self.intr, self.cfg.relocalize, device=self.device)
 
     # ------------------------------------------------------------------
     def process_frame(
@@ -214,6 +220,7 @@ class EdgeDvoOdometry:
         self.gop.push_keyframe(0, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), timestamp)
         count = int(self._ref_feats[0].count[0])
         self.metrics.append(FrameMetrics(0, 0.0, 0.0, -1, 1.0, 0.0, count, REASON_FIRST_FRAME))
+        self._register_keyframe(pyr)
         self._prev_pyr = pyr
         return self.gop.global_pose(0)
 
@@ -225,6 +232,17 @@ class EdgeDvoOdometry:
         b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
         vis = finest.visible_ratio
         n_reproj = int(finest.final_valid.sum())
+
+        if self._reloc is not None:
+            rcfg = self.cfg.relocalize
+            lost = (vis < rcfg.lost_visible_ratio or n_reproj < rcfg.lost_min_points
+                    or b_cap > rcfg.lost_b_cap or not (np.isfinite(R).all() and np.isfinite(t).all()))
+            self._bad_streak = self._bad_streak + 1 if lost else 0
+            if self._bad_streak >= rcfg.trigger_consecutive:
+                res = self._reloc.relocalize(pyr.gray[0][0])
+                if res is not None:
+                    return self._relocalized(pyr, targets, timestamp, frame_num, res, finest,
+                                             b_cap, vis, t_start)
 
         kf_cfg = self.cfg.keyframe
         reason = 0
@@ -260,12 +278,16 @@ class EdgeDvoOdometry:
             # the new ref IS frame n-1, at identity relative pose: the
             # inter-frame velocity estimate survives the rollback
             self._dispatch_warm = self._identity()
+            if self._bad_streak == 0:
+                self._register_keyframe(self._prev_pyr)
         elif reason != 0 and not kf_cfg.rollback_resolve:
             # naive ref update: the current frame becomes the keyframe with
             # its (possibly bad) estimate kept
             self.gop.push_keyframe(frame_num, reason, np.asarray(R), np.asarray(t), timestamp)
             self._last_ref_frame = frame_num
             self._set_ref(pyr, targets=targets)
+            if self._bad_streak == 0:
+                self._register_keyframe(pyr)
             self._record(frame_num, solve_ms, finest, b_cap, vis, reason, False)
             self._prev_pyr = pyr
             self._prev_targets = targets
@@ -287,6 +309,29 @@ class EdgeDvoOdometry:
             self._prevpose = None
         self.gop.push_ordinary(frame_num, self._R, self._t, timestamp)
         self._record(frame_num, solve_ms, finest, b_cap, vis, reason, rolled_back, diverged)
+        self._prev_pyr = pyr
+        self._prev_targets = targets
+        return self.gop.global_pose(-1)
+
+    def _register_keyframe(self, pyr: FramePyramid):
+        """Add the keyframe just pushed to the Gop (level 0 of `pyr`, at the
+        Gop's last-keyframe pose) to the relocalization database."""
+        if self._reloc is not None:
+            self._reloc.add_keyframe(pyr.gray[0][0], pyr.depth[0][0], self.gop.last_key_R,
+                                     self.gop.last_key_t, node=self.gop.last_key_index)
+
+    def _relocalized(self, pyr, targets, timestamp, frame_num, res, finest, b_cap, vis, t_start):
+        """Re-anchor at a recovered global pose: the current frame becomes the
+        reference keyframe (REASON_RELOCALIZED) at the PnP-verified pose,
+        tracking resumes from identity, and the frame joins the database.
+        The discarded solve's diagnostics are still recorded."""
+        solve_ms = (time.perf_counter() - t_start) * 1000.0
+        self._last_ref_frame = frame_num
+        self._set_ref(pyr, targets=targets)
+        self.gop.push_keyframe_absolute(frame_num, REASON_RELOCALIZED, res.R, res.t, timestamp)
+        self._bad_streak = 0
+        self._register_keyframe(pyr)
+        self._record(frame_num, solve_ms, finest, b_cap, vis, REASON_RELOCALIZED, False)
         self._prev_pyr = pyr
         self._prev_targets = targets
         return self.gop.global_pose(-1)
@@ -332,6 +377,39 @@ class EdgeDvoOdometry:
                 final_valid=finest.final_valid if keep else None,
             )
         )
+
+    # ------------------------------------------------------------------
+    def keyframe_cloud(self):
+        """(points (M,3) float64 metres in the current reference keyframe's
+        camera frame, its trajectory node): the finest-level edge points the
+        solver extracted, the semi-dense map primitive
+        (`viz.pointcloud.compose_map`). One device->host copy per call."""
+        f = self._ref_feats[0]
+        pts = f.pts3d[0][f.valid[0]].cpu().numpy().astype(np.float64)
+        return pts, self.gop.keyframe_indices()[-1]
+
+    def sync_reloc_db(self) -> int:
+        """Refresh the relocalization database's global poses from the
+        current (refined) trajectory; the number refreshed (0 without
+        relocalization)."""
+        if self._reloc is None:
+            return 0
+        return self._reloc.update_poses(self.gop)
+
+    def pose_information(self):
+        """(info (6,6) float64, sigma2, n_eff) of the last resolved frame at
+        its relative pose against the current reference keyframe, on the
+        finest level over all points (`edge_dvo.pose_information`); None
+        before the second frame. One extra pass, paid only when called."""
+        if self._prev_targets is None:
+            return None
+        f32 = dict(dtype=torch.float32, device=self.device)
+        info, sigma2, n_eff = edge_dvo.pose_information(
+            self._ref_feats[0], self._prev_targets[0], self.intr.at_level(0), self.cfg.solver,
+            torch.as_tensor(self._R, **f32)[None], torch.as_tensor(self._t, **f32)[None],
+        )
+        host = torch.cat([info[0].reshape(-1), sigma2, n_eff]).cpu().numpy()
+        return host[:36].reshape(6, 6).astype(np.float64), float(host[36]), float(host[37])
 
     # ------------------------------------------------------------------
     def trajectory(self):

@@ -36,9 +36,9 @@ from rgbd_odometry_tpu.config import SolverConfig
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.edt import edt_squared
-from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms
+from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms, jacobian_terms
 from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
-from rgbd_odometry_tpu_torch.kernels.sg_terms import subgradient_terms
+from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms, subgradient_terms
 from rgbd_odometry_tpu_torch.ops.canny import canny
 from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
 from rgbd_odometry_tpu_torch.ops.linalg6 import chol_solve6
@@ -554,6 +554,42 @@ def solve_pyramid(
             ref_levels[level], now_levels[level], intr.at_level(level), R, t, cfg, n_iters
         )
     return R, t, tuple(d for d in diags if d is not None)
+
+
+def pose_information(ref_level: RefLevel, now_level: NowLevel, intr_level: Intrinsics,
+                     cfg: SolverConfig, R: torch.Tensor, t: torch.Tensor):
+    """The 6x6 information matrix J^T W J (B,6,6) of the edge-alignment cost
+    at poses (R (B,3,3), t (B,3)), the weighted residual variance sigma2 =
+    sum(w eps^2) / sum(w) (B,) and the effective point count n_eff =
+    sum(w) (B,), over all points of the level (JAX `pose_information`): the
+    per-point terms of the solver's own Jacobian, bilinear on the bf16 DT
+    channel for Gauss-Newton, floor gathers with the "reference" Jacobian
+    for the sub-gradient. Twist layout (translation, rotation)."""
+    check_config(cfg)
+    if cfg.method == "gauss_newton":
+        J, eps, wgt, _ = jacobian_terms(R, t, ref_level.pts3d, ref_level.valid,
+                                        now_level.chans[:, 0], *intr_level,
+                                        cfg.gn_weight_sigma2_px, now_level.scale)
+    else:
+        J, eps, wgt, _ = reference_jacobian_terms(R, t, ref_level.pts3d, ref_level.valid,
+                                                  now_level.dt, *intr_level, cfg.weight_sigma2)
+    info = (J * wgt[..., None]).transpose(-1, -2) @ J
+    n_eff = wgt.sum(-1)
+    sigma2 = (wgt * eps * eps).sum(-1) / torch.clamp(n_eff, min=1e-6)
+    return info, sigma2, n_eff
+
+
+def pose_covariance(info, sigma2, n_eff=None, ridge: float = 1e-9) -> np.ndarray:
+    """Covariance sigma^2 (J^T W J)^-1 from `pose_information` outputs of
+    one pair (host float64), with the n/(n - 6) degrees-of-freedom
+    correction when `n_eff` is given and a ridge for rank-deficient
+    directions."""
+    info = np.asarray(info, np.float64)
+    scale = float(sigma2)
+    if n_eff is not None:
+        n = float(n_eff)
+        scale *= n / max(n - 6.0, 1.0)
+    return scale * np.linalg.inv(info + ridge * np.eye(6))
 
 
 def align_pair(

@@ -1,7 +1,9 @@
 """The port's command line (`python -m rgbd_odometry_tpu_torch.cli`) on the
 CPU: `dvo` at the JAX CLI's defaults against the JAX `EdgeDvoOdometry` and
 ground truth, `eval`, `--gt` files, a short sub-gradient run, the feeder, TUM replay
-against the JAX `TumSource`, the unported flags, and no JAX at import."""
+against the JAX `TumSource`, the map backend (`--loop-close` in both refine modes,
+online and information-weighted, `--map-out`, `--relocalize`, and `refine`
+against the JAX CLI's JSON), the unported flags, and no JAX at import."""
 
 import json
 import os
@@ -130,10 +132,8 @@ def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--loop-close"], ["--relocalize"], ["--viz-dir", "v"], ["--checkpoint", "c.npz"],
-    ["--resume", "c.npz"], ["--trace-dir", "t"], ["--pipelined"], ["--map-out", "m.ply"],
-    ["--refine-every", "2"], ["--refine-mode", "graph"], ["--weighted-refine"],
-    ["--source", "xml:dumps"],
+    ["--viz-dir", "v"], ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--trace-dir", "t"],
+    ["--pipelined"], ["--source", "xml:dumps"],
 ])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(flags):
     with pytest.raises(SystemExit) as exc:
@@ -160,3 +160,103 @@ def test_cli_runs_without_jax():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.count('"ate_rmse"') == 2
+
+
+_LC = ["dvo", "--device", "cpu", "--frames", "12", "--cam-scale", "0.5", "--iterations",
+       "10,5,3,2", "--keyframe-every", "3", "--loop-close", "--no-feeder"]
+
+
+@pytest.fixture(scope="module")
+def loop_close_run(tmp_path_factory):
+    """The JAX loop-closure CLI test's command (tests/test_loop_closure.py)
+    on the port, with the trajectory and map written."""
+    d = tmp_path_factory.mktemp("lc")
+    est, ply = str(d / "est.txt"), str(d / "map.ply")
+    summary = main([*_LC, "--out", est, "--map-out", ply])
+    return summary, est, ply
+
+
+def test_cli_loop_close_and_map(loop_close_run, capsys):
+    summary, est, ply = loop_close_run
+    assert summary["ate_rmse"] < 0.02
+    assert len(summary["closures"]) >= 1
+    with open(ply, "rb") as f:
+        head = f.read(512).decode("latin-1")
+    assert head.startswith("ply") and f"element vertex {summary['map_points']}" in head
+    assert summary["map_points"] > 0
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--weighted-refine"], "(information-weighted odometry edges)"),
+    (["--refine-mode", "graph"], "graph residual"),
+    (["--refine-every", "1"], "online refine @frame"),
+    (["--relocalize"], "relocalizer: "),
+])
+def test_cli_map_backend_modes(flags, line, capsys):
+    summary = main([*_LC, *flags])
+    err = capsys.readouterr().err
+    assert line in err and "loop closures: " in err
+    assert summary["ate_rmse"] < 0.02
+    if "--relocalize" in flags:
+        assert summary["recoveries"] == 0
+
+
+def _write_constraints(path, summary):
+    """The run's closures as `refine --constraints` lines: i j t q weight."""
+    from rgbd_odometry_tpu_torch.core.geometry import quat_from_rotmat
+
+    rows = []
+    for (i, j, _), (R, t) in zip(summary["closures"], summary["closure_poses"]):
+        q = quat_from_rotmat(torch.as_tensor(R)).numpy()
+        rows.append([i, j, *t, *q, 3.0])
+    np.savetxt(path, np.asarray(rows))
+
+
+def test_cli_refine_matches_jax(loop_close_run, tmp_path, capsys):
+    """`refine --robust geman --covariance-out` on the loop-closure run's
+    trajectory and closures: the JAX CLI's JSON (norms within 1e-4
+    relative, closure weights within 1e-3) and covariance."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    summary, est, _ = loop_close_run
+    lc = str(tmp_path / "lc.txt")
+    _write_constraints(lc, summary)
+    out = {}
+    for name, fn, extra in (("port", main, ["--device", "cpu"]), ("jax", jax_main, [])):
+        capsys.readouterr()
+        fn(["refine", est, "--constraints", lc, "--out", str(tmp_path / f"{name}.txt"),
+            "--robust", "geman", "--covariance-out", str(tmp_path / f"{name}.npy"), *extra])
+        out[name] = _last_json(capsys.readouterr().out)
+    p, j = out["port"], out["jax"]
+    assert p["nodes"] == j["nodes"] == 12 and p["loop_closures"] == j["loop_closures"] >= 1
+    np.testing.assert_allclose(p["residual_norms"], j["residual_norms"], rtol=1e-4, atol=2e-6)
+    assert p["residual_norms"][-1] <= p["residual_norms"][0]
+    np.testing.assert_allclose(p["closure_robust_weights"], j["closure_robust_weights"],
+                               rtol=1e-3, atol=1e-4)
+    cov_p, cov_j = np.load(tmp_path / "port.npy"), np.load(tmp_path / "jax.npy")
+    assert cov_p.shape == cov_j.shape == (12, 6, 6)
+    assert np.abs(cov_p - cov_j).max() <= 1e-3 * np.abs(cov_j).max()
+    _, t_p, _ = read_trajectory(str(tmp_path / "port.txt"))
+    _, t_j, _ = read_trajectory(str(tmp_path / "jax.txt"))
+    np.testing.assert_allclose(t_p, t_j, rtol=0, atol=1e-5)
+
+
+def test_cli_map_backend_runs_without_jax(tmp_path):
+    """`dvo --loop-close --relocalize --map-out` and `refine` in a fresh
+    process: no jax module is ever loaded."""
+    est, ply = str(tmp_path / "est.txt"), str(tmp_path / "map.ply")
+    code = (
+        "import runpy, sys\n"
+        f"for argv in ({[*_LC, '--frames', '6', '--relocalize', '--map-out', ply, '--out', est]!r},\n"
+        f"             ['refine', {est!r}, '--device', 'cpu', '--out', {est!r}]):\n"
+        "    sys.argv = ['cli', *argv]\n"
+        "    runpy.run_module('rgbd_odometry_tpu_torch.cli', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "print('JAX_MODULES', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "loop closures: " in r.stderr and '"residual_norms"' in r.stdout

@@ -1,4 +1,5 @@
-"""The PyTorch port imports no JAX, and its chip smoke script refuses to run
+"""The PyTorch port imports no JAX, its modules (the kernel wrappers
+included) import without nvcc, and its chip smoke script refuses to run
 without a CUDA device."""
 
 import os
@@ -26,19 +27,23 @@ def _port_modules():
 def test_port_modules_import_without_jax():
     mods = _port_modules()
     for m in ("solvers.edge_dvo", "kernels.residual", "kernels.sg_terms", "pipeline.feeder",
-              "io.stream", "io.tum", "cli"):
+              "io.stream", "io.tum", "cli", "kernels.match", "kernels.pnp_gn", "ops.features",
+              "ops.epipolar", "solvers.pnp", "solvers.pose_graph", "pipeline.kf_matcher",
+              "pipeline.loop_closure", "pipeline.relocalize", "viz.pointcloud"):
         assert f"rgbd_odometry_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import rgbd_odometry_tpu_torch as p\n"
-        "p.align_pair, p.EdgeDvoOdometry\n"
+        "p.align_pair, p.EdgeDvoOdometry, p.LoopCloser, p.Relocalizer, p.refine_pose_graph\n"
+        "p.information_sqrt, p.marginal_covariance\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "print('JAX_MODULES', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # no nvcc on the PATH: the kernel wrappers build only when they launch
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(sys.executable))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr

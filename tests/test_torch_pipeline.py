@@ -18,7 +18,6 @@ from rgbd_odometry_tpu.config import (  # noqa: E402
     KeyframeConfig,
     PipelineConfig,
     PyramidConfig,
-    RelocalizeConfig,
     SolverConfig,
 )
 from rgbd_odometry_tpu.eval.ate import ate_rmse  # noqa: E402
@@ -150,7 +149,6 @@ def test_divergence_guard_and_pose_prior():
 
 
 UNPORTED = {
-    "relocalize": dict(relocalize=RelocalizeConfig(enabled=True)),
     "gn_take": dict(solver=dataclasses.replace(SOLVER, gather_mode="take")),
     "gn_channels": dict(solver=dataclasses.replace(SOLVER, gn_gradient_mode="channels")),
     "gn_float32": dict(solver=dataclasses.replace(SOLVER, gather_dtype="float32")),
@@ -162,7 +160,8 @@ UNPORTED = {
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_configurations_raise(case):
     """What stays unported raises NotImplementedError naming its ROADMAP
-    item; the motion model, standard LM and parity defaults now run."""
+    item; the motion model, standard LM, parity defaults and relocalization
+    now run."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EdgeDvoOdometry(dataclasses.replace(_config(), **UNPORTED[case]), device="cpu")
 
