@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels from `rgbd_odometry_tpu_torch/csrc/` (one nvcc
+Builds the seven CUDA kernels from `rgbd_odometry_tpu_torch/csrc/` (one nvcc
 per source, all at once), holds each against its plain PyTorch version at
 the main paths' shapes, then drives the port's main paths through their user
 entry points:
@@ -34,12 +34,22 @@ entry points:
                    `--robust geman --covariance-out`: no residual norm grows
                    from one iteration to the next, (N, 6, 6) covariance.
 
-Every kernel's launch counter is read around each phase; each kernel must
-launch on the main paths, and the matching and PnP kernels in each of the
-loop_closure, relocalize, cli_loop_close and cli_weighted_refine phases. Any
-failed check raises (exit code != 0). The line before the last is the
-kernel summary as JSON; the last line is {"ok": true, "device": {...}}. Without a CUDA device the script exits
-with code 2 and prints no result. Imports no JAX.
+`check_level_lm` holds the whole-level LM kernel against its plain version
+on rendered pairs at both Gauss-Newton configurations' level shapes (the
+`dvo` defaults and production_320, B = 64 and B = 1, all 4 levels) and
+times it per level beside the per-iteration route it replaced. Every
+kernel's launch counter is set to 0 before the path phases and read around
+each one: each kernel of the paths must launch; `level_lm` in every
+Gauss-Newton phase, where the per-iteration `fused_gn_terms` must launch
+not at all (it keeps its check); the matching and PnP kernels in each of
+the loop_closure, relocalize, cli_loop_close and cli_weighted_refine
+phases. Any failed check raises (exit code != 0). The line before the last
+is the kernel summary as JSON: per kernel its launches on the paths, its
+error against the plain version, its and the plain version's CUDA-event
+time, and its bound (the larger of the bytes it must move over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s, from the check's own inputs).
+The last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits with code 2 and prints no result. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -63,8 +73,23 @@ BATCH = 64
 STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
-KERNELS = ("edt", "fused_gn", "residual", "sg_terms", "match", "pnp_gn")
+KERNELS = ("edt", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm")
 MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
+# the phases that solve Gauss-Newton levels: level_lm must launch there, and
+# the per-iteration fused_gn_terms (which level_lm replaced) must not
+GN_PHASES = ("stream", "batch", "cli_default", "cli_default_no_feeder", "relocalize",
+             "cli_loop_close", "cli_weighted_refine")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+# float32 operations per point, counted in the CUDA sources
+OPS_GN_POINT = 150  # gn_point (project.cuh): projection 25, bilinear sample 30, weight 7,
+#                     Jacobian 25, 6 products and 27 multiply-adds into the sums
+OPS_RESIDUAL_POINT = 50  # projection, bilinear sample, the e2 multiply-add
+OPS_SG_POINT = 60  # sg_terms.cu
+OPS_PNP_POINT = 130  # pnp_gn.cu, per masked point and iteration
+OPS_PNP_SCORE = 25  # pnp_gn.cu scoring: R^T (P - t), dehomogenize, |r| < threshold
+OPS_LM_STEP = 600  # level_lm.cu, thread 0 per iteration: damped 6x6 Cholesky solve,
+#                    se3_exp, compose, 3 Newton-Schulz steps
 
 
 def _log(msg: str) -> None:
@@ -166,6 +191,23 @@ def _same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that must move `nbytes`
+    (each input read once, each output written once) and do `flops` float32
+    operations: the larger of the two over the H100's published peaks. No
+    single PyTorch call computes any kernel's function, so `library_ms` is
+    null for all of them."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def _sampled_bytes(n_vis, hw: int, reads: int, size: int) -> float:
+    """Bytes of an image that `n_vis` (B,) visible points must read: `reads`
+    samples of `size` bytes each, at most the whole H*W image per pair."""
+    return float(sum(min(hw, reads * int(n)) * size for n in n_vis.tolist()))
+
+
 def _rel(a, b) -> float:
     """Largest per-pair error relative to the pair's largest |b|."""
     bsz = b.shape[0]
@@ -202,7 +244,10 @@ def check_edt(device, rng) -> dict:
             out[(h, w, radius)] = (k_ms, p_ms)
             worst = max(worst, err)
     k_ms, p_ms = out[(240, 320, 16)]
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+    n = BATCH * 240 * 320  # the mask read, D^2 written; 4 ops per pixel in the column
+    # phase, an add and a min per candidate of the row phase's 2R + 1
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
+            **_bound(n * (1 + 4), n * (4 + 2 * (2 * 16 + 1)))}
 
 
 def check_fused_gn(device, rng) -> dict:
@@ -260,9 +305,12 @@ def check_fused_gn(device, rng) -> dict:
              f"energy {rel[2]:.2e}, counts and per-point eps / visibility equal, runs bitwise "
              f"equal; kernel {k_ms:.4f} ms, "
              f"plain {p_ms:.4f} ms")
-        out[(k, dt_kind)] = (k_ms, p_ms)
-    k_ms, p_ms = out[(512, "normalized")]
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+        # points, the sampled DT corners, pose and scale in; H, g, e2, n out
+        nbytes = BATCH * k * 13 + _sampled_bytes(n, img.shape[1] * img.shape[2], 4, 2) + BATCH * (
+            52 + 176)
+        out[(k, dt_kind)] = (k_ms, p_ms, _bound(nbytes, int(n.sum()) * OPS_GN_POINT))
+    k_ms, p_ms, bound = out[(512, "normalized")]
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bound}
 
 
 def check_residual(device, rng) -> dict:
@@ -299,9 +347,12 @@ def check_residual(device, rng) -> dict:
             p_ms = _time_ms(lambda: residual.residual_pass_plain(*args), 20)
             _log(f"{what} B={BATCH}: energy rel err {rel:.2e}, counts, eps and visibility "
                  f"bitwise, runs bitwise equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            out[(k, bilinear)] = (k_ms, p_ms)
-    k_ms, p_ms = out[(512, True)]
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+            nbytes = BATCH * k * 13 + _sampled_bytes(ker[1], img.shape[1] * img.shape[2], 4, 2) + (
+                BATCH * (48 + 8))
+            out[(k, bilinear)] = (k_ms, p_ms,
+                                  _bound(nbytes, int(ker[1].sum()) * OPS_RESIDUAL_POINT))
+    k_ms, p_ms, bound = out[(512, True)]
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bound}
 
 
 def check_sg_terms(device, rng) -> dict:
@@ -335,9 +386,13 @@ def check_sg_terms(device, rng) -> dict:
         p_ms = _time_ms(lambda: sg_terms.subgradient_terms_plain(*args), 20)
         _log(f"{what} B={BATCH}: rel err g {rel[0]:.2e} energy {rel[1]:.2e}, counts, eps and "
              f"visibility bitwise, runs bitwise equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        out[k] = (k_ms, p_ms)
-    k_ms, p_ms = out[8192]
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+        # points and pose in, five float32 DT reads per visible point; g, e2,
+        # n and the per-point eps and visibility out
+        nbytes = BATCH * k * 13 + _sampled_bytes(ker[2], dt.shape[1] * dt.shape[2], 5, 4) + (
+            BATCH * (48 + 32 + 5 * k))
+        out[k] = (k_ms, p_ms, _bound(nbytes, int(ker[2].sum()) * OPS_SG_POINT))
+    k_ms, p_ms, bound = out[8192]
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bound}
 
 
 def match_inputs(rng, device):
@@ -412,7 +467,14 @@ def check_match(device, rng) -> dict:
              f"{goods[49]} path {goods[:32]}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         out[floor] = (k_ms, p_ms)
     k_ms, p_ms = out[1e-3]
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+    # descriptors and masks in, (ref_idx, dist, good) per row and num_good
+    # out; the row and the column pass each take the 64-long multiply-add
+    # chain of every valid (query, slot) keypoint pair
+    s_n, k_n, d_n = sd.shape
+    nbytes = (s_n + 1) * k_n * (4 * d_n + 1) + s_n * k_n * 9 + s_n * 4
+    pairs = int(qv.sum()) * int(sv.sum())
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
+            **_bound(nbytes, 2 * pairs * d_n * 2)}
 
 
 def pnp_inputs(rng, device):
@@ -481,11 +543,167 @@ def check_pnp(device, rng) -> dict:
     eye = torch.eye(3, device=device).expand(PNP_HYPOTHESES, 3, 3).contiguous()
     zero = torch.zeros((PNP_HYPOTHESES, 3), device=device)
     pl, err_h, k_ms, p_ms = phase("hypotheses", masks, eye, zero, 4)
+    # correspondences, masks and start poses in; poses, counts, inliers out
+    b_n, k_n = masks.shape
+    bound = _bound(k_n * 21 + b_n * k_n + b_n * 48 + b_n * (52 + k_n),
+                   4 * int(masks.sum()) * OPS_PNP_POINT + b_n * int(valid.sum()) * OPS_PNP_SCORE)
     b = int(torch.argmax(pl[2]))
     _require(int(pl[2][b]) >= 250, f"pnp_gn: the best hypothesis has {int(pl[2][b])} inliers")
     _, err_r, _, _ = phase("refine", pl[3][b : b + 1].contiguous(), pl[0][b : b + 1],
                            pl[1][b : b + 1], 5)
-    return {"max_abs_err": max(err_h, err_r), "ms": k_ms, "plain_ms": p_ms}
+    return {"max_abs_err": max(err_h, err_r), "ms": k_ms, "plain_ms": p_ms, **bound}
+
+
+@contextlib.contextmanager
+def _per_iteration_route():
+    """`level_lm_plain` with the per-iteration kernels `fused_gn_terms` and
+    `residual_pass` in place of their plain versions: the route every
+    Gauss-Newton level took before `level_lm` (a Python loop of two kernel
+    launches and ~200 small PyTorch ops per iteration)."""
+    from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, residual
+
+    saved = level_lm.fused_gn_terms_plain, level_lm.residual_pass_plain
+    level_lm.fused_gn_terms_plain = fused_iter.fused_gn_terms
+    level_lm.residual_pass_plain = residual.residual_pass
+    try:
+        yield
+    finally:
+        level_lm.fused_gn_terms_plain, level_lm.residual_pass_plain = saved
+
+
+def _check_level_curves(what: str, cfg, ker, pl) -> float:
+    """The CPU tests' bars (tests/test_torch_level_lm.py) between the kernel
+    and its plain version, pair by pair: energies within 1e-3 relative
+    (standard LM) or 3e-3 (deferred accept); the best iteration equal or on
+    a plateau below 1e-3; poses within 1e-3; the standard LM's moves equal
+    except on plateaus below 1e-3. A pair may stop at another iteration only
+    on such a plateau: a step below the termination norm accepted by one and
+    not by the other, after which the other's energies stay within 1e-3 of
+    its last common one. Returns the largest pose difference."""
+    e_k, e_p = ker.energy.cpu().numpy(), pl.energy.cpu().numpy()
+    n_k, n_p = (e_k != 0).sum(1), (e_p != 0).sum(1)
+    common = np.minimum(n_k, n_p)
+    cols = np.arange(e_k.shape[1])[None, :]
+    head = cols < common[:, None]
+    longer = np.where((n_k > n_p)[:, None], e_k, e_p)
+    last = longer[np.arange(len(common)), np.maximum(common - 1, 0)][:, None]
+    tail = (cols >= common[:, None]) & (longer != 0)
+    bad = []
+    if (np.abs(longer - last) > 1e-3 * last)[tail].any():
+        bad.append("a pair stops at another iteration off a plateau")
+    rtol = 3e-3 if cfg.lm_deferred_accept else 1e-3
+    rel = np.where(head, np.abs(e_k - e_p) / np.maximum(np.abs(e_p), 1e-30), 0.0)
+    if rel.max() > rtol:
+        bad.append(f"energy relative error {rel.max():.2e} > {rtol}")
+    e_any = np.where(e_p != 0, e_p, e_k)
+    bk, bp = ker.best_iter.cpu().numpy(), pl.best_iter.cpu().numpy()
+    rows = np.arange(len(bk))
+    if (np.abs(e_any[rows, bk] - e_any[rows, bp]) > 1e-3 * e_any[rows, bp]).any():
+        bad.append("best iterations differ off a plateau")
+    if not cfg.lm_deferred_accept:
+        live = head[:, 1:]
+        d_k = (e_k[:, :-1] - e_k[:, 1:]) / np.maximum(e_k[:, :-1], 1e-30)
+        d_p = (e_p[:, :-1] - e_p[:, 1:]) / np.maximum(e_p[:, :-1], 1e-30)
+        differ = live & ((d_k != 0) != (d_p != 0))
+        if (np.abs(d_k[differ]) >= 1e-3).any() or (np.abs(d_p[differ]) >= 1e-3).any():
+            bad.append("accept/reject decisions differ off a plateau")
+    err = max(float((ker.R - pl.R).abs().max()), float((ker.t - pl.t).abs().max()))
+    if err >= 1e-3:
+        bad.append(f"pose error {err:.2e} >= 1e-3")
+    if bad:
+        for i in np.nonzero((n_k != n_p) | (bk != bp) | (rel.max(1) > rtol))[0][:4]:
+            _log(f"  {what} pair {i}: kernel {e_k[i].tolist()} best {bk[i]}; "
+                 f"plain {e_p[i].tolist()} best {bp[i]}")
+    _require(not bad, f"{what}: " + "; ".join(bad))
+    stops = int((n_k != n_p).sum())
+    if stops:
+        _log(f"  {what}: {stops} pairs stop at another iteration, on a plateau")
+    return err
+
+
+def check_level_lm(device, rng) -> dict:
+    """Kernel 5 vs its plain version at the Gauss-Newton configurations'
+    level shapes: the `dvo` defaults (standard LM on the normalized DT,
+    capacities 8192/4096/2048/1024, 18/6/4/3 iterations) and production_320
+    (deferred accept, pixel-unit windowed DT, 2048/1024/512/512), each on 64
+    rendered pairs and on one, at all 4 levels from the identity. The CPU
+    tests' bars against the plain version; iteration 0's energy equal to
+    `fused_gn_terms`' at the start pose (1e-6 relative); a second launch
+    bitwise equal. CUDA-event times per level of the kernel, the
+    per-iteration route it replaced and the plain version."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig, SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    prof = profiles.production_320()
+    configs = {
+        "dvo": (SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3)),
+                PipelineConfig().pyramid.max_points),
+        "production_320": (prof.solver, prof.max_points),
+    }
+    rg, rd, ng, nd, _ = render_batch(prof.camera, BATCH)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    ref_pyr, now_pyr = build_pyramid(f(rg), f(rd), 4), build_pyramid(f(ng), f(nd), 4)
+    intr = Intrinsics.from_config(prof.camera)
+    worst, summary = 0.0, None
+    for name, (cfg, max_points) in configs.items():
+        refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, max_points)
+        nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        for b in (BATCH, 1):
+            for lvl in range(3, -1, -1):
+                ref, now = refs[lvl], nows[lvl]
+                pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
+                img, scale = now.chans[:b, 0], now.scale[:b]
+                li, n_iters = intr.at_level(lvl), cfg.iterations[lvl]
+                jstride, stride = edge_dvo.level_strides(cfg, pts.shape[1])
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+                args = (R0, t0, pts, valid, count, img, scale, *li, cfg, n_iters, jstride, stride)
+                ker = level_lm.level_lm(*args)
+                again = level_lm.level_lm(*args)
+                pl = level_lm.level_lm_plain(*args)
+                pj, vj = pts[:, ::jstride].contiguous(), valid[:, ::jstride].contiguous()
+                e0 = fused_iter.fused_gn_terms(R0, t0, pj, vj, img, *li, cfg.gn_weight_sigma2_px,
+                                               scale)[2]
+                torch.cuda.synchronize()
+                what = f"level_lm {name} B={b} level {lvl}"
+                _require(all(a is None and c is None or _same_bits(a, c)
+                             for a, c in zip(ker, again)), f"{what}: runs differ")
+                _require(bool(torch.isfinite(ker.R).all() and torch.isfinite(ker.t).all()),
+                         f"{what}: non-finite pose")
+                rel0 = _rel(ker.energy[:, :1], e0[:, None])
+                _require(rel0 <= 1e-6, f"{what}: iteration 0 energy vs fused_gn_terms {rel0:.2e}")
+                err = _check_level_curves(what, cfg, ker, pl)
+                worst = max(worst, err)
+                k_ms = _time_ms(lambda: level_lm.level_lm(*args), 20)
+                with _per_iteration_route():
+                    r_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 3)
+                p_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 2)
+                k_jac = pj.shape[1]
+                ran = (ker.energy != 0).sum(-1)
+                n_valid = vj.sum(-1)
+                passes = OPS_GN_POINT + (0 if cfg.lm_deferred_accept else
+                                         OPS_RESIDUAL_POINT * (2 if stride > 1 else 1) / stride)
+                flops = float((ran * n_valid).sum()) * passes + float(ran.sum()) * OPS_LM_STEP
+                # the Jacobian subset, its sampled DT corners, pose, count and
+                # scale in; pose, curve, best iteration and energy out (and the
+                # tracked per-point values)
+                hw = img.shape[1] * img.shape[2]
+                nbytes = b * (k_jac * 13 + min(hw, 4 * k_jac) * 2 + 56 + 56 + 4 * n_iters) + (
+                    b * (pts.shape[1] * 5 + 4) if ker.eps is not None else 0)
+                bound = _bound(nbytes, flops)
+                _log(f"{what} (jstride {jstride}, stride {stride}, {k_jac} points, {n_iters} "
+                     f"iterations, {int(ran.sum())} run): pose err {err:.2e}, runs bitwise equal; "
+                     f"level_lm {k_ms:.4f} ms, per-iteration kernels {r_ms:.4f} ms, plain "
+                     f"{p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.3f} us "
+                     f"({bound['bound_by']})")
+                if name == "dvo" and b == BATCH and lvl == 0:
+                    summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    return {"max_abs_err": worst, **summary}
 
 
 def _trajectory(n: int, step: float = 0.002):
@@ -831,11 +1049,13 @@ def run_cli_refine(loop_close: dict) -> dict:
 
 
 def _launch_counters():
-    from rgbd_odometry_tpu_torch.kernels import edt, fused_iter, match, pnp_gn, residual, sg_terms
+    from rgbd_odometry_tpu_torch.kernels import (
+        edt, fused_iter, level_lm, match, pnp_gn, residual, sg_terms,
+    )
 
     return {"edt": edt.edt_squared, "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
-            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn}
+            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm}
 
 
 def main() -> int:
@@ -872,6 +1092,7 @@ def main() -> int:
         "sg": check_sg_terms(device, rng),
         "match": check_match(device, rng),
         "pnp": check_pnp(device, rng),
+        "level_lm": check_level_lm(device, rng),
     }
 
     counters = _launch_counters()
@@ -904,9 +1125,13 @@ def main() -> int:
         if name in map_phases:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
                      f"{name}: the matching or PnP kernel was not launched")
+        if name in GN_PHASES:
+            _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
+        _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
-    _require(all(n > 0 for n in launches.values()), "a kernel was not launched on the main paths")
+    _require(all(n > 0 for k, n in launches.items() if k != "gn"),
+             "a kernel was not launched on the main paths")
 
     src = "rgbd_odometry_tpu_torch/csrc/"
     kernels = [
@@ -928,6 +1153,10 @@ def main() -> int:
         {"name": "pnp_gn", "route": "cuda", "source": src + "pnp_gn.cu",
          "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 (XLA, no Pallas kernel)",
          "launches": launches["pnp"], **res["pnp"]},
+        {"name": "level_lm", "route": "cuda", "source": src + "level_lm.cu",
+         "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159 + solvers/edge_dvo.py:261 "
+                     "(the lax.scan level loops :586, :754)",
+         "launches": launches["level_lm"], **res["level_lm"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

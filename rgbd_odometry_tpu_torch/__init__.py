@@ -28,11 +28,12 @@ counterpart of the projection in `ops/project.py`):
 
 Idiom: plain functions on tensors with a leading batch dimension (in place
 of `vmap`) and an explicit device. The configuration dataclasses and
-profiles are the JAX package's own jax-free modules, re-exported here.
+profiles (`config.py`, `profiles.py`) are the port's own copies of the JAX
+package's: the port imports nothing of `rgbd_odometry_tpu`.
 """
 
-from rgbd_odometry_tpu import profiles  # noqa: F401  (jax-free)
-from rgbd_odometry_tpu.config import (  # noqa: F401  (jax-free)
+from rgbd_odometry_tpu_torch import profiles  # noqa: F401
+from rgbd_odometry_tpu_torch.config import (  # noqa: F401
     CameraConfig,
     KeyframeConfig,
     PipelineConfig,

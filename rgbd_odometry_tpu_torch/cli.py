@@ -53,12 +53,12 @@ def _make_source(args):
         frames = TumSource(args.source[4:], start=start, end=args.end).frames()
         cam = None
         if args.calib:
-            from rgbd_odometry_tpu.io.calib import read_calib_xml
+            from rgbd_odometry_tpu_torch.io.calib import read_calib_xml
 
             cam = read_calib_xml(args.calib)
         gt = None
     else:
-        from rgbd_odometry_tpu.config import CameraConfig
+        from rgbd_odometry_tpu_torch.config import CameraConfig
 
         cam = CameraConfig()
         if args.cam_scale != 1.0:
@@ -66,7 +66,7 @@ def _make_source(args):
         degrade = None
         if (args.noise > 0 or args.texture > 0 or args.illum_drift != 0 or args.depth_quantize
                 or args.depth_holes > 0 or args.dropout_blobs > 0 or args.motion_blur > 0):
-            from rgbd_odometry_tpu.io.synthetic import Degradations
+            from rgbd_odometry_tpu_torch.io.synthetic import Degradations
 
             degrade = Degradations(
                 texture_amp=args.texture,
@@ -117,7 +117,7 @@ def cmd_dvo(args):
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr) != args.unported_defaults[attr]:
             _unported(flag, item)
-    from rgbd_odometry_tpu.config import (
+    from rgbd_odometry_tpu_torch.config import (
         CameraConfig, KeyframeConfig, PipelineConfig, RelocalizeConfig, SolverConfig,
     )
     from rgbd_odometry_tpu_torch.device import resolve_device
@@ -289,8 +289,8 @@ def cmd_dvo(args):
         # GT files are ~100 Hz mocap vs ~30 Hz frames: pair by nearest
         # timestamp, rebase both to their first pose, normalize drift by
         # the elapsed time
-        from rgbd_odometry_tpu.eval.ate import ate_rmse, drift_stats
-        from rgbd_odometry_tpu_torch.io.tum import associate_trajectories, read_trajectory
+        from rgbd_odometry_tpu_torch.eval.ate import ate_rmse, associate_trajectories, drift_stats
+        from rgbd_odometry_tpu_torch.io.tum import read_trajectory
 
         gt_R, gt_t, gt_ts = read_trajectory(args.gt)
         assoc = associate_trajectories(R, t, ts, gt_R, gt_t, gt_ts, max_dt=args.gt_max_dt)
@@ -306,7 +306,7 @@ def cmd_dvo(args):
                 "frames_compared": len(t_e),
             }))
     if gt is not None:
-        from rgbd_odometry_tpu.eval.ate import ate_rmse, drift_stats, rebase_to_first
+        from rgbd_odometry_tpu_torch.eval.ate import ate_rmse, drift_stats, rebase_to_first
 
         gt_R, gt_t = gt
         start = args.start or 0
@@ -384,8 +384,8 @@ def cmd_refine(args):
 
 
 def cmd_eval(args):
-    from rgbd_odometry_tpu.eval.ate import ate_rmse, drift_stats, rpe
-    from rgbd_odometry_tpu_torch.io.tum import associate_trajectories, read_trajectory
+    from rgbd_odometry_tpu_torch.eval.ate import ate_rmse, associate_trajectories, drift_stats, rpe
+    from rgbd_odometry_tpu_torch.io.tum import read_trajectory
 
     R_e, t_e, ts_e = read_trajectory(args.est)
     R_g, t_g, ts_g = read_trajectory(args.gt, skip_lines=args.gt_skip)

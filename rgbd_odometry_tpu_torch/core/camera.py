@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from rgbd_odometry_tpu.config import CameraConfig
+from rgbd_odometry_tpu_torch.config import CameraConfig
 
 
 class Intrinsics(NamedTuple):

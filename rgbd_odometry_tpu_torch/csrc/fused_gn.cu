@@ -16,7 +16,8 @@
 //   -> J^T W J (6x6), J^T W eps (6), sum eps^2, visible count
 //
 // so nothing between the point tensor and the 6x6 outputs touches device
-// memory. Outputs: H (B,6,6), g (B,6), e2 (B,) float32 and n (B,) int32
+// memory (one point's terms: `gn_point` of project.cuh, which level_lm.cu
+// shares). Outputs: H (B,6,6), g (B,6), e2 (B,) float32 and n (B,) int32
 // (the wrapper takes sqrt(e2) as the energy), and when eps_out is not null
 // the per-point eps (B,K) float32 (0 where invisible) and visible (B,K)
 // uint8, as residual.cu writes them (a stride-1 scan tracks both at its
@@ -50,7 +51,7 @@
 namespace {
 
 using rgbd::kThreads;
-constexpr int kTerms = 29;  // 21 (upper triangle of H) + 6 (g) + e2 + count
+constexpr int kTerms = rgbd::kGnTerms;
 
 __global__ void __launch_bounds__(kThreads)
 fused_gn(const float* __restrict__ R, const float* __restrict__ T,
@@ -74,46 +75,10 @@ fused_gn(const float* __restrict__ R, const float* __restrict__ T,
   for (int m = 0; m < kTerms; ++m) acc[m] = 0.0f;
 
   for (int i = tid; i < k; i += kThreads) {
-    float eps = 0.0f;
-    bool vis = false;
-    if (V[i]) {
-      const rgbd::Projected p = rgbd::project(pose, P + 3 * i, fx, fy, cx, cy);
-      vis = rgbd::in_image(p.u, p.v, h, w);
-      if (vis) {
-        float gu, gv;
-        rgbd::sample_bilinear(I, h, w, p.u, p.v, &eps, &gu, &gv);
-        // w = 6 / (6 + eps_px^2 / sigma^2), as PyTorch evaluates 6.0 / x
-        const float eps_px = __fdiv_rn(eps, sc);
-        const float wgt = __fmul_rn(
-            __frcp_rn(__fadd_rn(6.0f, __fmul_rn(__fmul_rn(eps_px, eps_px), inv_sigma2))), 6.0f);
-
-        // textbook image Jacobian: d eps / d[v, w] = G A1 [-I | hat(X')]
-        const float ga0 = __fdiv_rn(__fmul_rn(gu, fx), p.zs);
-        const float ga1 = __fdiv_rn(__fmul_rn(gv, fy), p.zs);
-        const float ga2 = __fdiv_rn(
-            -__fadd_rn(__fmul_rn(__fmul_rn(gu, fx), p.xn), __fmul_rn(__fmul_rn(gv, fy), p.yn)),
-            p.zs);
-        const float xz = __fmul_rn(p.xn, p.z), yz = __fmul_rn(p.yn, p.z);
-        float J[6];
-        J[0] = -ga0;
-        J[1] = -ga1;
-        J[2] = -ga2;
-        J[3] = __fsub_rn(__fmul_rn(ga1, p.z), __fmul_rn(ga2, yz));
-        J[4] = __fsub_rn(__fmul_rn(ga2, xz), __fmul_rn(ga0, p.z));
-        J[5] = __fsub_rn(__fmul_rn(ga0, yz), __fmul_rn(ga1, xz));
-
-        int m = 0;
-#pragma unroll
-        for (int r = 0; r < 6; ++r) {
-          const float jw = __fmul_rn(J[r], wgt);
-#pragma unroll
-          for (int c = r; c < 6; ++c) acc[m++] += jw * J[c];
-          acc[21 + r] += jw * eps;
-        }
-        acc[27] = __fmaf_rn(eps, eps, acc[27]);
-        acc[28] += 1.0f;
-      }
-    }
+    float eps;
+    bool vis;
+    rgbd::gn_point(pose, P[3 * i], P[3 * i + 1], P[3 * i + 2], V[i] != 0, I, h, w, fx, fy, cx,
+                   cy, sc, inv_sigma2, acc, &eps, &vis);
     if (eps_out != nullptr) {
       eps_out[(size_t)b * k + i] = eps;
       vis_out[(size_t)b * k + i] = vis ? 1 : 0;

@@ -1,7 +1,8 @@
 // Device code shared by the point kernels (fused_gn.cu, residual.cu,
-// sg_terms.cu): the warp and pinhole projection of a reference edge point,
-// the inclusive visibility test, the two ways of sampling the DT at the
-// projected point, and the fixed-order block reduction.
+// sg_terms.cu, level_lm.cu): the warp and pinhole projection of a reference
+// edge point, the inclusive visibility test, the two ways of sampling the
+// DT at the projected point, one point's Gauss-Newton terms, and the
+// fixed-order block reduction.
 //
 // Every per-point value is computed with exactly the single, once-rounded
 // operations of the plain PyTorch versions (ops/project.py: project_points;
@@ -45,11 +46,11 @@ struct Projected {
 // where every point lands exactly on a pixel boundary); else a multiply and
 // an add, each rounded.
 template <bool kFmaUV = false>
-__device__ __forceinline__ Projected project(const Pose& p, const float* __restrict__ P,
-                                             float fx, float fy, float cx, float cy) {
-  const float d0 = __fsub_rn(P[0], p.t0);
-  const float d1 = __fsub_rn(P[1], p.t1);
-  const float d2 = __fsub_rn(P[2], p.t2);
+__device__ __forceinline__ Projected project_xyz(const Pose& p, float X, float Y, float Z,
+                                                 float fx, float fy, float cx, float cy) {
+  const float d0 = __fsub_rn(X, p.t0);
+  const float d1 = __fsub_rn(Y, p.t1);
+  const float d2 = __fsub_rn(Z, p.t2);
   const float x0 = __fadd_rn(__fadd_rn(__fmul_rn(d0, p.r00), __fmul_rn(d1, p.r10)), __fmul_rn(d2, p.r20));
   const float x1 = __fadd_rn(__fadd_rn(__fmul_rn(d0, p.r01), __fmul_rn(d1, p.r11)), __fmul_rn(d2, p.r21));
   const float z = __fadd_rn(__fadd_rn(__fmul_rn(d0, p.r02), __fmul_rn(d1, p.r12)), __fmul_rn(d2, p.r22));
@@ -61,6 +62,13 @@ __device__ __forceinline__ Projected project(const Pose& p, const float* __restr
   return Projected{xn, yn, z, zs, __fadd_rn(__fmul_rn(fx, xn), cx), __fadd_rn(__fmul_rn(fy, yn), cy)};
 }
 
+// `project_xyz` of the point at P (3 floats).
+template <bool kFmaUV = false>
+__device__ __forceinline__ Projected project(const Pose& p, const float* __restrict__ P,
+                                             float fx, float fy, float cx, float cy) {
+  return project_xyz<kFmaUV>(p, P[0], P[1], P[2], fx, fy, cx, cy);
+}
+
 // Visibility inclusive of the far image edge (u <= W, v <= H), as the
 // reference's bound check.
 __device__ __forceinline__ bool in_image(float u, float v, int h, int w) {
@@ -70,7 +78,8 @@ __device__ __forceinline__ bool in_image(float u, float v, int h, int w) {
 // Bilinear sample of a bf16 image + the exact interpolant gradients
 // (border-clamped, i1 = min(i0+1, n-1)); the four corners are widened to
 // float32 and blended with float32 weights. fminf/fmaxf keep the indices in
-// range whatever u, v are.
+// range whatever u, v are. The corners are read through the read-only data
+// path (the image is L2-resident and never written by the kernel).
 __device__ __forceinline__ void sample_bilinear(const __nv_bfloat16* __restrict__ I, int h, int w,
                                                 float u, float v, float* val, float* gu, float* gv) {
   const float uc = fminf(fmaxf(u, 0.0f), (float)(w - 1));
@@ -80,10 +89,11 @@ __device__ __forceinline__ void sample_bilinear(const __nv_bfloat16* __restrict_
   const float omfu = __fsub_rn(1.0f, fu), omfv = __fsub_rn(1.0f, fv);
   const int j0 = (int)j0f, i0 = (int)i0f;
   const int j1 = min(j0 + 1, w - 1), i1 = min(i0 + 1, h - 1);
-  const float a00 = __bfloat162float(I[(size_t)i0 * w + j0]);
-  const float a01 = __bfloat162float(I[(size_t)i0 * w + j1]);
-  const float a10 = __bfloat162float(I[(size_t)i1 * w + j0]);
-  const float a11 = __bfloat162float(I[(size_t)i1 * w + j1]);
+  const unsigned short* U = reinterpret_cast<const unsigned short*>(I);
+  const float a00 = __bfloat162float(__ushort_as_bfloat16(__ldg(U + (size_t)i0 * w + j0)));
+  const float a01 = __bfloat162float(__ushort_as_bfloat16(__ldg(U + (size_t)i0 * w + j1)));
+  const float a10 = __bfloat162float(__ushort_as_bfloat16(__ldg(U + (size_t)i1 * w + j0)));
+  const float a11 = __bfloat162float(__ushort_as_bfloat16(__ldg(U + (size_t)i1 * w + j1)));
   const float row0 = __fadd_rn(__fmul_rn(omfv, a00), __fmul_rn(fv, a10));
   const float row1 = __fadd_rn(__fmul_rn(omfv, a01), __fmul_rn(fv, a11));
   *val = __fadd_rn(__fmul_rn(omfu, row0), __fmul_rn(fu, row1));
@@ -119,6 +129,63 @@ __device__ __forceinline__ void sample_floor_cgrads(const float* __restrict__ D,
   *gx = __fmul_rn(0.5f, __fsub_rn(row[reflect101(j + 1, w)], row[reflect101(j - 1, w)]));
   *gy = __fmul_rn(0.5f, __fsub_rn(D[(size_t)reflect101(i + 1, h) * w + j],
                                   D[(size_t)reflect101(i - 1, h) * w + j]));
+}
+
+constexpr int kGnTerms = 29;  // 21 (upper triangle of H) + 6 (g) + e2 + count
+
+// One reference point's Gauss-Newton terms at `pose` against the bf16 DT I:
+// bilinear sample + interpolant gradients, robust weight 6 / (6 + eps_px^2
+// / sigma^2) with eps_px = eps / sc, the textbook image Jacobian of the
+// right-multiplied update, and its addends to the 29 running sums acc (the
+// row-major upper triangle of J^T W J, J^T W eps, then e2 and the visible
+// count). Writes the residual (0 where invisible) and the visibility.
+__device__ __forceinline__ void gn_point(const Pose& pose, float X, float Y, float Z, bool valid,
+                                         const __nv_bfloat16* __restrict__ I, int h, int w,
+                                         float fx, float fy, float cx, float cy, float sc,
+                                         float inv_sigma2, float (&acc)[kGnTerms], float* eps_o,
+                                         bool* vis_o) {
+  float eps = 0.0f;
+  bool vis = false;
+  if (valid) {
+    const Projected p = project_xyz(pose, X, Y, Z, fx, fy, cx, cy);
+    vis = in_image(p.u, p.v, h, w);
+    if (vis) {
+      float gu, gv;
+      sample_bilinear(I, h, w, p.u, p.v, &eps, &gu, &gv);
+      // w = 6 / (6 + eps_px^2 / sigma^2), as PyTorch evaluates 6.0 / x
+      const float eps_px = __fdiv_rn(eps, sc);
+      const float wgt = __fmul_rn(
+          __frcp_rn(__fadd_rn(6.0f, __fmul_rn(__fmul_rn(eps_px, eps_px), inv_sigma2))), 6.0f);
+
+      // textbook image Jacobian: d eps / d[v, w] = G A1 [-I | hat(X')]
+      const float ga0 = __fdiv_rn(__fmul_rn(gu, fx), p.zs);
+      const float ga1 = __fdiv_rn(__fmul_rn(gv, fy), p.zs);
+      const float ga2 = __fdiv_rn(
+          -__fadd_rn(__fmul_rn(__fmul_rn(gu, fx), p.xn), __fmul_rn(__fmul_rn(gv, fy), p.yn)),
+          p.zs);
+      const float xz = __fmul_rn(p.xn, p.z), yz = __fmul_rn(p.yn, p.z);
+      float J[6];
+      J[0] = -ga0;
+      J[1] = -ga1;
+      J[2] = -ga2;
+      J[3] = __fsub_rn(__fmul_rn(ga1, p.z), __fmul_rn(ga2, yz));
+      J[4] = __fsub_rn(__fmul_rn(ga2, xz), __fmul_rn(ga0, p.z));
+      J[5] = __fsub_rn(__fmul_rn(ga0, yz), __fmul_rn(ga1, xz));
+
+      int m = 0;
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        const float jw = __fmul_rn(J[r], wgt);
+#pragma unroll
+        for (int c = r; c < 6; ++c) acc[m++] += jw * J[c];
+        acc[21 + r] += jw * eps;
+      }
+      acc[27] = __fmaf_rn(eps, eps, acc[27]);
+      acc[28] += 1.0f;
+    }
+  }
+  *eps_o = eps;
+  *vis_o = vis;
 }
 
 // Sum N per-thread partials over the block in a fixed tree order; the sums

@@ -1,10 +1,13 @@
-// Small dense pose algebra for one thread: the 6x6 Cholesky solve and the
-// SE(3) exponential, element by element with round-to-nearest intrinsics
-// (nothing is contracted into a fused multiply-add). The plain PyTorch
-// counterparts are `_chol_solve6` and `_se3_exp` in kernels/pnp_gn.py,
-// which perform these operations in this order; the math is that of
-// ops/linalg6.chol_solve6 (1e-20 pivot floor) and core/geometry.se3_exp
-// (sin and cos taken in double and rounded once).
+// Small dense pose algebra for one thread: the 6x6 Cholesky solve, the
+// SE(3) exponential, the compose of a right-multiplied update, the
+// Newton-Schulz re-orthogonalization and the Levenberg-Marquardt step
+// (damped system, trust region), element by element with round-to-nearest
+// intrinsics (nothing is contracted into a fused multiply-add). The plain
+// PyTorch twins are the functions of the same names in
+// kernels/se3_plain.py, which perform these operations in this order; the
+// math is that of ops/linalg6.chol_solve6 (1e-20 pivot floor),
+// core/geometry (se3_exp with sin and cos taken in double and rounded once,
+// compose, rotationize_newton) and kernels/level_lm.lm_psi.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,6 +81,67 @@ __device__ inline void se3_exp(const float psi[6], float R[9], float t[3]) {
   for (int i = 0; i < 3; ++i)
     t[i] = fadd(fadd(fmul(V[i * 3 + 0], psi[0]), fmul(V[i * 3 + 1], psi[1])),
                 fmul(V[i * 3 + 2], psi[2]));
+}
+
+// C = A^T B for 3x3 row-major matrices.
+__device__ __forceinline__ void mat3_tn(const float A[9], const float B[9], float C[9]) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      C[i * 3 + j] = fadd(fadd(fmul(A[0 * 3 + i], B[0 * 3 + j]), fmul(A[1 * 3 + i], B[1 * 3 + j])),
+                          fmul(A[2 * 3 + i], B[2 * 3 + j]));
+}
+
+// The right-multiplied update (R xR, t + R xt).
+__device__ inline void compose(const float R[9], const float t[3], const float xR[9],
+                               const float xt[3], float Ro[9], float to[3]) {
+  mat3(R, xR, Ro);
+  for (int i = 0; i < 3; ++i)
+    to[i] = fadd(t[i], fadd(fadd(fmul(R[i * 3 + 0], xt[0]), fmul(R[i * 3 + 1], xt[1])),
+                            fmul(R[i * 3 + 2], xt[2])));
+}
+
+// Newton-Schulz polar iteration X <- X (1.5 I - 0.5 X^T X), 3 steps, in place.
+__device__ inline void rotationize_newton(float X[9]) {
+  for (int it = 0; it < 3; ++it) {
+    float M[9], Y[9], Z[9];
+    mat3_tn(X, X, M);
+    for (int i = 0; i < 9; ++i) Y[i] = fsub((i % 4 == 0) ? 1.5f : 0.0f, fmul(0.5f, M[i]));
+    mat3(X, Y, Z);
+    for (int i = 0; i < 9; ++i) X[i] = Z[i];
+  }
+}
+
+// |psi|: the squares summed in order, then a correctly rounded sqrt.
+__device__ __forceinline__ float norm6(const float p[6]) {
+  float acc = fmul(p[0], p[0]);
+  for (int i = 1; i < 6; ++i) acc = fadd(acc, fmul(p[i], p[i]));
+  return __fsqrt_rn(acc);
+}
+
+// psi scaled back onto the ball |psi| <= radius, in place.
+__device__ __forceinline__ void trust_region(float psi[6], float radius) {
+  const float n = norm6(psi);
+  if (n > radius) {
+    const float s = fdiv(radius, fmaxf(n, 1e-30f));
+    for (int i = 0; i < 6; ++i) psi[i] = fmul(psi[i], s);
+  }
+}
+
+// The damped system H + lam diag(max(diag H, 1e-8)) (6x6 row-major).
+__device__ __forceinline__ void lm_damped(const float H[36], float lam, float A[36]) {
+  for (int i = 0; i < 36; ++i)
+    A[i] = (i % 7 == 0) ? fadd(H[i], fmul(lam, fmaxf(H[i], 1e-8f))) : H[i];
+}
+
+// The Levenberg-Marquardt step psi = -(H + lam diag H)^-1 g, projected onto
+// the trust region.
+__device__ inline void lm_psi(const float H[36], const float g[6], float lam, float radius,
+                              float psi[6]) {
+  float A[36], x[6];
+  lm_damped(H, lam, A);
+  chol_solve6(A, g, x);
+  for (int i = 0; i < 6; ++i) psi[i] = -x[i];
+  trust_region(psi, radius);
 }
 
 }  // namespace rgbd

@@ -5,8 +5,8 @@
 A source yields (gray level-0 float32 0..255, depth level-0 float32 mm,
 timestamp s) as numpy arrays; the driver or `pipeline/feeder.FrameFeeder`
 moves them to the device. The synthetic camera renders with the port's
-`se3_exp` (`io/synthetic.py`); TUM replay decodes PNGs with the JAX
-package's jax-free native loader (a C++ worker pool off the GIL) when it
+`se3_exp` (`io/synthetic.py`); TUM replay decodes PNGs with the native
+loader (`io/native_loader.py`, a C++ worker pool off the GIL) when it
 builds, else with cv2.
 """
 
@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rgbd_odometry_tpu.config import CameraConfig
+from rgbd_odometry_tpu_torch.config import CameraConfig
 
 
 @dataclass
@@ -79,7 +79,7 @@ class TumSource:
         seq = open_sequence(self.root)
         end = len(seq) if self.end is None else min(self.end, len(seq))
         if self.native:
-            from rgbd_odometry_tpu.io import native_loader as nl
+            from rgbd_odometry_tpu_torch.io import native_loader as nl
 
             if nl.available():
                 entries = [

@@ -1,8 +1,6 @@
 """TUM RGB-D dataset ingestion and trajectory files: port of
-`rgbd_odometry_tpu/io/tum.py`, with the port's quaternions. The JAX
-package's module imports its JAX geometry, and its
-`eval.ate.associate_trajectories` imports that module, so the port carries
-both here; the rest of `eval.ate` is jax-free and is imported.
+`rgbd_odometry_tpu/io/tum.py`, with the port's quaternions (the JAX
+package's module imports its JAX geometry).
 
 Trajectory files are TUM format `timestamp tx ty tz qx qy qz qw`; depth PNGs
 are uint16 at 5000 units per metre, converted to millimetres with 0 -> 1.
@@ -18,6 +16,7 @@ import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.core import geometry as geo
+from rgbd_odometry_tpu_torch.eval.ate import rebase_to_first
 
 
 def write_trajectory(path: str, R: np.ndarray, t: np.ndarray, timestamps: np.ndarray):
@@ -59,8 +58,6 @@ def read_trajectory(
     q = torch.as_tensor(np.asarray(q_list, np.float32).reshape(-1, 4))
     R = geo.rotmat_from_quat(q).numpy().astype(np.float64)
     if rebase and len(t):
-        from rgbd_odometry_tpu.eval.ate import rebase_to_first
-
         R, t = rebase_to_first(R, t)
     return R, t, ts
 
@@ -135,26 +132,3 @@ def open_sequence(root: str, max_dt: float = 0.02) -> TumSequence:
         depth_files=[depth_files[j] for _, j in pairs],
         timestamps=np.asarray([ts_rgb[i] for i, _ in pairs]),
     )
-
-
-def associate_trajectories(est_R, est_t, est_ts, gt_R, gt_t, gt_ts, max_dt: float = 0.02,
-                           rebase: bool = True):
-    """Pair estimate and ground-truth poses by nearest timestamp (`associate`),
-    optionally rebasing both matched sub-trajectories to their first pose
-    (the JAX `eval.ate.associate_trajectories`). Returns (est_R, est_t,
-    gt_R, gt_t, duration_s) over the matched pairs, or None when nothing
-    associates within `max_dt`."""
-    from rgbd_odometry_tpu.eval.ate import rebase_to_first
-
-    pairs = associate(np.asarray(est_ts, np.float64), np.asarray(gt_ts, np.float64), max_dt)
-    if not pairs:
-        return None
-    ie = np.asarray([i for i, _ in pairs])
-    ig = np.asarray([j for _, j in pairs])
-    R_e, t_e = est_R[ie], est_t[ie]
-    R_g, t_g = gt_R[ig], gt_t[ig]
-    if rebase:
-        R_e, t_e = rebase_to_first(R_e, t_e)
-        R_g, t_g = rebase_to_first(R_g, t_g)
-    duration = float(np.asarray(est_ts)[ie[-1]] - np.asarray(est_ts)[ie[0]])
-    return R_e, t_e, R_g, t_g, duration

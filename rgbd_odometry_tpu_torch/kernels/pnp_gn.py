@@ -15,8 +15,9 @@ raises.
 The plain version performs the kernel's operations in the kernel's order:
 each per-point term with one rounding per operation, the sums over points
 as each of 128 threads' running sum followed by the kernel's fixed
-pairwise tree, the 6x6 Cholesky and `se3_exp` element by element (sin and
-cos in float64, rounded once; square roots correctly rounded). Kernel and
+pairwise tree, the 6x6 Cholesky and `se3_exp` element by element through
+the twins of `csrc/se3.cuh` in `kernels/se3_plain.py` (sin and cos in
+float64, rounded once; square roots correctly rounded). Kernel and
 plain version therefore agree to the last bit, so that ill-conditioned
 4-point hypotheses cannot amplify a summation-order difference.
 """
@@ -28,17 +29,13 @@ import ctypes
 import torch
 
 from rgbd_odometry_tpu_torch.kernels import build
+from rgbd_odometry_tpu_torch.kernels.se3_plain import chol_solve6, mat3, se3_exp, sqrt
 
 THREADS = 128  # the kernel's block size: the partial-sum layout both versions share
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
     + [ctypes.c_void_p] * 5
 )
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root."""
-    return torch.sqrt(x.double()).float()
 
 
 def point_terms(obj, imn, R, t):
@@ -83,65 +80,6 @@ def _block_sum(x: torch.Tensor) -> torch.Tensor:
 _UPPER = [(i, j) for i in range(6) for j in range(i, 6)]
 
 
-def _chol_solve6(H, g):
-    """Solve H x = g, H a 6x6 nested list of (B,) tensors, g a list of 6, by
-    the port's `ops/linalg6.chol_solve6` factorization (1e-20 pivot floor),
-    element by element in the kernel's order."""
-    L = [[None] * 6 for _ in range(6)]
-    for j in range(6):
-        s = []
-        for r in range(j, 6):
-            acc = torch.zeros_like(g[0])
-            for c in range(j):
-                acc = acc + L[r][c] * L[j][c]
-            s.append(H[r][j] - acc)
-        d = _sqrt(torch.clamp(s[0], min=1e-20))
-        L[j][j] = d
-        inv = torch.reciprocal(d)
-        for r in range(j + 1, 6):
-            L[r][j] = s[r - j] * inv
-    y = [None] * 6
-    for i in range(6):
-        acc = torch.zeros_like(g[0])
-        for c in range(i):
-            acc = acc + L[i][c] * y[c]
-        y[i] = (g[i] - acc) / L[i][i]
-    x = [None] * 6
-    for i in reversed(range(6)):
-        acc = torch.zeros_like(g[0])
-        for c in range(i + 1, 6):
-            acc = acc + L[c][i] * x[c]
-        x[i] = (y[i] - acc) / L[i][i]
-    return x
-
-
-def _mat3(A, B):
-    return [[A[i][0] * B[0][j] + A[i][1] * B[1][j] + A[i][2] * B[2][j] for j in range(3)]
-            for i in range(3)]
-
-
-def _se3_exp(psi):
-    """Twist [v, w] (six (B,) tensors) -> (R 3x3, t 3) nested lists, the
-    port's `core/geometry.se3_exp` written element by element."""
-    v, w = psi[:3], psi[3:]
-    theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
-    theta = _sqrt(theta2 + 1e-16)
-    small = theta2 < 1e-8
-    sin = torch.sin(theta.double()).float()
-    cos = torch.cos(theta.double()).float()
-    a = torch.where(small, 1.0 - theta2 / 6.0, sin / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos) / theta2)
-    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - sin) / (theta2 * theta))
-    z = torch.zeros_like(theta2)
-    W = [[z, -w[2], w[1]], [w[2], z, -w[0]], [-w[1], w[0], z]]
-    WW = _mat3(W, W)
-    eye = [[torch.ones_like(z) if i == j else z for j in range(3)] for i in range(3)]
-    R = [[eye[i][j] + a * W[i][j] + b * WW[i][j] for j in range(3)] for i in range(3)]
-    V = [[eye[i][j] + b * W[i][j] + c * WW[i][j] for j in range(3)] for i in range(3)]
-    t = [V[i][0] * v[0] + V[i][1] * v[1] + V[i][2] * v[2] for i in range(3)]
-    return R, t
-
-
 def gn_step_plain(obj, imn, R, t, mask):
     """One Gauss-Newton iteration for B problems: (R (B,3,3), t (B,3)) after
     the right-multiplied update T <- T exp(delta), delta = -(J^T J + 1e-9
@@ -159,11 +97,11 @@ def gn_step_plain(obj, imn, R, t, mask):
         H[i][j] = H[j][i] = sums[:, n]
     for i in range(6):
         H[i][i] = H[i][i] + 1e-9
-    x = _chol_solve6(H, [sums[:, 21 + i] for i in range(6)])
-    xR, xt = _se3_exp([-xi for xi in x])
+    x = chol_solve6(H, [sums[:, 21 + i] for i in range(6)])
+    xR, xt = se3_exp([-xi for xi in x])
     Rl = [[R[:, i, j] for j in range(3)] for i in range(3)]
     t_new = [t[:, i] + (Rl[i][0] * xt[0] + Rl[i][1] * xt[1] + Rl[i][2] * xt[2]) for i in range(3)]
-    R_new = _mat3(Rl, xR)
+    R_new = mat3(Rl, xR)
     return (torch.stack([torch.stack(row, -1) for row in R_new], -2),
             torch.stack(t_new, -1))
 
@@ -171,7 +109,7 @@ def gn_step_plain(obj, imn, R, t, mask):
 def score_plain(obj, imn, R, t, score_mask, inlier_thresh):
     """Inliers (B,K): score_mask & |r| < inlier_thresh at poses (R, t)."""
     r0, r1, _, _ = point_terms(obj, imn, R, t)
-    err = _sqrt(r0 * r0 + r1 * r1)
+    err = sqrt(r0 * r0 + r1 * r1)
     return score_mask[None, :] & (err < inlier_thresh)
 
 

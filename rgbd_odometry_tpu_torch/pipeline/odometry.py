@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rgbd_odometry_tpu.config import PipelineConfig
+from rgbd_odometry_tpu_torch.config import PipelineConfig
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.core.pyramid import FramePyramid, build_pyramid
 from rgbd_odometry_tpu_torch.device import resolve_device

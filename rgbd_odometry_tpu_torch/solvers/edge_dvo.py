@@ -15,12 +15,12 @@ Three level solvers are ported:
   Jacobian.
 
 The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
-the EDT (`kernels/edt.py`) in `prepare_now_level`; the Gauss-Newton normal
-equations (`kernels/fused_iter.py`); the residual pass (`kernels/residual.
-py`) for the LM accept test and the all-point diagnostics; one sub-gradient
-iteration's J^T W eps (`kernels/sg_terms.py`). Configurations outside these
-raise `NotImplementedError` naming the ROADMAP item that will port them
-(`check_config`).
+the EDT (`kernels/edt.py`) in `prepare_now_level`; a whole Gauss-Newton
+level, both LM loops, in one launch (`kernels/level_lm.py`); the residual
+pass (`kernels/residual.py`) for the all-point diagnostics; one
+sub-gradient iteration's J^T W eps (`kernels/sg_terms.py`). Configurations
+outside these raise `NotImplementedError` naming the ROADMAP item that will
+port them (`check_config`).
 """
 
 from __future__ import annotations
@@ -32,16 +32,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rgbd_odometry_tpu.config import SolverConfig
+from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.edt import edt_squared
-from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms, jacobian_terms
+from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
+from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
+from rgbd_odometry_tpu_torch.kernels.level_lm import sel as _sel
+from rgbd_odometry_tpu_torch.kernels.level_lm import trust_region as _trust_region
 from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
 from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms, subgradient_terms
 from rgbd_odometry_tpu_torch.ops.canny import canny
 from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
-from rgbd_odometry_tpu_torch.ops.linalg6 import chol_solve6
 
 _PARITY = "ROADMAP.md Queue 1, 'reference-parity mode'"
 
@@ -235,50 +237,20 @@ def prepare_now_targets(
 # --------------------------------------------------------------------------
 
 
-def _strided(r: RefLevel, s: int) -> RefLevel:
-    return RefLevel(
-        pts3d=r.pts3d[:, ::s].contiguous(),
-        uv=r.uv[:, ::s],
-        valid=r.valid[:, ::s].contiguous(),
-        count=torch.clamp(r.count // s, min=1),
+def _diagnostics(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
+                 energy, best_iter) -> LevelDiagnostics:
+    """All-point diagnostics of a Gauss-Newton level at the returned pose:
+    one residual pass (kernel 3) over every point of the level (JAX
+    `_project_and_sample`), sampled as JAX `_sample_dt` samples: the bf16 DT
+    channel, bilinear."""
+    energy_best, n, eps, visible = residual_pass(
+        R, t, ref.pts3d, ref.valid, now.chans[:, 0], *intr, bilinear=True, write_points=True,
     )
-
-
-def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.where with a per-pair (B,) mask broadcast over trailing dims."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-
-
-def _diagnostics(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics, cfg: SolverConfig,
-                 energies, best_iter) -> LevelDiagnostics:
-    """All-point diagnostics at the returned pose: one residual pass
-    (kernel 3) over every point of the level (JAX `_project_and_sample`),
-    sampled as JAX `_sample_dt` samples: the bf16 DT channel, bilinear, for
-    Gauss-Newton; the float32 DT, floor, for the sub-gradient."""
-    gn = cfg.method == "gauss_newton"
-    energy, n, eps, visible = residual_pass(
-        R, t, ref.pts3d, ref.valid, now.chans[:, 0] if gn else now.dt, *intr, bilinear=gn,
-        write_points=True,
-    )
-    vis = n.to(energy.dtype) / torch.clamp(ref.count, min=1).to(energy.dtype)
+    vis = n.to(energy_best.dtype) / torch.clamp(ref.count, min=1).to(energy_best.dtype)
     return LevelDiagnostics(
-        energy=torch.stack(energies, dim=-1), best_energy=energy, best_iter=best_iter,
+        energy=energy, best_energy=energy_best, best_iter=best_iter,
         visible_ratio=vis, final_epsilons=eps, final_valid=visible, num_points=ref.count,
     )
-
-
-def _trust_region(psi: torch.Tensor, radius: float) -> torch.Tensor:
-    """psi (B,6) scaled back onto the ball |psi| <= radius."""
-    norm = torch.linalg.vector_norm(psi, dim=-1)
-    scale = torch.where(norm > radius, radius / torch.clamp(norm, min=1e-30), torch.ones_like(norm))
-    return psi * scale[:, None]
-
-
-def _lm_psi(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, trust_region: float):
-    """Levenberg-Marquardt step psi = -(H + lam diag(H))^-1 g, projected
-    onto the trust region (JAX `_lm_psi`, :797-816)."""
-    damp = torch.diag_embed(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8))
-    return _trust_region(-chol_solve6(H + lam[:, None, None] * damp, g), trust_region)
 
 
 def _subgradient_step(R, t, g, descent, itr: int, cfg: SolverConfig, precond: torch.Tensor):
@@ -298,9 +270,8 @@ def _subgradient_step(R, t, g, descent, itr: int, cfg: SolverConfig, precond: to
     return _trust_region(-step * precond * descent, cfg.trust_region_radius), descent
 
 
-def _run_level_lm_deferred(
+def _run_level_subgradient(
     ref: RefLevel,
-    ref_jac: RefLevel,
     now: NowLevel,
     intr_level: Intrinsics,
     R0: torch.Tensor,
@@ -308,114 +279,19 @@ def _run_level_lm_deferred(
     cfg: SolverConfig,
     n_iters: int,
 ):
-    """Deferred-accept Levenberg-Marquardt level solve (JAX `:625-772`).
-
-    Each iteration is one pass of kernel 2 over the strided point set at the
-    current pose; its energy is the verdict on the pending proposal. On
-    reject the pose reverts to the backup and the step is recomputed from
-    the backup's carried (H, g, energy) with raised lambda — the same math
-    as the JAX carry of per-point (J, eps, wgt), which the body uses only
-    through H and g. The best iterate over evaluated poses is returned, with
-    all-point diagnostics at that pose.
-    """
-    dev, dt = R0.device, R0.dtype
-    b = R0.shape[0]
-    img = now.chans[:, 0]
-    R, t = R0, t0
-    Rb, tb = R0, t0
-    Hb = torch.zeros((b, 6, 6), dtype=dt, device=dev)
-    gb = torch.zeros((b, 6), dtype=dt, device=dev)
-    eb = torch.full((b,), float("inf"), dtype=dt, device=dev)
-    pending = torch.zeros((b,), dtype=torch.bool, device=dev)
-    lam = torch.full((b,), cfg.lm_damping, dtype=dt, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    best_energy = torch.full((b,), 1.0e10, dtype=dt, device=dev)
-    best_R, best_t = R0, t0
-    best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    energies = []
-    for itr in range(n_iters):
-        H, g, energy, _ = fused_gn_terms(
-            R, t, ref_jac.pts3d, ref_jac.valid, img, *intr_level, cfg.gn_weight_sigma2_px,
-            now.scale,
-        )
-        accept = (~pending) | (energy < eb)
-        worse = pending & (energy > eb)
-        lam = torch.where(done, lam, torch.where(
-            pending & accept, torch.clamp(lam / 3.0, min=1e-8),
-            torch.where(worse, torch.clamp(lam * 4.0, max=1e6), lam),
-        ))
-        R_cur, t_cur = _sel(accept, R, Rb), _sel(accept, t, tb)
-        H_use, g_use = _sel(accept, H, Hb), _sel(accept, g, gb)
-        e_use = torch.where(accept, energy, eb)
-
-        is_better = (energy <= best_energy) & (~done)
-        best_energy = torch.where(is_better, energy, best_energy)
-        best_R, best_t = _sel(is_better, R, best_R), _sel(is_better, t, best_t)
-        best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
-
-        psi = _lm_psi(H_use, g_use, lam, cfg.lm_trust_region)
-        newly_done = accept & pending & (
-            torch.linalg.vector_norm(psi, dim=-1) < cfg.psi_norm_termination
-        )
-        do_update = (~done) & (~newly_done)
-
-        xR, xt = geo.se3_exp(psi)
-        R_prop = R_cur @ xR
-        if cfg.rotationize:
-            R_prop = geo.rotationize_newton(R_prop)
-        t_prop = t_cur + (R_cur @ xt[..., None])[..., 0]
-
-        energies.append(torch.where(done, torch.zeros_like(energy), energy))
-        R, t = _sel(do_update, R_prop, R_cur), _sel(do_update, t_prop, t_cur)
-        Rb, tb = _sel(do_update, R_cur, Rb), _sel(do_update, t_cur, tb)
-        Hb, gb = _sel(do_update, H_use, Hb), _sel(do_update, g_use, gb)
-        eb = torch.where(do_update, e_use, eb)
-        pending = torch.where(done | newly_done, torch.zeros_like(pending), do_update)
-        done = done | newly_done
-
-    if cfg.rotationize:
-        best_R = geo.rotationize_newton(best_R)
-    best_R, best_t = best_R.contiguous(), best_t.contiguous()
-    diag = _diagnostics(best_R, best_t, ref, now, intr_level, cfg, energies, best_iter)
-    return best_R, best_t, diag
-
-
-def _run_level_scan(
-    ref: RefLevel,
-    ref_jac: RefLevel,
-    ref_sub: RefLevel,
-    stride: int,
-    now: NowLevel,
-    intr_level: Intrinsics,
-    R0: torch.Tensor,
-    t0: torch.Tensor,
-    cfg: SolverConfig,
-    n_iters: int,
-):
-    """The standard level solve (the JAX `lax.scan` body, :493-622): the
-    sub-gradient method, or Levenberg-Marquardt with an accept/reject pass.
-
-    Energy is evaluated at the pose entering each iteration; the best
+    """The reference's sub-gradient level solve (the JAX `lax.scan` body,
+    :493-622, sub-gradient branch): kernel 4 on every point at the pose
+    entering each iteration, then the damped, projected step. The best
     iterate (<=, later ties win) is returned; early termination freezes the
-    pair and zeroes its remaining energy entries. Gauss-Newton runs kernel 2
-    on `ref_jac` at the current pose, then kernel 3 on `ref_sub` at the
-    proposal: a decrease accepts it and lowers lambda, an exact tie neither
-    moves nor raises lambda, an increase raises it; a rejected step never
-    terminates. The sub-gradient runs kernel 4 on all points. With a
-    stride-1 point set the diagnostics are the scan's own at the best
-    iterate (kernel 2 or 4 writes the per-point values in the same pass);
-    otherwise one all-point pass at the returned pose.
-    """
-    lm_mode = cfg.method == "gauss_newton"
+    pair and zeroes its remaining energy entries. The diagnostics are the
+    scan's own at the best iterate (kernel 4 writes the per-point values in
+    the same pass)."""
     dev, dt = R0.device, R0.dtype
-    b, k = R0.shape[0], ref_jac.pts3d.shape[1]
-    img = now.chans[:, 0]
-    track = ref_jac is ref  # diagnostics from the scan (jstride == 1)
+    b, k = R0.shape[0], ref.pts3d.shape[1]
     precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dt, device=dev)
-    n_valid = torch.clamp(ref_jac.count, min=1).to(dt)
+    n_valid = torch.clamp(ref.count, min=1).to(dt)
     R, t = R0, t0
     descent = torch.zeros((b, 6), dtype=dt, device=dev)
-    lam = torch.full((b,), cfg.lm_damping, dtype=dt, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     best_energy = torch.full((b,), 1.0e10, dtype=dt, device=dev)
     best_R = torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3).contiguous()
@@ -427,55 +303,27 @@ def _run_level_scan(
     f = tuple(intr_level)
     energies = []
     for itr in range(n_iters):
-        if lm_mode:
-            H, g, energy, n_vis, *pts_out = fused_gn_terms(
-                R, t, ref_jac.pts3d, ref_jac.valid, img, *f, cfg.gn_weight_sigma2_px, now.scale,
-                write_points=track,
-            )
-            if track:
-                eps, visible = pts_out
-        else:
-            g, energy, n_vis, eps, visible = subgradient_terms(
-                R, t, ref_jac.pts3d, ref_jac.valid, now.dt, *f, cfg.weight_sigma2
-            )
+        g, energy, n_vis, eps, visible = subgradient_terms(
+            R, t, ref.pts3d, ref.valid, now.dt, *f, cfg.weight_sigma2
+        )
         is_better = (energy <= best_energy) & (~done)
         best_energy = torch.where(is_better, energy, best_energy)
         best_R, best_t = _sel(is_better, R, best_R), _sel(is_better, t, best_t)
         best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
-        if track:
-            best_vis = torch.where(is_better, n_vis.to(dt) / n_valid, best_vis)
-            best_eps = _sel(is_better, eps, best_eps)
-            best_visible = _sel(is_better, visible, best_visible)
+        best_vis = torch.where(is_better, n_vis.to(dt) / n_valid, best_vis)
+        best_eps = _sel(is_better, eps, best_eps)
+        best_visible = _sel(is_better, visible, best_visible)
 
-        if lm_mode:
-            psi = _lm_psi(H, g, lam, cfg.lm_trust_region)
-        else:
-            psi, descent_new = _subgradient_step(R, t, g, descent, itr, cfg, precond)
+        psi, descent_new = _subgradient_step(R, t, g, descent, itr, cfg, precond)
         psi_norm = torch.linalg.vector_norm(psi, dim=-1)
         xR, xt = geo.se3_exp(psi)
         new_t = t + (R @ xt[..., None])[..., 0]
         new_R = R @ xR
         if cfg.rotationize:
             new_R = geo.rotationize_newton(new_R)
-
-        if lm_mode:
-            e_new = residual_pass(new_R, new_t, ref_sub.pts3d, ref_sub.valid, img, *f,
-                                  bilinear=True)[0]
-            # the current energy over the same subset, by the same pass: an
-            # exact tie at an unchanged pose stays a tie (JAX :529-532)
-            e_cur = energy if stride == 1 else residual_pass(
-                R, t, ref_sub.pts3d, ref_sub.valid, img, *f, bilinear=True)[0]
-            accept = e_new < e_cur
-            worse = e_new > e_cur
-            lam_next = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), torch.where(
-                worse, torch.clamp(lam * 4.0, max=1e6), lam))
-            newly_done = accept & (psi_norm < cfg.psi_norm_termination)
-            do_update = (~done) & (~newly_done) & accept
-            lam = torch.where(done, lam, lam_next)
-        else:
-            newly_done = psi_norm < cfg.psi_norm_termination
-            do_update = (~done) & (~newly_done)
-            descent = _sel(done, descent, descent_new)
+        newly_done = psi_norm < cfg.psi_norm_termination
+        do_update = (~done) & (~newly_done)
+        descent = _sel(done, descent, descent_new)
 
         energies.append(torch.where(done, torch.zeros_like(energy), energy))
         R, t = _sel(do_update, new_R, R), _sel(do_update, new_t, t)
@@ -483,16 +331,24 @@ def _run_level_scan(
 
     if cfg.rotationize:
         best_R = geo.rotationize_newton(best_R)
-    best_R, best_t = best_R.contiguous(), best_t.contiguous()
-    if not track:
-        diag = _diagnostics(best_R, best_t, ref, now, intr_level, cfg, energies, best_iter)
-    else:
-        diag = LevelDiagnostics(
-            energy=torch.stack(energies, dim=-1), best_energy=best_energy, best_iter=best_iter,
-            visible_ratio=best_vis, final_epsilons=best_eps, final_valid=best_visible,
-            num_points=ref.count,
-        )
-    return best_R, best_t, diag
+    diag = LevelDiagnostics(
+        energy=torch.stack(energies, dim=-1), best_energy=best_energy, best_iter=best_iter,
+        visible_ratio=best_vis, final_epsilons=best_eps, final_valid=best_visible,
+        num_points=ref.count,
+    )
+    return best_R.contiguous(), best_t.contiguous(), diag
+
+
+def level_strides(cfg: SolverConfig, cap: int) -> Tuple[int, int]:
+    """(jstride, stride) of a Gauss-Newton level of capacity `cap` (JAX
+    `run_level`, :467-482): the normal equations on every jstride-th point,
+    the standard LM's proposals on every stride-th (stride > 1 only at
+    jstride 1; the deferred accept has no proposal pass)."""
+    jstride = max(1, min(int(cfg.lm_jacobian_stride), cap // 512))
+    stride = 1
+    if jstride == 1 and not cfg.lm_deferred_accept:
+        stride = max(1, min(int(cfg.lm_proposal_stride), cap // 512))
+    return jstride, stride
 
 
 def run_level(
@@ -505,28 +361,34 @@ def run_level(
     n_iters: int,
     collect_trajectory: bool = False,
 ):
-    """One pyramid level (JAX `run_level`, :421-622). Gauss-Newton forms
-    the normal equations on every Nth point, N = jstride = max(1,
+    """One pyramid level (JAX `run_level`, :421-622). Gauss-Newton runs
+    the whole level in one `level_lm` launch (deferred or standard LM): it
+    forms the normal equations on every Nth point, N = jstride = max(1,
     min(lm_jacobian_stride, K // 512)) (:467); when N == 1 the standard LM
     tests proposals on every Mth point, M = max(1, min(lm_proposal_stride,
-    K // 512)), else on the Jacobian's own subset. The sub-gradient uses
+    K // 512)), else on the Jacobian's own subset. With a stride-1 standard
+    LM the diagnostics are the level's own at the best iterate; otherwise
+    one all-point residual pass at the returned pose. The sub-gradient uses
     every point. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
     check_config(cfg)
     if collect_trajectory:
         raise NotImplementedError(
             f"collect_trajectory is not ported to rgbd_odometry_tpu_torch yet; see {_PARITY}"
         )
-    cap = ref.pts3d.shape[1]
-    lm_mode = cfg.method == "gauss_newton"
-    jstride = max(1, min(int(cfg.lm_jacobian_stride), cap // 512)) if lm_mode else 1
-    ref_jac = _strided(ref, jstride) if jstride > 1 else ref
-    if lm_mode and cfg.lm_deferred_accept:
-        return _run_level_lm_deferred(ref, ref_jac, now, intr_level, R0, t0, cfg, n_iters)
-    stride = 1
-    if lm_mode and jstride == 1:
-        stride = max(1, min(int(cfg.lm_proposal_stride), cap // 512))
-    ref_sub = _strided(ref, stride) if stride > 1 else ref_jac
-    return _run_level_scan(ref, ref_jac, ref_sub, stride, now, intr_level, R0, t0, cfg, n_iters)
+    if cfg.method != "gauss_newton":
+        return _run_level_subgradient(ref, now, intr_level, R0, t0, cfg, n_iters)
+    jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
+    out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
+                   *intr_level, cfg, n_iters, jstride, stride)
+    if out.eps is None:
+        diag = _diagnostics(out.R, out.t, ref, now, intr_level, out.energy, out.best_iter)
+    else:
+        diag = LevelDiagnostics(
+            energy=out.energy, best_energy=out.best_energy, best_iter=out.best_iter,
+            visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
+            num_points=ref.count,
+        )
+    return out.R, out.t, diag
 
 
 def solve_pyramid(

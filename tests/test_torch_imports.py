@@ -1,7 +1,9 @@
-"""The PyTorch port imports no JAX, its modules (the kernel wrappers
-included) import without nvcc, and its chip smoke script refuses to run
-without a CUDA device."""
+"""The PyTorch port imports no JAX and nothing of the JAX package
+`rgbd_odometry_tpu`, its modules (the kernel wrappers included) import
+without nvcc, and its chip smoke script refuses to run without a CUDA
+device."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -57,3 +59,68 @@ def test_chip_smoke_fails_without_cuda():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def _names_jax_package(name: str) -> bool:
+    return name in ("jax", "rgbd_odometry_tpu") or name.startswith(("jax.", "rgbd_odometry_tpu."))
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """An AST scan of every module of the port and of chip_smoke.py: no
+    `import` or `from ... import` of `jax` or of `rgbd_odometry_tpu` (the
+    `_torch` package aside), at module level or inside a function."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _names_jax_package(n)]
+    assert len(files) > 40
+    assert not bad, bad
+
+
+_BLOCKER = """
+import importlib.abc, sys
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "rgbd_odometry_tpu") or name.startswith(("jax.", "rgbd_odometry_tpu.")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def test_port_runs_with_the_jax_package_blocked(tmp_path):
+    """With a `sys.meta_path` finder that raises on `rgbd_odometry_tpu` and
+    `jax`, every port module imports and the CLI runs `dvo` on two frames
+    and `eval` on its output."""
+    est = str(tmp_path / "est.txt")
+    code = _BLOCKER + (
+        "import importlib\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from rgbd_odometry_tpu_torch.cli import main\n"
+        f"main(['dvo', '--device', 'cpu', '--frames', '2', '--cam-scale', '0.25', '--out', {est!r}])\n"
+        f"main(['eval', {est!r}, {est!r}])\n"
+        "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'rgbd_odometry_tpu')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(sys.executable))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout
+    assert '"ate_rmse_raw": 0.0' in r.stdout

@@ -10,7 +10,8 @@ features and DT targets carried across with `convert.py`:
   `_project_and_sample` (bars of tests/test_fused_iter.py where JAX rounds
   its gathers to bf16; exact where both are float32 floor lookups), and
   kernel 2's per-point outputs against kernel 3's;
-* `_lm_psi` and `_subgradient_step` against JAX on the same sums.
+* `lm_psi` (`kernels/level_lm`) and `_subgradient_step` against JAX on the
+  same sums.
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ from rgbd_odometry_tpu.ops.matmul_gather import gather_floor_value_cgrads_mm  # 
 from rgbd_odometry_tpu.solvers import edge_dvo as jed  # noqa: E402
 from rgbd_odometry_tpu_torch import convert  # noqa: E402
 from rgbd_odometry_tpu_torch.io.synthetic import render_pair  # noqa: E402
-from rgbd_odometry_tpu_torch.kernels import fused_iter, residual, sg_terms  # noqa: E402
+from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, residual, sg_terms  # noqa: E402
 from rgbd_odometry_tpu_torch.ops.interp import gather_floor, gather_floor_value_cgrads  # noqa: E402
 from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted  # noqa: E402
 
@@ -243,8 +244,8 @@ def test_lm_and_subgradient_steps_match_jax(scene):
                                 done=False, best_energy=0.0, best_R=0.0, best_t=0.0,
                                 best_iter=0, best_vis=0.0, best_eps=0.0, best_visible=0.0)
         psi_j, _ = jed._lm_psi(state, J, eps, wgt, cfg)
-        psi_t = ted._lm_psi(torch.from_numpy(np.asarray(H))[None],
-                            torch.from_numpy(np.asarray(gl))[None], torch.tensor([lam]), tr)
+        psi_t = level_lm.lm_psi(torch.from_numpy(np.asarray(H))[None],
+                                torch.from_numpy(np.asarray(gl))[None], torch.tensor([lam]), tr)
         np.testing.assert_allclose(psi_t[0].numpy(), np.asarray(psi_j), rtol=1e-4,
                                    atol=1e-6 * np.abs(np.asarray(psi_j)).max())
     precond = torch.tensor([1.0, 1.0, 1.0, 0.5, 0.5, 0.5])
