@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels from `rgbd_odometry_tpu_torch/csrc/` (one nvcc
-per source, all at once), holds each against its plain PyTorch version at
-the main paths' shapes, then drives the port's main paths through their user
-entry points:
+Builds the eight CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (nine
+kernels; one nvcc per source, all at once), holds each against its plain
+PyTorch version at the main paths' shapes, then drives the port's main paths
+through their user entry points:
 
   stream           `EdgeDvoOdometry` under production_320 over 30 rendered
                    320x240 frames, keyframe every 5: ATE < 8 mm, keyframes,
@@ -34,14 +34,21 @@ entry points:
                    `--robust geman --covariance-out`: no residual norm grows
                    from one iteration to the next, (N, 6, 6) covariance.
 
-`check_level_lm` holds the whole-level LM kernel against its plain version
-on rendered pairs at both Gauss-Newton configurations' level shapes (the
+`check_canny` and `check_dt_channels` hold the now-frame target kernels
+against their plain versions bitwise at the 4 level shapes, B = 64 and B = 1
+(Canny on rendered frames and on a serpentine weak chain; `dt_channels` for
+the +-16 window and the whole row, with and without normalization, bf16 and
+float32 channels). `check_level_lm` holds the whole-level LM kernel against
+its plain version on rendered pairs at both Gauss-Newton configurations'
+level shapes (the
 `dvo` defaults and production_320, B = 64 and B = 1, all 4 levels) and
 times it per level beside the per-iteration route it replaced. Every
 kernel's launch counter is set to 0 before the path phases and read around
-each one: each kernel of the paths must launch; `level_lm` in every
-Gauss-Newton phase, where the per-iteration `fused_gn_terms` must launch
-not at all (it keeps its check); the matching and PnP kernels in each of
+each one: each kernel of the paths must launch; `canny` and `dt_channels`
+in every Gauss-Newton phase and in cli_subgradient (`edt_squared`, whose
+phases `dt_channels` runs, keeps its check and launches on no path);
+`level_lm` in every Gauss-Newton phase, where the per-iteration
+`fused_gn_terms` must launch not at all (it keeps its check); the matching and PnP kernels in each of
 the loop_closure, relocalize, cli_loop_close and cli_weighted_refine
 phases. Any failed check raises (exit code != 0). The line before the last
 is the kernel summary as JSON: per kernel its launches on the paths, its
@@ -55,6 +62,7 @@ script exits with code 2 and prints no result. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -66,6 +74,9 @@ import time
 import numpy as np
 
 EDT_SHAPES = ((240, 320), (120, 160), (60, 80), (30, 40))  # the 4 levels
+# beside the 4 levels, for the target kernels, 3 images each: odd sizes (unaligned paths,
+# ragged tiles) and VGA (the hysteresis kernel's shared-memory opt-in above 48 KB)
+EXTRA_SHAPES = ((37, 45), (480, 640))
 GN_KS = (512, 2048, 1000)  # LM iteration, level-0 all-point size, ragged
 RESIDUAL_KS = (512, 2048, 8192)  # LM accept pass; all-point passes up to parity's level 0
 SG_KS = (1024, 2048, 4096, 8192)  # the parity capacities, coarse to fine
@@ -73,7 +84,9 @@ BATCH = 64
 STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
-KERNELS = ("edt", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm")
+KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm")
+TARGET_KERNELS = ("canny", "dt_channels")  # every frame's targets launch both
+OFF_PATH = ("edt", "gn")  # entries that keep their check and launch on no path
 MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
@@ -90,6 +103,10 @@ OPS_PNP_POINT = 130  # pnp_gn.cu, per masked point and iteration
 OPS_PNP_SCORE = 25  # pnp_gn.cu scoring: R^T (P - t), dehomogenize, |r| < threshold
 OPS_LM_STEP = 600  # level_lm.cu, thread 0 per iteration: damped 6x6 Cholesky solve,
 #                    se3_exp, compose, 3 Newton-Schulz steps
+OPS_CANNY_PIXEL = 40  # canny.cu front kernel: rounding 3, the pixel's own Sobel 12, its
+#                       share of the magnitude tile's Sobel and square (34x10 over 32x8) 20,
+#                       the sector test and keep rule 5
+OPS_DT_TAIL = 12  # edt.cu: G^2 1, sqrt 1, two gradients 4, normalization 2, conversions 3
 
 
 def _log(msg: str) -> None:
@@ -186,8 +203,9 @@ def _same_bits(a, b) -> bool:
 
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    if bits is not None:
+        return torch.equal(a.view(bits), b.view(bits))
     return torch.equal(a, b)
 
 
@@ -248,6 +266,124 @@ def check_edt(device, rng) -> dict:
     # phase, an add and a min per candidate of the row phase's 2R + 1
     return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
             **_bound(n * (1 + 4), n * (4 + 2 * (2 * 16 + 1)))}
+
+
+def serpentine_image(h: int, w: int):
+    """A band 3 pixels wide, 30 grey levels over the background (a step of
+    30 gives a Sobel magnitude of 120: weak, not strong), that winds through
+    the whole image; its first 3 pixels stand 70 over (strong). The
+    hysteresis must walk the band's outline: thousands of one-pixel steps."""
+    img = np.full((h, w), 40.0, np.float32)
+    rows = list(range(3, h - 6, 8))
+    for k, y in enumerate(rows):
+        img[y:y + 3, 3:w - 3] = 70.0
+        if k + 1 < len(rows):
+            x = w - 6 if k % 2 == 0 else 3
+            img[y:y + 11, x:x + 3] = 70.0
+    img[rows[0]:rows[0] + 3, 3:6] = 110.0
+    return img
+
+
+def check_canny(device, rng) -> dict:
+    """The Canny kernel vs its plain version, `torch.equal`, at the 4 level
+    shapes for B = 64 and B = 1: on the pyramid of 64 rendered frames, on
+    the serpentine image (with its flips) and on 8-bit white noise (ties
+    and sector boundaries of the NMS); then on 3 noise images each of 37x45
+    (a width that is no multiple of 4 or 32) and 480x640. A second launch
+    must be equal."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import canny
+
+    _, _, ng, nd, _ = render_batch(profiles.production_320().camera, BATCH)
+    pyr = build_pyramid(torch.from_numpy(ng).to(device), torch.from_numpy(nd).to(device), 4).gray
+    summary = None
+    noise = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 256, shape).astype(np.float32)).to(device)
+    for lvl, (h, w) in enumerate((*EDT_SHAPES, *EXTRA_SHAPES)):
+        if (h, w) in EXTRA_SHAPES:
+            cases = {"noise": noise(3, h, w)}
+        else:
+            s = serpentine_image(h, w)
+            flips = np.stack([s, s[::-1], s[:, ::-1], s[::-1, ::-1]] * (BATCH // 4))
+            cases = {"rendered": pyr[lvl], "serpentine": torch.from_numpy(flips).to(device),
+                     "noise": noise(BATCH, h, w)}
+            _require(tuple(pyr[lvl].shape) == (BATCH, h, w), "canny: pyramid shape")
+        for kind, imgs in cases.items():
+            for b in sorted({imgs.shape[0], 1}, reverse=True):
+                x = imgs[:b].contiguous()
+                k = canny.canny(x, 100.0, 150.0)
+                again = canny.canny(x, 100.0, 150.0)
+                p = canny.canny_plain(x, 100.0, 150.0)
+                torch.cuda.synchronize()
+                what = f"canny {h}x{w} B={b} {kind}"
+                _require(k.shape == x.shape and k.dtype == torch.bool, f"{what}: shape/dtype")
+                _require(torch.equal(k, again), f"{what}: runs differ")
+                diff = int((k != p).sum())
+                _require(diff == 0, f"{what}: kernel != plain at {diff} pixels")
+                _require(bool(k.flatten(1).any(1).all()), f"{what}: an image has no edge")
+                k_ms = _time_ms(lambda: canny.canny(x, 100.0, 150.0), 20)
+                p_ms = _time_ms(lambda: canny.canny_plain(x, 100.0, 150.0),
+                                3 if kind == "rendered" else 1)
+                n = b * h * w  # the image read, the edge map written
+                bound = _bound(n * (4 + 1), n * OPS_CANNY_PIXEL)
+                _log(f"{what}: equal, runs equal, {float(k.float().mean()) * 100:.2f}% edges; "
+                     f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                     f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                if (lvl, kind, b) == (0, "rendered", BATCH):
+                    summary = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+    return summary
+
+
+def check_dt_channels(device, rng) -> dict:
+    """`dt_channels` vs its plain version: every output bitwise equal for
+    R = 16 / 0, normalization on / off, bf16 / float32 channels, at the 4
+    level shapes, B = 64 (an empty and a full mask among them) and B = 1,
+    and at 37x45 (odd sizes: no cp.async staging, ragged tiles) and 480x640,
+    B = 3; a second launch bitwise equal."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import edt
+
+    names = ("dt", "dgx", "dgy", "scale", "chans")
+    out = {}
+    for h, w in (*EDT_SHAPES, *EXTRA_SHAPES):
+        n_img = 3 if (h, w) in EXTRA_SHAPES else BATCH
+        masks = torch.from_numpy(edge_masks(rng, n_img, h, w)).to(device)
+        for b in (n_img, 1):
+            mask = masks if b == n_img else masks[2:3].contiguous()
+            for radius in (16, 0):
+                for normalize in (False, True):
+                    for bf16 in (True, False):
+                        args = (mask, radius, normalize, bf16)
+                        k = edt.dt_channels(*args)
+                        again = edt.dt_channels(*args)
+                        p = edt.dt_channels_plain(*args)
+                        torch.cuda.synchronize()
+                        what = (f"dt_channels {h}x{w} B={b} R={radius} "
+                                f"{'normalized' if normalize else 'pixels'} "
+                                f"{'bf16' if bf16 else 'f32'}")
+                        for name, a, c, d in zip(names, k, again, p):
+                            _require(a.shape == d.shape and a.dtype == d.dtype,
+                                     f"{what}: {name} shape/dtype")
+                            _require(_same_bits(a, c), f"{what}: {name} runs differ")
+                            _require(_same_bits(a, d), f"{what}: {name} kernel != plain")
+                        k_ms = _time_ms(lambda: edt.dt_channels(*args), 20)
+                        timed = b == BATCH and (h, w) == EDT_SHAPES[0] and bf16
+                        p_ms = _time_ms(lambda: edt.dt_channels_plain(*args),
+                                        3 if radius else 2) if timed else float("nan")
+                        n = b * h * w  # the mask read; dt, dgx, dgy and the channels written
+                        cands = 2 * radius + 1 if radius else w
+                        bound = _bound(n * (1 + 12 + (6 if bf16 else 12)) + 4 * b,
+                                       n * (4 + 2 * cands + OPS_DT_TAIL))
+                        _log(f"{what}: 5 outputs bitwise equal, runs bitwise equal; kernel "
+                             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                             f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                        out[(h, w, b, radius, normalize, bf16)] = {
+                            "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+    return out[(*EDT_SHAPES[0], BATCH, 16, False, True)]
 
 
 def check_fused_gn(device, rng) -> dict:
@@ -753,6 +889,7 @@ def run_stream(device) -> dict:
     return {"ate_mm": ate * 1000.0, "ms_per_frame": ms}
 
 
+@functools.lru_cache(maxsize=2)
 def render_batch(cam, batch: int):
     """`batch` distinct pairs as bench.py renders them (16 scenes, per-pair
     twists around a base twist, supersample 1), with the port's se3_exp."""
@@ -1050,10 +1187,11 @@ def run_cli_refine(loop_close: dict) -> dict:
 
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
-        edt, fused_iter, level_lm, match, pnp_gn, residual, sg_terms,
+        canny, edt, fused_iter, level_lm, match, pnp_gn, residual, sg_terms,
     )
 
-    return {"edt": edt.edt_squared, "gn": fused_iter.fused_gn_terms,
+    return {"edt": edt.edt_squared, "canny": canny.canny, "dt_channels": edt.dt_channels,
+            "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm}
 
@@ -1077,7 +1215,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load_all(KERNELS)
-    _log(f"built {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    _log(f"built {len(KERNELS)} sources in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
     for name in KERNELS:
         rec = build.build_record(name)
         regs = [ln.strip() for ln in rec["ptxas"].splitlines() if "registers" in ln]
@@ -1087,6 +1225,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     res = {
         "edt": check_edt(device, rng),
+        "canny": check_canny(device, rng),
+        "dt_channels": check_dt_channels(device, rng),
         "gn": check_fused_gn(device, rng),
         "residual": check_residual(device, rng),
         "sg": check_sg_terms(device, rng),
@@ -1125,12 +1265,15 @@ def main() -> int:
         if name in map_phases:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
                      f"{name}: the matching or PnP kernel was not launched")
+        if name in GN_PHASES or name == "cli_subgradient":
+            _require(all(n[k] > 0 for k in TARGET_KERNELS),
+                     f"{name}: the canny or dt_channels kernel was not launched")
         if name in GN_PHASES:
             _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
-    _require(all(n > 0 for k, n in launches.items() if k != "gn"),
+    _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
              "a kernel was not launched on the main paths")
 
     src = "rgbd_odometry_tpu_torch/csrc/"
@@ -1138,6 +1281,14 @@ def main() -> int:
         {"name": "edt_squared", "route": "cuda", "source": src + "edt.cu",
          "replaces": "rgbd_odometry_tpu/pallas/edt.py:58", "launches": launches["edt"],
          **res["edt"]},
+        {"name": "dt_channels", "route": "cuda", "source": src + "edt.cu",
+         "replaces": "rgbd_odometry_tpu/pallas/edt.py:58 + solvers/edge_dvo.py:183 (XLA: sqrt, "
+                     "normalization :206, central_gradient, channels)",
+         "launches": launches["dt_channels"], **res["dt_channels"]},
+        {"name": "canny", "route": "cuda", "source": src + "canny.cu",
+         "replaces": "rgbd_odometry_tpu/ops/canny.py:234 (XLA, no Pallas kernel; the "
+                     "lax.while_loop :148)",
+         "launches": launches["canny"], **res["canny"]},
         {"name": "fused_gn_terms", "route": "cuda", "source": src + "fused_gn.cu",
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159", "launches": launches["gn"],
          **res["gn"]},

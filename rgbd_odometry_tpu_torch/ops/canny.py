@@ -2,11 +2,16 @@
 `rgbd_odometry_tpu/ops/canny.py` (`canny`, `_grad_mag`, `_nms`,
 `hysteresis`) in plain PyTorch.
 
+This is the plain version of the Canny kernel (`kernels/canny.py`,
+`csrc/canny.cu`) and the CPU path: the kernel's wrapper sends CPU tensors
+here, and on the card the kernel is held against it, bit for bit.
+
 The arithmetic is the JAX package's float32 emulation of OpenCV's
 fixed-point TG22 sector NMS, operation for operation, so the edge maps are
-bit-identical. The TPU's row bit-packing of the hysteresis masks is not
-ported: here each fixpoint pass is an 8-connected dilation (3x3 max-pool) of
-the current edges masked by the weak candidates.
+bit-identical. Each fixpoint pass is an 8-connected dilation (3x3 max-pool)
+of the current edges masked by the weak candidates, with the changed flag
+read on the host; the kernel runs the same fixpoint on bit-packed words in
+shared memory without a host read.
 """
 
 from __future__ import annotations

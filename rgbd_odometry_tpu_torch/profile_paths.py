@@ -13,6 +13,14 @@ process_frame`, keyframe every 5:
   stream       `profiles.production_320` with rollback re-solves (the
                stream phase of chip_smoke.py).
 
+`--paths targets` (not in the default; run it alone, since after the
+per-frame paths' profiles in the same process the profiler was seen to drop
+kernel records, which this mode reports as an error) profiles the now-frame
+target kernels, 20 calls each at 240x320 for B = 64 and B = 1 on rendered
+frames: the device time per launch of every CUDA kernel behind `canny`,
+`dt_channels` (+-16 window in pixels, and the whole row normalized) and
+`edt_squared`.
+
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
 `FrameMetrics.solve_ms`, the CLI's `avg solve`) and once under the profiler
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +143,46 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     return out
 
 
+def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
+    """Device time per launch (us) of each CUDA kernel behind the target
+    entry points, at 240x320 on `batch` rendered frames and on one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.kernels import canny, edt
+
+    frames, _ = render_sequence(CameraConfig(), _trajectory(batch), seed=0)
+    gray = torch.from_numpy(np.stack([g for g, _ in frames])).to(device)
+    edges = canny.canny(gray)
+    out = {"path": "targets", "batch": batch, "reps": reps}
+    for b in (batch, 1):
+        g, e = gray[:b].contiguous(), edges[:b].contiguous()
+        cases = {
+            "canny": lambda: canny.canny(g),
+            "dt_channels R=16 pixels bf16": lambda: edt.dt_channels(e, 16, False, True),
+            "dt_channels R=0 normalized bf16": lambda: edt.dt_channels(e, 0, True, True),
+            "edt_squared R=16": lambda: edt.edt_squared(e, 16),
+        }
+        for name, fn in cases.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [ev for ev in prof.key_averages()
+                       if ev.device_time_total > 0 and ev.count >= reps]
+            if not kernels:
+                raise RuntimeError(f"profile_targets: no kernel record for {name} B={b}")
+            out[f"{name} B={b}"] = {
+                re.search(r"(\w+(?:<[^>]*>)?)\(", ev.key).group(1): ev.device_time_total / ev.count
+                for ev in kernels}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -154,6 +203,9 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     configs = _configs()
     for name in args.paths.split(","):
+        if name == "targets":
+            profile_targets(device)
+            continue
         cfg = configs[name]
         frames, _ = render_sequence(cfg.camera, _trajectory(args.frames), seed=0)
         profile_path(name, cfg, frames, args.warmup, device)

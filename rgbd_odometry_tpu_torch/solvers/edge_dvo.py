@@ -15,7 +15,9 @@ Three level solvers are ported:
   Jacobian.
 
 The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
-the EDT (`kernels/edt.py`) in `prepare_now_level`; a whole Gauss-Newton
+`prepare_now_level` is one Canny call (`kernels/canny.py`, hysteresis
+fixpoint on the device) and one `dt_channels` call (`kernels/edt.py`: EDT,
+sqrt, normalization, gradients, channels); a whole Gauss-Newton
 level, both LM loops, in one launch (`kernels/level_lm.py`); the residual
 pass (`kernels/residual.py`) for the all-point diagnostics; one
 sub-gradient iteration's J^T W eps (`kernels/sg_terms.py`). Configurations
@@ -35,15 +37,14 @@ import torch.nn.functional as F
 from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
-from rgbd_odometry_tpu_torch.kernels.edt import edt_squared
+from rgbd_odometry_tpu_torch.kernels.canny import canny
+from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
 from rgbd_odometry_tpu_torch.kernels.level_lm import sel as _sel
 from rgbd_odometry_tpu_torch.kernels.level_lm import trust_region as _trust_region
 from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
 from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms, subgradient_terms
-from rgbd_odometry_tpu_torch.ops.canny import canny
-from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
 
 _PARITY = "ROADMAP.md Queue 1, 'reference-parity mode'"
 
@@ -176,10 +177,10 @@ def extract_ref_level(
 def prepare_now_level(
     gray: torch.Tensor, cfg: SolverConfig, edges: torch.Tensor | None = None
 ) -> NowLevel:
-    """Edge map -> squared EDT (kernel 1; +-cfg.edt_window, or the full row
-    when 0) -> sqrt -> optional per-image 0-255 min-max normalization ->
-    central gradients -> channels (bf16 for Gauss-Newton with
-    gather_dtype="bfloat16", else float32), (B, H, W) in.
+    """Edge map (`canny`, kernel 6) -> `dt_channels` (kernel 7): squared EDT
+    (+-cfg.edt_window, or the full row when 0) -> sqrt -> optional per-image
+    0-255 min-max normalization -> central gradients -> channels (bf16 for
+    Gauss-Newton with gather_dtype="bfloat16", else float32), (B, H, W) in.
 
     With `normalize_dt` each image gets its own scale = 255 / max(dmax -
     dmin, 1e-12), DT units per pixel; an edge-free or all-edge image has
@@ -187,23 +188,10 @@ def prepare_now_level(
     check_config(cfg)
     if edges is None:
         edges = canny(gray, cfg.canny_low, cfg.canny_high)
-    # sqrt in float64, rounded once to float32: the correctly rounded
-    # float32 sqrt that XLA computes (torch's vectorized CPU float32 sqrt is
-    # not always correctly rounded, which would break exactness with JAX)
-    d2 = edt_squared(edges, int(cfg.edt_window))
-    dt = torch.sqrt(d2.to(torch.float64)).to(torch.float32)
-    if cfg.normalize_dt:
-        dmin = torch.amin(dt, dim=(-2, -1))
-        span = torch.clamp(torch.amax(dt, dim=(-2, -1)) - dmin, min=1e-12)
-        # a true division, as XLA's 255 / x (torch's `255.0 / span` would
-        # be reciprocal(span) * 255)
-        scale = torch.full_like(span, 255.0) / span
-        dt = (dt - dmin[:, None, None]) * scale[:, None, None]
-    else:
-        scale = torch.ones(dt.shape[0], dtype=dt.dtype, device=dt.device)
-    dgx, dgy = central_gradient(dt)
     gn_bf16 = cfg.method == "gauss_newton" and cfg.gather_dtype == "bfloat16"
-    chans = torch.stack([dt, dgx, dgy], dim=1).to(torch.bfloat16 if gn_bf16 else torch.float32)
+    dt, dgx, dgy, scale, chans = dt_channels(
+        edges, int(cfg.edt_window), bool(cfg.normalize_dt), gn_bf16
+    )
     return NowLevel(dt=dt, dgx=dgx, dgy=dgy, edges=edges, scale=scale, chans=chans)
 
 
