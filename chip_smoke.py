@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eight CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (nine
+Builds the nine CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (ten
 kernels; one nvcc per source, all at once), holds each against its plain
 PyTorch version at the main paths' shapes, then drives the port's main paths
 through their user entry points:
@@ -18,7 +18,8 @@ through their user entry points:
                    EDT, the frame feeder): unaligned ATE < 20 mm; then again
                    with `--no-feeder`: the same trajectory file and metrics;
   cli_subgradient  `dvo --method subgradient --iterations 50,50,50,50
-                   --frames 10`, the reference's solver: ATE < 25 mm;
+                   --frames 10`, the reference's solver, every level one
+                   `level_sg` launch: ATE < 25 mm;
   loop_closure     `LoopCloser` over a rendered 320x240 out-and-back sequence
                    (384 keypoints, 64 hypotheses, slot capacity 4, so that
                    the store doubles): >= 1 closure, each within 2 cm / 0.02
@@ -42,13 +43,19 @@ float32 channels). `check_level_lm` holds the whole-level LM kernel against
 its plain version on rendered pairs at both Gauss-Newton configurations'
 level shapes (the
 `dvo` defaults and production_320, B = 64 and B = 1, all 4 levels) and
-times it per level beside the per-iteration route it replaced. Every
+times it per level beside the per-iteration route it replaced.
+`check_level_sg` does the same for the whole-level sub-gradient kernel at
+the four parity capacities (50 iterations, B = 64 and B = 1), after
+`check_se3_log` has held the device function `se3_log` against its plain
+twin in all three branches. Every
 kernel's launch counter is set to 0 before the path phases and read around
 each one: each kernel of the paths must launch; `canny` and `dt_channels`
 in every Gauss-Newton phase and in cli_subgradient (`edt_squared`, whose
 phases `dt_channels` runs, keeps its check and launches on no path);
 `level_lm` in every Gauss-Newton phase, where the per-iteration
-`fused_gn_terms` must launch not at all (it keeps its check); the matching and PnP kernels in each of
+`fused_gn_terms` must launch not at all (it keeps its check); `level_sg` in
+cli_subgradient, where the per-iteration `subgradient_terms` must launch not
+at all (it keeps its check too); the matching and PnP kernels in each of
 the loop_closure, relocalize, cli_loop_close and cli_weighted_refine
 phases. Any failed check raises (exit code != 0). The line before the last
 is the kernel summary as JSON: per kernel its launches on the paths, its
@@ -84,9 +91,10 @@ BATCH = 64
 STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
-KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm")
+KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
+           "level_sg")
 TARGET_KERNELS = ("canny", "dt_channels")  # every frame's targets launch both
-OFF_PATH = ("edt", "gn")  # entries that keep their check and launch on no path
+OFF_PATH = ("edt", "gn", "sg")  # entries that keep their check and launch on no path
 MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
@@ -98,7 +106,10 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 OPS_GN_POINT = 150  # gn_point (project.cuh): projection 25, bilinear sample 30, weight 7,
 #                     Jacobian 25, 6 products and 27 multiply-adds into the sums
 OPS_RESIDUAL_POINT = 50  # projection, bilinear sample, the e2 multiply-add
-OPS_SG_POINT = 60  # sg_terms.cu
+OPS_SG_POINT = 60  # sg_point (project.cuh): sg_terms.cu and level_sg.cu
+OPS_SG_STEP = 750  # level_sg.cu, thread 0 per iteration: se3_log 150, the normalized pull,
+#                    momentum and preconditioner 60, trust region 20, se3_exp 120, compose 60,
+#                    3 Newton-Schulz steps 330
 OPS_PNP_POINT = 130  # pnp_gn.cu, per masked point and iteration
 OPS_PNP_SCORE = 25  # pnp_gn.cu scoring: R^T (P - t), dehomogenize, |r| < threshold
 OPS_LM_STEP = 600  # level_lm.cu, thread 0 per iteration: damped 6x6 Cholesky solve,
@@ -691,6 +702,18 @@ def check_pnp(device, rng) -> dict:
 
 
 @contextlib.contextmanager
+def _patched(module, **fns):
+    """`module`'s names in `fns` replaced for the length of the block."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def _per_iteration_route():
     """`level_lm_plain` with the per-iteration kernels `fused_gn_terms` and
     `residual_pass` in place of their plain versions: the route every
@@ -698,13 +721,18 @@ def _per_iteration_route():
     launches and ~200 small PyTorch ops per iteration)."""
     from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, residual
 
-    saved = level_lm.fused_gn_terms_plain, level_lm.residual_pass_plain
-    level_lm.fused_gn_terms_plain = fused_iter.fused_gn_terms
-    level_lm.residual_pass_plain = residual.residual_pass
-    try:
-        yield
-    finally:
-        level_lm.fused_gn_terms_plain, level_lm.residual_pass_plain = saved
+    return _patched(level_lm, fused_gn_terms_plain=fused_iter.fused_gn_terms,
+                    residual_pass_plain=residual.residual_pass)
+
+
+def _per_iteration_sg_route():
+    """`level_sg_plain` with the per-iteration kernel `subgradient_terms` in
+    place of its plain version: the route every sub-gradient level took
+    before `level_sg` (a Python loop of one kernel launch and ~230 small
+    PyTorch ops per iteration)."""
+    from rgbd_odometry_tpu_torch.kernels import level_sg, sg_terms
+
+    return _patched(level_sg, subgradient_terms_plain=sg_terms.subgradient_terms)
 
 
 def _check_level_curves(what: str, cfg, ker, pl) -> float:
@@ -838,6 +866,331 @@ def check_level_lm(device, rng) -> dict:
                      f"{p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.3f} us "
                      f"({bound['bound_by']})")
                 if name == "dvo" and b == BATCH and lvl == 0:
+                    summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    return {"max_abs_err": worst, **summary}
+
+
+def se3_log_poses(rng):
+    """Poses (R (n,3,3), t (n,3), CPU float32) over every branch of
+    `se3_log`: rotations of ~1 and ~0.3 rad (generic), ~3e-2 (generic log,
+    Taylor V^-1), 3e-4 and 1e-6 (Taylor log), pi - [0, 1.5e-3] (the near-pi
+    branch and the generic one beside it) and the identity; every second
+    pose carries 1e-7 of noise, as a composed pose is not exactly orthogonal."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+
+    n = 4096
+    psis = [rng.standard_normal((n, 6)) * s for s in (1.0, 0.3, 3e-2, 3e-4, 1e-6)]
+    axis = rng.standard_normal((n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    theta = np.pi - rng.uniform(0, 1.5e-3, n)
+    psis.append(np.concatenate([rng.standard_normal((n, 3)) * 0.3, axis * theta[:, None]], 1))
+    psis.append(np.zeros((4, 6)))
+    R, t = se3_exp(torch.from_numpy(np.concatenate(psis).astype(np.float32)))
+    noise = torch.from_numpy(rng.standard_normal(tuple(R.shape)).astype(np.float32))
+    return R + 1e-7 * noise * (torch.arange(len(R)) % 2)[:, None, None], t
+
+
+def _check_se3_log(device, rng) -> None:
+    """The device function `se3_log` (`csrc/se3.cuh`), one thread a pose,
+    against its plain twin `kernels/se3_plain.se3_log` evaluated on the CPU
+    (IEEE operations; the card's PyTorch divides by a constant through its
+    reciprocal): at least 1000 poses in each of so3_log's three branches and
+    on both sides of V^-1's threshold; every element within 1e-6 of the
+    twin's, relative to max(1, |twin|) (the two double-precision arccos, sin
+    and cos may round apart once in many poses; the rest is bitwise)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_sg, se3_plain
+
+    R, t = se3_log_poses(rng)
+    twin = se3_plain.from_rows(se3_plain.se3_log(se3_plain.to_rows(R), se3_plain.to_rows(t)))
+    dev = level_sg.se3_log_device(R.to(device), t.to(device))
+    again = level_sg.se3_log_device(R.to(device), t.to(device))
+    torch.cuda.synchronize()
+    _require(_same_bits(dev, again), "se3_log: runs differ")
+    dev = dev.cpu()
+    cos = torch.clamp((R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2] - 1.0) * 0.5, -1.0, 1.0)
+    theta2 = (twin[:, 3:] ** 2).sum(-1)
+    branches = {"taylor": int((cos > 1.0 - 1e-6).sum()), "near_pi": int((cos < -(1.0 - 5e-7)).sum()),
+                "generic": int(((cos <= 1.0 - 1e-6) & (cos >= -(1.0 - 5e-7))).sum()),
+                "vinv_taylor": int((theta2 < 1e-3).sum()), "vinv_generic": int((theta2 >= 1e-3).sum())}
+    _require(min(branches.values()) >= 1000, f"se3_log: a branch is hardly exercised: {branches}")
+    _require(bool(torch.isfinite(dev).all()), "se3_log: non-finite twist")
+    err = float(((dev - twin).abs() / twin.abs().clamp(min=1.0)).max())
+    differ = int((dev != twin).any(1).sum())
+    _log(f"se3_log device function vs twin: {len(R)} poses, branches {branches}, {differ} poses "
+         f"not bitwise equal, max error {err:.2e}, runs bitwise equal")
+    _require(err <= 1e-6, f"se3_log: error {err:.2e} > 1e-6")
+
+
+def check_se3_log(device, rng) -> None:
+    """`_check_se3_log` with torch's CPU work held to one thread: its twin
+    runs on CPU tensors, and a first parallel CPU op would start the main
+    thread's intra-op pool, which then competes with the frame feeder's
+    worker in the path phases (cli_default read 4.8-5.6 ms/frame instead of
+    1.7-3.2 after an unguarded check)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _check_se3_log(device, rng)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
+    """Every iteration of a `level_sg` launch held on its own, from the
+    launch's trace (the pose entering each iteration and its g): the
+    sub-gradient descent revisits poses and does not contract, so two free
+    runs may part for good at one floor decision, but a single step cannot.
+    At every pose of the trace, against the `subgradient_terms` kernel there:
+    energy within 1e-5 relative, g within 1e-4 of its largest element. From
+    the trace's pose and g, the plain step (`subgradient_step`, se3_exp,
+    compose, Newton-Schulz) must give the trace's next pose within 1e-6, and
+    a norm on the right side of the termination norm (0.1% slack) where the
+    pair stops or goes on. The result is the curve's last minimum exactly
+    (<=, later ties win), its energy, and that trace pose, re-orthogonalized,
+    within 1e-6. Returns the largest one-step pose difference."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.kernels import level_sg, sg_terms
+
+    R0, t0, pts, valid, count, dt, fx, fy, cx, cy, _, n_iters = args
+    b, dev = R0.shape[0], R0.device
+    ran = (ker.energy != 0).sum(-1)
+    precond = torch.tensor([1.0] * 3 + [cfg.precondition_rot] * 3, device=dev)
+    descent = torch.zeros((b, 6), device=dev)
+    e_err = g_err = step_err = 0.0
+    for i in range(n_iters):
+        live = ran > i
+        if not bool(live.any()):
+            break
+        R, t, g = trace[:, i, :9].reshape(b, 3, 3), trace[:, i, 9:12], trace[:, i, 12:]
+        at = sg_terms.subgradient_terms(R.contiguous(), t.contiguous(), pts, valid, dt, fx, fy,
+                                        cx, cy, cfg.weight_sigma2)
+        e_err = max(e_err, _rel(ker.energy[live, i, None], at[1][live, None]))
+        g_err = max(g_err, _rel(g[live], at[0][live]))
+        psi, descent = level_sg.subgradient_step(R, t, g, descent, i, cfg, precond)
+        norm = torch.linalg.vector_norm(psi, dim=-1)
+        stops = live & (ran == i + 1) & (i + 1 < n_iters)
+        goes = ran > i + 1
+        _require(bool((norm[stops] < cfg.psi_norm_termination * 1.001).all())
+                 and bool((norm[goes] > cfg.psi_norm_termination * 0.999).all()),
+                 f"{what}: iteration {i}: a pair stops or goes on against its step's norm")
+        if bool(goes.any()):
+            xR, xt = geo.se3_exp(psi)
+            nR, nt = geo.compose(R, t, xR, xt)
+            if cfg.rotationize:
+                nR = geo.rotationize_newton(nR)
+            nxt = torch.cat([nR.reshape(b, 9), nt], -1)
+            step_err = max(step_err, float((nxt - trace[:, i + 1, :12])[goes].abs().max()))
+    _require(e_err <= 1e-5 and g_err <= 1e-4,
+             f"{what}: a pass differs from subgradient_terms at its pose: energy {e_err:.2e}, "
+             f"g {g_err:.2e}")
+    _require(step_err <= 1e-6, f"{what}: a step differs from the plain step by {step_err:.2e}")
+    # the best iterate, from the launch's own curve
+    e = torch.where(ker.energy != 0, ker.energy, torch.full_like(ker.energy, float("inf")))
+    best = (n_iters - 1 - torch.argmin(e.flip(-1), dim=-1)).to(torch.int32)
+    rows = torch.arange(b, device=dev)
+    _require(torch.equal(best, ker.best_iter), f"{what}: the best iteration is not the curve's "
+                                               "last minimum")
+    _require(torch.equal(ker.best_energy, ker.energy[rows, best.long()]),
+             f"{what}: the best energy is not the curve's minimum")
+    at_best = trace[rows, best.long()]
+    bR = at_best[:, :9].reshape(b, 3, 3)
+    if cfg.rotationize:
+        bR = geo.rotationize_newton(bR)
+        best_err = max(float((ker.R - bR).abs().max()), float((ker.t - at_best[:, 9:12]).abs().max()))
+        _require(best_err <= 1e-6, f"{what}: the result is not the best iterate ({best_err:.2e})")
+    else:
+        _require(torch.equal(ker.R, bR) and torch.equal(ker.t, at_best[:, 9:12]),
+                 f"{what}: the result is not the best iterate, bit for bit")
+    _log(f"  {what}: every step alone: energy {e_err:.2e}, g {g_err:.2e} against "
+         f"subgradient_terms, next pose {step_err:.2e} against the plain step; best iterate "
+         f"is the curve's last minimum")
+    return step_err
+
+
+def _check_sg_curves(what: str, ker, pl) -> tuple:
+    """The free-running kernel against the free-running plain version, pair
+    by pair. The two part where a floor decision falls differently (a point
+    within an ulp of a pixel boundary) and then descend apart, so: iteration
+    0 within 1e-5; at the first iteration where the energies are more than
+    1e-5 apart they are less than 5e-2 apart (a few points' DT values, not
+    another computation); both stop at the same iteration unless they
+    parted; at least half of the pairs never part, and for those the best
+    iteration is equal or ties to 1e-5, and where it is equal the poses
+    agree within 1e-5 and the visible ratios within 1e-6. Returns (the pairs
+    that never part and share the best iteration, as a mask; the largest
+    pose difference among them)."""
+    import torch
+
+    e_k, e_p = ker.energy.cpu().numpy(), pl.energy.cpu().numpy()
+    n_k, n_p = (e_k != 0).sum(1), (e_p != 0).sum(1)
+    head = np.arange(e_k.shape[1])[None, :] < np.minimum(n_k, n_p)[:, None]
+    rel = np.where(head, np.abs(e_k - e_p) / np.maximum(np.abs(e_p), 1e-30), 0.0)
+    apart = rel > 1e-5
+    parted = apart.any(1)
+    first = np.where(parted, apart.argmax(1), 0)
+    rows = np.arange(len(first))
+    bk, bp = ker.best_iter.cpu().numpy(), pl.best_iter.cpu().numpy()
+    together = ~parted
+    same = together & (bk == bp)
+    mask = torch.from_numpy(same).to(ker.R.device)
+    err = max(float((ker.R - pl.R)[mask].abs().max()), float((ker.t - pl.t)[mask].abs().max()))
+    bad = []
+    if rel[:, 0].max() > 1e-5:
+        bad.append(f"iteration 0 differs by {rel[:, 0].max():.2e}")
+    if (rel[rows, first][parted] > 5e-2).any():
+        bad.append(f"a pair parts by {rel[rows, first][parted].max():.2e}")
+    if (n_k != n_p)[together].any():
+        bad.append("a pair that never parts stops at another iteration")
+    if 2 * int(together.sum()) < len(rows):
+        bad.append(f"only {int(together.sum())} pairs never part")
+    if (np.abs(e_p[rows, bk] - e_p[rows, bp]) > 1e-5 * e_p[rows, bp])[together].any():
+        bad.append("best iterations differ off a tie")
+    if float((ker.visible_ratio - pl.visible_ratio)[mask].abs().max()) > 1e-6:
+        bad.append("visible ratios differ")
+    if err > 1e-5:
+        bad.append(f"pose error {err:.2e} > 1e-5")
+    if bad:
+        for i in np.nonzero(parted | (bk != bp) | (n_k != n_p))[0][:3]:
+            _log(f"  {what} pair {i}: kernel {e_k[i].tolist()} best {bk[i]}; "
+                 f"plain {e_p[i].tolist()} best {bp[i]}")
+    _require(not bad, f"{what}: " + "; ".join(bad))
+    gaps = rel[rows, first][parted]
+    _log(f"  {what}: against the free-running plain version {int(parted.sum())} of {len(rows)} "
+         f"pairs part (first at iteration {int(first[parted].min()) if parted.any() else -1}, "
+         f"by at most {gaps.max() if parted.any() else 0.0:.2e}); the others within "
+         f"{rel[together].max():.2e}, {int((together & (bk != bp)).sum())} best iterations on a "
+         f"tie, pose err {err:.2e}")
+    return mask, err
+
+
+def check_level_sg(device, rng) -> dict:
+    """Kernel 8 on 64 rendered pairs and on one, at the four parity
+    capacities (8192/4096/2048/1024 points at 240x320 ... 30x40), 50
+    iterations from the identity, under `SolverConfig()` (the reference's
+    sub-gradient: L2 pull, re-orthogonalization; every step there is cut to
+    the trust region); at K = 4096 also without the pull, without the
+    re-orthogonalization and with a step length (1e-6) and a termination
+    norm (1e-4) at which steps lie inside the trust region and pairs finish
+    early at different iterations. A second launch bitwise equal, and equal
+    with and without the trace; every iteration on its own against
+    `subgradient_terms` and the plain step (`_check_sg_steps`; iteration 0 is
+    the start pose); the free-running plain version within the bars of
+    `_check_sg_curves`; the returned per-point values consistent with the
+    best iterate (|eps| equal to the best energy within 1e-5, the visible
+    share equal to the visible ratio), bitwise those of `subgradient_terms`
+    at the returned pose when it is not re-orthogonalized, and bitwise the
+    plain version's on at least 99.9% of the points of the pairs that never
+    part from it. CUDA-event times per level of the kernel at each block
+    size, of the per-iteration route it replaced and of the plain
+    version."""
+    import dataclasses
+
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig, SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import level_sg, sg_terms
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    check_se3_log(device, rng)
+    cam = profiles.production_320().camera
+    base = SolverConfig()
+    _require(base.method == "subgradient" and base.iterations == (50, 50, 50, 50),
+             "level_sg: SolverConfig() is not the reference's sub-gradient")
+    variants = {
+        "": base,
+        " no pull": dataclasses.replace(base, enable_l2_regularization=False),
+        " no rotationize": dataclasses.replace(base, rotationize=False),
+        " early stop": dataclasses.replace(base, step_length=1e-6, psi_norm_termination=1e-4),
+    }
+    rg, rd, ng, nd, _ = render_batch(cam, BATCH)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    ref_pyr, now_pyr = build_pyramid(f(rg), f(rd), 4), build_pyramid(f(ng), f(nd), 4)
+    intr = Intrinsics.from_config(cam)
+    refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, base,
+                                         PipelineConfig().pyramid.max_points)
+    nows = edge_dvo.prepare_now_targets(now_pyr.gray, base)
+    worst, summary = 0.0, None
+    for b in (BATCH, 1):
+        for lvl in range(3, -1, -1):
+            ref, now = refs[lvl], nows[lvl]
+            pts, valid, count, dt = ref.pts3d[:b], ref.valid[:b], ref.count[:b], now.dt[:b]
+            k, (h, w) = pts.shape[1], dt.shape[1:]
+            _require((k, (h, w)) == (SG_KS[3 - lvl], EDT_SHAPES[lvl]), "level_sg: level shape")
+            li = intr.at_level(lvl)
+            R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+            t0 = torch.zeros((b, 3), device=device)
+            for tag, cfg in variants.items():
+                if tag and (lvl != 1 or b != BATCH):
+                    continue
+                n_iters = cfg.iterations[lvl]
+                args = (R0, t0, pts, valid, count, dt, *li, cfg, n_iters)
+                trace = torch.zeros((b, n_iters, 18), device=device)
+                ker = level_sg.level_sg(*args, trace=trace)
+                again = level_sg.level_sg(*args)
+                pl = level_sg.level_sg_plain(*args)
+                torch.cuda.synchronize()
+                what = f"level_sg B={b} level {lvl} K={k}{tag}"
+                _require(all(_same_bits(a, c) for a, c in zip(ker, again)), f"{what}: runs differ")
+                _require(bool(torch.isfinite(ker.R).all() and torch.isfinite(ker.t).all()),
+                         f"{what}: non-finite pose")
+                _require(torch.equal(trace[:, 0, :9].reshape(b, 3, 3), R0)
+                         and torch.equal(trace[:, 0, 9:12], t0), f"{what}: iteration 0's pose")
+                worst = max(worst, _check_sg_steps(what, cfg, args, ker, trace))
+                together, err = _check_sg_curves(what, ker, pl)
+                worst = max(worst, err)
+                ran = (ker.energy != 0).sum(-1)
+                if "early" in tag:
+                    _require(int(ran.max()) < n_iters and len(set(ran.tolist())) > 1,
+                             f"{what}: pairs do not finish early at different iterations")
+                # the returned per-point values belong to the best iterate
+                e_pts = torch.sqrt((ker.eps * ker.eps).sum(-1))
+                _require(_rel(e_pts[:, None], ker.best_energy[:, None]) <= 1e-5,
+                         f"{what}: |eps| is not the best energy")
+                share = ker.visible.sum(-1).float() / count.clamp(min=1).float()
+                _require(float((share - ker.visible_ratio).abs().max()) <= 1e-6,
+                         f"{what}: the visible share is not the visible ratio")
+                _require(not bool((ker.visible & ~valid).any()), f"{what}: an invalid point is visible")
+                if not cfg.rotationize:
+                    at = sg_terms.subgradient_terms(ker.R, ker.t, pts, valid, dt, *li,
+                                                    cfg.weight_sigma2)
+                    _require(torch.equal(ker.eps, at[3]) and torch.equal(ker.visible, at[4]),
+                             f"{what}: per-point values differ from subgradient_terms at the "
+                             "returned pose")
+                differ = ((ker.eps != pl.eps) | (ker.visible != pl.visible))[together]
+                frac = float(differ.float().mean()) if differ.numel() else 0.0
+                _require(frac <= 1e-3, f"{what}: {frac:.3%} of the per-point values differ from "
+                                       "the plain version's")
+                by_threads = {n: _time_ms(lambda: level_sg.level_sg(*args, threads=n), 10)
+                              for n in level_sg.THREADS}
+                k_ms = _time_ms(lambda: level_sg.level_sg(*args), 20)
+                with _per_iteration_sg_route():
+                    r_ms = _time_ms(lambda: level_sg.level_sg_plain(*args), 2)
+                p_ms = _time_ms(lambda: level_sg.level_sg_plain(*args), 2)
+                # points, the sampled DT, start pose and count in; pose, curve, best
+                # iteration, energy, ratio and the per-point values out
+                n_vis = ker.visible.sum(-1)
+                nbytes = b * (k * 13 + 52 + 60 + 4 * n_iters + 5 * k) + _sampled_bytes(
+                    n_vis * ran, h * w, 5, 4)
+                flops = float((ran * n_vis).sum()) * OPS_SG_POINT + float(ran.sum()) * OPS_SG_STEP
+                bound = _bound(nbytes, flops)
+                _log(f"{what} ({n_iters} iterations, {int(ran.sum())} run, best iterations "
+                     f"{int(ker.best_iter.min())}..{int(ker.best_iter.max())}, "
+                     f"{frac:.4%} of per-point values differ): runs bitwise equal; level_sg "
+                     f"{k_ms:.4f} ms ({level_sg.block_threads(k)} threads; by block size "
+                     + ", ".join(f"{n}: {t:.4f}" for n, t in by_threads.items())
+                     + f"), per-iteration kernel {r_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                     f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                if not tag and b == BATCH and lvl == 0:
                     summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
     return {"max_abs_err": worst, **summary}
 
@@ -1187,13 +1540,14 @@ def run_cli_refine(loop_close: dict) -> dict:
 
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
-        canny, edt, fused_iter, level_lm, match, pnp_gn, residual, sg_terms,
+        canny, edt, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
     )
 
     return {"edt": edt.edt_squared, "canny": canny.canny, "dt_channels": edt.dt_channels,
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
-            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm}
+            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm,
+            "level_sg": level_sg.level_sg}
 
 
 def main() -> int:
@@ -1233,6 +1587,7 @@ def main() -> int:
         "match": check_match(device, rng),
         "pnp": check_pnp(device, rng),
         "level_lm": check_level_lm(device, rng),
+        "level_sg": check_level_sg(device, rng),
     }
 
     counters = _launch_counters()
@@ -1270,7 +1625,10 @@ def main() -> int:
                      f"{name}: the canny or dt_channels kernel was not launched")
         if name in GN_PHASES:
             _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
+        if name == "cli_subgradient":
+            _require(n["level_sg"] > 0, f"{name}: the level_sg kernel was not launched")
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
+        _require(n["sg"] == 0, f"{name}: the per-iteration subgradient_terms kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
     _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
@@ -1308,6 +1666,11 @@ def main() -> int:
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159 + solvers/edge_dvo.py:261 "
                      "(the lax.scan level loops :586, :754)",
          "launches": launches["level_lm"], **res["level_lm"]},
+        {"name": "level_sg", "route": "cuda", "source": src + "level_sg.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:586 (XLA, no Pallas kernel: the "
+                     "lax.scan level loop's sub-gradient branch :493-622 with :775 and "
+                     "core/geometry.py:169)",
+         "launches": launches["level_sg"], **res["level_sg"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,20 +7,29 @@ DT, the frame feeder), the reference's sub-gradient solver, and the map
 backend (loop closure, pose-graph refinement, relocalization, the `refine`
 command). The layout mirrors the JAX package so every module's counterpart
 is easy to find (`core/`, `ops/`, `solvers/`, `pipeline/`, `io/`, `viz/`,
-`cli.py`), plus `kernels/` + `csrc/` for the six hand-written CUDA kernels
+`cli.py`), plus `kernels/` + `csrc/` for the hand-written CUDA kernels
 (shared device code in `csrc/project.cuh` and `csrc/se3.cuh`; the plain
-counterpart of the projection in `ops/project.py`):
+counterparts in `ops/project.py` and `kernels/se3_plain.py`):
 
+* `kernels/canny.py` + `csrc/canny.cu` — Canny with the hysteresis
+  fixpoint on the device (XLA in the JAX package);
 * `kernels/edt.py` + `csrc/edt.cu` — the squared-L2 distance transform
-  (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed;
+  (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed, and
+  `dt_channels`, the rest of a now-frame target on the same phases;
 * `kernels/fused_iter.py` + `csrc/fused_gn.cu` — one Gauss-Newton
   iteration's J^T W J, J^T W eps, energy and visible count (replaces
   `rgbd_odometry_tpu/pallas/fused_iter.py`), with a per-pair DT scale;
 * `kernels/residual.py` + `csrc/residual.cu` — the residual pass (energy,
   visible count, per-point residuals) of the LM accept test and the
   all-point diagnostics (XLA in the JAX package);
+* `kernels/level_lm.py` + `csrc/level_lm.cu` — a whole Levenberg-Marquardt
+  pyramid level in one launch (the `lax.scan` level loops over the fused
+  iteration);
 * `kernels/sg_terms.py` + `csrc/sg_terms.cu` — one sub-gradient
   iteration's J^T W eps with floor gathers (XLA in the JAX package);
+* `kernels/level_sg.py` + `csrc/level_sg.cu` — a whole sub-gradient
+  pyramid level in one launch (the `lax.scan` level loop's sub-gradient
+  branch with `se3_log`);
 * `kernels/match.py` + `csrc/match.cu` — mutual-nearest descriptor matching
   of a query against every stored keyframe (XLA in the JAX package);
 * `kernels/pnp_gn.py` + `csrc/pnp_gn.cu` — batched Gauss-Newton PnP with

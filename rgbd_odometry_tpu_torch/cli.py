@@ -30,11 +30,11 @@ import numpy as np
 
 _Q1 = "ROADMAP.md Queue 1"
 _UNPORTED = (
-    ("pipelined", "--pipelined", "item 1 'pipelined streaming'"),
-    ("viz_dir", "--viz-dir", "item 10 'The CLI'"),
-    ("checkpoint", "--checkpoint", "item 2 'checkpoint'"),
-    ("resume", "--resume", "item 2 'checkpoint'"),
-    ("trace_dir", "--trace-dir", "item 10 'The CLI'"),
+    ("pipelined", "--pipelined", "item 3 'pipelined streaming'"),
+    ("viz_dir", "--viz-dir", "item 9 'The CLI'"),
+    ("checkpoint", "--checkpoint", "item 4 'checkpoint'"),
+    ("resume", "--resume", "item 4 'checkpoint'"),
+    ("trace_dir", "--trace-dir", "item 9 'The CLI'"),
 )
 
 
@@ -48,7 +48,7 @@ def _make_source(args):
 
     start = args.start or 0
     if args.source.startswith("xml:"):
-        _unported("the xml: source", "item 10 'The CLI'")
+        _unported("the xml: source", "item 9 'The CLI'")
     if args.source.startswith("tum:"):
         frames = TumSource(args.source[4:], start=start, end=args.end).frames()
         cam = None

@@ -56,6 +56,7 @@
 // serial step, not by bytes or operations. A B = 1 pair occupies one SM of
 // 132; splitting it over a thread-block cluster is the next step.
 
+#include "launch.cuh"
 #include "project.cuh"
 #include "se3.cuh"
 
@@ -370,7 +371,8 @@ extern "C" int level_lm_solve(int device, const void* R0, const void* t0, const 
   if (err != cudaSuccess) return (int)err;
   // k_jac staged points, and with track their residuals and visibility
   const long long smem = (long long)k_jac * 16 + (track ? (long long)k_jac * 5 : 0);
-  err = cudaFuncSetAttribute(level_lm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static rgbd::SharedOptIn opted;
+  err = rgbd::opt_in_shared(level_lm, device, smem, &opted);
   if (err != cudaSuccess) return (int)err;
   Params p{(const float*)R0, (const float*)t0, (const float*)pts, (const uint8_t*)valid,
            (const int*)count, (const __nv_bfloat16*)img, img_batch_stride, (const float*)scale,

@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kD = 64;
@@ -204,8 +206,8 @@ extern "C" int match_mutual(int device, const void* slot_desc, const void* slot_
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)k * kD * sizeof(float) + (size_t)k * 4 * sizeof(int) +
                       (size_t)k * 2;
-  err = cudaFuncSetAttribute(match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  static rgbd::SharedOptIn opted;
+  err = rgbd::opt_in_shared(match_kernel, device, (long long)smem, &opted);
   if (err != cudaSuccess) return (int)err;
   int threads = ((k + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;

@@ -1,8 +1,8 @@
 // Device code shared by the point kernels (fused_gn.cu, residual.cu,
-// sg_terms.cu, level_lm.cu): the warp and pinhole projection of a reference
-// edge point, the inclusive visibility test, the two ways of sampling the
-// DT at the projected point, one point's Gauss-Newton terms, and the
-// fixed-order block reduction.
+// sg_terms.cu, level_lm.cu, level_sg.cu): the warp and pinhole projection of
+// a reference edge point, the inclusive visibility test, the two ways of
+// sampling the DT at the projected point, one point's Gauss-Newton terms,
+// one point's sub-gradient terms, and the fixed-order block reduction.
 //
 // Every per-point value is computed with exactly the single, once-rounded
 // operations of the plain PyTorch versions (ops/project.py: project_points;
@@ -125,10 +125,11 @@ __device__ __forceinline__ void sample_floor_cgrads(const float* __restrict__ D,
                                                     float* gy) {
   const int i = floor_index(v, h), j = floor_index(u, w);
   const float* row = D + (size_t)i * w;
-  *val = row[j];
-  *gx = __fmul_rn(0.5f, __fsub_rn(row[reflect101(j + 1, w)], row[reflect101(j - 1, w)]));
-  *gy = __fmul_rn(0.5f, __fsub_rn(D[(size_t)reflect101(i + 1, h) * w + j],
-                                  D[(size_t)reflect101(i - 1, h) * w + j]));
+  *val = __ldg(row + j);
+  *gx = __fmul_rn(0.5f, __fsub_rn(__ldg(row + reflect101(j + 1, w)),
+                                  __ldg(row + reflect101(j - 1, w))));
+  *gy = __fmul_rn(0.5f, __fsub_rn(__ldg(D + (size_t)reflect101(i + 1, h) * w + j),
+                                  __ldg(D + (size_t)reflect101(i - 1, h) * w + j)));
 }
 
 constexpr int kGnTerms = 29;  // 21 (upper triangle of H) + 6 (g) + e2 + count
@@ -182,6 +183,56 @@ __device__ __forceinline__ void gn_point(const Pose& pose, float X, float Y, flo
       }
       acc[27] = __fmaf_rn(eps, eps, acc[27]);
       acc[28] += 1.0f;
+    }
+  }
+  *eps_o = eps;
+  *vis_o = vis;
+}
+
+constexpr int kSgTerms = 8;  // g = J^T W eps (6), e2, the visible count
+
+// One reference point's sub-gradient terms at `pose` against the float32 DT
+// D: the projection with u and v as one fused multiply-add each, the floor
+// DT value and its central gradients, the weight 6 / (6 + eps^2 / sigma^2)
+// (eps in DT units), the "reference" Jacobian with the dehomogenized-
+// coordinate quirk, GA = [g0 fx, g1 fy, -(g0 fx xn + g1 fy yn)], J = [-R GA |
+// GA x R^T (xn, yn, 1)], and its addends to the 8 running sums acc (J^T W
+// eps, e2, the visible count). Writes the residual (0 where invisible) and
+// the visibility.
+__device__ __forceinline__ void sg_point(const Pose& q, float X, float Y, float Z, bool valid,
+                                         const float* __restrict__ D, int h, int w, float fx,
+                                         float fy, float cx, float cy, float inv_sigma2,
+                                         float (&acc)[kSgTerms], float* eps_o, bool* vis_o) {
+  float eps = 0.0f;
+  bool vis = false;
+  if (valid) {
+    const Projected p = project_xyz<true>(q, X, Y, Z, fx, fy, cx, cy);
+    vis = in_image(p.u, p.v, h, w);
+    if (vis) {
+      float gx, gy;
+      sample_floor_cgrads(D, h, w, p.u, p.v, &eps, &gx, &gy);
+      // w = 6 / (6 + eps^2 / sigma^2), as PyTorch evaluates 6.0 / x
+      const float wgt = __fmul_rn(
+          __frcp_rn(__fadd_rn(6.0f, __fmul_rn(__fmul_rn(eps, eps), inv_sigma2))), 6.0f);
+      const float ga0 = __fmul_rn(gx, fx);
+      const float ga1 = __fmul_rn(gy, fy);
+      const float ga2 = -__fadd_rn(__fmul_rn(ga0, p.xn), __fmul_rn(ga1, p.yn));
+      // translation block -R GA; rotation block GA x m, m = R^T (xn, yn, 1)
+      float J[6];
+      J[0] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r00), __fmul_rn(ga1, q.r01)), __fmul_rn(ga2, q.r02));
+      J[1] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r10), __fmul_rn(ga1, q.r11)), __fmul_rn(ga2, q.r12));
+      J[2] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r20), __fmul_rn(ga1, q.r21)), __fmul_rn(ga2, q.r22));
+      const float m0 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r00), __fmul_rn(p.yn, q.r10)), q.r20);
+      const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r01), __fmul_rn(p.yn, q.r11)), q.r21);
+      const float m2 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r02), __fmul_rn(p.yn, q.r12)), q.r22);
+      J[3] = __fsub_rn(__fmul_rn(ga1, m2), __fmul_rn(ga2, m1));
+      J[4] = __fsub_rn(__fmul_rn(ga2, m0), __fmul_rn(ga0, m2));
+      J[5] = __fsub_rn(__fmul_rn(ga0, m1), __fmul_rn(ga1, m0));
+      const float we = __fmul_rn(wgt, eps);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) acc[r] = __fmaf_rn(J[r], we, acc[r]);
+      acc[6] = __fmaf_rn(eps, eps, acc[6]);
+      acc[7] += 1.0f;
     }
   }
   *eps_o = eps;

@@ -18,10 +18,10 @@
 //      J = [-R GA | GA x R^T (xn, yn, 1)]
 //   -> g = sum J (w eps), sum eps^2, count
 //
+// (one point's share of this is sg_point of project.cuh, which level_sg.cu,
+// the whole-level kernel that took this one's place in the solver, runs too).
 // Outputs: g (B,6), e2 (B,) float32 (the wrapper takes sqrt), n (B,) int32,
-// eps (B,K) float32 and visible (B,K) uint8: with a stride-1 point set the
-// solver keeps the residuals of its best iterate, so they are written every
-// iteration.
+// eps (B,K) float32 and visible (B,K) uint8, written on every call.
 //
 // Design. One block of 256 threads per pair strides over the points (32
 // per thread at the parity profile's K = 8192), keeps 8 running sums in
@@ -37,7 +37,7 @@
 namespace {
 
 using rgbd::kThreads;
-constexpr int kTerms = 8;  // g (6), e2, count
+constexpr int kTerms = rgbd::kSgTerms;  // g (6), e2, count
 
 __global__ void __launch_bounds__(kThreads)
 sg_terms(const float* __restrict__ R, const float* __restrict__ T,
@@ -59,38 +59,10 @@ sg_terms(const float* __restrict__ R, const float* __restrict__ T,
   for (int m = 0; m < kTerms; ++m) acc[m] = 0.0f;
 
   for (int i = tid; i < k; i += kThreads) {
-    float eps = 0.0f;
-    bool vis = false;
-    if (V[i]) {
-      const rgbd::Projected p = rgbd::project<true>(q, P + 3 * i, fx, fy, cx, cy);
-      vis = rgbd::in_image(p.u, p.v, h, w);
-      if (vis) {
-        float gx, gy;
-        rgbd::sample_floor_cgrads(D, h, w, p.u, p.v, &eps, &gx, &gy);
-        // w = 6 / (6 + eps^2 / sigma^2), as PyTorch evaluates 6.0 / x
-        const float wgt = __fmul_rn(
-            __frcp_rn(__fadd_rn(6.0f, __fmul_rn(__fmul_rn(eps, eps), inv_sigma2))), 6.0f);
-        const float ga0 = __fmul_rn(gx, fx);
-        const float ga1 = __fmul_rn(gy, fy);
-        const float ga2 = -__fadd_rn(__fmul_rn(ga0, p.xn), __fmul_rn(ga1, p.yn));
-        // translation block -R GA; rotation block GA x m, m = R^T (xn, yn, 1)
-        float J[6];
-        J[0] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r00), __fmul_rn(ga1, q.r01)), __fmul_rn(ga2, q.r02));
-        J[1] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r10), __fmul_rn(ga1, q.r11)), __fmul_rn(ga2, q.r12));
-        J[2] = -__fadd_rn(__fadd_rn(__fmul_rn(ga0, q.r20), __fmul_rn(ga1, q.r21)), __fmul_rn(ga2, q.r22));
-        const float m0 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r00), __fmul_rn(p.yn, q.r10)), q.r20);
-        const float m1 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r01), __fmul_rn(p.yn, q.r11)), q.r21);
-        const float m2 = __fadd_rn(__fadd_rn(__fmul_rn(p.xn, q.r02), __fmul_rn(p.yn, q.r12)), q.r22);
-        J[3] = __fsub_rn(__fmul_rn(ga1, m2), __fmul_rn(ga2, m1));
-        J[4] = __fsub_rn(__fmul_rn(ga2, m0), __fmul_rn(ga0, m2));
-        J[5] = __fsub_rn(__fmul_rn(ga0, m1), __fmul_rn(ga1, m0));
-        const float we = __fmul_rn(wgt, eps);
-#pragma unroll
-        for (int r = 0; r < 6; ++r) acc[r] = __fmaf_rn(J[r], we, acc[r]);
-        acc[6] = __fmaf_rn(eps, eps, acc[6]);
-        acc[7] += 1.0f;
-      }
-    }
+    float eps;
+    bool vis;
+    rgbd::sg_point(q, P[3 * i], P[3 * i + 1], P[3 * i + 2], V[i] != 0, D, h, w, fx, fy, cx, cy,
+                   inv_sigma2, acc, &eps, &vis);
     eps_out[(size_t)b * k + i] = eps;
     vis_out[(size_t)b * k + i] = vis ? 1 : 0;
   }

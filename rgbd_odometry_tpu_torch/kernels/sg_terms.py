@@ -4,7 +4,10 @@
 Replaces the JAX package's XLA `_jacobian_residual` in reference mode with
 its floor gathers (`rgbd_odometry_tpu/solvers/edge_dvo.py:293-398`,
 `ops/matmul_gather.gather_floor_value_cgrads_mm`) and the J^T W eps of
-`_subgradient_step` (:780); it has no Pallas kernel. `subgradient_terms` is
+`_subgradient_step` (:780); it has no Pallas kernel. The level solver runs
+a whole level in one launch instead (`kernels/level_sg.py`, whose plain
+version loops over `subgradient_terms_plain`); this per-iteration kernel is
+what that one is checked against, pose by pose. `subgradient_terms` is
 the entry point: CPU tensors go to the plain PyTorch version
 `subgradient_terms_plain`, CUDA tensors to the kernel; anything else raises.
 """

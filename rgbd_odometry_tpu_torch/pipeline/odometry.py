@@ -15,7 +15,7 @@ already-built pyramid, as `pipeline/feeder.FrameFeeder` delivers it. With
 database of `pipeline/relocalize.py`, and a streak of lost frames triggers a
 recovery query that re-anchors the trajectory (REASON_RELOCALIZED).
 
-Not ported yet (ROADMAP.md Queue 1): the pipelined `process_stream`.
+Not ported yet (ROADMAP.md Queue 1, item 3): the pipelined `process_stream`.
 """
 
 from __future__ import annotations

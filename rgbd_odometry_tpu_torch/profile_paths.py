@@ -1,6 +1,8 @@
-"""Profile the port's two per-frame paths on one GPU with `torch.profiler`.
+"""Profile the port's per-frame paths on one GPU with `torch.profiler`.
 
     python -m rgbd_odometry_tpu_torch.profile_paths [--frames 30] [--warmup 10]
+    python -m rgbd_odometry_tpu_torch.profile_paths --paths cli_subgradient \
+        --frames 10 --warmup 4
 
 Copied into an older checkout of the package and run there, it profiles
 that checkout (it uses only names the package has always exported).
@@ -11,7 +13,11 @@ process_frame`, keyframe every 5:
   cli_default  the `dvo` command's defaults (standard LM on the normalized
                full DT, 18/6/4/3 iterations, capacities 8192/4096/2048/1024);
   stream       `profiles.production_320` with rollback re-solves (the
-               stream phase of chip_smoke.py).
+               stream phase of chip_smoke.py);
+  cli_subgradient  `dvo --method subgradient --iterations 50,50,50,50`, the
+               reference's solver (not in the default: run it in a process
+               of its own, with fewer frames for a checkout older than the
+               whole-level kernel, whose frame is ~46000 launches).
 
 `--paths targets` (not in the default; run it alone, since after the
 per-frame paths' profiles in the same process the profiler was seen to drop
@@ -64,6 +70,11 @@ def _configs():
         "cli_default": PipelineConfig(
             camera=CameraConfig(),
             solver=SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3)),
+            keyframe=KeyframeConfig(force_every=5),
+        ),
+        "cli_subgradient": PipelineConfig(
+            camera=CameraConfig(),
+            solver=SolverConfig(method="subgradient", iterations=(50, 50, 50, 50)),
             keyframe=KeyframeConfig(force_every=5),
         ),
         "stream": PipelineConfig(

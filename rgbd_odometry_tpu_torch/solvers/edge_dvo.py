@@ -19,8 +19,8 @@ The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
 fixpoint on the device) and one `dt_channels` call (`kernels/edt.py`: EDT,
 sqrt, normalization, gradients, channels); a whole Gauss-Newton
 level, both LM loops, in one launch (`kernels/level_lm.py`); the residual
-pass (`kernels/residual.py`) for the all-point diagnostics; one
-sub-gradient iteration's J^T W eps (`kernels/sg_terms.py`). Configurations
+pass (`kernels/residual.py`) for the all-point diagnostics; a whole
+sub-gradient level in one launch (`kernels/level_sg.py`). Configurations
 outside these raise `NotImplementedError` naming the ROADMAP item that will
 port them (`check_config`).
 """
@@ -35,18 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from rgbd_odometry_tpu_torch.config import SolverConfig
-from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.canny import canny
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
-from rgbd_odometry_tpu_torch.kernels.level_lm import sel as _sel
-from rgbd_odometry_tpu_torch.kernels.level_lm import trust_region as _trust_region
+from rgbd_odometry_tpu_torch.kernels.level_sg import level_sg
+from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step as _subgradient_step  # noqa: F401
 from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
-from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms, subgradient_terms
+from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms
 
-_PARITY = "ROADMAP.md Queue 1, 'reference-parity mode'"
+_PARITY = "ROADMAP.md Queue 1, item 5 'reference-parity mode'"
 
 
 class RefLevel(NamedTuple):
@@ -241,92 +240,6 @@ def _diagnostics(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
     )
 
 
-def _subgradient_step(R, t, g, descent, itr: int, cfg: SolverConfig, precond: torch.Tensor):
-    """The reference's damped, projected sub-gradient step (JAX
-    `_subgradient_step`, :775-794): g = J^T W eps (kernel 4) plus the L2
-    pull toward the unit log-pose, momentum, the preconditioner, the
-    square-summable step 9e-2/(itr-4) past iteration 5 and the trust-region
-    projection. Returns (psi (B,6), descent (B,6))."""
-    if cfg.enable_l2_regularization:
-        cpsi = geo.se3_log(R, t)
-        norm = torch.linalg.vector_norm(cpsi, dim=-1, keepdim=True)
-        cpsi = torch.where(norm > 0, cpsi / torch.clamp(norm, min=1e-30), cpsi)
-        g = g + cfg.l2_lambda * cpsi
-    descent = (1.0 - cfg.momentum) * g + cfg.momentum * descent
-    # float32 division, as JAX divides the float32 step by float32 (itr - 4)
-    step = float(np.float32(cfg.step_length) / np.float32(itr - 4 if itr > 5 else 1))
-    return _trust_region(-step * precond * descent, cfg.trust_region_radius), descent
-
-
-def _run_level_subgradient(
-    ref: RefLevel,
-    now: NowLevel,
-    intr_level: Intrinsics,
-    R0: torch.Tensor,
-    t0: torch.Tensor,
-    cfg: SolverConfig,
-    n_iters: int,
-):
-    """The reference's sub-gradient level solve (the JAX `lax.scan` body,
-    :493-622, sub-gradient branch): kernel 4 on every point at the pose
-    entering each iteration, then the damped, projected step. The best
-    iterate (<=, later ties win) is returned; early termination freezes the
-    pair and zeroes its remaining energy entries. The diagnostics are the
-    scan's own at the best iterate (kernel 4 writes the per-point values in
-    the same pass)."""
-    dev, dt = R0.device, R0.dtype
-    b, k = R0.shape[0], ref.pts3d.shape[1]
-    precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dt, device=dev)
-    n_valid = torch.clamp(ref.count, min=1).to(dt)
-    R, t = R0, t0
-    descent = torch.zeros((b, 6), dtype=dt, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    best_energy = torch.full((b,), 1.0e10, dtype=dt, device=dev)
-    best_R = torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3).contiguous()
-    best_t = torch.zeros((b, 3), dtype=dt, device=dev)
-    best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    best_vis = torch.ones((b,), dtype=dt, device=dev)
-    best_eps = torch.zeros((b, k), dtype=dt, device=dev)
-    best_visible = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    f = tuple(intr_level)
-    energies = []
-    for itr in range(n_iters):
-        g, energy, n_vis, eps, visible = subgradient_terms(
-            R, t, ref.pts3d, ref.valid, now.dt, *f, cfg.weight_sigma2
-        )
-        is_better = (energy <= best_energy) & (~done)
-        best_energy = torch.where(is_better, energy, best_energy)
-        best_R, best_t = _sel(is_better, R, best_R), _sel(is_better, t, best_t)
-        best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
-        best_vis = torch.where(is_better, n_vis.to(dt) / n_valid, best_vis)
-        best_eps = _sel(is_better, eps, best_eps)
-        best_visible = _sel(is_better, visible, best_visible)
-
-        psi, descent_new = _subgradient_step(R, t, g, descent, itr, cfg, precond)
-        psi_norm = torch.linalg.vector_norm(psi, dim=-1)
-        xR, xt = geo.se3_exp(psi)
-        new_t = t + (R @ xt[..., None])[..., 0]
-        new_R = R @ xR
-        if cfg.rotationize:
-            new_R = geo.rotationize_newton(new_R)
-        newly_done = psi_norm < cfg.psi_norm_termination
-        do_update = (~done) & (~newly_done)
-        descent = _sel(done, descent, descent_new)
-
-        energies.append(torch.where(done, torch.zeros_like(energy), energy))
-        R, t = _sel(do_update, new_R, R), _sel(do_update, new_t, t)
-        done = done | newly_done
-
-    if cfg.rotationize:
-        best_R = geo.rotationize_newton(best_R)
-    diag = LevelDiagnostics(
-        energy=torch.stack(energies, dim=-1), best_energy=best_energy, best_iter=best_iter,
-        visible_ratio=best_vis, final_epsilons=best_eps, final_valid=best_visible,
-        num_points=ref.count,
-    )
-    return best_R.contiguous(), best_t.contiguous(), diag
-
-
 def level_strides(cfg: SolverConfig, cap: int) -> Tuple[int, int]:
     """(jstride, stride) of a Gauss-Newton level of capacity `cap` (JAX
     `run_level`, :467-482): the normal equations on every jstride-th point,
@@ -356,15 +269,22 @@ def run_level(
     tests proposals on every Mth point, M = max(1, min(lm_proposal_stride,
     K // 512)), else on the Jacobian's own subset. With a stride-1 standard
     LM the diagnostics are the level's own at the best iterate; otherwise
-    one all-point residual pass at the returned pose. The sub-gradient uses
-    every point. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
+    one all-point residual pass at the returned pose. A sub-gradient level
+    is one `level_sg` launch over every point, with the diagnostics of its
+    best iterate. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
     check_config(cfg)
     if collect_trajectory:
         raise NotImplementedError(
             f"collect_trajectory is not ported to rgbd_odometry_tpu_torch yet; see {_PARITY}"
         )
     if cfg.method != "gauss_newton":
-        return _run_level_subgradient(ref, now, intr_level, R0, t0, cfg, n_iters)
+        out = level_sg(R0, t0, ref.pts3d, ref.valid, ref.count, now.dt, *intr_level, cfg, n_iters)
+        diag = LevelDiagnostics(
+            energy=out.energy, best_energy=out.best_energy, best_iter=out.best_iter,
+            visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
+            num_points=ref.count,
+        )
+        return out.R, out.t, diag
     jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
     out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
                    *intr_level, cfg, n_iters, jstride, stride)

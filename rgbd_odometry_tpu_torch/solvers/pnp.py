@@ -9,7 +9,7 @@ hypotheses and the winner's refine) are one launch each of the hand-written
 kernel in `kernels/pnp_gn.py`. The random subsets come from an (S, K)
 tensor of uniforms in [0, 1) given by the caller.
 
-Not ported yet: the chessboard front-end (ROADMAP.md Queue 1, items 9/10).
+Not ported yet: the chessboard front-end (ROADMAP.md Queue 1, items 8/9).
 """
 
 from __future__ import annotations

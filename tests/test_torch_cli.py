@@ -131,15 +131,18 @@ def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
     np.testing.assert_allclose(ts, [100.0, 100.0 + 1 / 30.0, 100.0 + 2 / 30.0], atol=1e-6)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--viz-dir", "v"], ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--trace-dir", "t"],
-    ["--pipelined"], ["--source", "xml:dumps"],
+@pytest.mark.parametrize("flags, item", [
+    (["--viz-dir", "v"], "item 9 'The CLI'"), (["--checkpoint", "c.npz"], "item 4 'checkpoint'"),
+    (["--resume", "c.npz"], "item 4 'checkpoint'"), (["--trace-dir", "t"], "item 9 'The CLI'"),
+    (["--pipelined"], "item 3 'pipelined streaming'"),
+    (["--source", "xml:dumps"], "item 9 'The CLI'"),
 ])
-def test_cli_unported_flags_exit_naming_their_roadmap_item(flags):
+def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
+    """Each exit names its ROADMAP.md Queue 1 item by number and by name."""
     with pytest.raises(SystemExit) as exc:
         main(["dvo", "--device", "cpu", "--frames", "2", *flags])
     assert "not ported to rgbd_odometry_tpu_torch" in str(exc.value)
-    assert "ROADMAP.md Queue 1, item" in str(exc.value)
+    assert f"ROADMAP.md Queue 1, {item}" in str(exc.value)
 
 
 def test_cli_runs_without_jax():
