@@ -35,25 +35,30 @@ through their user entry points:
                    `--robust geman --covariance-out`: no residual norm grows
                    from one iteration to the next, (N, 6, 6) covariance.
 
-`check_canny` and `check_dt_channels` hold the now-frame target kernels
-against their plain versions bitwise at the 4 level shapes, B = 64 and B = 1
-(Canny on rendered frames and on a serpentine weak chain; `dt_channels` for
+`check_canny_pyramid` and `check_dt_channels` hold the now-frame target
+kernels against their plain versions bitwise at the 4 level shapes, B = 64
+and B = 1 (Canny on rendered frames, on a serpentine weak chain and on
+noise, the whole pyramid in one call, with the fixpoints' pass counts and
+the pyramid call timed beside four single-level calls; `dt_channels` for
 the +-16 window and the whole row, with and without normalization, bf16 and
-float32 channels). `check_level_lm` holds the whole-level LM kernel against
-its plain version on rendered pairs at both Gauss-Newton configurations'
-level shapes (the
-`dvo` defaults and production_320, B = 64 and B = 1, all 4 levels) and
+float32 channels).
+`check_level_lm` holds the whole-level LM kernel against its plain version
+on rendered pairs at both Gauss-Newton configurations' level shapes (the
+`dvo` defaults and production_320, B = 64 and B = 1, all 4 levels), its
+all-point tail bitwise against `residual_pass` at the returned pose, and
 times it per level beside the per-iteration route it replaced.
 `check_level_sg` does the same for the whole-level sub-gradient kernel at
 the four parity capacities (50 iterations, B = 64 and B = 1), after
 `check_se3_log` has held the device function `se3_log` against its plain
 twin in all three branches. Every
 kernel's launch counter is set to 0 before the path phases and read around
-each one: each kernel of the paths must launch; `canny` and `dt_channels`
-in every Gauss-Newton phase and in cli_subgradient (`edt_squared`, whose
-phases `dt_channels` runs, keeps its check and launches on no path);
-`level_lm` in every Gauss-Newton phase, where the per-iteration
-`fused_gn_terms` must launch not at all (it keeps its check); `level_sg` in
+each one: each kernel of the paths must launch; `canny_pyramid` and
+`dt_channels` in every Gauss-Newton phase and in cli_subgradient
+(`edt_squared`, whose phases `dt_channels` runs, keeps its check and
+launches on no path); `level_lm` in every
+Gauss-Newton phase, where the per-iteration `fused_gn_terms` and the
+`residual_pass` that `level_lm`'s tail replaced must launch not at all (both
+keep their checks); `level_sg` in
 cli_subgradient, where the per-iteration `subgradient_terms` must launch not
 at all (it keeps its check too); the matching and PnP kernels in each of
 the loop_closure, relocalize, cli_loop_close and cli_weighted_refine
@@ -82,7 +87,7 @@ import numpy as np
 
 EDT_SHAPES = ((240, 320), (120, 160), (60, 80), (30, 40))  # the 4 levels
 # beside the 4 levels, for the target kernels, 3 images each: odd sizes (unaligned paths,
-# ragged tiles) and VGA (the hysteresis kernel's shared-memory opt-in above 48 KB)
+# ragged tiles) and VGA
 EXTRA_SHAPES = ((37, 45), (480, 640))
 GN_KS = (512, 2048, 1000)  # LM iteration, level-0 all-point size, ragged
 RESIDUAL_KS = (512, 2048, 8192)  # LM accept pass; all-point passes up to parity's level 0
@@ -93,8 +98,9 @@ MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per 
 PNP_K, PNP_HYPOTHESES = 384, 64
 KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
            "level_sg")
-TARGET_KERNELS = ("canny", "dt_channels")  # every frame's targets launch both
-OFF_PATH = ("edt", "gn", "sg")  # entries that keep their check and launch on no path
+TARGET_KERNELS = ("canny_pyramid", "dt_channels")  # every frame's targets launch both
+# entries that keep their check and launch on no path
+OFF_PATH = ("edt", "gn", "residual", "sg")
 MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
@@ -114,9 +120,10 @@ OPS_PNP_POINT = 130  # pnp_gn.cu, per masked point and iteration
 OPS_PNP_SCORE = 25  # pnp_gn.cu scoring: R^T (P - t), dehomogenize, |r| < threshold
 OPS_LM_STEP = 600  # level_lm.cu, thread 0 per iteration: damped 6x6 Cholesky solve,
 #                    se3_exp, compose, 3 Newton-Schulz steps
-OPS_CANNY_PIXEL = 40  # canny.cu front kernel: rounding 3, the pixel's own Sobel 12, its
-#                       share of the magnitude tile's Sobel and square (34x10 over 32x8) 20,
-#                       the sector test and keep rule 5
+OPS_CANNY_PIXEL = 34  # what one pixel of Canny needs (canny.cu): rounding and clamping 3,
+#                       one Sobel 14, the squared magnitude 3, the sector test (two |.|,
+#                       four products, an add, three compares) and the keep rule with both
+#                       thresholds (four compares) 14; a design's recomputed halo is not counted
 OPS_DT_TAIL = 12  # edt.cu: G^2 1, sqrt 1, two gradients 4, normalization 2, conversions 3
 
 
@@ -295,56 +302,85 @@ def serpentine_image(h: int, w: int):
     return img
 
 
-def check_canny(device, rng) -> dict:
-    """The Canny kernel vs its plain version, `torch.equal`, at the 4 level
-    shapes for B = 64 and B = 1: on the pyramid of 64 rendered frames, on
-    the serpentine image (with its flips) and on 8-bit white noise (ties
-    and sector boundaries of the NMS); then on 3 noise images each of 37x45
-    (a width that is no multiple of 4 or 32) and 480x640. A second launch
-    must be equal."""
+def check_canny_pyramid(device, rng) -> dict:
+    """`canny_pyramid` vs its plain version (`canny_plain` on each level),
+    `torch.equal` on every level, a second launch equal: the 4-level
+    320x240 pyramid of 64 rendered frames, of the serpentine image (each
+    level's own, with its flips) and of 8-bit noise, at B = 64 and B = 1; a
+    5-level 640x480 noise pyramid of 3 images (the hysteresis kernel's
+    shared-memory opt-in) and a 4-level one from 74x90 (widths no multiple
+    of 4 or 32: the unaligned loads and stores), B = 3 and 1. Then `canny`
+    of one level on the card: one pyramid launch, equal to the plain
+    version. Logs the fixpoints' pass counts per level; on the rendered
+    pyramid, times the call beside four single-level `canny` calls (the
+    same inputs, this run)."""
     import torch
 
     from rgbd_odometry_tpu_torch import profiles
     from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
     from rgbd_odometry_tpu_torch.kernels import canny
 
-    _, _, ng, nd, _ = render_batch(profiles.production_320().camera, BATCH)
-    pyr = build_pyramid(torch.from_numpy(ng).to(device), torch.from_numpy(nd).to(device), 4).gray
-    summary = None
+    def flips(h, w):
+        s = serpentine_image(h, w)
+        return torch.from_numpy(np.stack([s, s[::-1], s[:, ::-1], s[::-1, ::-1]] * (BATCH // 4))).to(
+            device)
+
     noise = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.integers(0, 256, shape).astype(np.float32)).to(device)
-    for lvl, (h, w) in enumerate((*EDT_SHAPES, *EXTRA_SHAPES)):
-        if (h, w) in EXTRA_SHAPES:
-            cases = {"noise": noise(3, h, w)}
-        else:
-            s = serpentine_image(h, w)
-            flips = np.stack([s, s[::-1], s[:, ::-1], s[::-1, ::-1]] * (BATCH // 4))
-            cases = {"rendered": pyr[lvl], "serpentine": torch.from_numpy(flips).to(device),
-                     "noise": noise(BATCH, h, w)}
-            _require(tuple(pyr[lvl].shape) == (BATCH, h, w), "canny: pyramid shape")
-        for kind, imgs in cases.items():
-            for b in sorted({imgs.shape[0], 1}, reverse=True):
-                x = imgs[:b].contiguous()
-                k = canny.canny(x, 100.0, 150.0)
-                again = canny.canny(x, 100.0, 150.0)
-                p = canny.canny_plain(x, 100.0, 150.0)
-                torch.cuda.synchronize()
-                what = f"canny {h}x{w} B={b} {kind}"
-                _require(k.shape == x.shape and k.dtype == torch.bool, f"{what}: shape/dtype")
-                _require(torch.equal(k, again), f"{what}: runs differ")
-                diff = int((k != p).sum())
-                _require(diff == 0, f"{what}: kernel != plain at {diff} pixels")
-                _require(bool(k.flatten(1).any(1).all()), f"{what}: an image has no edge")
-                k_ms = _time_ms(lambda: canny.canny(x, 100.0, 150.0), 20)
-                p_ms = _time_ms(lambda: canny.canny_plain(x, 100.0, 150.0),
-                                3 if kind == "rendered" else 1)
-                n = b * h * w  # the image read, the edge map written
+    _, _, ng, nd, _ = render_batch(profiles.production_320().camera, BATCH)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    vga, odd = noise(3, 480, 640), noise(3, 74, 90)
+    cases = {
+        "rendered": build_pyramid(f(ng), f(nd), 4).gray,
+        "serpentine": tuple(flips(h, w) for h, w in EDT_SHAPES),
+        "noise": tuple(noise(BATCH, h, w) for h, w in EDT_SHAPES),
+        "vga noise": build_pyramid(vga, torch.full_like(vga, 1000.0), 5).gray,
+        "odd noise": build_pyramid(odd, torch.full_like(odd, 1000.0), 4).gray,
+    }
+    _require(tuple(cases["rendered"][0].shape) == (BATCH, *EDT_SHAPES[0]), "canny: pyramid shape")
+    summary = None
+    for kind, pyr in cases.items():
+        for b in sorted({pyr[0].shape[0], 1}, reverse=True):
+            levels = tuple(g[:b].contiguous() for g in pyr)
+            plain = canny.canny_pyramid_plain(levels, 100.0, 150.0)
+            what = (f"canny_pyramid {kind} {len(levels)} levels from "
+                    f"{levels[0].shape[1]}x{levels[0].shape[2]} B={b}")
+            passes = torch.zeros((len(levels), b), dtype=torch.int32, device=device)
+            k = canny.canny_pyramid(levels, 100.0, 150.0, passes=passes)
+            again = canny.canny_pyramid(levels, 100.0, 150.0)
+            torch.cuda.synchronize()
+            for lvl, (a, a2, q) in enumerate(zip(k, again, plain)):
+                at = f"{what} level {lvl}"
+                _require(a.shape == q.shape and a.dtype == torch.bool and a.is_contiguous(),
+                         f"{at}: shape/dtype/layout")
+                _require(torch.equal(a, a2), f"{at}: runs differ")
+                diff = int((a != q).sum())
+                _require(diff == 0, f"{at}: kernel != plain at {diff} pixels")
+            _require(bool((passes >= 1).all()), f"{what}: a fixpoint ran no pass")
+            _require(bool(k[0].flatten(1).any(1).all()), f"{what}: an image has no edge")
+            line = (f"{what}: equal to plain, runs equal, {float(k[0].float().mean()) * 100:.2f}% "
+                    f"edges at level 0; passes per level (most of any image) "
+                    f"{passes.max(1).values.tolist()}")
+            if kind == "rendered":
+                k_ms = _time_ms(lambda: canny.canny_pyramid(levels), 20)
+                before = _time_ms(lambda: [canny.canny(g) for g in levels], 20)
+                p_ms = _time_ms(lambda: canny.canny_pyramid_plain(levels), 3)
+                n = sum(g.numel() for g in levels)  # every level's image read, edge map written
                 bound = _bound(n * (4 + 1), n * OPS_CANNY_PIXEL)
-                _log(f"{what}: equal, runs equal, {float(k.float().mean()) * 100:.2f}% edges; "
-                     f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
-                     f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                if (lvl, kind, b) == (0, "rendered", BATCH):
+                line += (f"; canny_pyramid {k_ms:.4f} ms, four single-level canny calls "
+                         f"{before:.4f} ms, plain {p_ms:.4f} ms; bound "
+                         f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                if b == BATCH:
                     summary = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+            _log(line)
+    one = cases["odd noise"][1]
+    n0 = canny.canny_pyramid.launches
+    k = canny.canny(one, 100.0, 150.0)
+    torch.cuda.synchronize()
+    _require(canny.canny_pyramid.launches == n0 + 1, "canny of one level: not one pyramid launch")
+    _require(torch.equal(k, canny.canny_plain(one, 100.0, 150.0)), "canny of one level != plain")
+    _log(f"canny {one.shape[1]}x{one.shape[2]} B={one.shape[0]}: one canny_pyramid launch, "
+         f"equal to plain")
     return summary
 
 
@@ -793,14 +829,19 @@ def check_level_lm(device, rng) -> dict:
     rendered pairs and on one, at all 4 levels from the identity. The CPU
     tests' bars against the plain version; iteration 0's energy equal to
     `fused_gn_terms`' at the start pose (1e-6 relative); a second launch
-    bitwise equal. CUDA-event times per level of the kernel, the
-    per-iteration route it replaced and the plain version."""
+    bitwise equal; the diagnostics: where they are not the best iterate's
+    own (deferred, or a Jacobian stride > 1) the all-point tail's eps,
+    visibility, energy and visible ratio bitwise those of `residual_pass` at
+    the returned pose (the launch the tail replaced), else the best
+    iterate's energy. CUDA-event times per level of the kernel, the
+    per-iteration route it replaced, the plain version and that
+    `residual_pass`."""
     import torch
 
     from rgbd_odometry_tpu_torch import PipelineConfig, SolverConfig, profiles
     from rgbd_odometry_tpu_torch.core.camera import Intrinsics
     from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
-    from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm
+    from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, residual
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
     prof = profiles.production_320()
@@ -835,36 +876,56 @@ def check_level_lm(device, rng) -> dict:
                                                scale)[2]
                 torch.cuda.synchronize()
                 what = f"level_lm {name} B={b} level {lvl}"
-                _require(all(a is None and c is None or _same_bits(a, c)
-                             for a, c in zip(ker, again)), f"{what}: runs differ")
+                _require(all(_same_bits(a, c) for a, c in zip(ker, again)), f"{what}: runs differ")
                 _require(bool(torch.isfinite(ker.R).all() and torch.isfinite(ker.t).all()),
                          f"{what}: non-finite pose")
                 rel0 = _rel(ker.energy[:, :1], e0[:, None])
                 _require(rel0 <= 1e-6, f"{what}: iteration 0 energy vs fused_gn_terms {rel0:.2e}")
                 err = _check_level_curves(what, cfg, ker, pl)
                 worst = max(worst, err)
+                tail = cfg.lm_deferred_accept or jstride > 1
+                r_args = (ker.R, ker.t, pts, valid, img, *li, True)
+                if tail:
+                    res = residual.residual_pass(*r_args, write_points=True)
+                    ratio = res[1].to(torch.float32) / torch.clamp(count, min=1).to(torch.float32)
+                    torch.cuda.synchronize()
+                    _require(_same_bits(ker.final_energy, res[0]) and torch.equal(ker.eps, res[2])
+                             and torch.equal(ker.visible, res[3])
+                             and _same_bits(ker.visible_ratio, ratio),
+                             f"{what}: the all-point tail differs from residual_pass at the "
+                             "returned pose")
+                    res_ms = _time_ms(lambda: residual.residual_pass(*r_args, write_points=True), 20)
+                else:
+                    _require(_same_bits(ker.final_energy, ker.best_energy),
+                             f"{what}: the diagnostics' energy is not the best iterate's")
+                    res_ms = float("nan")
                 k_ms = _time_ms(lambda: level_lm.level_lm(*args), 20)
                 with _per_iteration_route():
                     r_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 3)
                 p_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 2)
-                k_jac = pj.shape[1]
+                k_jac, k_all = pj.shape[1], pts.shape[1]
                 ran = (ker.energy != 0).sum(-1)
                 n_valid = vj.sum(-1)
                 passes = OPS_GN_POINT + (0 if cfg.lm_deferred_accept else
                                          OPS_RESIDUAL_POINT * (2 if stride > 1 else 1) / stride)
-                flops = float((ran * n_valid).sum()) * passes + float(ran.sum()) * OPS_LM_STEP
-                # the Jacobian subset, its sampled DT corners, pose, count and
-                # scale in; pose, curve, best iteration and energy out (and the
-                # tracked per-point values)
+                flops = float((ran * n_valid).sum()) * passes + float(ran.sum()) * OPS_LM_STEP + (
+                    float(valid.sum()) * OPS_RESIDUAL_POINT if tail else 0.0)
+                # the points (all K with the tail, else the Jacobian subset)
+                # and their sampled DT corners, pose, count and scale in; pose,
+                # curve, best iteration, energy and the diagnostics out
                 hw = img.shape[1] * img.shape[2]
-                nbytes = b * (k_jac * 13 + min(hw, 4 * k_jac) * 2 + 56 + 56 + 4 * n_iters) + (
-                    b * (pts.shape[1] * 5 + 4) if ker.eps is not None else 0)
+                k_read = k_all if tail else k_jac
+                nbytes = b * (k_read * 13 + min(hw, 4 * k_read) * 2 + 56 + 56 + 4 * n_iters
+                              + k_all * 5 + 8)
                 bound = _bound(nbytes, flops)
                 _log(f"{what} (jstride {jstride}, stride {stride}, {k_jac} points, {n_iters} "
-                     f"iterations, {int(ran.sum())} run): pose err {err:.2e}, runs bitwise equal; "
-                     f"level_lm {k_ms:.4f} ms, per-iteration kernels {r_ms:.4f} ms, plain "
-                     f"{p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.3f} us "
-                     f"({bound['bound_by']})")
+                     f"iterations, {int(ran.sum())} run, diagnostics "
+                     f"{'by the all-point tail' if tail else 'of the best iterate'}): pose err "
+                     f"{err:.2e}, runs bitwise equal"
+                     f"{', the tail bitwise residual_pass' if tail else ''}; level_lm "
+                     f"{k_ms:.4f} ms, per-iteration kernels {r_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                     f"residual_pass at the returned pose {res_ms:.4f} ms; bound "
+                     f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
                 if name == "dvo" and b == BATCH and lvl == 0:
                     summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
     return {"max_abs_err": worst, **summary}
@@ -1543,7 +1604,8 @@ def _launch_counters():
         canny, edt, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
     )
 
-    return {"edt": edt.edt_squared, "canny": canny.canny, "dt_channels": edt.dt_channels,
+    return {"edt": edt.edt_squared, "canny_pyramid": canny.canny_pyramid,
+            "dt_channels": edt.dt_channels,
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm,
@@ -1579,7 +1641,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     res = {
         "edt": check_edt(device, rng),
-        "canny": check_canny(device, rng),
+        "canny_pyramid": check_canny_pyramid(device, rng),
         "dt_channels": check_dt_channels(device, rng),
         "gn": check_fused_gn(device, rng),
         "residual": check_residual(device, rng),
@@ -1622,13 +1684,14 @@ def main() -> int:
                      f"{name}: the matching or PnP kernel was not launched")
         if name in GN_PHASES or name == "cli_subgradient":
             _require(all(n[k] > 0 for k in TARGET_KERNELS),
-                     f"{name}: the canny or dt_channels kernel was not launched")
+                     f"{name}: the canny_pyramid or dt_channels kernel was not launched")
         if name in GN_PHASES:
             _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
         if name == "cli_subgradient":
             _require(n["level_sg"] > 0, f"{name}: the level_sg kernel was not launched")
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
         _require(n["sg"] == 0, f"{name}: the per-iteration subgradient_terms kernel was launched")
+        _require(n["residual"] == 0, f"{name}: the residual_pass kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
     _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
@@ -1643,10 +1706,10 @@ def main() -> int:
          "replaces": "rgbd_odometry_tpu/pallas/edt.py:58 + solvers/edge_dvo.py:183 (XLA: sqrt, "
                      "normalization :206, central_gradient, channels)",
          "launches": launches["dt_channels"], **res["dt_channels"]},
-        {"name": "canny", "route": "cuda", "source": src + "canny.cu",
-         "replaces": "rgbd_odometry_tpu/ops/canny.py:234 (XLA, no Pallas kernel; the "
-                     "lax.while_loop :148)",
-         "launches": launches["canny"], **res["canny"]},
+        {"name": "canny_pyramid", "route": "cuda", "source": src + "canny.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:933 _pyramid_edges (XLA, no Pallas "
+                     "kernel: ops/canny.py:182 canny_multi, :234 canny, the lax.while_loop :148)",
+         "launches": launches["canny_pyramid"], **res["canny_pyramid"]},
         {"name": "fused_gn_terms", "route": "cuda", "source": src + "fused_gn.cu",
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159", "launches": launches["gn"],
          **res["gn"]},
@@ -1664,7 +1727,8 @@ def main() -> int:
          "launches": launches["pnp"], **res["pnp"]},
         {"name": "level_lm", "route": "cuda", "source": src + "level_lm.cu",
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159 + solvers/edge_dvo.py:261 "
-                     "(the lax.scan level loops :586, :754)",
+                     "(the lax.scan level loops :586, :754, the all-point diagnostics "
+                     ":593-609, :758-771)",
          "launches": launches["level_lm"], **res["level_lm"]},
         {"name": "level_sg", "route": "cuda", "source": src + "level_sg.cu",
          "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:586 (XLA, no Pallas kernel: the "

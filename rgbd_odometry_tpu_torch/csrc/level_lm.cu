@@ -24,9 +24,16 @@
 //             rejected step never terminates (the `dvo` command).
 //
 // Both keep the best iterate over the evaluated poses (<=, later ties win)
-// and write the energy curve with zeros after a pair is done. With `track`
-// (standard, Jacobian stride 1) the best iterate's per-point residuals and
-// visibility come from the Gauss-Newton pass itself.
+// and write the energy curve with zeros after a pair is done. The level's
+// diagnostics (per-point residuals and visibility, energy, visible ratio):
+// with `track` (standard, Jacobian stride 1) the best iterate's, from the
+// Gauss-Newton pass itself; otherwise (deferred, or a Jacobian stride > 1)
+// an all-point tail after the loop, at the returned pose (the best iterate,
+// re-orthogonalized), replaces the JAX package's `_project_and_sample` over
+// every point (edge_dvo.py:593-609, :758-771) and the residual.cu launch
+// that took its place before: it reads every point from global memory and
+// forms e2 and the count with residual.cu's thread-to-point map,
+// multiply-add and tree, so its outputs are bitwise that pass's.
 //
 // Design. One block of 256 threads owns one pair for the whole level. The
 // level's strided point set (the Jacobian subset; the proposal subset is
@@ -53,8 +60,10 @@
 // one thread's serial 6x6 solve, exponential and 3 Newton-Schulz steps; a
 // level moves under 1 MB and does a few MFLOP at B = 64. It is bound by
 // latency: the per-iteration chain of block reductions and thread 0's
-// serial step, not by bytes or operations. A B = 1 pair occupies one SM of
-// 132; splitting it over a thread-block cluster is the next step.
+// serial step, not by bytes or operations. The tail adds one pass over K
+// points (12-byte point, 1-byte flag, four 2-byte L2 reads; 8 points a
+// thread at K = 2048). A B = 1 pair occupies one SM of 132; splitting it over
+// a thread-block cluster is the next step.
 
 #include "launch.cuh"
 #include "project.cuh"
@@ -83,6 +92,7 @@ struct Params {
   float* energy_out;
   int* best_iter_out;
   float* best_energy_out;
+  float* final_energy_out;
   float* eps_out;
   uint8_t* vis_out;
   float* vis_ratio_out;
@@ -162,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) level_lm(const Params p) {
   extern __shared__ float4 spts[];
   __shared__ float part[kWarps][kTerms];
   __shared__ float sums[kTerms];
+  __shared__ float red[2][kThreads];
   __shared__ State st;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -179,6 +190,12 @@ __global__ void __launch_bounds__(kThreads) level_lm(const Params p) {
     cp_async4(dst + 1, P + 3 * g + 1);
     cp_async4(dst + 2, P + 3 * g + 2);
     dst[3] = V[g] ? 1.0f : 0.0f;
+  }
+  if (p.track) {  // the best iterate's per-point values, 0 until one is evaluated
+    for (int i = tid; i < p.k; i += kThreads) {
+      p.eps_out[(size_t)b * p.k + i] = 0.0f;
+      p.vis_out[(size_t)b * p.k + i] = 0;
+    }
   }
   if (tid == 0) {
     copy(st.R, p.R0 + (size_t)b * 9, 9);
@@ -338,7 +355,39 @@ __global__ void __launch_bounds__(kThreads) level_lm(const Params p) {
     copy(p.t_out + (size_t)b * 3, st.bt, 3);
     p.best_iter_out[b] = st.best_iter;
     p.best_energy_out[b] = st.best_e;
-    if (p.track) p.vis_ratio_out[b] = st.best_vis;
+    if (p.track) {
+      p.final_energy_out[b] = st.best_e;
+      p.vis_ratio_out[b] = st.best_vis;
+    }
+  }
+  if (p.track) return;
+
+  // ---- the all-point tail: the level's diagnostics at the returned pose,
+  // every point read from global memory, bitwise residual.cu's bilinear pass
+  // (its thread-to-point map, multiply-add and tree)
+  __syncthreads();
+  const rgbd::Pose pose = pose_of(st.bR, st.bt);
+  float acc[2] = {0.0f, 0.0f};  // e2, count
+  for (int i = tid; i < p.k; i += kThreads) {
+    float eps = 0.0f;
+    bool vis = false;
+    if (V[i]) {
+      const rgbd::Projected q = rgbd::project<false>(pose, P + 3 * i, p.fx, p.fy, p.cx, p.cy);
+      vis = rgbd::in_image(q.u, q.v, p.h, p.w);
+      if (vis) {
+        float gu, gv;
+        rgbd::sample_bilinear(I, p.h, p.w, q.u, q.v, &eps, &gu, &gv);
+        acc[0] = __fmaf_rn(eps, eps, acc[0]);
+        acc[1] += 1.0f;
+      }
+    }
+    p.eps_out[(size_t)b * p.k + i] = eps;
+    p.vis_out[(size_t)b * p.k + i] = vis ? 1 : 0;
+  }
+  rgbd::block_reduce(acc, red, tid);
+  if (tid == 0) {
+    p.final_energy_out[b] = __fsqrt_rn(red[0][0]);
+    p.vis_ratio_out[b] = __fdiv_rn(red[1][0], (float)max(p.count[b], 1));
   }
 }
 
@@ -354,10 +403,12 @@ extern "C" const char* cuda_error_string(int code) {
 // contiguous and batch stride `img_batch_stride` elements. The Jacobian
 // subset is points 0, jstride, 2 jstride, ... (k_jac of them); the proposal
 // subset every stride-th of those (standard LM; stride 1 = the same set).
-// Outputs contiguous: R_out (B,3,3), t_out (B,3), energy_out (B,n_iters),
-// best_iter_out (B,) int32, best_energy_out (B,); with track, eps_out (B,K)
-// float32 and vis_out (B,K) uint8 (zero-filled by the caller) and
-// vis_ratio_out (B,), else null. Launches on `stream`, does not synchronize.
+// Outputs contiguous, each written in full: R_out (B,3,3), t_out (B,3),
+// energy_out (B,n_iters), best_iter_out (B,) int32, best_energy_out (B,), and
+// the diagnostics final_energy_out (B,), eps_out (B,K) float32, vis_out (B,K)
+// uint8 and vis_ratio_out (B,): with track the best iterate's (0 where no
+// iterate was evaluated), else the all-point tail's at the returned pose.
+// Launches on `stream`, does not synchronize.
 extern "C" int level_lm_solve(int device, const void* R0, const void* t0, const void* pts,
                               const void* valid, const void* count, const void* img,
                               long long img_batch_stride, const void* scale, int batch, int k,
@@ -366,7 +417,8 @@ extern "C" int level_lm_solve(int device, const void* R0, const void* t0, const 
                               float lam0, float radius, float psi_term, int deferred,
                               int rotationize, int track, void* R_out, void* t_out,
                               void* energy_out, void* best_iter_out, void* best_energy_out,
-                              void* eps_out, void* vis_out, void* vis_ratio_out, void* stream) {
+                              void* final_energy_out, void* eps_out, void* vis_out,
+                              void* vis_ratio_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // k_jac staged points, and with track their residuals and visibility
@@ -378,8 +430,8 @@ extern "C" int level_lm_solve(int device, const void* R0, const void* t0, const 
            (const int*)count, (const __nv_bfloat16*)img, img_batch_stride, (const float*)scale,
            k, k_jac, jstride, stride, n_iters, h, w, fx, fy, cx, cy, inv_sigma2, lam0, radius,
            psi_term, deferred, rotationize, track, (float*)R_out, (float*)t_out,
-           (float*)energy_out, (int*)best_iter_out, (float*)best_energy_out, (float*)eps_out,
-           (uint8_t*)vis_out, (float*)vis_ratio_out};
+           (float*)energy_out, (int*)best_iter_out, (float*)best_energy_out,
+           (float*)final_energy_out, (float*)eps_out, (uint8_t*)vis_out, (float*)vis_ratio_out};
   level_lm<<<batch, kThreads, (size_t)smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,16 @@ residual pass (`edge_dvo.py:261`) and the LM step. `level_lm` is the entry
 point: CPU tensors go to the plain PyTorch version `level_lm_plain` (the
 level loops, one iteration at a time, over `fused_gn_terms_plain` and
 `residual_pass_plain`), CUDA tensors to the kernel; anything else raises.
+It returns the level's diagnostics too: where they are not the best
+iterate's own (deferred accept, or a Jacobian stride > 1) the kernel's
+all-point tail computes them at the returned pose, in place of the residual
+pass (`edge_dvo.py:593-609`, `:758-771`) that ran after the level before.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +31,7 @@ from rgbd_odometry_tpu_torch.ops.linalg6 import chol_solve6
 SMEM_BYTES = 232448 - 4096  # a block's shared memory on Hopper, less the static part
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
-    + [ctypes.c_int] * 8 + [ctypes.c_float] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 8 + [ctypes.c_float] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
 )
 
 
@@ -39,9 +43,12 @@ class LevelLM(NamedTuple):
     energy: torch.Tensor  # (B, n_iters) energy entering each iteration, 0 after done
     best_iter: torch.Tensor  # (B,) int32, -1 if no iterate was evaluated
     best_energy: torch.Tensor  # (B,) the Gauss-Newton pass's energy at the best iterate
-    eps: Optional[torch.Tensor]  # with track: (B, K) residuals at the best iterate
-    visible: Optional[torch.Tensor]  # with track: (B, K) bool
-    visible_ratio: Optional[torch.Tensor]  # with track: (B,) visible / max(count, 1)
+    # the level's diagnostics over all K points: with track (standard LM,
+    # jstride 1) the best iterate's, else the all-point pass's at (R, t)
+    final_energy: torch.Tensor  # (B,) ||eps||
+    eps: torch.Tensor  # (B, K) residuals, 0 where invisible
+    visible: torch.Tensor  # (B, K) bool
+    visible_ratio: torch.Tensor  # (B,) visible / max(count, 1)
 
 
 def sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -195,21 +202,28 @@ def level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n
                    jstride: int, stride: int = 1) -> LevelLM:
     """The plain PyTorch version of `level_lm`: the level loops one
     iteration at a time over `fused_gn_terms_plain` and
-    `residual_pass_plain`."""
+    `residual_pass_plain`, then, unless the best iterate's own diagnostics
+    were tracked, one all-point `residual_pass_plain` at the returned pose."""
     f = (fx, fy, cx, cy)
     pj, vj = _strided(pts, jstride), _strided(valid, jstride)
+    track = not cfg.lm_deferred_accept and jstride == 1
     if cfg.lm_deferred_accept:
         out = _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters)
     else:
-        track = jstride == 1
         ps, vs = _strided(pj, stride), _strided(vj, stride)
         out = _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg,
                               n_iters)
     best_R, best_t, energies, best_iter, best_energy, eps, visible, vis = out
     if cfg.rotationize:
         best_R = geo.rotationize_newton(best_R)
-    return LevelLM(best_R.contiguous(), best_t.contiguous(), torch.stack(energies, dim=-1),
-                   best_iter, best_energy, eps, visible, vis)
+    best_R, best_t = best_R.contiguous(), best_t.contiguous()
+    final = best_energy
+    if not track:
+        final, n, eps, visible = residual_pass_plain(best_R, best_t, pts, valid, img, *f, True,
+                                                     write_points=True)
+        vis = n.to(final.dtype) / torch.clamp(count, min=1).to(final.dtype)
+    return LevelLM(best_R, best_t, torch.stack(energies, dim=-1), best_iter, best_energy, final,
+                   eps, visible, vis)
 
 
 def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters: int,
@@ -224,10 +238,10 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
     proposal passes every `stride`-th point of those (stride > 1 only with
     jstride 1). `cfg` (a `SolverConfig`) supplies `lm_deferred_accept`,
     `gn_weight_sigma2_px`, `lm_damping`, `lm_trust_region`,
-    `psi_norm_termination` and `rotationize`. With the standard LM at
-    jstride 1 the best iterate's per-point residuals, visibility and
-    visible ratio are returned too (`track`). Arguments are checked before
-    anything is built or launched."""
+    `psi_norm_termination` and `rotationize`. The level's diagnostics over
+    all K points come with it: with the standard LM at jstride 1 the best
+    iterate's (`track`), otherwise those of one more pass at the returned
+    pose. Arguments are checked before anything is built or launched."""
     if pts.device.type == "cpu":
         return level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg,
                               n_iters, jstride, stride)
@@ -265,12 +279,10 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
     energy = torch.empty((b, n_iters), dtype=torch.float32, device=dev)
     best_iter = torch.empty((b,), dtype=torch.int32, device=dev)
     best_energy = torch.empty((b,), dtype=torch.float32, device=dev)
-    eps = vis = ratio = None
-    if track:
-        eps = torch.zeros((b, k), dtype=torch.float32, device=dev)
-        vis = torch.zeros((b, k), dtype=torch.bool, device=dev)
-        ratio = torch.empty((b,), dtype=torch.float32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    final = torch.empty((b,), dtype=torch.float32, device=dev)
+    eps = torch.empty((b, k), dtype=torch.float32, device=dev)
+    vis = torch.empty((b, k), dtype=torch.bool, device=dev)
+    ratio = torch.empty((b,), dtype=torch.float32, device=dev)
     lib = build.bind("level_lm", "level_lm_solve", _ARGTYPES)
     code = lib.level_lm_solve(
         dev.index or 0, R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), valid.data_ptr(),
@@ -279,12 +291,12 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
         float(1.0 / cfg.gn_weight_sigma2_px), float(cfg.lm_damping), float(cfg.lm_trust_region),
         float(cfg.psi_norm_termination), int(deferred), int(bool(cfg.rotationize)), int(track),
         R.data_ptr(), t.data_ptr(), energy.data_ptr(), best_iter.data_ptr(),
-        best_energy.data_ptr(), ptr(eps), ptr(vis), ptr(ratio),
-        torch.cuda.current_stream(dev).cuda_stream,
+        best_energy.data_ptr(), final.data_ptr(), eps.data_ptr(), vis.data_ptr(),
+        ratio.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, code, "level_lm launch")
     level_lm.launches += 1
-    return LevelLM(R, t, energy, best_iter, best_energy, eps, vis, ratio)
+    return LevelLM(R, t, energy, best_iter, best_energy, final, eps, vis, ratio)
 
 
 level_lm.launches = 0

@@ -23,9 +23,10 @@ process_frame`, keyframe every 5:
 per-frame paths' profiles in the same process the profiler was seen to drop
 kernel records, which this mode reports as an error) profiles the now-frame
 target kernels, 20 calls each at 240x320 for B = 64 and B = 1 on rendered
-frames: the device time per launch of every CUDA kernel behind `canny`,
-`dt_channels` (+-16 window in pixels, and the whole row normalized) and
-`edt_squared`.
+frames: per call, the device time and the launches of every CUDA kernel
+behind `canny_pyramid` (the 4-level pyramid), `canny` (a pyramid of one
+level: level 0, and the four levels one call each), `dt_channels` (+-16
+window in pixels, and the whole row normalized) and `edt_squared`.
 
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
@@ -155,23 +156,29 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
 
 
 def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
-    """Device time per launch (us) of each CUDA kernel behind the target
-    entry points, at 240x320 on `batch` rendered frames and on one."""
+    """Per call of each target entry point, [device time (us), launches] of
+    each CUDA kernel behind it, at 240x320 on `batch` rendered frames and on
+    one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
     from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
     from rgbd_odometry_tpu_torch.kernels import canny, edt
 
     frames, _ = render_sequence(CameraConfig(), _trajectory(batch), seed=0)
     gray = torch.from_numpy(np.stack([g for g, _ in frames])).to(device)
+    pyr = build_pyramid(gray, torch.full_like(gray, 1000.0), 4).gray
     edges = canny.canny(gray)
     out = {"path": "targets", "batch": batch, "reps": reps}
     for b in (batch, 1):
         g, e = gray[:b].contiguous(), edges[:b].contiguous()
+        levels = tuple(x[:b].contiguous() for x in pyr)
         cases = {
+            "canny_pyramid": lambda: canny.canny_pyramid(levels),
             "canny": lambda: canny.canny(g),
+            "canny 4 levels": lambda: [canny.canny(x) for x in levels],
             "dt_channels R=16 pixels bf16": lambda: edt.dt_channels(e, 16, False, True),
             "dt_channels R=0 normalized bf16": lambda: edt.dt_channels(e, 0, True, True),
             "edt_squared R=16": lambda: edt.edt_squared(e, 16),
@@ -179,17 +186,24 @@ def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
         for name, fn in cases.items():
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            kernels = [ev for ev in prof.key_averages()
-                       if ev.device_time_total > 0 and ev.count >= reps]
-            if not kernels:
+            # the profiler was seen to drop all kernel records of one window
+            # after many windows in one process: such a window is profiled again
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                kernels = [ev for ev in prof.key_averages()
+                           if ev.device_time_total > 0 and ev.count >= reps]
+                if kernels:
+                    break
+                print(f"profile_targets: no kernel record for {name} B={b}; again",
+                      file=sys.stderr, flush=True)
+            else:
                 raise RuntimeError(f"profile_targets: no kernel record for {name} B={b}")
             out[f"{name} B={b}"] = {
-                re.search(r"(\w+(?:<[^>]*>)?)\(", ev.key).group(1): ev.device_time_total / ev.count
-                for ev in kernels}
+                re.search(r"(\w+(?:<[^>]*>)?)\(", ev.key).group(1):
+                [ev.device_time_total / reps, ev.count / reps] for ev in kernels}
     print(json.dumps(out), flush=True)
     return out
 

@@ -15,11 +15,11 @@ Three level solvers are ported:
   Jacobian.
 
 The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
-`prepare_now_level` is one Canny call (`kernels/canny.py`, hysteresis
-fixpoint on the device) and one `dt_channels` call (`kernels/edt.py`: EDT,
-sqrt, normalization, gradients, channels); a whole Gauss-Newton
-level, both LM loops, in one launch (`kernels/level_lm.py`); the residual
-pass (`kernels/residual.py`) for the all-point diagnostics; a whole
+a frame's edge maps are one `canny_pyramid` call over all levels
+(`kernels/canny.py`, hysteresis fixpoints on the device), then per level
+one `dt_channels` call (`kernels/edt.py`: EDT, sqrt, normalization,
+gradients, channels); a whole Gauss-Newton level, both LM loops and the
+all-point diagnostics, in one launch (`kernels/level_lm.py`); a whole
 sub-gradient level in one launch (`kernels/level_sg.py`). Configurations
 outside these raise `NotImplementedError` naming the ROADMAP item that will
 port them (`check_config`).
@@ -36,13 +36,12 @@ import torch.nn.functional as F
 
 from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
-from rgbd_odometry_tpu_torch.kernels.canny import canny
+from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
 from rgbd_odometry_tpu_torch.kernels.level_sg import level_sg
 from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step as _subgradient_step  # noqa: F401
-from rgbd_odometry_tpu_torch.kernels.residual import residual_pass
 from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms
 
 _PARITY = "ROADMAP.md Queue 1, item 5 'reference-parity mode'"
@@ -87,7 +86,8 @@ def check_config(cfg: SolverConfig) -> None:
     (floor gathers of a float32 DT, "reference" Jacobian; `gather_mode`
     "mxu" and "take" are both floor semantics, bit-equal), deferred or
     standard LM, `normalize_dt` either way. (`fuse_level_canny` and
-    `edt_backend` select between bit-identical implementations.)"""
+    `edt_backend` select between bit-identical JAX implementations; the
+    port has one implementation for either value.)"""
     gn = cfg.method == "gauss_newton"
     jac = cfg.jacobian_mode if cfg.jacobian_mode != "auto" else ("true" if gn else "reference")
     unsupported = [
@@ -203,41 +203,36 @@ def extract_ref_features(
     edges_pyr: Tuple[torch.Tensor, ...] | None = None,
 ) -> Tuple[RefLevel, ...]:
     """`extract_ref_level` over all levels; ``edges_pyr`` (a keyframe's own
-    `NowLevel.edges`) skips Canny with bit-identical features."""
+    `NowLevel.edges`) skips Canny with bit-identical features, else the edge
+    maps are one `_pyramid_edges` call."""
     if edges_pyr is None:
-        edges_pyr = tuple(canny(g, cfg.canny_low, cfg.canny_high) for g in gray_pyr)
+        edges_pyr = _pyramid_edges(gray_pyr, cfg)
     return tuple(
         extract_ref_level(g, d, intr.at_level(lvl), max_points[lvl], cfg, edges=e)
         for lvl, (g, d, e) in enumerate(zip(gray_pyr, depth_pyr, edges_pyr))
     )
 
 
+def _pyramid_edges(gray_pyr: Tuple[torch.Tensor, ...], cfg: SolverConfig):
+    """Per-level Canny edge maps of a pyramid in one `canny_pyramid` call
+    (JAX `_pyramid_edges`, whose two forms, per-level `canny` and the
+    stacked `canny_multi` under `cfg.fuse_level_canny`, are bit-identical
+    to each other and to it)."""
+    return canny_pyramid(tuple(gray_pyr), cfg.canny_low, cfg.canny_high)
+
+
 def prepare_now_targets(
     gray_pyr: Tuple[torch.Tensor, ...], cfg: SolverConfig
 ) -> Tuple[NowLevel, ...]:
-    """`prepare_now_level` over all levels."""
-    return tuple(prepare_now_level(g, cfg) for g in gray_pyr)
+    """The pyramid's edge maps (`_pyramid_edges`), then `prepare_now_level`
+    on each level's."""
+    edges = _pyramid_edges(gray_pyr, cfg)
+    return tuple(prepare_now_level(g, cfg, edges=e) for g, e in zip(gray_pyr, edges))
 
 
 # --------------------------------------------------------------------------
 # Level solve
 # --------------------------------------------------------------------------
-
-
-def _diagnostics(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
-                 energy, best_iter) -> LevelDiagnostics:
-    """All-point diagnostics of a Gauss-Newton level at the returned pose:
-    one residual pass (kernel 3) over every point of the level (JAX
-    `_project_and_sample`), sampled as JAX `_sample_dt` samples: the bf16 DT
-    channel, bilinear."""
-    energy_best, n, eps, visible = residual_pass(
-        R, t, ref.pts3d, ref.valid, now.chans[:, 0], *intr, bilinear=True, write_points=True,
-    )
-    vis = n.to(energy_best.dtype) / torch.clamp(ref.count, min=1).to(energy_best.dtype)
-    return LevelDiagnostics(
-        energy=energy, best_energy=energy_best, best_iter=best_iter,
-        visible_ratio=vis, final_epsilons=eps, final_valid=visible, num_points=ref.count,
-    )
 
 
 def level_strides(cfg: SolverConfig, cap: int) -> Tuple[int, int]:
@@ -269,7 +264,8 @@ def run_level(
     tests proposals on every Mth point, M = max(1, min(lm_proposal_stride,
     K // 512)), else on the Jacobian's own subset. With a stride-1 standard
     LM the diagnostics are the level's own at the best iterate; otherwise
-    one all-point residual pass at the returned pose. A sub-gradient level
+    the launch's all-point pass at the returned pose (JAX
+    `_project_and_sample`, :593-609, :758-771). A sub-gradient level
     is one `level_sg` launch over every point, with the diagnostics of its
     best iterate. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
     check_config(cfg)
@@ -288,14 +284,11 @@ def run_level(
     jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
     out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
                    *intr_level, cfg, n_iters, jstride, stride)
-    if out.eps is None:
-        diag = _diagnostics(out.R, out.t, ref, now, intr_level, out.energy, out.best_iter)
-    else:
-        diag = LevelDiagnostics(
-            energy=out.energy, best_energy=out.best_energy, best_iter=out.best_iter,
-            visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
-            num_points=ref.count,
-        )
+    diag = LevelDiagnostics(
+        energy=out.energy, best_energy=out.final_energy, best_iter=out.best_iter,
+        visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
+        num_points=ref.count,
+    )
     return out.R, out.t, diag
 
 

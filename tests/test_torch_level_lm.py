@@ -8,7 +8,13 @@ carried-across levels (60x80 and 120x160, 256-1024 points):
   with a proposal stride of 2 (the current pose's energy on the proposal
   subset) and at Jacobian stride 2;
 * termination norms at which the pairs finish at different iterations;
-* an edge-free target, where every proposal ties and the pose stays.
+* an edge-free target, where every proposal ties and the pose stays;
+* the level's all-point diagnostics where they are not the best iterate's
+  own (deferred accept, Jacobian stride > 1): at the returned pose, JAX's
+  `_project_and_sample` there (visibility and visible ratio exact, residuals
+  within 2e-3, the energy within 1e-5 relative), and JAX's own diagnostics
+  at JAX's pose (`test_all_point_diagnostics_match_jax`); `run_level` takes
+  them from the launch and runs no residual pass.
 
 The port's bilinear sampler rounds here as JAX's one-hot matmul gathers
 round (`test_torch_parity_solve._sample_bf16_like_jax`, bitwise JAX's), so
@@ -161,10 +167,11 @@ def test_level_lm_matches_jax(case, bf16_like_jax):
     assert got == strides
     _check_against_jax(cfg, jax_out, out, n_iters, strides[1])
     track = not cfg.lm_deferred_accept and strides[0] == 1
-    assert (out.eps is not None) == track
+    assert out.eps.shape == (3, cap) and out.visible.shape == (3, cap)
+    assert out.final_energy.shape == (3,) and out.visible_ratio.shape == (3,)
     if track:
         # the best iterate's per-point values come from the level itself
-        assert out.eps.shape == (3, cap) and out.visible.shape == (3, cap)
+        assert torch.equal(out.final_energy, out.best_energy)
         for b, (_, _, d_j) in enumerate(jax_out):
             np.testing.assert_allclose(float(out.best_energy[b]), float(d_j.best_energy),
                                        rtol=1e-3)
@@ -172,6 +179,80 @@ def test_level_lm_matches_jax(case, bf16_like_jax):
                                        atol=5e-3)
         np.testing.assert_allclose(torch.sqrt((out.eps ** 2).sum(-1)).numpy(),
                                    out.best_energy.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["deferred_j1", "deferred_j2", "standard_j2"])
+def test_all_point_diagnostics_match_jax(case, bf16_like_jax):
+    """Where the diagnostics are not the best iterate's own, `level_lm`
+    returns those of one pass over all K points at its returned pose: JAX's
+    `_project_and_sample` at that pose gives the same visibility and visible
+    ratio exactly, residuals within 2e-3 (a projection rounded in another
+    order moves a bilinear sample of the bf16 DT) and the energy within 1e-5
+    relative. Against JAX's own diagnostics, at JAX's pose (up to 5e-4
+    away, within this file's pose bar, which moves a few points across the
+    image edge): the visible ratio within 5e-3 and the energy within 2e-2
+    for every pair, and within 1e-3 for at least two of the three."""
+    cfg, shape, cap, n_iters, _ = CASES[case]
+    refs, nows, starts, intr, ref_t, now_t, (R0, t0) = _inputs(cfg, shape, cap)
+    run = jax.jit(lambda r, n, R, t: jed.run_level(r, n, intr, R, t, cfg, n_iters))
+    jstride, stride = ted.level_strides(cfg, cap)
+    out = klm.level_lm(R0, t0, ref_t.pts3d, ref_t.valid, ref_t.count, now_t.chans[:, 0],
+                       now_t.scale, *Intrinsics.from_config(CAMS[shape]), cfg, n_iters,
+                       jstride, stride)
+    close = 0
+    for b in range(3):
+        eps, _, vis, energy, ratio, *_ = jed._project_and_sample(
+            jnp.asarray(out.R[b].numpy()), jnp.asarray(out.t[b].numpy()), refs[b], nows[b],
+            intr, cfg)
+        np.testing.assert_array_equal(out.visible[b].numpy(), np.asarray(vis))
+        assert float(out.visible_ratio[b]) == float(ratio)
+        np.testing.assert_allclose(out.eps[b].numpy(), np.asarray(eps), rtol=0, atol=2e-3)
+        np.testing.assert_allclose(float(out.final_energy[b]), float(energy), rtol=1e-5)
+        assert not (out.eps[b].numpy()[~out.visible[b].numpy()]).any()
+        _, _, d_j = run(refs[b], nows[b], *starts[b])
+        np.testing.assert_allclose(float(out.visible_ratio[b]), float(d_j.visible_ratio),
+                                   atol=5e-3)
+        e_p, e_j = float(out.final_energy[b]), float(d_j.best_energy)
+        np.testing.assert_allclose(e_p, e_j, rtol=2e-2)
+        close += abs(e_p - e_j) <= 1e-3 * e_j
+    assert close >= 2
+
+
+def test_run_level_takes_the_diagnostics_from_the_launch(monkeypatch, bf16_like_jax):
+    """A deferred-accept level at Jacobian stride 2: `run_level`'s
+    diagnostics are `level_lm`'s all-point outputs, with no residual pass
+    of its own: every residual pass on the CPU ends in `residual_pass_plain`
+    (`residual_pass` dispatches there too), and `run_level` makes as many
+    as one `level_lm` call alone, in a single `level_lm` call."""
+    counts = {"passes": 0, "level_lm": 0}
+    plain, lm = residual.residual_pass_plain, ted.level_lm
+
+    def counted_pass(*a, **k):
+        counts["passes"] += 1
+        return plain(*a, **k)
+
+    def counted_lm(*a, **k):
+        counts["level_lm"] += 1
+        return lm(*a, **k)
+
+    monkeypatch.setattr(residual, "residual_pass_plain", counted_pass)
+    monkeypatch.setattr(klm, "residual_pass_plain", counted_pass)
+    monkeypatch.setattr(ted, "level_lm", counted_lm)
+    cfg, shape, cap, n_iters, _ = CASES["deferred_j2"]
+    _, _, _, _, ref_t, now_t, (R0, t0) = _inputs(cfg, shape, cap)
+    li = Intrinsics.from_config(CAMS[shape])
+    R, t, diag = ted.run_level(ref_t, now_t, li, R0, t0, cfg, n_iters)
+    in_run_level = counts["passes"]
+    out = klm.level_lm(R0, t0, ref_t.pts3d, ref_t.valid, ref_t.count, now_t.chans[:, 0],
+                       now_t.scale, *li, cfg, n_iters, *ted.level_strides(cfg, cap))
+    assert counts["level_lm"] == 1
+    assert in_run_level == counts["passes"] - in_run_level > 0
+    assert torch.equal(R, out.R) and torch.equal(t, out.t)
+    for got, want in ((diag.best_energy, out.final_energy), (diag.final_epsilons, out.eps),
+                      (diag.final_valid, out.visible), (diag.visible_ratio, out.visible_ratio),
+                      (diag.energy, out.energy), (diag.best_iter, out.best_iter)):
+        assert torch.equal(got, want)
+    assert not hasattr(ted, "residual_pass")
 
 
 @pytest.mark.parametrize("deferred", [False, True])

@@ -362,10 +362,10 @@ def test_cuda_wrappers_reject_bad_arguments_before_building(monkeypatch, name, f
                     "must be contiguous"),
         "device": (good, "unsupported device"),
     }[fault]
-    before = (kcanny.canny.launches, kedt.edt_squared.launches, kedt.dt_channels.launches)
+    before = (kcanny.canny_pyramid.launches, kedt.edt_squared.launches, kedt.dt_channels.launches)
     with pytest.raises(ValueError, match=match):
         fn(arg)
-    assert before == (kcanny.canny.launches, kedt.edt_squared.launches,
+    assert before == (kcanny.canny_pyramid.launches, kedt.edt_squared.launches,
                       kedt.dt_channels.launches)
 
 
@@ -376,4 +376,4 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     for flags in ((16, False, True), (0, True, False)):
         for a, b in zip(kedt.dt_channels(edges, *flags), kedt.dt_channels_plain(edges, *flags)):
             assert a.dtype == b.dtype and torch.equal(a, b)
-    assert kcanny.canny.launches == 0 and kedt.dt_channels.launches == 0
+    assert kcanny.canny_pyramid.launches == 0 and kedt.dt_channels.launches == 0
