@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (ten
+Builds the ten CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (eleven
 kernels; one nvcc per source, all at once), holds each against its plain
 PyTorch version at the main paths' shapes, then drives the port's main paths
 through their user entry points:
@@ -33,7 +33,19 @@ through their user entry points:
                    information-weighted refinement, ATE < 20 mm;
   cli_refine       `refine` of cli_loop_close's trajectory and closures with
                    `--robust geman --covariance-out`: no residual norm grows
-                   from one iteration to the next, (N, 6, 6) covariance.
+                   from one iteration to the next, (N, 6, 6) covariance;
+  multistream      `MultiStreamOdometry`, 8 of the `multistream` command's
+                   rendered 320x240 streams, 12 frames, hold and constant
+                   velocity, against 8 `EdgeDvoOdometry` runs each (rollback
+                   off): the same keyframes, hold's poses bitwise equal,
+                   constant velocity's within 1e-2 and bitwise unless
+                   `cv_extrapolate` itself differs at B = 8 from B = 1;
+  cli_multistream  `multistream --streams 16 --frames 20 --quality-triggers`:
+                   every stream's ATE < 20 mm, aggregate frames/s, the
+                   kernels' calls per lockstep step;
+  align_sequence   `parallel.sequence.align_sequence` over the stream phase's
+                   30 frames under production_320, keyframe-anchored every 5:
+                   the last frame within tests/test_sharding.py's bar.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes, B = 64
@@ -50,7 +62,11 @@ times it per level beside the per-iteration route it replaced.
 `check_level_sg` does the same for the whole-level sub-gradient kernel at
 the four parity capacities (50 iterations, B = 64 and B = 1), after
 `check_se3_log` has held the device function `se3_log` against its plain
-twin in all three branches. Every
+twin in all three branches. `check_extract` holds keyframe extraction
+over a pyramid bitwise against its plain version on every output, invalid
+slots included (production_320's, the `dvo` defaults' and production_vga's
+capacities, B = 64 and 1, rendered, edge-free, all-edge and shallow-depth
+inputs). Every
 kernel's launch counter is set to 0 before the path phases and read around
 each one: each kernel of the paths must launch; `canny_pyramid` and
 `dt_channels` in every Gauss-Newton phase and in cli_subgradient
@@ -62,7 +78,9 @@ keep their checks); `level_sg` in
 cli_subgradient, where the per-iteration `subgradient_terms` must launch not
 at all (it keeps its check too); the matching and PnP kernels in each of
 the loop_closure, relocalize, cli_loop_close and cli_weighted_refine
-phases. Any failed check raises (exit code != 0). The line before the last
+phases; `extract_pyramid` in every phase that extracts keyframe features
+(every Gauss-Newton phase, the lockstep and sequence phases among them, and
+cli_subgradient). Any failed check raises (exit code != 0). The line before the last
 is the kernel summary as JSON: per kernel its launches on the paths, its
 error against the plain version, its and the plain version's CUDA-event
 time, and its bound (the larger of the bytes it must move over 3.35 TB/s
@@ -74,6 +92,7 @@ script exits with code 2 and prints no result. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -97,7 +116,7 @@ STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
 KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
-           "level_sg")
+           "level_sg", "extract")
 TARGET_KERNELS = ("canny_pyramid", "dt_channels")  # every frame's targets launch both
 # entries that keep their check and launch on no path
 OFF_PATH = ("edt", "gn", "residual", "sg")
@@ -105,7 +124,11 @@ MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases mus
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
 GN_PHASES = ("stream", "batch", "cli_default", "cli_default_no_feeder", "relocalize",
-             "cli_loop_close", "cli_weighted_refine")
+             "cli_loop_close", "cli_weighted_refine", "multistream", "cli_multistream",
+             "align_sequence")
+# the phases that extract keyframe features: extract_pyramid must launch there
+EXTRACT_PHASES = GN_PHASES + ("cli_subgradient",)
+MULTI_STREAMS, MULTI_FRAMES = 8, 12  # the multistream phase: N streams, frames each
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # float32 operations per point, counted in the CUDA sources
@@ -125,6 +148,8 @@ OPS_CANNY_PIXEL = 34  # what one pixel of Canny needs (canny.cu): rounding and c
 #                       four products, an add, three compares) and the keep rule with both
 #                       thresholds (four compares) 14; a design's recomputed halo is not counted
 OPS_DT_TAIL = 12  # edt.cu: G^2 1, sqrt 1, two gradients 4, normalization 2, conversions 3
+OPS_EXTRACT_PIXEL = 3  # extract.cu, per pixel: the depth compare, the class test, the count
+OPS_EXTRACT_SLOT = 8  # per written slot: 2 subtractions, 5 products (3 reciprocals a launch)
 
 
 def _log(msg: str) -> None:
@@ -431,6 +456,97 @@ def check_dt_channels(device, rng) -> dict:
                         out[(h, w, b, radius, normalize, bf16)] = {
                             "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
     return out[(*EDT_SHAPES[0], BATCH, 16, False, True)]
+
+
+def check_extract(device, rng) -> dict:
+    """`extract_pyramid` vs its plain version (`extract_ref_level` on each
+    level), every output bitwise equal, invalid slots included, and a
+    second launch bitwise equal: production_320's capacities (segmented
+    levels) and the `dvo` defaults' (exact) on the 4-level 320x240 pyramid,
+    and production_vga's (5 levels, 4096 at level 0, segmented and exact)
+    on a 640x480 pyramid (the rendered frames doubled); at B = 64 and 1, on
+    rendered frames (their own Canny edges and depth), edge-free and
+    all-edge maps, and rendered edges over a depth half below
+    `min_depth_mm`. Times the kernel and its plain version on the rendered
+    320x240 pyramid at both configurations, B = 64 and B = 1."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import canny, extract
+
+    p320, vga = profiles.production_320(), profiles.production_vga()
+    _, _, ng, nd, _ = render_batch(p320.camera, BATCH)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    gray, depth = f(ng), f(nd)
+    up = lambda x: x.repeat_interleave(2, 1).repeat_interleave(2, 2)  # noqa: E731
+    configs = {
+        "production_320": (p320.solver, p320.max_points, 4, gray, depth, p320.camera),
+        "dvo defaults": (SolverConfig(), (8192, 4096, 2048, 1024), 4, gray, depth, p320.camera),
+        "production_vga": (vga.solver, vga.max_points, 5, up(gray), up(depth), vga.camera),
+        "production_vga exact": (dataclasses.replace(vga.solver, extract_selection="exact"),
+                                 vga.max_points, 5, up(gray), up(depth), vga.camera),
+    }
+    names = ("pts3d", "uv", "valid", "count")
+    out = {}
+    for cname, (cfg, caps, n_lv, g0, d0, cam) in configs.items():
+        pyr = build_pyramid(g0, d0, n_lv)
+        intr = Intrinsics.from_config(cam)
+        edges = canny.canny_pyramid(pyr.gray, cfg.canny_low, cfg.canny_high)
+        shallow = tuple(torch.where(torch.from_numpy(rng.random(tuple(d.shape)) < 0.5).to(device),
+                                    torch.full_like(d, 50.0), d) for d in pyr.depth)
+        cases = {
+            "rendered": (edges, pyr.depth),
+            "edge-free": (tuple(torch.zeros_like(e) for e in edges), pyr.depth),
+            "all-edge": (tuple(torch.ones_like(e) for e in edges), pyr.depth),
+            "shallow depth": (edges, shallow),
+        }
+        for kind, (e_pyr, d_pyr) in cases.items():
+            for b in (BATCH, 1):
+                e_b = tuple(e[:b].contiguous() for e in e_pyr)
+                d_b = tuple(d[:b].contiguous() for d in d_pyr)
+                args = (e_b, d_b, intr, cfg, caps)
+                k = extract.extract_pyramid(*args)
+                again = extract.extract_pyramid(*args)
+                plain = extract.extract_pyramid_plain(*args)
+                torch.cuda.synchronize()
+                what = f"extract_pyramid {cname} {kind} {n_lv} levels B={b}"
+                for lvl, (a, c, q) in enumerate(zip(k, again, plain)):
+                    for name, x, y, z in zip(names, a, c, q):
+                        at = f"{what} level {lvl} {name}"
+                        _require(x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous(),
+                                 f"{at}: shape/dtype/layout {tuple(x.shape)} {x.dtype}")
+                        _require(_same_bits(x, y), f"{at}: runs differ")
+                        if not _same_bits(x, z):
+                            bad = (x != z).reshape(-1).nonzero()[:4].reshape(-1).tolist()
+                            raise AssertionError(
+                                f"{at}: kernel != plain at {int((x != z).sum())} entries, first "
+                                f"{bad}: {x.reshape(-1)[bad].tolist()} vs "
+                                f"{z.reshape(-1)[bad].tolist()}")
+                counts = [int(a.count.sum()) for a in k]
+                line = (f"{what}: 4 outputs bitwise equal at every level, runs equal; "
+                        f"counts {counts}")
+                if kind == "edge-free":
+                    _require(sum(counts) == 0, f"{what}: an edge-free image has points")
+                if kind == "rendered" and n_lv == 4:
+                    k_ms = _time_ms(lambda: extract.extract_pyramid(*args), 20)
+                    p_ms = _time_ms(lambda: extract.extract_pyramid_plain(*args), 3)
+                    # every image's edge map read (1 byte a pixel), its depth only
+                    # under an edge (what the mask needs), the order tables read
+                    # once, the slots and counts written
+                    n_px = sum(e.numel() for e in e_b)
+                    under_edge = sum(int(e.sum()) for e in e_b)
+                    tables = sum(extract._order_table(e.shape[1] * e.shape[2], str(device)).numel()
+                                 * 4 for e in e_b)
+                    slots = sum(a.valid.numel() for a in k)
+                    bound = _bound(n_px + 4 * under_edge + tables + slots * 21 + 4 * b * len(k),
+                                   n_px * OPS_EXTRACT_PIXEL + slots * OPS_EXTRACT_SLOT)
+                    line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                             f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                    out[(cname, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+                _log(line)
+    return out[("production_320", BATCH)]
 
 
 def check_fused_gn(device, rng) -> dict:
@@ -1265,6 +1381,15 @@ def _trajectory(n: int, step: float = 0.002):
     ).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=1)
+def stream_frames():
+    """The stream phase's rendered 320x240 frames and ground-truth poses."""
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+
+    return render_sequence(profiles.production_320().camera, _trajectory(STREAM_FRAMES), seed=0)
+
+
 def run_stream(device) -> dict:
     """EdgeDvoOdometry under production_320 over a rendered sequence."""
     import torch
@@ -1272,8 +1397,6 @@ def run_stream(device) -> dict:
     from rgbd_odometry_tpu_torch import (
         EdgeDvoOdometry, KeyframeConfig, PipelineConfig, PyramidConfig, profiles,
     )
-    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
-
     prof = profiles.production_320()
     cfg = PipelineConfig(
         camera=prof.camera,
@@ -1281,7 +1404,7 @@ def run_stream(device) -> dict:
         solver=prof.solver,
         keyframe=KeyframeConfig(force_every=5, rollback_resolve=True),
     )
-    frames, poses = render_sequence(prof.camera, _trajectory(STREAM_FRAMES), seed=0)
+    frames, poses = stream_frames()
     odo = EdgeDvoOdometry(cfg, device=device)
     odo.process_frame(*frames[0], timestamp=0.0)  # bootstrap (untimed)
     if device.type == "cuda":
@@ -1599,9 +1722,142 @@ def run_cli_refine(loop_close: dict) -> dict:
     return {"nodes": res["nodes"], "norms": norms}
 
 
+def run_multistream(device) -> dict:
+    """`MultiStreamOdometry` over 8 of the `multistream` command's rendered
+    320x240 streams, 12 frames, at its defaults (hold), then with constant
+    velocity; each against 8 `EdgeDvoOdometry` runs with rollback off on
+    the same frames: the keyframe schedules must be equal, hold mode's poses
+    bitwise equal (every kernel of the path works one image or one pair a
+    block), constant velocity's within the JAX test's 1e-2 and bitwise
+    unless `cv_extrapolate`, the one batched op of its step outside the
+    kernels, itself differs at B = 8 from B = 1, which is checked first.
+    Aggregate frames/s of the lockstep loop (host clock, rendering apart,
+    ending in a sync)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig, EdgeDvoOdometry
+    from rgbd_odometry_tpu_torch.cli import multistream_config, render_streams
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+    from rgbd_odometry_tpu_torch.pipeline.odometry import cv_extrapolate
+
+    n, frames = MULTI_STREAMS, MULTI_FRAMES
+    # the constant-velocity warm start's 3x3 products at B = n against B = 1
+    twists = torch.from_numpy(
+        (np.random.default_rng(7).uniform(-1, 1, (2 * n, 6)) * 0.05).astype(np.float32)).to(device)
+    R, t = se3_exp(twists)
+    poses = (R[:n], t[:n], R[n:], t[n:])
+    batched = cv_extrapolate(*poses)
+    single = [cv_extrapolate(*(x[s:s + 1] for x in poses)) for s in range(n)]
+    cv_same = all(_same_bits(batched[i][s:s + 1], single[s][i]) for s in range(n) for i in (0, 1))
+    _log(f"multistream: cv_extrapolate on {n} poses {'equals' if cv_same else 'differs from'} "
+         f"its {n} one-pose calls bitwise")
+    out = {"cv_extrapolate_bitwise": cv_same}
+
+    t0 = time.perf_counter()
+    seqs, gts = render_streams(CameraConfig(), n, frames)
+    render_s = time.perf_counter() - t0
+    for model, bar in (("hold", 0.0), ("constant_velocity", 1e-2)):
+        cfg = multistream_config(CameraConfig(), motion_model=model)
+        multi = MultiStreamOdometry(n, cfg, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(frames):
+            multi.process_batch(np.stack([sq[f][0] for sq in seqs]),
+                                np.stack([sq[f][1] for sq in seqs]), timestamp=f / 30.0)
+        torch.cuda.synchronize()
+        fps = n * frames / (time.perf_counter() - t0)
+        worst, bitwise = 0.0, True
+        for s in range(n):
+            single = EdgeDvoOdometry(cfg, device=device)
+            for f, (g, d) in enumerate(seqs[s]):
+                single.process_frame(g, d, timestamp=f / 30.0)
+            Rm, tm, _ = multi.trajectories()[s]
+            R1, t1, _ = single.trajectory()
+            _require(multi.gops[s].keyframe_indices() == single.gop.keyframe_indices(),
+                     f"multistream {model}: stream {s} keyframes "
+                     f"{multi.gops[s].keyframe_indices()} != single {single.gop.keyframe_indices()}")
+            worst = max(worst, float(np.abs(Rm - R1).max()), float(np.abs(tm - t1).max()))
+            bitwise &= bool(np.array_equal(Rm, R1) and np.array_equal(tm, t1))
+        ate = max(float(np.sqrt(((multi.trajectories()[s][1] - gts[s]) ** 2).sum(-1).mean()))
+                  for s in range(n))
+        _log(f"multistream {model}: {n} streams x {frames} frames 320x240, keyframes "
+             f"{multi.gops[0].keyframe_indices()} (all streams equal to their single runs), "
+             f"largest pose difference to the single-stream runs {worst:.3e} "
+             f"({'bitwise equal' if bitwise else 'not bitwise'}), ATE max {ate * 1000:.3f} mm, "
+             f"{fps:.1f} frames/s aggregate (rendering {render_s:.1f} s apart)")
+        _require(worst <= bar, f"multistream {model}: pose difference {worst:.3e} > {bar}")
+        if model == "hold":
+            _require(bitwise, "multistream hold: lockstep poses are not bitwise the single runs'")
+        else:
+            _require(bitwise or not cv_same,
+                     "multistream constant_velocity: poses differ from the single runs although "
+                     "cv_extrapolate is bitwise across batch sizes")
+        _require(not multi.diverged_frames,
+                 f"multistream {model}: diverged {multi.diverged_frames}")
+        out[model] = {"max_pose_diff": worst, "bitwise": bitwise, "frames_per_s": fps}
+    return out
+
+
+def run_cli_multistream() -> dict:
+    """`multistream --streams 16 --frames 20 --quality-triggers` as a user
+    runs it: every stream within 2 cm (ATE), the aggregate frames/s the
+    command prints and the kernels' C calls per lockstep step."""
+    from rgbd_odometry_tpu_torch import cli
+
+    counters = _launch_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    stdout, stderr = io.StringIO(), io.StringIO()
+    argv = ["multistream", "--streams", "16", "--frames", "20", "--quality-triggers"]
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        summary = cli.main(argv)
+    calls = {k: fn.launches - before[k] for k, fn in counters.items()}
+    res = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    steps = res["frames"]
+    per_step = {k: v / steps for k, v in calls.items() if v}
+    refreshes = sum(len(k) - 1 for k in summary["keyframes"])
+    _log(f"cli_multistream: {' '.join(argv)}: {stderr.getvalue().strip()}; "
+         f"{res['aggregate_frames_per_s']} frames/s aggregate ({summary['wall_s']:.3f} s for "
+         f"{steps} steps), ATE max {res['ate_rmse_max'] * 1000:.3f} mm, {refreshes} stream "
+         f"refreshes; kernel calls per step {per_step} ({sum(per_step.values()):.2f} in all)")
+    _require(res["streams"] == 16 and res["devices"] == 1, f"cli_multistream: {res}")
+    _require(res["ate_rmse_max"] < 0.02, f"cli_multistream: ATE {res['ate_rmse_max']} >= 20 mm")
+    return {"frames_per_s": res["aggregate_frames_per_s"], "ate_max": res["ate_rmse_max"],
+            "calls_per_step": per_step}
+
+
+def run_align_sequence(device) -> dict:
+    """`align_sequence` over the stream phase's 30 rendered frames under
+    production_320, keyframe-anchored every 5 frames: the last frame within
+    tests/test_sharding.py's bar (half the motion, at least 2 cm) and every
+    frame within 2 cm; ms for the whole sequence (host clock, one call
+    after a warm-up, ending in its one device-to-host copy)."""
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.parallel.sequence import align_sequence
+
+    prof = profiles.production_320()
+    frames, poses = stream_frames()
+    args = ([g for g, _ in frames], [d for _, d in frames], Intrinsics.from_config(prof.camera),
+            prof.solver, prof.max_points, prof.num_levels, 5)
+    align_sequence(*args, device=device)
+    t0 = time.perf_counter()
+    R, t, rel_R, _ = align_sequence(*args, device=device)
+    ms = (time.perf_counter() - t0) * 1000.0
+    gt = np.stack([p[1] for p in poses])
+    err = np.linalg.norm(t - gt, axis=-1)
+    bar = max(0.5 * float(np.linalg.norm(gt[-1])), 0.02)
+    _log(f"align_sequence: {len(frames)} frames 320x240 keyframe_every=5, {len(rel_R)} pairs in "
+         f"one batch, |t-t_gt| last {err[-1] * 1000:.3f} mm (bar {bar * 1000:.1f} mm), max "
+         f"{err.max() * 1000:.3f} mm, {ms:.3f} ms for the sequence")
+    _require(np.isfinite(t).all() and err[-1] < bar, f"align_sequence: last frame off {err[-1]}")
+    _require(bool((err < 0.02).all()), f"align_sequence: a frame off by {err.max():.4f} m")
+    return {"last_mm": float(err[-1]) * 1000.0, "ms": ms}
+
+
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
-        canny, edt, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
+        canny, edt, extract, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
     )
 
     return {"edt": edt.edt_squared, "canny_pyramid": canny.canny_pyramid,
@@ -1609,7 +1865,7 @@ def _launch_counters():
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm,
-            "level_sg": level_sg.level_sg}
+            "level_sg": level_sg.level_sg, "extract": extract.extract_pyramid}
 
 
 def main() -> int:
@@ -1650,6 +1906,7 @@ def main() -> int:
         "pnp": check_pnp(device, rng),
         "level_lm": check_level_lm(device, rng),
         "level_sg": check_level_sg(device, rng),
+        "extract": check_extract(device, rng),
     }
 
     counters = _launch_counters()
@@ -1668,6 +1925,9 @@ def main() -> int:
         ("cli_loop_close", run_cli_loop_close),
         ("cli_weighted_refine", run_cli_weighted_refine),
         ("cli_refine", lambda: run_cli_refine(results["cli_loop_close"])),
+        ("multistream", lambda: run_multistream(device)),
+        ("cli_multistream", run_cli_multistream),
+        ("align_sequence", lambda: run_align_sequence(device)),
     )
     map_phases = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refine")
     results = {}
@@ -1689,6 +1949,8 @@ def main() -> int:
             _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
         if name == "cli_subgradient":
             _require(n["level_sg"] > 0, f"{name}: the level_sg kernel was not launched")
+        if name in EXTRACT_PHASES:
+            _require(n["extract"] > 0, f"{name}: the extract_pyramid kernel was not launched")
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
         _require(n["sg"] == 0, f"{name}: the per-iteration subgradient_terms kernel was launched")
         _require(n["residual"] == 0, f"{name}: the residual_pass kernel was launched")
@@ -1735,6 +1997,11 @@ def main() -> int:
                      "lax.scan level loop's sub-gradient branch :493-622 with :775 and "
                      "core/geometry.py:169)",
          "launches": launches["level_sg"], **res["level_sg"]},
+        {"name": "extract_pyramid", "route": "cuda", "source": src + "extract.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:100 extract_ref_level over every "
+                     "level, via extract_ref_features :910 (XLA, no Pallas kernel: top_k :145, "
+                     ":147, :156, the back-projection :165-179)",
+         "launches": launches["extract"], **res["extract"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

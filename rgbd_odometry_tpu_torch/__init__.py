@@ -5,9 +5,10 @@ at run time: `profiles.production_320` (deferred-accept LM), the `dvo`
 command at its own defaults (`cli.py`: standard LM on the 0-255 normalized
 DT, the frame feeder), the reference's sub-gradient solver, and the map
 backend (loop closure, pose-graph refinement, relocalization, the `refine`
-command). The layout mirrors the JAX package so every module's counterpart
-is easy to find (`core/`, `ops/`, `solvers/`, `pipeline/`, `io/`, `viz/`,
-`cli.py`), plus `kernels/` + `csrc/` for the hand-written CUDA kernels
+command), and N camera streams in lockstep or a whole sequence's pairs in
+one batch (`parallel/`, the `multistream` command). The layout mirrors the JAX package so every module's counterpart
+is easy to find (`core/`, `ops/`, `solvers/`, `pipeline/`, `parallel/`,
+`io/`, `viz/`, `cli.py`), plus `kernels/` + `csrc/` for the hand-written CUDA kernels
 (shared device code in `csrc/project.cuh` and `csrc/se3.cuh`; the plain
 counterparts in `ops/project.py` and `kernels/se3_plain.py`):
 
@@ -33,7 +34,10 @@ counterparts in `ops/project.py` and `kernels/se3_plain.py`):
 * `kernels/match.py` + `csrc/match.cu` — mutual-nearest descriptor matching
   of a query against every stored keyframe (XLA in the JAX package);
 * `kernels/pnp_gn.py` + `csrc/pnp_gn.cu` — batched Gauss-Newton PnP with
-  inlier scoring, both RANSAC phases (XLA in the JAX package).
+  inlier scoring, both RANSAC phases (XLA in the JAX package);
+* `kernels/extract.py` + `csrc/extract.cu` — keyframe edge-point selection
+  and back-projection over every level of a pyramid in one launch (XLA in
+  the JAX package).
 
 Idiom: plain functions on tensors with a leading batch dimension (in place
 of `vmap`) and an explicit device. The configuration dataclasses and
@@ -56,6 +60,8 @@ __version__ = "0.1.0"
 _LAZY = {
     "align_pair": ("rgbd_odometry_tpu_torch.solvers.edge_dvo", "align_pair"),
     "EdgeDvoOdometry": ("rgbd_odometry_tpu_torch.pipeline.odometry", "EdgeDvoOdometry"),
+    "MultiStreamOdometry": ("rgbd_odometry_tpu_torch.parallel.streams", "MultiStreamOdometry"),
+    "align_sequence": ("rgbd_odometry_tpu_torch.parallel.sequence", "align_sequence"),
     "LoopCloser": ("rgbd_odometry_tpu_torch.pipeline.loop_closure", "LoopCloser"),
     "Relocalizer": ("rgbd_odometry_tpu_torch.pipeline.relocalize", "Relocalizer"),
     "refine_pose_graph": ("rgbd_odometry_tpu_torch.solvers.pose_graph", "refine_pose_graph"),

@@ -1,21 +1,25 @@
-"""Command line of the PyTorch port: the JAX package's `dvo`, `refine` and
-`eval`.
+"""Command line of the PyTorch port: the JAX package's `dvo`, `refine`,
+`multistream` and `eval`.
 
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --method subgradient --iterations 50,50,50,50
     python -m rgbd_odometry_tpu_torch.cli dvo --loop-close --map-out map.ply --out est.txt
     python -m rgbd_odometry_tpu_torch.cli refine est.txt --constraints lc.txt --out ref.txt
+    python -m rgbd_odometry_tpu_torch.cli multistream --streams 16 --frames 20 --out-dir streams
     python -m rgbd_odometry_tpu_torch.cli eval est.txt groundtruth.txt
 
-`dvo` and `refine` take the JAX parser's flags and defaults
+`dvo`, `refine` and `multistream` take the JAX parser's flags and defaults
 (`rgbd_odometry_tpu/cli.py`) plus `--device` (default `cuda`; the CPU runs
 the kernels' plain versions and only when asked for). They print the same
 lines: for `dvo` one per frame on stderr, the map backend's lines (`loop
 closures: ...`, `online refine @frame ...`, `map: ...`, `relocalizer: ...`),
 and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
 "drift_rms_per_s"}` against the synthetic ground truth; for `refine` its JSON
-summary. The flags of subsystems not ported yet exit with an error naming
-their ROADMAP item instead of being ignored. Imports no JAX.
+summary; for `multistream` the JSON `{"streams", "devices", "frames",
+"aggregate_frames_per_s", "ate_rmse_per_stream", "ate_rmse_max"}`, where
+`devices` is 1 (one card). The flags of subsystems not ported yet exit with
+an error naming their ROADMAP item instead of being ignored. Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -411,6 +415,110 @@ def cmd_eval(args):
     return out
 
 
+def multistream_config(cam, iterations=(18, 6, 4, 3), keyframe_every: int = 5,
+                       quality_triggers: bool = False, motion_model: str = "hold"):
+    """The `multistream` command's `PipelineConfig` (the JAX command's):
+    Gauss-Newton at the given iterations a level, capacities 2048/1024/
+    512/512, the naive ref update (rollback off)."""
+    from rgbd_odometry_tpu_torch.config import (
+        KeyframeConfig, PipelineConfig, PyramidConfig, SolverConfig,
+    )
+
+    levels = len(iterations)
+    return PipelineConfig(
+        camera=cam,
+        pyramid=PyramidConfig(num_levels=levels, max_points=(2048, 1024, 512, 512)[:levels]),
+        solver=SolverConfig(method="gauss_newton", iterations=tuple(iterations)),
+        keyframe=KeyframeConfig(force_every=keyframe_every,
+                                enable_quality_triggers=quality_triggers, rollback_resolve=False),
+        motion_model=motion_model,
+    )
+
+
+def render_streams(cam, n_streams: int, n_frames: int):
+    """Each stream's rendered frames and ground-truth positions: a distinct
+    smooth out-and-back trajectory per stream (the JAX command's), each
+    stream one `render_sequence` call in a thread pool (numpy releases the
+    GIL in the renderer's array math)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+
+    phase = np.sin(np.pi * np.arange(n_frames) / max(n_frames - 1, 1))
+
+    def render(s):
+        amp = 0.02 + 0.004 * s
+        psis = np.stack([amp * phase, -0.5 * amp * phase, 0.3 * amp * phase,
+                         0.2 * amp * phase, -0.15 * amp * phase, 0.1 * amp * phase],
+                        -1).astype(np.float32)
+        return render_sequence(cam, psis, seed=s)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        out = list(pool.map(render, range(n_streams)))
+    return [f for f, _ in out], [np.stack([p[1] for p in ps]) for _, ps in out]
+
+
+def cmd_multistream(args):
+    """N synthetic cameras tracked in lockstep on one device
+    (`parallel/streams.MultiStreamOdometry`): every step advances all
+    streams by one frame in one batched solve. Each stream runs an
+    independent synthetic trajectory; prints one JSON line with the
+    per-stream ATE against exact ground truth and the aggregate frame rate
+    of the lockstep loop (rendering excluded, as in the JAX command), and
+    returns it with the loop's wall time and each stream's keyframes."""
+    import time
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.eval.ate import ate_rmse
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+
+    device = resolve_device(args.device)
+    n_streams = args.streams or 2
+    cam = CameraConfig()
+    if args.cam_scale != 1.0:
+        cam = cam.scaled(args.cam_scale)
+    pcfg = multistream_config(cam, tuple(int(x) for x in args.iterations.split(",")),
+                              args.keyframe_every, args.quality_triggers, args.motion_model)
+    t0 = time.perf_counter()
+    seqs, gts = render_streams(cam, n_streams, args.frames)
+    print(f"rendered {n_streams} x {args.frames} frames in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+
+    ms = MultiStreamOdometry(n_streams, pcfg, device=device)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for f in range(args.frames):
+        gray_b = np.stack([seqs[s][f][0] for s in range(n_streams)])
+        depth_b = np.stack([seqs[s][f][1] for s in range(n_streams)])
+        ms.process_batch(gray_b, depth_b, timestamp=f / 30.0)
+    wall = time.perf_counter() - t0
+
+    ates = []
+    for s, (R_est, t_est, stamps) in enumerate(ms.trajectories()):
+        ates.append(ate_rmse(np.asarray(t_est), gts[s]))
+        if args.out_dir:
+            import os
+
+            from rgbd_odometry_tpu_torch.io.tum import write_trajectory
+
+            os.makedirs(args.out_dir, exist_ok=True)
+            write_trajectory(os.path.join(args.out_dir, f"stream{s:02d}.txt"), R_est, t_est, stamps)
+    out = {
+        "streams": n_streams,
+        "devices": 1,
+        "frames": args.frames,
+        "aggregate_frames_per_s": round(n_streams * args.frames / wall, 2),
+        "ate_rmse_per_stream": [round(float(a), 6) for a in ates],
+        "ate_rmse_max": round(float(max(ates)), 6),
+    }
+    print(json.dumps(out))
+    return {**out, "wall_s": wall, "keyframes": [g.keyframe_indices() for g in ms.gops]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="rgbd-odometry-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -477,6 +585,24 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default) or 'cpu'")
     p.set_defaults(fn=cmd_refine)
+
+    p = sub.add_parser("multistream",
+                       help="N lockstep odometry streams on one device (parallel/streams.py)")
+    p.add_argument("--streams", type=int, default=0,
+                   help="stream count (default 2: the JAX command's device count, min 2, on "
+                   "one card)")
+    p.add_argument("--frames", type=int, default=12)
+    p.add_argument("--cam-scale", type=float, default=1.0)
+    p.add_argument("--iterations", default="18,6,4,3")
+    p.add_argument("--keyframe-every", type=int, default=5)
+    p.add_argument("--quality-triggers", action="store_true",
+                   help="enable per-stream Laplacian/visibility keyframe triggers")
+    p.add_argument("--out-dir", default=None, help="write per-stream TUM trajectories here")
+    p.add_argument("--motion-model", default="hold", choices=["hold", "constant_velocity"],
+                   help="per-stream warm-start model (see dvo --motion-model)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: 'cuda' (default) or 'cpu' (the kernels' plain versions)")
+    p.set_defaults(fn=cmd_multistream)
 
     p = sub.add_parser("eval", help="ATE/RPE/drift vs a GT trajectory (loadGTPath role)")
     p.add_argument("est")

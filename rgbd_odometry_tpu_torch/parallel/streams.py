@@ -1,0 +1,218 @@
+"""N independent odometry streams in lockstep on one device: port of
+`rgbd_odometry_tpu/parallel/streams.MultiStreamOdometry`.
+
+One camera stream per batch slot; every step advances all N streams by one
+frame with batched work: one host-to-device copy of the N frames, one
+pyramid build, one `prepare_now_targets` (one `canny_pyramid` call, a
+`dt_channels` call a level) and one `solve_pyramid` (a `level_lm` or
+`level_sg` launch a level), each at B = N, then ONE device-to-host copy
+for every stream's control decisions (`pipeline/odometry.pull_batch`).
+
+Keyframe semantics are the single-stream odometry's naive ref update (the
+reference's __OLD__REF_UPDATE): the periodic refresh and the per-stream
+quality triggers (Laplacian b-hat, visibility, reprojected-point count, in
+`EdgeDvoOdometry`'s predicate order) make the current frame the stream's
+reference. When any stream refreshes, one `extract_pyramid` call (one
+launch) re-extracts every stream from the step's own edge maps and a
+masked `torch.where` swaps the new features into the flagged streams only.
+The rollback re-solve and relocalization are per-stream divergent control
+paths and are rejected at construction.
+
+Warm-start poses stay on the device between steps; the host keeps each
+stream's trajectory (`Gop`) in float64 and a mirror of its relative pose
+for the divergence guard. Both motion models are supported: "hold" and
+"constant_velocity" (extrapolation on the device by the last inter-frame
+motion; a stream whose pose basis changed at a refresh, or that diverged,
+drops its velocity evidence for one frame).
+
+The JAX version shards the stream axis over a device mesh; on one card the
+batch is the whole story, and multi-GPU sharding is ROADMAP.md's
+multi-GPU item.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rgbd_odometry_tpu_torch.config import PipelineConfig
+from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+from rgbd_odometry_tpu_torch.device import resolve_device
+from rgbd_odometry_tpu_torch.pipeline.gop import (
+    REASON_FIRST_FRAME,
+    REASON_LAPLACIAN_THRESH,
+    REASON_LOW_VISIBILITY,
+    REASON_PERIODIC,
+    REASON_TOO_FEW_REPROJECTIONS,
+    Gop,
+)
+from rgbd_odometry_tpu_torch.pipeline.odometry import cv_extrapolate, pull_batch, residual_b_cap
+from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+
+def _merge(old, new, mask: torch.Tensor):
+    """Per stream: `new` where `mask` (N,) is set, else `old`, for every
+    tensor of two equal (named) tuples, nested, with a leading stream axis."""
+    if isinstance(old, torch.Tensor):
+        return torch.where(mask.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+    merged = [_merge(a, b, mask) for a, b in zip(old, new)]
+    return type(old)(*merged) if hasattr(old, "_fields") else tuple(merged)
+
+
+class MultiStreamOdometry:
+    """N lockstep odometry streams on one device. Each stream is an
+    independent camera; streams never exchange data."""
+
+    def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None, device=None):
+        self.cfg = config or PipelineConfig()
+        kf = self.cfg.keyframe
+        if kf.rollback_resolve:
+            raise ValueError(
+                "MultiStreamOdometry implements the __OLD__REF_UPDATE keyframe variant "
+                "(current frame becomes the reference, synchronized PERIODIC refresh + "
+                "per-stream quality triggers via masked batched re-extraction). "
+                "rollback_resolve (__NEW__REF_UPDATE, promote frame n-1 + re-solve) "
+                "desynchronizes the lockstep; use EdgeDvoOdometry per stream when it is "
+                "required."
+            )
+        if self.cfg.relocalize.enabled:
+            raise ValueError(
+                "MultiStreamOdometry does not support relocalization: a recovery re-anchor "
+                "is a per-stream divergent control path (host-driven candidate verification) "
+                "that breaks the one-batch step. Use EdgeDvoOdometry per stream when "
+                "relocalization is required."
+            )
+        if n_streams < 1:
+            raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        edge_dvo.check_config(self.cfg.solver)
+        self.device = resolve_device(device)
+        self.n = int(n_streams)
+        self.intr = Intrinsics.from_config(self.cfg.camera)
+        self.gops: List[Gop] = [Gop() for _ in range(self.n)]
+        self.diverged_frames: List[Tuple[int, int]] = []  # (frame, stream)
+        pyr = self.cfg.pyramid
+        self._max_pts = tuple(pyr.max_points[: pyr.num_levels])
+        self._frame_num = -1
+        # per-stream last reference frame (quality triggers desynchronize it)
+        self._last_ref = np.zeros(self.n, np.int64)
+        self._ref_feats = None
+        self._warm = None  # device (N,3,3), (N,3)
+        # constant velocity: the warm pair of the previous step (N streams);
+        # None = no velocity evidence yet (the warm pair stands in)
+        self._cv = self.cfg.motion_model == "constant_velocity"
+        self._prev = None
+        # host mirror of each stream's relative pose, float64 (divergence guard)
+        self._R = np.tile(np.eye(3), (self.n, 1, 1))
+        self._t = np.zeros((self.n, 3))
+
+    def _identity(self):
+        """Identity poses (N,3,3), (N,3) made on the device."""
+        return (torch.eye(3, dtype=torch.float32, device=self.device).repeat(self.n, 1, 1),
+                torch.zeros((self.n, 3), dtype=torch.float32, device=self.device))
+
+    def _upload(self, R: np.ndarray, t: np.ndarray):
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return torch.as_tensor(R, **f32), torch.as_tensor(t, **f32)
+
+    def process_batch(self, gray0_b: np.ndarray, depth0_b: np.ndarray,
+                      timestamp: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+        """Advance every stream by one frame: `gray0_b` (N, H, W) level-0
+        gray and `depth0_b` (N, H, W) depth in mm, one frame per stream.
+        Returns the global poses (R (N,3,3), t (N,3)) after this frame."""
+        self._frame_num += 1
+        scfg, kf = self.cfg.solver, self.cfg.keyframe
+        host = np.stack([np.asarray(gray0_b, np.float32), np.asarray(depth0_b, np.float32)])
+        if host.shape[1] != self.n:
+            raise ValueError(f"process_batch: {host.shape[1]} frames for {self.n} streams")
+        frames = torch.from_numpy(host).to(self.device)  # one host-to-device copy
+        pyr = build_pyramid(frames[0], frames[1], self.cfg.pyramid.num_levels)
+
+        if self._frame_num == 0:
+            self._ref_feats = edge_dvo.extract_ref_features(
+                pyr.gray, pyr.depth, self.intr, scfg, self._max_pts)
+            self._last_ref[:] = 0
+            self._warm = self._identity()
+            for g in self.gops:
+                g.push_keyframe(0, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), timestamp)
+            return self._global_poses()
+
+        dispatch_warm = self._warm
+        R0, t0 = self._warm
+        if self._cv:
+            R0, t0 = cv_extrapolate(R0, t0, *(self._prev if self._prev is not None else self._warm))
+        targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
+        R_d, t_d, diags = edge_dvo.solve_pyramid(self._ref_feats, targets, self.intr, scfg, R0, t0)
+        # ONE device->host copy for every stream's control decisions
+        pulled = pull_batch(R_d, t_d, diags[0] if kf.enable_quality_triggers else None)
+        R = pulled.R.astype(np.float64)
+        t = pulled.t.astype(np.float64)
+        finite = np.isfinite(R).all(axis=(1, 2)) & np.isfinite(t).all(axis=1)
+        for s in np.nonzero(~finite)[0]:
+            # failure containment per stream: keep the previous relative pose
+            R[s], t[s] = self._R[s], self._t[s]
+            self.diverged_frames.append((self._frame_num, int(s)))
+        self._R, self._t = R, t
+
+        # per-stream keyframe decision, EdgeDvoOdometry._resolve's predicate order
+        reasons = np.zeros(self.n, np.int64)
+        if kf.enable_quality_triggers:
+            for s in range(self.n):
+                if residual_b_cap(pulled.final_epsilons[s], pulled.num_points[s]) \
+                        > kf.laplacian_b_thresh:
+                    reasons[s] = REASON_LAPLACIAN_THRESH
+                if float(pulled.visible_ratio[s]) < kf.min_visible_ratio:
+                    reasons[s] = REASON_LOW_VISIBILITY
+                if int(pulled.final_valid[s].sum()) < kf.min_reprojected_pts:
+                    reasons[s] = REASON_TOO_FEW_REPROJECTIONS
+        reasons[(self._frame_num - self._last_ref) == kf.force_every] = REASON_PERIODIC
+
+        refresh = reasons != 0
+        for s in range(self.n):
+            if refresh[s]:
+                # the solved pose becomes the keyframe edge; the current
+                # frame becomes the stream's reference
+                self.gops[s].push_keyframe(self._frame_num, int(reasons[s]), R[s], t[s], timestamp)
+                self._last_ref[s] = self._frame_num
+                self._R[s] = np.eye(3)
+                self._t[s] = np.zeros(3)
+            else:
+                self.gops[s].push_ordinary(self._frame_num, R[s], t[s], timestamp)
+
+        if refresh.any():
+            # ONE re-extraction of every stream from this step's edge maps;
+            # the flagged streams swap their features in, the rest keep theirs
+            new_feats = edge_dvo.extract_ref_features(
+                pyr.gray, pyr.depth, self.intr, scfg, self._max_pts,
+                edges_pyr=tuple(tg.edges for tg in targets))
+            mask = torch.from_numpy(refresh).to(self.device)
+            self._ref_feats = _merge(self._ref_feats, new_feats, mask)
+            if finite.all():
+                self._warm = _merge((R_d, t_d), self._identity(), mask)
+            else:
+                self._warm = self._upload(self._R, self._t)
+        elif finite.all():
+            self._warm = (R_d, t_d)  # stays on the device, no upload
+        else:
+            self._warm = self._upload(R, t)
+        if self._cv:
+            # the next step's velocity source is the warm pair this step
+            # started from; refreshed or diverged streams drop it (their
+            # warm pair stands in, so the extrapolation holds for one frame)
+            drop = refresh | ~finite
+            if drop.any():
+                self._prev = _merge(dispatch_warm, self._warm,
+                                    torch.from_numpy(drop).to(self.device))
+            else:
+                self._prev = dispatch_warm
+        return self._global_poses()
+
+    def _global_poses(self) -> Tuple[np.ndarray, np.ndarray]:
+        poses = [g.global_pose(-1) for g in self.gops]
+        return np.stack([p[0] for p in poses]), np.stack([p[1] for p in poses])
+
+    def trajectories(self) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Per-stream (R (T,3,3), t (T,3), timestamps) absolute trajectories."""
+        return [g.poses() for g in self.gops]

@@ -93,31 +93,65 @@ def cv_extrapolate(R0, t0, Rp, tp):
     return Rw, tw
 
 
-def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostics):
-    """Pose and finest diagnostics of pair 0 in ONE device->host copy."""
+@dataclass
+class PulledBatch:
+    """Host copy of B pairs' poses and finest diagnostics (`pull_batch`)."""
+
+    R: np.ndarray  # (B, 3, 3) float32
+    t: np.ndarray  # (B, 3)
+    best_energy: Optional[np.ndarray] = None  # (B,)
+    best_iter: Optional[np.ndarray] = None  # (B,) int
+    visible_ratio: Optional[np.ndarray] = None  # (B,)
+    num_points: Optional[np.ndarray] = None  # (B,) int
+    energy: Optional[np.ndarray] = None  # (B, n_iters)
+    final_epsilons: Optional[np.ndarray] = None  # (B, K)
+    final_valid: Optional[np.ndarray] = None  # (B, K) bool
+
+
+def pull_batch(R_d: torch.Tensor, t_d: torch.Tensor,
+               finest: Optional[edge_dvo.LevelDiagnostics] = None) -> PulledBatch:
+    """Poses of every pair, and with `finest` its diagnostics (scalars,
+    energy curve, per-point residuals and visibility), in ONE device->host
+    copy: one row of float32 per pair."""
     f32 = torch.float32
-    parts = [
-        R_d[0].reshape(-1), t_d[0],
-        torch.stack([
-            finest.best_energy[0], finest.best_iter[0].to(f32),
-            finest.visible_ratio[0], finest.num_points[0].to(f32),
-        ]),
-        finest.energy[0], finest.final_epsilons[0], finest.final_valid[0].to(f32),
-    ]
-    host = torch.cat([p.to(f32) for p in parts]).cpu().numpy()
-    n_it = finest.energy.shape[-1]
-    k = finest.final_epsilons.shape[-1]
-    o = 16 + n_it
+    b = R_d.shape[0]
+    parts = [R_d.reshape(b, 9), t_d.reshape(b, 3)]
+    if finest is not None:
+        parts += [
+            torch.stack([finest.best_energy, finest.best_iter.to(f32), finest.visible_ratio,
+                         finest.num_points.to(f32)], dim=-1),
+            finest.energy, finest.final_epsilons, finest.final_valid.to(f32),
+        ]
+    host = torch.cat([p.to(f32) for p in parts], dim=1).cpu().numpy()
+    out = PulledBatch(R=host[:, :9].reshape(b, 3, 3).copy(), t=host[:, 9:12].copy())
+    if finest is not None:
+        n_it = finest.energy.shape[-1]
+        k = finest.final_epsilons.shape[-1]
+        o = 16 + n_it
+        out.best_energy = host[:, 12].copy()
+        out.best_iter = host[:, 13].astype(np.int64)
+        out.visible_ratio = host[:, 14].copy()
+        out.num_points = host[:, 15].astype(np.int64)
+        out.energy = host[:, 16:o].copy()
+        out.final_epsilons = host[:, o:o + k].copy()
+        out.final_valid = host[:, o + k:o + 2 * k] > 0.5
+    return out
+
+
+def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostics):
+    """Pose and finest diagnostics of the one pair of a single-stream solve
+    (`pull_batch` of a batch of one), in one device->host copy."""
+    p = pull_batch(R_d, t_d, finest)
     fin = _Finest(
-        energy=host[16:o].copy(),
-        best_energy=float(host[12]),
-        best_iter=int(host[13]),
-        visible_ratio=float(host[14]),
-        num_points=int(host[15]),
-        final_epsilons=host[o : o + k].copy(),
-        final_valid=host[o + k : o + 2 * k] > 0.5,
+        energy=p.energy[0],
+        best_energy=float(p.best_energy[0]),
+        best_iter=int(p.best_iter[0]),
+        visible_ratio=float(p.visible_ratio[0]),
+        num_points=int(p.num_points[0]),
+        final_epsilons=p.final_epsilons[0],
+        final_valid=p.final_valid[0],
     )
-    return host[:9].reshape(3, 3).copy(), host[9:12].copy(), fin
+    return p.R[0], p.t[0], fin
 
 
 class EdgeDvoOdometry:

@@ -19,6 +19,15 @@ process_frame`, keyframe every 5:
                of its own, with fewer frames for a checkout older than the
                whole-level kernel, whose frame is ~46000 launches).
 
+`--paths multistream` (not in the default; it renders 16 streams on the
+host first, ~1 minute) profiles the `multistream` command's lockstep loop
+(`parallel/streams.MultiStreamOdometry` at the command's defaults with
+`--quality-triggers`) at N = 16 and N = 64 streams (the 16 rendered
+streams tiled four times), `--frames` steps of which the first `--warmup`
+run unprofiled, as for the per-frame paths: per step the wall time,
+`cudaLaunchKernel` calls (and per stream-frame), kernel device time and the
+device's busy share, the aggregate frames/s.
+
 `--paths targets` (not in the default; run it alone, since after the
 per-frame paths' profiles in the same process the profiler was seen to drop
 kernel records, which this mode reports as an error) profiles the now-frame
@@ -42,6 +51,7 @@ CUDA device (exits 2 without one).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -103,8 +113,6 @@ def _busy_us(kernels) -> float:
 
 def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry
 
@@ -125,16 +133,41 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     solve_ms = float(np.mean([m.solve_ms for m in list(odo.metrics)[-len(window):]]))
 
     odo = fresh()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for i, (g, d) in window:
             odo.process_frame(g, d, timestamp=float(i))
+
+    prof = _profile_window(run, len(window))
+    out = {
+        "path": name, "frames": len(window), "ms_per_frame": ms, "avg_solve_ms": solve_ms,
+        "launches_per_frame": prof["launches"], "syncs_per_frame": prof["syncs"],
+        "kernels_per_frame": prof["kernels"], "kernel_ms_per_frame": prof["kernel_ms"],
+        "busy_share": prof["busy_share"], "profiled_ms_per_frame": prof["profiled_ms"],
+        "top_kernels_ms_per_frame": prof["top_kernels_ms"],
+    }
+    out["package"] = sys.modules["rgbd_odometry_tpu_torch"].__file__
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _profile_window(run, steps: int) -> dict:
+    """`run()` under the profiler: per step the `cudaLaunchKernel` calls,
+    host syncs, kernels and their device time, the busy share and the top
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n = len(window)
-    launches = sum(e.count for e in prof.key_averages()
+    avg = prof.key_averages()
+    launches = sum(e.count for e in avg
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
-    syncs = sum(e.count for e in prof.key_averages()
+    syncs = sum(e.count for e in avg
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                              "cudaEventSynchronize"))
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -142,17 +175,90 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {
-        "path": name, "frames": n, "ms_per_frame": ms, "avg_solve_ms": solve_ms,
-        "launches_per_frame": launches / n, "syncs_per_frame": syncs / n,
-        "kernels_per_frame": len(kernels) / n,
-        "kernel_ms_per_frame": sum(by_name.values()) / n / 1000.0,
-        "busy_share": _busy_us(kernels) / wall_us, "profiled_ms_per_frame": wall_us / n / 1000.0,
-        "top_kernels_ms_per_frame": [(k[:60], v / n / 1000.0) for k, v in top],
+    return {
+        "launches": launches / steps, "syncs": syncs / steps, "kernels": len(kernels) / steps,
+        "kernel_ms": sum(by_name.values()) / steps / 1000.0,
+        "busy_share": _busy_us(kernels) / wall_us, "profiled_ms": wall_us / steps / 1000.0,
+        "top_kernels_ms": [(k[:60], v / steps / 1000.0) for k, v in top],
     }
-    out["package"] = sys.modules["rgbd_odometry_tpu_torch"].__file__
-    print(json.dumps(out), flush=True)
-    return out
+
+
+def profile_multistream(device, frames: int, warmup: int, streams=(16, 64)) -> list:
+    """The `multistream` command's lockstep loop at each stream count: host
+    clock per step over the steps after `warmup`, then the same steps under
+    the profiler from a fresh `MultiStreamOdometry`."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.cli import multistream_config, render_streams
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+
+    cfg = multistream_config(CameraConfig(), quality_triggers=True)
+    t0 = time.perf_counter()
+    seqs, _ = render_streams(cfg.camera, 16, frames)
+    render_s = time.perf_counter() - t0
+    outs = []
+    for n in streams:
+        batches = [(np.stack([seqs[s % 16][f][0] for s in range(n)]),
+                    np.stack([seqs[s % 16][f][1] for s in range(n)])) for f in range(frames)]
+
+        def fresh():
+            ms = MultiStreamOdometry(n, cfg, device=device)
+            for f in range(warmup):
+                ms.process_batch(*batches[f], timestamp=f / 30.0)
+            torch.cuda.synchronize()
+            return ms
+
+        def window(ms):
+            for f in range(warmup, frames):
+                ms.process_batch(*batches[f], timestamp=f / 30.0)
+
+        steps = frames - warmup
+        ms = fresh()
+        t0 = time.perf_counter()
+        window(ms)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1000.0 / steps
+        refreshes = sum(sum(1 for k in g.keyframe_indices() if k >= warmup) for g in ms.gops)
+        ms = fresh()
+        prof = _profile_window(lambda: window(ms), steps)
+        out = {
+            "path": "multistream", "streams": n, "steps": steps, "ms_per_step": ms_step,
+            "aggregate_frames_per_s": n * 1000.0 / ms_step,
+            "stream_refreshes_per_step": refreshes / steps,
+            "launches_per_step": prof["launches"], "launches_per_stream_frame":
+            prof["launches"] / n, "syncs_per_step": prof["syncs"],
+            "kernels_per_step": prof["kernels"], "kernel_ms_per_step": prof["kernel_ms"],
+            "busy_share": prof["busy_share"], "profiled_ms_per_step": prof["profiled_ms"],
+            "top_kernels_ms_per_step": prof["top_kernels_ms"], "render_s": render_s,
+        }
+        print(json.dumps(out), flush=True)
+        outs.append(out)
+    return outs
+
+
+def _extract_cases(pyr, edges_pyr) -> dict:
+    """`extract_pyramid` on the rendered pyramid at production_320's and the
+    `dvo` defaults' capacities, as functions of the batch size (an empty
+    dict where the package has no such kernel)."""
+    try:
+        from rgbd_odometry_tpu_torch.kernels.extract import extract_pyramid
+    except ImportError:
+        return {}
+    from rgbd_odometry_tpu_torch import SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+
+    p320 = profiles.production_320()
+    intr = Intrinsics.from_config(p320.camera)
+
+    def case(cfg, caps):
+        def run(b):
+            return extract_pyramid(tuple(e[:b].contiguous() for e in edges_pyr),
+                                   tuple(d[:b].contiguous() for d in pyr.depth), intr, cfg, caps)
+        return run
+
+    return {"extract_pyramid production_320": case(p320.solver, p320.max_points),
+            "extract_pyramid dvo defaults": case(SolverConfig(), (8192, 4096, 2048, 1024))}
 
 
 def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
@@ -169,8 +275,12 @@ def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
 
     frames, _ = render_sequence(CameraConfig(), _trajectory(batch), seed=0)
     gray = torch.from_numpy(np.stack([g for g, _ in frames])).to(device)
-    pyr = build_pyramid(gray, torch.full_like(gray, 1000.0), 4).gray
+    depth = torch.from_numpy(np.stack([d for _, d in frames])).to(device)
+    full = build_pyramid(gray, depth, 4)
+    pyr = full.gray
     edges = canny.canny(gray)
+    edges_pyr = canny.canny_pyramid(pyr)
+    extract = _extract_cases(full, edges_pyr)
     out = {"path": "targets", "batch": batch, "reps": reps}
     for b in (batch, 1):
         g, e = gray[:b].contiguous(), edges[:b].contiguous()
@@ -182,6 +292,7 @@ def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
             "dt_channels R=16 pixels bf16": lambda: edt.dt_channels(e, 16, False, True),
             "dt_channels R=0 normalized bf16": lambda: edt.dt_channels(e, 0, True, True),
             "edt_squared R=16": lambda: edt.edt_squared(e, 16),
+            **{name: functools.partial(fn, b) for name, fn in extract.items()},
         }
         for name, fn in cases.items():
             fn()
@@ -230,6 +341,9 @@ def main(argv=None) -> int:
     for name in args.paths.split(","):
         if name == "targets":
             profile_targets(device)
+            continue
+        if name == "multistream":
+            profile_multistream(device, args.frames, args.warmup)
             continue
         cfg = configs[name]
         frames, _ = render_sequence(cfg.camera, _trajectory(args.frames), seed=0)

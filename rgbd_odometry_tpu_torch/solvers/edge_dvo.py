@@ -18,26 +18,27 @@ The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
 a frame's edge maps are one `canny_pyramid` call over all levels
 (`kernels/canny.py`, hysteresis fixpoints on the device), then per level
 one `dt_channels` call (`kernels/edt.py`: EDT, sqrt, normalization,
-gradients, channels); a whole Gauss-Newton level, both LM loops and the
-all-point diagnostics, in one launch (`kernels/level_lm.py`); a whole
-sub-gradient level in one launch (`kernels/level_sg.py`). Configurations
+gradients, channels); a keyframe's edge points of every level in one
+launch (`kernels/extract.py`: selection and back-projection, whose plain
+version is `extract_ref_level`); a whole Gauss-Newton level, both LM loops
+and the all-point diagnostics, in one launch (`kernels/level_lm.py`); a
+whole sub-gradient level in one launch (`kernels/level_sg.py`). Configurations
 outside these raise `NotImplementedError` naming the ROADMAP item that will
 port them (`check_config`).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
+from rgbd_odometry_tpu_torch.kernels.extract import RefLevel, extract_pyramid
 from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
 from rgbd_odometry_tpu_torch.kernels.level_sg import level_sg
@@ -45,15 +46,6 @@ from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step as _subgra
 from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms
 
 _PARITY = "ROADMAP.md Queue 1, item 5 'reference-parity mode'"
-
-
-class RefLevel(NamedTuple):
-    """Fixed-capacity edge-point set of the reference keyframe at one level."""
-
-    pts3d: torch.Tensor  # (B, K, 3) metres, camera frame
-    uv: torch.Tensor  # (B, K, 2) pixel coords at this level
-    valid: torch.Tensor  # (B, K) bool
-    count: torch.Tensor  # (B,) int32 number of tracked points
 
 
 class NowLevel(NamedTuple):
@@ -115,64 +107,6 @@ def check_config(cfg: SolverConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
-def _priority(n: int, device: str) -> torch.Tensor:
-    """The fixed pseudo-random extraction priority of an n-pixel level:
-    the JAX package's `np.random.default_rng(n)` permutation, computed once
-    per (shape, device) on the host and uploaded once."""
-    pri = (np.random.default_rng(n).permutation(n).astype(np.float32) + 0.5) / n
-    return torch.from_numpy(pri.astype(np.float32)).to(device)
-
-
-def extract_ref_level(
-    gray: torch.Tensor,
-    depth_mm: torch.Tensor,
-    intr_level: Intrinsics,
-    k_max: int,
-    cfg: SolverConfig,
-    edges: torch.Tensor | None = None,
-) -> RefLevel:
-    """Edge-point selection + back-projection at one level, (B, H, W) in.
-
-    Top-k of (edge & depth > min) + priority: the exact branch is one top-k
-    over all pixels; the segmented branch (production) takes the top 32 of
-    every 256-pixel segment, then the top k of the candidates, and is used
-    only when H*W >= 8k. `count` follows the JAX semantics of each branch.
-    """
-    if edges is None:
-        edges = canny(gray, cfg.canny_low, cfg.canny_high)
-    mask = edges & (depth_mm > cfg.min_depth_mm)
-    b, h, w = mask.shape
-    n = h * w
-    flat = mask.reshape(b, n)
-    k = min(k_max, n)
-    flat_score = flat.to(torch.float32) + _priority(n, str(mask.device))
-    if cfg.extract_selection == "segmented" and n >= 8 * k:
-        seg_len = 256
-        s = -(-n // seg_len)
-        sc = F.pad(flat_score, (0, s * seg_len - n))
-        v, i = torch.topk(sc.reshape(b, s, seg_len), 32, dim=-1)
-        base = torch.arange(s, device=mask.device)[:, None] * seg_len
-        gi = (base + i).reshape(b, -1)
-        score, sel = torch.topk(v.reshape(b, -1), k, dim=-1)
-        idx = torch.clamp(torch.gather(gi, 1, sel), max=n - 1)
-        valid = score > 1.0
-        count = valid.sum(-1, dtype=torch.int32)
-    else:
-        score, idx = torch.topk(flat_score, k, dim=-1)
-        valid = score > 1.0
-        count = torch.clamp(flat.sum(-1, dtype=torch.int32), max=k)
-    ys = (idx // w).to(torch.float32)
-    xs = (idx % w).to(torch.float32)
-    z_raw = torch.gather(depth_mm.reshape(b, n), 1, idx)
-    z = torch.where(valid, z_raw, torch.zeros_like(z_raw)) / 1000.0
-    x3 = z * (xs - intr_level.cx) / intr_level.fx
-    y3 = z * (ys - intr_level.cy) / intr_level.fy
-    pts3d = torch.stack([x3, y3, z], dim=-1)
-    uv = torch.stack([xs, ys], dim=-1)
-    return RefLevel(pts3d=pts3d, uv=uv, valid=valid, count=count)
-
-
 def prepare_now_level(
     gray: torch.Tensor, cfg: SolverConfig, edges: torch.Tensor | None = None
 ) -> NowLevel:
@@ -202,15 +136,13 @@ def extract_ref_features(
     max_points: Tuple[int, ...],
     edges_pyr: Tuple[torch.Tensor, ...] | None = None,
 ) -> Tuple[RefLevel, ...]:
-    """`extract_ref_level` over all levels; ``edges_pyr`` (a keyframe's own
+    """`extract_ref_level` over all levels in one `extract_pyramid` call
+    (one launch on the card); ``edges_pyr`` (a keyframe's own
     `NowLevel.edges`) skips Canny with bit-identical features, else the edge
     maps are one `_pyramid_edges` call."""
     if edges_pyr is None:
         edges_pyr = _pyramid_edges(gray_pyr, cfg)
-    return tuple(
-        extract_ref_level(g, d, intr.at_level(lvl), max_points[lvl], cfg, edges=e)
-        for lvl, (g, d, e) in enumerate(zip(gray_pyr, depth_pyr, edges_pyr))
-    )
+    return extract_pyramid(tuple(edges_pyr), tuple(depth_pyr), intr, cfg, max_points)
 
 
 def _pyramid_edges(gray_pyr: Tuple[torch.Tensor, ...], cfg: SolverConfig):
