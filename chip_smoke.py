@@ -11,12 +11,20 @@ through their user entry points:
   stream           `EdgeDvoOdometry` under production_320 over 30 rendered
                    320x240 frames, keyframe every 5: ATE < 8 mm, keyframes,
                    rollbacks, ms/frame;
+  stream_vga       the same under production_vga (5 levels from 640x480,
+                   capacities 4096/2048/1024/512/512, LM 4/18/6/4/3) over the
+                   same trajectory rendered at 640x480: ATE < 8 mm, ms/frame
+                   beside production_320's;
   batch            `align_pair` under production_320 on 64 distinct rendered
                    pairs: every pair within 2 cm of ground truth, pairs/s;
+  batch_vga        the same under production_vga on 64 distinct 640x480
+                   pairs rendered as bench.py's `_vga_extras` renders them;
   cli_default      `rgbd_odometry_tpu_torch.cli dvo --frames 30` at the
                    command's defaults (standard LM on the normalized DT, full
                    EDT, the frame feeder): unaligned ATE < 20 mm; then again
-                   with `--no-feeder`: the same trajectory file and metrics;
+                   with `--no-feeder`, and with `--pipelined` (cli_pipelined:
+                   `process_stream` fed by the feeder): the same trajectory
+                   file and metrics;
   cli_subgradient  `dvo --method subgradient --iterations 50,50,50,50
                    --frames 10`, the reference's solver, every level one
                    `level_sg` launch: ATE < 25 mm;
@@ -27,6 +35,17 @@ through their user entry points:
   relocalize       the blackout-teleport run through `EdgeDvoOdometry` with
                    relocalization: a REASON_RELOCALIZED keyframe, the last 3
                    frames within 25 mm;
+  stream_pipelined `EdgeDvoOdometry.process_stream` fed by a `FrameFeeder`
+                   against `process_pyramid` from a feeder and `process_frame`:
+                   production_320 over the stream phase's frames in hold mode
+                   and with constant velocity, and the relocalize run; poses,
+                   keyframes and every FrameMetrics field but solve_ms bitwise
+                   equal three ways; ms/frame of each, the discarded
+                   speculative solves;
+  stream_vga_ingest  the stream's trajectory rendered as a distorting VGA
+                   RGB-D sensor delivers it (RGB, metres, TUM freiburg1's
+                   distortion) through `io.stream.preprocess_vga` on the card
+                   into production_320: ATE < 8 mm;
   cli_loop_close   `dvo --frames 30 --loop-close --map-out map.ply`: >= 1
                    closure, ATE < 20 mm, a PLY with vertices;
   cli_weighted_refine  `dvo --frames 30 --loop-close --weighted-refine`: the
@@ -40,7 +59,7 @@ through their user entry points:
                    off): the same keyframes, hold's poses bitwise equal,
                    constant velocity's within 1e-2 and bitwise unless
                    `cv_extrapolate` itself differs at B = 8 from B = 1;
-  cli_multistream  `multistream --streams 16 --frames 20 --quality-triggers`:
+  cli_multistream  `multistream --streams 16 --frames 12 --quality-triggers`:
                    every stream's ATE < 20 mm, aggregate frames/s, the
                    kernels' calls per lockstep step;
   align_sequence   `parallel.sequence.align_sequence` over the stream phase's
@@ -48,15 +67,17 @@ through their user entry points:
                    the last frame within tests/test_sharding.py's bar.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
-kernels against their plain versions bitwise at the 4 level shapes, B = 64
-and B = 1 (Canny on rendered frames, on a serpentine weak chain and on
-noise, the whole pyramid in one call, with the fixpoints' pass counts and
-the pyramid call timed beside four single-level calls; `dt_channels` for
+kernels against their plain versions bitwise at the 4 level shapes and at
+production_vga's (5 levels from 640x480, rendered frames), B = 64 and B = 1
+(Canny on rendered frames, on a serpentine weak chain and on noise, the
+whole pyramid in one call, with the fixpoints' pass counts and the pyramid
+call timed beside one single-level call a level; `dt_channels` for
 the +-16 window and the whole row, with and without normalization, bf16 and
 float32 channels).
 `check_level_lm` holds the whole-level LM kernel against its plain version
 on rendered pairs at both Gauss-Newton configurations' level shapes (the
-`dvo` defaults and production_320, B = 64 and B = 1, all 4 levels), its
+`dvo` defaults and production_320, all 4 levels, and production_vga, all
+5 levels, B = 64 and B = 1), its
 all-point tail bitwise against `residual_pass` at the returned pose, and
 times it per level beside the per-iteration route it replaced.
 `check_level_sg` does the same for the whole-level sub-gradient kernel at
@@ -84,7 +105,9 @@ cli_subgradient). Any failed check raises (exit code != 0). The line before the 
 is the kernel summary as JSON: per kernel its launches on the paths, its
 error against the plain version, its and the plain version's CUDA-event
 time, and its bound (the larger of the bytes it must move over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s, from the check's own inputs).
+and its float32 operations over 67 TFLOP/s, from the check's own inputs);
+for the four kernels of the VGA path the same at production_vga's shapes
+under "vga" (launches: those of stream_vga and batch_vga).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. Imports no JAX.
 """
@@ -123,12 +146,16 @@ OFF_PATH = ("edt", "gn", "residual", "sg")
 MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
-GN_PHASES = ("stream", "batch", "cli_default", "cli_default_no_feeder", "relocalize",
-             "cli_loop_close", "cli_weighted_refine", "multistream", "cli_multistream",
-             "align_sequence")
+GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
+             "cli_default_no_feeder", "cli_pipelined", "relocalize", "stream_pipelined",
+             "stream_vga_ingest", "cli_loop_close", "cli_weighted_refine", "multistream",
+             "cli_multistream", "align_sequence")
+# the phases at production_vga's 640x480 (their launches go in the kernels' "vga" entries)
+VGA_PHASES = ("stream_vga", "batch_vga")
 # the phases that extract keyframe features: extract_pyramid must launch there
 EXTRACT_PHASES = GN_PHASES + ("cli_subgradient",)
 MULTI_STREAMS, MULTI_FRAMES = 8, 12  # the multistream phase: N streams, frames each
+FR1_DISTORTION = (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)  # TUM freiburg1's RGB camera
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 # float32 operations per point, counted in the CUDA sources
@@ -334,11 +361,12 @@ def check_canny_pyramid(device, rng) -> dict:
     level's own, with its flips) and of 8-bit noise, at B = 64 and B = 1; a
     5-level 640x480 noise pyramid of 3 images (the hysteresis kernel's
     shared-memory opt-in) and a 4-level one from 74x90 (widths no multiple
-    of 4 or 32: the unaligned loads and stores), B = 3 and 1. Then `canny`
+    of 4 or 32: the unaligned loads and stores), B = 3 and 1; production_vga's
+    5-level pyramid of 64 rendered 640x480 frames, B = 64 and 1. Then `canny`
     of one level on the card: one pyramid launch, equal to the plain
     version. Logs the fixpoints' pass counts per level; on the rendered
-    pyramid, times the call beside four single-level `canny` calls (the
-    same inputs, this run)."""
+    pyramids, times the call beside one single-level `canny` call a level
+    (the same inputs, this run)."""
     import torch
 
     from rgbd_odometry_tpu_torch import profiles
@@ -355,15 +383,18 @@ def check_canny_pyramid(device, rng) -> dict:
     _, _, ng, nd, _ = render_batch(profiles.production_320().camera, BATCH)
     f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     vga, odd = noise(3, 480, 640), noise(3, 74, 90)
+    vga_prof = profiles.production_vga()
+    _, _, vg, vd, _ = render_batch(vga_prof.camera, BATCH)
     cases = {
         "rendered": build_pyramid(f(ng), f(nd), 4).gray,
+        "rendered vga": build_pyramid(f(vg), f(vd), vga_prof.num_levels).gray,
         "serpentine": tuple(flips(h, w) for h, w in EDT_SHAPES),
         "noise": tuple(noise(BATCH, h, w) for h, w in EDT_SHAPES),
         "vga noise": build_pyramid(vga, torch.full_like(vga, 1000.0), 5).gray,
         "odd noise": build_pyramid(odd, torch.full_like(odd, 1000.0), 4).gray,
     }
     _require(tuple(cases["rendered"][0].shape) == (BATCH, *EDT_SHAPES[0]), "canny: pyramid shape")
-    summary = None
+    summaries = {}
     for kind, pyr in cases.items():
         for b in sorted({pyr[0].shape[0], 1}, reverse=True):
             levels = tuple(g[:b].contiguous() for g in pyr)
@@ -386,17 +417,16 @@ def check_canny_pyramid(device, rng) -> dict:
             line = (f"{what}: equal to plain, runs equal, {float(k[0].float().mean()) * 100:.2f}% "
                     f"edges at level 0; passes per level (most of any image) "
                     f"{passes.max(1).values.tolist()}")
-            if kind == "rendered":
+            if kind in ("rendered", "rendered vga"):
                 k_ms = _time_ms(lambda: canny.canny_pyramid(levels), 20)
                 before = _time_ms(lambda: [canny.canny(g) for g in levels], 20)
                 p_ms = _time_ms(lambda: canny.canny_pyramid_plain(levels), 3)
                 n = sum(g.numel() for g in levels)  # every level's image read, edge map written
                 bound = _bound(n * (4 + 1), n * OPS_CANNY_PIXEL)
-                line += (f"; canny_pyramid {k_ms:.4f} ms, four single-level canny calls "
+                line += (f"; canny_pyramid {k_ms:.4f} ms, {len(levels)} single-level canny calls "
                          f"{before:.4f} ms, plain {p_ms:.4f} ms; bound "
                          f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                if b == BATCH:
-                    summary = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+                summaries[(kind, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
             _log(line)
     one = cases["odd noise"][1]
     n0 = canny.canny_pyramid.launches
@@ -406,7 +436,9 @@ def check_canny_pyramid(device, rng) -> dict:
     _require(torch.equal(k, canny.canny_plain(one, 100.0, 150.0)), "canny of one level != plain")
     _log(f"canny {one.shape[1]}x{one.shape[2]} B={one.shape[0]}: one canny_pyramid launch, "
          f"equal to plain")
-    return summary
+    return {**summaries[("rendered", BATCH)],
+            "vga": {"shape": "5 levels from 480x640, B=64", **summaries[("rendered vga", BATCH)],
+                    "b1": summaries[("rendered vga", 1)]}}
 
 
 def check_dt_channels(device, rng) -> dict:
@@ -414,48 +446,67 @@ def check_dt_channels(device, rng) -> dict:
     R = 16 / 0, normalization on / off, bf16 / float32 channels, at the 4
     level shapes, B = 64 (an empty and a full mask among them) and B = 1,
     and at 37x45 (odd sizes: no cp.async staging, ragged tiles) and 480x640,
-    B = 3; a second launch bitwise equal."""
+    B = 3; on the Canny edges of rendered 640x480 frames (production_vga's
+    level 0), B = 64 and 1; a second launch bitwise equal."""
     import torch
 
-    from rgbd_odometry_tpu_torch.kernels import edt
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.kernels import canny, edt
 
     names = ("dt", "dgx", "dgy", "scale", "chans")
-    out = {}
+    vga = profiles.production_vga()
+    vga_variant = (vga.solver.edt_window, vga.solver.normalize_dt, True)
+    vga_label = "production_vga rendered edges 480x640"
+    cases = []  # (label, mask, whether a variant times the plain version)
     for h, w in (*EDT_SHAPES, *EXTRA_SHAPES):
         n_img = 3 if (h, w) in EXTRA_SHAPES else BATCH
         masks = torch.from_numpy(edge_masks(rng, n_img, h, w)).to(device)
-        for b in (n_img, 1):
-            mask = masks if b == n_img else masks[2:3].contiguous()
-            for radius in (16, 0):
-                for normalize in (False, True):
-                    for bf16 in (True, False):
-                        args = (mask, radius, normalize, bf16)
-                        k = edt.dt_channels(*args)
-                        again = edt.dt_channels(*args)
-                        p = edt.dt_channels_plain(*args)
-                        torch.cuda.synchronize()
-                        what = (f"dt_channels {h}x{w} B={b} R={radius} "
-                                f"{'normalized' if normalize else 'pixels'} "
-                                f"{'bf16' if bf16 else 'f32'}")
-                        for name, a, c, d in zip(names, k, again, p):
-                            _require(a.shape == d.shape and a.dtype == d.dtype,
-                                     f"{what}: {name} shape/dtype")
-                            _require(_same_bits(a, c), f"{what}: {name} runs differ")
-                            _require(_same_bits(a, d), f"{what}: {name} kernel != plain")
-                        k_ms = _time_ms(lambda: edt.dt_channels(*args), 20)
-                        timed = b == BATCH and (h, w) == EDT_SHAPES[0] and bf16
-                        p_ms = _time_ms(lambda: edt.dt_channels_plain(*args),
-                                        3 if radius else 2) if timed else float("nan")
-                        n = b * h * w  # the mask read; dt, dgx, dgy and the channels written
-                        cands = 2 * radius + 1 if radius else w
-                        bound = _bound(n * (1 + 12 + (6 if bf16 else 12)) + 4 * b,
-                                       n * (4 + 2 * cands + OPS_DT_TAIL))
-                        _log(f"{what}: 5 outputs bitwise equal, runs bitwise equal; kernel "
-                             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
-                             f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                        out[(h, w, b, radius, normalize, bf16)] = {
-                            "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
-    return out[(*EDT_SHAPES[0], BATCH, 16, False, True)]
+        first = n_img == BATCH and (h, w) == EDT_SHAPES[0]
+        cases += [(f"{h}x{w}", masks, lambda v, first=first: first and v[2]),
+                  (f"{h}x{w}", masks[2:3].contiguous(), lambda v: False)]
+    # production_vga's level 0 (its levels 1-4 are the shapes above) on the
+    # Canny edges of 64 rendered 640x480 frames
+    _, _, ng, _, _ = render_batch(vga.camera, BATCH)
+    vga_edges = canny.canny(torch.from_numpy(ng).to(device), vga.solver.canny_low,
+                            vga.solver.canny_high)
+    cases += [(vga_label, vga_edges[:b].contiguous(), lambda v: v == vga_variant)
+              for b in (BATCH, 1)]
+    out = {}
+    for label, mask, plain_timed in cases:
+        b, h, w = mask.shape
+        for radius in (16, 0):
+            for normalize in (False, True):
+                for bf16 in (True, False):
+                    variant = (radius, normalize, bf16)
+                    args = (mask, *variant)
+                    k = edt.dt_channels(*args)
+                    again = edt.dt_channels(*args)
+                    p = edt.dt_channels_plain(*args)
+                    torch.cuda.synchronize()
+                    what = (f"dt_channels {label} B={b} R={radius} "
+                            f"{'normalized' if normalize else 'pixels'} "
+                            f"{'bf16' if bf16 else 'f32'}")
+                    for name, a, c, d in zip(names, k, again, p):
+                        _require(a.shape == d.shape and a.dtype == d.dtype,
+                                 f"{what}: {name} shape/dtype")
+                        _require(_same_bits(a, c), f"{what}: {name} runs differ")
+                        _require(_same_bits(a, d), f"{what}: {name} kernel != plain")
+                    k_ms = _time_ms(lambda: edt.dt_channels(*args), 20)
+                    p_ms = _time_ms(lambda: edt.dt_channels_plain(*args),
+                                    3 if radius else 2) if plain_timed(variant) else float("nan")
+                    n = b * h * w  # the mask read; dt, dgx, dgy and the channels written
+                    cands = 2 * radius + 1 if radius else w
+                    bound = _bound(n * (1 + 12 + (6 if bf16 else 12)) + 4 * b,
+                                   n * (4 + 2 * cands + OPS_DT_TAIL))
+                    _log(f"{what}: 5 outputs bitwise equal, runs bitwise equal; kernel "
+                         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                         f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+                    out[(label, b, *variant)] = {
+                        "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+    return {**out[(f"{EDT_SHAPES[0][0]}x{EDT_SHAPES[0][1]}", BATCH, 16, False, True)],
+            "vga": {"shape": "480x640 R=16 pixels bf16, B=64",
+                    **out[(vga_label, BATCH, *vga_variant)],
+                    "b1": out[(vga_label, 1, *vga_variant)]}}
 
 
 def check_extract(device, rng) -> dict:
@@ -464,11 +515,12 @@ def check_extract(device, rng) -> dict:
     second launch bitwise equal: production_320's capacities (segmented
     levels) and the `dvo` defaults' (exact) on the 4-level 320x240 pyramid,
     and production_vga's (5 levels, 4096 at level 0, segmented and exact)
-    on a 640x480 pyramid (the rendered frames doubled); at B = 64 and 1, on
-    rendered frames (their own Canny edges and depth), edge-free and
-    all-edge maps, and rendered edges over a depth half below
-    `min_depth_mm`. Times the kernel and its plain version on the rendered
-    320x240 pyramid at both configurations, B = 64 and B = 1."""
+    on a 640x480 pyramid (the rendered frames doubled) and on 640x480
+    renders; at B = 64 and 1, on rendered frames (their own Canny edges and
+    depth), edge-free and all-edge maps, and rendered edges over a depth
+    half below `min_depth_mm`. Times the kernel and its plain version on the
+    rendered 320x240 pyramid at both 4-level configurations and on the
+    rendered 640x480 pyramid at production_vga's, B = 64 and B = 1."""
     import torch
 
     from rgbd_odometry_tpu_torch import SolverConfig, profiles
@@ -480,6 +532,7 @@ def check_extract(device, rng) -> dict:
     _, _, ng, nd, _ = render_batch(p320.camera, BATCH)
     f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     gray, depth = f(ng), f(nd)
+    _, _, vg, vd, _ = render_batch(vga.camera, BATCH)
     up = lambda x: x.repeat_interleave(2, 1).repeat_interleave(2, 2)  # noqa: E731
     configs = {
         "production_320": (p320.solver, p320.max_points, 4, gray, depth, p320.camera),
@@ -487,6 +540,7 @@ def check_extract(device, rng) -> dict:
         "production_vga": (vga.solver, vga.max_points, 5, up(gray), up(depth), vga.camera),
         "production_vga exact": (dataclasses.replace(vga.solver, extract_selection="exact"),
                                  vga.max_points, 5, up(gray), up(depth), vga.camera),
+        "production_vga rendered": (vga.solver, vga.max_points, 5, f(vg), f(vd), vga.camera),
     }
     names = ("pts3d", "uv", "valid", "count")
     out = {}
@@ -529,7 +583,8 @@ def check_extract(device, rng) -> dict:
                         f"counts {counts}")
                 if kind == "edge-free":
                     _require(sum(counts) == 0, f"{what}: an edge-free image has points")
-                if kind == "rendered" and n_lv == 4:
+                if kind == "rendered" and cname in ("production_320", "dvo defaults",
+                                                     "production_vga rendered"):
                     k_ms = _time_ms(lambda: extract.extract_pyramid(*args), 20)
                     p_ms = _time_ms(lambda: extract.extract_pyramid_plain(*args), 3)
                     # every image's edge map read (1 byte a pixel), its depth only
@@ -546,7 +601,10 @@ def check_extract(device, rng) -> dict:
                              f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
                     out[(cname, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
                 _log(line)
-    return out[("production_320", BATCH)]
+    return {**out[("production_320", BATCH)],
+            "vga": {"shape": "production_vga, 5 levels from 480x640, B=64",
+                    **out[("production_vga rendered", BATCH)],
+                    "b1": out[("production_vga rendered", 1)]}}
 
 
 def check_fused_gn(device, rng) -> dict:
@@ -940,9 +998,11 @@ def _check_level_curves(what: str, cfg, ker, pl) -> float:
 def check_level_lm(device, rng) -> dict:
     """Kernel 5 vs its plain version at the Gauss-Newton configurations'
     level shapes: the `dvo` defaults (standard LM on the normalized DT,
-    capacities 8192/4096/2048/1024, 18/6/4/3 iterations) and production_320
-    (deferred accept, pixel-unit windowed DT, 2048/1024/512/512), each on 64
-    rendered pairs and on one, at all 4 levels from the identity. The CPU
+    capacities 8192/4096/2048/1024, 18/6/4/3 iterations), production_320
+    (deferred accept, pixel-unit windowed DT, 2048/1024/512/512) and
+    production_vga (the same at 640x480 over 5 levels, 4096/2048/1024/512/512,
+    4/18/6/4/3), each on 64 rendered pairs and on one, at every level from
+    the identity. The CPU
     tests' bars against the plain version; iteration 0's energy equal to
     `fused_gn_terms`' at the start pose (1e-6 relative); a second launch
     bitwise equal; the diagnostics: where they are not the best iterate's
@@ -960,22 +1020,24 @@ def check_level_lm(device, rng) -> dict:
     from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, residual
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
-    prof = profiles.production_320()
+    prof, vga = profiles.production_320(), profiles.production_vga()
     configs = {
         "dvo": (SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3)),
-                PipelineConfig().pyramid.max_points),
-        "production_320": (prof.solver, prof.max_points),
+                PipelineConfig().pyramid.max_points, prof),
+        "production_320": (prof.solver, prof.max_points, prof),
+        "production_vga": (vga.solver, vga.max_points, vga),
     }
-    rg, rd, ng, nd, _ = render_batch(prof.camera, BATCH)
     f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    ref_pyr, now_pyr = build_pyramid(f(rg), f(rd), 4), build_pyramid(f(ng), f(nd), 4)
-    intr = Intrinsics.from_config(prof.camera)
-    worst, summary = 0.0, None
-    for name, (cfg, max_points) in configs.items():
+    worst, worst_by, summary = 0.0, {}, {}
+    for name, (cfg, max_points, shapes) in configs.items():
+        rg, rd, ng, nd, _ = render_batch(shapes.camera, BATCH)
+        n_lv = shapes.num_levels
+        ref_pyr, now_pyr = build_pyramid(f(rg), f(rd), n_lv), build_pyramid(f(ng), f(nd), n_lv)
+        intr = Intrinsics.from_config(shapes.camera)
         refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, max_points)
         nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
         for b in (BATCH, 1):
-            for lvl in range(3, -1, -1):
+            for lvl in range(n_lv - 1, -1, -1):
                 ref, now = refs[lvl], nows[lvl]
                 pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
                 img, scale = now.chans[:b, 0], now.scale[:b]
@@ -999,6 +1061,7 @@ def check_level_lm(device, rng) -> dict:
                 _require(rel0 <= 1e-6, f"{what}: iteration 0 energy vs fused_gn_terms {rel0:.2e}")
                 err = _check_level_curves(what, cfg, ker, pl)
                 worst = max(worst, err)
+                worst_by[name] = max(worst_by.get(name, 0.0), err)
                 tail = cfg.lm_deferred_accept or jstride > 1
                 r_args = (ker.R, ker.t, pts, valid, img, *li, True)
                 if tail:
@@ -1042,9 +1105,13 @@ def check_level_lm(device, rng) -> dict:
                      f"{k_ms:.4f} ms, per-iteration kernels {r_ms:.4f} ms, plain {p_ms:.4f} ms, "
                      f"residual_pass at the returned pose {res_ms:.4f} ms; bound "
                      f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                if name == "dvo" and b == BATCH and lvl == 0:
-                    summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
-    return {"max_abs_err": worst, **summary}
+                if lvl == 0:
+                    summary[(name, b)] = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    return {"max_abs_err": worst, **summary[("dvo", BATCH)],
+            "vga": {"shape": "production_vga level 0 (jstride 8, 512 + 4096 points, 4 "
+                             "iterations, 480x640), B=64",
+                    "max_abs_err": worst_by["production_vga"],
+                    **summary[("production_vga", BATCH)], "b1": summary[("production_vga", 1)]}}
 
 
 def se3_log_poses(rng):
@@ -1381,6 +1448,13 @@ def _trajectory(n: int, step: float = 0.002):
     ).astype(np.float32)
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
 @functools.lru_cache(maxsize=1)
 def stream_frames():
     """The stream phase's rendered 320x240 frames and ground-truth poses."""
@@ -1390,40 +1464,158 @@ def stream_frames():
     return render_sequence(profiles.production_320().camera, _trajectory(STREAM_FRAMES), seed=0)
 
 
-def run_stream(device) -> dict:
-    """EdgeDvoOdometry under production_320 over a rendered sequence."""
-    import torch
+@functools.lru_cache(maxsize=1)
+def vga_frames():
+    """The stream phase's trajectory and scene rendered at 640x480 with
+    production_vga's camera, one sample a pixel (as bench.py renders VGA;
+    three a pixel take ~3 s a frame on the host)."""
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
 
-    from rgbd_odometry_tpu_torch import (
-        EdgeDvoOdometry, KeyframeConfig, PipelineConfig, PyramidConfig, profiles,
-    )
-    prof = profiles.production_320()
-    cfg = PipelineConfig(
+    return render_sequence(profiles.production_vga().camera, _trajectory(STREAM_FRAMES), seed=0,
+                           supersample=1)
+
+
+def distorted_vga_frames(cam):
+    """The stream phase's trajectory and scene as a VGA RGB-D sensor with
+    the plumb-bob distortion of `cam` delivers it: (rgb (480, 640, 3) 0..255,
+    depth (480, 640) metres, 0 where no surface) per frame. Each pixel's ray
+    is its distorted normalized coordinate undistorted by fixed-point
+    iteration (to 1e-12), one sample a pixel."""
+    from rgbd_odometry_tpu_torch.io.synthetic import SyntheticScene, pose_from_twist
+
+    k1, k2, p1, p2, k3 = cam.distortion
+    gy, gx = np.meshgrid(np.arange(cam.height, dtype=np.float64),
+                         np.arange(cam.width, dtype=np.float64), indexing="ij")
+    xd, yd = (gx - cam.cx) / cam.fx, (gy - cam.cy) / cam.fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(200):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        x_new = (xd - 2.0 * p1 * x * y - p2 * (r2 + 2.0 * x * x)) / radial
+        y_new = (yd - p1 * (r2 + 2.0 * y * y) - 2.0 * p2 * x * y) / radial
+        step = max(float(np.abs(x_new - x).max()), float(np.abs(y_new - y).max()))
+        x, y = x_new, y_new
+        if step < 1e-12:
+            break
+    _require(step < 1e-12, f"distorted_vga_frames: the ray inversion did not converge ({step})")
+    rays = np.stack([x, y, np.ones_like(x)], axis=-1)
+    scene = SyntheticScene(seed=0)
+    out = []
+    for psi in _trajectory(STREAM_FRAMES):
+        R, t = pose_from_twist(psi)
+        gray, depth_m = scene._render_rays(rays @ R.T, t, R)
+        gray = np.round(np.clip(gray, 0, 255)).astype(np.float32)
+        out.append((np.repeat(gray[..., None], 3, axis=-1),
+                    np.where(depth_m > 0, depth_m, 0.0).astype(np.float32)))
+    return out
+
+
+def _stream_config(prof, **kw):
+    """A profile's streaming configuration: keyframe every 5 with rollback."""
+    from rgbd_odometry_tpu_torch import KeyframeConfig, PipelineConfig, PyramidConfig
+
+    return PipelineConfig(
         camera=prof.camera,
         pyramid=PyramidConfig(num_levels=prof.num_levels, max_points=prof.max_points),
         solver=prof.solver,
         keyframe=KeyframeConfig(force_every=5, rollback_resolve=True),
+        **kw,
     )
-    frames, poses = stream_frames()
+
+
+def _run_stream(cfg, frames, poses, device, ingest=None) -> dict:
+    """`EdgeDvoOdometry.process_frame` over `frames` (each through
+    `ingest` first, when given): ms/frame over frames 1.. (host clock; every
+    frame ends in its result copy), unaligned ATE RMSE, keyframes and
+    rollbacks."""
+    from rgbd_odometry_tpu_torch import EdgeDvoOdometry
+
+    feed = ingest or (lambda f: f)
     odo = EdgeDvoOdometry(cfg, device=device)
-    odo.process_frame(*frames[0], timestamp=0.0)  # bootstrap (untimed)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    odo.process_frame(*feed(frames[0]), timestamp=0.0)  # bootstrap (untimed)
+    _sync(device)
     t0 = time.perf_counter()
-    for i, (g, d) in enumerate(frames[1:], start=1):
-        odo.process_frame(g, d, timestamp=float(i))
+    for i, f in enumerate(frames[1:], start=1):
+        odo.process_frame(*feed(f), timestamp=float(i))
     ms = (time.perf_counter() - t0) * 1000.0 / (len(frames) - 1)
     _, t_est, _ = odo.trajectory()
     gt_t = np.stack([p[1] for p in poses])
     _require(t_est.shape == gt_t.shape and np.isfinite(t_est).all(), "stream: bad trajectory")
     ate = float(np.sqrt(((t_est - gt_t) ** 2).sum(-1).mean()))  # unaligned ATE RMSE
-    kf = odo.gop.keyframe_indices()
-    rollbacks = sum(m.rolled_back for m in odo.metrics)
-    _log(f"stream: {len(frames)} frames 320x240, ATE {ate * 1000:.3f} mm, keyframes {kf}, "
-         f"rollbacks {rollbacks}, {ms:.3f} ms/frame")
+    return {"ate_mm": ate * 1000.0, "ms_per_frame": ms, "keyframes": odo.gop.keyframe_indices(),
+            "rollbacks": sum(m.rolled_back for m in odo.metrics)}
+
+
+def run_stream(device) -> dict:
+    """EdgeDvoOdometry under production_320 over a rendered sequence."""
+    from rgbd_odometry_tpu_torch import profiles
+
+    frames, poses = stream_frames()
+    out = _run_stream(_stream_config(profiles.production_320()), frames, poses, device)
+    ate, ms, rollbacks = out["ate_mm"] / 1000.0, out["ms_per_frame"], out["rollbacks"]
+    _log(f"stream: {len(frames)} frames 320x240, ATE {ate * 1000:.3f} mm, keyframes "
+         f"{out['keyframes']}, rollbacks {rollbacks}, {ms:.3f} ms/frame")
     _require(ate < 0.008, f"stream: ATE {ate:.4f} m >= 8 mm")
     _require(rollbacks >= 1, "stream: no rollback re-solve happened")
     return {"ate_mm": ate * 1000.0, "ms_per_frame": ms}
+
+
+def run_stream_vga(device, p320: dict) -> dict:
+    """EdgeDvoOdometry under production_vga (5 levels from 640x480,
+    capacities 4096/2048/1024/512/512, LM 4/18/6/4/3) over the stream
+    phase's trajectory rendered at 640x480: ATE < 8 mm (the stream's bar),
+    ms/frame beside production_320's."""
+    from rgbd_odometry_tpu_torch import profiles
+
+    frames, poses = vga_frames()
+    out = _run_stream(_stream_config(profiles.production_vga()), frames, poses, device)
+    _log(f"stream_vga: {len(frames)} frames 640x480 production_vga, ATE {out['ate_mm']:.3f} mm, "
+         f"keyframes {out['keyframes']}, rollbacks {out['rollbacks']}, "
+         f"{out['ms_per_frame']:.3f} ms/frame; production_320 at 320x240 on the same trajectory "
+         f"(the stream phase): ATE {p320['ate_mm']:.3f} mm, {p320['ms_per_frame']:.3f} ms/frame")
+    _require(out["ate_mm"] < 8.0, f"stream_vga: ATE {out['ate_mm']:.3f} mm >= 8 mm")
+    _require(out["rollbacks"] >= 1, "stream_vga: no rollback re-solve happened")
+    return out
+
+
+def run_stream_vga_ingest(device) -> dict:
+    """The VGA sensor's stream through the ingest: each frame rendered as a
+    distorting 640x480 sensor delivers it (RGB, depth in metres, TUM
+    freiburg1's plumb-bob distortion), then `io.stream.preprocess_vga` on
+    the card (metres to mm, sanitize, undistortion, gray, half resolution)
+    into `EdgeDvoOdometry.process_frame` under production_320 at the halved
+    camera: ATE < 8 mm (the stream's bar); ms/frame with the ingest, and the
+    ingest's own ms/frame (host clock, synchronised)."""
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.io.stream import preprocess_vga
+
+    cam_vga = dataclasses.replace(profiles.production_vga().camera, distortion=FR1_DISTORTION)
+    t0 = time.perf_counter()
+    frames = distorted_vga_frames(cam_vga)
+    render_s = time.perf_counter() - t0
+    _, poses = vga_frames()
+    cfg = dataclasses.replace(_stream_config(profiles.production_320()),
+                              camera=cam_vga.scaled(0.5))
+    ingest = lambda f: preprocess_vga(*f, cam_vga, device=device)  # noqa: E731
+    gray, depth = ingest(frames[0])
+    _require(tuple(gray.shape) == (240, 320) and gray.device == device
+             and tuple(depth.shape) == (240, 320) and float(depth.min()) >= 1.0,
+             "stream_vga_ingest: preprocess_vga output")
+    _sync(device)
+    t0 = time.perf_counter()
+    for f in frames:
+        ingest(f)
+    _sync(device)
+    ingest_ms = (time.perf_counter() - t0) * 1000.0 / len(frames)
+    out = _run_stream(cfg, frames, poses, device, ingest=ingest)
+    _log(f"stream_vga_ingest: {len(frames)} distorted 640x480 RGB-D frames (distortion "
+         f"{FR1_DISTORTION}) through preprocess_vga into production_320, ATE "
+         f"{out['ate_mm']:.3f} mm, keyframes {out['keyframes']}, rollbacks {out['rollbacks']}, "
+         f"{out['ms_per_frame']:.3f} ms/frame with the ingest, preprocess_vga alone "
+         f"{ingest_ms:.3f} ms/frame (rendering {render_s:.1f} s apart)")
+    _require(out["ate_mm"] < 8.0, f"stream_vga_ingest: ATE {out['ate_mm']:.3f} mm >= 8 mm")
+    return {**out, "ingest_ms_per_frame": ingest_ms}
 
 
 @functools.lru_cache(maxsize=2)
@@ -1449,15 +1641,16 @@ def render_batch(cam, batch: int):
     return rg, rd, ng, nd, gt
 
 
-def run_batch(device, batch: int = BATCH) -> dict:
-    """align_pair on `batch` distinct pairs under production_320."""
+def _run_batch(device, prof, batch: int) -> dict:
+    """align_pair under `prof` on `batch` distinct pairs rendered as bench.py
+    renders them: the pose errors against ground truth and pairs/s (host
+    clock over 3 calls after a warm-up, ending in a sync)."""
     import torch
 
-    from rgbd_odometry_tpu_torch import align_pair, profiles
+    from rgbd_odometry_tpu_torch import align_pair
     from rgbd_odometry_tpu_torch.core.camera import Intrinsics
     from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
 
-    prof = profiles.production_320()
     rg, rd, ng, nd, gt = render_batch(prof.camera, batch)
     f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     ref = build_pyramid(f(rg), f(rd), prof.num_levels)
@@ -1468,22 +1661,47 @@ def run_batch(device, batch: int = BATCH) -> dict:
         return align_pair(ref.gray, ref.depth, now.gray, intr, prof.solver, prof.max_points)
 
     R, t, diags = run()
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    sync()
+    _sync(device)
     reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
         run()
-    sync()
+    _sync(device)
     pps = batch * reps / (time.perf_counter() - t0)
     _require(R.shape == (batch, 3, 3) and t.shape == (batch, 3), "batch: output shapes")
     t_np = t.cpu().numpy().astype(np.float64)
     _require(np.isfinite(t_np).all(), "batch: non-finite poses")
     err = np.linalg.norm(t_np - np.stack([p[1] for p in gt]), axis=-1)
+    return {"err": err, "pairs_per_s": pps}
+
+
+def run_batch(device, batch: int = BATCH) -> dict:
+    """align_pair on `batch` distinct pairs under production_320."""
+    from rgbd_odometry_tpu_torch import profiles
+
+    out = _run_batch(device, profiles.production_320(), batch)
+    err, pps = out["err"], out["pairs_per_s"]
     _log(f"batch: align_pair on {batch} pairs 320x240, |t-t_gt| median {np.median(err) * 1000:.3f} "
          f"mm max {err.max() * 1000:.3f} mm, {pps:.1f} pairs/s")
     _require(bool((err < 0.02).all()), f"batch: {int((err >= 0.02).sum())} pairs off by >= 2 cm")
     return {"median_mm": float(np.median(err)) * 1000.0, "pairs_per_s": pps}
+
+
+def run_batch_vga(device, p320: dict, batch: int = BATCH) -> dict:
+    """align_pair on `batch` distinct 640x480 pairs under production_vga,
+    rendered as bench.py's `_vga_extras` renders them: every pair within
+    2 cm of ground truth, pairs/s beside production_320's."""
+    from rgbd_odometry_tpu_torch import profiles
+
+    out = _run_batch(device, profiles.production_vga(), batch)
+    err, pps = out["err"], out["pairs_per_s"]
+    _log(f"batch_vga: align_pair on {batch} pairs 640x480 production_vga, |t-t_gt| median "
+         f"{np.median(err) * 1000:.3f} mm max {err.max() * 1000:.3f} mm, {pps:.1f} pairs/s; "
+         f"production_320 (the batch phase): {p320['pairs_per_s']:.1f} pairs/s")
+    _require(bool((err < 0.02).all()),
+             f"batch_vga: {int((err >= 0.02).sum())} pairs off by >= 2 cm")
+    return {"median_mm": float(np.median(err)) * 1000.0, "max_mm": float(err.max()) * 1000.0,
+            "pairs_per_s": pps}
 
 
 def run_cli(name: str, argv, ate_bar: float, inspect=None) -> dict:
@@ -1601,19 +1819,17 @@ def run_loop_closure(device) -> dict:
     return {"closures": len(key), "ms_per_keyframe": float(np.median(ms[1:]))}
 
 
-def run_relocalize(device) -> dict:
-    """The blackout-teleport run of tests/test_relocalize.py at 320x240: 6
-    fast frames, 3 blank ones, 4 slow frames teleported back near the start,
-    through `EdgeDvoOdometry` with relocalization. ms per relocalize call
-    (host clock around a synchronised call)."""
-    import torch
-
+@functools.lru_cache(maxsize=1)
+def reloc_case():
+    """tests/test_relocalize.py's blackout-teleport run at 320x240: its
+    configuration (relocalization on, quality triggers, keyframe every 5
+    with rollback), its 13 frames (6 fast ones, 3 blank, 4 slow ones
+    teleported back near the start) and the last 4 frames' true poses."""
     from rgbd_odometry_tpu_torch import (
-        CameraConfig, EdgeDvoOdometry, KeyframeConfig, PipelineConfig, PyramidConfig,
-        RelocalizeConfig, SolverConfig,
+        CameraConfig, KeyframeConfig, PipelineConfig, PyramidConfig, RelocalizeConfig,
+        SolverConfig,
     )
     from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
-    from rgbd_odometry_tpu_torch.pipeline.gop import REASON_RELOCALIZED
 
     cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
     cfg = PipelineConfig(
@@ -1627,6 +1843,20 @@ def run_relocalize(device) -> dict:
     frames_a, _ = render_sequence(cam, _trajectory(6, step=0.012), seed=0)
     frames_b, poses_b = render_sequence(cam, _trajectory(4, step=0.002), seed=0)
     blank = (np.zeros((240, 320), np.float32),) * 2
+    return cfg, list(frames_a) + [blank] * 3 + list(frames_b), poses_b
+
+
+def run_relocalize(device) -> dict:
+    """The blackout-teleport run of tests/test_relocalize.py at 320x240: 6
+    fast frames, 3 blank ones, 4 slow frames teleported back near the start,
+    through `EdgeDvoOdometry` with relocalization. ms per relocalize call
+    (host clock around a synchronised call)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import EdgeDvoOdometry
+    from rgbd_odometry_tpu_torch.pipeline.gop import REASON_RELOCALIZED
+
+    cfg, seq, poses_b = reloc_case()
     odo = EdgeDvoOdometry(cfg, device=device)
     reloc, calls = odo._reloc, []
     query = reloc.relocalize
@@ -1640,7 +1870,7 @@ def run_relocalize(device) -> dict:
         return res
 
     reloc.relocalize = timed
-    for i, (g, d) in enumerate(list(frames_a) + [blank] * 3 + list(frames_b)):
+    for i, (g, d) in enumerate(seq):
         odo.process_frame(g, d, timestamp=float(i))
     _, t_est, _ = odo.trajectory()
     err = 1000 * np.linalg.norm(t_est[-3:] - np.stack([p[1] for p in poses_b])[-3:], axis=1)
@@ -1651,6 +1881,114 @@ def run_relocalize(device) -> dict:
     _require(REASON_RELOCALIZED in reasons, f"relocalize: no recovery ({reasons})")
     _require(float(err.max()) < 25.0, f"relocalize: post-recovery error {err.max():.1f} mm")
     return {"recoveries": reloc.successes, "ms_per_call": float(np.mean(calls))}
+
+
+# FrameMetrics fields held bitwise across the streaming modes (solve_ms is
+# the host clock)
+METRIC_FIELDS = ("frame_num", "best_energy", "best_iter", "visible_ratio", "b_cap", "num_points",
+                 "keyframe_reason", "rolled_back", "diverged", "energy_curve", "final_epsilons",
+                 "final_valid")
+
+
+def _np_same(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def run_stream_pipelined(device) -> dict:
+    """`EdgeDvoOdometry.process_stream` fed by a `FrameFeeder`, against the
+    sequential `process_pyramid` from a feeder and `process_frame`: the
+    stream phase's production_320 run in hold mode and with constant
+    velocity, and the relocalize phase's run. Poses, keyframes and every
+    FrameMetrics field but the host-clock solve_ms must be bitwise equal
+    three ways. ms/frame of each way (host clock over all frames, ending
+    in a sync, after an untimed `process_frame` run of the same frames) and
+    the speculative solves `process_stream` discarded."""
+    from rgbd_odometry_tpu_torch import EdgeDvoOdometry, profiles
+    from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+
+    prof = profiles.production_320()
+    frames, _ = stream_frames()
+    reloc_cfg, reloc_frames, _ = reloc_case()
+    cases = {
+        "hold": (_stream_config(prof), frames),
+        "constant_velocity": (_stream_config(prof, motion_model="constant_velocity"), frames),
+        "relocalize": (reloc_cfg, reloc_frames),
+    }
+    ways = ("process_stream", "process_pyramid", "process_frame")
+    out = {}
+    for mode, (cfg, seq) in cases.items():
+        def source():
+            return ((g, d, float(i)) for i, (g, d) in enumerate(seq))
+
+        def run(way):
+            odo = EdgeDvoOdometry(cfg, device=device)
+            odo.keep_residuals = True
+            feeder = FrameFeeder(source(), num_levels=cfg.pyramid.num_levels, device=device)
+            if way == "process_stream":
+                for _pose in odo.process_stream(feeder):
+                    pass
+            elif way == "process_pyramid":
+                for pyr, ts in feeder:
+                    odo.process_pyramid(pyr, ts)
+            else:
+                for g, d, ts in source():
+                    odo.process_frame(g, d, ts)
+            return odo
+
+        run("process_frame")  # warm-up
+        runs, ms = {}, {}
+        for way in ways:
+            _sync(device)
+            t0 = time.perf_counter()
+            runs[way] = run(way)
+            _sync(device)
+            ms[way] = (time.perf_counter() - t0) * 1000.0 / len(seq)
+        ref = runs["process_frame"]
+        R1, t1, ts1 = ref.trajectory()
+        for way in ways[:2]:
+            odo = runs[way]
+            what = f"stream_pipelined {mode}: {way}"
+            R2, t2, ts2 = odo.trajectory()
+            _require(_np_same(R1, R2) and _np_same(t1, t2) and _np_same(ts1, ts2),
+                     f"{what}: poses differ from process_frame's")
+            _require([e.reason for e in odo.gop.elements] == [e.reason for e in ref.gop.elements],
+                     f"{what}: keyframes differ from process_frame's")
+            _require(len(odo.metrics) == len(ref.metrics) == len(seq), f"{what}: metrics count")
+            for m1, m2 in zip(ref.metrics, odo.metrics):
+                bad = [f for f in METRIC_FIELDS if not _np_same(getattr(m1, f), getattr(m2, f))]
+                _require(not bad, f"{what}: frame {m1.frame_num} FrameMetrics {bad} differ")
+        pipe = runs["process_stream"]
+        # a keyframe decided at a frame with a successor breaks the chain
+        switches = sum(m.keyframe_reason != 0 for m in list(ref.metrics)[1:-1])
+        _require(pipe.discarded_dispatches >= switches >= 1,
+                 f"stream_pipelined {mode}: {pipe.discarded_dispatches} discarded dispatches for "
+                 f"{switches} keyframe switches")
+        if mode == "relocalize":
+            _require(pipe._reloc.successes >= 1, "stream_pipelined relocalize: no recovery")
+        _log(f"stream_pipelined {mode}: {len(seq)} frames {cfg.camera.width}x{cfg.camera.height}, "
+             f"process_stream, process_pyramid and process_frame bitwise equal (poses, "
+             f"keyframes {ref.gop.keyframe_indices()}, every FrameMetrics field); ms/frame "
+             + ", ".join(f"{w} {ms[w]:.3f}" for w in ways)
+             + f"; {pipe.discarded_dispatches} speculative solves discarded and launched again")
+        out[mode] = {"ms_per_frame": ms, "discarded": pipe.discarded_dispatches}
+    return out
+
+
+def run_cli_pipelined(sequential: dict) -> dict:
+    """`dvo --pipelined --frames 30`: the trajectory file and the printed
+    metrics (ATE and drift as float64 reprs) identical to cli_default's."""
+    out = run_cli("cli_pipelined", ["--frames", "30", "--pipelined"], 0.020)
+    _require(out["keyframes"] == sequential["keyframes"], "cli_pipelined: keyframes differ")
+    _require(out["trajectory"] == sequential["trajectory"],
+             "cli_pipelined: trajectory file differs from cli_default's")
+    _require(out["metrics"] == sequential["metrics"],
+             f"cli_pipelined: metrics {out['metrics']} != {sequential['metrics']}")
+    _log(f"cli_pipelined: trajectory file and metrics identical to cli_default's; avg solve "
+         f"{out['ms_per_frame']:.3f} ms/frame against {sequential['ms_per_frame']:.3f}")
+    return out
 
 
 def _ply_vertices(path: str) -> int:
@@ -1800,7 +2138,7 @@ def run_multistream(device) -> dict:
 
 
 def run_cli_multistream() -> dict:
-    """`multistream --streams 16 --frames 20 --quality-triggers` as a user
+    """`multistream --streams 16 --frames 12 --quality-triggers` as a user
     runs it: every stream within 2 cm (ATE), the aggregate frames/s the
     command prints and the kernels' C calls per lockstep step."""
     from rgbd_odometry_tpu_torch import cli
@@ -1808,7 +2146,7 @@ def run_cli_multistream() -> dict:
     counters = _launch_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     stdout, stderr = io.StringIO(), io.StringIO()
-    argv = ["multistream", "--streams", "16", "--frames", "20", "--quality-triggers"]
+    argv = ["multistream", "--streams", "16", "--frames", "12", "--quality-triggers"]
     with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
         summary = cli.main(argv)
     calls = {k: fn.launches - before[k] for k, fn in counters.items()}
@@ -1877,6 +2215,7 @@ def main() -> int:
     from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     device = resolve_device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1914,14 +2253,19 @@ def main() -> int:
         fn.launches = 0
     phases = (
         ("stream", lambda: run_stream(device)),
+        ("stream_vga", lambda: run_stream_vga(device, results["stream"])),
         ("batch", lambda: run_batch(device)),
+        ("batch_vga", lambda: run_batch_vga(device, results["batch"])),
         ("cli_default", lambda: run_cli("cli_default", ["--frames", "30"], 0.020)),
         ("cli_default_no_feeder", lambda: run_cli_no_feeder(results["cli_default"])),
+        ("cli_pipelined", lambda: run_cli_pipelined(results["cli_default"])),
         ("cli_subgradient", lambda: run_cli(
             "cli_subgradient",
             ["--method", "subgradient", "--iterations", "50,50,50,50", "--frames", "10"], 0.025)),
         ("loop_closure", lambda: run_loop_closure(device)),
         ("relocalize", lambda: run_relocalize(device)),
+        ("stream_pipelined", lambda: run_stream_pipelined(device)),
+        ("stream_vga_ingest", lambda: run_stream_vga_ingest(device)),
         ("cli_loop_close", run_cli_loop_close),
         ("cli_weighted_refine", run_cli_weighted_refine),
         ("cli_refine", lambda: run_cli_refine(results["cli_loop_close"])),
@@ -1930,13 +2274,14 @@ def main() -> int:
         ("align_sequence", lambda: run_align_sequence(device)),
     )
     map_phases = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refine")
-    results = {}
+    results, per_phase = {}, {}
     for name, phase in phases:
         before = {k: fn.launches for k, fn in counters.items()}
         t0 = time.perf_counter()
         results[name] = phase()
         torch.cuda.synchronize()
         n = {k: fn.launches - before[k] for k, fn in counters.items()}
+        per_phase[name] = n
         _log(f"launches in {name}: " + ", ".join(f"{k} {v}" for k, v in n.items())
              + f" ({time.perf_counter() - t0:.1f} s)")
         if name in map_phases:
@@ -1956,6 +2301,8 @@ def main() -> int:
         _require(n["residual"] == 0, f"{name}: the residual_pass kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
+    for key in ("canny_pyramid", "dt_channels", "level_lm", "extract"):
+        res[key]["vga"]["launches"] = sum(per_phase[p][key] for p in VGA_PHASES)
     _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
              "a kernel was not launched on the main paths")
 
@@ -2003,6 +2350,7 @@ def main() -> int:
                      ":147, :156, the back-projection :165-179)",
          "launches": launches["extract"], **res["extract"]},
     ]
+    _log(f"chip_smoke: every check and phase passed, {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

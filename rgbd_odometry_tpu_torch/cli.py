@@ -3,6 +3,7 @@
 
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --method subgradient --iterations 50,50,50,50
+    python -m rgbd_odometry_tpu_torch.cli dvo --pipelined --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --loop-close --map-out map.ply --out est.txt
     python -m rgbd_odometry_tpu_torch.cli refine est.txt --constraints lc.txt --out ref.txt
     python -m rgbd_odometry_tpu_torch.cli multistream --streams 16 --frames 20 --out-dir streams
@@ -34,7 +35,6 @@ import numpy as np
 
 _Q1 = "ROADMAP.md Queue 1"
 _UNPORTED = (
-    ("pipelined", "--pipelined", "item 3 'pipelined streaming'"),
     ("viz_dir", "--viz-dir", "item 9 'The CLI'"),
     ("checkpoint", "--checkpoint", "item 4 'checkpoint'"),
     ("resume", "--resume", "item 4 'checkpoint'"),
@@ -228,7 +228,19 @@ def cmd_dvo(args):
         n = sum(1 for _ in frames)
         print(f"dry loop: ingested {n} frames", file=sys.stderr)
         return {"frames": n}
-    if args.feeder:
+    if args.pipelined:
+        # frame n+1 is launched off frame n's in-flight outputs; bitwise the
+        # sequential loop (the speculation is discarded where the chain breaks)
+        if args.loop_close or map_clouds is not None:
+            sys.exit("--pipelined is incompatible with --viz-dir/--loop-close/"
+                     "--map-out (they need per-frame host access)")
+        from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+
+        feeder = FrameFeeder(frames, num_levels=cfg.pyramid.num_levels, device=device)
+        for _pose in odo.process_stream(feeder):
+            n += 1
+            _after(odo.metrics[-1])
+    elif args.feeder:
         # host build + copy to the card of frame n+1 overlap frame n's solve
         from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
 
@@ -548,7 +560,9 @@ def main(argv=None):
     p.add_argument("--viz-dir", default=None)
     p.add_argument("--viz-every", type=int, default=5)
     p.add_argument("--trace-dir", default=None)
-    p.add_argument("--pipelined", action="store_true")
+    p.add_argument("--pipelined", action="store_true",
+                   help="pipelined streaming: the next frame is launched off the previous "
+                   "one's unresolved outputs (the trajectory is bitwise the sequential one)")
     p.add_argument("--loop-close", action="store_true",
                    help="detect loop closures between keyframes and refine the trajectory "
                    "(rigid re-anchoring by default, see --refine-mode)")

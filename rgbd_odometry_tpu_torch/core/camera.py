@@ -1,14 +1,17 @@
-"""Pinhole intrinsics as plain Python floats.
+"""Pinhole intrinsics as plain Python floats, and the ingest's undistortion.
 
 Port of `rgbd_odometry_tpu/core/camera.Intrinsics`: the JAX version carries
 the four scalars as a pytree of arrays for `jit`; here they are floats that
 enter the tensor math as scalar operands (float32 on float32 tensors) and the
-CUDA kernel as `float` arguments.
+CUDA kernel as `float` arguments. `undistort_map` and `remap_bilinear` are the
+plumb-bob undistortion of the VGA ingest (`io/stream.preprocess_vga`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 from rgbd_odometry_tpu_torch.config import CameraConfig
 
@@ -27,3 +30,46 @@ class Intrinsics(NamedTuple):
         """Every entry scaled by 2^-level (exact: a power of two)."""
         s = 2.0 ** (-level)
         return Intrinsics(self.fx * s, self.fy * s, self.cx * s, self.cy * s)
+
+
+def undistort_map(cfg: CameraConfig, device=None) -> torch.Tensor:
+    """The plumb-bob undistortion sampling grid (H, W, 2) float32 [x, y]:
+    for each output pixel the distorted source location to sample
+    (bilinear); the identity grid without distortion. Computed on the CPU,
+    where a float32 division by a Python scalar is a true division as in
+    XLA (on a CUDA device torch takes the product with its reciprocal), then
+    moved to `device`."""
+    k1, k2, p1, p2, k3 = cfg.distortion
+    f32 = torch.float32
+    gy, gx = torch.meshgrid(torch.arange(cfg.height, dtype=f32),
+                            torch.arange(cfg.width, dtype=f32), indexing="ij")
+    xn = (gx - cfg.cx) / cfg.fx
+    yn = (gy - cfg.cy) / cfg.fy
+    r2 = xn * xn + yn * yn
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    x_d = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
+    y_d = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
+    grid = torch.stack([x_d * cfg.fx + cfg.cx, y_d * cfg.fy + cfg.cy], dim=-1)
+    return grid if device is None else grid.to(device)
+
+
+def remap_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear remap of a (..., H, W) image at the sampling grid (H, W, 2)
+    [x, y], the coordinates clamped to the image."""
+    h, w = img.shape[-2:]
+    x = torch.clamp(grid[..., 0], 0.0, w - 1.0)
+    y = torch.clamp(grid[..., 1], 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    wx = x - x0.to(img.dtype)
+    wy = y - y0.to(img.dtype)
+    flat = img.reshape(img.shape[:-2] + (h * w,))
+
+    def gat(yy, xx):
+        return flat[..., yy * w + xx]
+
+    top = gat(y0, x0) * (1 - wx) + gat(y0, x1) * wx
+    bot = gat(y1, x0) * (1 - wx) + gat(y1, x1) * wx
+    return top * (1 - wy) + bot * wy

@@ -1,6 +1,6 @@
 """Frame sources and stream manipulation: port of
 `rgbd_odometry_tpu/io/stream.py` (`SyntheticCamera`, `TumSource`,
-`skip_frames`).
+`skip_frames`, `preprocess_vga`).
 
 A source yields (gray level-0 float32 0..255, depth level-0 float32 mm,
 timestamp s) as numpy arrays; the driver or `pipeline/feeder.FrameFeeder`
@@ -12,6 +12,7 @@ builds, else with cv2.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -107,3 +108,38 @@ def skip_frames(source_iter, skip: int = 5):
     for i, item in enumerate(source_iter):
         if i % skip == 0:
             yield item
+
+
+@functools.lru_cache(maxsize=8)
+def _undistort_grid(cam: CameraConfig, device: torch.device) -> torch.Tensor:
+    """`undistort_map` of a camera, made once per (camera, device)."""
+    from rgbd_odometry_tpu_torch.core.camera import undistort_map
+
+    return undistort_map(cam, device)
+
+
+def preprocess_vga(rgb_vga, depth_vga_m, cam_vga: CameraConfig, device=None):
+    """The converter node's preprocessing of one VGA RGB-D frame, on
+    `device` (the card unless the caller asks for the CPU): float metres
+    depth -> millimetres with 0 -> 1, the plumb-bob undistortion when the
+    camera has distortion (bilinear, gray and depth alike), gray conversion,
+    the half-resolution base level. `rgb_vga` (H, W, 3) 0..255, or (H, W)
+    gray; `depth_vga_m` (H, W), 0 where invalid. Returns (gray0, depth0_mm),
+    (H/2, W/2) float32 tensors on the device, which `EdgeDvoOdometry.
+    process_frame` takes."""
+    from rgbd_odometry_tpu_torch.core.camera import remap_bilinear
+    from rgbd_odometry_tpu_torch.core.pyramid import downsample_nearest, rgb_to_gray, sanitize_depth
+    from rgbd_odometry_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    depth_m = torch.as_tensor(np.asarray(depth_vga_m)).to(dev)
+    # the product in the depth's own dtype, as numpy takes it
+    depth_mm = torch.where(depth_m > 0, depth_m * 1000.0, 0.0).to(torch.float32)
+    rgb = torch.as_tensor(np.asarray(rgb_vga, np.float32)).to(dev)
+    gray = rgb_to_gray(rgb) if rgb.dim() == 3 else rgb
+    depth = sanitize_depth(depth_mm)
+    if any(abs(d) > 0 for d in cam_vga.distortion):
+        grid = _undistort_grid(cam_vga, dev)
+        gray = remap_bilinear(gray, grid)
+        depth = remap_bilinear(depth, grid)
+    return downsample_nearest(gray, 2), downsample_nearest(depth, 2)

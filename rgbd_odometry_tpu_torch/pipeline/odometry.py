@@ -14,8 +14,9 @@ already-built pyramid, as `pipeline/feeder.FrameFeeder` delivers it. With
 `RelocalizeConfig(enabled=True)` healthy keyframes feed the appearance
 database of `pipeline/relocalize.py`, and a streak of lost frames triggers a
 recovery query that re-anchors the trajectory (REASON_RELOCALIZED).
-
-Not ported yet (ROADMAP.md Queue 1, item 3): the pipelined `process_stream`.
+`process_stream` is the pipelined mode: frame n+1 is launched off frame n's
+unresolved outputs, and frame n's results come back through a copy enqueued
+when it was launched (`enqueue_pull`), so the host waits for frame n only.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,26 +109,56 @@ class PulledBatch:
     final_valid: Optional[np.ndarray] = None  # (B, K) bool
 
 
-def pull_batch(R_d: torch.Tensor, t_d: torch.Tensor,
-               finest: Optional[edge_dvo.LevelDiagnostics] = None) -> PulledBatch:
-    """Poses of every pair, and with `finest` its diagnostics (scalars,
-    energy curve, per-point residuals and visibility), in ONE device->host
-    copy: one row of float32 per pair."""
+class PendingPull(NamedTuple):
+    """A device->host copy of B pairs' packed results, enqueued but not yet
+    waited for (`enqueue_pull`)."""
+
+    host: torch.Tensor  # (B, row) float32, pinned when the results are on a card
+    event: Optional[torch.cuda.Event]  # recorded after the copy; None on the CPU
+    n_iters: int  # 0: poses only
+    k: int
+
+
+def enqueue_pull(R_d: torch.Tensor, t_d: torch.Tensor,
+                 finest: Optional[edge_dvo.LevelDiagnostics] = None) -> PendingPull:
+    """Pack the poses of every pair, and with `finest` its diagnostics
+    (scalars, energy curve, per-point residuals and visibility), into one
+    row of float32 per pair, and enqueue its copy to the host: on a card a
+    `non_blocking` copy into pinned memory on the current stream, then an
+    event. The host waits on that event only (`finish_pull`), not on what
+    is launched after it. The pinned buffer lives in the returned handle;
+    dropped before its copy ends, it goes back to PyTorch's pinned-memory
+    cache, which keeps it until the copy's stream has passed it."""
     f32 = torch.float32
     b = R_d.shape[0]
     parts = [R_d.reshape(b, 9), t_d.reshape(b, 3)]
+    n_it = k = 0
     if finest is not None:
+        n_it, k = finest.energy.shape[-1], finest.final_epsilons.shape[-1]
         parts += [
             torch.stack([finest.best_energy, finest.best_iter.to(f32), finest.visible_ratio,
                          finest.num_points.to(f32)], dim=-1),
             finest.energy, finest.final_epsilons, finest.final_valid.to(f32),
         ]
-    host = torch.cat([p.to(f32) for p in parts], dim=1).cpu().numpy()
+    packed = torch.cat([p.to(f32) for p in parts], dim=1)
+    if packed.device.type != "cuda":
+        return PendingPull(packed, None, n_it, k)
+    host = torch.empty(packed.shape, dtype=f32, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return PendingPull(host, event, n_it, k)
+
+
+def finish_pull(pending: PendingPull) -> PulledBatch:
+    """Wait for an enqueued pull's copy and unpack it."""
+    if pending.event is not None:
+        pending.event.synchronize()
+    host = pending.host.numpy()
+    b = host.shape[0]
     out = PulledBatch(R=host[:, :9].reshape(b, 3, 3).copy(), t=host[:, 9:12].copy())
-    if finest is not None:
-        n_it = finest.energy.shape[-1]
-        k = finest.final_epsilons.shape[-1]
-        o = 16 + n_it
+    if pending.n_iters:
+        o, k = 16 + pending.n_iters, pending.k
         out.best_energy = host[:, 12].copy()
         out.best_iter = host[:, 13].astype(np.int64)
         out.visible_ratio = host[:, 14].copy()
@@ -138,10 +169,15 @@ def pull_batch(R_d: torch.Tensor, t_d: torch.Tensor,
     return out
 
 
-def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostics):
-    """Pose and finest diagnostics of the one pair of a single-stream solve
-    (`pull_batch` of a batch of one), in one device->host copy."""
-    p = pull_batch(R_d, t_d, finest)
+def pull_batch(R_d: torch.Tensor, t_d: torch.Tensor,
+               finest: Optional[edge_dvo.LevelDiagnostics] = None) -> PulledBatch:
+    """Poses of every pair, and with `finest` its diagnostics, in ONE
+    device->host copy (`enqueue_pull`, then `finish_pull`)."""
+    return finish_pull(enqueue_pull(R_d, t_d, finest))
+
+
+def _single(p: PulledBatch):
+    """Pose and finest diagnostics of the one pair of a single-stream solve."""
     fin = _Finest(
         energy=p.energy[0],
         best_energy=float(p.best_energy[0]),
@@ -152,6 +188,20 @@ def _pull(R_d: torch.Tensor, t_d: torch.Tensor, finest: edge_dvo.LevelDiagnostic
         final_valid=p.final_valid[0],
     )
     return p.R[0], p.t[0], fin
+
+
+class _Dispatched(NamedTuple):
+    """One frame's solve as launched, before the host has read it."""
+
+    pyr: FramePyramid
+    timestamp: float
+    frame_num: int
+    R_d: torch.Tensor
+    t_d: torch.Tensor
+    targets: tuple
+    pull: PendingPull
+    warm: tuple  # the warm pair the solve started from
+    t_start: float
 
 
 class EdgeDvoOdometry:
@@ -184,6 +234,7 @@ class EdgeDvoOdometry:
         self._prevpose = None
         self._dispatch_warm = None
         self.keep_residuals = False
+        self.discarded_dispatches = 0  # speculative solves of process_stream launched again
         # relocalization after tracking loss: `trigger_consecutive` lost
         # frames in a row query the appearance database
         self._reloc = None
@@ -201,13 +252,14 @@ class EdgeDvoOdometry:
         timestamp: float = 0.0,
         pose_prior: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Feed one frame (level-0 gray + depth in mm); returns the current
-        global pose (R, t). `pose_prior`, if given, is a delta (R, t)
+        """Feed one frame (level-0 gray + depth in mm, numpy arrays or
+        tensors as `io.stream.preprocess_vga` returns them); returns the
+        current global pose (R, t). `pose_prior`, if given, is a delta (R, t)
         composed onto the warm start."""
         f32 = dict(dtype=torch.float32, device=self.device)
         pyr = build_pyramid(
-            torch.as_tensor(np.asarray(gray0), **f32)[None],
-            torch.as_tensor(np.asarray(depth0_mm), **f32)[None],
+            torch.as_tensor(gray0, **f32)[None],
+            torch.as_tensor(depth0_mm, **f32)[None],
             self.cfg.pyramid.num_levels,
         )
         return self.process_pyramid(pyr, timestamp, pose_prior)
@@ -230,22 +282,70 @@ class EdgeDvoOdometry:
             self._prevpose = None  # the prior is the velocity source
         if self._frame_num == 0:
             return self._bootstrap(pyr, timestamp)
+        return self._resolve(self._dispatch(pyr, timestamp, self._frame_num, self._resolved_warm(),
+                                            self._prevpose))
 
-        t_start = time.perf_counter()
+    def process_stream(self, pyramids):
+        """Pipelined streaming over (pyramid, timestamp) items, as
+        `FrameFeeder` yields them; yields the global pose (R, t) per frame,
+        in order. Frame n+1's solve is launched with frame n's unresolved
+        device outputs as its warm start (and, for constant velocity, frame
+        n's own warm pair as the previous pose) before the host reads frame
+        n's results and decides its keyframe policy, so the host's dispatch
+        of frame n+1 overlaps frame n's device work and readback. The
+        outcome is bitwise that of the sequential loop: the speculation
+        holds only while frame n's resolution keeps the chain intact (its
+        solved pose becomes the next warm start). A keyframe switch, a
+        rollback, a divergence or a relocalization breaks it; the
+        speculative solve is then discarded (counted in
+        `discarded_dispatches`) and launched again from the resolved state,
+        on the same now-frame targets."""
+        pend: Optional[_Dispatched] = None
+        for pyr, ts in pyramids:
+            self._frame_num += 1
+            if self._frame_num == 0:
+                yield self._bootstrap(pyr, ts)
+                continue
+            if pend is None:
+                pend = self._dispatch(pyr, ts, self._frame_num, self._resolved_warm(),
+                                      self._prevpose)
+                continue
+            spec = self._dispatch(pyr, ts, self._frame_num, (pend.R_d, pend.t_d), pend.warm)
+            pose = self._resolve(pend)
+            if self._warm is None or self._warm[0] is not pend.R_d:
+                self.discarded_dispatches += 1
+                spec = self._dispatch(pyr, ts, self._frame_num, self._resolved_warm(),
+                                      self._prevpose, targets=spec.targets)
+            pend = spec
+            yield pose
+        if pend is not None:
+            yield self._resolve(pend)
+
+    def _resolved_warm(self):
+        """The warm start from the resolved state, uploaded once after the
+        host changed it."""
         if self._warm is None:
             f32 = dict(dtype=torch.float32, device=self.device)
             self._warm = (
                 torch.as_tensor(self._R, **f32)[None],
                 torch.as_tensor(self._t, **f32)[None],
             )
-        self._dispatch_warm = self._warm
-        R0, t0 = self._warm
+        return self._warm
+
+    def _dispatch(self, pyr, timestamp, frame_num, warm, prev, targets=None) -> _Dispatched:
+        """Launch one frame's targets (unless given) and solve from the warm
+        pair `warm` (`prev`: the previous pose for constant velocity, None
+        for none yet), and enqueue the copy of its results to the host."""
+        t_start = time.perf_counter()
+        R0, t0 = warm
         if self._cv:
-            R0, t0 = cv_extrapolate(R0, t0, *(self._prevpose or self._warm))
+            R0, t0 = cv_extrapolate(R0, t0, *(prev or warm))
         scfg = self.cfg.solver
-        targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
+        if targets is None:
+            targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
         R_d, t_d, diags = edge_dvo.solve_pyramid(self._ref_feats, targets, self.intr, scfg, R0, t0)
-        return self._resolve(pyr, timestamp, self._frame_num, R_d, t_d, diags[0], targets, t_start)
+        return _Dispatched(pyr, timestamp, frame_num, R_d, t_d, targets,
+                           enqueue_pull(R_d, t_d, diags[0]), warm, t_start)
 
     def _bootstrap(self, pyr: FramePyramid, timestamp: float):
         """The first frame becomes the reference keyframe."""
@@ -258,10 +358,14 @@ class EdgeDvoOdometry:
         self._prev_pyr = pyr
         return self.gop.global_pose(0)
 
-    def _resolve(self, pyr, timestamp, frame_num, R_d, t_d, finest_d, targets, t_start):
-        """Host-side bookkeeping for one solved frame: pull the results,
-        decide keyframes, maybe rollback-resolve, log trajectory + metrics."""
-        R, t, finest = _pull(R_d, t_d, finest_d)
+    def _resolve(self, d: _Dispatched):
+        """Host-side bookkeeping for one dispatched frame: wait for its
+        results, decide keyframes, maybe rollback-resolve, log trajectory +
+        metrics."""
+        pyr, timestamp, frame_num, R_d, t_d, targets, t_start = (
+            d.pyr, d.timestamp, d.frame_num, d.R_d, d.t_d, d.targets, d.t_start)
+        self._dispatch_warm = d.warm
+        R, t, finest = _single(finish_pull(d.pull))
         solve_ms = (time.perf_counter() - t_start) * 1000.0
         b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
         vis = finest.visible_ratio
@@ -305,7 +409,7 @@ class EdgeDvoOdometry:
             R_d, t_d, diags = edge_dvo.solve_pyramid(
                 self._ref_feats, targets, self.intr, self.cfg.solver
             )
-            R, t, finest = _pull(R_d, t_d, diags[0])
+            R, t, finest = _single(pull_batch(R_d, t_d, diags[0]))
             rolled_back = True
             b_cap = residual_b_cap(finest.final_epsilons, finest.num_points)
             vis = finest.visible_ratio

@@ -3,6 +3,7 @@
     python -m rgbd_odometry_tpu_torch.profile_paths [--frames 30] [--warmup 10]
     python -m rgbd_odometry_tpu_torch.profile_paths --paths cli_subgradient \
         --frames 10 --warmup 4
+    python -m rgbd_odometry_tpu_torch.profile_paths --paths stream_vga,pipelined
 
 Copied into an older checkout of the package and run there, it profiles
 that checkout (it uses only names the package has always exported).
@@ -17,7 +18,19 @@ process_frame`, keyframe every 5:
   cli_subgradient  `dvo --method subgradient --iterations 50,50,50,50`, the
                reference's solver (not in the default: run it in a process
                of its own, with fewer frames for a checkout older than the
-               whole-level kernel, whose frame is ~46000 launches).
+               whole-level kernel, whose frame is ~46000 launches);
+  stream_vga   `profiles.production_vga` (5 levels from 640x480, capacities
+               4096/2048/1024/512/512, LM 4/18/6/4/3) with rollback re-solves
+               over the same trajectory rendered at 640x480 (one sample a
+               pixel; not in the default).
+
+`--paths pipelined` (not in the default) runs the stream path's frames
+through `EdgeDvoOdometry.process_stream` (frame n+1 launched off frame n's
+unresolved outputs) and through the sequential `process_pyramid`, each fed
+by a `FrameFeeder` and from pyramids built on the card beforehand, after the
+same `--warmup` frames: ms/frame twice (A B C D D C B A), then per frame the
+same profiled numbers as the per-frame paths, and the speculative solves
+`process_stream` discarded.
 
 `--paths multistream` (not in the default; it renders 16 streams on the
 host first, ~1 minute) profiles the `multistream` command's lockstep loop
@@ -88,12 +101,12 @@ def _configs():
             solver=SolverConfig(method="subgradient", iterations=(50, 50, 50, 50)),
             keyframe=KeyframeConfig(force_every=5),
         ),
-        "stream": PipelineConfig(
-            camera=prof.camera,
-            pyramid=PyramidConfig(num_levels=prof.num_levels, max_points=prof.max_points),
-            solver=prof.solver,
+        **{name: PipelineConfig(
+            camera=p.camera,
+            pyramid=PyramidConfig(num_levels=p.num_levels, max_points=p.max_points),
+            solver=p.solver,
             keyframe=KeyframeConfig(force_every=5, rollback_resolve=True),
-        ),
+        ) for name, p in (("stream", prof), ("stream_vga", profiles.production_vga()))},
     }
 
 
@@ -149,6 +162,66 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     out["package"] = sys.modules["rgbd_odometry_tpu_torch"].__file__
     print(json.dumps(out), flush=True)
     return out
+
+
+def profile_pipelined(cfg, frames, warmup: int, device) -> list:
+    """`process_stream` and the sequential `process_pyramid` over the frames
+    after `warmup` (run first through `process_frame`), each fed two ways:
+    by a `FrameFeeder` (the `dvo` command's way) and from pyramids built on
+    the card beforehand (pipelining alone). Host clock per frame twice, in
+    the order A B C D D C B A, then once under the profiler each."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+    from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry
+
+    window = [(g, d, float(i)) for i, (g, d) in enumerate(frames)][warmup:]
+    f32 = dict(dtype=torch.float32, device=device)
+    prebuilt = [(build_pyramid(torch.as_tensor(g, **f32)[None], torch.as_tensor(d, **f32)[None],
+                               cfg.pyramid.num_levels), ts) for g, d, ts in window]
+
+    def fresh():
+        odo = EdgeDvoOdometry(cfg, device=device)
+        for i, (g, d) in enumerate(frames[:warmup]):
+            odo.process_frame(g, d, timestamp=float(i))
+        torch.cuda.synchronize()
+        return odo
+
+    def run(odo, mode, source):
+        items = (FrameFeeder(iter(window), num_levels=cfg.pyramid.num_levels, device=device)
+                 if source == "feeder" else iter(prebuilt))
+        if mode == "process_stream":
+            for _pose in odo.process_stream(items):
+                pass
+        else:
+            for pyr, ts in items:
+                odo.process_pyramid(pyr, ts)
+
+    cases = [(m, s) for s in ("feeder", "prebuilt") for m in ("process_stream", "process_pyramid")]
+    ms, discarded = {c: [] for c in cases}, {}
+    for case in cases + cases[::-1]:
+        odo = fresh()
+        t0 = time.perf_counter()
+        run(odo, *case)
+        torch.cuda.synchronize()
+        ms[case].append((time.perf_counter() - t0) * 1000.0 / len(window))
+        discarded[case] = odo.discarded_dispatches
+    outs = []
+    for case in cases:
+        odo = fresh()
+        prof = _profile_window(lambda: run(odo, *case), len(window))
+        out = {
+            "path": "pipelined", "mode": case[0], "source": case[1], "frames": len(window),
+            "ms_per_frame": ms[case], "discarded_dispatches": discarded[case],
+            "launches_per_frame": prof["launches"], "syncs_per_frame": prof["syncs"],
+            "kernels_per_frame": prof["kernels"], "kernel_ms_per_frame": prof["kernel_ms"],
+            "busy_share": prof["busy_share"], "profiled_ms_per_frame": prof["profiled_ms"],
+            "top_kernels_ms_per_frame": prof["top_kernels_ms"],
+        }
+        print(json.dumps(out), flush=True)
+        outs.append(out)
+    return outs
 
 
 def _profile_window(run, steps: int) -> dict:
@@ -345,8 +418,13 @@ def main(argv=None) -> int:
         if name == "multistream":
             profile_multistream(device, args.frames, args.warmup)
             continue
-        cfg = configs[name]
-        frames, _ = render_sequence(cfg.camera, _trajectory(args.frames), seed=0)
+        cfg = configs["stream" if name == "pipelined" else name]
+        # VGA one sample a pixel: three take ~3 s a frame on the host
+        frames, _ = render_sequence(cfg.camera, _trajectory(args.frames), seed=0,
+                                    supersample=1 if name == "stream_vga" else 3)
+        if name == "pipelined":
+            profile_pipelined(cfg, frames, args.warmup, device)
+            continue
         profile_path(name, cfg, frames, args.warmup, device)
     return 0
 

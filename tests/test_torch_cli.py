@@ -134,7 +134,6 @@ def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flags, item", [
     (["--viz-dir", "v"], "item 9 'The CLI'"), (["--checkpoint", "c.npz"], "item 4 'checkpoint'"),
     (["--resume", "c.npz"], "item 4 'checkpoint'"), (["--trace-dir", "t"], "item 9 'The CLI'"),
-    (["--pipelined"], "item 3 'pipelined streaming'"),
     (["--source", "xml:dumps"], "item 9 'The CLI'"),
 ])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
@@ -143,6 +142,30 @@ def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
         main(["dvo", "--device", "cpu", "--frames", "2", *flags])
     assert "not ported to rgbd_odometry_tpu_torch" in str(exc.value)
     assert f"ROADMAP.md Queue 1, {item}" in str(exc.value)
+
+
+def test_cli_pipelined_writes_the_sequential_trajectory(tmp_path, capsys):
+    """`dvo --pipelined` (process_stream fed by the frame feeder) writes the
+    same trajectory file, bit for bit, as the run without it."""
+    argv = ["dvo", "--device", "cpu", "--cam-scale", "0.5", "--frames", "7", "--iterations",
+            "6,3,2,2", "--keyframe-every", "3"]
+    files = []
+    for extra in ([], ["--pipelined"]):
+        est = str(tmp_path / f"est{len(files)}.txt")
+        main([*argv, *extra, "--out", est])
+        out = capsys.readouterr()
+        assert sum(line.startswith("frame ") for line in out.err.splitlines()) == 7
+        with open(est) as fh:
+            files.append((fh.read(), _last_json(out.out)))
+    assert files[0] == files[1]
+
+
+def test_cli_pipelined_with_loop_close_exits_as_jax_does():
+    """`--pipelined` with `--loop-close` exits with the JAX CLI's message."""
+    with pytest.raises(SystemExit) as exc:
+        main(["dvo", "--device", "cpu", "--frames", "2", "--pipelined", "--loop-close"])
+    assert str(exc.value) == ("--pipelined is incompatible with --viz-dir/--loop-close/"
+                              "--map-out (they need per-frame host access)")
 
 
 def test_cli_runs_without_jax():

@@ -31,7 +31,8 @@ def test_port_modules_import_without_jax():
     for m in ("solvers.edge_dvo", "kernels.residual", "kernels.sg_terms", "pipeline.feeder",
               "io.stream", "io.tum", "cli", "kernels.match", "kernels.pnp_gn", "ops.features",
               "ops.epipolar", "solvers.pnp", "solvers.pose_graph", "pipeline.kf_matcher",
-              "pipeline.loop_closure", "pipeline.relocalize", "viz.pointcloud"):
+              "pipeline.loop_closure", "pipeline.relocalize", "viz.pointcloud", "core.camera",
+              "core.pyramid", "pipeline.odometry", "profile_paths"):
         assert f"rgbd_odometry_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -40,6 +41,10 @@ def test_port_modules_import_without_jax():
         "import rgbd_odometry_tpu_torch as p\n"
         "p.align_pair, p.EdgeDvoOdometry, p.LoopCloser, p.Relocalizer, p.refine_pose_graph\n"
         "p.information_sqrt, p.marginal_covariance\n"
+        "p.EdgeDvoOdometry.process_stream\n"
+        "from rgbd_odometry_tpu_torch.io.stream import preprocess_vga\n"
+        "from rgbd_odometry_tpu_torch.core.pyramid import pyramid_from_vga, rgb_to_gray\n"
+        "from rgbd_odometry_tpu_torch.core.camera import remap_bilinear, undistort_map\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "print('JAX_MODULES', bad)\n"
         "sys.exit(1 if bad else 0)\n"
