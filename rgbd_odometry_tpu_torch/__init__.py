@@ -6,7 +6,10 @@ command at its own defaults (`cli.py`: standard LM on the 0-255 normalized
 DT, the frame feeder), the reference's sub-gradient solver, and the map
 backend (loop closure, pose-graph refinement, relocalization, the `refine`
 command), and N camera streams in lockstep or a whole sequence's pairs in
-one batch (`parallel/`, the `multistream` command). The layout mirrors the JAX package so every module's counterpart
+one batch (`parallel/`, the `multistream` command); checkpoint and resume
+(`utils/checkpoint.py`), a `torch.profiler` trace (`utils/tracing.py`), the
+live debug PNGs (`viz/live.py`) and the reference's XML pyramid dumps
+(`io/xml_dump.py`). The layout mirrors the JAX package so every module's counterpart
 is easy to find (`core/`, `ops/`, `solvers/`, `pipeline/`, `parallel/`,
 `io/`, `viz/`, `cli.py`), plus `kernels/` + `csrc/` for the hand-written CUDA kernels
 (shared device code in `csrc/project.cuh` and `csrc/se3.cuh`; the plain

@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: the JAX package's `dvo`, `refine`,
-`multistream` and `eval`.
+`multistream`, `eval`, `calib`, `probe` and `dump`.
 
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --method subgradient --iterations 50,50,50,50
@@ -8,24 +8,34 @@
     python -m rgbd_odometry_tpu_torch.cli refine est.txt --constraints lc.txt --out ref.txt
     python -m rgbd_odometry_tpu_torch.cli multistream --streams 16 --frames 20 --out-dir streams
     python -m rgbd_odometry_tpu_torch.cli eval est.txt groundtruth.txt
+    python -m rgbd_odometry_tpu_torch.cli dvo --frames 15 --checkpoint c.npz
+    python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --resume c.npz --out est.txt
+    python -m rgbd_odometry_tpu_torch.cli dvo --viz-dir viz --trace-dir trace
+    python -m rgbd_odometry_tpu_torch.cli dump --frames 30 --out-dir dumps
+    python -m rgbd_odometry_tpu_torch.cli dvo --source xml:dumps --calib cam_320x240.xml
+    python -m rgbd_odometry_tpu_torch.cli probe --method gauss_newton --iterations 100
+    python -m rgbd_odometry_tpu_torch.cli calib --write-freiburg calib_dir
 
-`dvo`, `refine` and `multistream` take the JAX parser's flags and defaults
-(`rgbd_odometry_tpu/cli.py`) plus `--device` (default `cuda`; the CPU runs
-the kernels' plain versions and only when asked for). They print the same
-lines: for `dvo` one per frame on stderr, the map backend's lines (`loop
-closures: ...`, `online refine @frame ...`, `map: ...`, `relocalizer: ...`),
-and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
-"drift_rms_per_s"}` against the synthetic ground truth; for `refine` its JSON
-summary; for `multistream` the JSON `{"streams", "devices", "frames",
-"aggregate_frames_per_s", "ate_rmse_per_stream", "ate_rmse_max"}`, where
-`devices` is 1 (one card). The flags of subsystems not ported yet exit with
-an error naming their ROADMAP item instead of being ignored. Imports no
-JAX.
+The subcommands take the JAX parser's flags and defaults
+(`rgbd_odometry_tpu/cli.py`), and those that compute take `--device`
+(default `cuda`; the CPU runs the kernels' plain versions and only when asked
+for). They print the same lines: for `dvo` one per frame on stderr, the map
+backend's lines (`loop closures: ...`, `online refine @frame ...`, `map:
+...`, `relocalizer: ...`), `checkpoint -> ...`, `viz: ...`, `torch.profiler
+trace -> ...`, and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
+"drift_rms_per_s"}` against the synthetic ground truth; for `refine`,
+`probe`, `calib` and `dump` their JSON; for `multistream` the JSON
+`{"streams", "devices", "frames", "aggregate_frames_per_s",
+"ate_rmse_per_stream", "ate_rmse_max"}`, where `devices` is 1 (one card).
+The JAX subcommands not ported yet (`photometric`, `feature-vo`, `pnp`,
+`imu`, `fused`, `bench`) exit naming their ROADMAP item. Imports no JAX and
+no OpenCV.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -34,12 +44,15 @@ import sys
 import numpy as np
 
 _Q1 = "ROADMAP.md Queue 1"
-_UNPORTED = (
-    ("viz_dir", "--viz-dir", "item 9 'The CLI'"),
-    ("checkpoint", "--checkpoint", "item 4 'checkpoint'"),
-    ("resume", "--resume", "item 4 'checkpoint'"),
-    ("trace_dir", "--trace-dir", "item 9 'The CLI'"),
-)
+# the JAX subcommands not ported yet, and their ROADMAP.md Queue 1 items
+_UNPORTED_COMMANDS = {
+    "photometric": "item 8 'Secondary solvers'",
+    "feature-vo": "item 8 'Secondary solvers'",
+    "pnp": "item 8 'Secondary solvers'",
+    "imu": "item 8 'Secondary solvers'",
+    "fused": "item 8 'Secondary solvers'",
+    "bench": "item 1 'H100 bench protocol'",
+}
 
 
 def _unported(what: str, item: str):
@@ -51,10 +64,13 @@ def _make_source(args):
     from rgbd_odometry_tpu_torch.io.stream import SyntheticCamera, TumSource, skip_frames
 
     start = args.start or 0
-    if args.source.startswith("xml:"):
-        _unported("the xml: source", "item 9 'The CLI'")
-    if args.source.startswith("tum:"):
-        frames = TumSource(args.source[4:], start=start, end=args.end).frames()
+    if args.source.startswith(("tum:", "xml:")):
+        if args.source.startswith("tum:"):
+            frames = TumSource(args.source[4:], start=start, end=args.end).frames()
+        else:
+            from rgbd_odometry_tpu_torch.io.xml_dump import XmlDumpSource
+
+            frames = XmlDumpSource(args.source[4:], start=start, end=args.end).frames()
         cam = None
         if args.calib:
             from rgbd_odometry_tpu_torch.io.calib import read_calib_xml
@@ -92,7 +108,8 @@ def _make_source(args):
 
 
 def _add_source_args(p):
-    p.add_argument("--source", default="synthetic", help="'synthetic' or 'tum:<dir>'")
+    p.add_argument("--source", default="synthetic",
+                   help="'synthetic', 'tum:<dir>' or 'xml:<dir>' (reference XML pyramid dumps)")
     p.add_argument("--frames", type=int, default=30, help="synthetic frame count")
     p.add_argument("--cam-scale", type=float, default=1.0,
                    help="resolution scale for the synthetic camera (0.5 renders 160x120 "
@@ -118,34 +135,64 @@ def _add_source_args(p):
 def cmd_dvo(args):
     """Edge-DVO odometry over a source; returns a summary dict (frames,
     keyframes, average solve ms, and the stdout metrics when printed)."""
-    for attr, flag, item in _UNPORTED:
-        if getattr(args, attr) != args.unported_defaults[attr]:
-            _unported(flag, item)
     from rgbd_odometry_tpu_torch.config import (
         CameraConfig, KeyframeConfig, PipelineConfig, RelocalizeConfig, SolverConfig,
     )
     from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry
 
-    frames, cam, gt = _make_source(args)
-    cfg = PipelineConfig(
-        camera=cam or CameraConfig(),
-        solver=SolverConfig(
-            method=args.method,
-            iterations=tuple(int(x) for x in args.iterations.split(",")),
-        ),
-        keyframe=KeyframeConfig(force_every=args.keyframe_every),
-        motion_model=args.motion_model,
-    )
-    if args.relocalize:
-        cfg = dataclasses.replace(cfg, relocalize=RelocalizeConfig(enabled=True))
     device = resolve_device(args.device)
-    odo = EdgeDvoOdometry(cfg, device=device)
+    if args.pipelined and not args.dry and (args.viz_dir or args.loop_close or args.map_out):
+        sys.exit("--pipelined is incompatible with --viz-dir/--loop-close/"
+                 "--map-out (they need per-frame host access)")
+    if args.resume:
+        from rgbd_odometry_tpu_torch.utils.checkpoint import load_odometry, read_checkpoint
+
+        # read once for every loader below; the checkpoint counts processed
+        # frames: with the original run's source flags the stream continues
+        # at the first unprocessed frame
+        snap = read_checkpoint(args.resume)
+        odo = load_odometry(snap, device=device)
+        resume_next = odo._frame_num + 1
+        frames, cam, gt = _make_source(args)
+        frames = itertools.islice(frames, resume_next, None)
+        print(f"resumed at frame {odo._frame_num} from {args.resume}; "
+              f"skipping {resume_next} already-processed frames of the source", file=sys.stderr)
+    else:
+        frames, cam, gt = _make_source(args)
+        cfg = PipelineConfig(
+            camera=cam or CameraConfig(),
+            solver=SolverConfig(
+                method=args.method,
+                iterations=tuple(int(x) for x in args.iterations.split(",")),
+            ),
+            keyframe=KeyframeConfig(force_every=args.keyframe_every),
+            motion_model=args.motion_model,
+        )
+        if args.relocalize:
+            cfg = dataclasses.replace(cfg, relocalize=RelocalizeConfig(enabled=True))
+        odo = EdgeDvoOdometry(cfg, device=device)
+    viz = None
+    if args.viz_dir:
+        from rgbd_odometry_tpu_torch.viz.live import LiveViz
+
+        viz = LiveViz(args.viz_dir, every=args.viz_every)
+        odo.keep_residuals = True
     closer = None
     if args.loop_close:
         from rgbd_odometry_tpu_torch.pipeline.loop_closure import LoopCloser
 
-        closer = LoopCloser(odo.intr, device=device)
+        if args.resume:
+            # post-resume keyframes close loops onto the keyframes stored
+            # before the checkpoint (None: saved without --loop-close)
+            from rgbd_odometry_tpu_torch.utils.checkpoint import load_loop_closer
+
+            closer = load_loop_closer(snap, odo.intr, device=device)
+            if closer is not None:
+                print(f"loop closer restored: {len(closer.keyframes)} keyframes, "
+                      f"{len(closer.closures)} closures", file=sys.stderr)
+        if closer is None:
+            closer = LoopCloser(odo.intr, device=device)
     # --weighted-refine weights odometry edges, which exist only in graph
     # mode: it implies the pose-graph path
     refine_mode = args.refine_mode
@@ -163,7 +210,15 @@ def cmd_dvo(args):
     # refinement rewrites the trajectory: every (re-)refinement derives its
     # odometry edges from them (LoopCloser.refine's edge_traj)
     raw_rels: list = []
-    refine_state = {"kf": 0, "closures": 0}
+    refine_state = {"kf": 0, "closures": 0 if closer is None else len(closer.closures)}
+    if args.resume:
+        from rgbd_odometry_tpu_torch.utils.checkpoint import load_raw_rels, load_refine_state
+
+        raw_rels = load_raw_rels(snap) or []
+        if closer is not None:
+            # the counter and closure baseline at the checkpoint, so closures
+            # found before it but not yet refined still trigger a refine
+            refine_state = load_refine_state(snap, len(closer.closures))
 
     def _refine_report(norms) -> str:
         if refine_mode == "reanchor":
@@ -187,11 +242,13 @@ def cmd_dvo(args):
         return np.stack(Rs), np.stack(ts_)
 
     def _per_frame(gray, depth):
-        """The map backend's work after a frame: the raw chain, the
-        keyframe's registration (closure detection, map cloud, online
-        refinement) and the information record."""
+        """After a frame: the live viz, the raw chain, the keyframe's
+        registration (closure detection, map cloud, online refinement) and
+        the information record."""
         if refine_every:
             _capture_raw_rel()
+        if viz is not None:
+            viz.on_frame(odo, gray, depth)
         m = odo.metrics[-1]
         if m.keyframe_reason != 0 and (closer is not None or map_clouds is not None):
             if closer is not None:
@@ -228,33 +285,46 @@ def cmd_dvo(args):
         n = sum(1 for _ in frames)
         print(f"dry loop: ingested {n} frames", file=sys.stderr)
         return {"frames": n}
-    if args.pipelined:
-        # frame n+1 is launched off frame n's in-flight outputs; bitwise the
-        # sequential loop (the speculation is discarded where the chain breaks)
-        if args.loop_close or map_clouds is not None:
-            sys.exit("--pipelined is incompatible with --viz-dir/--loop-close/"
-                     "--map-out (they need per-frame host access)")
-        from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+    trace = contextlib.nullcontext()
+    if args.trace_dir:
+        from rgbd_odometry_tpu_torch.utils.tracing import profiler_trace
 
-        feeder = FrameFeeder(frames, num_levels=cfg.pyramid.num_levels, device=device)
-        for _pose in odo.process_stream(feeder):
-            n += 1
-            _after(odo.metrics[-1])
-    elif args.feeder:
-        # host build + copy to the card of frame n+1 overlap frame n's solve
-        from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+        trace = profiler_trace(args.trace_dir)
+    with trace:
+        if args.pipelined:
+            # frame n+1 is launched off frame n's in-flight outputs; bitwise
+            # the sequential loop (the speculation is discarded where the
+            # chain breaks)
+            from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
 
-        for pyr, ts in FrameFeeder(frames, num_levels=cfg.pyramid.num_levels, device=device):
-            odo.process_pyramid(pyr, ts)
-            _per_frame(pyr.gray[0][0], pyr.depth[0][0])
-            n += 1
-            _after(odo.metrics[-1])
-    else:
-        for gray, depth, ts in frames:
-            odo.process_frame(gray, depth, ts)
-            _per_frame(gray, depth)
-            n += 1
-            _after(odo.metrics[-1])
+            feeder = FrameFeeder(frames, num_levels=odo.cfg.pyramid.num_levels, device=device)
+            for _pose in odo.process_stream(feeder):
+                n += 1
+                _after(odo.metrics[-1])
+        elif args.feeder:
+            # host build + copy to the card of frame n+1 overlap frame n's solve
+            from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+
+            for pyr, ts in FrameFeeder(frames, num_levels=odo.cfg.pyramid.num_levels,
+                                       device=device):
+                odo.process_pyramid(pyr, ts)
+                _per_frame(pyr.gray[0][0], pyr.depth[0][0])
+                n += 1
+                _after(odo.metrics[-1])
+        else:
+            for gray, depth, ts in frames:
+                odo.process_frame(gray, depth, ts)
+                _per_frame(gray, depth)
+                n += 1
+                _after(odo.metrics[-1])
+    if args.trace_dir:
+        print(f"torch.profiler trace -> {args.trace_dir}", file=sys.stderr)
+    if args.checkpoint:
+        from rgbd_odometry_tpu_torch.utils.checkpoint import save_odometry
+
+        save_odometry(odo, args.checkpoint, closer=closer,
+                      raw_rels=raw_rels if refine_every else None, refine_state=refine_state)
+        print(f"checkpoint -> {args.checkpoint}", file=sys.stderr)
     print(f"avg solve: {odo.average_solve_ms():.2f} ms over {n} frames", file=sys.stderr)
     summary = {"frames": n, "keyframes": odo.gop.keyframe_indices(),
                "avg_solve_ms": odo.average_solve_ms()}
@@ -262,13 +332,20 @@ def cmd_dvo(args):
         print(f"relocalizer: {len(odo._reloc)} keyframes in database, "
               f"{odo._reloc.successes}/{odo._reloc.attempts} recoveries", file=sys.stderr)
         summary["recoveries"] = odo._reloc.successes
+        summary["reloc_attempts"] = odo._reloc.attempts
     R, t, ts = odo.trajectory()
+    summary["poses"] = len(t)
     if closer is not None and len(t) > 1:
         odo_si = None
         if info_recs is not None:
             # edge k (frame k -> k+1) is weighted by frame k+1's information;
             # frames without a measurement take the batch mean
             infos = info_recs[1:len(t)]
+            if len(infos) != len(t) - 1:
+                # a resumed run: the nodes before it have no information
+                print("weighted-refine: trajectory has nodes without collected "
+                      "information (resumed run?) — using isotropic edges", file=sys.stderr)
+                infos = []
             have = [x for x in infos if x is not None]
             if have:
                 import torch
@@ -296,6 +373,10 @@ def cmd_dvo(args):
         print(f"map: {len(pts)} edge points from {len(map_clouds)} keyframes -> {args.map_out}",
               file=sys.stderr)
         summary["map_points"] = len(pts)
+    if viz is not None and n > 0:
+        written = viz.finalize(odo, gt_t=gt[1][: len(t)] if gt is not None else None)
+        print(f"viz: {len(written)} images -> {args.viz_dir}", file=sys.stderr)
+        summary["viz"] = written
     if args.out:
         from rgbd_odometry_tpu_torch.io.tum import write_trajectory
 
@@ -326,9 +407,9 @@ def cmd_dvo(args):
 
         gt_R, gt_t = gt
         start = args.start or 0
-        if start:
-            # a run offset into the synthetic stream is relative to its
-            # first processed frame
+        if start and not args.resume:
+            # a fresh run offset into the synthetic stream is relative to
+            # its first processed frame
             gt_R, gt_t = rebase_to_first(gt_R[start:], gt_t[start:])
         n2 = min(len(t), len(gt_t))
         ds = drift_stats(t[:n2], gt_t[:n2])
@@ -425,6 +506,99 @@ def cmd_eval(args):
     }
     print(json.dumps(out))
     return out
+
+
+def cmd_dump(args):
+    """Write a source as reference-format XML pyramid dumps (one
+    framemono_NNNN.xml a frame with mono_0.. and depth_0..), the pyramid
+    built on the device; prints and returns {"frames_written", "dir"}."""
+    import os
+
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.io.xml_dump import write_frame_dump
+
+    device = resolve_device(args.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    frames, cam, gt = _make_source(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    n = 0
+    for i, (gray, depth, ts) in enumerate(frames):
+        pyr = build_pyramid(torch.as_tensor(gray, **f32)[None], torch.as_tensor(depth, **f32)[None],
+                            args.levels)
+        write_frame_dump(args.out_dir, i, [g[0].cpu().numpy() for g in pyr.gray],
+                         [d[0].cpu().numpy() for d in pyr.depth])
+        n += 1
+    out = {"frames_written": n, "dir": args.out_dir}
+    print(json.dumps(out))
+    return out
+
+
+def cmd_calib(args):
+    """Read an OpenCV-XML calibration file (prints its CameraConfig as JSON)
+    or write the converter's Freiburg pair into a directory."""
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.io.calib import read_calib_xml, write_freiburg_pair
+
+    if args.write_freiburg:
+        cam = CameraConfig(width=640, height=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+        out = {"written": list(write_freiburg_pair(args.write_freiburg, cam))}
+    else:
+        out = dataclasses.asdict(read_calib_xml(args.file))
+    print(json.dumps(out))
+    return out
+
+
+def cmd_probe(args):
+    """Two-frame convergence probe (the reference's `casualTestFunction`):
+    align one rendered 320x240 pair at one level for N iterations on the
+    device (extraction, the now-frame targets and one `level_sg` or
+    `level_lm` launch) and print the energy-per-iteration curve as the JAX
+    command's JSON; returns it with the unrounded curve, the pose, the
+    level's diagnostics, its inputs (`ref`, `now`, `intr`) and `cfg`."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig, SolverConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.io.synthetic import render_pair
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    device = resolve_device(args.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    cam = CameraConfig()
+    intr = Intrinsics.from_config(cam)
+    psi = np.array([0.012, -0.008, 0.006, 0.004, -0.005, 0.003], np.float32)
+    (rg, rd), (ng, nd), _ = render_pair(cam, psi, seed=args.seed)
+    t = lambda a: torch.as_tensor(a, **f32)[None]  # noqa: E731
+    ref = build_pyramid(t(rg), t(rd), args.level + 1)
+    now = build_pyramid(t(ng), t(nd), args.level + 1)
+    cfg = SolverConfig(method=args.method)
+    max_pts = (4096, 2048, 1024, 512)[: args.level + 1]
+    feats = edge_dvo.extract_ref_features(ref.gray, ref.depth, intr, cfg, max_pts)
+    tgts = edge_dvo.prepare_now_targets(now.gray, cfg)
+    R0 = torch.eye(3, **f32)[None]
+    t0 = torch.zeros((1, 3), **f32)
+    R, t, diag = edge_dvo.run_level(feats[args.level], tgts[args.level],
+                                    intr.at_level(args.level), R0, t0, cfg, args.iterations)
+    e = diag.energy[0].cpu().numpy()
+    out = {
+        "level": args.level,
+        "energy": [round(float(x), 3) for x in e],
+        "best_iter": int(diag.best_iter[0]),
+        "best_energy": round(float(diag.best_energy[0]), 3),
+        "visible_ratio": round(float(diag.visible_ratio[0]), 4),
+    }
+    print(json.dumps(out))
+    return {**out, "energy_raw": e, "R": R, "t": t, "diag": diag, "ref": feats[args.level],
+            "now": tgts[args.level], "intr": intr.at_level(args.level), "cfg": cfg}
+
+
+def cmd_unported(args):
+    _unported(f"the {args.cmd} subcommand", _UNPORTED_COMMANDS[args.cmd])
 
 
 def multistream_config(cam, iterations=(18, 6, 4, 3), keyframe_every: int = 5,
@@ -553,13 +727,17 @@ def main(argv=None):
                    "extrapolate it by the last inter-frame motion (on the device)")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default) or 'cpu' (the kernels' plain versions)")
-    # flags of the JAX CLI whose subsystems are not ported yet: accepted by
-    # the parser so that using one exits with its ROADMAP item
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--resume", default=None)
-    p.add_argument("--viz-dir", default=None)
-    p.add_argument("--viz-every", type=int, default=5)
-    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="save the odometry state (and the loop closer's) at the end (.npz)")
+    p.add_argument("--resume", default=None,
+                   help="resume from a state snapshot: rerun with the original source flags; "
+                   "the frames it processed are skipped")
+    p.add_argument("--viz-dir", default=None,
+                   help="write debug PNGs (overlay/residue/energy/histogram per sampled frame, "
+                   "trajectory and reprojection at the end)")
+    p.add_argument("--viz-every", type=int, default=5, help="sample every Nth frame for viz")
+    p.add_argument("--trace-dir", default=None,
+                   help="capture a torch.profiler trace (Chrome/TensorBoard format) here")
     p.add_argument("--pipelined", action="store_true",
                    help="pipelined streaming: the next frame is launched off the previous "
                    "one's unresolved outputs (the trajectory is bitwise the sequential one)")
@@ -581,7 +759,7 @@ def main(argv=None):
                    "6x6 information matrix (implies the graph mode)")
     p.add_argument("--relocalize", action="store_true",
                    help="recover from tracking loss against a database of healthy keyframes")
-    p.set_defaults(fn=cmd_dvo, unported_defaults={a: p.get_default(a) for a, _, _ in _UNPORTED})
+    p.set_defaults(fn=cmd_dvo)
 
     p = sub.add_parser("refine", help="pose-graph refinement of a trajectory (+ loop closures)")
     p.add_argument("est", help="TUM-format trajectory to refine")
@@ -625,6 +803,56 @@ def main(argv=None):
     p.add_argument("--rebase", action="store_true")
     p.add_argument("--max-dt", type=float, default=0.02, help="max timestamp gap for association")
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("calib", help="read/write OpenCV-XML calibration files")
+    p.add_argument("--file", default=None)
+    p.add_argument("--write-freiburg", default=None, metavar="DIR")
+    p.set_defaults(fn=cmd_calib)
+
+    p = sub.add_parser("probe", help="two-frame energy-curve probe (casualTestFunction)")
+    p.add_argument("--level", type=int, default=0)
+    p.add_argument("--iterations", type=int, default=100)
+    p.add_argument("--method", default="subgradient", choices=["subgradient", "gauss_newton"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: 'cuda' (default) or 'cpu' (the kernels' plain versions)")
+    p.set_defaults(fn=cmd_probe)
+
+    p = sub.add_parser("dump", help="write reference-format XML pyramid dumps")
+    _add_source_args(p)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--levels", type=int, default=4)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: 'cuda' (default) or 'cpu'")
+    p.set_defaults(fn=cmd_dump)
+
+    # the JAX subcommands not ported yet, with the JAX parser's flags: each
+    # exits naming its ROADMAP.md item
+    p = sub.add_parser("photometric", help="legacy dense DVO (not ported yet)")
+    _add_source_args(p)
+    p.add_argument("--huber", action="store_true")
+    p = sub.add_parser("feature-vo", help="sparse feature VO (not ported yet)")
+    _add_source_args(p)
+    p.add_argument("--min-matches", type=int, default=40)
+    sub.add_parser("pnp", help="chessboard GN-PnP demo (not ported yet)")
+    p = sub.add_parser("imu", help="IMU dead reckoning (not ported yet)")
+    p.add_argument("--csv", default=None, help="csv with t,ax,ay,az,wx,wy,wz rows")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--accel-bias", type=float, default=0.0)
+    p.add_argument("--gyro-bias", type=float, default=0.0)
+    p = sub.add_parser("fused", help="IMU prior + edge DVO + sparse-PnP fallback (not ported yet)")
+    _add_source_args(p)
+    p.add_argument("--method", default="gauss_newton", choices=["gauss_newton", "subgradient"])
+    p.add_argument("--iterations", default="18,6,4,3")
+    p.add_argument("--keyframe-every", type=int, default=5)
+    p.add_argument("--no-imu", action="store_true")
+    p.add_argument("--imu-noise", type=float, default=0.0)
+    p.add_argument("--imu-refine", action="store_true")
+    p.add_argument("--imu-weight", type=float, default=3.0)
+    p = sub.add_parser("bench", help="batched-alignment throughput benchmark (not ported yet)")
+    p.add_argument("--batch", type=int, default=32)
+    for name in _UNPORTED_COMMANDS:
+        sub.choices[name].set_defaults(fn=cmd_unported)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -17,7 +17,8 @@
 //                 fused (two launches), or phases 1-3 with normalization.
 //
 //   phase 1, columns  one block per (image, strip of 32 columns), the mask
-//       strip staged in shared memory with cp.async. Each column is split
+//       strip staged in shared memory with cp.async (3 bytes a row: above
+//       480 rows the kernel opts in to more than 48 KB). Each column is split
 //       into 8 row segments swept by different threads: the first and last
 //       edge row of the segment, a short combine over the segment summaries
 //       (nearest edge above and below the segment), then a forward and a
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kGMax = 65504;  // column-distance clamp that keeps g^2 finite
@@ -68,6 +71,7 @@ constexpr int kSegs = 8;  // row segments per column
 constexpr int kColThreads = kStrip * kSegs;
 constexpr int kRowThreads = 256;
 constexpr int kSmemLimit = 48 * 1024;
+constexpr int kOptInLimit = 227 * 1024;  // the most a block may have on Hopper
 
 enum Mode { kD2 = 0, kTail = 1, kRaw = 2 };
 
@@ -319,11 +323,19 @@ int rows_per_tile(int w, int radius, int halo) {
   return 0;
 }
 
-int launch_columns(const void* mask, void* g, void* minmax, int batch, int h, int w,
+// The column phase stages a whole column strip: 3 bytes a row (the mask and
+// the uint16 upward distance) over 32 columns. Up to 48 KB that is the
+// default; a taller image (more than 480 rows) opts the kernel in to more,
+// once per device and size (`launch.cuh`), up to the 227 KB a block may have.
+int launch_columns(int device, const void* mask, void* g, void* minmax, int batch, int h, int w,
                    cudaStream_t s) {
   const size_t smem = (size_t)h * kStrip * 3;
-  if (smem > (size_t)kSmemLimit - sizeof(int) * 2 * kSegs * kStrip) {
-    return (int)cudaErrorInvalidValue;
+  const size_t fixed = sizeof(int) * 2 * kSegs * kStrip;  // the static segment summaries
+  if (smem > (size_t)kOptInLimit - fixed) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)kSmemLimit - fixed) {
+    static rgbd::SharedOptIn opted;
+    const cudaError_t err = rgbd::opt_in_shared(edt_columns, device, (long long)smem, &opted);
+    if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((w + kStrip - 1) / kStrip, batch);
   edt_columns<<<grid, kColThreads, smem, s>>>((const uint8_t*)mask, (uint16_t*)g, (int*)minmax,
@@ -347,7 +359,7 @@ extern "C" int edt_squared(int device, const void* mask, void* g, void* d2, int 
   cudaStream_t s = (cudaStream_t)stream;
   const int tile = rows_per_tile(w, radius, 0);
   if (tile == 0) return (int)cudaErrorInvalidValue;
-  int code = launch_columns(mask, g, nullptr, batch, h, w, s);
+  int code = launch_columns(device, mask, g, nullptr, batch, h, w, s);
   if (code != 0) return code;
   Out o{};
   o.d2 = (float*)d2;
@@ -369,7 +381,7 @@ extern "C" int dt_channels(int device, const void* mask, void* g, void* raw, voi
   cudaStream_t s = (cudaStream_t)stream;
   const int tile = rows_per_tile(w, radius, 1);
   if (tile == 0 || h < 2 || w < 2) return (int)cudaErrorInvalidValue;
-  int code = launch_columns(mask, g, normalize ? minmax : nullptr, batch, h, w, s);
+  int code = launch_columns(device, mask, g, normalize ? minmax : nullptr, batch, h, w, s);
   if (code != 0) return code;
   Out o{};
   o.d2 = (float*)raw;

@@ -50,7 +50,8 @@
 //       pixels of its 256 offsets, 8 a lane; the segment's 8 class words
 //       become (candidate & mask, candidate & ~mask), each a warp OR;
 //   (3) the block streams `order` in chunks of 16384 entries, 16
-//       consecutive a thread: one class lookup each, one block-wide
+//       consecutive a thread (8192 and 8 where the class words of a level
+//       above ~650k pixels leave too little room to stage 16384): one class lookup each, one block-wide
 //       exclusive scan of the packed (high, low) counts; the chunk's pixels
 //       that get a slot are staged in slot order and the block writes the
 //       slots, consecutive threads on consecutive slots. It stops once the
@@ -82,8 +83,14 @@ namespace {
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;  // consecutive entries of `order` per thread and chunk: four int4
+// consecutive entries of `order` per thread and chunk (four int4s), and the
+// chunk; a level whose class words leave too little shared memory for that
+// chunk's staging takes half of it (8 entries, two int4s), from about 650k
+// pixels (960x720) up; where both fit the full chunk is 5-10% faster a
+// launch (PERF.md §6)
+constexpr int kItems = 16;
 constexpr int kChunk = kThreads * kItems;
+constexpr int kItemsLarge = kItems / 2;
 constexpr int kSeg = 256;
 constexpr int kSegKeep = 32;
 constexpr int kMaxDynamicSmem = 227 * 1024;
@@ -222,13 +229,14 @@ __device__ __forceinline__ int segment_candidates(const uint8_t* row, int s, int
   return lane == 0 ? (m < kSegKeep ? m : kSegKeep) : 0;
 }
 
-// This thread's kItems consecutive entries of `order` from entry `c` on
+// This thread's ITEMS consecutive entries of `order` from entry `c` on
 // (int4 loads; -1 past the table).
+template <int ITEMS>
 __device__ __forceinline__ void load_entries(const ExLevel& L, int c, int* px) {
   const int4* order4 = reinterpret_cast<const int4*>(L.order);
 #pragma unroll
-  for (int j = 0; j < kItems / 4; ++j) {
-    const int q = ((c + (int)threadIdx.x * kItems) >> 2) + j;
+  for (int j = 0; j < ITEMS / 4; ++j) {
+    const int q = ((c + (int)threadIdx.x * ITEMS) >> 2) + j;
     const int4 v = q < (L.n4 >> 2) ? __ldg(order4 + q) : make_int4(-1, -1, -1, -1);
     px[4 * j] = v.x;
     px[4 * j + 1] = v.y;
@@ -237,11 +245,13 @@ __device__ __forceinline__ void load_entries(const ExLevel& L, int c, int* px) {
   }
 }
 
+template <int ITEMS>
 __global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyramid P) {
+  constexpr int CHUNK = kThreads * ITEMS;
   extern __shared__ uint2 smem[];
   uint2* cls = smem;  // P.words (high, low) class words: 8 a 256-pixel segment
-  int* staged = reinterpret_cast<int*>(smem + P.words);  // kChunk pixels in slot order
-  int* scratch = staged + kChunk;                         // 3 x kWarps
+  int* staged = reinterpret_cast<int*>(smem + P.words);  // CHUNK pixels in slot order
+  int* scratch = staged + CHUNK;                          // 3 x kWarps
   const ExLevel L = level_at(P, blockIdx.y);
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t img = (size_t)b * L.n;
@@ -318,12 +328,12 @@ __global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyram
   const float inv_fx = __fdiv_rn(1.0f, L.fx), inv_fy = __fdiv_rn(1.0f, L.fy);
   int taken_high = 0, taken_low = 0;
   for (int c = 0, it = 1; (taken_high < need_high || taken_low < need_low) && c < L.n4;
-       c += kChunk, ++it) {
-    int px[kItems];
-    load_entries(L, c, px);
+       c += CHUNK, ++it) {
+    int px[ITEMS];
+    load_entries<ITEMS>(L, c, px);
     uint32_t high = 0, low = 0;  // bit i: entry i is a high / low pixel
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
+    for (int i = 0; i < ITEMS; ++i) {
       const int p = px[i];
       if (p >= 0) {
         const uint2 v = cls[p >> 5];
@@ -338,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyram
     const int put_high = min(max(need_high - taken_high, 0), chunk_high);
     const int put_low = min(max(need_low - taken_low, 0), chunk_low);
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
+    for (int i = 0; i < ITEMS; ++i) {
       const uint32_t before = (1u << i) - 1u;
       if ((high >> i) & 1u) {
         const int j = (ex & 0xffff) + __popc(high & before);
@@ -412,11 +422,20 @@ extern "C" int extract_pyramid(int device, int levels, int batch, const long lon
     words = lw > words ? lw : words;
   }
   P.words = words;
-  const long long smem = 8LL * words + 4LL * (kChunk + 3 * kWarps);
+  const dim3 grid(batch, levels);
+  long long smem = 8LL * words + 4LL * (kChunk + 3 * kWarps);
+  if (smem <= (long long)kMaxDynamicSmem) {
+    static rgbd::SharedOptIn opted;
+    err = rgbd::opt_in_shared(extract_pyramid_kernel<kItems>, device, smem, &opted);
+    if (err != cudaSuccess) return (int)err;
+    extract_pyramid_kernel<kItems><<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(P);
+    return (int)cudaGetLastError();
+  }
+  smem = 8LL * words + 4LL * (kThreads * kItemsLarge + 3 * kWarps);
   if (smem > (long long)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-  static rgbd::SharedOptIn opted;
-  err = rgbd::opt_in_shared(extract_pyramid_kernel, device, smem, &opted);
+  static rgbd::SharedOptIn opted_large;
+  err = rgbd::opt_in_shared(extract_pyramid_kernel<kItemsLarge>, device, smem, &opted_large);
   if (err != cudaSuccess) return (int)err;
-  extract_pyramid_kernel<<<dim3(batch, levels), kThreads, (size_t)smem, (cudaStream_t)stream>>>(P);
+  extract_pyramid_kernel<kItemsLarge><<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Host-side launch helper shared by the launchers that need more than 48 KB
-// of dynamic shared memory (level_lm.cu, level_sg.cu, match.cu).
+// of dynamic shared memory (level_lm.cu, level_sg.cu, match.cu, extract.cu,
+// edt.cu's column phase above 480 rows).
 #pragma once
 
 #include <cuda_runtime.h>

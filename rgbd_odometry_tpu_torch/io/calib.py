@@ -6,9 +6,9 @@ cv::FileStorage XML with `cameraMatrix` + `distCoeffs`
 (reference src/SolveDVO.cpp:88-126); the converter node auto-writes
 `Freiburg_ROS_default_{640x480,320x240}.xml` — the half-res file is the full
 matrix scaled by 0.5 with K(2,2) reset to 1
-(reference src/camTopic2PublisherPyD.cpp:434-455). Uses cv2.FileStorage
-so the files interoperate bit-for-bit with the reference's; falls back to a
-minimal XML parser when cv2 is unavailable.
+(reference src/camTopic2PublisherPyD.cpp:434-455). Reads and writes through
+`io/opencv_xml.py`, without OpenCV: the files are byte for byte what
+cv2.FileStorage writes.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import re
 import numpy as np
 
 from rgbd_odometry_tpu_torch.config import CameraConfig
+from rgbd_odometry_tpu_torch.io.opencv_xml import read_opencv_xml, write_opencv_xml
 
 
 def read_calib_xml(path: str, width: int | None = None, height: int | None = None) -> CameraConfig:
@@ -56,21 +57,15 @@ def read_calib_xml(path: str, width: int | None = None, height: int | None = Non
 
 def write_calib_xml(path: str, cam: CameraConfig) -> None:
     """Write a cv::FileStorage XML readable by the reference's
-    setCameraMatrix."""
-    import cv2
-
+    setCameraMatrix (byte for byte what cv2.FileStorage writes)."""
     K = np.array(
         [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], np.float64
     )
     dist = np.asarray(cam.distortion, np.float64).reshape(-1, 1)
-    fs = cv2.FileStorage(path, cv2.FILE_STORAGE_WRITE)
-    fs.write("cameraMatrix", K)
-    fs.write("distCoeffs", dist)
     # extra nodes the reference ignores (cv::FileStorage reads by name) but
     # that make the file self-describing for read_calib_xml
-    fs.write("imageWidth", int(cam.width))
-    fs.write("imageHeight", int(cam.height))
-    fs.release()
+    write_opencv_xml(path, {"cameraMatrix": K, "distCoeffs": dist,
+                            "imageWidth": int(cam.width), "imageHeight": int(cam.height)})
 
 
 def write_freiburg_pair(directory: str, cam_vga: CameraConfig) -> tuple[str, str]:
@@ -95,41 +90,10 @@ def write_freiburg_pair(directory: str, cam_vga: CameraConfig) -> tuple[str, str
 
 
 def _read_matrices(path: str):
-    try:
-        import cv2
-
-        fs = cv2.FileStorage(path, cv2.FILE_STORAGE_READ)
-        if fs.isOpened():
-            K = fs.getNode("cameraMatrix").mat()
-            dist = fs.getNode("distCoeffs").mat()
-            wn, hn = fs.getNode("imageWidth"), fs.getNode("imageHeight")
-            size = (
-                (int(wn.real()), int(hn.real()))
-                if not wn.empty() and not hn.empty()
-                else None
-            )
-            fs.release()
-            if K is not None:
-                return K, dist, size
-    except Exception:
-        pass
-    # minimal fallback parser for cv XML
-    text = open(path).read()
-
-    def grab(name):
-        m = re.search(rf"<{name}[^>]*>.*?<data>([^<]+)</data>", text, re.S)
-        if not m:
-            return None
-        return np.asarray([float(v) for v in m.group(1).split()])
-
-    def grab_scalar(name):
-        m = re.search(rf"<{name}>\s*([-\d.eE+]+)\s*</{name}>", text)
-        return int(float(m.group(1))) if m else None
-
-    K = grab("cameraMatrix")
-    d = grab("distCoeffs")
-    if K is None:
+    nodes = read_opencv_xml(path)
+    K = nodes.get("cameraMatrix")
+    if not isinstance(K, np.ndarray):
         raise ValueError(f"no cameraMatrix in {path}")
-    w, h = grab_scalar("imageWidth"), grab_scalar("imageHeight")
-    size = (w, h) if w is not None and h is not None else None
-    return K.reshape(3, 3), d, size
+    w, h = nodes.get("imageWidth"), nodes.get("imageHeight")
+    size = (int(w), int(h)) if w is not None and h is not None else None
+    return K.reshape(3, 3), nodes.get("distCoeffs"), size

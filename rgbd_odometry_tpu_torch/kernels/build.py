@@ -11,6 +11,7 @@ build raises: there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "rgbd_odometry_tpu_torch"
@@ -94,6 +97,21 @@ def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# `traced` opens its ranges only while this is set; `profile_paths` clears
+# it, so that its windows time the path without the ranges' host cost
+ranges = True
+
+
+def traced(name: str):
+    """A `torch.profiler.record_function` range named `name` around a
+    launch while a profiler records (so a trace names the kernel's call on
+    the host too) and `ranges` is set; otherwise nothing, at the cost of two
+    flag reads."""
+    if ranges and torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -71,7 +71,8 @@ def _check_pyramid(imgs, passes) -> None:
             raise ValueError(f"{what}: unsupported shape {tuple(g.shape)}")
         if 8 * (h + 2) * ((w + 31) // 32 + 2) > _MAX_SMEM:
             raise ValueError(f"{what}: a {h}x{w} image does not fit the hysteresis kernel's "
-                             f"shared memory")
+                             f"shared memory; splitting a level over blocks is ROADMAP.md "
+                             f"Queue 2 item 7")
     if passes is not None:
         build.check_arg("canny_pyramid", "passes", passes, (len(imgs), first.shape[0]),
                         torch.int32, first.device)
@@ -106,14 +107,15 @@ def canny_pyramid(imgs, low: float = 100.0, high: float = 150.0, passes=None):
     edges = torch.empty((ne,), dtype=torch.bool, device=dev)
     n = len(imgs)
     lib = build.bind("canny", "canny_pyramid", _ARGTYPES)
-    code = lib.canny_pyramid(
-        dev.index or 0, n, b, (ctypes.c_longlong * n)(*(g.data_ptr() for g in imgs)),
-        (ctypes.c_int * (2 * n))(*(x for s in shapes for x in s)),
-        (ctypes.c_longlong * n)(*word_off), (ctypes.c_longlong * n)(*edge_off), nw,
-        planes.data_ptr(), edges.data_ptr(), None if passes is None else passes.data_ptr(),
-        float(low) * float(low), float(high) * float(high),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("canny_pyramid"):
+        code = lib.canny_pyramid(
+            dev.index or 0, n, b, (ctypes.c_longlong * n)(*(g.data_ptr() for g in imgs)),
+            (ctypes.c_int * (2 * n))(*(x for s in shapes for x in s)),
+            (ctypes.c_longlong * n)(*word_off), (ctypes.c_longlong * n)(*edge_off), nw,
+            planes.data_ptr(), edges.data_ptr(), None if passes is None else passes.data_ptr(),
+            float(low) * float(low), float(high) * float(high),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "canny_pyramid launch")
     canny_pyramid.launches += 1
     return tuple(edges[o:o + b * h * w].view(b, h, w) for o, (h, w) in zip(edge_off, shapes))

@@ -26,7 +26,10 @@ from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_MAX_H, _MAX_W = 480, 1600  # what the phases' 48 KB of shared memory hold
+# what the phases' shared memory holds: the column phase 3 bytes a row of a
+# 32-column strip (past 480 rows opted in to more than 48 KB, up to 227 KB a
+# block), the row phase a few whole rows in 48 KB
+_MAX_H, _MAX_W = 2400, 1600
 
 
 def edt_squared_plain(mask: torch.Tensor, radius: int) -> torch.Tensor:
@@ -47,8 +50,13 @@ def _check(fn: str, mask: torch.Tensor, radius: int, min_side: int) -> None:
     if radius < 0:
         raise ValueError(f"{fn}: radius must be >= 0, got {radius}")
     b, h, w = mask.shape
-    if not (1 <= b <= 65535 and min_side <= h <= _MAX_H and min_side <= w <= _MAX_W):
+    if not (1 <= b <= 65535 and min_side <= h and min_side <= w):
         raise ValueError(f"{fn}: unsupported shape {tuple(mask.shape)}")
+    if h > _MAX_H or w > _MAX_W:
+        raise ValueError(
+            f"{fn}: a {h}x{w} image exceeds what one block's shared memory holds "
+            f"({_MAX_H} rows, {_MAX_W} columns); splitting a level over blocks is "
+            "ROADMAP.md Queue 2 item 7")
 
 
 def edt_squared(mask: torch.Tensor, radius: int) -> torch.Tensor:
@@ -118,13 +126,14 @@ def dt_channels(edges: torch.Tensor, radius: int, normalize: bool, bf16: bool):
     raw = torch.empty((b, h, w), dtype=torch.float32, device=dev) if normalize else None
     minmax = torch.empty((b, 2), dtype=torch.int32, device=dev) if normalize else None
     lib = build.bind("edt", "dt_channels", _DT_ARGTYPES)
-    code = lib.dt_channels(
-        dev.index or 0, edges.data_ptr(), g.data_ptr(),
-        raw.data_ptr() if normalize else None, minmax.data_ptr() if normalize else None,
-        dt.data_ptr(), dgx.data_ptr(), dgy.data_ptr(), scale.data_ptr(), chans.data_ptr(),
-        b, h, w, int(radius), int(bool(normalize)), int(bool(bf16)),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("dt_channels"):
+        code = lib.dt_channels(
+            dev.index or 0, edges.data_ptr(), g.data_ptr(),
+            raw.data_ptr() if normalize else None, minmax.data_ptr() if normalize else None,
+            dt.data_ptr(), dgx.data_ptr(), dgy.data_ptr(), scale.data_ptr(), chans.data_ptr(),
+            b, h, w, int(radius), int(bool(normalize)), int(bool(bf16)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "dt_channels launch")
     dt_channels.launches += 1
     return dt, dgx, dgy, scale, chans

@@ -38,7 +38,21 @@ SEGMENT = 256
 _MAX_SMEM = 227 * 1024  # a level's bitmaps and one staged chunk must fit one block
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), ctypes.c_float, ctypes.c_void_p])
-_CHUNK = 1024 * 16  # csrc/extract.cu: the staged slots of one chunk (kThreads * kItems)
+# csrc/extract.cu: the staged slots of one chunk (kThreads * kItems), halved
+# where the largest level's bitmaps leave too little room for the full one
+_CHUNKS = (1024 * 16, 1024 * 8)
+
+
+def _smem(n: int, chunk: int) -> int:
+    """Shared memory of a launch whose largest level has n pixels: two
+    bitmaps of 8 words a 256-pixel segment, the staged chunk, the scans."""
+    return 64 * (-(-n // SEGMENT)) + 4 * chunk + 384
+
+
+def chunk_size(n: int) -> int:
+    """The chunk of `order` the kernel streams when its largest level has n
+    pixels (0 if even the smaller one does not fit)."""
+    return next((c for c in _CHUNKS if _smem(n, c) <= _MAX_SMEM), 0)
 
 
 class RefLevel(NamedTuple):
@@ -175,9 +189,10 @@ def _check(edges_pyr, depth_pyr, max_points) -> None:
             raise ValueError(f"{what}: depth must be contiguous float32 {tuple(e.shape)} on {dev}, "
                              f"got {d.dtype} {tuple(d.shape)} on {d.device}")
         n = e.shape[1] * e.shape[2]
-        # two bitmaps of 8 words a 256-pixel segment, the staged chunk, the scans
-        if n >= 1 << 22 or 64 * (-(-n // SEGMENT)) + 4 * _CHUNK + 384 > _MAX_SMEM:
-            raise ValueError(f"{what}: a {e.shape[1]}x{e.shape[2]} level is too large")
+        if n >= 1 << 22 or not chunk_size(n):
+            raise ValueError(f"{what}: a {e.shape[1]}x{e.shape[2]} level is too large for one "
+                             "block's shared memory; splitting a level over blocks is "
+                             "ROADMAP.md Queue 2 item 7")
         if int(max_points[lvl]) < 1:
             raise ValueError(f"{what}: capacity {max_points[lvl]} < 1")
 
@@ -256,10 +271,12 @@ def extract_pyramid(edges_pyr, depth_pyr, intr: Intrinsics, cfg: SolverConfig,
         ptrs += [e.data_ptr(), d.data_ptr(), order.data_ptr(), 0 if seg is None else seg.data_ptr()]
         ptrs += [base + offs[lvl] for base, offs in zip(bases, plan.offsets)]
     lib = build.bind("extract", "extract_pyramid", _ARGTYPES)
-    code = lib.extract_pyramid(
-        dev.index or 0, len(hw), b, (ctypes.c_longlong * len(ptrs))(*ptrs), plan.dims, plan.intr,
-        float(np.float32(cfg.min_depth_mm)), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("extract_pyramid"):
+        code = lib.extract_pyramid(
+            dev.index or 0, len(hw), b, (ctypes.c_longlong * len(ptrs))(*ptrs), plan.dims,
+            plan.intr, float(np.float32(cfg.min_depth_mm)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "extract_pyramid launch")
     extract_pyramid.launches += 1
     return tuple(

@@ -284,16 +284,18 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
     vis = torch.empty((b, k), dtype=torch.bool, device=dev)
     ratio = torch.empty((b,), dtype=torch.float32, device=dev)
     lib = build.bind("level_lm", "level_lm_solve", _ARGTYPES)
-    code = lib.level_lm_solve(
-        dev.index or 0, R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), valid.data_ptr(),
-        count.data_ptr(), img.data_ptr(), img.stride(0), scale.data_ptr(), b, k, k_jac,
-        int(jstride), int(stride), int(n_iters), h, w, float(fx), float(fy), float(cx), float(cy),
-        float(1.0 / cfg.gn_weight_sigma2_px), float(cfg.lm_damping), float(cfg.lm_trust_region),
-        float(cfg.psi_norm_termination), int(deferred), int(bool(cfg.rotationize)), int(track),
-        R.data_ptr(), t.data_ptr(), energy.data_ptr(), best_iter.data_ptr(),
-        best_energy.data_ptr(), final.data_ptr(), eps.data_ptr(), vis.data_ptr(),
-        ratio.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("level_lm"):
+        code = lib.level_lm_solve(
+            dev.index or 0, R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), valid.data_ptr(),
+            count.data_ptr(), img.data_ptr(), img.stride(0), scale.data_ptr(), b, k, k_jac,
+            int(jstride), int(stride), int(n_iters), h, w, float(fx), float(fy), float(cx),
+            float(cy), float(1.0 / cfg.gn_weight_sigma2_px), float(cfg.lm_damping),
+            float(cfg.lm_trust_region),
+            float(cfg.psi_norm_termination), int(deferred), int(bool(cfg.rotationize)), int(track),
+            R.data_ptr(), t.data_ptr(), energy.data_ptr(), best_iter.data_ptr(),
+            best_energy.data_ptr(), final.data_ptr(), eps.data_ptr(), vis.data_ptr(),
+            ratio.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "level_lm launch")
     level_lm.launches += 1
     return LevelLM(R, t, energy, best_iter, best_energy, final, eps, vis, ratio)

@@ -181,18 +181,19 @@ def level_sg(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
     vis = torch.empty((b, k), dtype=torch.bool, device=dev)
     ratio = torch.empty((b,), dtype=torch.float32, device=dev)
     lib = build.bind("level_sg", "level_sg_solve", _ARGTYPES)
-    code = lib.level_sg_solve(
-        dev.index or 0, R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), valid.data_ptr(),
-        count.data_ptr(), dt.data_ptr(), dt.stride(0), b, k, int(n_iters), h, w, threads,
-        float(fx), float(fy), float(cx), float(cy), float(1.0 / cfg.weight_sigma2),
-        float(cfg.l2_lambda), float(1.0 - cfg.momentum), float(cfg.momentum),
-        float(cfg.step_length), float(cfg.precondition_rot), float(cfg.trust_region_radius),
-        float(cfg.psi_norm_termination), int(bool(cfg.enable_l2_regularization)),
-        int(bool(cfg.rotationize)), R.data_ptr(), t.data_ptr(), energy.data_ptr(),
-        best_iter.data_ptr(), best_energy.data_ptr(), eps.data_ptr(), vis.data_ptr(),
-        ratio.data_ptr(), None if trace is None else trace.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("level_sg"):
+        code = lib.level_sg_solve(
+            dev.index or 0, R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), valid.data_ptr(),
+            count.data_ptr(), dt.data_ptr(), dt.stride(0), b, k, int(n_iters), h, w, threads,
+            float(fx), float(fy), float(cx), float(cy), float(1.0 / cfg.weight_sigma2),
+            float(cfg.l2_lambda), float(1.0 - cfg.momentum), float(cfg.momentum),
+            float(cfg.step_length), float(cfg.precondition_rot), float(cfg.trust_region_radius),
+            float(cfg.psi_norm_termination), int(bool(cfg.enable_l2_regularization)),
+            int(bool(cfg.rotationize)), R.data_ptr(), t.data_ptr(), energy.data_ptr(),
+            best_iter.data_ptr(), best_energy.data_ptr(), eps.data_ptr(), vis.data_ptr(),
+            ratio.data_ptr(), None if trace is None else trace.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "level_sg launch")
     level_sg.launches += 1
     return LevelSG(R, t, energy, best_iter, best_energy, eps, vis, ratio)

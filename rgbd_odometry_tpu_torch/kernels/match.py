@@ -100,12 +100,13 @@ def match_mutual(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=3.0, r
     good = torch.empty((s, k), dtype=torch.bool, device=dev)
     num_good = torch.empty((s,), dtype=torch.int32, device=dev)
     lib = build.bind("match", fn, _ARGTYPES)
-    code = lib.match_mutual(
-        dev.index or 0, slot_desc.data_ptr(), slot_valid.data_ptr(), q_desc.data_ptr(),
-        q_valid.data_ptr(), s, k, d, float(dist_gate_factor), float(ratio * ratio),
-        float(dist_gate_floor), ref_idx.data_ptr(), dist.data_ptr(), good.data_ptr(),
-        num_good.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("match_mutual"):
+        code = lib.match_mutual(
+            dev.index or 0, slot_desc.data_ptr(), slot_valid.data_ptr(), q_desc.data_ptr(),
+            q_valid.data_ptr(), s, k, d, float(dist_gate_factor), float(ratio * ratio),
+            float(dist_gate_floor), ref_idx.data_ptr(), dist.data_ptr(), good.data_ptr(),
+            num_good.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "match_mutual launch")
     match_mutual.launches += 1
     return ref_idx.long(), dist, good, num_good

@@ -154,12 +154,13 @@ def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inli
     counts = torch.empty((b,), dtype=torch.int32, device=dev)
     inl = torch.empty((b, k), dtype=torch.bool, device=dev) if write_inliers else None
     lib = build.bind("pnp_gn", fn, _ARGTYPES)
-    code = lib.pnp_gn(
-        dev.index or 0, obj.data_ptr(), imn.data_ptr(), masks.data_ptr(), R0.data_ptr(),
-        t0.data_ptr(), score_mask.data_ptr(), b, k, int(iters), float(inlier_thresh),
-        R.data_ptr(), t.data_ptr(), counts.data_ptr(), inl.data_ptr() if write_inliers else None,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.traced("pnp_gn"):
+        code = lib.pnp_gn(
+            dev.index or 0, obj.data_ptr(), imn.data_ptr(), masks.data_ptr(), R0.data_ptr(),
+            t0.data_ptr(), score_mask.data_ptr(), b, k, int(iters), float(inlier_thresh),
+            R.data_ptr(), t.data_ptr(), counts.data_ptr(),
+            inl.data_ptr() if write_inliers else None, torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(lib, code, "pnp_gn launch")
     pnp_gn.launches += 1
     return R, t, counts, inl

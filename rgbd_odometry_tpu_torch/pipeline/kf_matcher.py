@@ -12,8 +12,9 @@ selects candidates and reads back two counts per verification.
 
 Random draws: every RANSAC call takes (S, K) uniforms from `_uniforms`,
 which draws them from this matcher's own `torch.Generator` on its device,
-seeded by `seed`. The port cannot reproduce JAX's threefry stream; the
-tests replace `_uniforms` with a replay of the JAX matcher's draws.
+seeded by `seed` (its state goes into checkpoints). The port cannot
+reproduce JAX's threefry stream; the tests replace `_uniforms` with a replay
+of the JAX matcher's draws.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+from rgbd_odometry_tpu_torch.device import resolve_device
 from rgbd_odometry_tpu_torch.kernels.match import match_mutual
 from rgbd_odometry_tpu_torch.ops import features as feat
 from rgbd_odometry_tpu_torch.ops.epipolar import ransac_fundamental_filter
@@ -73,13 +75,16 @@ class Verification(NamedTuple):
 
 
 class KeyframeMatcher:
-    """Growable device keypoint store with batched query and verification."""
+    """Growable device keypoint store with batched query and verification,
+    on `device` (default: the current CUDA device; "cpu" runs the plain
+    versions)."""
 
     def __init__(self, intr: Intrinsics, config: MatcherConfig | None = None, seed: int = 0,
-                 device="cpu"):
+                 device=None):
         self.intr = intr
         self.cfg = config or MatcherConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.seed = seed
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.stored: List[StoredPoints] = []
@@ -147,6 +152,33 @@ class KeyframeMatcher:
     def slot_kps(self, slot: int) -> feat.Keypoints:
         """Keypoints of stored keyframe `slot`, sliced from the slot buffer."""
         return feat.Keypoints(*(buf[slot] for buf in self._slots))
+
+    # ---- checkpoint hooks (utils/checkpoint.py) ---------------------------
+    def generator_state(self) -> torch.Tensor:
+        """The RANSAC generator's state (a CPU uint8 tensor; a CUDA
+        generator's differs in kind from a CPU one's)."""
+        return self._gen.get_state()
+
+    def set_generator_state(self, state: torch.Tensor) -> None:
+        self._gen.set_state(state)
+
+    def restore_store(self, kps: feat.Keypoints, pts3d: torch.Tensor,
+                      pts_valid: torch.Tensor) -> None:
+        """Replace the store with n keyframes given stacked along a leading
+        axis (on this matcher's device): the slot buffer at the capacity that
+        n successive `store` calls reach (`slot_capacity` doubled until it
+        holds n), filled in one copy per field."""
+        n = pts3d.shape[0]
+        self.stored = [StoredPoints(pts3d=pts3d[s], pts_valid=pts_valid[s]) for s in range(n)]
+        if n == 0:
+            self._slots = None
+            return
+        cap = self.cfg.slot_capacity
+        while cap < n:
+            cap *= 2
+        self._slots = feat.Keypoints(*(
+            torch.cat([x, torch.zeros((cap - n,) + x.shape[1:], dtype=x.dtype, device=x.device)])
+            for x in kps))
 
     # ---- query -----------------------------------------------------------
     def match_all(self, kps: feat.Keypoints):

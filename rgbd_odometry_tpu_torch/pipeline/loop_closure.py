@@ -56,10 +56,12 @@ class KeyframeRecord:
 
 
 class LoopCloser:
-    """Accumulates keyframes, detects closures, refines trajectories."""
+    """Accumulates keyframes, detects closures, refines trajectories, on
+    `device` (default: the current CUDA device; "cpu" runs the plain
+    versions)."""
 
     def __init__(self, intr: Intrinsics, config: LoopClosureConfig | None = None, seed: int = 0,
-                 device="cpu"):
+                 device=None):
         self.intr = intr
         self.cfg = config or LoopClosureConfig()
         self.matcher = KeyframeMatcher(

@@ -82,6 +82,14 @@ def residual_b_cap(epsilons: np.ndarray, count: int) -> float:
     return float(np.sum(epsilons) / max(int(count), 1))
 
 
+def residual_histogram(epsilons: np.ndarray, valid: np.ndarray, bins: int = 260) -> np.ndarray:
+    """Normalized 260-bin histogram of the int residues of the valid points
+    (the JAX `residual_histogram`)."""
+    e = np.clip(epsilons[valid].astype(np.int32) + 1, 0, bins - 1)
+    h = np.bincount(e, minlength=bins).astype(np.float64)
+    return h / max(len(e), 1)
+
+
 def cv_extrapolate(R0, t0, Rp, tp):
     """Constant-velocity warm start in the solver's pose parameterization
     p_now = R (p_ref - t): from the current relative pose T0 = (R0, t0) and
@@ -548,6 +556,49 @@ class EdgeDvoOdometry:
         )
         host = torch.cat([info[0].reshape(-1), sigma2, n_eff]).cpu().numpy()
         return host[:36].reshape(6, 6).astype(np.float64), float(host[36]), float(host[37])
+
+    # ------------------------------------------------------------------
+    # checkpoint hooks (utils/checkpoint.py)
+    def checkpoint_state(self) -> dict:
+        """The streaming state a checkpoint keeps, on the host: counters, the
+        relative pose (float64), the constant-velocity previous pose (float32
+        (3,3), (3,), or None), the lost-frame streak, the keyframe features
+        per level (RefLevel of numpy arrays, batch axis dropped) and the
+        previous frame's pyramid (per-level (H, W) gray and depth)."""
+        host = lambda x: x[0].cpu().numpy()  # noqa: E731
+        prev = None if self._prevpose is None else tuple(host(x) for x in self._prevpose)
+        feats = None if self._ref_feats is None else tuple(
+            type(f)(*(host(x) for x in f)) for f in self._ref_feats)
+        pyr = None if self._prev_pyr is None else tuple(
+            tuple(host(x) for x in level) for level in (self._prev_pyr.gray, self._prev_pyr.depth))
+        return {"frame_num": self._frame_num, "last_ref_frame": self._last_ref_frame,
+                "R": self._R, "t": self._t, "prev_pose": prev, "bad_streak": self._bad_streak,
+                "ref_feats": feats, "prev_pyr": pyr}
+
+    def restore_checkpoint_state(self, frame_num: int, last_ref_frame: int, R, t, prev_pose,
+                                 bad_streak: int, ref_feats, prev_pyr) -> None:
+        """Set the state `checkpoint_state` returned (numpy arrays, on this
+        driver's device) and rebuild what derives from it: the previous
+        frame's targets from its pyramid (the kernels are deterministic, so
+        they are bitwise the ones the interrupted run held), and the warm
+        start, uploaded from (R, t) on the next frame (exact: R and t are the
+        float64 of the solver's float32 output)."""
+        dev = lambda x: torch.from_numpy(np.array(x, order="C"))[None].to(self.device)  # noqa: E731
+        self._frame_num, self._last_ref_frame = int(frame_num), int(last_ref_frame)
+        self._R, self._t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+        self._prevpose = None if prev_pose is None else tuple(
+            dev(np.asarray(x, np.float32)) for x in prev_pose)
+        self._bad_streak = int(bad_streak)
+        self._ref_feats = None if ref_feats is None else tuple(
+            edge_dvo.RefLevel(*(dev(x) for x in f)) for f in ref_feats)
+        self._warm = self._dispatch_warm = None
+        self._prev_pyr = self._prev_targets = None
+        if prev_pyr is not None:
+            gray, depth = prev_pyr
+            self._prev_pyr = FramePyramid(gray=tuple(dev(g) for g in gray),
+                                          depth=tuple(dev(d) for d in depth))
+            self._prev_targets = edge_dvo.prepare_now_targets(self._prev_pyr.gray,
+                                                              self.cfg.solver)
 
     # ------------------------------------------------------------------
     def trajectory(self):

@@ -31,9 +31,10 @@ class RelocResult:
 
 class Relocalizer:
     """Appearance database of (keyframe, global pose); recovery queries.
-    `config` is a `config.RelocalizeConfig`."""
+    `config` is a `config.RelocalizeConfig`; `device` defaults to the current
+    CUDA device ("cpu" runs the plain versions)."""
 
-    def __init__(self, intr: Intrinsics, config, seed: int = 0, device="cpu"):
+    def __init__(self, intr: Intrinsics, config, seed: int = 0, device=None):
         self.cfg = config
         self.matcher = KeyframeMatcher(
             intr,

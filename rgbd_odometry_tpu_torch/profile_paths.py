@@ -48,7 +48,9 @@ target kernels, 20 calls each at 240x320 for B = 64 and B = 1 on rendered
 frames: per call, the device time and the launches of every CUDA kernel
 behind `canny_pyramid` (the 4-level pyramid), `canny` (a pyramid of one
 level: level 0, and the four levels one call each), `dt_channels` (+-16
-window in pixels, and the whole row normalized) and `edt_squared`.
+window in pixels, and the whole row normalized), `edt_squared` and
+`extract_pyramid` (production_320's and the `dvo` defaults' capacities, and
+production_vga's on the frames doubled to 640x480).
 
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
@@ -312,26 +314,37 @@ def profile_multistream(device, frames: int, warmup: int, streams=(16, 64)) -> l
 
 def _extract_cases(pyr, edges_pyr) -> dict:
     """`extract_pyramid` on the rendered pyramid at production_320's and the
-    `dvo` defaults' capacities, as functions of the batch size (an empty
-    dict where the package has no such kernel)."""
+    `dvo` defaults' capacities, and at production_vga's on the 5-level
+    pyramid of the rendered frames doubled to 640x480, as functions of the
+    batch size (an empty dict where the package has no such kernel)."""
     try:
         from rgbd_odometry_tpu_torch.kernels.extract import extract_pyramid
     except ImportError:
         return {}
     from rgbd_odometry_tpu_torch import SolverConfig, profiles
     from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import canny
 
-    p320 = profiles.production_320()
-    intr = Intrinsics.from_config(p320.camera)
+    p320, vga = profiles.production_320(), profiles.production_vga()
+    up = lambda x: x.repeat_interleave(2, 1).repeat_interleave(2, 2)  # noqa: E731
+    vga_pyr = build_pyramid(up(pyr.gray[0]), up(pyr.depth[0]), 5)
+    vga_edges = canny.canny_pyramid(vga_pyr.gray, vga.solver.canny_low, vga.solver.canny_high)
 
-    def case(cfg, caps):
+    def case(full, edges, cam, cfg, caps):
+        intr = Intrinsics.from_config(cam)
+
         def run(b):
-            return extract_pyramid(tuple(e[:b].contiguous() for e in edges_pyr),
-                                   tuple(d[:b].contiguous() for d in pyr.depth), intr, cfg, caps)
+            return extract_pyramid(tuple(e[:b].contiguous() for e in edges),
+                                   tuple(d[:b].contiguous() for d in full.depth), intr, cfg, caps)
         return run
 
-    return {"extract_pyramid production_320": case(p320.solver, p320.max_points),
-            "extract_pyramid dvo defaults": case(SolverConfig(), (8192, 4096, 2048, 1024))}
+    return {"extract_pyramid production_320": case(pyr, edges_pyr, p320.camera, p320.solver,
+                                                   p320.max_points),
+            "extract_pyramid dvo defaults": case(pyr, edges_pyr, p320.camera, SolverConfig(),
+                                                 (8192, 4096, 2048, 1024)),
+            "extract_pyramid production_vga": case(vga_pyr, vga_edges, vga.camera, vga.solver,
+                                                   vga.max_points)}
 
 
 def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
@@ -405,7 +418,12 @@ def main(argv=None) -> int:
         return 2
     from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.kernels import build
 
+    # the kernel wrappers' `record_function` ranges (`build.traced`) off:
+    # the windows time the path as it runs unprofiled (an older checkout
+    # has no ranges and ignores the flag)
+    build.ranges = False
     device = resolve_device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

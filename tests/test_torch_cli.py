@@ -1,9 +1,12 @@
 """The port's command line (`python -m rgbd_odometry_tpu_torch.cli`) on the
 CPU: `dvo` at the JAX CLI's defaults against the JAX `EdgeDvoOdometry` and
 ground truth, `eval`, `--gt` files, a short sub-gradient run, the feeder, TUM replay
-against the JAX `TumSource`, the map backend (`--loop-close` in both refine modes,
-online and information-weighted, `--map-out`, `--relocalize`, and `refine`
-against the JAX CLI's JSON), the unported flags, and no JAX at import."""
+against the JAX `TumSource`, `--cam-scale 3`, the map backend (`--loop-close` in both
+refine modes, online and information-weighted, `--map-out`, `--relocalize`, and `refine`
+against the JAX CLI's JSON), `calib` and `probe` against the JAX commands, the
+unported subcommands, and no JAX at import. `--checkpoint`/`--resume` are in
+tests/test_torch_checkpoint.py, `--viz-dir` in test_torch_viz.py, `--trace-dir` in
+test_torch_tracing.py, `dump` and `xml:` in test_torch_xml_dump.py."""
 
 import json
 import os
@@ -131,17 +134,94 @@ def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
     np.testing.assert_allclose(ts, [100.0, 100.0 + 1 / 30.0, 100.0 + 2 / 30.0], atol=1e-6)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--viz-dir", "v"], "item 9 'The CLI'"), (["--checkpoint", "c.npz"], "item 4 'checkpoint'"),
-    (["--resume", "c.npz"], "item 4 'checkpoint'"), (["--trace-dir", "t"], "item 9 'The CLI'"),
-    (["--source", "xml:dumps"], "item 9 'The CLI'"),
+@pytest.mark.parametrize("cmd, item", [
+    ("photometric", "item 8 'Secondary solvers'"), ("feature-vo", "item 8 'Secondary solvers'"),
+    ("pnp", "item 8 'Secondary solvers'"), ("imu", "item 8 'Secondary solvers'"),
+    ("fused", "item 8 'Secondary solvers'"), ("bench", "item 1 'H100 bench protocol'"),
 ])
-def test_cli_unported_flags_exit_naming_their_roadmap_item(flags, item):
-    """Each exit names its ROADMAP.md Queue 1 item by number and by name."""
+def test_cli_unported_subcommands_exit_naming_their_roadmap_item(cmd, item):
+    """The JAX subcommands not ported yet parse the JAX parser's flags, then
+    exit naming their ROADMAP.md Queue 1 item by number and by name."""
+    flags = {"photometric": ["--huber", "--frames", "2"], "feature-vo": ["--min-matches", "5"],
+             "pnp": [], "imu": ["--steps", "3"], "fused": ["--imu-refine", "--no-imu"],
+             "bench": ["--batch", "4"]}[cmd]
     with pytest.raises(SystemExit) as exc:
-        main(["dvo", "--device", "cpu", "--frames", "2", *flags])
+        main([cmd, *flags])
     assert "not ported to rgbd_odometry_tpu_torch" in str(exc.value)
     assert f"ROADMAP.md Queue 1, {item}" in str(exc.value)
+
+
+def test_cli_calib_matches_jax(tmp_path, capsys):
+    """`calib --write-freiburg` writes JAX's two files byte for byte and prints
+    JAX's JSON; `calib --file` prints JAX's JSON for each."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    out = {}
+    for name, fn in (("port", main), ("jax", jax_main)):
+        d = tmp_path / name
+        d.mkdir()
+        fn(["calib", "--write-freiburg", str(d)])
+        written = _last_json(capsys.readouterr().out)["written"]
+        files = []
+        for path in written:
+            fn(["calib", "--file", path])
+            files.append((os.path.basename(path), open(path, "rb").read(),
+                          capsys.readouterr().out))
+        out[name] = files
+    assert out["port"] == out["jax"] and len(out["port"]) == 2
+
+
+@pytest.mark.parametrize("method", ["gauss_newton", "subgradient"])
+def test_cli_probe_matches_jax(method, capsys):
+    """`probe --level 2 --iterations 12` on the CPU against the JAX command:
+    the same JSON keys and level, the first energy within 1e-3 relative.
+    Sub-gradient: every energy within 1e-3 relative (the float32 reduction
+    order) and the same best iteration. Gauss-Newton: JAX samples the bf16
+    DT channel through its one-hot gathers, whose rounding the port's
+    sampler does not copy (tests/test_torch_level_lm.py holds the level
+    with the sampler rounding like JAX's), so the steps part slightly:
+    every energy within 2% and the lowest within 0.5%."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    argv = ["probe", "--level", "2", "--iterations", "12", "--method", method]
+    got = main([*argv, "--device", "cpu"])
+    port = _last_json(capsys.readouterr().out)
+    jax_main(argv)
+    want = _last_json(capsys.readouterr().out)
+    assert port.keys() == want.keys() and port["level"] == want["level"] == 2
+    assert len(port["energy"]) == len(want["energy"]) == 12 and len(got["energy_raw"]) == 12
+    pe, je = np.asarray(port["energy"]), np.asarray(want["energy"])
+    np.testing.assert_allclose(pe[0], je[0], rtol=1e-3)
+    if method == "subgradient":
+        np.testing.assert_allclose(pe, je, rtol=1e-3, atol=2e-3)
+        assert port["best_iter"] == want["best_iter"]
+        assert abs(port["best_energy"] - want["best_energy"]) <= 1e-3 * want["best_energy"] + 2e-3
+    else:
+        np.testing.assert_allclose(pe, je, rtol=2e-2)
+        np.testing.assert_allclose(pe.min(), je.min(), rtol=5e-3)
+    assert abs(port["visible_ratio"] - want["visible_ratio"]) <= 1e-3
+
+
+def test_cli_cam_scale_3_matches_jax(tmp_path, capsys):
+    """`dvo --cam-scale 3`: level 0 at 960x720, which the card's kernels
+    take since the EDT's column phase and extraction fit it; on the CPU the
+    plain versions, two frames against JAX's driver configured as its CLI
+    configures it (test_cli_dvo_defaults_match_jax_and_eval's bars)."""
+    est = str(tmp_path / "est.txt")
+    main(["dvo", "--device", "cpu", "--cam-scale", "3", "--frames", "2", "--iterations",
+          "3,2,2,2", "--no-feeder", "--out", est])
+    assert _last_json(capsys.readouterr().out)["ate_rmse"] < 0.02
+    cam = CameraConfig().scaled(3)
+    assert (cam.width, cam.height) == (960, 720)
+    cfg = PipelineConfig(camera=cam, keyframe=KeyframeConfig(force_every=5),
+                         solver=SolverConfig(method="gauss_newton", iterations=(3, 2, 2, 2)))
+    jax_odo = JaxOdometry(cfg)
+    for gray, depth, ts in SyntheticCamera(cam, num_frames=2).frames():
+        jax_odo.process_frame(gray, depth, ts)
+    R_j, t_j, _ = jax_odo.trajectory()
+    R_p, t_p, _ = read_trajectory(est)
+    assert np.linalg.norm(t_p - t_j, axis=-1).max() < 1e-3
+    assert np.abs(R_p - R_j).max() < 2e-3
 
 
 def test_cli_pipelined_writes_the_sequential_trajectory(tmp_path, capsys):

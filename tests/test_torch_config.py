@@ -1,9 +1,11 @@
 """The port's own copies of the JAX package's jax-free modules stay equal to
 the originals: the configuration dataclasses and profiles field for field
 (`dataclasses.asdict`), and `eval.ate`, `io.calib`, `io.synthetic`'s scene
-and degradations, and `viz.pointcloud` output for output on a few inputs."""
+and degradations, `viz.pointcloud`, `viz.colormap`, `viz.overlay` and the
+`io.xml_dump` helpers output for output on a few inputs."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -15,11 +17,14 @@ from rgbd_odometry_tpu import profiles as jax_profiles  # noqa: E402
 from rgbd_odometry_tpu.eval import ate as jax_ate  # noqa: E402
 from rgbd_odometry_tpu.io import calib as jax_calib  # noqa: E402
 from rgbd_odometry_tpu.io import synthetic as jax_synthetic  # noqa: E402
+from rgbd_odometry_tpu.io import xml_dump as jax_xml_dump  # noqa: E402
+from rgbd_odometry_tpu.viz import colormap as jax_colormap  # noqa: E402
+from rgbd_odometry_tpu.viz import overlay as jax_overlay  # noqa: E402
 from rgbd_odometry_tpu.viz import pointcloud as jax_pointcloud  # noqa: E402
 from rgbd_odometry_tpu_torch import config, profiles  # noqa: E402
 from rgbd_odometry_tpu_torch.eval import ate  # noqa: E402
-from rgbd_odometry_tpu_torch.io import calib, synthetic  # noqa: E402
-from rgbd_odometry_tpu_torch.viz import pointcloud  # noqa: E402
+from rgbd_odometry_tpu_torch.io import calib, synthetic, xml_dump  # noqa: E402
+from rgbd_odometry_tpu_torch.viz import colormap, overlay, pointcloud  # noqa: E402
 
 _CONFIGS = ("CameraConfig", "PyramidConfig", "SolverConfig", "PhotometricConfig",
             "KeyframeConfig", "RelocalizeConfig", "PipelineConfig")
@@ -132,3 +137,36 @@ def test_pointcloud_copy_matches(tmp_path):
     pointcloud.write_ply(str(tmp_path / "a.ply"), pts)
     jax_pointcloud.write_ply(str(tmp_path / "b.ply"), pts)
     assert (tmp_path / "a.ply").read_bytes() == (tmp_path / "b.ply").read_bytes()
+
+
+def test_colormap_and_overlay_copies_match():
+    rng = np.random.default_rng(3)
+    v = rng.uniform(-1, 9, (7, 9))
+    assert np.array_equal(colormap.apply_colormap(v, n=16), jax_colormap.apply_colormap(v, n=16))
+    assert overlay.REASON_COLORS == jax_overlay.REASON_COLORS
+    gray = rng.uniform(0, 255, (10, 12))
+    uv = rng.uniform(0, 12, (30, 2))
+    r = rng.uniform(0, 5, 30)
+    for name, args in (("overlay_points", (gray, uv)), ("residue_heatmap", (gray, uv, r)),
+                       ("energy_plot", (r, 3, 40, 60)), ("trajectory_plot", (np.c_[r, r, r],)),
+                       ("residual_histogram_plot", (r, 1.5, 30, 40)),
+                       ("reprojected_depth_map", (gray, uv, r))):
+        a, b = getattr(overlay, name)(*args), getattr(jax_overlay, name)(*args)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+def test_xml_dump_helpers_copy_match(tmp_path):
+    rng = np.random.default_rng(4)
+    gray = [rng.uniform(0, 255, (8 >> k, 10 >> k)) for k in range(4)]
+    depth = [rng.uniform(0, 5000, (8 >> k, 10 >> k)) for k in range(4)]
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    pa = xml_dump.write_frame_dump(str(tmp_path / "a"), 12, gray, depth)
+    pb = jax_xml_dump.write_frame_dump(str(tmp_path / "b"), 12, gray, depth)
+    assert open(pa, "rb").read() == open(pb, "rb").read()
+    assert xml_dump.frame_path("x", 12) == jax_xml_dump.frame_path("x", 12)
+    assert [os.path.basename(p) for _, p in xml_dump.list_dump_frames(str(tmp_path / "a"))] == [
+        os.path.basename(p) for _, p in jax_xml_dump.list_dump_frames(str(tmp_path / "b"))]
+    for a, b in zip(xml_dump.read_frame_dump(pa), jax_xml_dump.read_frame_dump(pb)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -37,13 +37,13 @@ from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted  # noqa: E402
 
 torch.set_num_threads(1)
 
-CHUNK = 1024 * 16  # csrc/extract.cu: kThreads * kItems pixels of `order` a chunk
 INTR = Intrinsics(fx=130.0, fy=130.0, cx=79.5, cy=59.5)
 
 
-def kernel_model(mask: np.ndarray, k: int, segmented: bool):
+def kernel_model(mask: np.ndarray, k: int, segmented: bool, chunk: int = 1024 * 16):
     """The kernel's selection on one image: mask (n,) bool -> (idx (k,),
-    valid (k,), count), from the wrapper's own tables."""
+    valid (k,), count), from the wrapper's own tables, streaming `order`
+    in chunks of `chunk` entries (csrc/extract.cu: kThreads * ITEMS)."""
     n = mask.size
     order = kex._order_table(n, "cpu").numpy()
     cand = np.ones(n, bool)
@@ -70,10 +70,10 @@ def kernel_model(mask: np.ndarray, k: int, segmented: bool):
     need_high, need_low = min(e, k), max(k - e, 0)
     idx, valid = np.full(k, -1), np.zeros(k, bool)
     taken_high = taken_low = 0
-    for c in range(0, order.size, CHUNK):
+    for c in range(0, order.size, chunk):
         if taken_high >= need_high and taken_low >= need_low:
             break
-        px = order[c:c + CHUNK]
+        px = order[c:c + chunk]
         p = np.maximum(px, 0)
         cls = (px >= 0) & cand[p]
         high, low = cls & mask[p], cls & ~mask[p]
@@ -128,6 +128,29 @@ def test_kernel_model_equals_extract_ref_level(h, w, k, selection, kind):
         assert count == 0
     if kind == "all-edge" and selection == "exact":
         assert count == kk
+
+
+@pytest.mark.parametrize("h,w,k,selection", [
+    (720, 960, 8192, "segmented"), (720, 960, 4096, "exact"), (360, 480, 4096, "segmented"),
+    (90, 120, 512, "segmented"), (37, 45, 2000, "exact"),
+])
+@pytest.mark.parametrize("kind", ["sparse", "dense", "shallow"])
+def test_kernel_model_at_the_half_chunk_equals_extract_ref_level(h, w, k, selection, kind):
+    """A pyramid whose level 0 is 960x720 (`dvo --cam-scale 3`) leaves too
+    little shared memory beside its bitmaps for a chunk of 16384 entries, so
+    the kernel streams 8192 at every level of that launch: the selection is
+    the same at that chunk (the partition is stable whatever the chunk)."""
+    assert kex.chunk_size(960 * 720) == 8192 and kex.chunk_size(640 * 480) == 1024 * 16
+    cfg = SolverConfig(method="gauss_newton", extract_selection=selection)
+    edges, depth = _inputs(kind, h, w, seed=h * w + k)
+    kk = min(k, h * w)
+    ref = kex.extract_ref_level(None, depth, INTR, k, cfg, edges=edges)
+    mask = (edges & (depth > cfg.min_depth_mm)).reshape(-1).numpy()
+    idx, valid, count = kernel_model(mask, kk, kex.is_segmented(cfg, h * w, kk), chunk=8192)
+    uv = ref.uv[0].numpy().astype(np.int64)
+    assert np.array_equal(uv[:, 1] * w + uv[:, 0], idx)
+    assert np.array_equal(ref.valid[0].numpy(), valid)
+    assert int(ref.count[0]) == count
 
 
 @pytest.mark.parametrize("n", [1200, 1665, 19200, 76800])
@@ -248,3 +271,19 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(monkeypatch, fault):
     with pytest.raises(ValueError, match=match):
         kex.extract_pyramid(tuple(edges), tuple(depth), INTR, SolverConfig(), caps)
     assert kex.extract_pyramid.launches == before
+
+
+@pytest.mark.parametrize("hw, fits", [((720, 960), True), ((768, 1024), True),
+                                       ((720, 1280), False)])
+def test_a_level_fits_one_block_up_to_its_shared_memory(monkeypatch, hw, fits):
+    """A 960x720 level 0 (`dvo --cam-scale 3`) fits one block with the half
+    chunk and passes the checks (which then stop at the device); a 1280x720
+    one is refused before anything is built, naming the ROADMAP item that
+    would split a level over blocks."""
+    monkeypatch.setattr(build, "bind", lambda *a, **k: pytest.fail("built"))
+    h, w = hw
+    edges = tuple(_meta(1, h >> k, w >> k, dtype=torch.bool) for k in range(4))
+    depth = tuple(_meta(1, h >> k, w >> k) for k in range(4))
+    with pytest.raises(ValueError, match="unsupported device" if fits else
+                       "ROADMAP.md Queue 2 item 7"):
+        kex.extract_pyramid(edges, depth, INTR, SolverConfig(), (8192, 4096, 2048, 1024))

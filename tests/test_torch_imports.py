@@ -100,19 +100,22 @@ import importlib.abc, sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name in ("jax", "rgbd_odometry_tpu") or name.startswith(("jax.", "rgbd_odometry_tpu.")):
+        if name in ("jax", "rgbd_odometry_tpu", "cv2") or name.startswith(
+                ("jax.", "rgbd_odometry_tpu.", "cv2.")):
             raise ImportError(f"blocked import of {name}")
         return None
 
 
 sys.meta_path.insert(0, _Block())
 """
+_LOADED = ("print('LOADED', sorted(m for m in sys.modules\n"
+           "                      if m.split('.')[0] in ('jax', 'rgbd_odometry_tpu', 'cv2')))\n")
 
 
 def test_port_runs_with_the_jax_package_blocked(tmp_path):
-    """With a `sys.meta_path` finder that raises on `rgbd_odometry_tpu` and
-    `jax`, every port module imports and the CLI runs `dvo` on two frames
-    and `eval` on its output."""
+    """With a `sys.meta_path` finder that raises on `rgbd_odometry_tpu`,
+    `jax` and `cv2`, every port module imports and the CLI runs `dvo` on two
+    frames and `eval` on its output."""
     est = str(tmp_path / "est.txt")
     code = _BLOCKER + (
         "import importlib\n"
@@ -121,7 +124,7 @@ def test_port_runs_with_the_jax_package_blocked(tmp_path):
         "from rgbd_odometry_tpu_torch.cli import main\n"
         f"main(['dvo', '--device', 'cpu', '--frames', '2', '--cam-scale', '0.25', '--out', {est!r}])\n"
         f"main(['eval', {est!r}, {est!r}])\n"
-        "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'rgbd_odometry_tpu')))\n"
+        + _LOADED
     )
     env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(sys.executable))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
@@ -129,3 +132,63 @@ def test_port_runs_with_the_jax_package_blocked(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LOADED []" in r.stdout
     assert '"ate_rmse_raw": 0.0' in r.stdout
+
+
+def test_slice_runs_with_the_jax_package_and_cv2_blocked(tmp_path):
+    """With `rgbd_odometry_tpu`, `jax` and `cv2` blocked, as on the machine
+    with the card: `dvo --checkpoint`, then `--resume`, `--viz-dir` and
+    `--trace-dir`, `dump`, `dvo --source xml:` with a `calib`-written file,
+    `probe` and `calib --write-freiburg`."""
+    dvo = ["dvo", "--device", "cpu", "--cam-scale", "0.5", "--iterations", "4,3,2,2"]
+    c, dumps, cal = str(tmp_path / "c.npz"), str(tmp_path / "dumps"), str(tmp_path / "cal")
+    os.makedirs(cal)
+    runs = [
+        [*dvo, "--frames", "3", "--checkpoint", c],
+        [*dvo, "--frames", "5", "--resume", c, "--viz-dir", str(tmp_path / "viz"),
+         "--viz-every", "1", "--trace-dir", str(tmp_path / "tr")],
+        ["dump", "--device", "cpu", "--cam-scale", "0.5", "--frames", "2", "--out-dir", dumps],
+        ["calib", "--write-freiburg", cal],
+        ["probe", "--device", "cpu", "--level", "3", "--iterations", "4"],
+    ]
+    code = _BLOCKER + (
+        "import os, sys\n"
+        "from rgbd_odometry_tpu_torch.cli import main\n"
+        "from rgbd_odometry_tpu_torch.config import CameraConfig\n"
+        "from rgbd_odometry_tpu_torch.io.calib import write_calib_xml\n"
+        f"for argv in {runs!r}:\n"
+        "    main(argv)\n"
+        f"cam = os.path.join({cal!r}, 'cam_160x120.xml')\n"
+        "write_calib_xml(cam, CameraConfig().scaled(0.5))\n"
+        f"main(['dvo', '--device', 'cpu', '--source', 'xml:' + {dumps!r}, '--calib', cam,\n"
+        "      '--iterations', '4,3,2,2'])\n"
+        + _LOADED
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(sys.executable))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout
+    assert "resumed at frame 2" in r.stderr and "viz: " in r.stderr
+    assert "torch.profiler trace -> " in r.stderr
+    assert len(os.listdir(dumps)) == 2 and '"frames_written": 2' in r.stdout
+    assert sorted(os.listdir(cal))[:2] == ["Freiburg_ROS_default_320x240.xml",
+                                           "Freiburg_ROS_default_640x480.xml"]
+    assert '"best_iter"' in r.stdout and r.stdout.count('"ate_rmse"') == 2
+    assert r.stderr.rstrip().split("avg solve: ")[-1].endswith("over 2 frames")  # the xml: run
+
+
+_SLICE_MODULES = ("utils/checkpoint.py", "utils/tracing.py", "viz/live.py", "viz/png.py",
+                  "viz/colormap.py", "viz/overlay.py", "io/opencv_xml.py", "io/xml_dump.py",
+                  "io/calib.py", "solvers/photometric.py", "cli.py", "pipeline/odometry.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_MODULES)
+def test_checkpoint_viz_and_xml_modules_import_no_cv2(rel):
+    """An AST scan: the checkpoint, tracing, viz and XML modules, the CLI
+    and the driver import no cv2 anywhere (their files are written and read
+    with zlib and the port's own XML codec)."""
+    with open(os.path.join(PKG, rel)) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if n == "cv2" or n.startswith("cv2.")]

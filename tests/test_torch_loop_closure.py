@@ -71,7 +71,8 @@ def jax_closer(seq):
 
 
 def _port_closer(frames, replay: bool, **cfg):
-    lc = LoopCloser(Intrinsics.from_config(CAM), PortLoopClosureConfig(min_separation=4, **cfg))
+    lc = LoopCloser(Intrinsics.from_config(CAM), PortLoopClosureConfig(min_separation=4, **cfg),
+                    device="cpu")
     if replay:
         lc.matcher._uniforms = JaxDraws(0)
     for i, (g, d) in enumerate(frames):
@@ -135,7 +136,8 @@ def test_loaded_jax_store_matches_like_jax(seq, jax_closer):
     """`convert.load_store` carries the JAX store over: the port's batched
     match of a query against it gives the JAX per-slot good counts."""
     frames, _ = seq
-    lc = LoopCloser(Intrinsics.from_config(CAM), PortLoopClosureConfig(min_separation=4))
+    lc = LoopCloser(Intrinsics.from_config(CAM), PortLoopClosureConfig(min_separation=4),
+                    device="cpu")
     convert.load_store(jax_closer, lc)
     assert lc._num_slots() == jax_closer._num_slots()
     assert [kf.node for kf in lc.keyframes] == [kf.node for kf in jax_closer.keyframes]
@@ -182,7 +184,7 @@ def _drift(n=40, kind="revisit3", seed=11):
 def test_reanchor_and_graph_refine_match_jax(kind):
     R_gt, t_gt, R_d, t_d = _drift(kind=kind)
     jlc = JaxLoopCloser(JaxIntrinsics.from_config(CAM))
-    plc = LoopCloser(Intrinsics.from_config(CAM))
+    plc = LoopCloser(Intrinsics.from_config(CAM), device="cpu")
     _inject(jlc, R_gt, t_gt, jlc.cfg.min_loop_separation)
     plc.closures = list(jlc.closures)
     assert plc.closures
@@ -203,7 +205,7 @@ def test_reanchor_and_graph_refine_match_jax(kind):
 def test_refine_inplace_writes_back_like_jax():
     R_gt, t_gt, R_d, t_d = _drift(n=24, kind="outback")
     jlc = JaxLoopCloser(JaxIntrinsics.from_config(CAM))
-    plc = LoopCloser(Intrinsics.from_config(CAM))
+    plc = LoopCloser(Intrinsics.from_config(CAM), device="cpu")
     _inject(jlc, R_gt, t_gt, jlc.cfg.min_loop_separation)
     plc.closures = list(jlc.closures)
     gops = []

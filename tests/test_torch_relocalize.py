@@ -64,8 +64,8 @@ def seq():
     return render_sequence(CAM, _smooth_psis(8), seed=0)
 
 
-def _database(cls, intr, frames, poses):
-    reloc = cls(intr, RELOC)
+def _database(cls, intr, frames, poses, **kw):
+    reloc = cls(intr, RELOC, **kw)
     for k in (0, 3, 6):
         assert reloc.add_keyframe(*frames[k], *poses[k], node=k)
     return reloc
@@ -74,7 +74,7 @@ def _database(cls, intr, frames, poses):
 def test_relocalizer_unit_matches_jax(seq):
     frames, poses = seq
     jr = _database(JaxRelocalizer, JaxIntrinsics.from_config(CAM), frames, poses)
-    pr = _database(Relocalizer, Intrinsics.from_config(CAM), frames, poses)
+    pr = _database(Relocalizer, Intrinsics.from_config(CAM), frames, poses, device="cpu")
     pr.matcher._uniforms = JaxDraws(0)
     assert len(pr) == len(jr) == 3
     want, got = jr.relocalize(frames[4][0]), pr.relocalize(frames[4][0])
@@ -92,14 +92,15 @@ def test_relocalizer_unit_matches_jax(seq):
 
 def test_own_generator_recovers_and_evicts_nearest(seq):
     frames, poses = seq
-    pr = _database(Relocalizer, Intrinsics.from_config(CAM), frames, poses)
+    pr = _database(Relocalizer, Intrinsics.from_config(CAM), frames, poses, device="cpu")
     res = pr.relocalize(frames[4][0])
     assert res is not None and 1000 * np.linalg.norm(res.t - poses[4][1]) < 15.0
     # frames without keypoints or depth never enter the database
     assert not pr.add_keyframe(*BLANK, *poses[0])
     assert not pr.add_keyframe(frames[1][0], BLANK[1], *poses[1])
     # at max_keyframes the entry nearest to the incoming pose is replaced
-    capped = Relocalizer(Intrinsics.from_config(CAM), dataclasses.replace(RELOC, max_keyframes=3))
+    capped = Relocalizer(Intrinsics.from_config(CAM), dataclasses.replace(RELOC, max_keyframes=3),
+                         device="cpu")
     for k in (0, 3, 6, 4):
         assert capped.add_keyframe(*frames[k], *poses[k], node=k)
     assert len(capped) == 3 and capped.nodes == [0, 4, 6]
@@ -109,7 +110,7 @@ def test_own_generator_recovers_and_evicts_nearest(seq):
 def test_loaded_jax_database_recovers_like_jax(seq):
     frames, poses = seq
     jr = _database(JaxRelocalizer, JaxIntrinsics.from_config(CAM), frames, poses)
-    pr = Relocalizer(Intrinsics.from_config(CAM), RELOC)
+    pr = Relocalizer(Intrinsics.from_config(CAM), RELOC, device="cpu")
     convert.load_store(jr, pr)
     assert pr.nodes == [0, 3, 6] and len(pr) == 3
     pr.matcher._uniforms = JaxDraws(0)
@@ -120,7 +121,7 @@ def test_loaded_jax_database_recovers_like_jax(seq):
 
 def test_database_poses_refresh_after_online_refinement(seq):
     frames, poses = seq
-    reloc = Relocalizer(Intrinsics.from_config(CAM), RELOC)
+    reloc = Relocalizer(Intrinsics.from_config(CAM), RELOC, device="cpu")
     gop = Gop()
     gop.push_keyframe(0, 1, np.eye(3), np.zeros(3))
     for k in (3, 6):

@@ -377,3 +377,23 @@ def test_wrappers_on_cpu_run_the_plain_versions():
         for a, b in zip(kedt.dt_channels(edges, *flags), kedt.dt_channels_plain(edges, *flags)):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert kcanny.canny_pyramid.launches == 0 and kedt.dt_channels.launches == 0
+
+
+@pytest.mark.parametrize("shape, fits", [((720, 960), True), ((2400, 64), True),
+                                          ((2401, 64), False), ((64, 1601), False)])
+@pytest.mark.parametrize("name", ["edt_squared", "dt_channels"])
+def test_edt_takes_levels_up_to_its_shared_memory(monkeypatch, name, shape, fits):
+    """The column phase stages 3 bytes a row of a 32-column strip and opts
+    in to more than 48 KB of shared memory past 480 rows: a 960x720 level
+    (`dvo --cam-scale 3`) and 2400 rows pass the checks (which then stop at
+    the device), taller or wider images are refused before anything is
+    built, naming the ROADMAP item that would split a level over blocks."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(build, "bind", no_build)
+    fn, dtype = _WRAPPERS[name]
+    mask = torch.empty((1, *shape), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="unsupported device" if fits else
+                       "ROADMAP.md Queue 2 item 7"):
+        fn(mask)
