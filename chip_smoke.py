@@ -87,8 +87,11 @@ through their user entry points:
                    at level 0, 100 iterations, on the card against the plain
                    version of its level on the same card inputs, within the
                    level kernels' bars;
-  cli_cam_scale_3  `dvo --cam-scale 3 --frames 10` (level 0 at 960x720):
-                   ATE < 20 mm.
+  cli_cam_scale_3  `dvo --cam-scale 3 --frames 4` (level 0 at 960x720):
+                   ATE < 20 mm;
+  cli_cam_scale_4  `dvo --cam-scale 4 --frames 6` (level 0 at 1280x960,
+                   Canny's hysteresis and extraction on clusters of
+                   blocks): ATE < 20 mm.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -111,9 +114,12 @@ twin in all three branches. `check_extract` holds keyframe extraction
 over a pyramid bitwise against its plain version on every output, invalid
 slots included (production_320's, the `dvo` defaults' and production_vga's
 capacities, B = 64 and 1, rendered, edge-free, all-edge and shallow-depth
-inputs). `check_dt_channels` and `check_extract` also hold their kernels
-at 720x960 (`dvo --cam-scale 3`'s level 0, B = 8 and 1), timed beside
-their bounds. Every
+inputs). `check_canny_pyramid`, `check_dt_channels` and `check_extract`
+also hold their kernels at 720x960 and 1280x960 (`dvo --cam-scale 3` and
+`4`, B = 8 and 1) and on single levels of 1600x2560 and 2560x1600 (B = 1),
+timed beside their bounds; Canny and extraction on every route (one block
+or a cluster of 2, 4 or 8 blocks a (level, image)) the levels fit, forced,
+bitwise the route their rule takes. Every
 kernel's launch counter is set to 0 before the path phases and read around
 each one: each kernel of the paths must launch; `canny_pyramid` and
 `dt_channels` in every Gauss-Newton phase and in cli_subgradient
@@ -135,7 +141,10 @@ and its float32 operations over 67 TFLOP/s, from the check's own inputs);
 for the four kernels of the VGA path the same at production_vga's shapes
 under "vga" (launches: those of stream_vga and batch_vga), and for
 `dt_channels` and `extract_pyramid` at 720x960 under "cam_scale_3"
-(launches: those of cli_cam_scale_3).
+(launches: those of cli_cam_scale_3), and for the three target kernels at
+1280x960 under "cam_scale_4" (launches: those of cli_cam_scale_4) and at
+the large single levels under "large"; "cluster" is the route the rule
+took there and "cluster_ms" the time of each forced route.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. Imports no JAX.
 """
@@ -152,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -178,7 +188,7 @@ GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
              "cli_default_no_feeder", "cli_pipelined", "relocalize", "stream_pipelined",
              "stream_vga_ingest", "cli_loop_close", "cli_weighted_refine", "multistream",
              "cli_multistream", "align_sequence", "cli_checkpoint", "cli_viz", "cli_trace",
-             "cli_xml", "probe", "cli_cam_scale_3")
+             "cli_xml", "probe", "cli_cam_scale_3", "cli_cam_scale_4")
 # the map-backend phases: the matching and PnP kernels must launch there
 MAP_PHASES = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refine",
               "cli_checkpoint")
@@ -340,22 +350,51 @@ def _dt_bound(b: int, h: int, w: int, radius: int, bf16: bool) -> dict:
                   n * (OPS_DT_COLUMN + row + OPS_DT_TAIL))
 
 
-@functools.lru_cache(maxsize=1)
-def cam_scale_3_inputs(device):
-    """8 rendered 960x720 pairs' now-frames (`dvo --cam-scale 3`'s level 0)
-    as a 4-level pyramid on the card, its Canny edges at the `dvo`
-    defaults, and the camera."""
+@functools.lru_cache(maxsize=2)
+def cam_scale_inputs(device, scale: int):
+    """8 rendered pairs' now-frames at `dvo --cam-scale <scale>`'s level 0
+    (3: 960x720, 4: 1280x960) as a 4-level pyramid on the card, its Canny
+    edges at the `dvo` defaults, and the camera."""
     import torch
 
     from rgbd_odometry_tpu_torch import CameraConfig, SolverConfig
     from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
     from rgbd_odometry_tpu_torch.kernels import canny
 
-    cam = CameraConfig().scaled(3)
+    cam = CameraConfig().scaled(scale)
     _, _, ng, nd, _ = render_batch(cam, 8)
     pyr = build_pyramid(torch.from_numpy(ng).to(device), torch.from_numpy(nd).to(device), 4)
     cfg = SolverConfig()
     return pyr, canny.canny_pyramid(pyr.gray, cfg.canny_low, cfg.canny_high), cam
+
+
+@functools.lru_cache(maxsize=1)
+def large_level_inputs(device) -> dict:
+    """Single levels at the kernels' largest sides, B = 1: a rendered
+    640x480 frame and its depth upsampled 4x (nearest) and cut to 1600x2560,
+    and the same transposed to 2560x1600 (the edge density of a real frame),
+    with their Canny edges at the `dvo` defaults; and the serpentine image
+    at 2560x1600 for the hysteresis, whose chain crosses every band
+    boundary many times. Values: (gray, depth, edges), (1, H, W) each."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.io.synthetic import SyntheticScene
+    from rgbd_odometry_tpu_torch.kernels import canny
+
+    cfg = SolverConfig()
+    gray, depth = SyntheticScene(seed=3).render(profiles.production_vga().camera, np.eye(3),
+                                                np.zeros(3), 1)
+    up = lambda a: np.repeat(np.repeat(a, 4, 0), 4, 1)  # noqa: E731  (1920, 2560)
+    out = {}
+    for name, g, d in (("1600x2560", up(gray)[:1600], up(depth)[:1600]),
+                       ("2560x1600", up(gray).T[:, :1600], up(depth).T[:, :1600])):
+        g = torch.from_numpy(np.ascontiguousarray(g)[None]).to(device)
+        d = torch.from_numpy(np.ascontiguousarray(d)[None]).to(device)
+        out[name] = (g, d, canny.canny(g, cfg.canny_low, cfg.canny_high))
+    serp = torch.from_numpy(serpentine_image(2560, 1600)[None]).to(device)
+    out["serpentine 2560x1600"] = (serp, None, None)
+    return out
 
 
 def _sampled_bytes(n_vis, hw: int, reads: int, size: int) -> float:
@@ -424,17 +463,23 @@ def serpentine_image(h: int, w: int):
 
 def check_canny_pyramid(device, rng) -> dict:
     """`canny_pyramid` vs its plain version (`canny_plain` on each level),
-    `torch.equal` on every level, a second launch equal: the 4-level
-    320x240 pyramid of 64 rendered frames, of the serpentine image (each
-    level's own, with its flips) and of 8-bit noise, at B = 64 and B = 1; a
-    5-level 640x480 noise pyramid of 3 images (the hysteresis kernel's
-    shared-memory opt-in) and a 4-level one from 74x90 (widths no multiple
-    of 4 or 32: the unaligned loads and stores), B = 3 and 1; production_vga's
-    5-level pyramid of 64 rendered 640x480 frames, B = 64 and 1. Then `canny`
-    of one level on the card: one pyramid launch, equal to the plain
-    version. Logs the fixpoints' pass counts per level; on the rendered
-    pyramids, times the call beside one single-level `canny` call a level
-    (the same inputs, this run)."""
+    `torch.equal` on every level, a second launch equal, on the hysteresis
+    route its rule takes: the 4-level 320x240 pyramid of 64 rendered frames,
+    of the serpentine image (each level's own, with its flips) and of 8-bit
+    noise, at B = 64 and B = 1; a 5-level 640x480 noise pyramid of 3 images
+    (the hysteresis kernel's shared-memory opt-in) and a 4-level one from
+    74x90 (widths no multiple of 4 or 32: the unaligned loads and stores),
+    B = 3 and 1; production_vga's 5-level pyramid of 64 rendered 640x480
+    frames, B = 64 and 1; the 4-level pyramid of 8 rendered 1280x960 frames
+    (`dvo --cam-scale 4`: level 0 on a cluster), B = 8 and 1; one level of
+    1600x2560 and one of 2560x1600 (a rendered 640x480 frame upsampled) and
+    the serpentine image at 2560x1600, B = 1. On the rendered pyramids every
+    cluster size the levels fit is forced too (c = 1, 2, 4, 8 blocks a
+    (level, image): bitwise the rule's route), timed. Then `canny` of one
+    level on the card: one pyramid launch, equal to the plain version. Logs
+    the route (blocks a level, c) and the fixpoints' pass counts per level;
+    on the rendered pyramids, times the call beside one single-level `canny`
+    call a level (the same inputs, this run)."""
     import torch
 
     from rgbd_odometry_tpu_torch import profiles
@@ -453,19 +498,25 @@ def check_canny_pyramid(device, rng) -> dict:
     vga, odd = noise(3, 480, 640), noise(3, 74, 90)
     vga_prof = profiles.production_vga()
     _, _, vg, vd, _ = render_batch(vga_prof.camera, BATCH)
+    large = large_level_inputs(device)
     cases = {
         "rendered": build_pyramid(f(ng), f(nd), 4).gray,
         "rendered vga": build_pyramid(f(vg), f(vd), vga_prof.num_levels).gray,
+        "rendered 1280x960": cam_scale_inputs(device, 4)[0].gray,
         "serpentine": tuple(flips(h, w) for h, w in EDT_SHAPES),
         "noise": tuple(noise(BATCH, h, w) for h, w in EDT_SHAPES),
         "vga noise": build_pyramid(vga, torch.full_like(vga, 1000.0), 5).gray,
         "odd noise": build_pyramid(odd, torch.full_like(odd, 1000.0), 4).gray,
+        **{name: (g,) for name, (g, _, _) in large.items()},
     }
+    timed = ("rendered", "rendered vga", "rendered 1280x960", "1600x2560", "2560x1600")
     _require(tuple(cases["rendered"][0].shape) == (BATCH, *EDT_SHAPES[0]), "canny: pyramid shape")
     summaries = {}
     for kind, pyr in cases.items():
         for b in sorted({pyr[0].shape[0], 1}, reverse=True):
             levels = tuple(g[:b].contiguous() for g in pyr)
+            shapes = [tuple(g.shape[1:]) for g in levels]
+            ranks, c_rule = canny.hysteresis_route(shapes, b)
             plain = canny.canny_pyramid_plain(levels, 100.0, 150.0)
             what = (f"canny_pyramid {kind} {len(levels)} levels from "
                     f"{levels[0].shape[1]}x{levels[0].shape[2]} B={b}")
@@ -483,9 +534,21 @@ def check_canny_pyramid(device, rng) -> dict:
             _require(bool((passes >= 1).all()), f"{what}: a fixpoint ran no pass")
             _require(bool(k[0].flatten(1).any(1).all()), f"{what}: an image has no edge")
             line = (f"{what}: equal to plain, runs equal, {float(k[0].float().mean()) * 100:.2f}% "
-                    f"edges at level 0; passes per level (most of any image) "
-                    f"{passes.max(1).values.tolist()}")
-            if kind in ("rendered", "rendered vga"):
+                    f"edges at level 0; rule: blocks a level {list(ranks)} (c={c_rule}); passes "
+                    f"per level (most of any image) {passes.max(1).values.tolist()}")
+            routes = {}
+            if kind in timed:
+                for c in canny.CLUSTERS:
+                    if any(canny.hysteresis_smem(h, w, c) > 227 * 1024 for h, w in shapes):
+                        continue
+                    pc = torch.zeros_like(passes)
+                    forced = canny.canny_pyramid(levels, 100.0, 150.0, passes=pc, cluster=c)
+                    torch.cuda.synchronize()
+                    for lvl, (a, q) in enumerate(zip(forced, k)):
+                        _require(torch.equal(a, q), f"{what} level {lvl}: cluster {c} != rule's")
+                    routes[c] = _time_ms(lambda c=c: canny.canny_pyramid(levels, cluster=c), 20)
+                    line += f"; c={c}: equal, passes {pc.max(1).values.tolist()}"
+                line += " (ms: " + ", ".join(f"c={c} {t:.4f}" for c, t in routes.items()) + ")"
                 k_ms = _time_ms(lambda: canny.canny_pyramid(levels), 20)
                 before = _time_ms(lambda: [canny.canny(g) for g in levels], 20)
                 p_ms = _time_ms(lambda: canny.canny_pyramid_plain(levels), 3)
@@ -494,7 +557,8 @@ def check_canny_pyramid(device, rng) -> dict:
                 line += (f"; canny_pyramid {k_ms:.4f} ms, {len(levels)} single-level canny calls "
                          f"{before:.4f} ms, plain {p_ms:.4f} ms; bound "
                          f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                summaries[(kind, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+                summaries[(kind, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                                        "cluster": c_rule, "cluster_ms": routes, **bound}
             _log(line)
     one = cases["odd noise"][1]
     n0 = canny.canny_pyramid.launches
@@ -504,9 +568,15 @@ def check_canny_pyramid(device, rng) -> dict:
     _require(torch.equal(k, canny.canny_plain(one, 100.0, 150.0)), "canny of one level != plain")
     _log(f"canny {one.shape[1]}x{one.shape[2]} B={one.shape[0]}: one canny_pyramid launch, "
          f"equal to plain")
-    return {**summaries[("rendered", BATCH)],
+    return {**summaries[("rendered", BATCH)], "b1": summaries[("rendered", 1)],
             "vga": {"shape": "5 levels from 480x640, B=64", **summaries[("rendered vga", BATCH)],
-                    "b1": summaries[("rendered vga", 1)]}}
+                    "b1": summaries[("rendered vga", 1)]},
+            "cam_scale_4": {"shape": "4 levels from 960x1280, B=8",
+                            **summaries[("rendered 1280x960", 8)],
+                            "b1": summaries[("rendered 1280x960", 1)]},
+            "large": {"shape": "one level of 1600x2560 and of 2560x1600, B=1",
+                      "1600x2560": summaries[("1600x2560", 1)],
+                      "2560x1600": summaries[("2560x1600", 1)]}}
 
 
 def check_dt_channels(device, rng) -> dict:
@@ -517,8 +587,11 @@ def check_dt_channels(device, rng) -> dict:
     B = 3; on the Canny edges of rendered 640x480 frames (production_vga's
     level 0), B = 64 and 1; on those of rendered 960x720 frames (`dvo
     --cam-scale 3`'s level 0, where the column phase opts in to more than
-    48 KB of shared memory) for the `dvo` defaults (R = 0, normalized, bf16)
-    and the +-16 window, B = 8 and 1; a second launch bitwise equal."""
+    48 KB of shared memory) and of rendered 1280x960 frames (`dvo
+    --cam-scale 4`) for the `dvo` defaults (R = 0, normalized, bf16) and the
+    +-16 window, B = 8 and 1; on the edges of one level of 1600x2560 (the
+    row phase opted in past 48 KB) and one of 2560x1600 (the column phase in
+    strips of 16), both variants, B = 1; a second launch bitwise equal."""
     import torch
 
     from rgbd_odometry_tpu_torch import profiles
@@ -544,9 +617,16 @@ def check_dt_channels(device, rng) -> dict:
                             vga.solver.canny_high)
     cases += [(vga_label, vga_edges[:b].contiguous(), lambda v: v == vga_variant, None)
               for b in (BATCH, 1)]
-    _, cam3_edges, _ = cam_scale_3_inputs(device)
+    _, cam3_edges, _ = cam_scale_inputs(device, 3)
     cases += [(cam3_label, cam3_edges[0][:b].contiguous(), lambda v: True, cam3_variants)
               for b in (8, 1)]
+    cam4_label = "cam_scale_4 rendered edges 960x1280"
+    _, cam4_edges, _ = cam_scale_inputs(device, 4)
+    cases += [(cam4_label, cam4_edges[0][:b].contiguous(), lambda v: True, cam3_variants)
+              for b in (8, 1)]
+    large = large_level_inputs(device)
+    cases += [(f"upsampled rendered edges {name}", large[name][2], lambda v: v[1],
+               cam3_variants) for name in ("1600x2560", "2560x1600")]
     out = {}
     for label, mask, plain_timed, variants in cases:
         b, h, w = mask.shape
@@ -585,23 +665,50 @@ def check_dt_channels(device, rng) -> dict:
             "cam_scale_3": {"shape": "720x960 R=0 normalized bf16 (the dvo defaults), B=8",
                             **out[(cam3_label, 8, *cam3_variants[0])],
                             "b1": out[(cam3_label, 1, *cam3_variants[0])],
-                            "r16": out[(cam3_label, 8, *cam3_variants[1])]}}
+                            "r16": out[(cam3_label, 8, *cam3_variants[1])]},
+            "cam_scale_4": {"shape": "960x1280 R=0 normalized bf16 (the dvo defaults), B=8",
+                            **out[(cam4_label, 8, *cam3_variants[0])],
+                            "b1": out[(cam4_label, 1, *cam3_variants[0])],
+                            "r16": out[(cam4_label, 8, *cam3_variants[1])]},
+            "large": {"shape": "R=0 normalized bf16, B=1",
+                      **{name: out[(f"upsampled rendered edges {name}", 1, *cam3_variants[0])]
+                         for name in ("1600x2560", "2560x1600")}}}
+
+
+def _extract_equal(what: str, got, want) -> None:
+    """Every output of two `extract_pyramid` results bitwise equal, level by
+    level, with the first differing entries in the message."""
+    for lvl, (a, q) in enumerate(zip(got, want)):
+        for name, x, z in zip(("pts3d", "uv", "valid", "count"), a, q):
+            at = f"{what} level {lvl} {name}"
+            _require(x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous(),
+                     f"{at}: shape/dtype/layout {tuple(x.shape)} {x.dtype}")
+            if not _same_bits(x, z):
+                bad = (x != z).reshape(-1).nonzero()[:4].reshape(-1).tolist()
+                raise AssertionError(
+                    f"{at}: != reference at {int((x != z).sum())} entries, first "
+                    f"{bad}: {x.reshape(-1)[bad].tolist()} vs {z.reshape(-1)[bad].tolist()}")
 
 
 def check_extract(device, rng) -> dict:
     """`extract_pyramid` vs its plain version (`extract_ref_level` on each
     level), every output bitwise equal, invalid slots included, and a
-    second launch bitwise equal: production_320's capacities (segmented
-    levels) and the `dvo` defaults' (exact) on the 4-level 320x240 pyramid,
-    and production_vga's (5 levels, 4096 at level 0, segmented and exact)
-    on a 640x480 pyramid (the rendered frames doubled) and on 640x480
-    renders, at B = 64 and 1, and the `dvo` defaults' on the 4-level
-    pyramid of 960x720 renders (`dvo --cam-scale 3`), at B = 8 and 1; on
-    rendered frames (their own Canny edges and depth), edge-free and
-    all-edge maps, and rendered edges over a depth half below
-    `min_depth_mm`. Times the kernel and its plain version on the rendered
-    320x240 pyramid at both 4-level configurations, on the rendered 640x480
-    pyramid at production_vga's and on the 960x720 one."""
+    second launch bitwise equal, on the route its rule takes:
+    production_320's capacities (segmented levels) and the `dvo` defaults'
+    (exact) on the 4-level 320x240 pyramid, and production_vga's (5 levels,
+    4096 at level 0, segmented and exact) on a 640x480 pyramid (the
+    rendered frames doubled) and on 640x480 renders, at B = 64 and 1; the
+    `dvo` defaults' on the 4-level pyramids of 960x720 and 1280x960 renders
+    (`dvo --cam-scale 3` and `4`), at B = 8 and 1; and 8192 slots, both
+    branches, on one level of 1600x2560 and one of 2560x1600 (a rendered
+    640x480 frame upsampled), B = 1; on rendered frames (their own Canny
+    edges and depth), edge-free and all-edge maps, and rendered edges over a
+    depth half below `min_depth_mm`. On the rendered frames every cluster
+    size the level fits is forced too (c = 1, 2, 4, 8: bitwise the rule's
+    route) and timed. Times the kernel and its plain version on the
+    rendered 320x240 pyramid at both 4-level configurations, on the rendered
+    640x480 pyramid at production_vga's, on the 960x720 and 1280x960 ones
+    and on the large levels."""
     import torch
 
     from rgbd_odometry_tpu_torch import SolverConfig, profiles
@@ -617,7 +724,10 @@ def check_extract(device, rng) -> dict:
     up = lambda x: x.repeat_interleave(2, 1).repeat_interleave(2, 2)  # noqa: E731
     dvo_caps = (8192, 4096, 2048, 1024)
     batches = (BATCH, 1)
-    configs = {  # config, capacities, batch sizes, levels, level 0's gray and depth, camera
+    large = large_level_inputs(device)
+    big_cam = vga.camera.scaled(4)
+    configs = {  # config, capacities, batch sizes, level 0's gray and depth (or the
+        #          pyramid and its edges), camera
         "production_320": (p320.solver, p320.max_points, batches, 4, gray, depth, p320.camera),
         "dvo defaults": (SolverConfig(), dvo_caps, batches, 4, gray, depth, p320.camera),
         "production_vga": (vga.solver, vga.max_points, batches, 5, up(gray), up(depth),
@@ -626,16 +736,23 @@ def check_extract(device, rng) -> dict:
                                  vga.max_points, batches, 5, up(gray), up(depth), vga.camera),
         "production_vga rendered": (vga.solver, vga.max_points, batches, 5, f(vg), f(vd),
                                     vga.camera),
-        "cam_scale_3": (SolverConfig(), dvo_caps, (8, 1), 4, None, None, None),
+        "cam_scale_3": (SolverConfig(), dvo_caps, (8, 1), 4, *cam_scale_inputs(device, 3)),
+        "cam_scale_4": (SolverConfig(), dvo_caps, (8, 1), 4, *cam_scale_inputs(device, 4)),
     }
-    names = ("pts3d", "uv", "valid", "count")
+    for name in ("1600x2560", "2560x1600"):
+        g, d, e = large[name]
+        pyr = types.SimpleNamespace(gray=(g,), depth=(d,))
+        configs[f"{name} segmented"] = (p320.solver, (8192,), (1,), 1, pyr, (e,), big_cam)
+        configs[f"{name} exact"] = (SolverConfig(), (8192,), (1,), 1, pyr, (e,), big_cam)
+    timed = ("production_320", "dvo defaults", "production_vga rendered", "cam_scale_3",
+             "cam_scale_4", "1600x2560 segmented", "2560x1600 exact")
     out = {}
     for cname, (cfg, caps, b_sizes, n_lv, g0, d0, cam) in configs.items():
-        if g0 is None:  # the 960x720 pyramid, built once for check_dt_channels too
-            pyr, edges, cam = cam_scale_3_inputs(device)
-        else:
+        if isinstance(g0, torch.Tensor):
             pyr = build_pyramid(g0, d0, n_lv)
             edges = canny.canny_pyramid(pyr.gray, cfg.canny_low, cfg.canny_high)
+        else:  # a pyramid and its edges, built once for the other checks too
+            pyr, edges = g0, d0
         intr = Intrinsics.from_config(cam)
         shallow = tuple(torch.where(torch.from_numpy(rng.random(tuple(d.shape)) < 0.5).to(device),
                                     torch.full_like(d, 50.0), d) for d in pyr.depth)
@@ -650,30 +767,35 @@ def check_extract(device, rng) -> dict:
                 e_b = tuple(e[:b].contiguous() for e in e_pyr)
                 d_b = tuple(d[:b].contiguous() for d in d_pyr)
                 args = (e_b, d_b, intr, cfg, caps)
+                n_max = max(e.shape[1] * e.shape[2] for e in e_b)
+                rule = extract.cluster_size(n_max, b, len(e_b))
                 k = extract.extract_pyramid(*args)
                 again = extract.extract_pyramid(*args)
                 plain = extract.extract_pyramid_plain(*args)
                 torch.cuda.synchronize()
                 what = f"extract_pyramid {cname} {kind} {n_lv} levels B={b}"
-                for lvl, (a, c, q) in enumerate(zip(k, again, plain)):
-                    for name, x, y, z in zip(names, a, c, q):
-                        at = f"{what} level {lvl} {name}"
-                        _require(x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous(),
-                                 f"{at}: shape/dtype/layout {tuple(x.shape)} {x.dtype}")
-                        _require(_same_bits(x, y), f"{at}: runs differ")
-                        if not _same_bits(x, z):
-                            bad = (x != z).reshape(-1).nonzero()[:4].reshape(-1).tolist()
-                            raise AssertionError(
-                                f"{at}: kernel != plain at {int((x != z).sum())} entries, first "
-                                f"{bad}: {x.reshape(-1)[bad].tolist()} vs "
-                                f"{z.reshape(-1)[bad].tolist()}")
+                _extract_equal(f"{what} (second run)", again, k)
+                _extract_equal(f"{what} (kernel vs plain)", k, plain)
                 counts = [int(a.count.sum()) for a in k]
-                line = (f"{what}: 4 outputs bitwise equal at every level, runs equal; "
-                        f"counts {counts}")
+                line = (f"{what}: 4 outputs bitwise equal at every level, runs equal, rule's "
+                        f"cluster c={rule}; counts {counts}")
                 if kind == "edge-free":
                     _require(sum(counts) == 0, f"{what}: an edge-free image has points")
-                if kind == "rendered" and cname in ("production_320", "dvo defaults",
-                                                     "production_vga rendered", "cam_scale_3"):
+                if kind == "rendered":
+                    routes = {}
+                    for c in extract.CLUSTERS:
+                        if not extract.chunk_size(n_max, c):
+                            continue
+                        forced = extract.extract_pyramid(*args, cluster=c)
+                        _extract_equal(f"{what} (cluster {c} vs the rule's)", forced, k)
+                        if cname in timed:
+                            routes[c] = _time_ms(
+                                lambda c=c: extract.extract_pyramid(*args, cluster=c), 20)
+                    line += f"; forced c={sorted(routes) or 'all'} bitwise equal"
+                    if routes:
+                        line += " (ms: " + ", ".join(f"c={c} {t:.4f}" for c, t in
+                                                     routes.items()) + ")"
+                if kind == "rendered" and cname in timed:
                     k_ms = _time_ms(lambda: extract.extract_pyramid(*args), 20)
                     p_ms = _time_ms(lambda: extract.extract_pyramid_plain(*args), 3)
                     # every image's edge map read (1 byte a pixel), its depth only
@@ -688,14 +810,23 @@ def check_extract(device, rng) -> dict:
                                    n_px * OPS_EXTRACT_PIXEL + slots * OPS_EXTRACT_SLOT)
                     line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
                              f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                    out[(cname, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
+                    out[(cname, b)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                                       "cluster": rule, "cluster_ms": routes, **bound}
                 _log(line)
     return {**out[("production_320", BATCH)],
+            "b1": out[("production_320", 1)],
+            "dvo_defaults": {**out[("dvo defaults", BATCH)], "b1": out[("dvo defaults", 1)]},
             "vga": {"shape": "production_vga, 5 levels from 480x640, B=64",
                     **out[("production_vga rendered", BATCH)],
                     "b1": out[("production_vga rendered", 1)]},
             "cam_scale_3": {"shape": "4 levels from 720x960, dvo defaults' capacities, B=8",
-                            **out[("cam_scale_3", 8)], "b1": out[("cam_scale_3", 1)]}}
+                            **out[("cam_scale_3", 8)], "b1": out[("cam_scale_3", 1)]},
+            "cam_scale_4": {"shape": "4 levels from 960x1280, dvo defaults' capacities, B=8",
+                            **out[("cam_scale_4", 8)], "b1": out[("cam_scale_4", 1)]},
+            "large": {"shape": "one level of 1600x2560 (segmented) and of 2560x1600 (exact), "
+                               "8192 slots, B=1",
+                      "1600x2560": out[("1600x2560 segmented", 1)],
+                      "2560x1600": out[("2560x1600 exact", 1)]}}
 
 
 def check_fused_gn(device, rng) -> dict:
@@ -2287,13 +2418,14 @@ def run_align_sequence(device) -> dict:
     return {"last_mm": float(err[-1]) * 1000.0, "ms": ms}
 
 
-def run_cli_cam_scale_3() -> dict:
-    """`dvo --cam-scale 3 --frames 10`: level 0 at 960x720, which the card's
-    EDT and extraction kernels take since the column phase opts in to more
-    shared memory and extraction stages half a chunk; ATE < 20 mm."""
-    out = run_cli("cli_cam_scale_3", ["--cam-scale", "3", "--frames", "10"], 0.020)
-    _log(f"cli_cam_scale_3: 960x720, ATE {out['ate_mm']:.3f} mm, {out['ms_per_frame']:.3f} "
-         f"ms/frame solve")
+def run_cli_cam_scale(scale: int, frames: int) -> dict:
+    """`dvo --cam-scale <scale> --frames <frames>`: level 0 at 960x720 (3) or
+    1280x960 (4, where Canny's hysteresis and extraction run level 0 on a
+    cluster of blocks); ATE < 20 mm, the cli_default bar."""
+    name = f"cli_cam_scale_{scale}"
+    out = run_cli(name, ["--cam-scale", str(scale), "--frames", str(frames)], 0.020)
+    _log(f"{name}: {320 * scale}x{240 * scale}, ATE {out['ate_mm']:.3f} mm, "
+         f"{out['ms_per_frame']:.3f} ms/frame solve")
     return out
 
 
@@ -2679,7 +2811,8 @@ def main() -> int:
         ("cli_trace", lambda: run_cli_trace(results["cli_default"])),
         ("cli_xml", lambda: run_cli_xml(device)),
         ("probe", run_probe),
-        ("cli_cam_scale_3", run_cli_cam_scale_3),
+        ("cli_cam_scale_3", lambda: run_cli_cam_scale(3, 4)),
+        ("cli_cam_scale_4", lambda: run_cli_cam_scale(4, 6)),
     )
     results, per_phase = {}, {}
     for name, phase in phases:
@@ -2712,6 +2845,8 @@ def main() -> int:
         res[key]["vga"]["launches"] = sum(per_phase[p][key] for p in VGA_PHASES)
     for key in ("dt_channels", "extract"):
         res[key]["cam_scale_3"]["launches"] = per_phase["cli_cam_scale_3"][key]
+    for key in ("canny_pyramid", "dt_channels", "extract"):
+        res[key]["cam_scale_4"]["launches"] = per_phase["cli_cam_scale_4"][key]
     _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
              "a kernel was not launched on the main paths")
 

@@ -24,13 +24,27 @@
 //                             rule of its 4 pixels. A warp is 32 neighbouring
 //                             columns of one row, so `__ballot_sync` packs
 //                             weak and strong into one 32-bit word each.
-//   canny_pyramid_hysteresis  one block per (level, image), all in one
-//                             launch: a frame's fixpoint costs its slowest
-//                             level, not the sum of the levels. A block keeps
-//                             the image's packed weak and edge planes in
-//                             shared memory for the whole fixpoint (320x240:
-//                             2 x 242 x 12 words = 23 KB with the zero guard
-//                             ring; 640x480: 85 KB). A pass, per word: the OR
+//   canny_pyramid_hysteresis  one block, or one cluster of c blocks, per
+//                             (level, image), all in one launch: a frame's
+//                             fixpoint costs its slowest level, not the sum
+//                             of the levels. A block keeps the image's packed
+//                             weak and edge planes in shared memory for the
+//                             whole fixpoint (320x240: 2 x 242 x 12 words =
+//                             23 KB with the zero guard ring; 640x480: 85 KB;
+//                             one block holds up to ~1280x690). A level one
+//                             block cannot hold, or whose units outnumber a
+//                             block's threads where the card holds the
+//                             launch's clusters at once (the wrapper's rule),
+//                             goes to a cluster of c = 2, 4 or 8 blocks, a
+//                             band of rows each (a multiple of 8 rows), whose
+//                             boundary rows the neighbouring bands read
+//                             through distributed shared memory (640x480 at
+//                             B = 1 on 8 blocks: 31.2 -> 16.5 us on an H100
+//                             80GB HBM3 at 700 W; at B = 64 one block an
+//                             image is faster);
+//                             the launch's blocks come in clusters of c, the
+//                             one-block (level, image)s c to a cluster, each
+//                             on its own. A pass, per word: the OR
 //                             of the three rows' words, each spread one
 //                             column left and right with the carry bits of
 //                             the neighbouring words, masked by weak, then
@@ -39,9 +53,13 @@
 //                             thread sweeps 8 rows of a word column down and
 //                             up, so a pass carries an edge 8 rows and 32
 //                             columns. The changed flag is a
-//                             `__syncthreads_or`; the loop ends when no word
-//                             changed (cap H*W passes, as in JAX). It can
-//                             write each fixpoint's pass count.
+//                             `__syncthreads_or`; in a cluster each block's
+//                             flag is written into every block's shared
+//                             memory, in a slot of the pass's parity, and one
+//                             cluster barrier a pass makes the flags and the
+//                             pass's words visible. The loop ends when no
+//                             word changed (cap H*W passes, as in JAX). It
+//                             can write each fixpoint's pass count.
 //
 // Exactness. Every value is an exact small integer in float32 (|gx|, |gy| <=
 // 1020, mag < 2^24, |gx| * 13573 < 2^24, |gy| * 2^15 a shift) except tg67x =
@@ -52,19 +70,34 @@
 // place, in any order, with reads that may see a neighbour's old or new word,
 // reaches the same set. The block barrier that ends a pass makes every write
 // of the pass visible to the next; a pass in which no thread wrote read only
-// final words, so it is the fixpoint. The edge maps are bitwise equal to the
-// plain PyTorch version's and to JAX's.
+// final words, so it is the fixpoint. The banded schedule keeps the
+// argument: a pixel set by any band's sweep is reached by 8-neighbour steps
+// inside weak from strong, so it is in the least fixed point whatever order
+// the bands' sweeps run in and whether a band reads its neighbour's
+// boundary row before or after that neighbour wrote it in the same pass.
+// The cluster barrier that ends a pass (release, then acquire) makes every
+// band's writes visible to every band; a pass in which no band wrote read
+// only final words. Every band reads its flags only from its own shared
+// memory after the last barrier, so no block reads another's memory once
+// one may have exited. The edge maps are bitwise equal to the plain PyTorch
+// version's and to JAX's.
 //
 // What bounds it on the H100: 4 bytes read and 1 written per pixel and ~34
 // float32 operations per pixel in the front kernel (bytes); the hysteresis is
-// a latency chain of barriers (one per pass) over shared memory. Bit packing
+// a latency chain of barriers (one per pass, a cluster barrier in a band)
+// over shared memory; its size is bounded by one band's planes fitting 227
+// KB, which a cluster of 8 does for any level of at most 2560 rows and 2560
+// columns. Bit packing
 // is chosen on the card's own grounds: a ballot packs a warp's flags for free
 // and a pass touches 32 pixels per shared-memory access.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "launch.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -119,6 +152,8 @@ struct PyrLevel {
   const float* img;        // (B, H, W) float32
   int h, w, words;         // words = ceil(W / 32)
   int tiles_x, tile_begin;  // front tiles across, and the level's first tile
+  int ranks, band;         // hysteresis: blocks an image (1 or the launch's c), rows a block
+  int block_begin;         // the level's first hysteresis block
   long long word_off;      // its (B, H, words) block in each packed plane
   long long edge_off;      // its (B, H, W) block of the edge maps, bytes
 };
@@ -241,26 +276,17 @@ __device__ __forceinline__ uint32_t fill_runs(uint32_t s, uint32_t m) {
   return up | __brev((((rm + rs) ^ rm) & rm) | rs);
 }
 
-// grid (B, L): one block per (level, image).
-__global__ void canny_pyramid_hysteresis(const __grid_constant__ Pyramid P,
-                                         const uint32_t* __restrict__ planes,
-                                         uint8_t* __restrict__ edges, int* __restrict__ passes) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x, l = blockIdx.y;
-  const PyrLevel L = level_at(P, l);
-  const int h = L.h, w = L.w, words = L.words, pitch = words + 2, n = (h + 2) * pitch;
-  uint32_t* W = smem;
-  volatile uint32_t* E = smem + n;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const uint32_t* weak = planes + L.word_off + (size_t)b * h * words;
-  const uint32_t* strong = weak + P.plane;
-
-  // the image's rows at 1..h, a zero guard row above and below, a zero guard
-  // column on each side
-  for (int i = tid; i < n; i += nt) {
+// Load a band's `rows` rows of packed weak and strong words (image rows
+// from those `weak` points to on) at local rows 1..rows of W and E, with a
+// zero guard column on each side and zero guard rows 0 and rows + 1.
+__device__ __forceinline__ void load_band(const uint32_t* __restrict__ weak,
+                                          const uint32_t* __restrict__ strong, int rows,
+                                          int words, uint32_t* W, volatile uint32_t* E) {
+  const int pitch = words + 2, n = (rows + 2) * pitch;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = i / pitch, c = i - r * pitch;
     uint32_t wk = 0, e = 0;
-    if (r >= 1 && r <= h && c >= 1 && c <= words) {
+    if (r >= 1 && r <= rows && c >= 1 && c <= words) {
       const size_t o = (size_t)(r - 1) * words + (c - 1);
       wk = weak[o];
       e = strong[o] & wk;
@@ -268,51 +294,127 @@ __global__ void canny_pyramid_hysteresis(const __grid_constant__ Pyramid P,
     W[i] = wk;
     E[i] = e;
   }
-  __syncthreads();
+}
 
-  // a unit is kChunk rows of one word column, swept down and up in place
-  const int units = words * ((h + kChunk - 1) / kChunk);
-  const long long cap = (long long)h * w;
-  long long pass = 0;
-  while (pass < cap) {
-    int changed = 0;
-    for (int u = tid; u < units; u += nt) {
-      const int k = u / words, c = u - k * words;
-      const int ra = 1 + k * kChunk, rb = min(ra + kChunk, h + 1);
-      for (int step = 0; step < 2 * (rb - ra) - 1; ++step) {
-        const int r = step < rb - ra ? ra + step : 2 * rb - ra - 2 - step;
-        const int j = r * pitch + c + 1;
-        const uint32_t wk = W[j];
-        const uint32_t e = E[j];
-        if (e == wk) continue;  // nothing left to gain in this word
-        const uint32_t now =
-            fill_runs((e | spread(E, j - pitch) | spread(E, j) | spread(E, j + pitch)) & wk, wk);
-        if (now != e) {
-          E[j] = now;
-          changed = 1;
-        }
-      }
-    }
-    ++pass;
-    if (!__syncthreads_or(changed)) break;
-  }
-
-  uint8_t* out = edges + L.edge_off + (size_t)b * h * w;
+// Write a band's edge bytes (local rows 1..rows of E) to `out`, its first
+// image row.
+__device__ __forceinline__ void store_band(const volatile uint32_t* E, int rows, int w,
+                                           int pitch, uint8_t* out) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   if ((w & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0) {
     uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
     const int q = w >> 2;
-    for (int i = tid; i < h * q; i += nt) {
+    for (int i = tid; i < rows * q; i += nt) {
       const int r = i / q, x = (i - r * q) << 2;
       const uint32_t v = E[(r + 1) * pitch + (x >> 5) + 1] >> (x & 31);
       out4[i] = (v & 1u) | ((v & 2u) << 7) | ((v & 4u) << 14) | ((v & 8u) << 21);
     }
   } else {
-    for (int i = tid; i < h * w; i += nt) {
+    for (int i = tid; i < rows * w; i += nt) {
       const int r = i / w, x = i - r * w;
       out[i] = (E[(r + 1) * pitch + (x >> 5) + 1] >> (x & 31)) & 1u;
     }
   }
-  if (passes != nullptr && tid == 0) passes[l * P.batch + b] = (int)pass;
+}
+
+// One pass over a band's units (kChunk rows of one word column, swept down
+// and up in place); `up` and `down` are the rows above its first and below
+// its last row (the zero guard rows, or with BANDED the neighbouring bands'
+// boundary rows in their blocks' shared memory). Returns whether this
+// thread changed a word.
+template <bool BANDED>
+__device__ __forceinline__ int sweep(const uint32_t* W, volatile uint32_t* E, int rows, int words,
+                                     const volatile uint32_t* up,
+                                     const volatile uint32_t* down) {
+  const int pitch = words + 2;
+  const int units = words * ((rows + kChunk - 1) / kChunk);
+  int changed = 0;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int k = u / words, c = u - k * words;
+    const int ra = 1 + k * kChunk, rb = min(ra + kChunk, rows + 1);
+    for (int step = 0; step < 2 * (rb - ra) - 1; ++step) {
+      const int r = step < rb - ra ? ra + step : 2 * rb - ra - 2 - step;
+      const int j = r * pitch + c + 1;
+      const uint32_t wk = W[j];
+      const uint32_t e = E[j];
+      if (e == wk) continue;  // nothing left to gain in this word
+      uint32_t seed;
+      if (BANDED) {
+        const volatile uint32_t* above = r == 1 ? up : E + (r - 1) * pitch;
+        const volatile uint32_t* below = r == rows ? down : E + (r + 1) * pitch;
+        seed = e | spread(above, c + 1) | spread(E, j) | spread(below, c + 1);
+      } else {
+        seed = e | spread(E, j - pitch) | spread(E, j) | spread(E, j + pitch);
+      }
+      const uint32_t now = fill_runs(seed & wk, wk);
+      if (now != e) {
+        E[j] = now;
+        changed = 1;
+      }
+    }
+  }
+  return changed;
+}
+
+// grid: P's hysteresis blocks, in clusters of the launch's c along x. Level
+// l's blocks start at its block_begin: (image b, rank r) is block
+// block_begin + b * ranks + r; blocks past the last level's are idle pads.
+__global__ void canny_pyramid_hysteresis(const __grid_constant__ Pyramid P,
+                                         const uint32_t* __restrict__ planes,
+                                         uint8_t* __restrict__ edges, int* __restrict__ passes) {
+  extern __shared__ uint32_t smem[];
+  const int bx = blockIdx.x;
+  int l = -1;
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i) {
+    if (i < P.levels && bx >= P.lv[i].block_begin &&
+        bx < P.lv[i].block_begin + P.batch * P.lv[i].ranks)
+      l = i;
+  }
+  if (l < 0) return;  // a pad of the last cluster of one-block images
+  const PyrLevel L = level_at(P, l);
+  const int b = (bx - L.block_begin) / L.ranks, rank = bx - L.block_begin - b * L.ranks;
+  const int h = L.h, w = L.w, words = L.words, pitch = words + 2;
+  const int r0 = rank * L.band, rows = max(0, min(L.band, h - r0));
+  uint32_t* W = smem;
+  uint32_t* Ew = smem + (L.band + 2) * pitch;  // the same offset in every block of the level
+  volatile uint32_t* E = Ew;
+  int* flags = reinterpret_cast<int*>(smem + 2 * (L.band + 2) * pitch);  // [parity][rank]
+  const size_t first = (size_t)b * h * words + (size_t)r0 * words;
+  const uint32_t* weak = planes + L.word_off + first;
+  load_band(weak, weak + P.plane, rows, words, W, E);
+
+  const long long cap = (long long)h * w;
+  long long pass = 0;
+  if (L.ranks == 1) {
+    __syncthreads();
+    while (pass < cap) {
+      const int changed = sweep<false>(W, E, rows, words, E, E);
+      ++pass;
+      if (!__syncthreads_or(changed)) break;
+    }
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every band is loaded
+    // the neighbours' boundary rows: the last row of the band above, the
+    // first of the band below (a band above this one is full: `band` rows)
+    const volatile uint32_t* up =
+        rank > 0 ? cluster.map_shared_rank(Ew, rank - 1) + L.band * pitch : Ew;
+    const volatile uint32_t* down =
+        r0 + rows < h ? cluster.map_shared_rank(Ew, rank + 1) + pitch : Ew + (rows + 1) * pitch;
+    while (pass < cap) {
+      const int changed = __syncthreads_or(sweep<true>(W, E, rows, words, up, down));
+      int* slot = flags + (int)(pass & 1) * rgbd::kMaxCluster + rank;
+      if ((int)threadIdx.x < L.ranks) *cluster.map_shared_rank(slot, threadIdx.x) = changed;
+      ++pass;
+      cluster.sync();  // this pass's words and flags are visible to every band
+      int any = 0;
+      for (int q = 0; q < L.ranks; ++q) any |= slot[q - rank];
+      if (!any) break;
+    }
+  }
+  store_band(E, rows, w, pitch, edges + L.edge_off + (size_t)b * h * w + (size_t)r0 * w);
+  if (passes != nullptr && rank == 0 && threadIdx.x == 0) passes[l * P.batch + b] = (int)pass;
 }
 
 }  // namespace
@@ -325,16 +427,21 @@ extern "C" const char* cuda_error_string(int code) {
 // imgs[l] (contiguous), with H_l = hw[2 l] and W_l = hw[2 l + 1]; its (B,
 // H_l, ceil(W_l / 32)) packed words start word_off[l] words into each of the
 // two planes (weak at `planes`, strong `plane` words after it), its (B, H_l,
-// W_l) edge bytes edge_off[l] bytes into `edges`. passes (L, B) int32 gets
-// each fixpoint's pass count, or is null. Launches on `stream` and does not
-// synchronize; low2 <= high2 are the squared thresholds.
+// W_l) edge bytes edge_off[l] bytes into `edges`. ranks[l] is 1 (one
+// hysteresis block an image) or `cluster` (a cluster of that many blocks, 2,
+// 4 or 8, a band of rows each); `cluster` is 1 when every level is one
+// block. passes (L, B) int32 gets each fixpoint's pass count, or is null.
+// Launches on `stream` and does not synchronize; low2 <= high2 are the
+// squared thresholds.
 extern "C" int canny_pyramid(int device, int levels, int batch, const long long* imgs,
-                             const int* hw, const long long* word_off, const long long* edge_off,
+                             const int* hw, const int* ranks, int cluster,
+                             const long long* word_off, const long long* edge_off,
                              long long plane, void* planes, void* edges, void* passes, float low2,
                              float high2, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (levels < 1 || levels > kMaxLevels || batch < 1 || batch > 65535)
+  if (levels < 1 || levels > kMaxLevels || batch < 1 || batch > 65535 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8))
     return (int)cudaErrorInvalidValue;
   Pyramid P{};
   P.levels = levels;
@@ -343,38 +450,51 @@ extern "C" int canny_pyramid(int device, int levels, int batch, const long long*
   P.low2 = low2;
   P.high2 = high2;
   int tiles = 0, threads = 64;
-  long long smem = 0;
-  for (int l = 0; l < levels; ++l) {
+  long long smem = 0, blocks = 0;
+  for (int pass = 0; pass < 2; ++pass) {  // the clustered levels' blocks first
+    for (int l = 0; l < levels; ++l) {
+      PyrLevel& L = P.lv[l];
+      if ((ranks[l] > 1) != (pass == 0)) continue;
+      if (ranks[l] != 1 && ranks[l] != cluster) return (int)cudaErrorInvalidValue;
+      L.img = reinterpret_cast<const float*>(imgs[l]);
+      L.h = hw[2 * l];
+      L.w = hw[2 * l + 1];
+      if (L.h < 1 || L.w < 1) return (int)cudaErrorInvalidValue;
+      L.words = (L.w + kTileW - 1) / kTileW;
+      L.tiles_x = L.words;
+      L.word_off = word_off[l];
+      L.edge_off = edge_off[l];
+      L.ranks = ranks[l];
+      // a band: the rows of one of `ranks` blocks, a multiple of kChunk
+      L.band = L.ranks == 1 ? L.h : ((L.h + L.ranks - 1) / L.ranks + kChunk - 1) / kChunk * kChunk;
+      L.block_begin = (int)blocks;
+      blocks += (long long)batch * L.ranks;
+      // the two planes of a band with their guard ring (and a band's flags);
+      // a thread per unit of a pass and at least one per 4 words for the
+      // loads and the byte writes
+      const long long need = 2LL * (L.band + 2) * (L.words + 2) * (long long)sizeof(uint32_t) +
+                             (L.ranks > 1 ? 2 * rgbd::kMaxCluster * (long long)sizeof(int) : 0);
+      smem = need > smem ? need : smem;
+      const int units = L.words * ((L.band + kChunk - 1) / kChunk);
+      const int work = units > L.band * L.words / 4 ? units : L.band * L.words / 4;
+      const int t = ((work + 31) / 32) * 32;
+      threads = t > threads ? t : threads;
+    }
+  }
+  for (int l = 0; l < levels; ++l) {  // the front grid's tiles, in level order
     PyrLevel& L = P.lv[l];
-    L.img = reinterpret_cast<const float*>(imgs[l]);
-    L.h = hw[2 * l];
-    L.w = hw[2 * l + 1];
-    if (L.h < 1 || L.w < 1) return (int)cudaErrorInvalidValue;
-    L.words = (L.w + kTileW - 1) / kTileW;
-    L.tiles_x = L.words;
     L.tile_begin = tiles;
     tiles += L.tiles_x * ((L.h + kTileRows - 1) / kTileRows);
-    L.word_off = word_off[l];
-    L.edge_off = edge_off[l];
-    // the two planes with their guard ring; a thread per unit of a pass and
-    // at least one per 4 words for the loads and the byte writes
-    const long long need = 2LL * (L.h + 2) * (L.words + 2) * (long long)sizeof(uint32_t);
-    smem = need > smem ? need : smem;
-    const int units = L.words * ((L.h + kChunk - 1) / kChunk);
-    const int work = units > L.h * L.words / 4 ? units : L.h * L.words / 4;
-    const int t = ((work + 31) / 32) * 32;
-    threads = t > threads ? t : threads;
   }
   if (smem > (long long)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  blocks = (blocks + cluster - 1) / cluster * cluster;  // pads to whole clusters
   threads = threads > kMaxHystThreads ? kMaxHystThreads : threads;
-  static rgbd::SharedOptIn opted;
-  err = rgbd::opt_in_shared(canny_pyramid_hysteresis, device, smem, &opted);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   canny_pyramid_front<<<dim3(tiles, batch), dim3(kTileW, kBlockH), 0, s>>>(P, (uint32_t*)planes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  canny_pyramid_hysteresis<<<dim3(batch, levels), threads, (size_t)smem, s>>>(
-      P, (const uint32_t*)planes, (uint8_t*)edges, (int*)passes);
-  return (int)cudaGetLastError();
+  static rgbd::ClusterLaunch state;
+  return (int)rgbd::launch_cluster(canny_pyramid_hysteresis, device, dim3((unsigned)blocks),
+                                   dim3(threads), smem, cluster, s, &state, P,
+                                   (const uint32_t*)planes, (uint8_t*)edges, (int*)passes);
 }

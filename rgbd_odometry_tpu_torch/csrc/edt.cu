@@ -16,9 +16,10 @@
 //                 (B, 3, H, W) bf16 or float32: phases 1-2 with the tail
 //                 fused (two launches), or phases 1-3 with normalization.
 //
-//   phase 1, columns  one block per (image, strip of 32 columns), the mask
-//       strip staged in shared memory with cp.async (3 bytes a row: above
-//       480 rows the kernel opts in to more than 48 KB). Each column is split
+//   phase 1, columns  one block per (image, strip of 32 columns; 16 where
+//       32 columns of every row would exceed 227 KB, past 2400 rows), the
+//       mask strip staged in shared memory with cp.async (3 bytes a row:
+//       above 480 rows the kernel opts in to more than 48 KB). Each column is split
 //       into 8 row segments swept by different threads: the first and last
 //       edge row of the segment, a short combine over the segment summaries
 //       (nearest edge above and below the segment), then a forward and a
@@ -26,8 +27,10 @@
 //       shared memory instead of 2 H in device memory. g = min(distance to
 //       the nearest edge in the column, 65504) (65504 if none: the 1e7
 //       sentinel clamped) goes out as uint16.
-//   phase 2, rows     one block per (image, tile of rows, plus one halo row
-//       above and below under REFLECT_101 when the tail is fused in). The g tile
+//   phase 2, rows     one block per (image, tile of 8, 4, 2 or 1 rows, the
+//       most that fit 48 KB, else 227 KB through the opt-in (rows wider than
+//       1600), plus one halo row above and below under REFLECT_101 when the
+//       tail is fused in). The g tile
 //       is staged with cp.async; G^2 = g * g is formed again in float32
 //       (exact: g is an integer <= 65504); D^2[x] = min_i (G^2[i] + (x-i)^2)
 //       over the whole row (radius 0, the Pallas kernel) or over |x-i| <=
@@ -54,7 +57,9 @@
 // dt with normalization) is L2-resident at these sizes. The row phase is
 // O(W) (radius 0) or O(R) compare-and-add work per pixel on shared memory.
 // The two image-wide dependencies (whole columns before rows; an image's min
-// and max before its normalization) are the launch boundaries.
+// and max before its normalization) are the launch boundaries. Shared memory
+// bounds the shapes: a column strip of 16 holds 4800 rows, a one-row tile
+// of the row phase ~7700 columns; the wrapper takes up to 2560 a side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,8 +72,8 @@ namespace {
 constexpr int kGMax = 65504;  // column-distance clamp that keeps g^2 finite
 constexpr float kPad = 4.0e9f;  // out-of-image candidate of the windowed row phase
 constexpr int kStrip = 32;  // columns per block of the column phase
+constexpr int kStripNarrow = 16;  // where 32 columns of every row do not fit
 constexpr int kSegs = 8;  // row segments per column
-constexpr int kColThreads = kStrip * kSegs;
 constexpr int kRowThreads = 256;
 constexpr int kSmemLimit = 48 * 1024;
 constexpr int kOptInLimit = 227 * 1024;  // the most a block may have on Hopper
@@ -106,16 +111,18 @@ __device__ __forceinline__ int reflect_row(int y, int h) {
   return min(max(y, 0), h - 1);
 }
 
-__global__ void __launch_bounds__(kColThreads)
+template <int STRIP>
+__global__ void __launch_bounds__(STRIP * kSegs)
 edt_columns(const uint8_t* __restrict__ mask, uint16_t* __restrict__ g, int* __restrict__ minmax,
             int h, int w) {
+  constexpr int kColThreads = STRIP * kSegs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint8_t* sm = smem_raw;  // (h, kStrip) mask strip
-  uint16_t* sup = reinterpret_cast<uint16_t*>(smem_raw + (size_t)h * kStrip);  // (h, kStrip)
-  __shared__ int s_first[kSegs][kStrip], s_last[kSegs][kStrip];
+  uint8_t* sm = smem_raw;  // (h, STRIP) mask strip
+  uint16_t* sup = reinterpret_cast<uint16_t*>(smem_raw + (size_t)h * STRIP);  // (h, STRIP)
+  __shared__ int s_first[kSegs][STRIP], s_last[kSegs][STRIP];
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * kStrip;
-  const int cols = min(kStrip, w - x0);
+  const int x0 = blockIdx.x * STRIP;
+  const int cols = min(STRIP, w - x0);
   const uint8_t* M = mask + (size_t)blockIdx.y * h * w + x0;
   if (minmax != nullptr && blockIdx.x == 0 && tid == 0) {
     minmax[2 * blockIdx.y] = 0x7f800000;  // +inf
@@ -123,26 +130,26 @@ edt_columns(const uint8_t* __restrict__ mask, uint16_t* __restrict__ g, int* __r
   }
 
   if ((w & 3) == 0 && aligned4(M)) {
-    for (int i = tid; i < h * (kStrip / 4); i += kColThreads) {
-      const int y = i / (kStrip / 4), q = (i - y * (kStrip / 4)) * 4;
-      if (q < cols) cp_async4(&sm[y * kStrip + q], &M[(size_t)y * w + q]);
+    for (int i = tid; i < h * (STRIP / 4); i += kColThreads) {
+      const int y = i / (STRIP / 4), q = (i - y * (STRIP / 4)) * 4;
+      if (q < cols) cp_async4(&sm[y * STRIP + q], &M[(size_t)y * w + q]);
     }
     cp_async_wait_all();
   } else {
-    for (int i = tid; i < h * kStrip; i += kColThreads) {
-      const int y = i / kStrip, c = i - y * kStrip;
+    for (int i = tid; i < h * STRIP; i += kColThreads) {
+      const int y = i / STRIP, c = i - y * STRIP;
       if (c < cols) sm[i] = M[(size_t)y * w + c];
     }
   }
   __syncthreads();
 
-  const int c = tid % kStrip, seg = tid / kStrip;
+  const int c = tid % STRIP, seg = tid / STRIP;
   const int len = (h + kSegs - 1) / kSegs;
   const int ya = min(seg * len, h), yb = min(ya + len, h);
   int first = -1, last = -1;
   if (c < cols) {
     for (int y = ya; y < yb; ++y) {
-      if (sm[y * kStrip + c]) {
+      if (sm[y * STRIP + c]) {
         if (first < 0) first = y;
         last = y;
       }
@@ -158,14 +165,14 @@ edt_columns(const uint8_t* __restrict__ mask, uint16_t* __restrict__ g, int* __r
   for (int k = seg + 1; k < kSegs && below < 0; ++k) below = s_first[k][c];
   int edge = above;
   for (int y = ya; y < yb; ++y) {
-    if (sm[y * kStrip + c]) edge = y;
-    sup[y * kStrip + c] = (uint16_t)(edge >= 0 ? min(y - edge, kGMax) : kGMax);
+    if (sm[y * STRIP + c]) edge = y;
+    sup[y * STRIP + c] = (uint16_t)(edge >= 0 ? min(y - edge, kGMax) : kGMax);
   }
   edge = below;
   uint16_t* G = g + (size_t)blockIdx.y * h * w + x0 + c;
   for (int y = yb - 1; y >= ya; --y) {
-    if (sm[y * kStrip + c]) edge = y;
-    int d = sup[y * kStrip + c];
+    if (sm[y * STRIP + c]) edge = y;
+    int d = sup[y * STRIP + c];
     if (edge >= 0) d = min(d, edge - y);
     G[(size_t)y * w] = (uint16_t)d;
   }
@@ -315,32 +322,57 @@ size_t row_smem(int rows, int w, int radius, bool tail) {
 }
 
 // The rows per tile of the row phase: the largest of 8, 4, 2, 1 whose rows
-// (`halo` more above and below) fit 48 KB; 0 if none does.
+// (`halo` more above and below) fit 48 KB, else the largest that fits 227
+// KB through the opt-in (rows wider than 1600); 0 if none does.
 int rows_per_tile(int w, int radius, int halo) {
-  for (int tile = 8; tile >= 1; tile >>= 1) {
-    if (row_smem(tile + 2 * halo, w, radius, halo > 0) <= (size_t)kSmemLimit) return tile;
+  const int limits[2] = {kSmemLimit, kOptInLimit};
+  for (int i = 0; i < 2; ++i) {
+    for (int tile = 8; tile >= 1; tile >>= 1) {
+      if (row_smem(tile + 2 * halo, w, radius, halo > 0) <= (size_t)limits[i]) return tile;
+    }
   }
   return 0;
 }
 
+// Opt `kernel` in to `smem` bytes of dynamic shared memory where that is
+// more than 48 KB (once per device and size, `launch.cuh`).
+template <typename Kernel>
+cudaError_t opt_in_past_default(Kernel kernel, int device, size_t smem,
+                                rgbd::SharedOptIn* opted) {
+  if (smem <= (size_t)kSmemLimit) return cudaSuccess;
+  return rgbd::opt_in_shared(kernel, device, (long long)smem, opted);
+}
+
 // The column phase stages a whole column strip: 3 bytes a row (the mask and
-// the uint16 upward distance) over 32 columns. Up to 48 KB that is the
-// default; a taller image (more than 480 rows) opts the kernel in to more,
-// once per device and size (`launch.cuh`), up to the 227 KB a block may have.
-int launch_columns(int device, const void* mask, void* g, void* minmax, int batch, int h, int w,
-                   cudaStream_t s) {
-  const size_t smem = (size_t)h * kStrip * 3;
-  const size_t fixed = sizeof(int) * 2 * kSegs * kStrip;  // the static segment summaries
+// the uint16 upward distance) over 32 columns, or 16 where 32 do not fit
+// 227 KB (past 2400 rows). Up to 48 KB that is the default; a taller image
+// (more than 480 rows) opts the kernel in to more, once per device and size
+// (`launch.cuh`), up to the 227 KB a block may have.
+template <int STRIP>
+int launch_columns_of(int device, const void* mask, void* g, void* minmax, int batch, int h,
+                      int w, cudaStream_t s) {
+  const size_t smem = (size_t)h * STRIP * 3;
+  const size_t fixed = sizeof(int) * 2 * kSegs * STRIP;  // the static segment summaries
   if (smem > (size_t)kOptInLimit - fixed) return (int)cudaErrorInvalidValue;
   if (smem > (size_t)kSmemLimit - fixed) {
     static rgbd::SharedOptIn opted;
-    const cudaError_t err = rgbd::opt_in_shared(edt_columns, device, (long long)smem, &opted);
+    const cudaError_t err =
+        rgbd::opt_in_shared(edt_columns<STRIP>, device, (long long)smem, &opted);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((w + kStrip - 1) / kStrip, batch);
-  edt_columns<<<grid, kColThreads, smem, s>>>((const uint8_t*)mask, (uint16_t*)g, (int*)minmax,
-                                              h, w);
+  const dim3 grid((w + STRIP - 1) / STRIP, batch);
+  edt_columns<STRIP><<<grid, STRIP * kSegs, smem, s>>>((const uint8_t*)mask, (uint16_t*)g,
+                                                       (int*)minmax, h, w);
   return (int)cudaGetLastError();
+}
+
+int launch_columns(int device, const void* mask, void* g, void* minmax, int batch, int h, int w,
+                   cudaStream_t s) {
+  const size_t fixed = sizeof(int) * 2 * kSegs * kStrip;
+  if ((size_t)h * kStrip * 3 <= (size_t)kOptInLimit - fixed) {
+    return launch_columns_of<kStrip>(device, mask, g, minmax, batch, h, w, s);
+  }
+  return launch_columns_of<kStripNarrow>(device, mask, g, minmax, batch, h, w, s);
 }
 
 }  // namespace
@@ -363,8 +395,12 @@ extern "C" int edt_squared(int device, const void* mask, void* g, void* d2, int 
   if (code != 0) return code;
   Out o{};
   o.d2 = (float*)d2;
-  edt_rows<kD2><<<dim3((h + tile - 1) / tile, batch), kRowThreads,
-                  row_smem(tile, w, radius, false), s>>>((const uint16_t*)g, o, h, w, radius, tile);
+  const size_t smem = row_smem(tile, w, radius, false);
+  static rgbd::SharedOptIn opted;
+  err = opt_in_past_default(edt_rows<kD2>, device, smem, &opted);
+  if (err != cudaSuccess) return (int)err;
+  edt_rows<kD2><<<dim3((h + tile - 1) / tile, batch), kRowThreads, smem, s>>>(
+      (const uint16_t*)g, o, h, w, radius, tile);
   return (int)cudaGetLastError();
 }
 
@@ -394,15 +430,24 @@ extern "C" int dt_channels(int device, const void* mask, void* g, void* raw, voi
   o.bf16 = bf16;
   const dim3 grid((h + tile - 1) / tile, batch);
   if (!normalize) {
-    edt_rows<kTail><<<grid, kRowThreads, row_smem(tile + 2, w, radius, true), s>>>(
-        (const uint16_t*)g, o, h, w, radius, tile);
+    const size_t smem = row_smem(tile + 2, w, radius, true);
+    static rgbd::SharedOptIn opted;
+    err = opt_in_past_default(edt_rows<kTail>, device, smem, &opted);
+    if (err != cudaSuccess) return (int)err;
+    edt_rows<kTail><<<grid, kRowThreads, smem, s>>>((const uint16_t*)g, o, h, w, radius, tile);
     return (int)cudaGetLastError();
   }
-  edt_rows<kRaw><<<grid, kRowThreads, row_smem(tile, w, radius, false), s>>>(
-      (const uint16_t*)g, o, h, w, radius, tile);
+  const size_t smem = row_smem(tile, w, radius, false);
+  static rgbd::SharedOptIn opted_raw;
+  err = opt_in_past_default(edt_rows<kRaw>, device, smem, &opted_raw);
+  if (err != cudaSuccess) return (int)err;
+  edt_rows<kRaw><<<grid, kRowThreads, smem, s>>>((const uint16_t*)g, o, h, w, radius, tile);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dt_normalize<<<grid, kRowThreads, (size_t)(tile + 2) * w * 4, s>>>((const float*)raw, o, h, w,
-                                                                     tile);
+  const size_t smem_norm = (size_t)(tile + 2) * w * 4;
+  static rgbd::SharedOptIn opted_norm;
+  err = opt_in_past_default(dt_normalize, device, smem_norm, &opted_norm);
+  if (err != cudaSuccess) return (int)err;
+  dt_normalize<<<grid, kRowThreads, smem_norm, s>>>((const float*)raw, o, h, w, tile);
   return (int)cudaGetLastError();
 }

@@ -35,28 +35,55 @@
 //              32 (s - 1) + r / 8 = n / 8 >= k, and every real score is
 //              above a pad's 0.
 //
-// A block of 1024 threads per (level, image) runs three phases over two
-// shared-memory tables: the class words, a (high, low) pair of 32-pixel
-// bitmaps per word, and a staging buffer of one chunk's slots:
-//   (1) one pass over the image in row-major order: the mask into the high
-//       words (exact: its complement into the low words), a lane reading 16
-//       pixels' edges in one 16-byte load with the next 16 in flight (a warp
-//       32 bytes a word where the level is not 16-byte aligned), the depth
-//       read only under an edge;
-//   (2) segmented only, a warp per 256-pixel segment: with m <= 32 high
-//       pixels in the segment (rendered frames, almost always) every high
-//       pixel is a candidate and the lows are the first 32 - m among the
-//       segment's first 32 offsets, one a lane; else the first 32 high
+// A cluster of c blocks of 1024 threads (c in {1, 2, 4, 8}, one c a launch,
+// chosen by the wrapper from the largest level, the levels and B) owns one
+// (level, image). Rank r of the cluster computes the class words of the
+// r-th contiguous range of the level's 256-pixel segments, a (high, low)
+// pair of 32-pixel bitmaps per word, in its shared memory beside a staging
+// buffer of one chunk's slots:
+//   (1) one pass over the rank's pixels in row-major order: the mask into
+//       the high words (exact: its complement into the low words), a lane
+//       reading 16 pixels' edges in one 16-byte load with the next 16 in
+//       flight (a warp 32 bytes a word where the level is not 16-byte
+//       aligned), the depth read only under an edge;
+//   (2) segmented only, a warp per 256-pixel segment of the rank: with m <=
+//       32 high pixels in the segment (rendered frames, almost always) every
+//       high pixel is a candidate and the lows are the first 32 - m among
+//       the segment's first 32 offsets, one a lane; else the first 32 high
 //       pixels of its 256 offsets, 8 a lane; the segment's 8 class words
-//       become (candidate & mask, candidate & ~mask), each a warp OR;
-//   (3) the block streams `order` in chunks of 16384 entries, 16
-//       consecutive a thread (8192 and 8 where the class words of a level
-//       above ~650k pixels leave too little room to stage 16384): one class lookup each, one block-wide
-//       exclusive scan of the packed (high, low) counts; the chunk's pixels
-//       that get a slot are staged in slot order and the block writes the
-//       slots, consecutive threads on consecutive slots. It stops once the
-//       first min(E, k) high and the first max(k - E, 0) low pixels are
-//       placed, which every slot is then.
+//       become (candidate & mask, candidate & ~mask), each a warp OR. E, the
+//       level's high count, is summed over the ranks behind a cluster
+//       barrier. Where the largest level's words fit one block beside a
+//       chunk (up to ~800k pixels) every rank then copies the other ranks'
+//       words from their shared memory, 16 bytes a load, and looks every
+//       pixel up in its own copy; past that each rank keeps its share and a
+//       lookup goes to the rank that holds the word through distributed
+//       shared memory (~1 ns a lookup: what the larger levels pay);
+//   (3) rank r takes the r-th contiguous range of `order`. With c > 1, pass
+//       A counts the range's high and low pixels, the ranks publish their
+//       counts, and behind a second cluster barrier each rank sums the
+//       counts of the ranks before it: the number of high and low pixels
+//       that come before its range in priority order. Pass B streams the
+//       range in chunks of 16384 entries from those offsets, 16 consecutive
+//       a thread (8192 and 8 where the class words leave too little room to
+//       stage 16384: a level above ~650k pixels, one copy a rank): one class
+//       lookup each, one block-wide exclusive scan of the packed (high, low)
+//       counts; the chunk's pixels that get a slot are staged in slot order
+//       and the block writes the slots, consecutive threads on consecutive
+//       slots. It stops once its range is done or the first min(E, k) high
+//       and the first max(k - E, 0) low pixels are placed; a rank whose
+//       offsets are already past both streams nothing. A last cluster
+//       barrier keeps every rank's words alive until no rank reads them.
+//
+// Why the cluster is bitwise the one block: the slots are a stable
+// partition of `order` into high then low pixels, and a pixel's slot is the
+// number of pixels of its class before it in `order` (plus E for a low
+// one). The ranks' ranges are consecutive pieces of `order`, so that number
+// is the count in the earlier ranges, which the scan of pass A's counts
+// gives, plus the count before it in its own range, which pass B's chunk
+// scans give exactly as the one block's do. The class words are the same
+// bits wherever they are held. c = 1 is the one-block kernel: no pass A and
+// no cluster barrier.
 //
 // Back-projection, as the plain PyTorch version computes it on the card
 // (torch divides a CUDA tensor by a CPU scalar as a product with the
@@ -68,15 +95,24 @@
 //
 // What bounds it on the H100: every image's edge map (1 byte a pixel) and
 // the depth under its edges are read once, `order` (4 bytes a pixel) once
-// per image from L2, and k slots of 21 bytes written. One block owns an
-// image, so the launch costs its level-0 block's latency whatever B, most
-// of it in phase 3 (at 320x240 five chunks, each a scan, a staging pass and
-// four barriers).
+// per image from L2, and k slots of 21 bytes written. With one block an
+// image the launch costs its level-0 block's latency whatever B, most of it
+// in phase 3 (at 320x240 five chunks, each a scan, a staging pass and four
+// barriers); a cluster of c cuts phases 1-3 by c for three cluster barriers,
+// the copy of the words and pass A's count, which pays where the images are
+// few (on an H100 80GB HBM3 at 700 W, B = 1, c = 8: 39 -> 15.5 us at
+// 320x240, 140 -> 35 us at 640x480) and loses where one block an image
+// already fills the card (B = 64). The level size is bounded by n < 2^22 (distinct priorities) and by a
+// rank's share of the class words and one staged chunk fitting 227 KB: with
+// c = 8 any level below 2^22 pixels does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "launch.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -84,16 +120,16 @@ constexpr int kMaxLevels = 8;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 // consecutive entries of `order` per thread and chunk (four int4s), and the
-// chunk; a level whose class words leave too little shared memory for that
-// chunk's staging takes half of it (8 entries, two int4s), from about 650k
-// pixels (960x720) up; where both fit the full chunk is 5-10% faster a
-// launch (PERF.md §6)
+// chunk; a launch whose ranks' class words leave too little shared memory
+// for that chunk's staging takes half of it (8 entries, two int4s); where
+// both fit the full chunk is 5-10% faster a launch (PERF.md §6)
 constexpr int kItems = 16;
 constexpr int kChunk = kThreads * kItems;
 constexpr int kItemsLarge = kItems / 2;
 constexpr int kSeg = 256;
 constexpr int kSegKeep = 32;
 constexpr int kMaxDynamicSmem = 227 * 1024;
+constexpr int kMail = 4;  // a rank's published ints: E, pass A's high and low counts
 
 struct ExLevel {
   const uint8_t* edges;  // (B, H, W) bool
@@ -105,13 +141,17 @@ struct ExLevel {
   uint8_t* valid;        // (B, K)
   int* count;            // (B,)
   int w, n, n4, k;       // n = H * W pixels, n4 = n rounded up to 4, k slots
+  int segs_per_rank;     // consecutive segments whose class words a rank holds
+  int entries_per_rank;  // consecutive entries of `order` a rank streams (a multiple of 16)
   float fx, fy, cx, cy;
 };
 
 struct ExPyramid {
   ExLevel lv[kMaxLevels];
   int levels;
-  int words;  // class words: the largest level's 8 per 256-pixel segment
+  int ranks;       // c, blocks a (level, image)
+  int replicated;  // every rank holds all the class words (else only its share's)
+  int words;       // class words a rank holds: 8 a segment of the largest level (or its share)
   float min_depth;
 };
 
@@ -175,22 +215,24 @@ __device__ __forceinline__ uint32_t real_bits(int n_real) {
 }
 
 // Segment `s` of a segmented level (`row`: its 256 offsets by descending
-// priority): rewrite its 8 class words, cls[w].x = mask on entry, to (high,
-// low) = (candidate & mask, candidate & ~mask), a pixel being a candidate
-// when its rank by (mask, perm) inside the segment is below 32. With m <= 32
-// high pixels (rendered frames, almost always) every high pixel is one and
-// the lows are the first 32 - m among the segment's first 32 offsets, one a
-// lane; else the candidates are the first 32 high pixels of the 256 offsets,
-// 8 a lane. Returns, on lane 0, min(m, 32), else 0.
-__device__ __forceinline__ int segment_candidates(const uint8_t* row, int s, int n, uint2* cls) {
+// priority): rewrite its 8 class words (class word w at cls[w - base]),
+// cls[].x = mask on entry, to (high, low) = (candidate & mask, candidate &
+// ~mask), a pixel being a candidate when its rank by (mask, perm) inside
+// the segment is below 32. With m <= 32 high pixels (rendered frames, almost
+// always) every high pixel is one and the lows are the first 32 - m among
+// the segment's first 32 offsets, one a lane; else the candidates are the
+// first 32 high pixels of the 256 offsets, 8 a lane. Returns, on lane 0,
+// min(m, 32), else 0.
+__device__ __forceinline__ int segment_candidates(const uint8_t* row, int s, int n, uint2* cls,
+                                                  int base) {
   const int lane = threadIdx.x & 31;
-  const uint32_t mword = lane < 8 ? cls[s * 8 + lane].x : 0u;  // lanes 0-7: a word each
+  const uint32_t mword = lane < 8 ? cls[s * 8 + lane - base].x : 0u;  // lanes 0-7: a word each
   const int m = __reduce_add_sync(0xffffffffu, __popc(mword));
   uint32_t keep = 0;  // lanes 0-7: the candidate bits of their word
   if (m <= kSegKeep) {
     const int off = row[lane];
     const int p = s * kSeg + off;
-    const bool low = p < n && !((cls[p >> 5].x >> (p & 31)) & 1u);
+    const bool low = p < n && !((cls[(p >> 5) - base].x >> (p & 31)) & 1u);
     const uint32_t lows = __ballot_sync(0xffffffffu, low);
     const bool take = low && __popc(lows & ((1u << lane) - 1u)) < kSegKeep - m;
 #pragma unroll
@@ -207,7 +249,7 @@ __device__ __forceinline__ int segment_candidates(const uint8_t* row, int s, int
     for (int i = 0; i < 8; ++i) {
       off[i] = (int)(((i < 4 ? raw.x : raw.y) >> (8 * (i & 3))) & 0xffu);
       const int p = s * kSeg + off[i];
-      if (p < n && ((cls[p >> 5].x >> (p & 31)) & 1u)) high |= 1u << i;
+      if (p < n && ((cls[(p >> 5) - base].x >> (p & 31)) & 1u)) high |= 1u << i;
     }
     const int before_lane = warp_inclusive(__popc(high)) - __popc(high);
     uint32_t part[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};  // this lane's bits of the 8 words
@@ -225,19 +267,19 @@ __device__ __forceinline__ int segment_candidates(const uint8_t* row, int s, int
       if (lane == w) keep = word;
     }
   }
-  if (lane < 8) cls[s * 8 + lane] = make_uint2(mword & keep, keep & ~mword);
+  if (lane < 8) cls[s * 8 + lane - base] = make_uint2(mword & keep, keep & ~mword);
   return lane == 0 ? (m < kSegKeep ? m : kSegKeep) : 0;
 }
 
 // This thread's ITEMS consecutive entries of `order` from entry `c` on
-// (int4 loads; -1 past the table).
+// (int4 loads; -1 at and past entry `end`, a multiple of 4).
 template <int ITEMS>
-__device__ __forceinline__ void load_entries(const ExLevel& L, int c, int* px) {
+__device__ __forceinline__ void load_entries(const ExLevel& L, int c, int end, int* px) {
   const int4* order4 = reinterpret_cast<const int4*>(L.order);
 #pragma unroll
   for (int j = 0; j < ITEMS / 4; ++j) {
     const int q = ((c + (int)threadIdx.x * ITEMS) >> 2) + j;
-    const int4 v = q < (L.n4 >> 2) ? __ldg(order4 + q) : make_int4(-1, -1, -1, -1);
+    const int4 v = q < (end >> 2) ? __ldg(order4 + q) : make_int4(-1, -1, -1, -1);
     px[4 * j] = v.x;
     px[4 * j + 1] = v.y;
     px[4 * j + 2] = v.z;
@@ -245,93 +287,16 @@ __device__ __forceinline__ void load_entries(const ExLevel& L, int c, int* px) {
   }
 }
 
+// The class words of the ITEMS pixels `px` (-1: none) as two bitmaps, bit
+// i for entry i: high and low. Class word w lies in this block's own `cls`
+// at index w, or with `remote` in rank w / words_per_rank at index w %
+// words_per_rank.
 template <int ITEMS>
-__global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyramid P) {
-  constexpr int CHUNK = kThreads * ITEMS;
-  extern __shared__ uint2 smem[];
-  uint2* cls = smem;  // P.words (high, low) class words: 8 a 256-pixel segment
-  int* staged = reinterpret_cast<int*>(smem + P.words);  // CHUNK pixels in slot order
-  int* scratch = staged + CHUNK;                          // 3 x kWarps
-  const ExLevel L = level_at(P, blockIdx.y);
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t img = (size_t)b * L.n;
-  const uint8_t* edges = L.edges + img;
-  const float* depth = L.depth + img;
-  const int words = (L.n + 31) >> 5;
-  const int segs = (L.n + kSeg - 1) / kSeg;
-  const bool segmented = L.seg != nullptr;
-
-  // (1) the mask into cls[].x (and, exact, its complement in the image into
-  // cls[].y); E counts the high pixels. Where the image is 16-byte aligned
-  // and n a multiple of 16 a lane reads 16 pixels' edges in one load, the
-  // next 16 in flight, and two lanes form a word; else a warp reads a word's
-  // 32 bytes. The depth is read only under an edge.
-  int e_local = 0;
-  if ((L.n & 15) == 0 && (reinterpret_cast<uintptr_t>(edges) & 15) == 0) {
-    const uint4* e16 = reinterpret_cast<const uint4*>(edges);
-    const int groups = L.n >> 4;
-    const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-    uint4 v = warp * 32 + lane < groups ? __ldg(e16 + warp * 32 + lane) : none;
-    for (int g0 = warp * 32; g0 < groups; g0 += kThreads) {
-      const int g = g0 + lane;
-      const uint4 vn = g + kThreads < groups ? __ldg(e16 + g + kThreads) : none;  // the next
-      uint32_t bits = 0;
-      if (g < groups) {
-        const uint32_t q[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          if ((q[i >> 2] >> (8 * (i & 3))) & 0xffu) {
-            if (__ldg(depth + 16 * g + i) > P.min_depth) bits |= 1u << i;
-          }
-        }
-      }
-      const uint32_t hi = __shfl_down_sync(0xffffffffu, bits, 1);
-      if ((lane & 1) == 0 && g < groups) {
-        const uint32_t word = bits | (hi << 16);
-        cls[g >> 1] = make_uint2(word, ~word & real_bits(L.n - 16 * g));
-        e_local += segmented ? 0 : __popc(word);
-      }
-      v = vn;
-    }
-  } else {
-    for (int p = tid; p < words * 32; p += kThreads) {
-      bool m = false;
-      if (p < L.n && edges[p]) m = __ldg(depth + p) > P.min_depth;
-      const uint32_t word = __ballot_sync(0xffffffffu, m);
-      if (lane == 0) {
-        cls[p >> 5] = make_uint2(word, ~word & real_bits(L.n - p));
-        e_local += segmented ? 0 : __popc(word);
-      }
-    }
-  }
-  for (int w = words + tid; w < segs * 8; w += kThreads) cls[w] = make_uint2(0u, 0u);
-  __syncthreads();
-
-  // (2) segmented: the top 32 of every segment by (mask, perm), a warp a
-  // segment
-  if (segmented) {
-    for (int s = warp; s < segs; s += kWarps) {
-      e_local += segment_candidates(L.seg + (size_t)s * kSeg, s, L.n, cls);
-    }
-    __syncthreads();
-  }
-  int E;
-  block_exclusive(e_local, scratch, E);
-
-  // (3) the stable partition in priority order, a chunk at a time: the
-  // chunk's high then low pixels that get a slot are staged in shared memory
-  // in slot order, and the block writes their slots, consecutive threads on
-  // consecutive slots
-  const int k = L.k;
-  const int need_high = E < k ? E : k, need_low = E < k ? k - E : 0;
-  const float inv_mm = __fdiv_rn(1.0f, 1000.0f);
-  const float inv_fx = __fdiv_rn(1.0f, L.fx), inv_fy = __fdiv_rn(1.0f, L.fy);
-  int taken_high = 0, taken_low = 0;
-  for (int c = 0, it = 1; (taken_high < need_high || taken_low < need_low) && c < L.n4;
-       c += CHUNK, ++it) {
-    int px[ITEMS];
-    load_entries<ITEMS>(L, c, px);
-    uint32_t high = 0, low = 0;  // bit i: entry i is a high / low pixel
+__device__ __forceinline__ void classes(const int* px, const uint2* cls, bool remote, int ranks,
+                                        int words_per_rank, uint32_t& high, uint32_t& low) {
+  high = 0;
+  low = 0;
+  if (!remote) {
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int p = px[i];
@@ -341,6 +306,181 @@ __global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyram
         low |= ((v.y >> (p & 31)) & 1u) << i;
       }
     }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int p = px[i];
+    if (p >= 0) {
+      const int w = p >> 5;
+      int r = 0;  // w / words_per_rank, with ranks <= 8
+#pragma unroll
+      for (int j = 1; j < rgbd::kMaxCluster; ++j) r += j < ranks && w >= j * words_per_rank;
+      const uint2 v = *cluster.map_shared_rank(cls + (w - r * words_per_rank), r);
+      high |= ((v.x >> (p & 31)) & 1u) << i;
+      low |= ((v.y >> (p & 31)) & 1u) << i;
+    }
+  }
+}
+
+// The sum of `v` over the block (every thread gets it); `scratch` holds
+// kWarps ints and is free again when this returns.
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  const int total = __reduce_add_sync(0xffffffffu, lane < kWarps ? scratch[lane] : 0);
+  __syncthreads();
+  return total;
+}
+
+// grid (B * c, L) in clusters of (c, 1, 1): cluster b of row l is (level l,
+// image b), its block of rank r the r-th share.
+template <int ITEMS>
+__global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyramid P) {
+  constexpr int CHUNK = kThreads * ITEMS;
+  extern __shared__ __align__(16) uint2 smem[];
+  uint2* cls = smem;  // P.words (high, low) class words: 8 a 256-pixel segment
+  int* staged = reinterpret_cast<int*>(smem + P.words);  // CHUNK pixels in slot order
+  int* scratch = staged + CHUNK;                          // 3 x kWarps
+  int* mail = scratch + 3 * kWarps;                       // kMail: what this rank publishes
+  const ExLevel L = level_at(P, blockIdx.y);
+  const int ranks = P.ranks;
+  const int b = blockIdx.x / ranks, rank = blockIdx.x - b * ranks;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t img = (size_t)b * L.n;
+  const uint8_t* edges = L.edges + img;
+  const float* depth = L.depth + img;
+  const int segs = (L.n + kSeg - 1) / kSeg;
+  const bool segmented = L.seg != nullptr;
+  // this rank's segments [s_lo, s_hi): pixels [px_lo, px_hi), class words
+  // from `base` on (0 where every rank holds every word)
+  const int s_lo = min(rank * L.segs_per_rank, segs);
+  const int s_hi = min(s_lo + L.segs_per_rank, segs);
+  const bool remote = ranks > 1 && !P.replicated;  // class lookups in other ranks
+  const int base = remote ? s_lo * (kSeg / 32) : 0;
+  const int px_lo = s_lo * kSeg, px_hi = min(s_hi * kSeg, L.n);
+  const int words_hi = (px_hi + 31) >> 5;  // the words holding real pixels end here
+
+  // (1) the mask into cls[].x (and, exact, its complement in the image into
+  // cls[].y); E counts the high pixels. Where the image is 16-byte aligned
+  // and n a multiple of 16 a lane reads 16 pixels' edges in one load, the
+  // next 16 in flight, and two lanes form a word; else a warp reads a word's
+  // 32 bytes. The depth is read only under an edge.
+  int e_local = 0;
+  if ((L.n & 15) == 0 && (reinterpret_cast<uintptr_t>(edges) & 15) == 0) {
+    const uint4* e16 = reinterpret_cast<const uint4*>(edges);
+    const int g_lo = px_lo >> 4, groups = (px_hi - px_lo) >> 4;
+    const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+    uint4 v = warp * 32 + lane < groups ? __ldg(e16 + g_lo + warp * 32 + lane) : none;
+    for (int g0 = warp * 32; g0 < groups; g0 += kThreads) {
+      const int gl = g0 + lane, g = g_lo + gl;
+      const uint4 vn = gl + kThreads < groups ? __ldg(e16 + g + kThreads) : none;  // the next
+      uint32_t bits = 0;
+      if (gl < groups) {
+        const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          if ((q[i >> 2] >> (8 * (i & 3))) & 0xffu) {
+            if (__ldg(depth + 16 * g + i) > P.min_depth) bits |= 1u << i;
+          }
+        }
+      }
+      const uint32_t hi = __shfl_down_sync(0xffffffffu, bits, 1);
+      if ((lane & 1) == 0 && gl < groups) {
+        const uint32_t word = bits | (hi << 16);
+        cls[(g >> 1) - base] = make_uint2(word, ~word & real_bits(L.n - 16 * g));
+        e_local += segmented ? 0 : __popc(word);
+      }
+      v = vn;
+    }
+  } else {
+    for (int p = px_lo + tid; p < words_hi * 32; p += kThreads) {
+      bool m = false;
+      if (p < L.n && edges[p]) m = __ldg(depth + p) > P.min_depth;
+      const uint32_t word = __ballot_sync(0xffffffffu, m);
+      if (lane == 0) {
+        cls[(p >> 5) - base] = make_uint2(word, ~word & real_bits(L.n - p));
+        e_local += segmented ? 0 : __popc(word);
+      }
+    }
+  }
+  for (int w = max(words_hi, base) + tid; w < s_hi * 8; w += kThreads) {
+    cls[w - base] = make_uint2(0u, 0u);  // a last partial segment's pad words
+  }
+  __syncthreads();
+
+  // (2) segmented: the top 32 of every segment by (mask, perm), a warp a
+  // segment
+  if (segmented) {
+    for (int s = s_lo + warp; s < s_hi; s += kWarps) {
+      e_local += segment_candidates(L.seg + (size_t)s * kSeg, s, L.n, cls, base);
+    }
+    __syncthreads();
+  }
+  int E = block_sum(e_local, scratch);
+  // the entries of `order` this rank streams: [e_lo, e_hi)
+  const int e_lo = min(rank * L.entries_per_rank, L.n4);
+  const int e_hi = min(e_lo + L.entries_per_rank, L.n4);
+  const int words_per_rank = L.segs_per_rank * (kSeg / 32);
+  int taken_high = 0, taken_low = 0;  // pixels of each class before this rank's range
+  cg::cluster_group cluster = cg::this_cluster();
+  if (ranks > 1) {
+    if (tid == 0) mail[0] = E;
+    cluster.sync();  // every rank's class words and E are in place
+    E = 0;
+    for (int r = 0; r < ranks; ++r) E += *cluster.map_shared_rank(mail, r);
+    if (!remote) {  // copy the other ranks' shares: every lookup is then local
+      uint4* own = reinterpret_cast<uint4*>(cls);
+      for (int i = tid; i < segs * (kSeg / 64); i += kThreads) {
+        int r = 0;  // (2 i) / words_per_rank, with ranks <= 8
+#pragma unroll
+        for (int j = 1; j < rgbd::kMaxCluster; ++j) {
+          r += j < ranks && 2 * i >= j * words_per_rank;
+        }
+        if (r != rank) own[i] = *cluster.map_shared_rank(own + i, r);
+      }
+      __syncthreads();
+    }
+    // pass A: the range's high and low counts
+    int n_high = 0, n_low = 0;
+    for (int c = e_lo; c < e_hi; c += CHUNK) {
+      int px[ITEMS];
+      load_entries<ITEMS>(L, c, e_hi, px);
+      uint32_t high, low;
+      classes<ITEMS>(px, cls, remote, ranks, words_per_rank, high, low);
+      n_high += __popc(high);
+      n_low += __popc(low);
+    }
+    n_high = block_sum(n_high, scratch);
+    n_low = block_sum(n_low, scratch);
+    if (tid == 0) {
+      mail[1] = n_high;
+      mail[2] = n_low;
+    }
+    cluster.sync();  // every rank's counts are published
+    for (int r = 0; r < rank; ++r) {
+      taken_high += *cluster.map_shared_rank(mail + 1, r);
+      taken_low += *cluster.map_shared_rank(mail + 2, r);
+    }
+  }
+
+  // (3) pass B, the stable partition in priority order, a chunk at a time:
+  // the chunk's high then low pixels that get a slot are staged in shared
+  // memory in slot order, and the block writes their slots, consecutive
+  // threads on consecutive slots
+  const int k = L.k;
+  const int need_high = E < k ? E : k, need_low = E < k ? k - E : 0;
+  const float inv_mm = __fdiv_rn(1.0f, 1000.0f);
+  const float inv_fx = __fdiv_rn(1.0f, L.fx), inv_fy = __fdiv_rn(1.0f, L.fy);
+  for (int c = e_lo, it = 1; (taken_high < need_high || taken_low < need_low) && c < e_hi;
+       c += CHUNK, ++it) {
+    int px[ITEMS];
+    load_entries<ITEMS>(L, c, e_hi, px);
+    uint32_t high, low;  // bit i: entry i is a high / low pixel
+    classes<ITEMS>(px, cls, remote, ranks, words_per_rank, high, low);
     int total;
     const int ex = block_exclusive(__popc(high) | __popc(low) << 16,
                                    scratch + (it & 1) * kWarps + kWarps, total);
@@ -369,7 +509,14 @@ __global__ void __launch_bounds__(kThreads) extract_pyramid_kernel(const ExPyram
     taken_high += chunk_high;
     taken_low += chunk_low;
   }
-  if (tid == 0) L.count[b] = need_high;
+  if (rank == 0 && tid == 0) L.count[b] = need_high;
+  if (ranks > 1) cluster.sync();  // no rank reads another's words past here
+}
+
+// Shared memory of a launch whose ranks hold `words` class words each and
+// stage chunks of kThreads * ITEMS entries.
+long long smem_bytes(int words, int items) {
+  return 8LL * words + 4LL * (kThreads * items + 3 * kWarps + kMail);
 }
 
 }  // namespace
@@ -378,33 +525,35 @@ extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Every level of B images. ptrs[8 l .. 8 l + 7] are level l's views:
-// edges (B, H, W) bool and depth (B, H, W) float32, contiguous; order (n4,)
-// int32 and seg (ceil(n / 256) * 256,) uint8, or 0 for the exact branch;
-// outputs pts3d (B, K, 3) and uv (B, K, 2) float32, valid (B, K) bool,
-// count (B,) int32. dims[4 l ..] = H, W, K, n4; intr[4 l ..] = fx, fy, cx,
-// cy. Launches on `stream` and does not synchronize.
-extern "C" int extract_pyramid(int device, int levels, int batch, const long long* ptrs,
-                               const int* dims, const float* intr, float min_depth,
-                               void* stream) {
+// Every level of B images, in clusters of `ranks` blocks (1, 2, 4 or 8) a
+// (level, image). ptrs[8 l .. 8 l + 7] are level l's views: edges (B, H, W)
+// bool and depth (B, H, W) float32, contiguous; order (n4,) int32 and seg
+// (ceil(n / 256) * 256,) uint8, or 0 for the exact branch; outputs pts3d
+// (B, K, 3) and uv (B, K, 2) float32, valid (B, K) bool, count (B,) int32.
+// dims[4 l ..] = H, W, K, n4; intr[4 l ..] = fx, fy, cx, cy. Launches on
+// `stream` and does not synchronize.
+extern "C" int extract_pyramid(int device, int levels, int batch, int ranks,
+                               const long long* ptrs, const int* dims, const float* intr,
+                               float min_depth, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (levels < 1 || levels > kMaxLevels || batch < 1 || batch > 65535)
+  if (levels < 1 || levels > kMaxLevels || batch < 1 || batch > 65535 ||
+      (ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8))
     return (int)cudaErrorInvalidValue;
   ExPyramid P{};
   P.levels = levels;
+  P.ranks = ranks;
   P.min_depth = min_depth;
-  int words = 1;
+  int words = 1, share = 1;
   for (int l = 0; l < levels; ++l) {
     ExLevel& L = P.lv[l];
     const int h = dims[4 * l], w = dims[4 * l + 1];
     L.w = w;
-    L.n = h * w;
     L.k = dims[4 * l + 2];
     L.n4 = dims[4 * l + 3];
-    if (h < 1 || w < 1 || L.k < 1 || L.k > L.n || L.n4 < L.n || (L.n4 & 3)) {
-      return (int)cudaErrorInvalidValue;
-    }
+    if (h < 1 || w < 1 || (long long)h * w >= (1LL << 22)) return (int)cudaErrorInvalidValue;
+    L.n = h * w;
+    if (L.k < 1 || L.k > L.n || L.n4 < L.n || (L.n4 & 3)) return (int)cudaErrorInvalidValue;
     const long long* q = ptrs + 8 * l;
     L.edges = reinterpret_cast<const uint8_t*>(q[0]);
     L.depth = reinterpret_cast<const float*>(q[1]);
@@ -418,24 +567,27 @@ extern "C" int extract_pyramid(int device, int levels, int batch, const long lon
     L.fy = intr[4 * l + 1];
     L.cx = intr[4 * l + 2];
     L.cy = intr[4 * l + 3];
-    const int lw = (L.n + kSeg - 1) / kSeg * (kSeg / 32);  // whole segments
-    words = lw > words ? lw : words;
+    const int segs = (L.n + kSeg - 1) / kSeg;
+    L.segs_per_rank = (segs + ranks - 1) / ranks;
+    L.entries_per_rank = ((L.n4 + ranks - 1) / ranks + kItems - 1) / kItems * kItems;
+    words = segs * (kSeg / 32) > words ? segs * (kSeg / 32) : words;
+    share = L.segs_per_rank * (kSeg / 32) > share ? L.segs_per_rank * (kSeg / 32) : share;
   }
-  P.words = words;
-  const dim3 grid(batch, levels);
-  long long smem = 8LL * words + 4LL * (kChunk + 3 * kWarps);
-  if (smem <= (long long)kMaxDynamicSmem) {
-    static rgbd::SharedOptIn opted;
-    err = rgbd::opt_in_shared(extract_pyramid_kernel<kItems>, device, smem, &opted);
-    if (err != cudaSuccess) return (int)err;
-    extract_pyramid_kernel<kItems><<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(P);
-    return (int)cudaGetLastError();
+  // every rank holds every class word where they fit beside a chunk (the
+  // half chunk if need be), else only its share's
+  P.replicated = smem_bytes(words, kItemsLarge) <= (long long)kMaxDynamicSmem;
+  P.words = P.replicated ? words : share;
+  words = P.words;
+  const dim3 grid(batch * ranks, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (smem_bytes(words, kItems) <= (long long)kMaxDynamicSmem) {
+    static rgbd::ClusterLaunch state;
+    return (int)rgbd::launch_cluster(extract_pyramid_kernel<kItems>, device, grid, kThreads,
+                                     smem_bytes(words, kItems), ranks, s, &state, P);
   }
-  smem = 8LL * words + 4LL * (kThreads * kItemsLarge + 3 * kWarps);
-  if (smem > (long long)kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-  static rgbd::SharedOptIn opted_large;
-  err = rgbd::opt_in_shared(extract_pyramid_kernel<kItemsLarge>, device, smem, &opted_large);
-  if (err != cudaSuccess) return (int)err;
-  extract_pyramid_kernel<kItemsLarge><<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  if (smem_bytes(words, kItemsLarge) > (long long)kMaxDynamicSmem)
+    return (int)cudaErrorInvalidValue;
+  static rgbd::ClusterLaunch state_large;
+  return (int)rgbd::launch_cluster(extract_pyramid_kernel<kItemsLarge>, device, grid, kThreads,
+                                   smem_bytes(words, kItemsLarge), ranks, s, &state_large, P);
 }

@@ -134,6 +134,23 @@ def check_arg(fn: str, name: str, x, shape, dtype, device, contiguous: bool = Tr
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
+# What every kernel on the `dvo` path takes on the card: a level of fewer
+# than 2^22 pixels (below it extraction's priorities (perm + 0.5) / n are
+# distinct in float32) with both sides at most 2560.
+MAX_PIXELS = 1 << 22
+MAX_SIDE = 2560
+
+
+def check_level_size(what: str, h: int, w: int) -> None:
+    """Raise ValueError, naming the limit, if an (h, w) level is past what
+    the card's kernels take (`MAX_PIXELS`, `MAX_SIDE`)."""
+    if h * w >= MAX_PIXELS or h > MAX_SIDE or w > MAX_SIDE:
+        raise ValueError(
+            f"{what}: a {h}x{w} level is too large for the card's kernels, which take levels "
+            f"of fewer than 2^22 pixels (extraction's priorities are distinct below it) and at "
+            f"most {MAX_SIDE} a side (ROADMAP.md Queue 3)")
+
+
 def check_rows(fn: str, name: str, img) -> None:
     """Raise ValueError unless the rows of `img` (B, H, W) are contiguous
     (the batch stride may be larger, e.g. one channel of (B, C, H, W))."""

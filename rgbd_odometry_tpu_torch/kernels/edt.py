@@ -8,7 +8,8 @@ production +-R window; `dt_channels` also takes in what
 (sqrt, the 0-255 min-max normalization, `central_gradient`, the channel
 stack). `edt_squared` and `dt_channels` are the entry points: a CPU tensor
 goes to the plain PyTorch version, a CUDA tensor to the kernel; anything
-else raises.
+else raises. The card takes levels of fewer than 2^22 pixels, at most 2560
+a side (`build.check_level_size`).
 """
 
 from __future__ import annotations
@@ -26,10 +27,6 @@ from rgbd_odometry_tpu_torch.ops.gradient import central_gradient
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# what the phases' shared memory holds: the column phase 3 bytes a row of a
-# 32-column strip (past 480 rows opted in to more than 48 KB, up to 227 KB a
-# block), the row phase a few whole rows in 48 KB
-_MAX_H, _MAX_W = 2400, 1600
 
 
 def edt_squared_plain(mask: torch.Tensor, radius: int) -> torch.Tensor:
@@ -52,11 +49,7 @@ def _check(fn: str, mask: torch.Tensor, radius: int, min_side: int) -> None:
     b, h, w = mask.shape
     if not (1 <= b <= 65535 and min_side <= h and min_side <= w):
         raise ValueError(f"{fn}: unsupported shape {tuple(mask.shape)}")
-    if h > _MAX_H or w > _MAX_W:
-        raise ValueError(
-            f"{fn}: a {h}x{w} image exceeds what one block's shared memory holds "
-            f"({_MAX_H} rows, {_MAX_W} columns); splitting a level over blocks is "
-            "ROADMAP.md Queue 2 item 7")
+    build.check_level_size(fn, h, w)
 
 
 def edt_squared(mask: torch.Tensor, radius: int) -> torch.Tensor:

@@ -7,8 +7,11 @@ Replaces the XLA ops of `rgbd_odometry_tpu/solvers/edge_dvo.py`
 fixed pseudo-random priority, and the back-projection. `extract_pyramid`
 is the entry point: CPU tensors go to the plain PyTorch version
 (`extract_ref_level` on each level), CUDA tensors to the kernel, one launch
-for every level of B images; anything else raises. Every output is bitwise
-the plain version's.
+for every level of B images, a thread-block cluster of 1, 2, 4 or 8 blocks
+a (level, image) as `cluster_size` decides (`cluster=` forces one); anything
+else raises. Every output is bitwise the plain version's on every route.
+The card takes levels of fewer than 2^22 pixels, at most 2560 a side
+(`build.check_level_size`).
 
 The priority of an n-pixel level is fixed, so the host computes two tables
 per level once and uploads them once (cached per (n, device), like
@@ -35,24 +38,58 @@ from rgbd_odometry_tpu_torch.kernels.canny import canny
 
 MAX_LEVELS = 8
 SEGMENT = 256
-_MAX_SMEM = 227 * 1024  # a level's bitmaps and one staged chunk must fit one block
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+CLUSTERS = (1, 2, 4, 8)  # blocks a (level, image): csrc/extract.cu's ranks
+_MAX_SMEM = 227 * 1024  # a rank's class words and one staged chunk must fit one block
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), ctypes.c_float, ctypes.c_void_p])
 # csrc/extract.cu: the staged slots of one chunk (kThreads * kItems), halved
-# where the largest level's bitmaps leave too little room for the full one
+# where the largest level's class words of one rank leave too little room
+# for the full one
 _CHUNKS = (1024 * 16, 1024 * 8)
+# the route rule counts blocks against what the card holds at once: 132 SMs,
+# at most two of the kernel's 1024-thread blocks an SM
+_SMS, _BLOCKS_PER_SM = 132, 2
 
 
-def _smem(n: int, chunk: int) -> int:
-    """Shared memory of a launch whose largest level has n pixels: two
-    bitmaps of 8 words a 256-pixel segment, the staged chunk, the scans."""
-    return 64 * (-(-n // SEGMENT)) + 4 * chunk + 384
+def _smem(words: int, chunk: int) -> int:
+    """Shared memory of a launch whose ranks hold `words` class words: the
+    words (two 32-pixel bitmaps each), the staged chunk, the scans and the
+    mailbox."""
+    return 8 * words + 4 * chunk + 400
 
 
-def chunk_size(n: int) -> int:
+def replicated(n: int) -> bool:
+    """Whether every rank of a cluster holds all class words of a level of
+    n pixels (8 a 256-pixel segment) beside a chunk, the half one if need
+    be; else each holds its share and looks the others' up remotely."""
+    return _smem(8 * -(-n // SEGMENT), _CHUNKS[-1]) <= _MAX_SMEM
+
+
+def _words(n: int, c: int) -> int:
+    """Class words each of c ranks holds for a largest level of n pixels:
+    all of them, or where they do not fit one block its share."""
+    segs = -(-n // SEGMENT)
+    return 8 * segs if c == 1 or replicated(n) else 8 * -(-segs // c)
+
+
+def chunk_size(n: int, c: int = 1) -> int:
     """The chunk of `order` the kernel streams when its largest level has n
-    pixels (0 if even the smaller one does not fit)."""
-    return next((c for c in _CHUNKS if _smem(n, c) <= _MAX_SMEM), 0)
+    pixels over clusters of c blocks (0 if even the smaller one does not
+    fit)."""
+    return next((ch for ch in _CHUNKS if _smem(_words(n, c), ch) <= _MAX_SMEM), 0)
+
+
+def cluster_size(n: int, b: int, levels: int = 1) -> int:
+    """The route rule: the blocks a (level, image) of a launch of `levels`
+    levels over B images whose largest level has n pixels (n < 2^22). The
+    largest c whose B * levels clusters the card holds at once (so one
+    block an image where B alone fills it), and never fewer than the
+    smallest c that holds the largest level."""
+    fits = [c for c in CLUSTERS if chunk_size(n, c)]
+    per_sm = {c: min(_BLOCKS_PER_SM, _MAX_SMEM // _smem(_words(n, c), chunk_size(n, c)))
+              for c in fits}
+    held = [c for c in fits if b * levels * c <= _SMS * per_sm[c]]
+    return max(held) if held else fits[0]
 
 
 class RefLevel(NamedTuple):
@@ -188,11 +225,7 @@ def _check(edges_pyr, depth_pyr, max_points) -> None:
                 or not d.is_contiguous():
             raise ValueError(f"{what}: depth must be contiguous float32 {tuple(e.shape)} on {dev}, "
                              f"got {d.dtype} {tuple(d.shape)} on {d.device}")
-        n = e.shape[1] * e.shape[2]
-        if n >= 1 << 22 or not chunk_size(n):
-            raise ValueError(f"{what}: a {e.shape[1]}x{e.shape[2]} level is too large for one "
-                             "block's shared memory; splitting a level over blocks is "
-                             "ROADMAP.md Queue 2 item 7")
+        build.check_level_size(what, e.shape[1], e.shape[2])
         if int(max_points[lvl]) < 1:
             raise ValueError(f"{what}: capacity {max_points[lvl]} < 1")
 
@@ -242,19 +275,37 @@ def _plan(hw: tuple, b: int, ks: tuple, segmented: tuple, intr: Intrinsics, devi
 _OUT_DTYPES = (torch.float32, torch.float32, torch.bool, torch.int32)
 
 
+def _route(edges_pyr, cluster) -> int:
+    """The cluster size of a launch: `cluster` when given (it must hold the
+    largest level), else `cluster_size`'s rule."""
+    b = edges_pyr[0].shape[0]
+    n = max(e.shape[1] * e.shape[2] for e in edges_pyr)
+    if cluster is None:
+        return cluster_size(n, b, len(edges_pyr))
+    if cluster not in CLUSTERS:
+        raise ValueError(f"extract_pyramid: cluster must be one of {CLUSTERS}, got {cluster}")
+    if not chunk_size(n, cluster):
+        raise ValueError(f"extract_pyramid: a level of {n} pixels does not fit the shared "
+                         f"memory of {cluster} block(s)")
+    return cluster
+
+
 def extract_pyramid(edges_pyr, depth_pyr, intr: Intrinsics, cfg: SolverConfig,
-                    max_points) -> Tuple[RefLevel, ...]:
+                    max_points, cluster: int | None = None) -> Tuple[RefLevel, ...]:
     """Reference-keyframe edge points of every level: `edges_pyr` and
     `depth_pyr` are tuples of L <= 8 levels, (B, H_l, W_l) bool edge maps
     and float32 depths in mm, contiguous, on one device; level l keeps K_l
     = min(max_points[l], H_l W_l) slots. Returns one `RefLevel` a level,
     `extract_ref_level` semantics; each output is one allocation with a
     contiguous, 16-byte-aligned view per level. On a CUDA device: one C
-    call, one launch. Arguments are checked before anything is built or
-    launched."""
+    call, one launch, a cluster of `cluster` blocks (1, 2, 4 or 8) a
+    (level, image): None takes `cluster_size`'s rule, a number forces that
+    route (for checks and profiles). Arguments are checked before anything
+    is built or launched."""
     if len(edges_pyr) and edges_pyr[0].device.type == "cpu":
         return extract_pyramid_plain(edges_pyr, depth_pyr, intr, cfg, max_points)
     _check(edges_pyr, depth_pyr, max_points)
+    ranks = _route(edges_pyr, cluster)
     dev = edges_pyr[0].device
     if dev.type != "cuda":
         raise ValueError(f"extract_pyramid: unsupported device {dev}")
@@ -273,7 +324,7 @@ def extract_pyramid(edges_pyr, depth_pyr, intr: Intrinsics, cfg: SolverConfig,
     lib = build.bind("extract", "extract_pyramid", _ARGTYPES)
     with build.traced("extract_pyramid"):
         code = lib.extract_pyramid(
-            dev.index or 0, len(hw), b, (ctypes.c_longlong * len(ptrs))(*ptrs), plan.dims,
+            dev.index or 0, len(hw), b, ranks, (ctypes.c_longlong * len(ptrs))(*ptrs), plan.dims,
             plan.intr, float(np.float32(cfg.min_depth_mm)),
             torch.cuda.current_stream(dev).cuda_stream,
         )

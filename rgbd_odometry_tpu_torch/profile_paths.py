@@ -46,11 +46,16 @@ per-frame paths' profiles in the same process the profiler was seen to drop
 kernel records, which this mode reports as an error) profiles the now-frame
 target kernels, 20 calls each at 240x320 for B = 64 and B = 1 on rendered
 frames: per call, the device time and the launches of every CUDA kernel
-behind `canny_pyramid` (the 4-level pyramid), `canny` (a pyramid of one
-level: level 0, and the four levels one call each), `dt_channels` (+-16
-window in pixels, and the whole row normalized), `edt_squared` and
-`extract_pyramid` (production_320's and the `dvo` defaults' capacities, and
-production_vga's on the frames doubled to 640x480).
+behind `canny_pyramid` (the 4-level pyramid; production_vga's 5 levels on
+the frames doubled to 640x480; 4 levels on the frames quadrupled to
+1280x960), `canny` (a pyramid of one level: level 0, and the four levels
+one call each), `dt_channels` (+-16 window in pixels, and the whole row
+normalized), `edt_squared` and `extract_pyramid` (production_320's and the
+`dvo` defaults' capacities, production_vga's on the 640x480 pyramid and the
+`dvo` defaults' on the 1280x960 one); `canny_pyramid` and `extract_pyramid`
+on the route their rule takes and forced to each cluster size (1, 2, 4, 8
+blocks a (level, image)). A case that raises for its shape or route in the
+checkout profiled is reported "not supported".
 
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import re
 import subprocess
@@ -312,80 +318,138 @@ def profile_multistream(device, frames: int, warmup: int, streams=(16, 64)) -> l
     return outs
 
 
-def _extract_cases(pyr, edges_pyr) -> dict:
-    """`extract_pyramid` on the rendered pyramid at production_320's and the
-    `dvo` defaults' capacities, and at production_vga's on the 5-level
-    pyramid of the rendered frames doubled to 640x480, as functions of the
-    batch size (an empty dict where the package has no such kernel)."""
+def _forced(fn) -> tuple:
+    """The cluster sizes a target entry point can be forced to (none in a
+    checkout whose kernel has no `cluster` keyword)."""
+    return (1, 2, 4, 8) if "cluster" in inspect.signature(fn).parameters else ()
+
+
+def _pyramids(device, gray, depth) -> dict:
+    """The rendered 320x240 frames as the 4-level pyramid, doubled to
+    640x480 as production_vga's 5-level one and quadrupled to 1280x960 as
+    `dvo --cam-scale 4`'s 4-level one (nearest), each with its Canny edges
+    at the `dvo` defaults (the parent of a kernel that cannot take a level
+    gets none: None)."""
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import canny
+
+    up = lambda x, f: x.repeat_interleave(f, 1).repeat_interleave(f, 2)  # noqa: E731
+    out = {}
+    for name, f, levels in (("320x240", 1, 4), ("vga", 2, 5), ("1280x960", 4, 4)):
+        pyr = build_pyramid(up(gray, f), up(depth, f), levels)
+        try:
+            edges = canny.canny_pyramid(pyr.gray)
+        except ValueError:  # an older checkout's cap
+            edges = None
+        out[name] = (pyr, edges)
+    return out
+
+
+def _extract_cases(pyramids) -> dict:
+    """`extract_pyramid` on the rendered pyramids at production_320's and
+    the `dvo` defaults' capacities (320x240), production_vga's (640x480)
+    and the `dvo` defaults' (1280x960), on the rule's route and on each
+    forced cluster size the kernel takes, as functions of the batch size
+    (an empty dict where the package has no such kernel)."""
     try:
         from rgbd_odometry_tpu_torch.kernels.extract import extract_pyramid
     except ImportError:
         return {}
     from rgbd_odometry_tpu_torch import SolverConfig, profiles
     from rgbd_odometry_tpu_torch.core.camera import Intrinsics
-    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
-    from rgbd_odometry_tpu_torch.kernels import canny
 
     p320, vga = profiles.production_320(), profiles.production_vga()
-    up = lambda x: x.repeat_interleave(2, 1).repeat_interleave(2, 2)  # noqa: E731
-    vga_pyr = build_pyramid(up(pyr.gray[0]), up(pyr.depth[0]), 5)
-    vga_edges = canny.canny_pyramid(vga_pyr.gray, vga.solver.canny_low, vga.solver.canny_high)
+    dvo_caps = (8192, 4096, 2048, 1024)
 
-    def case(full, edges, cam, cfg, caps):
+    def case(name, cam, cfg, caps, **kw):
+        full, edges = pyramids[name]
         intr = Intrinsics.from_config(cam)
 
         def run(b):
             return extract_pyramid(tuple(e[:b].contiguous() for e in edges),
-                                   tuple(d[:b].contiguous() for d in full.depth), intr, cfg, caps)
+                                   tuple(d[:b].contiguous() for d in full.depth), intr, cfg, caps,
+                                   **kw)
+        return run if edges is not None else None
+
+    out = {}
+    for label, name, cam, cfg, caps in (
+            ("production_320", "320x240", p320.camera, p320.solver, p320.max_points),
+            ("dvo defaults", "320x240", p320.camera, SolverConfig(), dvo_caps),
+            ("production_vga", "vga", vga.camera, vga.solver, vga.max_points),
+            ("1280x960", "1280x960", p320.camera.scaled(4), SolverConfig(), dvo_caps)):
+        out[f"extract_pyramid {label}"] = case(name, cam, cfg, caps)
+        for c in _forced(extract_pyramid):
+            out[f"extract_pyramid {label} c={c}"] = case(name, cam, cfg, caps, cluster=c)
+    return out
+
+
+def _canny_cases(pyramids) -> dict:
+    """`canny_pyramid` on the 320x240, 640x480 and 1280x960 pyramids, on
+    the rule's route and on each forced cluster size, as functions of the
+    batch size (None where the checkout cannot take the pyramid)."""
+    from rgbd_odometry_tpu_torch.kernels import canny
+
+    def case(pyr, **kw):
+        def run(b):
+            return canny.canny_pyramid(tuple(g[:b].contiguous() for g in pyr.gray), **kw)
         return run
 
-    return {"extract_pyramid production_320": case(pyr, edges_pyr, p320.camera, p320.solver,
-                                                   p320.max_points),
-            "extract_pyramid dvo defaults": case(pyr, edges_pyr, p320.camera, SolverConfig(),
-                                                 (8192, 4096, 2048, 1024)),
-            "extract_pyramid production_vga": case(vga_pyr, vga_edges, vga.camera, vga.solver,
-                                                   vga.max_points)}
+    out = {}
+    for name, (pyr, edges) in pyramids.items():
+        label = "" if name == "320x240" else f" {name}"
+        out[f"canny_pyramid{label}"] = case(pyr) if edges is not None else None
+        for c in _forced(canny.canny_pyramid) if edges is not None else ():
+            out[f"canny_pyramid{label} c={c}"] = case(pyr, cluster=c)
+    return out
 
 
 def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
     """Per call of each target entry point, [device time (us), launches] of
     each CUDA kernel behind it, at 240x320 on `batch` rendered frames and on
-    one."""
+    one; `canny_pyramid` and `extract_pyramid` also at 640x480 and 1280x960
+    (the frames upsampled) and on each cluster size the kernel can be
+    forced to ("not supported": that route or shape raises in this
+    checkout)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rgbd_odometry_tpu_torch import CameraConfig
-    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
     from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
     from rgbd_odometry_tpu_torch.kernels import canny, edt
 
     frames, _ = render_sequence(CameraConfig(), _trajectory(batch), seed=0)
     gray = torch.from_numpy(np.stack([g for g, _ in frames])).to(device)
     depth = torch.from_numpy(np.stack([d for _, d in frames])).to(device)
-    full = build_pyramid(gray, depth, 4)
-    pyr = full.gray
+    pyramids = _pyramids(device, gray, depth)
+    pyr = pyramids["320x240"][0].gray
     edges = canny.canny(gray)
-    edges_pyr = canny.canny_pyramid(pyr)
-    extract = _extract_cases(full, edges_pyr)
     out = {"path": "targets", "batch": batch, "reps": reps}
     for b in (batch, 1):
         g, e = gray[:b].contiguous(), edges[:b].contiguous()
         levels = tuple(x[:b].contiguous() for x in pyr)
         cases = {
-            "canny_pyramid": lambda: canny.canny_pyramid(levels),
+            **{name: fn and functools.partial(fn, b)
+               for name, fn in _canny_cases(pyramids).items()},
             "canny": lambda: canny.canny(g),
             "canny 4 levels": lambda: [canny.canny(x) for x in levels],
             "dt_channels R=16 pixels bf16": lambda: edt.dt_channels(e, 16, False, True),
             "dt_channels R=0 normalized bf16": lambda: edt.dt_channels(e, 0, True, True),
             "edt_squared R=16": lambda: edt.edt_squared(e, 16),
-            **{name: functools.partial(fn, b) for name, fn in extract.items()},
+            **{name: fn and functools.partial(fn, b)
+               for name, fn in _extract_cases(pyramids).items()},
         }
         for name, fn in cases.items():
-            fn()
+            try:
+                if fn is None:
+                    raise ValueError("the shape")
+                fn()
+            except ValueError as exc:  # a route or shape this checkout does not take
+                out[f"{name} B={b}"] = f"not supported: {exc}"
+                continue
             torch.cuda.synchronize()
             # the profiler was seen to drop all kernel records of one window
             # after many windows in one process: such a window is profiled again
-            for _ in range(3):
+            for _ in range(6):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
                         fn()

@@ -11,10 +11,15 @@ its wrapper runs the plain version:
   by side, one block each, 8-row units swept down and up in place in a
   shuffled order, runs filled by carry chains) reaching JAX's fixpoint,
   with a chain that crosses every unit's boundary;
+* a numpy model of the cluster route (bands of rows over 2, 4 or 8 blocks,
+  a neighbour's boundary row read old or new) equal to JAX's Canny on a
+  rendered 1280x960 frame and on the serpentine image, and the route rule
+  (`hysteresis_route`) either side of each boundary;
 * the solver's calls: `prepare_now_targets` is one `canny_pyramid` call and
   one `dt_channels` call per level, `extract_ref_features` without edge maps
   one `canny_pyramid` call;
-* the CUDA wrapper's argument checks, which run before anything is built.
+* the CUDA wrapper's argument checks (a forced route, the size limit),
+  which run before anything is built.
 """
 
 import functools
@@ -214,6 +219,144 @@ def test_pyramid_hysteresis_reaches_jax_fixpoint(seed):
     assert chain[-1].any() and chain.sum() == masks[-1][1].sum()  # the whole chain, every unit
 
 
+_REV8 = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint64)
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _brev(x):
+    """Bit reversal of 32-bit words held in uint64."""
+    return sum(_REV8[(x >> np.uint64(8 * i)) & np.uint64(255)] << np.uint64(24 - 8 * i)
+               for i in range(4))
+
+
+def _fill_runs_vec(s, m):
+    """`_fill_runs` on arrays of words."""
+    up = ((((m + s) & _M32) ^ m) & m) | s
+    rm, rs = _brev(m), _brev(s)
+    return up | _brev(((((rm + rs) & _M32) ^ rm) & rm) | rs)
+
+
+def _spread_rows(rows):
+    """`spread` of every word of a (n, words + 2) block of packed rows (the
+    guard columns included), for the words 1..words."""
+    v = rows[:, 1:-1]
+    return (v | ((v << np.uint64(1)) & _M32) | (v >> np.uint64(1)) | (rows[:, :-2] >> np.uint64(31))
+            | ((rows[:, 2:] << np.uint64(31)) & _M32))
+
+
+def _banded_hysteresis(strong, weak, ranks, rng, chunk=8):
+    """The cluster route of the hysteresis kernel on one (H, W) image: the
+    rows in `ranks` bands of a multiple of `chunk` rows, each band's units
+    (`chunk` rows of one word column) swept down and up in place, every
+    unit of every band stepping together (one row a step, all columns); a
+    row of the neighbouring band is read from that band's memory either as
+    it stands or as it stood when the pass began (a read through
+    distributed shared memory may see the neighbour's old word), drawn per
+    pass and boundary. A pass in which no band changed a word ends it.
+    Returns the edge map and the pass count."""
+    h, w = weak.shape
+    wk, e = _pack(weak).astype(np.uint64), _pack(strong & weak).astype(np.uint64)
+    band = -(-(-(-h // ranks)) // chunk) * chunk
+    units = [(ra, min(ra + chunk, h, (ra // band + 1) * band)) for ra in range(0, h, chunk)]
+    band_of = np.arange(h + 2) - 1  # the packed row's image row, then its band
+    band_of = np.where((band_of >= 0) & (band_of < h), band_of // band, -1)
+    passes = 0
+    while True:
+        changed = False
+        start = e.copy()
+        stale = rng.random(ranks + 1) < 0.5  # per band boundary, this pass
+        for step in range(2 * chunk - 1):
+            rows = []
+            for ra, rb in units:
+                n = rb - ra
+                if step < 2 * n - 1:
+                    rows.append(1 + (ra + step if step < n else 2 * rb - ra - 2 - step))
+            r = np.array(rows)
+            own = band_of[r]
+
+            def neighbour(rn):
+                live, old = e[rn], start[rn]
+                other = (band_of[rn] != own) & (band_of[rn] >= 0)
+                pick = other & stale[np.maximum(np.minimum(own, band_of[rn]), 0) + 1]
+                return np.where(pick[:, None], old, live)
+
+            seed = (e[r, 1:-1] | _spread_rows(neighbour(r - 1)) | _spread_rows(e[r])
+                    | _spread_rows(neighbour(r + 1)))
+            m = wk[r, 1:-1]
+            now = np.where(e[r, 1:-1] == m, e[r, 1:-1], _fill_runs_vec(seed & m, m))
+            if (now != e[r, 1:-1]).any():
+                changed = True
+                e[r, 1:-1] = now
+        passes += 1
+        if not changed:
+            return _unpack(e.astype(np.uint32), w), passes
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_canny_1280x960():
+    img = _frames(960, 1280, 1)[0]
+    return img, np.asarray(_jax_canny(jnp.asarray(img)))
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["frame 1280x960", "serpentine 120x160"])
+def test_banded_hysteresis_reaches_jax_canny(kind, ranks):
+    """The hysteresis over a cluster of 2, 4 or 8 blocks, a band of rows
+    each, gives JAX's Canny edge map: on a rendered 1280x960 frame (`dvo
+    --cam-scale 4`'s level 0, which one block cannot hold) and on the
+    serpentine image, whose chain crosses every band boundary many times."""
+    rng = np.random.default_rng(ranks)
+    if kind.startswith("frame"):
+        img, want = _jax_canny_1280x960()
+    else:
+        img = serpentine_image(120, 160)
+        want = np.asarray(_jax_canny(jnp.asarray(img)))
+    weak, strong = _weak_strong(img)
+    got, passes = _banded_hysteresis(strong, weak, ranks, rng)
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() > strong.sum() and passes >= 2
+
+
+_P320 = [(240, 320), (120, 160), (60, 80), (30, 40)]
+_VGA = [(480, 640)] + _P320
+
+
+@pytest.mark.parametrize("shapes, b, want", [
+    # a level whose units (8 rows of a 32-column word) fit a block's 1024
+    # threads stays on one block; one more row of units goes to a cluster
+    (_P320, 1, ((1, 1, 1, 1), 1)), ([(256, 1024)], 1, ((1,), 1)), ([(264, 1024)], 1, ((8,), 8)),
+    # the largest c whose blocks the card holds at once (264), else one block
+    (_VGA, 1, ((8, 1, 1, 1, 1), 8)), (_VGA, 16, ((8, 1, 1, 1, 1), 8)),
+    (_VGA, 32, ((4, 1, 1, 1, 1), 4)), (_VGA, 44, ((2, 1, 1, 1, 1), 2)),
+    (_VGA, 45, ((1, 1, 1, 1, 1), 1)), (_VGA, 64, ((1, 1, 1, 1, 1), 1)),
+    # a level one block cannot hold (from 690 rows of 1280) always clusters:
+    # where the card cannot hold the wanted clusters, on the smallest c that fits
+    ([(689, 1280)], 1, ((8,), 8)), ([(690, 1280)], 64, ((4,), 4)),
+    ([(960, 1280), (480, 640), (240, 320), (120, 160)], 64, ((2, 1, 1, 1), 2)),
+    ([(960, 1280), (480, 640), (240, 320), (120, 160)], 1, ((8, 8, 1, 1), 8)),
+    ([(1600, 2560), (800, 1280), (400, 640)], 1, ((8, 8, 1), 8)),
+    ([(1600, 2560)], 64, ((8,), 8)),
+])
+def test_hysteresis_route_rule(shapes, b, want):
+    """`hysteresis_route` over B images: a level one block cannot hold, or
+    whose units outnumber a block's threads, runs on the largest cluster
+    whose blocks the card holds at once; where none does, only the levels
+    one block cannot hold go to the smallest cluster that holds them."""
+    assert kcanny.hysteresis_route(shapes, b) == want
+
+
+@pytest.mark.parametrize("shape, cluster, match", [
+    ((240, 320), 3, "one of"), ((960, 1280), 1, "does not fit"),
+    ((1600, 2560), 4, "does not fit"), ((240, 320), 8, "unsupported device"),
+])
+def test_forced_cluster_is_checked_before_building(monkeypatch, shape, cluster, match):
+    """A forced route must be a cluster size every level fits; it is checked
+    before anything is built (a 240x320 level takes any c)."""
+    monkeypatch.setattr(build, "bind", lambda *a, **k: pytest.fail("built"))
+    with pytest.raises(ValueError, match=match):
+        kcanny.canny_pyramid((_meta(1, *shape),), cluster=cluster)
+
+
 # ---------------------------------------------------------------------------
 # the solver's calls
 # ---------------------------------------------------------------------------
@@ -270,8 +413,8 @@ def _meta(*shape, dtype=torch.float32):
                                    "passes", "device"])
 def test_cuda_wrapper_rejects_bad_arguments_before_building(monkeypatch, fault):
     """Off the CPU the wrapper checks every level (the same B and device,
-    float32, contiguous, (B, H, W), a hysteresis block that fits shared
-    memory), the level count and the pass-count tensor
+    float32, contiguous, (B, H, W), within the kernels' size limit: a
+    3000x3000 level is past it), the level count and the pass-count tensor
     before it builds or binds anything (meta tensors stand in for a device
     without a kernel)."""
     def no_build(*args, **kwargs):
@@ -282,7 +425,7 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(monkeypatch, fault):
     good = [_meta(2, 48, 64), _meta(2, 24, 32), _meta(2, 12, 16)]
     imgs, kw = list(good), {}
     match = {"batch": "images", "dtype": "float32", "strides": "contiguous", "rank": "(B, H, W)",
-             "smem": "shared memory", "levels": "levels", "passes": "passes",
+             "smem": "too large", "levels": "levels", "passes": "passes",
              "device": "unsupported device"}[fault]
     if fault == "batch":
         imgs[1] = _meta(3, 24, 32)
@@ -304,13 +447,18 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(monkeypatch, fault):
     assert kcanny.canny_pyramid.launches == before
 
 
-@pytest.mark.parametrize("shape, fits", [((480, 640), True), ((800, 1280), False),
-                                          ((3000, 640), False)])
+@pytest.mark.parametrize("shape, fits", [((480, 640), True), ((2048, 2048), False),
+                                          ((3000, 640), False), ((800, 1280), True),
+                                          ((960, 1280), True), ((2560, 1600), True),
+                                          ((64, 2561), False)])
 def test_a_level_fits_one_hysteresis_block_up_to_its_shared_memory(monkeypatch, shape, fits):
-    """One block holds a whole (level, image) fixpoint: a 640x480 level fits
-    (85 KB, through the opt-in; the check then stops at the device), a
-    1280x800 or a 3000-row level does not and is refused before anything is
-    built."""
+    """A level of fewer than 2^22 pixels with both sides at most 2560 passes
+    the checks (which then stop at the device): a 640x480 level on one block
+    (85 KB, through the opt-in), 1280x800, 1280x960 and 1600x2560 on a
+    cluster of blocks, a band of rows each; a 2048x2048 level, a 3000-row
+    one and a side of 2561 are refused before anything is built, naming the
+    limit."""
     monkeypatch.setattr(build, "bind", lambda *a, **k: pytest.fail("built"))
-    with pytest.raises(ValueError, match="unsupported device" if fits else "shared memory"):
+    with pytest.raises(ValueError, match="unsupported device" if fits else
+                       r"fewer than 2\^22 pixels .* at most 2560 a side"):
         kcanny.canny_pyramid((_meta(1, *shape),))

@@ -9,10 +9,14 @@ algorithm, both segment paths and chunk by chunk as the kernel runs it,
 must give
 `extract_ref_level`'s selection, order and count exactly: both branches,
 padded tail segments, edge-free and all-edge images, depth below
-`min_depth_mm` and fewer edges than slots. The wrapper on CPU tensors (the
-plain version) is held against the JAX package's `extract_ref_features` to
+`min_depth_mm` and fewer edges than slots; run as a cluster of 1, 2, 4 or 8
+blocks (segment ranges per rank, pass A's counts, the scan in rank order,
+pass B from the offsets) it must give JAX's `extract_ref_level` exactly, up
+to 1280x960. The route rule (`cluster_size`, `chunk_size`, `replicated`) is
+held either side of each boundary. The wrapper on CPU tensors (the plain
+version) is held against the JAX package's `extract_ref_features` to
 tests/test_torch_extract.py's bars, and the CUDA wrapper's argument checks
-run before anything is built."""
+(a forced route, the size limit) run before anything is built."""
 
 import dataclasses
 
@@ -24,6 +28,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from rgbd_odometry_tpu.config import CameraConfig  # noqa: E402
+from rgbd_odometry_tpu.config import SolverConfig as JSolverConfig  # noqa: E402
 from rgbd_odometry_tpu.core.camera import Intrinsics as JIntrinsics  # noqa: E402
 from rgbd_odometry_tpu.profiles import production_320  # noqa: E402
 from rgbd_odometry_tpu.solvers import edge_dvo as jed  # noqa: E402
@@ -40,49 +45,84 @@ torch.set_num_threads(1)
 INTR = Intrinsics(fx=130.0, fy=130.0, cx=79.5, cy=59.5)
 
 
-def kernel_model(mask: np.ndarray, k: int, segmented: bool, chunk: int = 1024 * 16):
+def _candidates(mask: np.ndarray, seg: np.ndarray, s_lo: int, s_hi: int) -> np.ndarray:
+    """The segmented branch's candidates among segments s_lo..s_hi - 1, as
+    the kernel's warps find them (a warp per segment): with m <= 32 high
+    pixels every one of them and the first 32 - m lows among the segment's
+    first 32 offsets; else the first 32 high pixels."""
+    n = mask.size
+    cand = np.zeros(n, bool)
+    for s in range(s_lo, s_hi):
+        p = s * kex.SEGMENT + seg[s]
+        real = p < n
+        high = np.zeros(kex.SEGMENT, bool)
+        high[real] = mask[p[real]]
+        m = int(high.sum())
+        if m <= 32:
+            low = (real & ~high)[:32]
+            keep = high.copy()
+            keep[:32] |= low & (np.cumsum(low) - 1 < 32 - m)
+        else:
+            keep = high & (np.cumsum(high) - 1 < 32)
+        cand[p[keep]] = True
+    return cand
+
+
+def kernel_model(mask: np.ndarray, k: int, segmented: bool, chunk: int = 1024 * 16,
+                 ranks: int = 1):
     """The kernel's selection on one image: mask (n,) bool -> (idx (k,),
-    valid (k,), count), from the wrapper's own tables, streaming `order`
-    in chunks of `chunk` entries (csrc/extract.cu: kThreads * ITEMS)."""
+    valid (k,), count), from the wrapper's own tables, as a cluster of
+    `ranks` blocks runs it (csrc/extract.cu): rank r holds the class words
+    of the r-th range of segments (its candidates found there) and streams
+    the r-th range of `order`; E is the sum of the ranks' high counts;
+    with ranks > 1 pass A counts each range's high and low pixels and an
+    exclusive scan in rank order gives each rank its offsets; pass B then
+    streams the rank's range in chunks of `chunk` entries (kThreads *
+    ITEMS) from those offsets, placing high pixels at their offset and low
+    ones at E + theirs, and stops once its range is done or every slot of
+    both classes is placed."""
     n = mask.size
     order = kex._order_table(n, "cpu").numpy()
+    segs = -(-n // kex.SEGMENT)
+    per_seg = -(-segs // ranks)
+    per_entry = -(-(-(-order.size // ranks)) // 16) * 16
+    seg = kex._segment_table(n, "cpu").numpy().reshape(-1, kex.SEGMENT).astype(np.int64) \
+        if segmented else None
+    # each rank's share of the class words: the candidates of its segments
     cand = np.ones(n, bool)
-    if segmented:
-        # a warp per segment, the kernel's two paths: with m <= 32 high
-        # pixels every one of them and the first 32 - m lows among the
-        # segment's first 32 offsets; else the first 32 high pixels
-        seg = kex._segment_table(n, "cpu").numpy().reshape(-1, kex.SEGMENT).astype(np.int64)
-        cand[:] = False
-        for s, offs in enumerate(seg):
-            p = s * kex.SEGMENT + offs
-            real = p < n
-            high = np.zeros(kex.SEGMENT, bool)
-            high[real] = mask[p[real]]
-            m = int(high.sum())
-            if m <= 32:
-                low = (real & ~high)[:32]
-                keep = high.copy()
-                keep[:32] |= low & (np.cumsum(low) - 1 < 32 - m)
-            else:
-                keep = high & (np.cumsum(high) - 1 < 32)
-            cand[p[keep]] = True
-    e = int((cand & mask).sum())
+    e_parts = []
+    for r in range(ranks):
+        s_lo, s_hi = min(r * per_seg, segs), min((r + 1) * per_seg, segs)
+        lo, hi = s_lo * kex.SEGMENT, min(s_hi * kex.SEGMENT, n)
+        if segmented:
+            cand[lo:hi] = _candidates(mask, seg, s_lo, s_hi)[lo:hi]
+        e_parts.append(int((cand[lo:hi] & mask[lo:hi]).sum()))
+    e = sum(e_parts)
     need_high, need_low = min(e, k), max(k - e, 0)
-    idx, valid = np.full(k, -1), np.zeros(k, bool)
-    taken_high = taken_low = 0
-    for c in range(0, order.size, chunk):
-        if taken_high >= need_high and taken_low >= need_low:
-            break
-        px = order[c:c + chunk]
+
+    def classes(px):
         p = np.maximum(px, 0)
         cls = (px >= 0) & cand[p]
-        high, low = cls & mask[p], cls & ~mask[p]
-        for sel, pos, v in ((high, taken_high + np.cumsum(high) - 1, True),
-                            (low, e + taken_low + np.cumsum(low) - 1, False)):
-            put = sel & (pos < k)
-            idx[pos[put]], valid[pos[put]] = px[put], v
-        taken_high += int(high.sum())
-        taken_low += int(low.sum())
+        return cls & mask[p], cls & ~mask[p]
+
+    ranges = [(min(r * per_entry, order.size), min((r + 1) * per_entry, order.size))
+              for r in range(ranks)]
+    counts = [tuple(int(x.sum()) for x in classes(order[a:b])) for a, b in ranges]  # pass A
+    idx, valid = np.full(k, -1), np.zeros(k, bool)
+    for r, (a, b) in enumerate(ranges):
+        taken_high = sum(c[0] for c in counts[:r])  # the scan in rank order
+        taken_low = sum(c[1] for c in counts[:r])
+        for c in range(a, b, chunk):
+            if taken_high >= need_high and taken_low >= need_low:
+                break
+            px = order[c:min(c + chunk, b)]
+            high, low = classes(px)
+            for sel, pos, v in ((high, taken_high + np.cumsum(high) - 1, True),
+                                (low, e + taken_low + np.cumsum(low) - 1, False)):
+                put = sel & (pos < k)
+                idx[pos[put]], valid[pos[put]] = px[put], v
+            taken_high += int(high.sum())
+            taken_low += int(low.sum())
     assert (idx >= 0).all(), "a slot was not written"
     return idx, valid, need_high
 
@@ -151,6 +191,102 @@ def test_kernel_model_at_the_half_chunk_equals_extract_ref_level(h, w, k, select
     assert np.array_equal(uv[:, 1] * w + uv[:, 0], idx)
     assert np.array_equal(ref.valid[0].numpy(), valid)
     assert int(ref.count[0]) == count
+
+
+_jax_extract = {}
+
+
+def _jax_selection(edges: np.ndarray, depth: np.ndarray, k: int, selection: str):
+    """JAX's `extract_ref_level` on one (H, W) image: the chosen pixel of
+    every slot, valid and count."""
+    h, w = edges.shape
+    key = (h, w, k, selection)
+    if key not in _jax_extract:
+        jcfg = JSolverConfig(method="gauss_newton", extract_selection=selection,
+                             gather_mode="take")
+        jintr = JIntrinsics(fx=130.0, fy=130.0, cx=79.5, cy=59.5)
+        _jax_extract[key] = jax.jit(lambda e, d: jed.extract_ref_level(
+            jnp.zeros((h, w), jnp.float32), d, jintr, k, jcfg, edges=e))
+    ref = _jax_extract[key](jnp.asarray(edges), jnp.asarray(depth))
+    uv = np.asarray(ref.uv).astype(np.int64)
+    return uv[:, 1] * w + uv[:, 0], np.asarray(ref.valid), int(ref.count)
+
+
+@pytest.mark.parametrize("h,w,k", [(240, 320, 2048), (480, 640, 4096), (960, 1280, 8192),
+                                   (37, 45, 100)])
+@pytest.mark.parametrize("selection", ["exact", "segmented"])
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_cluster_model_equals_jax_extract_ref_level(ranks, selection, h, w, k):
+    """The kernel's schedule over a cluster of 1, 2, 4 or 8 blocks (class
+    words split by segment range, pass A's counts, the scan in rank order,
+    pass B from the offsets) selects JAX's pixels in JAX's order with JAX's
+    count, on sparse edges (fewer than the slots at the small levels) and
+    dense ones, up to `dvo --cam-scale 4`'s level 0."""
+    for kind in ("sparse", "dense"):
+        edges, depth = _inputs(kind, h, w, seed=h * w + k + ranks)
+        mask = (edges & (depth > SolverConfig().min_depth_mm)).reshape(-1).numpy()
+        kk = min(k, h * w)
+        cfg = SolverConfig(method="gauss_newton", extract_selection=selection)
+        chunk = 1024 * 16 if kex.chunk_size(h * w, ranks) == 1024 * 16 else 1024 * 8
+        idx, valid, count = kernel_model(mask, kk, kex.is_segmented(cfg, h * w, kk), chunk,
+                                         ranks)
+        want_idx, want_valid, want_count = _jax_selection(edges[0].numpy(), depth[0].numpy(), k,
+                                                          selection)
+        msg = f"{kind} {h}x{w} k={k} {selection} ranks={ranks}"
+        np.testing.assert_array_equal(idx, want_idx, err_msg=msg)
+        np.testing.assert_array_equal(valid, want_valid, err_msg=msg)
+        assert count == want_count, msg
+
+
+@pytest.mark.parametrize("n, b, levels, want", [
+    # the largest c whose B * levels clusters the card holds at once (132
+    # SMs, two blocks each where the shared memory allows): one block an
+    # image where B alone fills the card
+    (76800, 1, 4, 8), (76800, 8, 4, 8), (76800, 16, 4, 4), (76800, 32, 4, 2), (76800, 64, 4, 1),
+    (307200, 1, 5, 8), (307200, 8, 5, 2), (307200, 16, 5, 1), (307200, 64, 5, 1),
+    (691200, 8, 4, 4), (691200, 64, 4, 1),
+    # levels whose class words one block cannot hold: at least the smallest c that can
+    (960 * 1280, 64, 4, 2), (960 * 1280, 8, 4, 8), (1600 * 2560, 64, 1, 8),
+    ((1 << 22) - 1, 1, 1, 8),
+])
+def test_extract_route_rule(n, b, levels, want):
+    """`cluster_size` over B images of `levels` levels whose largest has n
+    pixels."""
+    assert kex.cluster_size(n, b, levels) == want
+    assert kex.chunk_size(n, want)
+
+
+@pytest.mark.parametrize("n, c, chunk, replicated", [
+    # one block: the full chunk up to 665856 pixels, the half up to 796928
+    (665856, 1, 16384, True), (665857, 1, 8192, True), (796928, 1, 8192, True),
+    (796929, 1, 0, False),
+    # a cluster holds every class word in every rank as far as one block
+    # would, past that each rank its share: the full chunk again
+    (796928, 8, 8192, True), (796929, 2, 16384, False), (1331712, 2, 16384, False),
+    (1331713, 2, 8192, False), (1593857, 2, 0, False), (1593857, 4, 16384, False),
+    ((1 << 22) - 1, 4, 0, False), ((1 << 22) - 1, 8, 16384, False),
+])
+def test_chunk_and_class_words_follow_the_shared_memory(n, c, chunk, replicated):
+    """Where the class words of a level live (a copy in every rank, or a
+    share each) and the chunk staged beside them, either side of each
+    boundary."""
+    assert kex.chunk_size(n, c) == chunk
+    assert kex.replicated(n) == replicated
+
+
+@pytest.mark.parametrize("hw, cluster, match", [
+    ((240, 320), 3, "one of"), ((960, 1280), 1, "does not fit"), ((1600, 2560), 4, "does not fit"),
+    ((720, 960), 1, "unsupported device"), ((1600, 2560), 8, "unsupported device"),
+])
+def test_forced_cluster_is_checked_before_building(monkeypatch, hw, cluster, match):
+    """A forced route must be a cluster size the largest level fits (960x720
+    still fits one block with the half chunk); it is checked before anything
+    is built."""
+    monkeypatch.setattr(build, "bind", lambda *a, **k: pytest.fail("built"))
+    edges = (_meta(1, *hw, dtype=torch.bool),)
+    with pytest.raises(ValueError, match=match):
+        kex.extract_pyramid(edges, (_meta(1, *hw),), INTR, SolverConfig(), (8192,),
+                            cluster=cluster)
 
 
 @pytest.mark.parametrize("n", [1200, 1665, 19200, 76800])
@@ -274,16 +410,20 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(monkeypatch, fault):
 
 
 @pytest.mark.parametrize("hw, fits", [((720, 960), True), ((768, 1024), True),
-                                       ((720, 1280), False)])
+                                       ((2048, 2048), False), ((720, 1280), True),
+                                       ((960, 1280), True), ((2560, 1600), True),
+                                       ((2561, 64), False), ((64, 2561), False)])
 def test_a_level_fits_one_block_up_to_its_shared_memory(monkeypatch, hw, fits):
-    """A 960x720 level 0 (`dvo --cam-scale 3`) fits one block with the half
-    chunk and passes the checks (which then stop at the device); a 1280x720
-    one is refused before anything is built, naming the ROADMAP item that
-    would split a level over blocks."""
+    """A level of fewer than 2^22 pixels with both sides at most 2560 passes
+    the checks (which then stop at the device): 960x720 (`dvo --cam-scale
+    3`) on one block with the half chunk, 1280x720 and 1280x960 (`dvo
+    --cam-scale 4`) and 1600x2560 on clusters; a 2048x2048 level (2^22
+    pixels, where the priorities stop being distinct) and a side of 2561
+    are refused before anything is built, naming the limit."""
     monkeypatch.setattr(build, "bind", lambda *a, **k: pytest.fail("built"))
     h, w = hw
     edges = tuple(_meta(1, h >> k, w >> k, dtype=torch.bool) for k in range(4))
     depth = tuple(_meta(1, h >> k, w >> k) for k in range(4))
     with pytest.raises(ValueError, match="unsupported device" if fits else
-                       "ROADMAP.md Queue 2 item 7"):
+                       r"fewer than 2\^22 pixels .* at most 2560 a side"):
         kex.extract_pyramid(edges, depth, INTR, SolverConfig(), (8192, 4096, 2048, 1024))

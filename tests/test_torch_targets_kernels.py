@@ -379,15 +379,19 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert kcanny.canny_pyramid.launches == 0 and kedt.dt_channels.launches == 0
 
 
-@pytest.mark.parametrize("shape, fits", [((720, 960), True), ((2400, 64), True),
-                                          ((2401, 64), False), ((64, 1601), False)])
+@pytest.mark.parametrize("shape, fits", [((720, 960), True), ((2560, 64), True),
+                                          ((2561, 64), False), ((64, 2561), False),
+                                          ((2401, 64), True), ((64, 1601), True),
+                                          ((1600, 2560), True), ((2560, 1600), True),
+                                          ((2048, 2048), False)])
 @pytest.mark.parametrize("name", ["edt_squared", "dt_channels"])
 def test_edt_takes_levels_up_to_its_shared_memory(monkeypatch, name, shape, fits):
-    """The column phase stages 3 bytes a row of a 32-column strip and opts
-    in to more than 48 KB of shared memory past 480 rows: a 960x720 level
-    (`dvo --cam-scale 3`) and 2400 rows pass the checks (which then stop at
-    the device), taller or wider images are refused before anything is
-    built, naming the ROADMAP item that would split a level over blocks."""
+    """The column phase stages 3 bytes a row of a 32-column strip (16 past
+    2400 rows) and opts in to more than 48 KB of shared memory past 480
+    rows, the row phase opts in past 1600 columns: a 960x720 level (`dvo
+    --cam-scale 3`), 2560 rows and 2560 columns pass the checks (which then
+    stop at the device); a side of 2561 or a level of 2^22 pixels is
+    refused before anything is built, naming the limit."""
     def no_build(*args, **kwargs):
         raise AssertionError("the wrapper reached the build")
 
@@ -395,5 +399,5 @@ def test_edt_takes_levels_up_to_its_shared_memory(monkeypatch, name, shape, fits
     fn, dtype = _WRAPPERS[name]
     mask = torch.empty((1, *shape), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="unsupported device" if fits else
-                       "ROADMAP.md Queue 2 item 7"):
+                       r"fewer than 2\^22 pixels .* at most 2560 a side"):
         fn(mask)
