@@ -101,16 +101,19 @@ whole pyramid in one call, with the fixpoints' pass counts and the pyramid
 call timed beside one single-level call a level; `dt_channels` for
 the +-16 window and the whole row, with and without normalization, bf16 and
 float32 channels).
-`check_level_lm` holds the whole-level LM kernel against its plain version
-on rendered pairs at both Gauss-Newton configurations' level shapes (the
-`dvo` defaults and production_320, all 4 levels, and production_vga, all
-5 levels, B = 64 and B = 1), its
-all-point tail bitwise against `residual_pass` at the returned pose, and
-times it per level beside the per-iteration route it replaced.
-`check_level_sg` does the same for the whole-level sub-gradient kernel at
-the four parity capacities (50 iterations, B = 64 and B = 1), after
-`check_se3_log` has held the device function `se3_log` against its plain
-twin in all three branches. `check_extract` holds keyframe extraction
+`check_level_lm` holds the LM pyramid kernel, one level a launch, against
+its plain version on rendered pairs at both Gauss-Newton configurations'
+level shapes (the `dvo` defaults and production_320, all 4 levels, and
+production_vga, all 5 levels, B = 64 and B = 1) on the route rule's
+cluster size and forced to every other (1, 2, 4, 8 blocks a pair), pair 5
+alone bitwise pair 5 of the batch, its all-point tail bitwise against
+`residual_pass` at the returned pose on every route, and each
+configuration's whole pyramid in one launch bitwise the levels launched
+one by one; it times each level on each route beside the per-iteration
+route it replaced. `check_level_sg` does the same for the sub-gradient
+pyramid kernel at the four parity capacities (50 iterations, B = 64 and B
+= 1), after `check_se3_log` has held the step's `warp_se3_log` against its
+plain twin in all three branches. `check_extract` holds keyframe extraction
 over a pyramid bitwise against its plain version on every output, invalid
 slots included (production_320's, the `dvo` defaults' and production_vga's
 capacities, B = 64 and 1, rendered, edge-free, all-edge and shallow-depth
@@ -124,12 +127,13 @@ kernel's launch counter is set to 0 before the path phases and read around
 each one: each kernel of the paths must launch; `canny_pyramid` and
 `dt_channels` in every Gauss-Newton phase and in cli_subgradient
 (`edt_squared`, whose phases `dt_channels` runs, keeps its check and
-launches on no path); `level_lm` in every
-Gauss-Newton phase, where the per-iteration `fused_gn_terms` and the
-`residual_pass` that `level_lm`'s tail replaced must launch not at all (both
-keep their checks); `level_sg` in
-cli_subgradient, where the per-iteration `subgradient_terms` must launch not
-at all (it keeps its check too); the matching and PnP kernels in each of
+launches on no path); `level_lm` in every Gauss-Newton phase, one launch
+for each pyramid solve (`solve_pyramid`) and each single level
+(`run_level`), counted and required, where the per-iteration
+`fused_gn_terms` and the `residual_pass` that `level_lm`'s tail replaced
+must launch not at all (both keep their checks); `level_sg` in
+cli_subgradient, one launch a pyramid solve too, where the per-iteration
+`subgradient_terms` must launch not at all (it keeps its check too); the matching and PnP kernels in each of
 the loop_closure, relocalize, cli_loop_close, cli_weighted_refine and
 cli_checkpoint phases; `level_sg` in probe too; `extract_pyramid` in every phase that extracts keyframe features
 (every Gauss-Newton phase, the lockstep and sequence phases among them, and
@@ -205,13 +209,13 @@ OPS_GN_POINT = 150  # gn_point (project.cuh): projection 25, bilinear sample 30,
 #                     Jacobian 25, 6 products and 27 multiply-adds into the sums
 OPS_RESIDUAL_POINT = 50  # projection, bilinear sample, the e2 multiply-add
 OPS_SG_POINT = 60  # sg_point (project.cuh): sg_terms.cu and level_sg.cu
-OPS_SG_STEP = 750  # level_sg.cu, thread 0 per iteration: se3_log 150, the normalized pull,
-#                    momentum and preconditioner 60, trust region 20, se3_exp 120, compose 60,
-#                    3 Newton-Schulz steps 330
+OPS_SG_STEP = 750  # level_sg.cu, the serial step per iteration (warp 0, counted once):
+#                    se3_log 150, the normalized pull, momentum and preconditioner 60, trust
+#                    region 20, se3_exp 120, compose 60, 3 Newton-Schulz steps 330
 OPS_PNP_POINT = 130  # pnp_gn.cu, per masked point and iteration
 OPS_PNP_SCORE = 25  # pnp_gn.cu scoring: R^T (P - t), dehomogenize, |r| < threshold
-OPS_LM_STEP = 600  # level_lm.cu, thread 0 per iteration: damped 6x6 Cholesky solve,
-#                    se3_exp, compose, 3 Newton-Schulz steps
+OPS_LM_STEP = 600  # level_lm.cu, the serial step per iteration (warp 0, counted once):
+#                    damped 6x6 Cholesky solve, se3_exp, compose, 3 Newton-Schulz steps
 OPS_CANNY_PIXEL = 34  # what one pixel of Canny needs (canny.cu): rounding and clamping 3,
 #                       one Sobel 14, the squared magnitude 3, the sector test (two |.|,
 #                       four products, an add, three compares) and the keep rule with both
@@ -1217,6 +1221,47 @@ def _check_level_curves(what: str, cfg, ker, pl) -> float:
     return err
 
 
+def _check_tail(what: str, ker, pts, valid, count, img, li) -> None:
+    """A level's all-point tail bitwise `residual_pass` at the returned
+    pose (the launch it replaced): eps, visibility, energy, visible ratio."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import residual
+
+    res = residual.residual_pass(ker.R, ker.t, pts, valid, img, *li, True, write_points=True)
+    ratio = res[1].to(torch.float32) / torch.clamp(count, min=1).to(torch.float32)
+    torch.cuda.synchronize()
+    _require(_same_bits(ker.final_energy, res[0]) and torch.equal(ker.eps, res[2])
+             and torch.equal(ker.visible, res[3]) and _same_bits(ker.visible_ratio, ratio),
+             f"{what}: the all-point tail differs from residual_pass at the returned pose")
+
+
+def _check_alone(what: str, fn, args: tuple, batched, p: int = 5) -> None:
+    """Pair p launched alone (every batched argument cut to row p) is
+    bitwise pair p of the batch: a pair's bits do not depend on B."""
+    import torch
+
+    b = args[0].shape[0]
+    cut = tuple(x[p:p + 1] if torch.is_tensor(x) and x.dim() >= 1 and x.shape[0] == b else x
+                for x in args)
+    one = fn(*cut)
+    torch.cuda.synchronize()
+    _require(all(_same_bits(x[p:p + 1], y) for x, y in zip(batched, one)),
+             f"{what}: pair {p} alone differs from pair {p} of the batch of {b}")
+
+
+def _forced_routes(rule, *shape) -> tuple:
+    """The cluster sizes a level of this shape can be forced to."""
+    out = []
+    for c in (1, 2, 4, 8):
+        try:
+            rule(*shape, cluster=c)
+        except ValueError:
+            continue
+        out.append(c)
+    return tuple(out)
+
+
 def check_level_lm(device, rng) -> dict:
     """Kernel 5 vs its plain version at the Gauss-Newton configurations'
     level shapes: the `dvo` defaults (standard LM on the normalized DT,
@@ -1224,16 +1269,21 @@ def check_level_lm(device, rng) -> dict:
     (deferred accept, pixel-unit windowed DT, 2048/1024/512/512) and
     production_vga (the same at 640x480 over 5 levels, 4096/2048/1024/512/512,
     4/18/6/4/3), each on 64 rendered pairs and on one, at every level from
-    the identity. The CPU
-    tests' bars against the plain version; iteration 0's energy equal to
-    `fused_gn_terms`' at the start pose (1e-6 relative); a second launch
-    bitwise equal; the diagnostics: where they are not the best iterate's
-    own (deferred, or a Jacobian stride > 1) the all-point tail's eps,
-    visibility, energy and visible ratio bitwise those of `residual_pass` at
-    the returned pose (the launch the tail replaced), else the best
-    iterate's energy. CUDA-event times per level of the kernel, the
-    per-iteration route it replaced, the plain version and that
-    `residual_pass`."""
+    the identity, one level a launch (`level_lm`, a pyramid of one). The
+    CPU tests' bars against the plain version on the rule's route
+    (`level_ranks`) and on every cluster size the level can be forced to
+    (1, 2, 4, 8 blocks a pair), the rule's own bitwise the route it takes;
+    iteration 0's energy equal to `fused_gn_terms`' at the start pose (1e-6
+    relative); a second launch bitwise equal; pair 5 alone bitwise pair 5
+    of the 64; the diagnostics: where they are not the best iterate's own
+    (deferred, or a Jacobian stride > 1) the all-point tail's eps,
+    visibility, energy and visible ratio bitwise those of `residual_pass`
+    at the returned pose on every route, else the best iterate's energy.
+    Then every level of each configuration in one `level_lm_pyramid`
+    launch, bitwise the levels launched one by one, each from the pose the
+    one before returned. CUDA-event times per level of the kernel on each
+    route, the per-iteration route it replaced, the plain version and that
+    `residual_pass`, and of the pyramid launch beside the chained ones."""
     import torch
 
     from rgbd_odometry_tpu_torch import PipelineConfig, SolverConfig, profiles
@@ -1250,7 +1300,7 @@ def check_level_lm(device, rng) -> dict:
         "production_vga": (vga.solver, vga.max_points, vga),
     }
     f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    worst, worst_by, summary = 0.0, {}, {}
+    worst, worst_by, summary, pyramids = 0.0, {}, {}, {}
     for name, (cfg, max_points, shapes) in configs.items():
         rg, rd, ng, nd, _ = render_batch(shapes.camera, BATCH)
         n_lv = shapes.num_levels
@@ -1258,16 +1308,22 @@ def check_level_lm(device, rng) -> dict:
         intr = Intrinsics.from_config(shapes.camera)
         refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, max_points)
         nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        deferred = cfg.lm_deferred_accept
         for b in (BATCH, 1):
+            table = []
             for lvl in range(n_lv - 1, -1, -1):
                 ref, now = refs[lvl], nows[lvl]
                 pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
                 img, scale = now.chans[:b, 0], now.scale[:b]
                 li, n_iters = intr.at_level(lvl), cfg.iterations[lvl]
-                jstride, stride = edge_dvo.level_strides(cfg, pts.shape[1])
+                k_all = pts.shape[1]
+                jstride, stride = edge_dvo.level_strides(cfg, k_all)
+                table.append(level_lm.LmLevel(pts, valid, count, img, scale, *li, n_iters,
+                                              jstride, stride))
                 R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
                 t0 = torch.zeros((b, 3), device=device)
                 args = (R0, t0, pts, valid, count, img, scale, *li, cfg, n_iters, jstride, stride)
+                ranks = level_lm.level_ranks(k_all, jstride, stride, deferred)
                 ker = level_lm.level_lm(*args)
                 again = level_lm.level_lm(*args)
                 pl = level_lm.level_lm_plain(*args)
@@ -1282,32 +1338,40 @@ def check_level_lm(device, rng) -> dict:
                 rel0 = _rel(ker.energy[:, :1], e0[:, None])
                 _require(rel0 <= 1e-6, f"{what}: iteration 0 energy vs fused_gn_terms {rel0:.2e}")
                 err = _check_level_curves(what, cfg, ker, pl)
-                worst = max(worst, err)
-                worst_by[name] = max(worst_by.get(name, 0.0), err)
-                tail = cfg.lm_deferred_accept or jstride > 1
+                tail = deferred or jstride > 1
                 r_args = (ker.R, ker.t, pts, valid, img, *li, True)
                 if tail:
-                    res = residual.residual_pass(*r_args, write_points=True)
-                    ratio = res[1].to(torch.float32) / torch.clamp(count, min=1).to(torch.float32)
-                    torch.cuda.synchronize()
-                    _require(_same_bits(ker.final_energy, res[0]) and torch.equal(ker.eps, res[2])
-                             and torch.equal(ker.visible, res[3])
-                             and _same_bits(ker.visible_ratio, ratio),
-                             f"{what}: the all-point tail differs from residual_pass at the "
-                             "returned pose")
+                    _check_tail(what, ker, pts, valid, count, img, li)
                     res_ms = _time_ms(lambda: residual.residual_pass(*r_args, write_points=True), 20)
                 else:
                     _require(_same_bits(ker.final_energy, ker.best_energy),
                              f"{what}: the diagnostics' energy is not the best iterate's")
                     res_ms = float("nan")
+                if b == BATCH:
+                    _check_alone(what, level_lm.level_lm, args, ker)
+                # every route the level can take, forced
+                by_c = {}
+                for c in _forced_routes(level_lm.level_ranks, k_all, jstride, stride, deferred):
+                    kc = level_lm.level_lm(*args, cluster=c)
+                    torch.cuda.synchronize()
+                    if c == ranks:
+                        _require(all(_same_bits(a, x) for a, x in zip(ker, kc)),
+                                 f"{what}: forced to c={c}, the rule's route, it differs")
+                    else:
+                        err = max(err, _check_level_curves(f"{what} c={c}", cfg, kc, pl))
+                        if tail:
+                            _check_tail(f"{what} c={c}", kc, pts, valid, count, img, li)
+                    by_c[c] = _time_ms(lambda: level_lm.level_lm(*args, cluster=c), 20)
+                worst = max(worst, err)
+                worst_by[name] = max(worst_by.get(name, 0.0), err)
                 k_ms = _time_ms(lambda: level_lm.level_lm(*args), 20)
                 with _per_iteration_route():
                     r_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 3)
                 p_ms = _time_ms(lambda: level_lm.level_lm_plain(*args), 2)
-                k_jac, k_all = pj.shape[1], pts.shape[1]
+                k_jac = pj.shape[1]
                 ran = (ker.energy != 0).sum(-1)
                 n_valid = vj.sum(-1)
-                passes = OPS_GN_POINT + (0 if cfg.lm_deferred_accept else
+                passes = OPS_GN_POINT + (0 if deferred else
                                          OPS_RESIDUAL_POINT * (2 if stride > 1 else 1) / stride)
                 flops = float((ran * n_valid).sum()) * passes + float(ran.sum()) * OPS_LM_STEP + (
                     float(valid.sum()) * OPS_RESIDUAL_POINT if tail else 0.0)
@@ -1321,15 +1385,43 @@ def check_level_lm(device, rng) -> dict:
                 bound = _bound(nbytes, flops)
                 _log(f"{what} (jstride {jstride}, stride {stride}, {k_jac} points, {n_iters} "
                      f"iterations, {int(ran.sum())} run, diagnostics "
-                     f"{'by the all-point tail' if tail else 'of the best iterate'}): pose err "
-                     f"{err:.2e}, runs bitwise equal"
+                     f"{'by the all-point tail' if tail else 'of the best iterate'}, rule c="
+                     f"{ranks}): pose err {err:.2e}, runs bitwise equal"
                      f"{', the tail bitwise residual_pass' if tail else ''}; level_lm "
-                     f"{k_ms:.4f} ms, per-iteration kernels {r_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                     f"{k_ms:.4f} ms (forced "
+                     + ", ".join(f"c={c}: {t:.4f}" for c, t in by_c.items())
+                     + f"), per-iteration kernels {r_ms:.4f} ms, plain {p_ms:.4f} ms, "
                      f"residual_pass at the returned pose {res_ms:.4f} ms; bound "
                      f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
                 if lvl == 0:
-                    summary[(name, b)] = {"ms": k_ms, "plain_ms": p_ms, **bound}
-    return {"max_abs_err": worst, **summary[("dvo", BATCH)],
+                    summary[(name, b)] = {"ms": k_ms, "plain_ms": p_ms, **bound,
+                                          "cluster": ranks,
+                                          "cluster_ms": {str(c): t for c, t in by_c.items()}}
+            # the whole pyramid in one launch against the levels one by one
+            R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+            t0 = torch.zeros((b, 3), device=device)
+            pyr = level_lm.level_lm_pyramid(R0, t0, table, cfg)
+
+            def chained():
+                R, t, outs = R0, t0, []
+                for lv in table:
+                    o = level_lm.level_lm(R, t, *lv[:9], cfg, *lv[9:])
+                    outs.append(o)
+                    R, t = o.R, o.t
+                return outs
+
+            one_by_one = chained()
+            torch.cuda.synchronize()
+            for lv, x, y in zip(range(n_lv - 1, -1, -1), pyr, one_by_one):
+                _require(all(_same_bits(a, c) for a, c in zip(x, y)),
+                         f"level_lm {name} B={b}: level {lv} of the pyramid launch differs from "
+                         "its own launch")
+            pyr_ms = _time_ms(lambda: level_lm.level_lm_pyramid(R0, t0, table, cfg), 20)
+            chain_ms = _time_ms(chained, 20)
+            pyramids[f"{name} B={b}"] = {"ms": pyr_ms, "levels_one_by_one_ms": chain_ms}
+            _log(f"level_lm {name} B={b}: the {n_lv}-level pyramid in one launch bitwise the "
+                 f"levels one by one; {pyr_ms:.4f} ms against {chain_ms:.4f} ms")
+    return {"max_abs_err": worst, **summary[("dvo", BATCH)], "pyramid": pyramids,
             "vga": {"shape": "production_vga level 0 (jstride 8, 512 + 4096 points, 4 "
                              "iterations, 480x640), B=64",
                     "max_abs_err": worst_by["production_vga"],
@@ -1359,8 +1451,8 @@ def se3_log_poses(rng):
 
 
 def _check_se3_log(device, rng) -> None:
-    """The device function `se3_log` (`csrc/se3.cuh`), one thread a pose,
-    against its plain twin `kernels/se3_plain.se3_log` evaluated on the CPU
+    """The step's device function `warp_se3_log` (`csrc/warp.cuh`), one
+    warp a pose, against its plain twin `kernels/se3_plain.se3_log` evaluated on the CPU
     (IEEE operations; the card's PyTorch divides by a constant through its
     reciprocal): at least 1000 poses in each of so3_log's three branches and
     on both sides of V^-1's threshold; every element within 1e-6 of the
@@ -1551,14 +1643,19 @@ def check_level_sg(device, rng) -> dict:
     with and without the trace; every iteration on its own against
     `subgradient_terms` and the plain step (`_check_sg_steps`; iteration 0 is
     the start pose); the free-running plain version within the bars of
-    `_check_sg_curves`; the returned per-point values consistent with the
+    `_check_sg_curves`, under `SolverConfig()` also on every cluster size
+    the level can be forced to (1, 2, 4, 8 blocks a pair; the rule's
+    `level_ranks` bitwise the route it takes), and pair 5 alone bitwise
+    pair 5 of the 64; the returned per-point values consistent with the
     best iterate (|eps| equal to the best energy within 1e-5, the visible
     share equal to the visible ratio), bitwise those of `subgradient_terms`
     at the returned pose when it is not re-orthogonalized, and bitwise the
     plain version's on at least 99.9% of the points of the pairs that never
-    part from it. CUDA-event times per level of the kernel at each block
-    size, of the per-iteration route it replaced and of the plain
-    version."""
+    part from it. Then the four levels in one `level_sg_pyramid` launch,
+    bitwise the levels launched one by one. CUDA-event times per level of
+    the kernel on each route and at each block size, of the per-iteration
+    route it replaced and of the plain version, and of the pyramid launch
+    beside the chained ones."""
     import dataclasses
 
     import torch
@@ -1587,8 +1684,9 @@ def check_level_sg(device, rng) -> dict:
     refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, base,
                                          PipelineConfig().pyramid.max_points)
     nows = edge_dvo.prepare_now_targets(now_pyr.gray, base)
-    worst, summary = 0.0, None
+    worst, summary, pyramids = 0.0, None, {}
     for b in (BATCH, 1):
+        table = []
         for lvl in range(3, -1, -1):
             ref, now = refs[lvl], nows[lvl]
             pts, valid, count, dt = ref.pts3d[:b], ref.valid[:b], ref.count[:b], now.dt[:b]
@@ -1602,6 +1700,8 @@ def check_level_sg(device, rng) -> dict:
                     continue
                 n_iters = cfg.iterations[lvl]
                 args = (R0, t0, pts, valid, count, dt, *li, cfg, n_iters)
+                if not tag:
+                    table.append(level_sg.SgLevel(pts, valid, count, dt, *li, n_iters))
                 trace = torch.zeros((b, n_iters, 18), device=device)
                 ker = level_sg.level_sg(*args, trace=trace)
                 again = level_sg.level_sg(*args)
@@ -1639,6 +1739,26 @@ def check_level_sg(device, rng) -> dict:
                 frac = float(differ.float().mean()) if differ.numel() else 0.0
                 _require(frac <= 1e-3, f"{what}: {frac:.3%} of the per-point values differ from "
                                        "the plain version's")
+                ranks, by_c = level_sg.level_ranks(k), {}
+                if not tag:
+                    if b == BATCH:
+                        _check_alone(what, level_sg.level_sg, args, ker)
+                    # every route the level can take, forced
+                    for c in _forced_routes(level_sg.level_ranks, k):
+                        trace_c = torch.zeros((b, n_iters, 18), device=device)
+                        kc = level_sg.level_sg(*args, trace=trace_c, cluster=c)
+                        torch.cuda.synchronize()
+                        if c == ranks:
+                            _require(all(_same_bits(a, x) for a, x in zip(ker, kc)),
+                                     f"{what}: forced to c={c}, the rule's route, it differs")
+                        else:
+                            worst = max(worst, _check_sg_steps(f"{what} c={c}", cfg, args, kc,
+                                                               trace_c))
+                            _, err_c, never_c = _check_sg_curves(f"{what} c={c}", kc, pl)
+                            _require(2 * never_c >= b, f"{what} c={c}: only {never_c} pairs "
+                                                       "never part")
+                            worst = max(worst, err_c)
+                        by_c[c] = _time_ms(lambda: level_sg.level_sg(*args, cluster=c), 10)
                 by_threads = {n: _time_ms(lambda: level_sg.level_sg(*args, threads=n), 10)
                               for n in level_sg.THREADS}
                 k_ms = _time_ms(lambda: level_sg.level_sg(*args), 20)
@@ -1655,13 +1775,39 @@ def check_level_sg(device, rng) -> dict:
                 _log(f"{what} ({n_iters} iterations, {int(ran.sum())} run, best iterations "
                      f"{int(ker.best_iter.min())}..{int(ker.best_iter.max())}, "
                      f"{frac:.4%} of per-point values differ): runs bitwise equal; level_sg "
-                     f"{k_ms:.4f} ms ({level_sg.block_threads(k)} threads; by block size "
-                     + ", ".join(f"{n}: {t:.4f}" for n, t in by_threads.items())
+                     f"{k_ms:.4f} ms (rule c={ranks}, {level_sg.block_threads(k)} threads a "
+                     "pair; forced " + ", ".join(f"c={c}: {t:.4f}" for c, t in by_c.items())
+                     + "; by threads " + ", ".join(f"{n}: {t:.4f}" for n, t in by_threads.items())
                      + f"), per-iteration kernel {r_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
                      f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
                 if not tag and b == BATCH and lvl == 0:
-                    summary = {"ms": k_ms, "plain_ms": p_ms, **bound}
-    return {"max_abs_err": worst, **summary}
+                    summary = {"ms": k_ms, "plain_ms": p_ms, **bound, "cluster": ranks,
+                               "cluster_ms": {str(c): t for c, t in by_c.items()}}
+        # the whole pyramid in one launch against the levels one by one
+        R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+        t0 = torch.zeros((b, 3), device=device)
+        pyr = level_sg.level_sg_pyramid(R0, t0, table, base)
+
+        def chained():
+            R, t, outs = R0, t0, []
+            for lv in table:
+                o = level_sg.level_sg(R, t, *lv[:8], base, lv.n_iters)
+                outs.append(o)
+                R, t = o.R, o.t
+            return outs
+
+        one_by_one = chained()
+        torch.cuda.synchronize()
+        for lv, x, y in zip(range(3, -1, -1), pyr, one_by_one):
+            _require(all(_same_bits(a, c) for a, c in zip(x, y)),
+                     f"level_sg B={b}: level {lv} of the pyramid launch differs from its own "
+                     "launch")
+        pyr_ms = _time_ms(lambda: level_sg.level_sg_pyramid(R0, t0, table, base), 10)
+        chain_ms = _time_ms(chained, 10)
+        pyramids[f"cli_subgradient B={b}"] = {"ms": pyr_ms, "levels_one_by_one_ms": chain_ms}
+        _log(f"level_sg B={b}: the 4-level pyramid in one launch bitwise the levels one by one; "
+             f"{pyr_ms:.4f} ms against {chain_ms:.4f} ms")
+    return {"max_abs_err": worst, **summary, "pyramid": pyramids}
 
 
 def _trajectory(n: int, step: float = 0.002):
@@ -2701,7 +2847,7 @@ def run_probe() -> dict:
             args = (R0, t0, ref.pts3d, ref.valid, ref.count, now.dt, *li, cfg, 100)
             trace = torch.zeros((1, 100, 18), device=R0.device)
             # the check's launches are not the path's: their counts are put back
-            counted = (level_sg.level_sg, sg_terms.subgradient_terms)
+            counted = (level_sg.level_sg_pyramid, sg_terms.subgradient_terms)
             before = [fn.launches for fn in counted]
             again = level_sg.level_sg(*args, trace=trace)
             _require(_same_bits(again.energy, d.energy),
@@ -2727,6 +2873,31 @@ def run_probe() -> dict:
     return out
 
 
+def _count_solves() -> dict:
+    """Counts, by solver method, of `edge_dvo.solve_pyramid` calls (and the
+    levels they solve) and of single-level `edge_dvo.run_level` calls from
+    here on (the path's modules call both through the module)."""
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    counts = {(what, m): 0 for what in ("pyramid", "levels", "level")
+              for m in ("gauss_newton", "subgradient")}
+    solve, run = edge_dvo.solve_pyramid, edge_dvo.run_level
+
+    def solve_pyramid(ref_levels, now_levels, intr, cfg, *a, **k):
+        counts[("pyramid", cfg.method)] += 1
+        counts[("levels", cfg.method)] += sum(
+            1 for lv in range(len(ref_levels))
+            if (cfg.iterations[lv] if lv < len(cfg.iterations) else cfg.iterations[-1]) > 0)
+        return solve(ref_levels, now_levels, intr, cfg, *a, **k)
+
+    def run_level(ref, now, intr_level, R0, t0, cfg, *a, **k):
+        counts[("level", cfg.method)] += 1
+        return run(ref, now, intr_level, R0, t0, cfg, *a, **k)
+
+    edge_dvo.solve_pyramid, edge_dvo.run_level = solve_pyramid, run_level
+    return counts
+
+
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
         canny, edt, extract, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
@@ -2736,8 +2907,9 @@ def _launch_counters():
             "dt_channels": edt.dt_channels,
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
-            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "level_lm": level_lm.level_lm,
-            "level_sg": level_sg.level_sg, "extract": extract.extract_pyramid}
+            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn,
+            "level_lm": level_lm.level_lm_pyramid, "level_sg": level_sg.level_sg_pyramid,
+            "extract": extract.extract_pyramid}
 
 
 def main() -> int:
@@ -2785,6 +2957,7 @@ def main() -> int:
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    solves = _count_solves()
     phases = (
         ("stream", lambda: run_stream(device)),
         ("stream_vga", lambda: run_stream_vga(device, results["stream"])),
@@ -2817,13 +2990,23 @@ def main() -> int:
     results, per_phase = {}, {}
     for name, phase in phases:
         before = {k: fn.launches for k, fn in counters.items()}
+        solves_before = dict(solves)
         t0 = time.perf_counter()
         results[name] = phase()
         torch.cuda.synchronize()
         n = {k: fn.launches - before[k] for k, fn in counters.items()}
         per_phase[name] = n
+        ns = {k: solves[k] - solves_before[k] for k in solves}
         _log(f"launches in {name}: " + ", ".join(f"{k} {v}" for k, v in n.items())
              + f" ({time.perf_counter() - t0:.1f} s)")
+        # a pyramid solve is one launch of its level kernel, every level in it
+        for key, method in (("level_lm", "gauss_newton"), ("level_sg", "subgradient")):
+            want = ns[("pyramid", method)] + ns[("level", method)]
+            if want or n[key]:
+                _log(f"  {name}: {key} {n[key]} launches for {ns[('pyramid', method)]} pyramid "
+                     f"solves ({ns[('levels', method)]} levels) and {ns[('level', method)]} "
+                     f"single levels: {n[key] / max(want, 1):.3f} a solve")
+            _require(n[key] == want, f"{name}: {key} launched {n[key]} times for {want} solves")
         if name in MAP_PHASES:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
                      f"{name}: the matching or PnP kernel was not launched")

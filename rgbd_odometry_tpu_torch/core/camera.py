@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from rgbd_odometry_tpu_torch.config import CameraConfig
+from rgbd_odometry_tpu_torch.device import resolve_device
 
 
 class Intrinsics(NamedTuple):
@@ -38,7 +39,8 @@ def undistort_map(cfg: CameraConfig, device=None) -> torch.Tensor:
     (bilinear); the identity grid without distortion. Computed on the CPU,
     where a float32 division by a Python scalar is a true division as in
     XLA (on a CUDA device torch takes the product with its reciprocal), then
-    moved to `device`."""
+    moved to `device` (default: the current CUDA device, `resolve_device`;
+    `device="cpu"` keeps it on the host)."""
     k1, k2, p1, p2, k3 = cfg.distortion
     f32 = torch.float32
     gy, gx = torch.meshgrid(torch.arange(cfg.height, dtype=f32),
@@ -50,7 +52,7 @@ def undistort_map(cfg: CameraConfig, device=None) -> torch.Tensor:
     x_d = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
     y_d = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
     grid = torch.stack([x_d * cfg.fx + cfg.cx, y_d * cfg.fy + cfg.cy], dim=-1)
-    return grid if device is None else grid.to(device)
+    return grid.to(resolve_device(device))
 
 
 def remap_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

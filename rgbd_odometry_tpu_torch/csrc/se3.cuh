@@ -1,14 +1,13 @@
 // Small dense pose algebra for one thread: the 6x6 Cholesky solve, the
-// SE(3) exponential and logarithm, the compose of a right-multiplied
-// update, the Newton-Schulz re-orthogonalization and the Levenberg-Marquardt
-// step (damped system, trust region), element by element with
-// round-to-nearest intrinsics (nothing is contracted into a fused
-// multiply-add). The plain PyTorch twins are the functions of the same
-// names in kernels/se3_plain.py, which perform these operations in this
-// order; the math is that of ops/linalg6.chol_solve6 (1e-20 pivot floor),
-// core/geometry (se3_exp, so3_log and se3_log with sin, cos and arccos taken
-// in double and rounded once, compose, rotationize_newton) and
-// kernels/level_lm.lm_psi.
+// SE(3) exponential and the Levenberg-Marquardt step (damped system, trust
+// region), element by element with round-to-nearest intrinsics (nothing is
+// contracted into a fused multiply-add). The plain PyTorch twins are the
+// functions of the same names in kernels/se3_plain.py, which perform these
+// operations in this order; the math is that of ops/linalg6.chol_solve6
+// (1e-20 pivot floor), core/geometry.se3_exp (sin and cos taken in double
+// and rounded once) and kernels/level_lm.lm_psi. The level solvers' step on
+// a warp (warp.cuh) builds on these; its log, compose and Newton-Schulz
+// are warp.cuh's own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,102 +83,9 @@ __device__ inline void se3_exp(const float psi[6], float R[9], float t[3]) {
                 fmul(V[i * 3 + 2], psi[2]));
 }
 
+// sign(x) of so3_log's near-pi branch, 0 (and NaN) mapped to +1.
 __device__ __forceinline__ float sign_or_one(float x) {
-  return x < 0.0f ? -1.0f : 1.0f;  // sign(x) with 0 (and NaN) mapped to +1
-}
-
-// Log map of SO(3), R row-major -> w, in three branches: Taylor for cos
-// theta > 1 - 1e-6, the generic theta / (2 sin theta) vee(R - R^T), and for
-// cos theta < -(1 - 5e-7) the axis from the diagonal of (R + R^T)/2 - cos
-// theta I with the signs from its off-diagonals (the largest component
-// carries +1; the first wins a tie).
-__device__ inline void so3_log(const float R[9], float w[3]) {
-  const float trace = fadd(fadd(R[0], R[4]), R[8]);
-  const float cs = fminf(fmaxf(fmul(fsub(trace, 1.0f), 0.5f), -1.0f), 1.0f);
-  const bool small = cs > 0.999999f;
-  const bool near_pi = cs < -0.9999995f;
-  const float theta = (float)acos((double)(small ? 0.0f : cs));
-  if (near_pi) {
-    const float denom = fmaxf(fsub(1.0f, cs), 1e-8f);
-    float a2[3];
-    for (int i = 0; i < 3; ++i)
-      a2[i] = fmaxf(fdiv(fsub(fmul(0.5f, fadd(R[4 * i], R[4 * i])), cs), denom), 0.0f);
-    const float s01 = sign_or_one(fmul(0.5f, fadd(R[1], R[3])));
-    const float s02 = sign_or_one(fmul(0.5f, fadd(R[2], R[6])));
-    const float s12 = sign_or_one(fmul(0.5f, fadd(R[5], R[7])));
-    const int imax = (a2[0] >= a2[1] && a2[0] >= a2[2]) ? 0 : (a2[1] >= a2[2] ? 1 : 2);
-    const float sgn[3] = {imax == 0 ? 1.0f : (imax == 1 ? s01 : s02),
-                          imax == 1 ? 1.0f : (imax == 0 ? s01 : s12),
-                          imax == 2 ? 1.0f : (imax == 0 ? s02 : s12)};
-    for (int i = 0; i < 3; ++i) w[i] = fmul(fmul(theta, __fsqrt_rn(a2[i])), sgn[i]);
-    return;
-  }
-  float k;
-  if (small) {
-    k = fmul(0.5f, fadd(1.0f, fdiv(fmul(2.0f, fsub(1.0f, cs)), 6.0f)));
-  } else {
-    const float sn = (float)sin((double)theta);
-    k = fdiv(fmul(0.5f, theta), fabsf(sn) < 1e-8f ? 1.0f : sn);
-  }
-  w[0] = fmul(k, fsub(R[7], R[5]));
-  w[1] = fmul(k, fsub(R[2], R[6]));
-  w[2] = fmul(k, fsub(R[3], R[1]));
-}
-
-// (R, t) -> twist [v, w], the inverse of se3_exp: v = V^-1 t with V^-1 = I -
-// W/2 + coef W^2, coef = 1/12 + theta^2/720 below theta^2 = 1e-3, else
-// (1 - a / (2 b)) / theta^2.
-__device__ inline void se3_log(const float R[9], const float t[3], float psi[6]) {
-  float w[3];
-  so3_log(R, w);
-  const float theta2 = fadd(fadd(fmul(w[0], w[0]), fmul(w[1], w[1])), fmul(w[2], w[2]));
-  float coef;
-  if (theta2 < 1e-3f) {
-    coef = fadd((float)(1.0 / 12.0), fdiv(theta2, 720.0f));
-  } else {
-    const float theta = __fsqrt_rn(fadd(theta2, 1e-16f));
-    const float a = fdiv((float)sin((double)theta), theta);
-    const float b = fdiv(fsub(1.0f, (float)cos((double)theta)), theta2);
-    coef = fdiv(fsub(1.0f, fdiv(a, fmul(2.0f, b))), fmaxf(theta2, 1e-16f));
-  }
-  const float W[9] = {0.0f, -w[2], w[1], w[2], 0.0f, -w[0], -w[1], w[0], 0.0f};
-  float WW[9];
-  mat3(W, W, WW);
-  for (int i = 0; i < 3; ++i) {
-    float V[3];
-    for (int j = 0; j < 3; ++j)
-      V[j] = fadd(fsub(i == j ? 1.0f : 0.0f, fmul(0.5f, W[i * 3 + j])), fmul(coef, WW[i * 3 + j]));
-    psi[i] = fadd(fadd(fmul(V[0], t[0]), fmul(V[1], t[1])), fmul(V[2], t[2]));
-    psi[3 + i] = w[i];
-  }
-}
-
-// C = A^T B for 3x3 row-major matrices.
-__device__ __forceinline__ void mat3_tn(const float A[9], const float B[9], float C[9]) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      C[i * 3 + j] = fadd(fadd(fmul(A[0 * 3 + i], B[0 * 3 + j]), fmul(A[1 * 3 + i], B[1 * 3 + j])),
-                          fmul(A[2 * 3 + i], B[2 * 3 + j]));
-}
-
-// The right-multiplied update (R xR, t + R xt).
-__device__ inline void compose(const float R[9], const float t[3], const float xR[9],
-                               const float xt[3], float Ro[9], float to[3]) {
-  mat3(R, xR, Ro);
-  for (int i = 0; i < 3; ++i)
-    to[i] = fadd(t[i], fadd(fadd(fmul(R[i * 3 + 0], xt[0]), fmul(R[i * 3 + 1], xt[1])),
-                            fmul(R[i * 3 + 2], xt[2])));
-}
-
-// Newton-Schulz polar iteration X <- X (1.5 I - 0.5 X^T X), 3 steps, in place.
-__device__ inline void rotationize_newton(float X[9]) {
-  for (int it = 0; it < 3; ++it) {
-    float M[9], Y[9], Z[9];
-    mat3_tn(X, X, M);
-    for (int i = 0; i < 9; ++i) Y[i] = fsub((i % 4 == 0) ? 1.5f : 0.0f, fmul(0.5f, M[i]));
-    mat3(X, Y, Z);
-    for (int i = 0; i < 9; ++i) X[i] = Z[i];
-  }
+  return x < 0.0f ? -1.0f : 1.0f;
 }
 
 // |psi|: the squares summed in order, then a correctly rounded sqrt.

@@ -1,4 +1,5 @@
-"""Plain PyTorch twins of the device functions of `csrc/se3.cuh`.
+"""Plain PyTorch twins of the device functions of `csrc/se3.cuh` and of
+the level solvers' step on a warp (`csrc/warp.cuh`).
 
 Each function performs the device function's float32 operations in its
 order, element by element on (B,) tensors held in nested lists (a 6x6 or
@@ -6,7 +7,10 @@ order, element by element on (B,) tensors held in nested lists (a 6x6 or
 square roots correctly rounded, sin, cos and arccos taken in float64 and
 rounded once, nothing fused. The kernels that call the device functions
 (`pnp_gn.cu`, `level_lm.cu`, `level_sg.cu`) and the plain versions that call
-these twins therefore take the same steps. The math is that of `ops/linalg6.chol_solve6`
+these twins therefore take the same steps; on a warp each lane takes the
+operations of the value it owns (`tests/test_torch_level_lm.py` and
+`tests/test_torch_level_sg.py` hold numpy models of the lanes bitwise
+against these twins). The math is that of `ops/linalg6.chol_solve6`
 (1e-20 pivot floor), `core/geometry` (`se3_exp`, `compose`,
 `rotationize_newton`, `so3_log`, `se3_log`) and the Levenberg-Marquardt step
 of the level solver (`kernels/level_lm.lm_psi`).
@@ -186,7 +190,10 @@ def norm6(psi):
 def trust_region(psi, radius: float):
     """psi (six (B,) tensors) scaled back onto the ball |psi| <= radius."""
     n = norm6(psi)
-    scale = torch.where(n > radius, radius / torch.clamp(n, min=1e-30), torch.ones_like(n))
+    # a tensor over a tensor: torch takes a Python scalar over a tensor as
+    # the scalar times the tensor's reciprocal, rounded twice
+    scale = torch.where(n > radius, torch.full_like(n, radius) / torch.clamp(n, min=1e-30),
+                        torch.ones_like(n))
     return [p * scale for p in psi]
 
 

@@ -23,11 +23,14 @@ import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.core.pyramid import FramePyramid, build_pyramid
+from rgbd_odometry_tpu_torch.device import resolve_device
 
 
 class FrameFeeder:
     """Prefetching iterator: frames() tuples in, pyramids (batch 1) on
-    `device` out, as `(FramePyramid, timestamp)`."""
+    `device` out, as `(FramePyramid, timestamp)`. `device` defaults to the
+    current CUDA device (`resolve_device`); `device="cpu"` keeps the
+    pyramids on the host."""
 
     _SENTINEL = object()
 
@@ -40,7 +43,7 @@ class FrameFeeder:
     ):
         self._source = source_iter
         self._levels = num_levels
-        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._device = resolve_device(device)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._worker, daemon=True)

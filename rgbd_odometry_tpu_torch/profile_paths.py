@@ -57,6 +57,18 @@ on the route their rule takes and forced to each cluster size (1, 2, 4, 8
 blocks a (level, image)). A case that raises for its shape or route in the
 checkout profiled is reported "not supported".
 
+`--paths solve` (not in the default; run it alone) profiles the level
+solvers: device us per `level_lm` and `level_sg` launch at every level
+shape of production_320, production_vga, the `dvo` defaults and
+cli_subgradient, B = 1, 8 and 64 rendered pairs: at the level's
+iterations (with a digest of the outputs' bits, to compare checkouts),
+at 1, 2, 4, 8 and 18 (the slope is the per-iteration cost), with half
+the points (the pass's share), on every cluster size the checkout's
+kernels can be forced to, and the whole pyramid in one launch where the
+checkout has that entry (`level_lm_pyramid`, `level_sg_pyramid`), with
+the median cycles of an iteration's phases (pass, sum, step, barrier)
+from the kernels' clock stamps where the checkout has them.
+
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
 `FrameMetrics.solve_ms`, the CLI's `avg solve`) and once under the profiler
@@ -469,6 +481,200 @@ def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
     return out
 
 
+def _device_us(fn, reps: int) -> list:
+    """[device us, kernel launches] per call of `fn` (every CUDA kernel it
+    runs), from `reps` calls under the profiler (a window the profiler
+    dropped is profiled again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+        if kernels:
+            return [sum(ev.device_time_total for ev in kernels) / reps,
+                    sum(ev.count for ev in kernels) / reps]
+    raise RuntimeError("profile_solve: no kernel record")
+
+
+_PHASES = (("pass", 0, 1), ("sum", 1, 2), ("step", 2, 3), ("barrier", 3, 4),
+           ("residual pass and sum", 4, 5), ("decision", 5, 6), ("barrier 2", 6, 7))
+
+
+def _phase_cycles(clk, level_ids) -> dict:
+    """Per level, the median cycles of an iteration and of each of its
+    phases from the kernels' clock64() stamps (pair 0, first 64
+    iterations; `csrc/level_lm.cu`, `csrc/level_sg.cu`)."""
+    out = {}
+    for lvl, c in zip(level_ids, clk):
+        ran = int((c[:, 0] != 0).sum())
+        if ran < 2:
+            continue
+        c = c[:ran]
+        d = {"iteration": float(np.median(np.diff(c[:, 0])))}
+        for name, a, b in _PHASES:
+            if (c[:, b] != 0).all():
+                d[name] = float(np.median(c[:, b] - c[:, a]))
+        out[f"level {lvl}"] = d
+    return out
+
+
+def _digest(out) -> str:
+    """A hash of a level's pose, energy curve and best iteration, bit for
+    bit: two checkouts' runs on the same inputs agree exactly where their
+    digests do."""
+    import hashlib
+
+    return hashlib.sha1(b"".join(x.detach().cpu().numpy().tobytes() for x in out[:4])).hexdigest()[:16]
+
+
+def _solve_inputs(device, batch: int):
+    """For each solver configuration, its levels' inputs (coarsest first) on
+    `batch` rendered pairs (frame i against frame i + 1 of a rendered
+    sequence, one sample a pixel): production_320 and production_vga
+    (deferred LM), the `dvo` defaults (standard LM, normalized full DT) and
+    cli_subgradient (the reference's sub-gradient, 50 iterations a level)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig, SolverConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    p320, vga = profiles.production_320(), profiles.production_vga()
+    dvo_caps = PipelineConfig().pyramid.max_points
+    configs = {
+        "production_320": (p320.solver, p320.max_points, p320.camera, p320.num_levels),
+        "production_vga": (vga.solver, vga.max_points, vga.camera, vga.num_levels),
+        "dvo": (SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3)), dvo_caps,
+                p320.camera, 4),
+        "cli_subgradient": (SolverConfig(method="subgradient", iterations=(50, 50, 50, 50)),
+                            dvo_caps, p320.camera, 4),
+    }
+    out, rendered = {}, {}
+    for name, (cfg, caps, cam, n_lv) in configs.items():
+        if cam not in rendered:
+            frames, _ = render_sequence(cam, _trajectory(batch + 1), seed=0, supersample=1)
+            rendered[cam] = [torch.from_numpy(np.stack([f[i] for f in frames])).to(device)
+                             for i in (0, 1)]
+        gray, depth = rendered[cam]
+        ref_pyr = build_pyramid(gray[:-1].contiguous(), depth[:-1].contiguous(), n_lv)
+        now_pyr = build_pyramid(gray[1:].contiguous(), depth[1:].contiguous(), n_lv)
+        intr = Intrinsics.from_config(cam)
+        refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, caps)
+        nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        levels = []
+        for lvl in range(n_lv - 1, -1, -1):
+            n_iters = cfg.iterations[lvl] if lvl < len(cfg.iterations) else cfg.iterations[-1]
+            if n_iters > 0:
+                levels.append((lvl, refs[lvl], nows[lvl], intr.at_level(lvl), n_iters))
+        out[name] = (cfg, levels)
+    return out
+
+
+def profile_solve(device, batches=(1, 8, 64), reps: int = 10,
+                  sweep=(1, 2, 4, 8, 18)) -> dict:
+    """Device us per launch of the level solvers (`level_lm` for the
+    Gauss-Newton configurations, `level_sg` for cli_subgradient; every CUDA
+    kernel of a call) at every level shape of production_320,
+    production_vga, the `dvo` defaults and cli_subgradient, B = 1, 8, 64
+    rendered pairs from the identity: at the level's iterations; at each of
+    `sweep` iterations, with the least-squares slope (us an iteration) and
+    intercept; with the first half of the points (the pass's share of the
+    time is twice the difference over the whole); on every cluster size
+    the level can be forced to, where the checkout has the keyword; and the
+    whole pyramid as one `level_lm_pyramid` / `level_sg_pyramid` launch
+    where the checkout has it, beside the levels' launches one by one.
+    Prints one line per case and the whole as one JSON line."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_lm, level_sg
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    inputs = _solve_inputs(device, max(batches))
+    out = {"path": "solve", "reps": reps, "cases": {}, "pyramid": {}}
+    forced_lm = _forced(level_lm.level_lm)
+    forced_sg = _forced(level_sg.level_sg)
+    for name, (cfg, levels) in inputs.items():
+        gn = cfg.method == "gauss_newton"
+        for b in batches:
+            one_by_one = []
+            for lvl, ref, now, li, n_iters in levels:
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+
+                def call(n=n_iters, half=False, b=b, ref=ref, now=now, li=li, R0=R0, t0=t0,
+                         **kw):
+                    k = ref.pts3d.shape[1] // (2 if half else 1)
+                    pts, valid = ref.pts3d[:b, :k].contiguous(), ref.valid[:b, :k].contiguous()
+                    if gn:
+                        jstride, stride = edge_dvo.level_strides(cfg, ref.pts3d.shape[1])
+                        return level_lm.level_lm(R0, t0, pts, valid, ref.count[:b],
+                                                 now.chans[:b, 0], now.scale[:b], *li, cfg, n,
+                                                 jstride, stride, **kw)
+                    return level_sg.level_sg(R0, t0, pts, valid, ref.count[:b], now.dt[:b], *li,
+                                             cfg, n, **kw)
+
+                case = {"k": int(ref.pts3d.shape[1]), "n_iters": n_iters,
+                        "us": _device_us(call, reps), "digest": _digest(call())}
+                one_by_one.append(case["us"][0])
+                case["sweep"] = {n: _device_us(functools.partial(call, n), reps)[0] for n in sweep}
+                xs = np.array(sweep, np.float64)
+                ys = np.array([case["sweep"][n] for n in sweep])
+                slope, intercept = np.polyfit(xs, ys, 1)
+                case["slope_us"], case["intercept_us"] = float(slope), float(intercept)
+                half = _device_us(functools.partial(call, half=True), reps)[0]
+                case["half_points_us"] = half
+                case["pass_share"] = 2.0 * (case["us"][0] - half) / case["us"][0]
+                for c in forced_lm if gn else forced_sg:
+                    try:
+                        case[f"c={c}"] = _device_us(functools.partial(call, cluster=c), reps)[0]
+                    except ValueError as exc:
+                        case[f"c={c}"] = f"not supported: {exc}"
+                key = f"{name} level {lvl} B={b}"
+                out["cases"][key] = case
+                print(f"solve {key}: K={case['k']} {n_iters} iterations "
+                      f"{case['us'][0]:.2f} us ({case['us'][1]:.0f} kernels), slope "
+                      f"{slope:.3f} us/iteration + {intercept:.2f}, half points {half:.2f} "
+                      f"(pass share {case['pass_share']:.2f}); forced "
+                      + ", ".join(f"{c}: {case[f'c={c}']}" if isinstance(case[f"c={c}"], str)
+                                  else f"{c}: {case[f'c={c}']:.2f}"
+                                  for c in (forced_lm if gn else forced_sg)), flush=True)
+            pyr = getattr(level_lm if gn else level_sg,
+                          "level_lm_pyramid" if gn else "level_sg_pyramid", None)
+            entry = {"levels_one_by_one_us": float(sum(one_by_one))}
+            if pyr is not None:
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+                if gn:
+                    table = [level_lm.LmLevel(ref.pts3d[:b], ref.valid[:b], ref.count[:b],
+                                              now.chans[:b, 0], now.scale[:b], *li, n,
+                                              *edge_dvo.level_strides(cfg, ref.pts3d.shape[1]))
+                             for _, ref, now, li, n in levels]
+                else:
+                    table = [level_sg.SgLevel(ref.pts3d[:b], ref.valid[:b], ref.count[:b],
+                                              now.dt[:b], *li, n) for _, ref, now, li, n in levels]
+                entry["pyramid_us"] = _device_us(lambda: pyr(R0, t0, table, cfg), reps)
+                if "clocks" in inspect.signature(pyr).parameters:
+                    clk = torch.zeros((len(table), 64, 8), dtype=torch.int64, device=device)
+                    pyr(R0, t0, table, cfg, clocks=clk)
+                    entry["cycles"] = _phase_cycles(clk.cpu().numpy(), [lv for lv, *_ in levels])
+            out["pyramid"][f"{name} B={b}"] = entry
+            print(f"solve {name} B={b}: levels one by one {entry['levels_one_by_one_us']:.2f} us"
+                  + (f", one pyramid launch {entry['pyramid_us'][0]:.2f} us"
+                     if "pyramid_us" in entry else "")
+                  + (f"; cycles {json.dumps(entry['cycles'])}" if "cycles" in entry else ""),
+                  flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -488,6 +694,8 @@ def main(argv=None) -> int:
     # the windows time the path as it runs unprofiled (an older checkout
     # has no ranges and ignores the flag)
     build.ranges = False
+    # every source of the checkout built at once, one nvcc each
+    build.load_all(sorted(p.stem for p in build._CSRC.glob("*.cu")))
     device = resolve_device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -499,6 +707,9 @@ def main(argv=None) -> int:
             continue
         if name == "multistream":
             profile_multistream(device, args.frames, args.warmup)
+            continue
+        if name == "solve":
+            profile_solve(device)
             continue
         cfg = configs["stream" if name == "pipelined" else name]
         # VGA one sample a pixel: three take ~3 s a frame on the host

@@ -20,9 +20,10 @@ a frame's edge maps are one `canny_pyramid` call over all levels
 one `dt_channels` call (`kernels/edt.py`: EDT, sqrt, normalization,
 gradients, channels); a keyframe's edge points of every level in one
 launch (`kernels/extract.py`: selection and back-projection, whose plain
-version is `extract_ref_level`); a whole Gauss-Newton level, both LM loops
-and the all-point diagnostics, in one launch (`kernels/level_lm.py`); a
-whole sub-gradient level in one launch (`kernels/level_sg.py`). Configurations
+version is `extract_ref_level`); a whole Gauss-Newton pyramid, both LM
+loops and every level's all-point diagnostics, in one launch
+(`kernels/level_lm.py`); a whole sub-gradient pyramid in one launch
+(`kernels/level_sg.py`). Configurations
 outside these raise `NotImplementedError` naming the ROADMAP item that will
 port them (`check_config`).
 """
@@ -40,8 +41,8 @@ from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.extract import RefLevel, extract_pyramid
 from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
-from rgbd_odometry_tpu_torch.kernels.level_lm import level_lm
-from rgbd_odometry_tpu_torch.kernels.level_sg import level_sg
+from rgbd_odometry_tpu_torch.kernels.level_lm import LmLevel, level_lm, level_lm_pyramid
+from rgbd_odometry_tpu_torch.kernels.level_sg import SgLevel, level_sg, level_sg_pyramid
 from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step as _subgradient_step  # noqa: F401
 from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms
 
@@ -207,21 +208,21 @@ def run_level(
         )
     if cfg.method != "gauss_newton":
         out = level_sg(R0, t0, ref.pts3d, ref.valid, ref.count, now.dt, *intr_level, cfg, n_iters)
-        diag = LevelDiagnostics(
-            energy=out.energy, best_energy=out.best_energy, best_iter=out.best_iter,
-            visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
-            num_points=ref.count,
-        )
-        return out.R, out.t, diag
-    jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
-    out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
-                   *intr_level, cfg, n_iters, jstride, stride)
-    diag = LevelDiagnostics(
-        energy=out.energy, best_energy=out.final_energy, best_iter=out.best_iter,
-        visible_ratio=out.visible_ratio, final_epsilons=out.eps, final_valid=out.visible,
-        num_points=ref.count,
+    else:
+        jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
+        out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
+                       *intr_level, cfg, n_iters, jstride, stride)
+    return out.R, out.t, _diagnostics(out, ref.count)
+
+
+def _diagnostics(out, count: torch.Tensor) -> LevelDiagnostics:
+    """A level's `LevelDiagnostics` from its `LevelLM` (the all-point energy
+    at the returned pose) or `LevelSG` (the best iterate's)."""
+    return LevelDiagnostics(
+        energy=out.energy, best_energy=getattr(out, "final_energy", out.best_energy),
+        best_iter=out.best_iter, visible_ratio=out.visible_ratio, final_epsilons=out.eps,
+        final_valid=out.visible, num_points=count,
     )
-    return out.R, out.t, diag
 
 
 def solve_pyramid(
@@ -233,22 +234,37 @@ def solve_pyramid(
     t0: torch.Tensor | None = None,
 ):
     """Coarse-to-fine over all levels (coarsest first), each warm-starting
-    the next. Returns (R (B,3,3), t (B,3), per-level diagnostics, finest
-    first)."""
+    the next, levels with no iteration skipped: one `level_lm_pyramid`
+    launch (Gauss-Newton) or `level_sg_pyramid` launch (sub-gradient) for
+    the whole pyramid, each level as `run_level` runs it. Returns (R
+    (B,3,3), t (B,3), per-level diagnostics, finest first)."""
+    check_config(cfg)
     pts = ref_levels[0].pts3d
     b, dev, dt = pts.shape[0], pts.device, pts.dtype
     R = torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3) if R0 is None else R0
     t = torch.zeros((b, 3), dtype=dt, device=dev) if t0 is None else t0
     R, t = R.contiguous(), t.contiguous()
-    diags = [None] * len(ref_levels)
+    order = []  # (level, iterations), coarsest first
     for level in range(len(ref_levels) - 1, -1, -1):
         n_iters = cfg.iterations[level] if level < len(cfg.iterations) else cfg.iterations[-1]
-        if n_iters <= 0:
-            continue
-        R, t, diags[level] = run_level(
-            ref_levels[level], now_levels[level], intr.at_level(level), R, t, cfg, n_iters
-        )
-    return R, t, tuple(d for d in diags if d is not None)
+        if n_iters > 0:
+            order.append((level, n_iters))
+    if not order:
+        return R, t, ()
+    gn = cfg.method == "gauss_newton"
+    levels = []
+    for level, n_iters in order:
+        ref, now, li = ref_levels[level], now_levels[level], intr.at_level(level)
+        if gn:
+            jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
+            levels.append(LmLevel(ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
+                                  *li, n_iters, jstride, stride))
+        else:
+            levels.append(SgLevel(ref.pts3d, ref.valid, ref.count, now.dt, *li, n_iters))
+    outs = (level_lm_pyramid if gn else level_sg_pyramid)(R, t, levels, cfg)
+    diags = {level: _diagnostics(out, ref_levels[level].count)
+             for (level, _), out in zip(order, outs)}
+    return outs[-1].R, outs[-1].t, tuple(diags[level] for level in sorted(diags))
 
 
 def pose_information(ref_level: RefLevel, now_level: NowLevel, intr_level: Intrinsics,

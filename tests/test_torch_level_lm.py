@@ -29,7 +29,12 @@ same iteration of termination.
 
 Also the plain twins of `csrc/se3.cuh` (`kernels/se3_plain.py`) against
 `core/geometry`, `ops/linalg6` and JAX's `rotationize_newton`, and the CUDA
-wrapper's argument checks, which run before anything is built.
+wrapper's argument checks, which run before anything is built. The pyramid
+entry (`level_lm_pyramid`): its plain version bitwise the levels one by
+one, `solve_pyramid` against JAX's over a 2-level pyramid, the route rule
+(`level_ranks`) and the wrapper's checks; numpy models of the kernel's
+warp step (`csrc/warp.cuh`: compose, Newton-Schulz, the exponential, the
+Cholesky step, the warp sums) bitwise the twins and the shuffle-down tree.
 """
 
 import dataclasses
@@ -373,9 +378,464 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(bad, monkeypatch):
     elif bad == "n_iters":
         n_iters = 0
     elif bad == "smem":
-        a.update(_meta_args(k=16384))
+        a.update(_meta_args(k=131072))
     match = {"stride": "strides", "n_iters": "n_iters", "smem": "shared memory",
              "device": "unsupported device"}.get(bad, "must be")
     with pytest.raises(ValueError, match=match):
         klm.level_lm(a["R0"], a["t0"], a["pts"], a["valid"], a["count"], a["img"], a["scale"],
                      65.0, 65.0, 39.5, 29.5, cfg, n_iters, jstride, stride)
+
+
+# ---------------------------------------------------------------------------
+# the pyramid launch, the route rule and numpy models of the kernel's warp
+# step and sums (csrc/warp.cuh, csrc/level_lm.cu)
+# ---------------------------------------------------------------------------
+
+PYRAMID = {  # case -> config, iterations (level 0, level 1)
+    "deferred": (DEFERRED, (6, 6)),
+    "standard": (STANDARD, (18, 6)),
+}
+
+
+def _pyramid_inputs(cfg):
+    """A 2-level pyramid of the 160x120 camera (level 1 at 60x80 with 256
+    points, level 0 at 120x160 with 1024), B = 3 pairs, extracted and
+    prepared by the JAX package and carried across."""
+    lv = [_inputs(cfg, (120, 160), 1024), _inputs(cfg, (60, 80), 256)]
+    intr = JIntrinsics.from_config(CAMS[(120, 160)])
+    return lv, intr
+
+
+@pytest.mark.parametrize("case", sorted(PYRAMID))
+def test_plain_pyramid_is_the_chained_levels(case, bf16_like_jax):
+    """`level_lm_pyramid` on CPU tensors (its plain version) is `level_lm`
+    level by level, each from the pose the one before returned, bitwise."""
+    cfg, iters = PYRAMID[case]
+    lv, _ = _pyramid_inputs(cfg)
+    intr = Intrinsics.from_config(CAMS[(120, 160)])
+    table = []
+    for level in (1, 0):
+        ref_t, now_t = lv[level][4], lv[level][5]
+        table.append(klm.LmLevel(ref_t.pts3d, ref_t.valid, ref_t.count, now_t.chans[:, 0],
+                                 now_t.scale, *intr.at_level(level), iters[level],
+                                 *ted.level_strides(cfg, ref_t.pts3d.shape[1])))
+    R0, t0 = lv[1][6]
+    pyr = klm.level_lm_pyramid(R0, t0, table, cfg)
+    R, t = R0, t0
+    for lvl, got in zip(table, pyr):
+        want = klm.level_lm(R, t, *lvl[:9], cfg, *lvl[9:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        R, t = want.R, want.t
+
+
+@pytest.mark.parametrize("case", sorted(PYRAMID))
+def test_solve_pyramid_matches_jax(case, bf16_like_jax):
+    """`solve_pyramid` (one `level_lm_pyramid` call) against JAX's
+    `solve_pyramid` over the same 2-level pyramid, pair by pair: each
+    level's energy curve within this file's bars (1e-3 relative, 3e-3 for
+    the deferred accept; the same iteration of termination), the final pose
+    within 1e-3."""
+    cfg, iters = PYRAMID[case]
+    cfg = dataclasses.replace(cfg, iterations=iters)
+    lv, intr = _pyramid_inputs(cfg)
+    solve = jax.jit(lambda r, n, R, t: jed.solve_pyramid(r, n, intr, cfg, R, t))
+    refs_t = tuple(x[4] for x in lv)
+    nows_t = tuple(x[5] for x in lv)
+    R0, t0 = lv[1][6]
+    R, t, diags = ted.solve_pyramid(refs_t, nows_t, Intrinsics.from_config(CAMS[(120, 160)]),
+                                    cfg, R0, t0)
+    assert len(diags) == 2
+    rtol = 3e-3 if cfg.lm_deferred_accept else 1e-3
+    for b in range(3):
+        R_j, t_j, d_j = solve(tuple(x[0][b] for x in lv), tuple(x[1][b] for x in lv),
+                              jnp.asarray(R0[b].numpy()), jnp.asarray(t0[b].numpy()))
+        for d_p, dj in zip(diags, d_j):
+            e_j, e_p = np.asarray(dj.energy), d_p.energy[b].numpy()
+            assert np.array_equal(e_p == 0, e_j == 0), f"pair {b}: done at another iteration"
+            np.testing.assert_allclose(e_p, e_j, rtol=rtol, err_msg=f"pair {b}")
+        assert np.abs(R[b].numpy() - np.asarray(R_j)).max() < 1e-3, f"pair {b}"
+        assert np.linalg.norm(t[b].numpy() - np.asarray(t_j)) < 1e-3, f"pair {b}"
+
+
+@pytest.mark.parametrize("k, jstride, stride, deferred, ranks", [
+    (512, 1, 1, True, 1),      # production_320 levels 2-3
+    (1024, 2, 1, True, 1),     # production_320 level 1
+    (2048, 4, 1, True, 1),     # production_320 level 0: 512 Jacobian points
+    (4096, 8, 1, True, 1),     # production_vga level 0
+    (1024, 2, 1, False, 1),    # the dvo defaults' level 3
+    (4096, 4, 1, False, 1),    # level 1: 1024 Jacobian points
+    (8192, 4, 1, False, 1),    # level 0: 2048 Jacobian points, one block (a split loses)
+    (1024, 1, 2, False, 1),    # a proposal stride keeps one block
+    (16384, 1, 1, False, 2),   # 16384 tracked points: 2 blocks
+    (65536, 1, 1, False, 8),   # 65536: 8 blocks' shared memory
+])
+def test_route_rule(k, jstride, stride, deferred, ranks):
+    """`level_ranks` is a function of the level's shape and solver alone:
+    no batch size enters it. Forcing a route: any of 1, 2, 4, 8 where the
+    level allows it; a proposal stride > 1 only on one block; a size the
+    card does not have raises."""
+    assert klm.level_ranks(k, jstride, stride, deferred) == ranks
+    assert "b" not in klm.level_ranks.__code__.co_varnames[:klm.level_ranks.__code__.co_argcount]
+    for c in klm.CLUSTERS:
+        if stride > 1 and c > 1:
+            with pytest.raises(ValueError, match="one block"):
+                klm.level_ranks(k, jstride, stride, deferred, c)
+        elif klm._rank_smem(k, jstride, not deferred and jstride == 1, c) <= klm.SMEM_BYTES:
+            assert klm.level_ranks(k, jstride, stride, deferred, c) == c
+    with pytest.raises(ValueError, match="cluster must be"):
+        klm.level_ranks(k, jstride, stride, deferred, 3)
+
+
+def _level_table_meta(n_levels=2, b=2, k=1024, h=60, w=80):
+    a = _meta_args(b, k, h, w)
+    return [klm.LmLevel(a["pts"], a["valid"], a["count"], a["img"], a["scale"], 65.0, 65.0,
+                        39.5, 29.5, 4, 2, 1) for _ in range(n_levels)], a
+
+
+@pytest.mark.parametrize("bad", ["empty", "levels", "level_dtype", "level_batch", "cluster",
+                                 "n_iters", "device"])
+def test_pyramid_wrapper_rejects_bad_arguments_before_building(bad, monkeypatch):
+    """`level_lm_pyramid` on non-CPU tensors checks every level of the
+    table (and the route it is forced to) before it builds or launches
+    anything."""
+    def no_build(*_a, **_k):
+        raise AssertionError("level_lm_pyramid built a kernel before checking its arguments")
+
+    monkeypatch.setattr(build, "load", no_build)
+    table, a = _level_table_meta()
+    cluster = None
+    if bad == "empty":
+        table = []
+    elif bad == "levels":
+        table = table * 5
+    elif bad == "level_dtype":
+        table[1] = table[1]._replace(img=torch.empty((2, 60, 80), device="meta"))
+    elif bad == "level_batch":
+        table[1] = table[1]._replace(count=torch.empty((3,), dtype=torch.int32, device="meta"))
+    elif bad == "cluster":
+        cluster = 16
+    elif bad == "n_iters":
+        table[0] = table[0]._replace(n_iters=0)
+    match = {"empty": "no level", "levels": "levels a launch", "cluster": "cluster must be",
+             "n_iters": "n_iters", "device": "unsupported device"}.get(bad, "must be")
+    with pytest.raises(ValueError, match=match):
+        klm.level_lm_pyramid(a["R0"], a["t0"], table, STANDARD, cluster)
+
+
+# -- numpy models of csrc/warp.cuh: a warp is a (32, N) float32 array, lane
+# by row, N independent warps by column; every operation is one numpy
+# float32 operation (rounded once), as the kernel's round-to-nearest
+# intrinsics are
+
+F32 = np.float32
+LANE = np.arange(32)
+
+
+def _shfl(v, src):
+    """__shfl_sync: lane i reads lane src[i] (mod 32) of v."""
+    return v[np.broadcast_to(np.asarray(src) % 32, (32,))]
+
+
+def _lane_mat3(a, b, tn=False):
+    e = np.minimum(LANE, 8)
+    i, j = e // 3, e % 3
+    s = [_shfl(a, 3 * k + i if tn else 3 * i + k) * _shfl(b, 3 * k + j) for k in range(3)]
+    return (s[0] + s[1]) + s[2]
+
+
+def _lane_compose(p, x):
+    e = np.minimum(LANE, 11)
+    rot = e < 9
+    i, j = np.where(rot, e // 3, e - 9), np.where(rot, e % 3, 0)
+    s = [_shfl(p, 3 * i + k) * _shfl(x, np.where(rot, 3 * k + j, 9 + k)) for k in range(3)]
+    d = (s[0] + s[1]) + s[2]
+    return np.where(rot[:, None], d, p + d)
+
+
+def _lane_eye(d):
+    return np.where(np.isin(LANE, (0, 4, 8))[:, None], F32(d), F32(0))
+
+
+def _lane_rotationize(x):
+    for _ in range(3):
+        m = _lane_mat3(x, x, tn=True)
+        y = _lane_eye(1.5) - F32(0.5) * m
+        x = np.where((LANE < 9)[:, None], _lane_mat3(x, y), x)
+    return x
+
+
+def _rounded(fn, x):
+    return fn(x.astype(np.float64)).astype(F32)
+
+
+def _lane_se3_exp(psi):
+    """psi (6, N) -> the pose layout (32, N)."""
+    w0, w1, w2 = psi[3], psi[4], psi[5]
+    theta2 = (w0 * w0 + w1 * w1) + w2 * w2
+    theta = np.sqrt(theta2 + F32(1e-16))
+    small = theta2 < F32(1e-8)
+    sn, cs = _rounded(np.sin, theta), _rounded(np.cos, theta)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = np.where(small, F32(1) - theta2 / F32(6), sn / theta)
+        b = np.where(small, F32(0.5) - theta2 / F32(24), (F32(1) - cs) / theta2)
+        c = np.where(small, F32(1.0 / 6.0) - theta2 / F32(120), (theta - sn) / (theta2 * theta))
+    e = np.minimum(LANE, 8)
+    zero = np.zeros_like(w0)
+    hat = np.stack([zero, -w2, w1, w2, zero, -w0, -w1, w0, zero])
+    W = hat[e]
+    WW = _lane_mat3(W, W)
+    eye = np.where(np.isin(e, (0, 4, 8))[:, None], F32(1), F32(0))
+    R = (eye + a * W) + b * WW
+    V = (eye + b * W) + c * WW
+    ti = np.where(LANE < 9, 0, np.minimum(LANE - 9, 2))
+    t = (_shfl(V, 3 * ti) * psi[0] + _shfl(V, 3 * ti + 1) * psi[1]) + _shfl(V, 3 * ti + 2) * psi[2]
+    return np.where((LANE < 9)[:, None], R, t)
+
+
+def _warp_lm_psi(H, g, lam, radius):
+    """H (N, 6, 6) symmetric, g (N, 6), lam (N,) -> psi (6, N): warp.cuh's
+    warp_lm_psi, se3.cuh's one-thread chol_solve6 and trust region, which
+    every lane of the warp runs alike."""
+    A = [[H[:, r, c] for c in range(6)] for r in range(6)]
+    for i in range(6):
+        A[i][i] = A[i][i] + lam * np.maximum(A[i][i], F32(1e-8))
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = []
+        for r in range(j, 6):
+            acc = np.zeros_like(lam)
+            for c in range(j):
+                acc = acc + L[r][c] * L[j][c]
+            s.append(A[r][j] - acc)
+        d = np.sqrt(np.maximum(s[0], F32(1e-20)))
+        L[j][j] = d
+        inv = F32(1) / d
+        for r in range(j + 1, 6):
+            L[r][j] = s[r - j] * inv
+    y, x = [None] * 6, [None] * 6
+    for i in range(6):
+        acc = np.zeros_like(lam)
+        for c in range(i):
+            acc = acc + L[i][c] * y[c]
+        y[i] = (g[:, i] - acc) / L[i][i]
+    for i in range(5, -1, -1):
+        acc = np.zeros_like(lam)
+        for c in range(i + 1, 6):
+            acc = acc + L[c][i] * x[c]
+        x[i] = (y[i] - acc) / L[i][i]
+    psi = [-v for v in x]
+    nrm = np.sqrt(sum((p * p for p in psi[1:]), psi[0] * psi[0]))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = np.where(nrm > F32(radius), F32(radius) / np.maximum(nrm, F32(1e-30)), F32(1))
+    return np.stack([p * scale for p in psi])
+
+
+def _layout(R, t):
+    """(N,3,3), (N,3) -> the pose layout (32, N)."""
+    v = np.concatenate([R.reshape(-1, 9), t], 1).T.astype(F32)
+    return np.concatenate([v, np.zeros((20, v.shape[1]), F32)])
+
+
+def _rand_poses(rng, n, scale=0.3):
+    R, t = tgeo.se3_exp(torch.from_numpy((rng.standard_normal((n, 6)) * scale).astype(F32)))
+    return R.numpy(), t.numpy()
+
+
+def test_warp_model_compose_and_newton_schulz_are_the_twins_bitwise():
+    """compose and Newton-Schulz one 3x3 entry a lane (lane_compose,
+    lane_rotationize) give se3_plain's compose and rotationize_newton bit
+    for bit, on random poses and on poses 1e-3 off orthogonal."""
+    rng = np.random.default_rng(11)
+    R1, t1 = _rand_poses(rng, 64)
+    R2, t2 = _rand_poses(rng, 64, 0.05)
+    got = _lane_compose(_layout(R1, t1), _layout(R2, t2))[:12].T
+    Rc, tc = se3_plain.compose(*(se3_plain.to_rows(torch.from_numpy(x)) for x in (R1, t1, R2, t2)))
+    want = np.concatenate([se3_plain.from_rows(Rc).reshape(-1, 9).numpy(),
+                           se3_plain.from_rows(tc).numpy()], 1)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    noisy = (R1 + 1e-3 * rng.standard_normal(R1.shape)).astype(F32)
+    got = _lane_rotationize(_layout(noisy, t1))
+    want = se3_plain.from_rows(se3_plain.rotationize_newton(
+        se3_plain.to_rows(torch.from_numpy(noisy)))).reshape(-1, 9).numpy()
+    assert np.array_equal(got[:9].T.view(np.int32), want.view(np.int32))
+    assert np.array_equal(got[9:12].T, t1)  # t stays
+
+
+@pytest.mark.parametrize("scale", [0.5, 1e-2, 1e-5, 0.0])
+def test_warp_model_se3_exp_is_the_twin_bitwise(scale):
+    """The exponential in the pose layout (one sincos, W^2 one entry a
+    lane, t on lanes 9-11) gives se3_plain.se3_exp bit for bit, in the
+    generic and the Taylor branch (|w|^2 below 1e-8) and at 0."""
+    rng = np.random.default_rng(12)
+    psi = (rng.standard_normal((128, 6)) * scale).astype(F32)
+    got = _lane_se3_exp(psi.T)[:12].T
+    Rw, tw = se3_plain.se3_exp(se3_plain.to_rows(torch.from_numpy(psi)))
+    want = np.concatenate([se3_plain.from_rows(Rw).reshape(-1, 9).numpy(),
+                           se3_plain.from_rows(tw).numpy()], 1)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("regime", ["random", "rank_deficient", "tiny", "huge_lambda"])
+def test_warp_model_cholesky_step_is_the_twin_bitwise(regime):
+    """The damped Cholesky, the substitutions and the trust region of the
+    warp's step (warp_lm_psi: se3.cuh's one-thread factorization on every
+    lane) give se3_plain's lm_psi bit for bit: random SPD systems, no
+    visible point (H = 0, the 1e-8 and 1e-20 floors), tiny normal equations
+    and lambda at its 1e6 cap; steps inside and outside the trust region."""
+    rng = np.random.default_rng({"random": 1, "rank_deficient": 2, "tiny": 3,
+                                 "huge_lambda": 4}[regime])
+    A = rng.standard_normal((64, 6, 6)).astype(F32)
+    H = (A @ A.transpose(0, 2, 1) + F32(0.1) * np.eye(6, dtype=F32)).astype(F32)
+    g = rng.standard_normal((64, 6)).astype(F32)
+    lam = rng.uniform(1e-8, 1.0, 64).astype(F32)
+    if regime == "rank_deficient":
+        H[:32] = 0.0
+        H[32:, 5, :] = H[32:, :, 5] = 0.0
+    elif regime == "tiny":
+        H *= F32(1e-12)
+        g *= F32(1e-9)
+    elif regime == "huge_lambda":
+        lam[:] = 1e6
+    H = np.triu(H) + np.triu(H, 1).transpose(0, 2, 1)  # symmetric bit for bit, as the kernel's
+    g[:16] *= F32(1e-4)  # small steps stay inside the region
+    for radius in (0.01, 10.0):
+        got = _warp_lm_psi(H, g, lam, radius)
+        want = se3_plain.from_rows(se3_plain.lm_psi(
+            se3_plain.to_rows(torch.from_numpy(H)), se3_plain.to_rows(torch.from_numpy(g)),
+            torch.from_numpy(lam), radius)).numpy().T
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), radius
+
+
+def _pair_sums(vals, ranks):
+    """The kernel's fixed-order sum of one pair's per-point values over
+    `ranks` blocks of 256 threads (pair_sum of warp.cuh): point i to rank
+    (i / 256) % ranks and thread i % 256, each thread's points in order,
+    a shuffle-down tree in each warp, the 8 warp partials in order, then
+    the ranks' sums in rank order."""
+    total = F32(0)
+    for q in range(ranks):
+        part = []
+        for warp in range(8):
+            lanes = np.zeros(32, F32)
+            for lane in range(32):
+                tid = warp * 32 + lane
+                for i in range(q * 256 + tid, len(vals), 256 * ranks):
+                    lanes[lane] = lanes[lane] + vals[i]
+            for off in (16, 8, 4, 2, 1):
+                lanes = lanes + np.concatenate([lanes[off:], np.zeros(off, F32)])
+            part.append(lanes[0])
+        s = part[0]
+        for v in part[1:]:
+            s = s + v
+        total = s if q == 0 else total + s
+    return total
+
+
+def test_reduction_model_depends_on_the_pair_and_its_route_only():
+    """The sums of one pair: the same whatever other pairs share the
+    launch (each pair reduces its own points only), bitwise the one-block
+    order of the kernel before the cluster split at one rank, and on 2, 4,
+    8 ranks a different order of the same sum (which is why the route rule
+    reads the level's shape only, never the batch)."""
+    rng = np.random.default_rng(13)
+    batch = (rng.standard_normal((4, 2048)) * 100).astype(F32)
+    alone = [_pair_sums(batch[p], 1) for p in range(4)]
+    again = [_pair_sums(np.concatenate([batch[p]]), 1) for p in range(4)]
+    assert alone == again
+    # one rank: thread tid sums points tid, tid + 256, ... (the parent's map)
+    lanes = np.zeros(256, F32)
+    for i, v in enumerate(batch[0]):
+        lanes[i % 256] = lanes[i % 256] + v
+    warps = []
+    for w in range(8):
+        x = lanes[w * 32:(w + 1) * 32].copy()
+        for off in (16, 8, 4, 2, 1):
+            x = x + np.concatenate([x[off:], np.zeros(off, F32)])
+        warps.append(x[0])
+    s = warps[0]
+    for v in warps[1:]:
+        s = s + v
+    assert s.view(np.int32) == alone[0].view(np.int32)
+    scale = float(np.abs(batch[0]).sum())
+    for r in (2, 4, 8):
+        assert abs(float(_pair_sums(batch[0], r)) - float(s)) <= 1e-6 * scale, r
+
+
+def test_split_tail_model_is_residual_pass_bitwise():
+    """The all-point tail on r ranks: each rank writes its share of the
+    residuals, then the first rank sums e2 and the count from them in
+    residual.cu's map (thread i % 256, points in order) and tree, which is
+    the one-block tail's own order: bitwise at every r."""
+    rng = np.random.default_rng(14)
+    eps = (rng.standard_normal(8192) * 3).astype(F32)
+    vis = rng.uniform(size=8192) < 0.7
+    eps[~vis] = 0.0
+
+    def tail(order):
+        acc = np.zeros((2, 256), F32)
+        for i in order:
+            if vis[i]:
+                # the multiply-add rounded once (eps^2 is exact in float64)
+                acc[0, i % 256] = F32(np.float64(eps[i]) * np.float64(eps[i])
+                                      + np.float64(acc[0, i % 256]))
+                acc[1, i % 256] = acc[1, i % 256] + F32(1)
+        for s in (128, 64, 32, 16, 8, 4, 2, 1):
+            acc[:, :s] = acc[:, :s] + acc[:, s:2 * s]
+        return acc[:, 0]
+
+    one_block = tail(range(8192))
+    for r in (2, 4, 8):
+        # each rank writes its points; the sum then reads them back in the one-block order
+        written = np.zeros(8192, F32)
+        for q in range(r):
+            for i in range(8192):
+                if (i // 256) % r == q:
+                    written[i] = eps[i]
+        assert np.array_equal(written, eps)
+        assert np.array_equal(tail(range(8192)).view(np.int32), one_block.view(np.int32))
+
+
+def _shfl_down_tree(vals):
+    """vals (32,) float32: the __shfl_down_sync tree at offsets 16..1, lane 0's sum."""
+    x = vals.copy()
+    for off in (16, 8, 4, 2, 1):
+        x = x + np.concatenate([x[off:], x[32 - off:]])  # lanes past 31 read their own value
+    return x[0]
+
+
+def _warp_tree(acc):
+    """acc (32 lanes, N values) float32 -> (32,): warp_tree of warp.cuh, lane m
+    holding sum m for m < N."""
+    n = acc.shape[1]
+    p = 1 << (n - 1).bit_length()
+    x = np.zeros((32, p), F32)
+    x[:, :n] = acc
+    o = 16
+    while o >= p:  # the offsets from N up: every value, both lanes alike
+        x = x + x[LANE ^ o]
+        o >>= 1
+    o = p // 2
+    while o >= 1:  # below N: keep the half the lane bit names, trade the other
+        hi = (LANE & o) != 0
+        keep = np.where(hi[:, None], x[:, o:2 * o], x[:, :o])
+        send = np.where(hi[:, None], x[:, :o], x[:, o:2 * o])
+        x = keep + send[LANE ^ o]
+        o >>= 1
+    return x[:, 0]
+
+
+@pytest.mark.parametrize("n", [29, 8, 2, 1])
+def test_warp_tree_model_is_the_shuffle_down_tree_bitwise(n):
+    """warp_tree (a lane keeps half of its values at each offset below N and
+    trades the other half: 31 shuffles for 32 sums instead of 160) leaves in
+    lane m bitwise the sum a shuffle-down tree of value m leaves in lane 0,
+    for the Gauss-Newton pass's 29 sums, the sub-gradient's 8 and the
+    residual pass's 2; values of mixed magnitude and sign, so that the
+    association order shows."""
+    rng = np.random.default_rng(15 + n)
+    for _ in range(20):
+        acc = (rng.standard_normal((32, n)) * 10.0 ** rng.integers(-6, 6, (32, n))).astype(F32)
+        got = _warp_tree(acc)
+        want = np.array([_shfl_down_tree(acc[:, m]) for m in range(n)], F32)
+        assert np.array_equal(got[:n].view(np.int32), want.view(np.int32))

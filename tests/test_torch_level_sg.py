@@ -25,7 +25,10 @@ bitwise against `core/geometry.se3_log` in all three branches of the log
 (given correctly rounded square roots) and within `test_torch_geometry.py`'s
 5e-6 of JAX's, `run_level`'s routing, the
 block-size rule, and the CUDA wrapper's argument checks, which run before
-anything is built.
+anything is built. The pyramid entry (`level_sg_pyramid`): its plain
+version bitwise the levels one by one, `solve_pyramid` against JAX's over a
+2-level pyramid, the route rule and the wrapper's checks; a numpy model of
+the warp's log (`csrc/warp.cuh` `warp_se3_log`) bitwise the twin.
 """
 
 import dataclasses
@@ -305,9 +308,182 @@ def test_cuda_wrapper_rejects_bad_arguments_before_building(bad, monkeypatch):
     elif bad == "n_iters":
         n_iters = 0
     elif bad == "smem":
-        a.update(_meta_args(k=16384))
+        a.update(_meta_args(k=131072))
     match = {"dt_rows": "rows must be contiguous", "threads": "threads", "n_iters": "n_iters",
              "smem": "shared memory", "device": "unsupported device"}.get(bad, "must be")
     with pytest.raises(ValueError, match=match):
         klsg.level_sg(a["R0"], a["t0"], a["pts"], a["valid"], a["count"], a["dt"],
                       65.0, 65.0, 39.5, 29.5, REFERENCE, n_iters, **extra)
+
+
+# ---------------------------------------------------------------------------
+# the pyramid launch, the route rule and a numpy model of the warp's log
+# ---------------------------------------------------------------------------
+
+
+def _pyramid_inputs(cfg):
+    """A 2-level pyramid of the 160x120 camera (level 1 at 60x80 with 256
+    points, level 0 at 120x160 with 1024), B = 3 pairs, extracted and
+    prepared by the JAX package and carried across."""
+    return [_inputs(cfg, (120, 160), 1024), _inputs(cfg, (60, 80), 256)]
+
+
+def test_plain_pyramid_is_the_chained_levels():
+    """`level_sg_pyramid` on CPU tensors (its plain version) is `level_sg`
+    level by level, each from the pose the one before returned, bitwise."""
+    cfg = REFERENCE
+    lv = _pyramid_inputs(cfg)
+    intr = Intrinsics.from_config(CAMS[(120, 160)])
+    table = [klsg.SgLevel(lv[level][4].pts3d, lv[level][4].valid, lv[level][4].count,
+                          lv[level][5].dt, *intr.at_level(level), 8) for level in (1, 0)]
+    R0, t0 = lv[1][6]
+    pyr = klsg.level_sg_pyramid(R0, t0, table, cfg)
+    R, t = R0, t0
+    for lvl, got in zip(table, pyr):
+        want = klsg.level_sg(R, t, *lvl[:8], cfg, lvl.n_iters)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        R, t = want.R, want.t
+
+
+def test_solve_pyramid_matches_jax():
+    """`solve_pyramid` of the sub-gradient (one `level_sg_pyramid` call)
+    against JAX's `solve_pyramid` over the same 2-level pyramid, 10
+    iterations a level, pair by pair within this file's bars: each level's
+    energy curve (1e-5 relative plus 1e-2), the same iteration of
+    termination and best iteration, the final pose within 3e-5."""
+    cfg = dataclasses.replace(REFERENCE, iterations=(10, 10))
+    lv = _pyramid_inputs(cfg)
+    intr = JIntrinsics.from_config(CAMS[(120, 160)])
+    solve = jax.jit(lambda r, n, R, t: jed.solve_pyramid(r, n, intr, cfg, R, t))
+    R0, t0 = lv[1][6]
+    R, t, diags = ted.solve_pyramid(tuple(x[4] for x in lv), tuple(x[5] for x in lv),
+                                    Intrinsics.from_config(CAMS[(120, 160)]), cfg, R0, t0)
+    assert len(diags) == 2
+    for b in range(3):
+        R_j, t_j, d_j = solve(tuple(x[0][b] for x in lv), tuple(x[1][b] for x in lv),
+                              jnp.asarray(R0[b].numpy()), jnp.asarray(t0[b].numpy()))
+        for d_p, dj in zip(diags, d_j):
+            e_j, e_p = np.asarray(dj.energy), d_p.energy[b].numpy()
+            assert np.array_equal(e_p == 0, e_j == 0), f"pair {b}: done at another iteration"
+            np.testing.assert_allclose(e_p, e_j, rtol=1e-5, atol=1e-2, err_msg=f"pair {b}")
+            assert int(d_p.best_iter[b]) == int(dj.best_iter), f"pair {b}"
+        np.testing.assert_allclose(R[b].numpy(), np.asarray(R_j), rtol=0, atol=3e-5)
+        np.testing.assert_allclose(t[b].numpy(), np.asarray(t_j), rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("k, ranks", [(1024, 1), (2048, 1), (4096, 1), (8192, 2), (14000, 4),
+                                      (131072, 8)])
+def test_route_rule(k, ranks):
+    """`level_ranks` reads the level's capacity alone (never the batch):
+    one block up to 4096 points, then one more for every 4096, each with
+    `RANK_THREADS` working threads; a forced size is taken as given,
+    one the card does not have raises."""
+    assert klsg.level_ranks(k) == ranks
+    assert klsg.level_ranks.__code__.co_argcount == 2  # k and the forced size only
+    for c in klsg.CLUSTERS:
+        assert klsg.level_ranks(k, c) == c
+    with pytest.raises(ValueError, match="cluster must be"):
+        klsg.level_ranks(k, 16)
+
+
+@pytest.mark.parametrize("bad", ["empty", "levels", "traces", "level_dtype", "cluster",
+                                 "device"])
+def test_pyramid_wrapper_rejects_bad_arguments_before_building(bad, monkeypatch):
+    """`level_sg_pyramid` on non-CPU tensors checks every level of the
+    table, its traces and the route it is forced to before it builds or
+    launches anything."""
+    def no_build(*_a, **_k):
+        raise AssertionError("level_sg_pyramid built a kernel before checking its arguments")
+
+    monkeypatch.setattr(build, "load", no_build)
+    a = _meta_args()
+    table = [klsg.SgLevel(a["pts"], a["valid"], a["count"], a["dt"], 65.0, 65.0, 39.5, 29.5, 4)
+             for _ in range(2)]
+    cluster, traces = None, None
+    if bad == "empty":
+        table = []
+    elif bad == "levels":
+        table = table * 5
+    elif bad == "traces":
+        traces = (None,)
+    elif bad == "level_dtype":
+        table[1] = table[1]._replace(dt=torch.empty((2, 60, 80), dtype=torch.bfloat16,
+                                                    device="meta"))
+    elif bad == "cluster":
+        cluster = 3
+    match = {"empty": "no level", "levels": "levels a launch", "traces": "levels a launch",
+             "cluster": "cluster must be", "device": "unsupported device"}.get(bad, "must be")
+    with pytest.raises(ValueError, match=match):
+        klsg.level_sg_pyramid(a["R0"], a["t0"], table, REFERENCE, cluster, traces=traces)
+
+
+# numpy model of warp.cuh's warp_se3_log: the log's scalar chain is the
+# warp's, uniform on every lane; V^-1 t row i on lane i, read back by
+# shuffles (here: the rows computed side by side)
+
+F32 = np.float32
+
+
+def _rounded(fn, x):
+    return fn(x.astype(np.float64)).astype(F32)
+
+
+def _warp_se3_log(R, t):
+    """R (N, 9), t (N, 3) float32 -> psi (N, 6), in warp_se3_log's order."""
+    R = [R[:, i] for i in range(9)]
+    t = [t[:, i] for i in range(3)]
+    trace = (R[0] + R[4]) + R[8]
+    cs = np.minimum(np.maximum((trace - F32(1)) * F32(0.5), F32(-1)), F32(1))
+    small = cs > F32(0.999999)
+    near_pi = cs < F32(-0.9999995)
+    theta = _rounded(np.arccos, np.where(small, F32(0), cs))
+    # near pi: the axis from the diagonal, signs from the off-diagonals
+    denom = np.maximum(F32(1) - cs, F32(1e-8))
+    a2 = [np.maximum((F32(0.5) * (R[4 * i] + R[4 * i]) - cs) / denom, F32(0)) for i in range(3)]
+    sgn1 = lambda x: np.where(x < 0, F32(-1), F32(1))  # noqa: E731
+    s01, s02, s12 = (sgn1(F32(0.5) * (R[a] + R[b])) for a, b in ((1, 3), (2, 6), (5, 7)))
+    i0 = (a2[0] >= a2[1]) & (a2[0] >= a2[2])
+    i1 = ~i0 & (a2[1] >= a2[2])
+    sg = [np.where(i0, F32(1), np.where(i1, s01, s02)),
+          np.where(i1, F32(1), np.where(i0, s01, s12)),
+          np.where(~i0 & ~i1, F32(1), np.where(i0, s02, s12))]
+    w_pi = [(theta * np.sqrt(a2[i])) * sg[i] for i in range(3)]
+    sn = _rounded(np.sin, theta)
+    k_taylor = F32(0.5) * (F32(1) + (F32(2) * (F32(1) - cs)) / F32(6))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k_gen = (F32(0.5) * theta) / np.where(np.abs(sn) < F32(1e-8), F32(1), sn)
+    k = np.where(small, k_taylor, k_gen)
+    asym = [R[7] - R[5], R[2] - R[6], R[3] - R[1]]
+    w = [np.where(near_pi, w_pi[i], k * asym[i]) for i in range(3)]
+    theta2 = (w[0] * w[0] + w[1] * w[1]) + w[2] * w[2]
+    th = np.sqrt(theta2 + F32(1e-16))
+    sd, cd = _rounded(np.sin, th), _rounded(np.cos, th)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = sd / th
+        b = (F32(1) - cd) / theta2
+        coef = np.where(theta2 < F32(1e-3), F32(1.0 / 12.0) + theta2 / F32(720),
+                        (F32(1) - a / (F32(2) * b)) / np.maximum(theta2, F32(1e-16)))
+    zero = np.zeros_like(theta2)
+    W = [[zero, -w[2], w[1]], [w[2], zero, -w[0]], [-w[1], w[0], zero]]
+    v = []
+    for i in range(3):  # lane i
+        V = []
+        for j in range(3):
+            ww = (W[i][0] * W[0][j] + W[i][1] * W[1][j]) + W[i][2] * W[2][j]
+            V.append((F32(1 if i == j else 0) - F32(0.5) * W[i][j]) + coef * ww)
+        v.append((V[0] * t[0] + V[1] * t[1]) + V[2] * t[2])
+    return np.stack(v + w, 1)
+
+
+@pytest.mark.parametrize("regime", ["taylor", "identity", "generic_vinv_taylor", "generic",
+                                    "near_pi"])
+def test_warp_model_se3_log_is_the_twin_bitwise(regime):
+    """The log on the warp (warp_se3_log: the branches decided once for the
+    warp, the double arccos, the generic branch's sine, one sincos for
+    V^-1, its rows one a lane) gives se3_plain.se3_log bit for bit in every
+    branch of so3_log and on both sides of V^-1's threshold."""
+    R, t = _log_poses(np.random.default_rng(21))[regime]
+    got = _warp_se3_log(R.reshape(-1, 9).numpy(), t.numpy())
+    want = se3_plain.from_rows(se3_plain.se3_log(se3_plain.to_rows(R), se3_plain.to_rows(t)))
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))

@@ -230,3 +230,45 @@ def test_feeder_matches_process_frame_and_surfaces_errors():
     next(feeder)
     with pytest.raises(OSError, match="decode failed"):
         next(feeder)
+
+
+def _default_device_calls():
+    """Each of the port's `device=None` defaults, called without a device:
+    the frame feeder, the undistortion grid, the VGA ingest, the streaming
+    odometry and the lockstep driver."""
+    from rgbd_odometry_tpu_torch import config as tcfg
+    from rgbd_odometry_tpu_torch.core.camera import undistort_map
+    from rgbd_odometry_tpu_torch.io.stream import preprocess_vga
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+    from rgbd_odometry_tpu_torch.pipeline.feeder import FrameFeeder
+
+    cam = tcfg.CameraConfig(width=64, height=48, fx=60.0, fy=60.0, cx=31.5, cy=23.5,
+                      distortion=(0.1, 0.0, 0.0, 0.0, 0.0))
+    rgb, depth = np.zeros((48, 64, 3), np.float32), np.ones((48, 64), np.float32)
+    lockstep = tcfg.PipelineConfig(keyframe=tcfg.KeyframeConfig(rollback_resolve=False))
+    return {
+        "feeder": lambda device=None: FrameFeeder(iter(()), num_levels=2, device=device),
+        "undistort_map": lambda device=None: undistort_map(cam, device),
+        "preprocess_vga": lambda device=None: preprocess_vga(rgb, depth, cam, device),
+        "odometry": lambda device=None: EdgeDvoOdometry(_config(), device=device),
+        "multistream": lambda device=None: MultiStreamOdometry(2, lockstep, device=device),
+    }
+
+
+@pytest.mark.parametrize("what", ["feeder", "undistort_map", "preprocess_vga", "odometry",
+                                  "multistream"])
+def test_device_defaults_resolve_to_the_card(what, monkeypatch):
+    """With no device each entry resolves the current CUDA device
+    (`device.resolve_device`): without a card it raises, naming
+    `device='cpu'`, and never falls back to the host; `device="cpu"` runs
+    the plain path on the host."""
+    call = _default_device_calls()[what]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    tensors = [x for x in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(x)]
+    for x in tensors:
+        assert x.device.type == "cpu"
+    if what == "feeder":
+        assert out._device == torch.device("cpu") and list(out) == []
