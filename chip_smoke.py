@@ -184,8 +184,8 @@ KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn"
            "level_sg", "extract")
 TARGET_KERNELS = ("canny_pyramid", "dt_channels")  # every frame's targets launch both
 # entries that keep their check and launch on no path
-OFF_PATH = ("edt", "gn", "residual", "sg")
-MAP_KERNELS = ("match", "pnp")  # the launch counters the map-backend phases must move
+OFF_PATH = ("edt", "gn", "residual", "sg", "pnp")
+MAP_KERNELS = ("match", "ransac")  # the launch counters the map-backend phases must move
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
 GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
@@ -1006,58 +1006,110 @@ def match_inputs(rng, device):
     return desc, valid, q.desc.contiguous(), q.valid.contiguous()
 
 
-def check_match(device, rng) -> dict:
-    """Kernel A vs its plain version at S = 64, K = 384, D = 64, at the loop
-    closer's and the relocalizer's gate floors: ref_idx, good and num_good
-    equal except at near-ties (rows whose best two candidates, or whose
-    match's column, lie within 1e-6 in the plain version's d2), dist within
-    1e-6, runs bitwise."""
+def full_match_inputs(device, slots: int):
+    """Every keypoint valid: `slots` slots and a query of K = 384 random unit
+    descriptors (a textured scene at max_keypoints), from seed 0."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    unit = lambda *shape: torch.nn.functional.normalize(  # noqa: E731
+        torch.randn(shape + (64,), generator=g, device=device), dim=-1).contiguous()
+    every = torch.ones((slots, MATCH_K), dtype=torch.bool, device=device)
+    return unit(slots, MATCH_K), every, unit(MATCH_K), every[0].contiguous()
+
+
+def _check_match_case(what, args, floor) -> tuple:
+    """One case of check_match: the kernel on its rule's route and forced
+    to every cluster size, bitwise alike; against the plain version:
+    ref_idx, good and num_good equal except at near-ties (rows whose best
+    two candidates, or whose match's column, lie within 1e-6 in the plain
+    version's d2), dist within 1e-6, runs bitwise."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import match
 
-    sd, sv, qd, qv = match_inputs(rng, device)
+    sd, sv, qd, qv = args
     d2 = match.pair_d2(sd, sv, qd, qv)
     two_r = d2.topk(2, dim=2, largest=False).values
     two_c = d2.topk(2, dim=1, largest=False).values
     row_tie = (two_r[..., 1] - two_r[..., 0] <= 1e-6) & (two_r[..., 0] < 5e8)
     col_tie = (two_c[:, 1] - two_c[:, 0] <= 1e-6) & (two_c[:, 0] < 5e8)
+    del d2, two_r, two_c
+    full = (*args, 3.0, 0.9, floor)
+    ker = match.match_mutual(*full)
+    again = match.match_mutual(*full)
+    pl = match.match_mutual_plain(*full)
+    torch.cuda.synchronize()
+    _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+    for c in match.CLUSTERS:
+        forced = match.match_mutual(*full, cluster=c)
+        _require(all(_same_bits(a, b) for a, b in zip(ker, forced)),
+                 f"{what}: {c} blocks a slot differ from the rule's route")
+    near = row_tie | col_tie.gather(1, pl[0])
+    diff = (ker[0] != pl[0]) | (ker[2] != pl[2])
+    _require(not bool((diff & ~near).any()), f"{what}: rows differ away from near-ties")
+    slack = (diff & near).sum(1)
+    _require(bool(((ker[3] - pl[3]).abs() <= slack).all()), f"{what}: num_good differs")
+    same = ker[0] == pl[0]
+    err = float((ker[1] - pl[1]).abs()[same].max())
+    _require(err <= 1e-6, f"{what}: dist error {err:.2e} > 1e-6")
+    _log(f"{what}: {int(near.sum())} near-tie rows, {int(diff.sum())} rows differ, dist err "
+         f"{err:.2e}, runs and every cluster size bitwise equal; "
+         f"{int(pl[3].sum())} good matches")
+    return pl, err
+
+
+def _match_bound(args) -> dict:
+    """The least time for one match_mutual call on these inputs: the masks
+    and the valid keypoints' descriptors in, (ref_idx int64, dist, good)
+    per row and num_good out; each valid pair's 64-long multiply-add chain
+    once (two float32 operations a link)."""
+    sd, sv, qd, qv = args
+    s_n, k_n, d_n = sd.shape
+    nq, nr = int(qv.sum()), int(sv.sum())
+    nbytes = (s_n + 1) * k_n + (nq + nr) * 4 * d_n + s_n * k_n * 13 + s_n * 4
+    return _bound(nbytes, nq * nr * d_n * 2)
+
+
+def check_match(device, rng) -> dict:
+    """Kernel A vs its plain version (`_check_match_case`) at the loop
+    closer's and the relocalizer's gate floors on the rendered store (S =
+    64, K = 384, ~80 valid keypoints a frame), at full validity (S = 64)
+    and at S = 512 (the rendered store eight times; full validity)."""
+    from rgbd_odometry_tpu_torch.kernels import match
+
+    sd, sv, qd, qv = match_inputs(rng, device)
+    rendered = (sd, sv, qd, qv)
     worst, out = 0.0, {}
     for floor in (1e-3, 0.2):
-        args = (sd, sv, qd, qv, 3.0, 0.9, floor)
-        ker = match.match_mutual(*args)
-        again = match.match_mutual(*args)
-        pl = match.match_mutual_plain(*args)
-        torch.cuda.synchronize()
         what = f"match S={MATCH_SLOTS} K={MATCH_K} floor={floor}"
-        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
-        near = row_tie | col_tie.gather(1, pl[0])
-        diff = (ker[0] != pl[0]) | (ker[2] != pl[2])
-        _require(not bool((diff & ~near).any()), f"{what}: rows differ away from near-ties")
-        slack = (diff & near).sum(1)
-        _require(bool(((ker[3] - pl[3]).abs() <= slack).all()), f"{what}: num_good differs")
-        same = ker[0] == pl[0]
-        err = float((ker[1] - pl[1]).abs()[same].max())
-        _require(err <= 1e-6, f"{what}: dist error {err:.2e} > 1e-6")
+        pl, err = _check_match_case(what, rendered, floor)
         worst = max(worst, err)
         goods = pl[3].tolist()
         _require(goods[48] >= 30 and goods[49] >= 20 and max(goods[50:]) == 0,
                  f"{what}: duplicate / near-duplicate / empty slots give {goods[48:51]}")
+        _log(f"{what}: good matches duplicate {goods[48]} near-duplicate {goods[49]} "
+             f"path {goods[:32]}")
+    cases = {
+        "rendered S=64": rendered,
+        "rendered S=512": (sd.repeat(8, 1, 1).contiguous(), sv.repeat(8, 1).contiguous(), qd, qv),
+        "full S=64": full_match_inputs(device, MATCH_SLOTS),
+        "full S=512": full_match_inputs(device, 512),
+    }
+    for name, args in cases.items():
+        if name != "rendered S=64":
+            for floor in (1e-3, 0.2):
+                _, err = _check_match_case(f"match {name} floor={floor}", args, floor)
+                worst = max(worst, err)
         k_ms = _time_ms(lambda: match.match_mutual(*args), 20)
-        p_ms = _time_ms(lambda: match.match_mutual_plain(*args), 3)
-        _log(f"{what}: {int(near.sum())} near-tie rows, {int(diff.sum())} rows differ, dist err "
-             f"{err:.2e}, runs bitwise equal; good matches duplicate {goods[48]} near-duplicate "
-             f"{goods[49]} path {goods[:32]}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        out[floor] = (k_ms, p_ms)
-    k_ms, p_ms = out[1e-3]
-    # descriptors and masks in, (ref_idx, dist, good) per row and num_good
-    # out; the row and the column pass each take the 64-long multiply-add
-    # chain of every valid (query, slot) keypoint pair
-    s_n, k_n, d_n = sd.shape
-    nbytes = (s_n + 1) * k_n * (4 * d_n + 1) + s_n * k_n * 9 + s_n * 4
-    pairs = int(qv.sum()) * int(sv.sum())
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
-            **_bound(nbytes, 2 * pairs * d_n * 2)}
+        p_ms = _time_ms(lambda: match.match_mutual_plain(*args), 2)
+        bound = _match_bound(args)
+        _log(f"match {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+             f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    return {"max_abs_err": worst, **out["rendered S=64"],
+            "full": out["full S=64"], "s512": out["rendered S=512"], "full_s512": out["full S=512"]}
 
 
 def pnp_inputs(rng, device):
@@ -1088,10 +1140,11 @@ def pnp_inputs(rng, device):
 
 
 def check_pnp(device, rng) -> dict:
-    """Kernel B vs its plain version at both RANSAC phases: B = 64 four-point
-    hypotheses (4 iterations) and B = 1 over the best hypothesis's inliers
-    (5 iterations), K = 384. R and t within 1e-5, counts and inliers equal
-    except for points within 1e-6 of the threshold, runs bitwise."""
+    """Kernel B's `pnp_gn` vs its plain version at both RANSAC phases: B = 64
+    four-point hypotheses (4 iterations) and B = 1 over the best
+    hypothesis's inliers (5 iterations), K = 384. R and t within 1e-5,
+    counts and inliers equal except for points within 1e-6 of the
+    threshold, runs bitwise."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import pnp_gn
@@ -1135,6 +1188,114 @@ def check_pnp(device, rng) -> dict:
     _, err_r, _, _ = phase("refine", pl[3][b : b + 1].contiguous(), pl[0][b : b + 1],
                            pl[1][b : b + 1], 5)
     return {"max_abs_err": max(err_h, err_r), "ms": k_ms, "plain_ms": p_ms, **bound}
+
+
+@contextlib.contextmanager
+def _ransac_against_steps(tally: list):
+    """Every `solvers/pnp.ransac_pnp` call of the block (the fused kernel on
+    the card) is recorded with its inputs; after the block the step-by-step
+    route runs on each, and must give every field bitwise. `tally` gets each
+    verification's inlier count. The route's `pnp_gn` launches are a
+    comparison's and are taken off its counter."""
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    fused, calls = pnp.ransac_pnp, []
+
+    def recorded(*a, **k):
+        res = fused(*a, **k)
+        calls.append(([x.clone() if hasattr(x, "clone") else x for x in a], k, res))
+        return res
+
+    pnp.ransac_pnp = recorded
+    try:
+        yield
+    finally:
+        pnp.ransac_pnp = fused
+    before = pnp_gn.pnp_gn.launches
+    for n, (a, k, res) in enumerate(calls):
+        steps = pnp_gn.ransac_pnp_steps(*a, **k)
+        _require(all(_same_bits(x, y) for x, y in zip(res, steps)),
+                 f"ransac_pnp: verification {n} differs from the step-by-step route")
+        tally.append(int(res.num_inliers))
+    pnp_gn.pnp_gn.launches = before
+
+
+def _kernel_launches(fn) -> int:
+    """The CUDA kernels one call of fn() runs (device copies apart), from the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_time_total > 0 and not ev.key.startswith(("Memcpy", "Memset")))
+
+
+def check_ransac(device, rng) -> dict:
+    """Kernel B's fused `ransac_pnp` (one launch a verification) against the
+    step-by-step route on the card (`ransac_pnp_steps`: the sample, the
+    hypotheses' and the refine's `pnp_gn` launches and the torch ops
+    between them), every field bitwise, on chip_smoke's PnP problem with
+    six draws of 64 hypotheses' uniforms, with 3 valid points and with
+    none; and against the route over `pnp_gn`'s plain version, bitwise.
+    Records the launches a verification of both."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+
+    obj, imn, valid, _ = pnp_inputs(rng, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    few = torch.zeros_like(valid)
+    few[torch.nonzero(valid)[:3, 0]] = True
+    cases = [(f"draw {i}", torch.rand((PNP_HYPOTHESES, PNP_K), generator=g, device=device), valid)
+             for i in range(6)]
+    u = cases[0][1]
+    cases += [("3 valid", u, few), ("none valid", u, torch.zeros_like(valid))]
+    plain = lambda: _patched(pnp_gn, pnp_gn=pnp_gn.pnp_gn_plain)  # noqa: E731
+    for name, uu, vv in cases:
+        args = (uu, obj, imn, vv)
+        ker = pnp_gn.ransac_pnp(*args)
+        again = pnp_gn.ransac_pnp(*args)
+        steps = pnp_gn.ransac_pnp_steps(*args)
+        with plain():
+            pl = pnp_gn.ransac_pnp_steps(*args)
+        torch.cuda.synchronize()
+        what = f"ransac_pnp {name}"
+        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+        _require(all(_same_bits(a, b) for a, b in zip(ker, steps)),
+                 f"{what}: differs from the step-by-step route on the card")
+        _require(all(_same_bits(a, b) for a, b in zip(ker, pl)),
+                 f"{what}: differs from the route over the plain pnp_gn")
+        _log(f"{what}: every field bitwise the step-by-step route's and the plain route's; "
+             f"best hypothesis {int(ker.best_hypothesis)} with {int(ker.num_inliers)} inliers")
+    args = (u, obj, imn, valid)
+    fused_n = _kernel_launches(lambda: pnp_gn.ransac_pnp(*args))
+    steps_n = _kernel_launches(lambda: pnp_gn.ransac_pnp_steps(*args))
+    _require(fused_n == 1, f"ransac_pnp: {fused_n} kernels a verification, not 1")
+    k_ms = _time_ms(lambda: pnp_gn.ransac_pnp(*args), 50)
+    s_ms = _time_ms(lambda: pnp_gn.ransac_pnp_steps(*args), 20)
+    with plain():
+        p_ms = _time_ms(lambda: pnp_gn.ransac_pnp_steps(*args), 3)
+    res = pnp_gn.ransac_pnp(*args)
+    sub = pnp_gn.select_sample(u, valid, 4)
+    s_n, k_n = u.shape
+    # uniforms, correspondences and the mask in; the pose, inliers, count
+    # and index out; the hypotheses' iterations on their sample points, the
+    # scores, the refine's iterations on the winner's inliers
+    bound = _bound(s_n * k_n * 4 + k_n * 21 + 48 + k_n + 12,
+                   4 * int(sub.sum()) * OPS_PNP_POINT + s_n * k_n * OPS_PNP_SCORE
+                   + 5 * int(res.num_inliers) * OPS_PNP_POINT)
+    _log(f"ransac_pnp: {fused_n} kernel a verification (the step-by-step route {steps_n}); "
+         f"kernel {k_ms:.4f} ms, the route on the card {s_ms:.4f} ms, over the plain pnp_gn "
+         f"{p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "steps_ms": s_ms,
+            "launches_per_verification": fused_n, "steps_launches_per_verification": steps_n,
+            **bound}
 
 
 @contextlib.contextmanager
@@ -2907,7 +3068,7 @@ def _launch_counters():
             "dt_channels": edt.dt_channels,
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
-            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn,
+            "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "ransac": pnp_gn.ransac_pnp,
             "level_lm": level_lm.level_lm_pyramid, "level_sg": level_sg.level_sg_pyramid,
             "extract": extract.extract_pyramid}
 
@@ -2949,6 +3110,7 @@ def main() -> int:
         "sg": check_sg_terms(device, rng),
         "match": check_match(device, rng),
         "pnp": check_pnp(device, rng),
+        "ransac": check_ransac(device, rng),
         "level_lm": check_level_lm(device, rng),
         "level_sg": check_level_sg(device, rng),
         "extract": check_extract(device, rng),
@@ -2992,7 +3154,14 @@ def main() -> int:
         before = {k: fn.launches for k, fn in counters.items()}
         solves_before = dict(solves)
         t0 = time.perf_counter()
-        results[name] = phase()
+        tally: list = []
+        if name in ("loop_closure", "relocalize"):
+            with _ransac_against_steps(tally):
+                results[name] = phase()
+            _log(f"{name}: {len(tally)} verifications, each bitwise the step-by-step route "
+                 f"(inliers {tally})")
+        else:
+            results[name] = phase()
         torch.cuda.synchronize()
         n = {k: fn.launches - before[k] for k, fn in counters.items()}
         per_phase[name] = n
@@ -3022,6 +3191,7 @@ def main() -> int:
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
         _require(n["sg"] == 0, f"{name}: the per-iteration subgradient_terms kernel was launched")
         _require(n["residual"] == 0, f"{name}: the residual_pass kernel was launched")
+        _require(n["pnp"] == 0, f"{name}: the step-by-step pnp_gn kernel was launched")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
     for key in ("canny_pyramid", "dt_channels", "level_lm", "extract"):
@@ -3061,6 +3231,10 @@ def main() -> int:
         {"name": "pnp_gn", "route": "cuda", "source": src + "pnp_gn.cu",
          "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 (XLA, no Pallas kernel)",
          "launches": launches["pnp"], **res["pnp"]},
+        {"name": "ransac_pnp", "route": "cuda", "source": src + "pnp_gn.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:116 ransac_pnp (XLA, no Pallas kernel: "
+                     "top_k :144, vmap(gn_pnp) :46-97, the scores, argmax :153, the refine)",
+         "launches": launches["ransac"], **res["ransac"]},
         {"name": "level_lm", "route": "cuda", "source": src + "level_lm.cu",
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159 + solvers/edge_dvo.py:261 "
                      "(the lax.scan level loops :586, :754, the all-point diagnostics "

@@ -7,7 +7,10 @@ and its pose-graph edges. These functions turn the JAX package's
 objects with those fields, holding numpy arrays or anything `np.asarray`
 accepts, batched or not) and a `LoopCloser`'s or `Relocalizer`'s store into
 the port's tensors, so that both packages can be fed the very same keyframe
-features, DT targets and databases. Nothing here imports JAX.
+features, DT targets and databases. Nothing here imports JAX. Like every
+entry point of the port, each function puts its tensors on the current CUDA
+device unless given `device` (`device.resolve_device`: without a card it
+raises, naming `device="cpu"`).
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rgbd_odometry_tpu_torch.device import resolve_device
 from rgbd_odometry_tpu_torch.solvers.edge_dvo import NowLevel, RefLevel
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device=None) -> torch.Tensor:
     """numpy (including ml_dtypes bfloat16 arrays) -> torch tensor, bitwise."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -31,8 +36,9 @@ def _batched(x: torch.Tensor, unbatched_ndim: int) -> torch.Tensor:
     return x[None] if x.dim() == unbatched_ndim else x
 
 
-def ref_level(level, device="cpu") -> RefLevel:
+def ref_level(level, device=None) -> RefLevel:
     """A JAX `RefLevel` ((K,3) pts or (B,K,3)) -> the port's batched one."""
+    device = resolve_device(device)
     return RefLevel(
         pts3d=_batched(to_tensor(level.pts3d, device), 2).contiguous(),
         uv=_batched(to_tensor(level.uv, device), 2),
@@ -41,8 +47,9 @@ def ref_level(level, device="cpu") -> RefLevel:
     )
 
 
-def now_level(level, device="cpu") -> NowLevel:
+def now_level(level, device=None) -> NowLevel:
     """A JAX `NowLevel` ((H,W) maps or (B,H,W)) -> the port's batched one."""
+    device = resolve_device(device)
     return NowLevel(
         dt=_batched(to_tensor(level.dt, device), 2),
         dgx=_batched(to_tensor(level.dgx, device), 2),
@@ -53,16 +60,18 @@ def now_level(level, device="cpu") -> NowLevel:
     )
 
 
-def pose(R, t, device="cpu"):
+def pose(R, t, device=None):
     """A JAX pose (R (3,3) or (B,3,3), t) -> batched float32 tensors."""
+    device = resolve_device(device)
     R = _batched(to_tensor(R, device).to(torch.float32), 2).contiguous()
     t = _batched(to_tensor(t, device).to(torch.float32), 1).contiguous()
     return R, t
 
 
-def keypoints_from_jax(kps, device="cpu"):
+def keypoints_from_jax(kps, device=None):
     """A JAX `features.Keypoints` (one frame, or with a leading slot axis)
     -> the port's, bitwise."""
+    device = resolve_device(device)
     from rgbd_odometry_tpu_torch.ops.features import Keypoints
 
     return Keypoints(
@@ -72,8 +81,9 @@ def keypoints_from_jax(kps, device="cpu"):
     )
 
 
-def edges_from_jax(e, device="cpu"):
+def edges_from_jax(e, device=None):
     """A JAX `pose_graph.PoseGraphEdges` -> the port's (int64 node indices)."""
+    device = resolve_device(device)
     from rgbd_odometry_tpu_torch.solvers.pose_graph import PoseGraphEdges
 
     f32 = lambda a: to_tensor(a, device).to(torch.float32)  # noqa: E731

@@ -227,6 +227,34 @@ struct Split {
   int ranks, q, base;
 };
 
+// The levels of warp_tree below offset O: at each offset o = O, O / 2, ...,
+// 1 a lane keeps the half of its x[0 .. 2o) its lane bit o names and adds
+// the other half of the lane across. A template parameter a level, so that
+// every loop has a constant trip count and x stays in registers (as loops
+// over o, nvcc left x in local memory for N = 27).
+template <int O, int P>
+__device__ __forceinline__ void tree_levels(float (&x)[P], int lane) {
+  const bool hi = (lane & O) != 0;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float keep = hi ? x[k + O] : x[k];
+    const float send = hi ? x[k] : x[k + O];
+    x[k] = keep + __shfl_xor_sync(kFull, send, O);
+  }
+  if constexpr (O > 1) tree_levels<O / 2, P>(x, lane);
+}
+
+// The offsets O, O / 2, ..., P of warp_tree, where every lane adds the
+// lane across to each of its P values.
+template <int O, int P>
+__device__ __forceinline__ void tree_fold(float (&x)[P]) {
+  if constexpr (O >= P) {
+#pragma unroll
+    for (int m = 0; m < P; ++m) x[m] += __shfl_xor_sync(kFull, x[m], O);
+    tree_fold<O / 2, P>(x);
+  }
+}
+
 // The shuffle-down tree of each of N per-lane values over a warp (N <= 32)
 // with fewer shuffles. A tree of __shfl_down_sync at offsets 16, 8, 4, 2, 1
 // costs 5 shuffles a value; here, at each offset below N, a lane keeps the
@@ -242,21 +270,8 @@ __device__ __forceinline__ float warp_tree(const float (&acc)[N], int lane) {
   float x[P];
 #pragma unroll
   for (int m = 0; m < P; ++m) x[m] = m < N ? acc[m] : 0.0f;
-#pragma unroll
-  for (int o = 16; o >= P; o >>= 1) {
-#pragma unroll
-    for (int m = 0; m < P; ++m) x[m] += __shfl_xor_sync(kFull, x[m], o);
-  }
-#pragma unroll
-  for (int o = P / 2; o >= 1; o >>= 1) {
-    const bool hi = (lane & o) != 0;
-#pragma unroll
-    for (int k = 0; k < o; ++k) {
-      const float keep = hi ? x[k + o] : x[k];
-      const float send = hi ? x[k] : x[k + o];
-      x[k] = keep + __shfl_xor_sync(kFull, send, o);
-    }
-  }
+  tree_fold<16, P>(x);
+  if constexpr (P > 1) tree_levels<P / 2, P>(x, lane);
   return x[0];
 }
 

@@ -6,7 +6,11 @@ Replaces `jax.vmap(features.match)` over the keyframe slot store
 query frame's descriptors against every stored slot at once.
 `match_mutual` is the entry point: CPU tensors go to the plain PyTorch
 version `match_mutual_plain`, CUDA tensors to the kernel; anything else
-raises.
+raises. The kernel computes each valid pair's similarity once, in tiles
+spread over a thread-block cluster a slot (`cluster_size`, a function of S
+and the card's SM count alone), and merges the rows and columns as
+lexicographic minima on (d2, index), so its bits do not depend on the
+tiling or the cluster size.
 
 Both versions form each similarity as the same chain of float32 fused
 multiply-adds over the descriptor, d ascending, which is also the order in
@@ -19,6 +23,7 @@ rounding) passes the same matches in all three.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,8 +33,21 @@ from rgbd_odometry_tpu_torch.ops.project import fma_f32
 _BIG = 1e9
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-    + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] + [ctypes.c_void_p] * 5
 )
+MAX_K = 1024  # the kernel's keypoints a frame: its compaction and shared-memory layout
+CLUSTERS = (1, 2, 4, 8)
+
+
+def cluster_size(slots: int, sms: int) -> int:
+    """Blocks a slot: the largest of 1, 2, 4, 8 with slots x blocks <= the
+    card's `sms` (one block an SM)."""
+    return max([c for c in CLUSTERS if slots * c <= sms] or [1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pair_d2(slot_desc: torch.Tensor, slot_valid: torch.Tensor, q_desc: torch.Tensor,
@@ -70,13 +88,14 @@ def match_mutual_plain(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=
 
 
 def match_mutual(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=3.0, ratio=0.9,
-                 dist_gate_floor=1e-3):
+                 dist_gate_floor=1e-3, cluster=None):
     """Match the query keypoints (q_desc (K,D) float32, q_valid (K,) bool)
     against S stored slots (slot_desc (S,K,D), slot_valid (S,K)) as the JAX
     `features.match` does per slot: for each query keypoint its nearest
-    slot keypoint `ref_idx` (S,K), the distance `dist` (S,K), whether the
-    match is `good` (mutual nearest, ratio test, distance gate, both sides
-    valid) and the per-slot count `num_good` (S,) int32."""
+    slot keypoint `ref_idx` (S,K) int64, the distance `dist` (S,K), whether
+    the match is `good` (mutual nearest, ratio test, distance gate, both
+    sides valid) and the per-slot count `num_good` (S,) int32. `cluster`
+    forces the blocks a slot on the card (default `cluster_size`)."""
     if q_desc.device.type == "cpu":
         return match_mutual_plain(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor,
                                   ratio, dist_gate_floor)
@@ -88,14 +107,19 @@ def match_mutual(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=3.0, r
     s, k, d = slot_desc.shape
     if d != 64:
         raise ValueError(f"match_mutual: the kernel takes 64-wide descriptors, got {d}")
-    if k * d * 4 > 200 * 1024:
-        raise ValueError(f"match_mutual: K={k} descriptors exceed the kernel's shared memory")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"match_mutual: the kernel takes 1 to {MAX_K} keypoints a frame, got {k}")
+    ranks = cluster_size(s, _sms(dev.index or 0)) if cluster is None else cluster
+    if ranks not in CLUSTERS:
+        raise ValueError(f"match_mutual: cluster must be one of {CLUSTERS}, got {cluster}")
     fn = "match_mutual"
     build.check_arg(fn, "slot_desc", slot_desc, (s, k, d), torch.float32, dev)
     build.check_arg(fn, "slot_valid", slot_valid, (s, k), torch.bool, dev)
     build.check_arg(fn, "q_desc", q_desc, (k, d), torch.float32, dev)
     build.check_arg(fn, "q_valid", q_valid, (k,), torch.bool, dev)
-    ref_idx = torch.empty((s, k), dtype=torch.int32, device=dev)
+    if slot_desc.data_ptr() % 16 or q_desc.data_ptr() % 16:
+        raise ValueError("match_mutual: the descriptors must be 16-byte aligned")
+    ref_idx = torch.empty((s, k), dtype=torch.int64, device=dev)
     dist = torch.empty((s, k), dtype=torch.float32, device=dev)
     good = torch.empty((s, k), dtype=torch.bool, device=dev)
     num_good = torch.empty((s,), dtype=torch.int32, device=dev)
@@ -104,12 +128,12 @@ def match_mutual(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=3.0, r
         code = lib.match_mutual(
             dev.index or 0, slot_desc.data_ptr(), slot_valid.data_ptr(), q_desc.data_ptr(),
             q_valid.data_ptr(), s, k, d, float(dist_gate_factor), float(ratio * ratio),
-            float(dist_gate_floor), ref_idx.data_ptr(), dist.data_ptr(), good.data_ptr(),
+            float(dist_gate_floor), ranks, ref_idx.data_ptr(), dist.data_ptr(), good.data_ptr(),
             num_good.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "match_mutual launch")
     match_mutual.launches += 1
-    return ref_idx.long(), dist, good, num_good
+    return ref_idx, dist, good, num_good
 
 
 match_mutual.launches = 0

@@ -69,6 +69,20 @@ checkout has that entry (`level_lm_pyramid`, `level_sg_pyramid`), with
 the median cycles of an iteration's phases (pass, sum, step, barrier)
 from the kernels' clock stamps where the checkout has them.
 
+`--paths map` (not in the default; run it alone) profiles the map
+backend's two kernels and a keyframe's split: device us per
+`match_mutual` launch at S = 64 and 512 slots of K = 384 keypoints, at the
+rendered frames' validity (chip_smoke.py's store: ~80 valid keypoints a
+frame; S = 512 is it eight times) and at full validity (random unit
+descriptors, every keypoint valid); device us and kernel launches (device
+copies apart) of one `solvers/pnp.ransac_pnp` call on chip_smoke.py's PnP
+problem; one `LoopCloser.add_keyframe` over chip_smoke.py's 12-frame
+out-and-back path, its host clock split (each part synchronised) between
+`detect_and_describe`, `match_all`, `ransac_fundamental_filter` and
+`ransac_pnp` with the calls of each, and its `cudaLaunchKernel` calls; a
+digest of every output (both gate floors, every `RansacResult` field, the
+closures), so that an A/B call shows the bits equal.
+
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
 `FrameMetrics.solve_ms`, the CLI's `avg solve`) and once under the profiler
@@ -524,13 +538,13 @@ def _phase_cycles(clk, level_ids) -> dict:
     return out
 
 
-def _digest(out) -> str:
-    """A hash of a level's pose, energy curve and best iteration, bit for
-    bit: two checkouts' runs on the same inputs agree exactly where their
-    digests do."""
+def _digest(out, n: int = 4) -> str:
+    """A hash of the first n outputs (a level's pose, energy curve and best
+    iteration), bit for bit: two checkouts' runs on the same inputs agree
+    exactly where their digests do."""
     import hashlib
 
-    return hashlib.sha1(b"".join(x.detach().cpu().numpy().tobytes() for x in out[:4])).hexdigest()[:16]
+    return hashlib.sha1(b"".join(x.detach().cpu().numpy().tobytes() for x in out[:n])).hexdigest()[:16]
 
 
 def _solve_inputs(device, batch: int):
@@ -675,6 +689,199 @@ def profile_solve(device, batches=(1, 8, 64), reps: int = 10,
     return out
 
 
+def _device_split(fn, reps: int) -> dict:
+    """Device us per call of `fn` (kernels and copies), its kernel launches
+    and its device copies, from `reps` calls under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        recs = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+        if recs:
+            copies = [ev for ev in recs if ev.key.startswith("Memcpy") or ev.key.startswith("Memset")]
+            return {"us": sum(ev.device_time_total for ev in recs) / reps,
+                    "kernels": sum(ev.count for ev in recs if ev not in copies) / reps,
+                    "copies": sum(ev.count for ev in copies) / reps}
+    raise RuntimeError("profile_map: no kernel record")
+
+
+def _map_store(device):
+    """chip_smoke.py's slot store: 32 rendered 320x240 frames along a path,
+    16 of them again with sensor noise, the query (frame 12), its exact and
+    its noisy duplicate, 14 empty slots; K = 384."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.ops.features import detect_and_describe
+
+    rng = np.random.default_rng(0)
+    frames, _ = render_sequence(CameraConfig(), _trajectory(32, step=0.004), seed=3)
+    grays = [g for g, _ in frames]
+    grays += [grays[i] + rng.normal(0, 2.0, grays[i].shape).astype(np.float32)
+              for i in range(0, 32, 2)]
+    query = grays[12]
+    grays += [query, query + rng.normal(0, 1.0, query.shape).astype(np.float32)]
+    kps = [detect_and_describe(torch.from_numpy(g).to(device), 384) for g in grays]
+    empty = 64 - len(kps)
+    desc = torch.cat([torch.stack([k.desc for k in kps]),
+                      torch.zeros((empty, 384, 64), device=device)]).contiguous()
+    valid = torch.cat([torch.stack([k.valid for k in kps]),
+                       torch.zeros((empty, 384), dtype=torch.bool, device=device)]).contiguous()
+    return desc, valid, kps[-2].desc.contiguous(), kps[-2].valid.contiguous()
+
+
+def _pnp_problem(device):
+    """A PnP problem like chip_smoke.py's: K = 384 correspondences 1-3 m
+    away, 0.001 noise, 15% gross outliers, 90% valid; 64 hypotheses'
+    uniforms."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    k = 384
+    obj = np.stack([rng.uniform(-1.2, 1.2, k), rng.uniform(-0.9, 0.9, k),
+                    rng.uniform(1.0, 3.0, k)], -1).astype(np.float32)
+    th = np.array([0.02, -0.03, 0.01])
+    c, s_ = np.cos(np.linalg.norm(th)), np.sin(np.linalg.norm(th))
+    ax = th / np.linalg.norm(th)
+    K = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+    R = np.eye(3) + s_ * K + (1 - c) * K @ K
+    pq = (obj - np.array([0.03, -0.02, 0.01])) @ R
+    imn = pq[:, :2] / pq[:, 2:] + rng.normal(0, 0.001, (k, 2))
+    bad = rng.random(k) < 0.15
+    imn[bad] += rng.uniform(-0.1, 0.1, (int(bad.sum()), 2))
+    valid = rng.random(k) < 0.9
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    u = torch.rand((64, k), generator=g, device=device)
+    f = lambda a: torch.as_tensor(a).to(device).contiguous()  # noqa: E731
+    return u, f(obj), f(imn.astype(np.float32)), f(valid)
+
+
+def profile_map(device, reps: int = 20) -> dict:
+    """The map backend (see the module docstring, `--paths map`). Prints one
+    line per case and the whole as one JSON line."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig, LoopCloser
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.kernels import match
+    from rgbd_odometry_tpu_torch.ops import features
+    from rgbd_odometry_tpu_torch.pipeline import kf_matcher
+    from rgbd_odometry_tpu_torch.pipeline.loop_closure import LoopClosureConfig
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    out = {"path": "map", "reps": reps, "match": {}, "ransac_pnp": {}, "add_keyframe": {}}
+    desc, valid, qd, qv = _map_store(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    unit = torch.nn.functional.normalize(
+        torch.randn((512, 384, 64), generator=g, device=device), dim=-1).contiguous()
+    q_unit = torch.nn.functional.normalize(
+        torch.randn((384, 64), generator=g, device=device), dim=-1).contiguous()
+    every = torch.ones((512, 384), dtype=torch.bool, device=device)
+    cases = {
+        "rendered S=64": (desc, valid, qd, qv),
+        "rendered S=512": (desc.repeat(8, 1, 1).contiguous(), valid.repeat(8, 1).contiguous(),
+                           qd, qv),
+        "full S=64": (unit[:64].contiguous(), every[:64].contiguous(), q_unit, every[0].contiguous()),
+        "full S=512": (unit, every, q_unit, every[0].contiguous()),
+    }
+    for name, args in cases.items():
+        case = {"valid_query": int(args[3].sum()), "valid_pairs": int(args[3].sum()) * int(args[1].sum()),
+                **_device_split(lambda: match.match_mutual(*args), reps)}
+        for floor in (1e-3, 0.2):
+            case[f"digest floor={floor}"] = _digest(match.match_mutual(*args, dist_gate_floor=floor))
+        out["match"][name] = case
+        print(f"map match_mutual {name}: {case['us']:.2f} us, {case['kernels']:.0f} kernels, "
+              f"{case['copies']:.0f} copies; {case['valid_pairs']} valid pairs; digests "
+              f"{case['digest floor=0.001']} {case['digest floor=0.2']}", flush=True)
+
+    u, obj, imn, pv = _pnp_problem(device)
+    res = pnp.ransac_pnp(u, obj, imn, pv)
+    rp = {**_device_split(lambda: pnp.ransac_pnp(u, obj, imn, pv), reps),
+          "digest": _digest(res, 5), "best": int(res.best_hypothesis),
+          "inliers": int(res.num_inliers)}
+    out["ransac_pnp"] = rp
+    print(f"map ransac_pnp: {rp['us']:.2f} us, {rp['kernels']:.0f} kernel launches, "
+          f"{rp['copies']:.0f} copies a verification; best {rp['best']} with {rp['inliers']} "
+          f"inliers; digest {rp['digest']}", flush=True)
+
+    # one add_keyframe's split, each part synchronised on the host clock
+    cam = CameraConfig()
+    ts = np.sin(np.pi * np.arange(12) / 11)
+    twists = np.stack([0.04 * ts, -0.02 * ts, 0.012 * ts, 0.008 * ts, -0.008 * ts, 0.004 * ts],
+                      -1).astype(np.float32)
+    frames, _ = render_sequence(cam, twists, seed=0)
+    dev_frames = [tuple(torch.from_numpy(a).to(device) for a in f) for f in frames]
+    parts = {"detect_and_describe": 0.0, "match_all": 0.0, "ransac_fundamental_filter": 0.0,
+             "ransac_pnp": 0.0}
+    calls = dict.fromkeys(parts, 0)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] += (time.perf_counter() - t0) * 1000.0
+            calls[name] += 1
+            return r
+        return wrapper
+
+    def run(lc):
+        wall = []
+        for i, (gray, depth) in enumerate(dev_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lc.add_keyframe(i, gray, depth)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1000.0)
+        return wall
+
+    cfg = LoopClosureConfig(min_separation=4, slot_capacity=4)
+    intr = Intrinsics.from_config(cam)
+    run(LoopCloser(intr, cfg, seed=0, device=device))  # warm-up
+    lc = LoopCloser(intr, cfg, seed=0, device=device)
+    wall = run(lc)
+    saved = (features.detect_and_describe, kf_matcher.KeyframeMatcher.match_all,
+             kf_matcher.ransac_fundamental_filter, pnp.ransac_pnp)
+    features.detect_and_describe = timed("detect_and_describe", saved[0])
+    kf_matcher.KeyframeMatcher.match_all = timed("match_all", saved[1])
+    kf_matcher.ransac_fundamental_filter = timed("ransac_fundamental_filter", saved[2])
+    pnp.ransac_pnp = timed("ransac_pnp", saved[3])
+    try:
+        split_wall = run(LoopCloser(intr, cfg, seed=0, device=device))
+    finally:
+        (features.detect_and_describe, kf_matcher.KeyframeMatcher.match_all,
+         kf_matcher.ransac_fundamental_filter, pnp.ransac_pnp) = saved
+    prof = _profile_window(lambda: run(LoopCloser(intr, cfg, seed=0, device=device)), 12)
+    n = len(dev_frames)
+    ak = {"keyframes": n, "ms_median": float(np.median(wall[1:])), "ms_mean": float(np.mean(wall[1:])),
+          "split_run_ms_mean": float(np.mean(split_wall)),
+          "ms_per_keyframe": {k: v / n for k, v in parts.items()}, "calls": calls,
+          "launches_per_keyframe": prof["launches"], "syncs_per_keyframe": prof["syncs"],
+          "kernel_ms_per_keyframe": prof["kernel_ms"],
+          "closures": [(int(c[0]), int(c[1]), int(c[4])) for c in lc.closures],
+          "digest": _digest([torch.as_tensor(np.stack([c[2] for c in lc.closures] or [np.zeros((3, 3))])),
+                             torch.as_tensor(np.stack([c[3] for c in lc.closures] or [np.zeros(3)]))])}
+    out["add_keyframe"] = ak
+    print(f"map add_keyframe: median {ak['ms_median']:.3f} ms, mean {ak['ms_mean']:.3f} ms; per "
+          "keyframe (synchronised parts) " + ", ".join(
+              f"{k} {v:.3f} ms ({calls[k]} calls)" for k, v in ak["ms_per_keyframe"].items())
+          + f"; {ak['launches_per_keyframe']:.1f} launches, {ak['syncs_per_keyframe']:.1f} syncs a "
+          f"keyframe; closures {ak['closures']} digest {ak['digest']}", flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -710,6 +917,9 @@ def main(argv=None) -> int:
             continue
         if name == "solve":
             profile_solve(device)
+            continue
+        if name == "map":
+            profile_map(device)
             continue
         cfg = configs["stream" if name == "pipelined" else name]
         # VGA one sample a pixel: three take ~3 s a frame on the host

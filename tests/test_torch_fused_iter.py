@@ -63,8 +63,8 @@ def _assert_close(H, g, e, n, H_w, g_w, e_w, n_w):
 def test_plain_fused_gn_matches_pallas_and_xla(scene, k):
     intr, feats, tgt = scene
     ref = feats[k]
-    ref_t = convert.ref_level(ref)
-    now_t = convert.now_level(tgt)
+    ref_t = convert.ref_level(ref, device="cpu")
+    now_t = convert.now_level(tgt, device="cpu")
     Rs, ts = zip(*(jgeo.se3_exp(jnp.asarray(p)) for p in POSES))
     R_t = torch.from_numpy(np.stack([np.asarray(r) for r in Rs]))
     t_t = torch.from_numpy(np.stack([np.asarray(t) for t in ts]))
@@ -89,8 +89,9 @@ def test_plain_fused_gn_matches_pallas_and_xla(scene, k):
 
 def test_wrapper_on_cpu_is_the_plain_version(scene):
     intr, feats, tgt = scene
-    ref_t, now_t = convert.ref_level(feats[1000]), convert.now_level(tgt)
-    R, t = convert.pose(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    ref_t = convert.ref_level(feats[1000], device="cpu")
+    now_t = convert.now_level(tgt, device="cpu")
+    R, t = convert.pose(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), device="cpu")
     f = (float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy))
     args = (R, t, ref_t.pts3d, ref_t.valid, now_t.chans[:, 0], *f, 1.0)
     for a, b in zip(fused_iter.fused_gn_terms(*args), fused_iter.fused_gn_terms_plain(*args)):

@@ -108,8 +108,9 @@ def _inputs(cfg, shape, cap, flat=()):
     stack = lambda xs: jax.tree_util.tree_map(lambda *a: np.stack(a), *xs)  # noqa: E731
     R0 = np.stack([np.asarray(s[0]) for s in starts])
     t0 = np.stack([np.asarray(s[1]) for s in starts])
-    ref_t, now_t = convert.ref_level(stack(refs)), convert.now_level(stack(nows))
-    return refs, nows, starts, intr, ref_t, now_t, convert.pose(R0, t0)
+    ref_t = convert.ref_level(stack(refs), device="cpu")
+    now_t = convert.now_level(stack(nows), device="cpu")
+    return refs, nows, starts, intr, ref_t, now_t, convert.pose(R0, t0, device="cpu")
 
 
 def _solve_both(cfg, shape, cap, n_iters, flat=()):

@@ -110,7 +110,7 @@ def test_normalized_targets_bitwise_match_jax(scene, edges, method):
     jt = jed.prepare_now_level(jnp.asarray(gray), cfg, None if e is None else jnp.asarray(e))
     pt = ted.prepare_now_level(
         torch.from_numpy(gray)[None], cfg, None if e is None else torch.from_numpy(e)[None])
-    want = convert.now_level(jt)
+    want = convert.now_level(jt, device="cpu")
     for name in ("dt", "dgx", "dgy", "edges", "scale", "chans"):
         a, b = getattr(pt, name), getattr(want, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
@@ -125,7 +125,7 @@ def test_gn_terms_with_a_per_pair_scale_match_jax(scene):
     """Kernel 2 with a normalized DT: the weight takes eps / scale."""
     intr = scene["intr"]
     ref, now = scene["gn"]
-    ref_t, now_t = convert.ref_level(ref), convert.now_level(now)
+    ref_t, now_t = convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu")
     Rs, ts, R_t, t_t = _poses()
     scale = _two(now_t.scale)
     H, g, e, n = fused_iter.fused_gn_terms(
@@ -156,7 +156,7 @@ def test_gn_terms_write_points_match_residual_pass(scene):
     sums as they are."""
     intr = scene["intr"]
     ref, now = scene["gn"]
-    ref_t, now_t = convert.ref_level(ref), convert.now_level(now)
+    ref_t, now_t = convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu")
     _, _, R_t, t_t = _poses()
     args = (R_t, t_t, _two(ref_t.pts3d), _two(ref_t.valid), _two(now_t.chans[:, 0]), *_f(intr))
     gn = (GN.gn_weight_sigma2_px, _two(now_t.scale))
@@ -179,7 +179,7 @@ def test_residual_pass_matches_project_and_sample(scene, method):
     intr = scene["intr"]
     cfg = GN if method == "gauss_newton" else SG
     ref, now = scene["gn" if method == "gauss_newton" else "sg"]
-    ref_t, now_t = convert.ref_level(ref), convert.now_level(now)
+    ref_t, now_t = convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu")
     Rs, ts, R_t, t_t = _poses()
     bilinear = method == "gauss_newton"
     img = _two(now_t.chans[:, 0] if bilinear else now_t.dt)
@@ -207,7 +207,7 @@ def test_subgradient_terms_match_jacobian_residual(scene):
     the energy to float32 summation order."""
     intr = scene["intr"]
     ref, now = scene["sg"]
-    ref_t, now_t = convert.ref_level(ref), convert.now_level(now)
+    ref_t, now_t = convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu")
     Rs, ts, R_t, t_t = _poses()
     g, e, n, eps, vis = sg_terms.subgradient_terms(
         R_t, t_t, _two(ref_t.pts3d), _two(ref_t.valid), _two(now_t.dt), *_f(intr),

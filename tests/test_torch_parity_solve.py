@@ -64,8 +64,9 @@ def _solve_both(cfg, intr, ref, now, n_iters):
     R0, t0 = jgeo.se3_exp(jnp.asarray(START))
     R_j, t_j, d_j = jax.jit(lambda r, n: jed.run_level(r, n, intr, R0, t0, cfg, n_iters))(ref, now)
     R_p, t_p, d_p = ted.run_level(
-        convert.ref_level(ref), convert.now_level(now), Intrinsics.from_config(CAM),
-        *convert.pose(R0, t0), cfg, n_iters,
+        convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu"),
+        Intrinsics.from_config(CAM),
+        *convert.pose(R0, t0, device="cpu"), cfg, n_iters,
     )
     return (np.asarray(R_j), np.asarray(t_j), d_j), (R_p[0].numpy(), t_p[0].numpy(), d_p)
 
@@ -192,8 +193,9 @@ def test_subgradient_level_matches_numpy_oracle(scene, level):
     ref, now, intr, cfg = oracle_case._level_inputs(seed, psi, level)
     R0, t0 = oracle_case._generic_start(scene)
     best_R, best_t, diag = ted.run_level(
-        convert.ref_level(ref), convert.now_level(now), Intrinsics(*(float(x) for x in intr)),
-        *convert.pose(R0, t0), cfg, oracle_case.N_ITERS,
+        convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu"),
+        Intrinsics(*(float(x) for x in intr)),
+        *convert.pose(R0, t0, device="cpu"), cfg, oracle_case.N_ITERS,
     )
     oracle = run_level_oracle(
         np.asarray(now.dt, np.float64), np.asarray(now.dgx, np.float64),

@@ -272,3 +272,42 @@ def test_device_defaults_resolve_to_the_card(what, monkeypatch):
         assert x.device.type == "cpu"
     if what == "feeder":
         assert out._device == torch.device("cpu") and list(out) == []
+
+
+def _converter_calls():
+    """Each function of `convert.py` on a JAX-shaped object of numpy arrays,
+    its device left to the default or given."""
+    from types import SimpleNamespace as NS
+
+    from rgbd_odometry_tpu_torch import convert
+
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    ref = NS(pts3d=z(4, 3), uv=z(4, 2), valid=np.ones(4, bool), count=np.int32(4))
+    now = NS(dt=z(6, 8), dgx=z(6, 8), dgy=z(6, 8), edges=np.zeros((6, 8), bool),
+             scale=np.float32(1.0), chans=z(3, 6, 8))
+    kps = NS(uv=z(4, 2), score=z(4), desc=z(4, 64), valid=np.ones(4, bool), count=np.int32(4))
+    edges = NS(i=np.arange(2), j=np.arange(1, 3), R_rel=z(2, 3, 3), t_rel=z(2, 3),
+               weight=np.ones(2, np.float32), sqrt_info=None)
+    return {
+        "to_tensor": lambda device=None: convert.to_tensor(z(3), device=device),
+        "ref_level": lambda device=None: tuple(convert.ref_level(ref, device=device)),
+        "now_level": lambda device=None: tuple(convert.now_level(now, device=device)),
+        "pose": lambda device=None: convert.pose(np.eye(3), z(3), device=device),
+        "keypoints_from_jax": lambda device=None: tuple(convert.keypoints_from_jax(kps, device)),
+        "edges_from_jax": lambda device=None: tuple(convert.edges_from_jax(edges, device)),
+    }
+
+
+@pytest.mark.parametrize("what", ["to_tensor", "ref_level", "now_level", "pose",
+                                  "keypoints_from_jax", "edges_from_jax"])
+def test_converter_defaults_resolve_to_the_card(what, monkeypatch):
+    """`convert.py` carries JAX state to the current CUDA device by default
+    (`device.resolve_device`): without a card it raises, naming
+    `device='cpu'`; `device="cpu"` puts every tensor on the host."""
+    call = _converter_calls()[what]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    tensors = [x for x in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(x)]
+    assert tensors and all(x.device.type == "cpu" for x in tensors)

@@ -146,9 +146,10 @@ def test_pose_information_matches_jax(method):
     R, t = jgeo.se3_exp(jnp.asarray([0.01, -0.007, 0.005, 0.003, -0.004, 0.002], jnp.float32))
     info_j, s2_j, n_j = (np.asarray(x, np.float64) for x in jax.jit(
         lambda r, n: jed.pose_information(r, n, intr, cfg, R, t))(ref, now))
-    info_p, s2_p, n_p = ted.pose_information(convert.ref_level(ref), convert.now_level(now),
+    info_p, s2_p, n_p = ted.pose_information(convert.ref_level(ref, device="cpu"),
+                                             convert.now_level(now, device="cpu"),
                                              Intrinsics.from_config(cam), cfg,
-                                             *convert.pose(R, t))
+                                             *convert.pose(R, t, device="cpu"))
     info_p = info_p[0].double().numpy()
     assert np.abs(info_p - info_j).max() <= 1e-2 * np.abs(info_j).max()
     np.testing.assert_allclose(float(s2_p[0]), s2_j, rtol=1e-3)
@@ -166,7 +167,7 @@ def test_edges_carry_over_from_jax():
 
     R, t, lc = _graph(10, seed=3, closures=2)
     si = _sqrt_info(10, 2)
-    got = convert.edges_from_jax(_edges(R, t, lc, si, True))
+    got = convert.edges_from_jax(_edges(R, t, lc, si, True), device="cpu")
     want = _edges(R, t, lc, si, False)
     assert got.i.dtype == want.i.dtype == torch.int64
     assert torch.equal(got.i, want.i) and torch.equal(got.j, want.j)

@@ -100,8 +100,9 @@ def test_level_solve_on_identical_levels(pairs, regime):
     R0, t0 = jgeo.se3_exp(jnp.asarray(np.array([0.008, -0.004, 0.004, 0.003, -0.004, 0.002], np.float32)))
     R_j, t_j, d_j = jax.jit(lambda r, n: jed.run_level(r, n, intr, R0, t0, cfg, 18))(ref, now)
     R_p, t_p, d_p = ted.run_level(
-        convert.ref_level(ref), convert.now_level(now), Intrinsics.from_config(CAM),
-        *convert.pose(R0, t0), cfg, 18,
+        convert.ref_level(ref, device="cpu"), convert.now_level(now, device="cpu"),
+        Intrinsics.from_config(CAM),
+        *convert.pose(R0, t0, device="cpu"), cfg, 18,
     )
     R_j, t_j = np.asarray(R_j), np.asarray(t_j)
     assert np.linalg.norm(t_p[0].numpy() - t_j) < 1e-3
