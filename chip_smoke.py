@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the ten CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (eleven
-kernels; one nvcc per source, all at once), holds each against its plain
+Builds the twelve CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (fourteen
+kernel entries; one nvcc per source, all at once), holds each against its plain
 PyTorch version at the main paths' shapes, then drives the port's main paths
 through their user entry points:
 
@@ -91,7 +91,25 @@ through their user entry points:
                    ATE < 20 mm;
   cli_cam_scale_4  `dvo --cam-scale 4 --frames 6` (level 0 at 1280x960,
                    Canny's hysteresis and extraction on clusters of
-                   blocks): ATE < 20 mm.
+                   blocks): ATE < 20 mm;
+  cli_photometric  `photometric --frames 30 --cam-scale 2 --huber` (640x480,
+                   levels 3 and 2): 30 rows, one `level_photo` launch a
+                   solved frame, the trajectory within 1e-4 of the plain
+                   route's over the same frames;
+  cli_fused        `fused --frames 30 --imu-refine --imu-noise 0.01`: ATE <
+                   20 mm, refined no worse than unrefined (+1e-4), `imu_scan`
+                   and `level_lm` launched (no frame trips the fallback's
+                   gate here, so `match_mutual` does not run);
+  fused_fallback   `FusedOdometry` as JAX's `test_fused_fallback_fires` sets
+                   it up, at 320x240: a fallback frame, the last frame within
+                   0.12 m, `match_mutual` and `ransac_pnp` launched;
+  cli_feature_vo   `feature-vo --frames 30`: 30 rows, the JAX package's
+                   good-match counts a frame, frames 0-15 within 0.1 m and
+                   the track lost from frame 16, where JAX's loses it (NaN
+                   from frame 25 on the CPU in both packages);
+  cli_imu          `imu --steps 400`: the JSON within 1e-6 of `--device
+                   cpu`'s;
+  cli_pnp          `pnp`: t_err < 1e-4, one `pnp_gn` launch.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -137,7 +155,12 @@ cli_subgradient, one launch a pyramid solve too, where the per-iteration
 the loop_closure, relocalize, cli_loop_close, cli_weighted_refine and
 cli_checkpoint phases; `level_sg` in probe too; `extract_pyramid` in every phase that extracts keyframe features
 (every Gauss-Newton phase, the lockstep and sequence phases among them, and
-cli_subgradient). Any failed check raises (exit code != 0). The line before the last
+cli_subgradient); `imu_scan`, `level_photo` and `pnp_gn` in the secondary
+solvers' phases (`PHASE_KERNELS`). `check_imu` and `check_level_photo` hold
+the two secondary kernels against their plain versions at the paths' shapes
+(propagate B = 1 T = 400 and B = 64 T = 100, preintegrate B = 64 T = 10
+and 1; the photometric pyramid at 320x240 and 640x480, B = 1 and 64, every
+option). Any failed check raises (exit code != 0). The line before the last
 is the kernel summary as JSON: per kernel its launches on the paths, its
 error against the plain version, its and the plain version's CUDA-event
 time, and its bound (the larger of the bytes it must move over 3.35 TB/s
@@ -161,6 +184,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -181,11 +205,21 @@ STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
 KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
-           "level_sg", "extract")
+           "level_sg", "extract", "imu", "level_photo")
 TARGET_KERNELS = ("canny_pyramid", "dt_channels")  # every frame's targets launch both
 # entries that keep their check and launch on no path
-OFF_PATH = ("edt", "gn", "residual", "sg", "pnp")
+OFF_PATH = ("edt", "gn", "residual", "sg")
 MAP_KERNELS = ("match", "ransac")  # the launch counters the map-backend phases must move
+# the secondary solvers' phases: the kernels each must launch (True) or not (False)
+PHASE_KERNELS = {
+    "cli_photometric": (("level_photo", True), ("level_lm", False)),
+    "cli_fused": (("imu", True), ("level_lm", True), ("canny_pyramid", True),
+                  ("extract", True)),
+    "fused_fallback": (("match", True), ("ransac", True), ("level_lm", True)),
+    "cli_feature_vo": (("match", True), ("ransac", True), ("level_lm", False)),
+    "cli_imu": (("imu", True),),
+    "cli_pnp": (("pnp", True), ("ransac", False)),
+}
 # the phases that solve Gauss-Newton levels: level_lm must launch there, and
 # the per-iteration fused_gn_terms (which level_lm replaced) must not
 GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
@@ -194,6 +228,13 @@ GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
              "cli_multistream", "align_sequence", "cli_checkpoint", "cli_viz", "cli_trace",
              "cli_xml", "probe", "cli_cam_scale_3", "cli_cam_scale_4")
 # the map-backend phases: the matching and PnP kernels must launch there
+# `feature-vo --frames 30` (320x240, --min-matches 40): the JAX package's
+# good-match counts a frame and the first frame its FeatureVo puts past 0.1 m
+# of the ground truth (it loses this synthetic track there);
+# tests/test_torch_feature_vo.py holds both packages to them on the CPU
+FEATURE_VO_COUNTS = (61, 5, 28, 43, 15, 18, 40, 13, 15, 43, 20, 33, 20, 32, 16, 13, 5, 27, 34,
+                     18, 32, 26, 21, 32, 4, 1, 6, 3, 22, 26)
+FEATURE_VO_LOST_FROM = 16
 MAP_PHASES = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refine",
               "cli_checkpoint")
 # the phases at production_vga's 640x480 (their launches go in the kernels' "vga" entries)
@@ -229,6 +270,18 @@ OPS_DT_COLUMN = 4  # the column distance g: a compare, a select, an add, the squ
 OPS_DT_ROW_ENVELOPE = 2 * 7 + 4
 OPS_EXTRACT_PIXEL = 3  # extract.cu, per pixel: the depth compare, the class test, the count
 OPS_EXTRACT_SLOT = 8  # per written slot: 2 subtractions, 5 products (3 reciprocals a launch)
+OPS_IMU_SAMPLE = 130  # imu.cu propagate, a sample: rotation 30, specific force 12, p and v 12,
+#                       the quaternion from the rotation vector 15 (sin and cos counted
+#                       once each), the product 28, the normalization 13
+OPS_IMU_PRE_SAMPLE = 4200  # imu.cu preintegrate, a sample: Exp, the right Jacobian and dR
+#                       hat(a) ~150, A cov (81 x 9 multiply-adds) and (A cov) A^T (81 x 9),
+#                       (B Q) B^T (81 x 6 x 2), the nominal update ~60; 2 operations a
+#                       multiply-add
+OPS_PHOTO_POINT = 60  # level_photo.cu, a point and iteration: warp 15, projection 6, tests 6,
+#                       snaps 8, the floor lookup 4, eps and its square 3, 6 products and 7
+#                       adds into the sums (+12 bilinear, +4 Huber, +42 reweighting)
+OPS_PHOTO_STEP = 500  # the serial step a pair and iteration: the 6x6 Cholesky solve, the
+#                       clamp, se3_exp and the inverse compose
 
 
 def _log(msg: str) -> None:
@@ -238,6 +291,20 @@ def _log(msg: str) -> None:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _timed_once(fn):
+    """(fn(), its device time in ms): CUDA events around one call, no
+    warm-up (for plain versions that take seconds)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -399,6 +466,191 @@ def large_level_inputs(device) -> dict:
     serp = torch.from_numpy(serpentine_image(2560, 1600)[None]).to(device)
     out["serpentine 2560x1600"] = (serp, None, None)
     return out
+
+
+IMU_CASES = (("propagate", 1, 400), ("propagate", 64, 100), ("preintegrate", 64, 10),
+             ("preintegrate", 64, 1))
+
+
+def check_imu(device, rng) -> dict:
+    """`imu_scan` against its plain version `imu_plain` on the card:
+    propagate at B = 1, T = 400 (the `imu` command's window) and B = 64, T
+    = 100 from random states; preintegrate at B = 64, T = 10 and T = 1
+    (`fused --imu-refine` preintegrates one-sample windows), with noise and
+    biases. States, dR, dv and dp within 1e-6 of the largest magnitude (the
+    kernel performs the plain version's operations: the bitwise equality is
+    logged), the covariance within 1e-5 of its largest entry (its sums run
+    in another order than torch.matmul's); runs bitwise. Timed beside the
+    bound: the bytes in and out over 3.35 TB/s, or the float32 operations."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import imu as kimu
+
+    f32 = dict(dtype=torch.float32, device=device)
+    params = torch.tensor([0.03, 0.03, 0.03, -0.01, -0.01, -0.01, 0.08 ** 2, 0.02 ** 2, 0.0,
+                           9.7874, 0.0], **f32)
+    cases, errs = [], []
+    for mode_name, b, n in IMU_CASES:
+        mode = kimu.PROPAGATE if mode_name == "propagate" else kimu.PREINTEGRATE
+        a = torch.as_tensor(rng.normal(0.0, 2.0, (b, n, 3)), **f32).contiguous()
+        w = torch.as_tensor(rng.normal(0.0, 0.8, (b, n, 3)), **f32).contiguous()
+        s0 = None
+        if mode == kimu.PROPAGATE:
+            q = rng.normal(size=(b, 4))
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            s0 = torch.as_tensor(np.concatenate([rng.normal(0, 0.5, (b, 3)),
+                                                 rng.normal(0, 0.3, (b, 3)), q], 1),
+                                 **f32).contiguous()
+        args = (mode, a, w, params, 0.01, s0)
+        ker, again = kimu.imu_scan(*args), kimu.imu_scan(*args)
+        pl, p_ms = _timed_once(lambda: kimu.imu_plain(*args))
+        what = f"imu_scan {mode_name} B={b} T={n}"
+        if mode == kimu.PROPAGATE:
+            ker, again, pl = (ker,), (again,), (pl,)
+        _require(all(_same_bits(x, y) for x, y in zip(ker, again)), f"{what}: runs differ")
+        nominal = list(zip(ker, pl))[:3] if mode == kimu.PREINTEGRATE else list(zip(ker, pl))
+        err = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max())) for x, y in nominal)
+        bitwise = all(_same_bits(x, y) for x, y in nominal)
+        _require(err <= 1e-6, f"{what}: nominal error {err:.2e} (relative) > 1e-6")
+        cov_err = 0.0
+        if mode == kimu.PREINTEGRATE:
+            cov_err = _rel(ker[3], pl[3])
+            _require(cov_err <= 1e-5, f"{what}: covariance error {cov_err:.2e} > 1e-5")
+        k_ms = _time_ms(lambda: kimu.imu_scan(*args), 20)
+        nbytes = b * n * 24 + 44 + (b * 40 + b * n * 40 if mode == kimu.PROPAGATE else b * 96 * 4)
+        ops = b * n * (OPS_IMU_SAMPLE if mode == kimu.PROPAGATE else OPS_IMU_PRE_SAMPLE)
+        bound = _bound(nbytes, ops)
+        _log(f"{what}: nominal error {err:.2e} (bitwise {bitwise}), covariance {cov_err:.2e}; "
+             f"kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {bound['bound_ms'] * 1000:.3f} us "
+             f"({bound['bound_by']})")
+        errs.append(max(err, cov_err))
+        cases.append({"mode": mode_name, "batch": b, "samples": n, "max_abs_err": err,
+                      "cov_rel_err": cov_err, "bitwise": bitwise, "ms": k_ms, "plain_ms": p_ms,
+                      **bound})
+    main = cases[0]
+    return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
+            **{k: main[k] for k in ("bound_ms", "bound_by", "library_ms")}, "cases": cases}
+
+
+@functools.lru_cache(maxsize=2)
+def photo_pairs(width: int, device, pairs: int = 2):
+    """`pairs` rendered frame pairs at width x 3/4 width (distinct scenes and
+    twists): the reference frames' 4-level pyramids and references
+    (`extract_photo_ref`, on the card) and the now frames' pyramids."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig, PhotometricConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.io.synthetic import render_pair
+    from rgbd_odometry_tpu_torch.solvers import photometric
+
+    cam = CameraConfig().scaled(width / 320.0)
+    rs = [render_pair(cam, np.array([0.01, -0.006, 0.004, 0.003, -0.004, 0.002], np.float32)
+                      * (1.0 + 0.2 * i), seed=i) for i in range(pairs)]
+    t = lambda k, c: torch.as_tensor(np.stack([r[k][c] for r in rs])).to(device)  # noqa: E731
+    ref = build_pyramid(t(0, 0), t(0, 1), 4)
+    now = build_pyramid(t(1, 0), t(1, 1), 4)
+    intr = Intrinsics.from_config(cam)
+    cfg = PhotometricConfig()
+    refs = photometric.extract_photo_ref(ref.gray, ref.depth, intr, cfg, cfg.max_points)
+    return intr, refs, now.gray
+
+
+def _photo_levels(width: int, batch: int, device):
+    """The `level_photo` levels (3, 2) of `batch` pairs (the rendered pairs
+    tiled) at width x 3/4 width."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels.level_photo import PhotoLevel
+
+    intr, refs, now = photo_pairs(width, device)
+    idx = torch.arange(batch, device=now[0].device) % now[0].shape[0]
+    out = []
+    for lvl in (3, 2):
+        r, li = refs[lvl], intr.at_level(lvl)
+        out.append(PhotoLevel(r.pts3d[idx].contiguous(), r.intensity[idx].contiguous(),
+                              r.J[idx].contiguous(), r.A[idx].contiguous(),
+                              r.valid[idx].contiguous(), now[lvl][idx].contiguous(), li.fx,
+                              li.fy, li.cx, li.cy))
+    return out
+
+
+def _photo_bound(levels, batch: int, iters: int, cfg) -> dict:
+    """The photometric pyramid's least time: every input read once (points
+    3, intensity, J 6, validity, A), of the now image only the pixels the
+    valid points sample (iters x 1 read a point, 4 bilinear, at most the
+    image: `_sampled_bytes`), and the pose and history written; iters x K
+    point updates a level of OPS_PHOTO_POINT float32 operations (with
+    bilinear sampling and reweighting more)."""
+    ops_point = (OPS_PHOTO_POINT + (12 if cfg.bilinear else 0) + (4 if cfg.use_huber else 0)
+                 + (42 if cfg.reweight_normal_matrix else 0))
+    reads = iters * (4 if cfg.bilinear else 1)
+    nbytes = sum(batch * (lv.pts.shape[1] * 41 + 144)
+                 + _sampled_bytes(lv.valid.sum(-1), lv.img.shape[1] * lv.img.shape[2], reads, 4)
+                 for lv in levels) + batch * (48 + 48 + len(levels) * iters * 4)
+    ops = sum(batch * iters * (lv.pts.shape[1] * ops_point + OPS_PHOTO_STEP) for lv in levels)
+    return _bound(nbytes, ops)
+
+
+def check_level_photo(device, rng) -> dict:
+    """`level_photo` (levels 3 and 2, 3 iterations each, the reference's
+    schedule) against `level_photo_plain` on the card: at 320x240 and
+    640x480 (K = 1024 and 2048), B = 1 and 64 (rendered pairs tiled, each
+    pair from its own random start pose), floor and bilinear sampling, Huber
+    on and off, the normal matrix cached and reweighted. Poses within 1e-5
+    and |eps| histories within 1e-4 of the largest (the kernel performs the
+    plain version's operations: the bitwise equality is logged); runs
+    bitwise. Each configuration timed beside its bound and its plain
+    version's one call; the entry's numbers are the `photometric` phase's
+    configuration (640x480, B = 1, floor, Huber, cached normal matrix)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import PhotometricConfig
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+    from rgbd_odometry_tpu_torch.kernels import level_photo as klp
+
+    cases, errs = [], []
+    for width in (320, 640):
+        for batch in (1, 64):
+            levels = _photo_levels(width, batch, device)
+            psi = torch.as_tensor(rng.normal(0, 0.004, (batch, 6)), dtype=torch.float32,
+                                  device=device)
+            R0, t0 = (x.contiguous() for x in se3_exp(psi))
+            for bilinear in (False, True):
+                for huber in (False, True):
+                    for reweight in (False, True):
+                        cfg = PhotometricConfig(bilinear=bilinear, use_huber=huber,
+                                                reweight_normal_matrix=reweight)
+                        args = (R0, t0, levels, cfg)
+                        ker, again = klp.level_photo(*args), klp.level_photo(*args)
+                        pl, p_ms = _timed_once(lambda: klp.level_photo_plain(*args))
+                        what = (f"level_photo {width}x{width * 3 // 4} B={batch} "
+                                f"{'bilinear' if bilinear else 'floor'} huber={huber} "
+                                f"reweight={reweight}")
+                        _require(all(_same_bits(x, y) for x, y in zip(ker, again)),
+                                 f"{what}: runs differ")
+                        err = max(float((ker[0] - pl[0]).abs().max()),
+                                  float((ker[1] - pl[1]).abs().max()))
+                        herr = _rel(ker[2], pl[2])
+                        bitwise = all(_same_bits(x, y) for x, y in zip(ker, pl))
+                        _require(err <= 1e-5 and herr <= 1e-4,
+                                 f"{what}: pose error {err:.2e}, history {herr:.2e}")
+                        k_ms = _time_ms(lambda: klp.level_photo(*args), 20)
+                        bound = _photo_bound(levels, batch, cfg.iterations_per_level, cfg)
+                        _log(f"{what}: pose err {err:.2e}, history {herr:.2e} (bitwise "
+                             f"{bitwise}); kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+                             f"{bound['bound_ms'] * 1000:.3f} us ({bound['bound_by']})")
+                        errs.append(err)
+                        cases.append({"size": f"{width}x{width * 3 // 4}", "batch": batch,
+                                      "bilinear": bilinear, "huber": huber,
+                                      "reweight": reweight, "max_abs_err": err,
+                                      "history_rel_err": herr, "bitwise": bitwise, "ms": k_ms,
+                                      "plain_ms": p_ms, **bound})
+    main = next(c for c in cases if c["size"] == "640x480" and c["batch"] == 1 and c["huber"]
+                and not c["bilinear"] and not c["reweight"])
+    return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
+            **{k: main[k] for k in ("bound_ms", "bound_by", "library_ms")}, "cases": cases}
 
 
 def _sampled_bytes(n_vis, hw: int, reads: int, size: int) -> float:
@@ -1309,6 +1561,32 @@ def _patched(module, **fns):
     finally:
         for name, fn in saved.items():
             setattr(module, name, fn)
+
+
+def _render_once() -> dict:
+    """Install a memo on `SyntheticScene.render` for the rest of the run:
+    each synthetic frame is rendered once (keyed on the scene's contents,
+    the camera, the pose and the supersampling) and every later request
+    gets a copy. The phases replay the same 320x240 sequence ~15 times, and
+    the host's rendering, not the card, was most of their wall time.
+    Returns the live {"rendered", "reused"} tally."""
+    from rgbd_odometry_tpu_torch.io import synthetic
+
+    render, memo, tally = synthetic.SyntheticScene.render, {}, {"rendered": 0, "reused": 0}
+
+    def once(self, cam, R, t, supersample=3):
+        R, t = np.asarray(R), np.asarray(t)
+        key = (pickle.dumps(self.__dict__), repr(cam), R.dtype.str, R.tobytes(), t.dtype.str,
+               t.tobytes(), supersample)
+        if key in memo:
+            tally["reused"] += 1
+        else:
+            memo[key] = render(self, cam, R, t, supersample)
+            tally["rendered"] += 1
+        return tuple(np.copy(a) for a in memo[key])
+
+    synthetic.SyntheticScene.render = once
+    return tally
 
 
 def _per_iteration_route():
@@ -3034,6 +3312,190 @@ def run_probe() -> dict:
     return out
 
 
+def _quiet(fn, *a, **k):
+    """fn(*a, **k) with its stdout and stderr captured: (result, stdout,
+    stderr, wall seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        r = fn(*a, **k)
+    return r, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def run_cli_photometric() -> dict:
+    """`photometric --frames 30 --cam-scale 2 --huber` (640x480: the
+    reference's levels 3 and 2 are 80x60 and 160x120 of its VGA pyramid): 30
+    trajectory rows, one `level_photo` launch for each of the 29 solved
+    frames, and the trajectory within 1e-4 (m, and of the rotations) of the
+    plain route's: the same command over the same frames with `level_photo`
+    replaced by its plain version on the card."""
+    from rgbd_odometry_tpu_torch import cli
+    from rgbd_odometry_tpu_torch.kernels import level_photo as klp
+
+    argv = ["photometric", "--frames", "30", "--cam-scale", "2", "--huber"]
+    make, cache = cli._make_source, []
+
+    def recording(args):
+        frames, cam, gt = make(args)
+        cache.append((list(frames), cam, gt))
+        return iter(cache[0][0]), cam, gt
+
+    n0 = klp.level_photo.launches
+    with _patched(cli, _make_source=recording):
+        got, _, err, wall = _quiet(cli.main, argv)
+    launched = klp.level_photo.launches - n0
+    frames, cam, gt = cache[0]
+    with _patched(cli, _make_source=lambda args: (iter(frames), cam, gt)), \
+            _patched(klp, level_photo=klp.level_photo_plain):
+        plain, _, _, plain_wall = _quiet(cli.main, argv)
+    err_t = float(np.abs(got["t"] - plain["t"]).max())
+    err_R = float(np.abs(got["R"] - plain["R"]).max())
+    lines = [ln for ln in err.splitlines() if ln.startswith("frame ")]
+    ate = float(np.sqrt(np.mean(np.sum((got["t"] - gt[1][:30]) ** 2, -1))))
+    _log(f"cli_photometric: photometric {' '.join(argv[1:])}: {got['frames']} rows, "
+         f"{launched} level_photo launches for {len(lines)} solved frames, last |eps| "
+         f"{got['eps'][-1]:.1f}, ATE {ate * 1000:.3f} mm; against the plain route t "
+         f"{err_t:.2e}, R {err_R:.2e}; {wall:.1f} s wall (plain route {plain_wall:.1f} s)")
+    _require(got["frames"] == 30 and got["t"].shape == (30, 3) and len(lines) == 29,
+             "cli_photometric: not 30 rows and 29 solved frames")
+    _require(launched == 29, f"cli_photometric: {launched} level_photo launches for 29 frames")
+    _require(err_t <= 1e-4 and err_R <= 1e-4,
+             f"cli_photometric: {err_t:.2e} m / {err_R:.2e} from the plain route")
+    return {"frames": got["frames"], "launches_per_frame": launched / 29, "ate_mm": ate * 1000.0,
+            "plain_route_err": max(err_t, err_R)}
+
+
+def run_cli_fused() -> dict:
+    """`fused --frames 30 --imu-refine --imu-noise 0.01` at the command's
+    defaults otherwise (320x240): unaligned ATE < 20 mm and the refined
+    trajectory no worse than the visual one (+1e-4); a line a frame. The
+    wall time of the refinement (the pose graph's first jacfwd set-up)."""
+    from rgbd_odometry_tpu_torch import cli
+    from rgbd_odometry_tpu_torch.pipeline import fused
+
+    refine, took = fused.refine_trajectory_with_imu, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        r = refine(*a, **k)
+        took.append(time.perf_counter() - t0)
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        est = os.path.join(tmp, "fused.txt")
+        with _patched(fused, refine_trajectory_with_imu=timed):
+            got, out, err, wall = _quiet(cli.main, ["fused", "--frames", "30", "--imu-refine",
+                                                    "--imu-noise", "0.01", "--out", est])
+        rows = np.loadtxt(est, comments="#", ndmin=2)
+    summary = json.loads(out.strip().splitlines()[-1])
+    lines = [ln for ln in err.splitlines() if ln.startswith("frame ")]
+    _log(f"cli_fused: fused --frames 30 --imu-refine --imu-noise 0.01: ATE "
+         f"{summary['ate_rmse'] * 1000:.3f} mm refined, {summary['ate_rmse_unrefined'] * 1000:.3f}"
+         f" mm unrefined, fallback frames {summary['fallback_frames']}; refinement "
+         f"{took[0]:.2f} s, {wall:.1f} s wall incl. rendering")
+    _require(summary["frames"] == 30 and rows.shape == (30, 8) and len(lines) == 30,
+             "cli_fused: not 30 frames")
+    _require(summary["ate_rmse"] < 0.020, f"cli_fused: ATE {summary['ate_rmse'] * 1000:.3f} mm")
+    _require(summary["ate_rmse"] <= summary["ate_rmse_unrefined"] + 1e-4,
+             "cli_fused: the refinement made the trajectory worse")
+    return {"ate_mm": summary["ate_rmse"] * 1000.0,
+            "ate_unrefined_mm": summary["ate_rmse_unrefined"] * 1000.0,
+            "fallback_frames": summary["fallback_frames"], "refine_s": took[0]}
+
+
+def run_fused_fallback(device) -> dict:
+    """`FusedOdometry` as JAX's `test_fused_fallback_fires` sets it up (b-hat
+    threshold 0, min_pnp_matches 5, its 4-frame trajectory, 3 levels
+    2048/1024/512, 50/8/5 iterations) at 320x240: at least one fallback
+    frame, the last frame within 0.12 m of ground truth."""
+    from rgbd_odometry_tpu_torch import config as pc
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.pipeline.fused import FusedConfig, FusedOdometry
+
+    cam = pc.CameraConfig()
+    frames, poses = render_sequence(cam, _trajectory(4, 0.004), seed=0)
+    cfg = pc.PipelineConfig(
+        camera=cam, pyramid=pc.PyramidConfig(num_levels=3, max_points=(2048, 1024, 512)),
+        solver=pc.SolverConfig(method="gauss_newton", iterations=(50, 8, 5)),
+        keyframe=pc.KeyframeConfig())
+    fo = FusedOdometry(cfg, FusedConfig(laplacian_b_thresh=0.0, min_pnp_matches=5),
+                       device=device)
+    for i, (g, d) in enumerate(frames):
+        fo.process_frame(g, d, float(i))
+    _, t, _ = fo.trajectory()
+    err = float(np.linalg.norm(t[-1] - poses[-1][1]))
+    _log(f"fused_fallback: 4 frames 320x240, fallback frames {fo.fallback_frames}, last frame "
+         f"{err * 1000:.3f} mm from ground truth")
+    _require(len(fo.fallback_frames) >= 1, "fused_fallback: the fallback never fired")
+    _require(err < 0.12, f"fused_fallback: last frame {err:.3f} m off")
+    return {"fallback_frames": fo.fallback_frames, "err_mm": err * 1000.0}
+
+
+def run_cli_feature_vo() -> dict:
+    """`feature-vo --frames 30` (320x240, --min-matches 40): 30 trajectory
+    rows and a line a frame. The JAX package's own feature VO loses this
+    synthetic track: every frame through 15 within JAX's
+    `test_feature_vo_tracks` bar of 0.1 m, frame 16 metres off, NaN later
+    (tests/test_torch_feature_vo.py: the port on the CPU loses it at the
+    same frames, with JAX's counts and keyframes). So the card's run holds
+    the good-match counts a frame (which fix every keyframe switch) to
+    JAX's, every frame before FEATURE_VO_LOST_FROM to 0.1 m and finite, and
+    the loss to the same frame; where NaN starts is logged."""
+    from rgbd_odometry_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        est = os.path.join(tmp, "fv.txt")
+        got, _, err, wall = _quiet(cli.main, ["feature-vo", "--frames", "30", "--out", est])
+        rows = np.loadtxt(est, comments="#", ndmin=2)
+    gt_t = got["gt"][1]
+    errs = np.linalg.norm(got["t"] - gt_t[:30], axis=-1)
+    lost = [i for i, e in enumerate(errs) if not e < 0.1]
+    nan = [i for i, e in enumerate(errs) if not np.isfinite(e)]
+    tracked = errs[:FEATURE_VO_LOST_FROM]
+    _log(f"cli_feature_vo: feature-vo --frames 30: {rows.shape[0]} rows, good matches "
+         f"{got['match_counts']}, frames 0-{FEATURE_VO_LOST_FROM - 1} at most "
+         f"{tracked.max() * 1000:.3f} mm from ground truth (frame 9 {errs[9] * 1000:.3f}), "
+         f"frames past 0.1 m or NaN {lost}, NaN from {nan[0] if nan else None}, {wall:.1f} s "
+         "wall incl. rendering")
+    _require(rows.shape == (30, 8) and err.count("good matches") == 30,
+             "cli_feature_vo: not 30 frames")
+    _require(tuple(got["match_counts"]) == FEATURE_VO_COUNTS,
+             f"cli_feature_vo: good matches {got['match_counts']}, the JAX package's "
+             f"{list(FEATURE_VO_COUNTS)}")
+    _require(bool(np.all(tracked < 0.1)),
+             f"cli_feature_vo: frames before {FEATURE_VO_LOST_FROM} up to {tracked.max():.3f} m "
+             "off")
+    _require(lost[:1] == [FEATURE_VO_LOST_FROM],
+             f"cli_feature_vo: the track lost from frame {lost[:1]}, the JAX package's from "
+             f"{FEATURE_VO_LOST_FROM}")
+    return {"tracked_max_mm": float(tracked.max()) * 1000.0, "frame9_mm": float(errs[9]) * 1000.0,
+            "lost_from": lost[0], "nan_from": nan[0] if nan else None}
+
+
+def run_cli_imu() -> dict:
+    """`imu --steps 400` on the card and with `--device cpu` (the plain
+    route): the JSON within 1e-6."""
+    from rgbd_odometry_tpu_torch import cli
+
+    got, _, _, _ = _quiet(cli.main, ["imu", "--steps", "400"])
+    plain, _, _, _ = _quiet(cli.main, ["imu", "--steps", "400", "--device", "cpu"])
+    err = max(float(np.abs(np.subtract(got[k], plain[k])).max()) for k in ("final_p", "final_q"))
+    _log(f"cli_imu: imu --steps 400: final p {got['final_p']}, q {got['final_q']}; against the "
+         f"plain route {err:.2e}")
+    _require(got["steps"] == 400 and err <= 1e-6, f"cli_imu: {err:.2e} from the plain route")
+    return {"plain_route_err": err}
+
+
+def run_cli_pnp() -> dict:
+    """`pnp`: the chessboard pose to t_err < 1e-4, one `pnp_gn` launch."""
+    from rgbd_odometry_tpu_torch import cli
+
+    got, _, _, _ = _quiet(cli.main, ["pnp"])
+    _log(f"cli_pnp: pnp: residual norms {got['residual_norms']}, t_err {got['t_err']:.3e}")
+    _require(got["t_err"] < 1e-4, f"cli_pnp: t_err {got['t_err']:.3e}")
+    return {"t_err": got["t_err"]}
+
+
 def _count_solves() -> dict:
     """Counts, by solver method, of `edge_dvo.solve_pyramid` calls (and the
     levels they solve) and of single-level `edge_dvo.run_level` calls from
@@ -3061,7 +3523,8 @@ def _count_solves() -> dict:
 
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
-        canny, edt, extract, fused_iter, level_lm, level_sg, match, pnp_gn, residual, sg_terms,
+        canny, edt, extract, fused_iter, imu, level_lm, level_photo, level_sg, match, pnp_gn,
+        residual, sg_terms,
     )
 
     return {"edt": edt.edt_squared, "canny_pyramid": canny.canny_pyramid,
@@ -3070,7 +3533,8 @@ def _launch_counters():
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "ransac": pnp_gn.ransac_pnp,
             "level_lm": level_lm.level_lm_pyramid, "level_sg": level_sg.level_sg_pyramid,
-            "extract": extract.extract_pyramid}
+            "extract": extract.extract_pyramid, "imu": imu.imu_scan,
+            "level_photo": level_photo.level_photo}
 
 
 def main() -> int:
@@ -3100,6 +3564,7 @@ def main() -> int:
         _log(f"build {name}: {'compiled' if rec['built'] else 'cached'} "
              f"(nvcc {rec['seconds']:.2f} s) {regs}")
 
+    rendered = _render_once()
     rng = np.random.default_rng(0)
     res = {
         "edt": check_edt(device, rng),
@@ -3114,6 +3579,8 @@ def main() -> int:
         "level_lm": check_level_lm(device, rng),
         "level_sg": check_level_sg(device, rng),
         "extract": check_extract(device, rng),
+        "imu": check_imu(device, rng),
+        "level_photo": check_level_photo(device, rng),
     }
 
     counters = _launch_counters()
@@ -3148,6 +3615,12 @@ def main() -> int:
         ("probe", run_probe),
         ("cli_cam_scale_3", lambda: run_cli_cam_scale(3, 4)),
         ("cli_cam_scale_4", lambda: run_cli_cam_scale(4, 6)),
+        ("cli_photometric", run_cli_photometric),
+        ("cli_fused", run_cli_fused),
+        ("fused_fallback", lambda: run_fused_fallback(device)),
+        ("cli_feature_vo", run_cli_feature_vo),
+        ("cli_imu", run_cli_imu),
+        ("cli_pnp", run_cli_pnp),
     )
     results, per_phase = {}, {}
     for name, phase in phases:
@@ -3191,7 +3664,13 @@ def main() -> int:
         _require(n["gn"] == 0, f"{name}: the per-iteration fused_gn_terms kernel was launched")
         _require(n["sg"] == 0, f"{name}: the per-iteration subgradient_terms kernel was launched")
         _require(n["residual"] == 0, f"{name}: the residual_pass kernel was launched")
-        _require(n["pnp"] == 0, f"{name}: the step-by-step pnp_gn kernel was launched")
+        if name != "cli_pnp":
+            _require(n["pnp"] == 0, f"{name}: the step-by-step pnp_gn kernel was launched")
+        for key, need in PHASE_KERNELS.get(name, ()):
+            _require(n[key] > 0 if need else n[key] == 0,
+                     f"{name}: the {key} kernel was {'not ' if need else ''}launched")
+        if name == "cli_photometric":
+            _require(n["level_photo"] == 29, f"{name}: {n['level_photo']} level_photo launches")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
     for key in ("canny_pyramid", "dt_channels", "level_lm", "extract"):
@@ -3229,7 +3708,8 @@ def main() -> int:
          "replaces": "rgbd_odometry_tpu/pipeline/kf_matcher.py:103 (XLA, no Pallas kernel)",
          "launches": launches["match"], **res["match"]},
         {"name": "pnp_gn", "route": "cuda", "source": src + "pnp_gn.cu",
-         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 (XLA, no Pallas kernel)",
+         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 and gn_pnp :85 (XLA, no Pallas "
+                     "kernel)",
          "launches": launches["pnp"], **res["pnp"]},
         {"name": "ransac_pnp", "route": "cuda", "source": src + "pnp_gn.cu",
          "replaces": "rgbd_odometry_tpu/solvers/pnp.py:116 ransac_pnp (XLA, no Pallas kernel: "
@@ -3250,7 +3730,16 @@ def main() -> int:
                      "level, via extract_ref_features :910 (XLA, no Pallas kernel: top_k :145, "
                      ":147, :156, the back-projection :165-179)",
          "launches": launches["extract"], **res["extract"]},
+        {"name": "imu_scan", "route": "cuda", "source": src + "imu.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/imu.py:116 propagate_batch and :194 preintegrate "
+                     "(XLA lax.scan loops, no Pallas kernel; vmap at pipeline/fused.py:276)",
+         "launches": launches["imu"], **res["imu"]},
+        {"name": "level_photo", "route": "cuda", "source": src + "level_photo.cu",
+         "replaces": "rgbd_odometry_tpu/solvers/photometric.py:226 solve_pyramid (XLA, no Pallas "
+                     "kernel: solve_level's lax.scan :213 over photometric_residual :147)",
+         "launches": launches["level_photo"], **res["level_photo"]},
     ]
+    _log(f"synthetic frames: {rendered['rendered']} rendered, {rendered['reused']} reused")
     _log(f"chip_smoke: every check and phase passed, {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Command line of the PyTorch port: the JAX package's `dvo`, `refine`,
-`multistream`, `eval`, `calib`, `probe` and `dump`.
+`multistream`, `eval`, `calib`, `probe`, `dump`, `photometric`,
+`feature-vo`, `pnp`, `imu` and `fused`.
 
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --out est.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --method subgradient --iterations 50,50,50,50
@@ -15,6 +16,11 @@
     python -m rgbd_odometry_tpu_torch.cli dvo --source xml:dumps --calib cam_320x240.xml
     python -m rgbd_odometry_tpu_torch.cli probe --method gauss_newton --iterations 100
     python -m rgbd_odometry_tpu_torch.cli calib --write-freiburg calib_dir
+    python -m rgbd_odometry_tpu_torch.cli photometric --frames 30 --cam-scale 2 --huber
+    python -m rgbd_odometry_tpu_torch.cli feature-vo --frames 30 --out fv.txt
+    python -m rgbd_odometry_tpu_torch.cli pnp
+    python -m rgbd_odometry_tpu_torch.cli imu --steps 400
+    python -m rgbd_odometry_tpu_torch.cli fused --frames 30 --imu-refine --imu-noise 0.01
 
 The subcommands take the JAX parser's flags and defaults
 (`rgbd_odometry_tpu/cli.py`), and those that compute take `--device`
@@ -24,12 +30,13 @@ backend's lines (`loop closures: ...`, `online refine @frame ...`, `map:
 ...`, `relocalizer: ...`), `checkpoint -> ...`, `viz: ...`, `torch.profiler
 trace -> ...`, and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
 "drift_rms_per_s"}` against the synthetic ground truth; for `refine`,
-`probe`, `calib` and `dump` their JSON; for `multistream` the JSON
-`{"streams", "devices", "frames", "aggregate_frames_per_s",
-"ate_rmse_per_stream", "ate_rmse_max"}`, where `devices` is 1 (one card).
-The JAX subcommands not ported yet (`photometric`, `feature-vo`, `pnp`,
-`imu`, `fused`, `bench`) exit naming their ROADMAP item. Imports no JAX and
-no OpenCV.
+`probe`, `calib`, `dump`, `pnp` and `imu` their JSON; for `multistream`
+the JSON `{"streams", "devices", "frames", "aggregate_frames_per_s",
+"ate_rmse_per_stream", "ate_rmse_max"}`, where `devices` is 1 (one card);
+for `photometric` and `feature-vo` a line a frame on stderr; for `fused` a
+line a frame on stderr and the JSON `{"frames", "fallback_frames",
+"ate_rmse"[, "ate_rmse_unrefined"]}`. The JAX subcommand not ported yet
+(`bench`) exits naming its ROADMAP item. Imports no JAX and no OpenCV.
 """
 
 from __future__ import annotations
@@ -44,13 +51,8 @@ import sys
 import numpy as np
 
 _Q1 = "ROADMAP.md Queue 1"
-# the JAX subcommands not ported yet, and their ROADMAP.md Queue 1 items
+# the JAX subcommand not ported yet, and its ROADMAP.md Queue 1 item
 _UNPORTED_COMMANDS = {
-    "photometric": "item 8 'Secondary solvers'",
-    "feature-vo": "item 8 'Secondary solvers'",
-    "pnp": "item 8 'Secondary solvers'",
-    "imu": "item 8 'Secondary solvers'",
-    "fused": "item 8 'Secondary solvers'",
     "bench": "item 1 'H100 bench protocol'",
 }
 
@@ -597,6 +599,224 @@ def cmd_probe(args):
             "now": tgts[args.level], "intr": intr.at_level(args.level), "cfg": cfg}
 
 
+def cmd_photometric(args):
+    """The legacy dense photometric DVO over a source (the reference's
+    rgbdSubsc node): the first frame is the reference (refreshed every
+    `ref_refresh_every` frames), every other frame one `solve_pyramid` from
+    the identity (one `level_photo` launch on the card); prints `frame N
+    |eps| E` a frame on stderr (the last level's last |eps|) and writes the
+    trajectory to --out. Returns {"frames", "R", "t", "stamps", "eps"}."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig, PhotometricConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.pipeline.gop import REASON_FIRST_FRAME, Gop
+    from rgbd_odometry_tpu_torch.solvers import photometric
+
+    device = resolve_device(args.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    frames, cam, gt = _make_source(args)
+    intr = Intrinsics.from_config(cam or CameraConfig())
+    cfg = PhotometricConfig(use_huber=args.huber)
+    gop = Gop()
+    refs = None
+    eps = []
+    for i, (gray, depth, ts) in enumerate(frames):
+        pyr = build_pyramid(torch.as_tensor(gray, **f32)[None], torch.as_tensor(depth, **f32)[None],
+                            4)
+        grays = [g[0] for g in pyr.gray]
+        if i % cfg.ref_refresh_every == 0:
+            refs = photometric.extract_photo_ref(grays, [d[0] for d in pyr.depth], intr, cfg,
+                                                 cfg.max_points)
+            gop.push_keyframe(i, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), ts)
+            continue
+        R, t, hist = photometric.solve_pyramid(refs, grays, intr, cfg)
+        gop.push_ordinary(i, R.cpu().numpy().astype(np.float64),
+                          t.cpu().numpy().astype(np.float64), ts)
+        e = float(list(hist.values())[-1][-1])
+        eps.append(e)
+        print(f"frame {i:4d}  |eps| {e:9.1f}", file=sys.stderr)
+    R, t, stamps = gop.poses()
+    if args.out:
+        from rgbd_odometry_tpu_torch.io.tum import write_trajectory
+
+        write_trajectory(args.out, R, t, stamps)
+    return {"frames": len(gop), "R": R, "t": t, "stamps": stamps, "eps": eps}
+
+
+def cmd_feature_vo(args):
+    """Sparse feature VO over a source (the reference's opencvpnp node):
+    prints `frame N  good matches M` a frame on stderr and writes the
+    trajectory to --out. Returns {"frames", "R", "t", "stamps",
+    "match_counts", "gt"}."""
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.pipeline.feature_vo import FeatureVo, FeatureVoConfig
+
+    device = resolve_device(args.device)
+    frames, cam, gt = _make_source(args)
+    vo = FeatureVo(cam or CameraConfig(), FeatureVoConfig(min_good_matches=args.min_matches),
+                   device=device)
+    for i, (gray, depth, ts) in enumerate(frames):
+        vo.process_frame(gray, depth, ts)
+        print(f"frame {i:4d}  good matches {vo.match_counts[-1]}", file=sys.stderr)
+    R, t, stamps = vo.trajectory()
+    if args.out:
+        from rgbd_odometry_tpu_torch.io.tum import write_trajectory
+
+        write_trajectory(args.out, R, t, stamps)
+    return {"frames": len(t), "R": R, "t": t, "stamps": stamps, "match_counts": vo.match_counts,
+            "gt": gt}
+
+
+def cmd_pnp(args):
+    """The chessboard Gauss-Newton PnP demo (the reference's pnp node) on a
+    synthetic 9x6 board of 5 cm squares 1.5 m away, seen from a known pose:
+    `gn_pnp` from the identity (one `pnp_gn` launch on the card); prints
+    and returns {"residual_norms", "t_err"}."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    device = resolve_device(args.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    obj = torch.as_tensor(pnp.chessboard_object_points(6, 9, 0.05), **f32)
+    obj = obj + torch.tensor([0.0, 0.0, 1.5], **f32)
+    psi_gt = torch.tensor([0.08, -0.05, 0.03, 0.05, -0.06, 0.04], **f32)
+    R_gt, t_gt = geo.se3_exp(psi_gt)
+    pb = (obj - t_gt) @ R_gt
+    imn_gt = pb[:, :2] / pb[:, 2:3]
+    valid = torch.ones(obj.shape[0], dtype=torch.bool, device=device)
+    R, t, rnorms = pnp.gn_pnp(obj, imn_gt, valid, iterations=5)
+    out = {
+        "residual_norms": [round(float(x), 6) for x in rnorms.cpu().numpy()],
+        "t_err": float(np.linalg.norm(t.cpu().numpy() - t_gt.cpu().numpy())),
+    }
+    print(json.dumps(out))
+    return {**out, "residual_norms_raw": rnorms.cpu().numpy()}
+
+
+def cmd_imu(args):
+    """IMU dead reckoning (the reference's imuDR node) over a csv of `t, ax,
+    ay, az, wx, wy, wz` rows or `--steps` synthetic samples of a 0.1 rad/s
+    yaw at rest, at 100 Hz with the reference's gravity: one `imu_scan`
+    launch on the card; prints and returns {"final_p", "final_q", "steps"}."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.solvers import imu
+
+    device = resolve_device(args.device)
+    if args.csv:
+        data = np.loadtxt(args.csv, delimiter=",")  # t, ax..az, wx..wz
+        accels, gyros = data[:, 1:4], data[:, 4:7]
+    else:
+        accels = np.zeros((args.steps, 3))
+        gyros = np.tile([0.0, 0.0, 0.1], (args.steps, 1))
+    intr = imu.ImuIntrinsics.from_scalars(accel_bias=args.accel_bias, gyro_bias=args.gyro_bias,
+                                          device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    final, _ = imu.propagate_batch(imu.ImuState.identity(device=device),
+                                   torch.as_tensor(accels, **f32), torch.as_tensor(gyros, **f32),
+                                   intr)
+    out = {
+        "final_p": [float(x) for x in final.p.cpu().numpy()],
+        "final_q": [float(x) for x in final.q.cpu().numpy()],
+        "steps": int(accels.shape[0]),
+    }
+    print(json.dumps(out))
+    return out
+
+
+def cmd_fused(args):
+    """The full pipeline (BASELINE.json config 5): IMU-prior warm starts,
+    edge DVO and the quality-gated sparse-PnP fallback over a source. With
+    the synthetic source each frame's IMU window is one sample that dead
+    reckons the ground truth's inter-frame motion from rest (plus
+    `--imu-noise` on the gyro, 10x on the accelerometer), the reference's
+    ImuDeadReckon node's role. Prints a line a frame on stderr and the JSON
+    {"frames", "fallback_frames", "ate_rmse"[, "ate_rmse_unrefined"]};
+    returns it with the trajectory."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import (
+        CameraConfig, KeyframeConfig, PipelineConfig, SolverConfig,
+    )
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.device import resolve_device
+    from rgbd_odometry_tpu_torch.pipeline.fused import FusedConfig, FusedOdometry
+    from rgbd_odometry_tpu_torch.solvers import imu as imu_mod
+
+    device = resolve_device(args.device)
+    frames, cam, gt = _make_source(args)
+    cfg = PipelineConfig(
+        camera=cam or CameraConfig(),
+        solver=SolverConfig(method=args.method,
+                            iterations=tuple(int(x) for x in args.iterations.split(","))),
+        keyframe=KeyframeConfig(force_every=args.keyframe_every, enable_quality_triggers=True),
+    )
+    # the sensor's noise model: it weighs the IMU edges of --imu-refine
+    imu_intr = imu_mod.ImuIntrinsics.from_scalars(
+        gyro_var=args.imu_noise ** 2, accel_var=(10.0 * args.imu_noise) ** 2, device=device)
+    fused = FusedOdometry(cfg, FusedConfig(use_imu_prior=not args.no_imu),
+                          imu_intrinsics=imu_intr, device=device)
+    rng = np.random.default_rng(0)
+    dt = 1.0 / 30.0
+    prev_R = prev_t = None
+    n = 0
+    for gray, depth, ts in frames:
+        imu_window = None
+        if gt is not None and not args.no_imu and n > 0:
+            # the ground truth's inter-frame motion as a 1-sample window that
+            # reproduces it by dead reckoning from rest
+            gt_R, gt_t = gt
+            i = min(n, len(gt_t) - 1)
+            dR = prev_R.T @ gt_R[i]
+            dtr = prev_R.T @ (gt_t[i] - prev_t)
+            w = geo.so3_log(torch.as_tensor(dR, dtype=torch.float32)).numpy() / dt
+            a = 2.0 * dtr / (dt * dt)
+            w = w + rng.normal(0, args.imu_noise, 3)
+            a = a + rng.normal(0, args.imu_noise * 10, 3)
+            imu_window = (a[None, :], w[None, :], dt)
+        if gt is not None:
+            gt_R, gt_t = gt
+            i = min(n, len(gt_t) - 1)
+            prev_R, prev_t = gt_R[i], gt_t[i]
+        fused.process_frame(gray, depth, ts, imu_window=imu_window)
+        m = fused.odo.metrics[-1]
+        print(f"frame {m.frame_num:4d}  E={m.best_energy:9.2f} vis={m.visible_ratio:.2f} "
+              f"b^={m.b_cap:6.2f} kf={m.keyframe_reason}"
+              + (" [PnP fallback]" if m.frame_num in fused.fallback_frames else ""),
+              file=sys.stderr)
+        n += 1
+    R, t, ts_arr = fused.trajectory()
+    R0, t0 = R, t
+    if args.imu_refine:
+        # the synthetic windows are gravity-free and from rest: gravity and
+        # the velocities are exactly zero for them
+        R, t, ts_arr = fused.refine_with_imu(gravity=(0.0, 0.0, 0.0),
+                                             velocities=np.zeros_like(t0),
+                                             imu_weight=args.imu_weight)
+    if args.out:
+        from rgbd_odometry_tpu_torch.io.tum import write_trajectory
+
+        write_trajectory(args.out, R, t, ts_arr)
+    summary = {"frames": n, "fallback_frames": fused.fallback_frames}
+    if gt is not None:
+        from rgbd_odometry_tpu_torch.eval.ate import ate_rmse
+
+        n2 = min(len(t), len(gt[1]))
+        summary["ate_rmse"] = ate_rmse(t[:n2], gt[1][:n2], align=False)
+        if args.imu_refine:
+            summary["ate_rmse_unrefined"] = ate_rmse(t0[:n2], gt[1][:n2], align=False)
+    print(json.dumps(summary))
+    return {**summary, "R": R, "t": t, "stamps": ts_arr}
+
+
 def cmd_unported(args):
     _unported(f"the {args.cmd} subcommand", _UNPORTED_COMMANDS[args.cmd])
 
@@ -826,29 +1046,50 @@ def main(argv=None):
                    help="torch device: 'cuda' (default) or 'cpu'")
     p.set_defaults(fn=cmd_dump)
 
-    # the JAX subcommands not ported yet, with the JAX parser's flags: each
-    # exits naming its ROADMAP.md item
-    p = sub.add_parser("photometric", help="legacy dense DVO (not ported yet)")
+    dev_help = "torch device: 'cuda' (default) or 'cpu' (the kernels' plain versions)"
+    p = sub.add_parser("photometric", help="legacy dense DVO (rgbdSubsc node)")
     _add_source_args(p)
     p.add_argument("--huber", action="store_true")
-    p = sub.add_parser("feature-vo", help="sparse feature VO (not ported yet)")
+    p.add_argument("--device", default="cuda", help=dev_help)
+    p.set_defaults(fn=cmd_photometric)
+
+    p = sub.add_parser("feature-vo", help="sparse feature VO (opencvpnp node)")
     _add_source_args(p)
     p.add_argument("--min-matches", type=int, default=40)
-    sub.add_parser("pnp", help="chessboard GN-PnP demo (not ported yet)")
-    p = sub.add_parser("imu", help="IMU dead reckoning (not ported yet)")
+    p.add_argument("--device", default="cuda", help=dev_help)
+    p.set_defaults(fn=cmd_feature_vo)
+
+    p = sub.add_parser("pnp", help="chessboard GN-PnP demo (pnp node)")
+    p.add_argument("--device", default="cuda", help=dev_help)
+    p.set_defaults(fn=cmd_pnp)
+
+    p = sub.add_parser("imu", help="IMU dead reckoning (imuDR node)")
     p.add_argument("--csv", default=None, help="csv with t,ax,ay,az,wx,wy,wz rows")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--accel-bias", type=float, default=0.0)
     p.add_argument("--gyro-bias", type=float, default=0.0)
-    p = sub.add_parser("fused", help="IMU prior + edge DVO + sparse-PnP fallback (not ported yet)")
+    p.add_argument("--device", default="cuda", help=dev_help)
+    p.set_defaults(fn=cmd_imu)
+
+    p = sub.add_parser("fused",
+                       help="IMU prior + edge DVO + sparse-PnP fallback (BASELINE config 5)")
     _add_source_args(p)
     p.add_argument("--method", default="gauss_newton", choices=["gauss_newton", "subgradient"])
     p.add_argument("--iterations", default="18,6,4,3")
     p.add_argument("--keyframe-every", type=int, default=5)
     p.add_argument("--no-imu", action="store_true")
-    p.add_argument("--imu-noise", type=float, default=0.0)
-    p.add_argument("--imu-refine", action="store_true")
-    p.add_argument("--imu-weight", type=float, default=3.0)
+    p.add_argument("--imu-noise", type=float, default=0.0,
+                   help="gyro noise sigma (rad/s); accel gets 10x")
+    p.add_argument("--imu-refine", action="store_true",
+                   help="post-run visual-inertial polish: preintegrated IMU edges and the "
+                   "visual odometry chain in one pose graph")
+    p.add_argument("--imu-weight", type=float, default=3.0,
+                   help="IMU edge weight relative to weight-1 visual edges (--imu-refine)")
+    p.add_argument("--device", default="cuda", help=dev_help)
+    p.set_defaults(fn=cmd_fused)
+
+    # the JAX subcommand not ported yet, with the JAX parser's flags: it
+    # exits naming its ROADMAP.md item
     p = sub.add_parser("bench", help="batched-alignment throughput benchmark (not ported yet)")
     p.add_argument("--batch", type=int, default=32)
     for name in _UNPORTED_COMMANDS:

@@ -3,8 +3,10 @@
 Port of `rgbd_odometry_tpu/core/camera.Intrinsics`: the JAX version carries
 the four scalars as a pytree of arrays for `jit`; here they are floats that
 enter the tensor math as scalar operands (float32 on float32 tensors) and the
-CUDA kernel as `float` arguments. `undistort_map` and `remap_bilinear` are the
-plumb-bob undistortion of the VGA ingest (`io/stream.preprocess_vga`).
+CUDA kernel as `float` arguments. `backproject`, `backproject_points`,
+`project` and `transform_points` are the JAX module's pinhole helpers;
+`undistort_map` and `remap_bilinear` are the plumb-bob undistortion of the
+VGA ingest (`io/stream.preprocess_vga`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from rgbd_odometry_tpu_torch.config import CameraConfig
 from rgbd_odometry_tpu_torch.device import resolve_device
+from rgbd_odometry_tpu_torch.ops.project import div_scalar
 
 
 class Intrinsics(NamedTuple):
@@ -31,6 +34,41 @@ class Intrinsics(NamedTuple):
         """Every entry scaled by 2^-level (exact: a power of two)."""
         s = 2.0 ** (-level)
         return Intrinsics(self.fx * s, self.fy * s, self.cx * s, self.cy * s)
+
+
+def backproject(depth_mm: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """Dense back-projection of a (..., H, W) depth map (millimetres) to
+    (..., H, W, 3) camera-frame points in metres: X = Z (x - cx) / fx,
+    Y = Z (y - cy) / fy at pixel (x = col, y = row)."""
+    h, w = depth_mm.shape[-2:]
+    f = dict(dtype=depth_mm.dtype, device=depth_mm.device)
+    gy, gx = torch.meshgrid(torch.arange(h, **f), torch.arange(w, **f), indexing="ij")
+    return backproject_points(torch.stack([gx, gy], -1).expand(depth_mm.shape + (2,)),
+                              depth_mm, intr)
+
+
+def backproject_points(uv: torch.Tensor, depth_mm: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """Back-project sparse pixels: uv (..., 2) [x, y] and depth (...,) in mm
+    -> (..., 3) metres, each division rounded once on every device
+    (`ops/project.div_scalar`)."""
+    z = div_scalar(depth_mm, 1000.0)
+    return torch.stack([div_scalar(z * (uv[..., 0] - intr.cx), intr.fx),
+                        div_scalar(z * (uv[..., 1] - intr.cy), intr.fy), z], dim=-1)
+
+
+def project(points: torch.Tensor, intr: Intrinsics, eps: float = 1e-12) -> torch.Tensor:
+    """Project (..., 3) camera-frame points (m) to (..., 2) pixels [u, v]:
+    dehomogenize (|z| < eps taken as eps), then apply K."""
+    z = points[..., 2]
+    z_inv = 1.0 / torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
+    return torch.stack([intr.fx * points[..., 0] * z_inv + intr.cx,
+                        intr.fy * points[..., 1] * z_inv + intr.cy], dim=-1)
+
+
+def transform_points(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """The reference's warp X' = R^T (X - t) of points (..., N, 3) by the
+    pose of now in ref (R (..., 3, 3), t (..., 3))."""
+    return (pts - t[..., None, :]) @ R
 
 
 def undistort_map(cfg: CameraConfig, device=None) -> torch.Tensor:

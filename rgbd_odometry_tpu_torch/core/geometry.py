@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from rgbd_odometry_tpu_torch.device import resolve_device
+
 _EPS = 1e-8
 
 
@@ -200,3 +202,11 @@ def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def identity_pose(dtype=torch.float32, batch_shape: tuple = (), device=None):
+    """(R, t) = (I, 0) with leading dims `batch_shape`, on `device`
+    (default: the current CUDA device, `resolve_device`)."""
+    device = resolve_device(device)
+    R = torch.eye(3, dtype=dtype, device=device).expand(batch_shape + (3, 3)).clone()
+    return R, torch.zeros(batch_shape + (3,), dtype=dtype, device=device)

@@ -23,10 +23,12 @@
 //
 // pnp_gn_kernel: B independent problems, one block of 128 threads each
 // (thread v is virtual thread v; the tree in shared memory), `iters`
-// iterations each, then each problem's inlier count. One thread takes the
-// step while 127 wait. It serves the step-by-step RANSAC route (the
-// hypotheses at B = 64, the refine at B = 1), which the CPU runs in its
-// plain version and the card keeps as the check of the fused kernel.
+// iterations each, then each problem's inlier count; on request the
+// residual norm before each iteration (a 28th sum, the tree's order). One
+// thread takes the step while 127 wait. It serves the step-by-step RANSAC
+// route (the hypotheses at B = 64, the refine at B = 1), which the CPU runs
+// in its plain version and the card keeps as the check of the fused
+// kernel, and the Gauss-Newton PnP of solvers/pnp.gn_pnp (B = 1).
 //
 // ransac_pnp_kernel: the whole RANSAC PnP with no host sync, one cluster of
 // kRanks blocks x kWarps warps, a warp per hypothesis (warp g takes
@@ -123,8 +125,9 @@ pnp_gn_kernel(const float* __restrict__ obj, const float* __restrict__ imn,
               const uint8_t* __restrict__ masks, const float* __restrict__ R0,
               const float* __restrict__ t0, const uint8_t* __restrict__ score_mask, int k,
               int iters, float thresh, float* __restrict__ R_out, float* __restrict__ t_out,
-              int* __restrict__ count_out, uint8_t* __restrict__ inl_out) {
-  __shared__ float red[kTerms][kThreads];
+              int* __restrict__ count_out, uint8_t* __restrict__ inl_out,
+              float* __restrict__ rn_out) {
+  __shared__ float red[kTerms + 1][kThreads];
   __shared__ float pose[12];
   __shared__ int cnt[kThreads];
   const int b = blockIdx.x;
@@ -138,8 +141,8 @@ pnp_gn_kernel(const float* __restrict__ obj, const float* __restrict__ imn,
     float R[9], t[3];
     for (int i = 0; i < 9; ++i) R[i] = pose[i];
     for (int i = 0; i < 3; ++i) t[i] = pose[9 + i];
-    float acc[kTerms];
-    for (int n = 0; n < kTerms; ++n) acc[n] = 0.0f;
+    float acc[kTerms + 1];
+    for (int n = 0; n <= kTerms; ++n) acc[n] = 0.0f;
     for (int i = tid; i < k; i += kThreads) {
       if (!M[i]) continue;
       const Point p = point_terms(obj + 3 * i, imn + 2 * i, R, t);
@@ -149,14 +152,18 @@ pnp_gn_kernel(const float* __restrict__ obj, const float* __restrict__ imn,
           acc[n] = fadd(acc[n], fadd(fmul(p.ju[a], p.ju[c]), fmul(p.jv[a], p.jv[c])));
       for (int a = 0; a < 6; ++a)
         acc[21 + a] = fadd(acc[21 + a], fadd(fmul(p.ju[a], p.r0), fmul(p.jv[a], p.r1)));
+      acc[kTerms] = fadd(acc[kTerms], fadd(fmul(p.r0, p.r0), fmul(p.r1, p.r1)));
     }
-    for (int n = 0; n < kTerms; ++n) red[n][tid] = acc[n];
+    // the residual's squared norm is a 28th sum, reduced only when asked for
+    const int nterms = rn_out != nullptr ? kTerms + 1 : kTerms;
+    for (int n = 0; n <= kTerms; ++n) red[n][tid] = acc[n];
     __syncthreads();
     for (int s = kThreads / 2; s > 0; s >>= 1) {
       if (tid < s)
-        for (int n = 0; n < kTerms; ++n) red[n][tid] = fadd(red[n][tid], red[n][tid + s]);
+        for (int n = 0; n < nterms; ++n) red[n][tid] = fadd(red[n][tid], red[n][tid + s]);
       __syncthreads();
     }
+    if (tid == 0 && rn_out != nullptr) rn_out[(size_t)b * iters + it] = __fsqrt_rn(red[kTerms][0]);
     if (tid == 0) {
       float H[36], g[6], x[6];
       int n = 0;
@@ -484,19 +491,21 @@ extern "C" const char* cuda_error_string(int code) {
 
 // obj (K,3), imn (K,2), R0 (B,3,3), t0 (B,3) float32; masks (B,K) and
 // score_mask (K,) uint8; all contiguous. Outputs R (B,3,3), t (B,3) float32,
-// counts (B,) int32 and, when inl_out is not null, inliers (B,K) uint8.
+// counts (B,) int32, when inl_out is not null inliers (B,K) uint8, and when
+// rn_out is not null the residual norm |r| over the masked points before
+// each iteration (B,iters) float32.
 // Launches on `stream`, does not synchronize.
 extern "C" int pnp_gn(int device, const void* obj, const void* imn, const void* masks,
                       const void* R0, const void* t0, const void* score_mask, int batch, int k,
                       int iters, float thresh, void* R_out, void* t_out, void* count_out,
-                      void* inl_out, void* stream) {
+                      void* inl_out, void* rn_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
     pnp_gn_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)obj, (const float*)imn, (const uint8_t*)masks, (const float*)R0,
         (const float*)t0, (const uint8_t*)score_mask, k, iters, thresh, (float*)R_out,
-        (float*)t_out, (int*)count_out, (uint8_t*)inl_out);
+        (float*)t_out, (int*)count_out, (uint8_t*)inl_out, (float*)rn_out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,297 @@
+"""Kernel 12: a whole photometric DVO pyramid in one launch (`csrc/level_photo.cu`).
+
+Replaces the JAX package's photometric Gauss-Newton: `solve_level`'s
+`lax.scan` (`rgbd_odometry_tpu/solvers/photometric.py:162-223`, scan at
+:213) over `photometric_residual` (:147) and `_sample_now` (:132), and
+`solve_pyramid`'s level loop (:226): XLA code, no Pallas kernel.
+`level_photo` is the entry point: CPU tensors go to the plain PyTorch
+version `level_photo_plain` (the levels one after another, an iteration at
+a time), CUDA tensors to the kernel (one block a pair, every level and
+iteration in the one launch); anything else raises.
+
+An iteration at the pose (R, t): every point X of the level's reference is
+moved to R^T (X - t), projected (1 / z with |z| < 1e-12 taken as 1e-12),
+tested for visibility on the unsnapped (u, v), snapped onto an integer
+within 2e-3 (`_snap`) and sampled from the now image by floor or bilinear
+lookup (coordinates clamped to the image, so u = W reads column W - 1);
+eps = I_ref - I_now where visible, with a Huber weight when asked. The sums
+|eps|^2, J^T W eps and (with `reweight_normal_matrix`) J^T W J over the
+points give the step psi = A^-1 (-J^T W eps), clamped to `max_step`, and
+T <- T exp(psi)^-1. The best iterate (|eps| <= the best so far) is the
+level's result and the next level's start; |eps| < `eps_norm_exit`
+freezes the pose for the rest of the level.
+
+Both versions perform the same float32 operations in the same order: the
+point terms one rounding an operation (the fused multiply-adds where
+XLA:CPU contracts a product into a sum: z of the warp, u and v, the
+bilinear blend), the sums over points as each of `THREADS` threads' running
+sum followed by a fixed pairwise tree, the step through the twins of
+`csrc/se3.cuh` in `kernels/se3_plain.py`. Kernel and plain version agree to
+the last bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from rgbd_odometry_tpu_torch.kernels import build
+from rgbd_odometry_tpu_torch.kernels.se3_plain import chol_solve6, se3_exp, sqrt, trust_region
+from rgbd_odometry_tpu_torch.ops.project import fma_f32 as fma
+
+THREADS = 256  # the kernel's block: the partial-sum layout both versions share
+MAX_LEVELS = 8
+SNAP_EPS = 2e-3
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+             + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)]
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+_UPPER = [(i, j) for i in range(6) for j in range(i, 6)]
+
+
+class PhotoLevel(NamedTuple):
+    """One level of B pairs: the reference's cache and the now image."""
+
+    pts: torch.Tensor  # (B, K, 3) float32 metres
+    intensity: torch.Tensor  # (B, K) float32 I_ref at the points
+    J: torch.Tensor  # (B, K, 6) float32 photometric Jacobian
+    A: torch.Tensor  # (B, 6, 6) float32 cached normal matrix
+    valid: torch.Tensor  # (B, K) bool
+    img: torch.Tensor  # (B, H, W) float32 now image (rows contiguous)
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+
+
+def _full(x: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.full_like(x, v)
+
+
+def snap(c: torch.Tensor, eps: float = SNAP_EPS) -> torch.Tensor:
+    """c snapped onto the nearest integer when within eps of it (round half
+    to even)."""
+    r = torch.round(c)
+    return torch.where(torch.abs(c - r) < eps, r, c)
+
+
+def _clamped(c: torch.Tensor, n: int) -> torch.Tensor:
+    """c clamped to [0, n - 1], NaN taken as 0 (the kernel's fmaxf/fminf)."""
+    return torch.clamp(torch.nan_to_num(c, nan=0.0), 0.0, n - 1.0)
+
+
+def sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, bilinear: bool) -> torch.Tensor:
+    """img (B, H, W) at (u, v) (B, K) by floor lookup, or bilinearly with
+    the rows blended first, each blend rounded as XLA:CPU sums the one-hot
+    products of `gather_channels_mm`: a fused multiply-add, except that the
+    columns' blend is a product and a sum when both columns are among the
+    first 8."""
+    b, h, w = img.shape
+    flat = img.reshape(b, h * w)
+    cu, cv = _clamped(u, w), _clamped(v, h)
+    fu0, fv0 = torch.floor(cu), torch.floor(cv)
+    j0, i0 = fu0.long(), fv0.long()
+    if not bilinear:
+        return torch.gather(flat, 1, i0 * w + j0)
+    j1, i1 = torch.clamp(j0 + 1, max=w - 1), torch.clamp(i0 + 1, max=h - 1)
+    fu, fv = cu - fu0, cv - fv0
+
+    def at(i, j):
+        return torch.gather(flat, 1, i * w + j)
+
+    row0 = fma(fv, at(i1, j0), (1.0 - fv) * at(i0, j0))
+    row1 = fma(fv, at(i1, j1), (1.0 - fv) * at(i0, j1))
+    # XLA:CPU sums the first 8 column products as a vector, the rest as a
+    # fused chain onto that sum
+    head = (1.0 - fu) * row0
+    return torch.where(j1 < 8, head + fu * row1, fma(fu, row1, head))
+
+
+def point_residuals(R, t, lv: PhotoLevel, bilinear: bool):
+    """(eps (B,K), visible (B,K)) of the level's points at poses R (B,3,3),
+    t (B,3): eps_i = I_ref - I_now(pi(R^T (X_i - t))) where visible, else
+    0 (`computeEpsilon`, RGBDOdometry.cpp:602-700)."""
+    h, w = lv.img.shape[-2:]
+    d = [lv.pts[..., c] - t[:, c, None] for c in range(3)]
+    Rc = [[R[:, i, j, None] for j in range(3)] for i in range(3)]
+    x0 = d[0] * Rc[0][0] + d[1] * Rc[1][0] + d[2] * Rc[2][0]
+    x1 = d[0] * Rc[0][1] + d[1] * Rc[1][1] + d[2] * Rc[2][1]
+    z = fma(Rc[2][2].expand_as(d[2]), d[2], fma(Rc[1][2].expand_as(d[1]), d[1], Rc[0][2] * d[0]))
+    zs = torch.where(torch.abs(z) < 1e-12, _full(z, 1e-12), z)
+    zinv = torch.reciprocal(zs)
+    u = fma(lv.fx * x0, zinv, lv.cx)
+    v = fma(lv.fy * x1, zinv, lv.cy)
+    visible = (u >= 0.0) & (u < w) & (v >= 0.0) & (v < h) & lv.valid
+    inow = sample(lv.img, snap(u), snap(v), bilinear)
+    eps = torch.where(visible, lv.intensity - inow, torch.zeros_like(inow))
+    return eps, visible
+
+
+def _weights(eps, visible, cfg):
+    if cfg.use_huber:
+        a = torch.abs(eps)
+        wgt = torch.where(a <= cfg.huber_delta, torch.ones_like(a),
+                          _full(a, cfg.huber_delta) / torch.clamp(a, min=1e-9))
+        return torch.where(visible, wgt, torch.zeros_like(wgt))
+    return visible.to(eps.dtype)
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, K, C) -> (B, C): thread k % THREADS adds its points in order,
+    then the pairwise tree over the threads (the kernel's order)."""
+    b, k, c = x.shape
+    m = -(-k // THREADS)
+    x = torch.nn.functional.pad(x, (0, 0, 0, m * THREADS - k)).reshape(b, m, THREADS, c)
+    acc = x[:, 0]
+    for i in range(1, m):
+        acc = acc + x[:, i]
+    s = THREADS // 2
+    while s >= 1:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
+def _sums(R, t, lv: PhotoLevel, cfg):
+    """(B, C) sums of |eps|^2, J^T W eps (6) and, when reweighting, the 21
+    upper entries of J^T W J."""
+    eps, visible = point_residuals(R, t, lv, cfg.bilinear)
+    wgt = _weights(eps, visible, cfg)
+    we = wgt * eps
+    terms = [eps * eps] + [lv.J[..., j] * we for j in range(6)]
+    if cfg.reweight_normal_matrix:
+        jw = [lv.J[..., i] * wgt for i in range(6)]
+        terms += [jw[i] * lv.J[..., j] for i, j in _UPPER]
+    return _block_sum(torch.stack(terms, -1))
+
+
+def _step(R, t, sums, lv: PhotoLevel, cfg):
+    """The Gauss-Newton step from the sums: (R, t) of T exp(psi)^-1."""
+    g = [-sums[:, 1 + j] for j in range(6)]
+    if cfg.reweight_normal_matrix:
+        H = [[None] * 6 for _ in range(6)]
+        for n, (i, j) in enumerate(_UPPER):
+            H[i][j] = H[j][i] = sums[:, 7 + n]
+        tr = H[0][0]
+        for i in range(1, 6):
+            tr = tr + H[i][i]
+        dmp = (1e-6 * torch.clamp(tr, min=1.0)) / _full(tr, 6.0)
+        for i in range(6):
+            H[i][i] = H[i][i] + dmp
+    else:
+        H = [[lv.A[:, i, j] for j in range(6)] for i in range(6)]
+    psi = trust_region(chol_solve6(H, g), cfg.max_step)
+    xR, xt = se3_exp(psi)
+    Rl = [[R[:, i, j] for j in range(3)] for i in range(3)]
+    xti = [-(xR[0][i] * xt[0] + xR[1][i] * xt[1] + xR[2][i] * xt[2]) for i in range(3)]
+    tn = [t[:, i] + (Rl[i][0] * xti[0] + Rl[i][1] * xti[1] + Rl[i][2] * xti[2])
+          for i in range(3)]
+    Rn = [[Rl[i][0] * xR[j][0] + Rl[i][1] * xR[j][1] + Rl[i][2] * xR[j][2] for j in range(3)]
+          for i in range(3)]
+    return (torch.stack([torch.stack(r, -1) for r in Rn], -2), torch.stack(tn, -1))
+
+
+def level_photo_plain(R0, t0, levels, cfg):
+    """The plain PyTorch version of `level_photo`."""
+    R, t = R0, t0
+    hist = []
+    b = R0.shape[0]
+    for lv in levels:
+        done = torch.zeros(b, dtype=torch.bool, device=R.device)
+        best_e = torch.full((b,), 1e30, dtype=torch.float32, device=R.device)
+        best_R, best_t = R, t
+        enorms = []
+        for _ in range(cfg.iterations_per_level):
+            sums = _sums(R, t, lv, cfg)
+            enorm = sqrt(sums[:, 0])
+            enorms.append(enorm)
+            better = enorm <= best_e
+            best_e = torch.where(better, enorm, best_e)
+            best_R = torch.where(better[:, None, None], R, best_R)
+            best_t = torch.where(better[:, None], t, best_t)
+            newly = enorm < cfg.eps_norm_exit
+            Rn, tn = _step(R, t, sums, lv, cfg)
+            do = ~done & ~newly
+            R = torch.where(do[:, None, None], Rn, R)
+            t = torch.where(do[:, None], tn, t)
+            done = done | newly
+        R, t = best_R, best_t
+        hist.append(torch.stack(enorms, -1))
+    empty = torch.zeros((b, 0, cfg.iterations_per_level), dtype=torch.float32, device=R0.device)
+    return R, t, torch.stack(hist, 1) if hist else empty
+
+
+def _check_level(fn: str, lv: PhotoLevel, b: int, dev) -> tuple:
+    if lv.pts.dim() != 3 or lv.img.dim() != 3:
+        raise ValueError(f"{fn}: pts must be (B, K, 3) and img (B, H, W)")
+    k = lv.pts.shape[1]
+    h, w = lv.img.shape[1:]
+    if k < 1:
+        raise ValueError(f"{fn}: a level needs at least one point")
+    build.check_level_size(fn, h, w)
+    build.check_arg(fn, "pts", lv.pts, (b, k, 3), torch.float32, dev)
+    build.check_arg(fn, "intensity", lv.intensity, (b, k), torch.float32, dev)
+    build.check_arg(fn, "J", lv.J, (b, k, 6), torch.float32, dev)
+    build.check_arg(fn, "A", lv.A, (b, 6, 6), torch.float32, dev)
+    build.check_arg(fn, "valid", lv.valid, (b, k), torch.bool, dev)
+    build.check_arg(fn, "img", lv.img, (b, h, w), torch.float32, dev, contiguous=False)
+    build.check_rows(fn, "img", lv.img)
+    return k, h, w
+
+
+def level_photo(R0: torch.Tensor, t0: torch.Tensor, levels, cfg):
+    """The photometric pyramid for B pairs from the start poses (R0 (B,3,3),
+    t0 (B,3)), the levels (`PhotoLevel`s) in the order given, each
+    `cfg.iterations_per_level` Gauss-Newton iterations (a
+    `PhotometricConfig`: `eps_norm_exit`, `use_huber`, `huber_delta`,
+    `max_step`, `reweight_normal_matrix`, `bilinear`). Returns (R (B,3,3),
+    t (B,3)) the last level's best iterate and the |eps| history (B,
+    levels, iterations). CPU tensors run `level_photo_plain`, CUDA tensors
+    one launch. Arguments are checked before anything is built or
+    launched."""
+    levels = tuple(levels)
+    if not levels or levels[0].pts.device.type == "cpu":
+        return level_photo_plain(R0, t0, levels, cfg)
+    fn = "level_photo"
+    dev = levels[0].pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch, got {len(levels)}")
+    n_iters = int(cfg.iterations_per_level)
+    if n_iters < 1:
+        raise ValueError(f"{fn}: iterations_per_level must be at least 1")
+    b = R0.shape[0]
+    R0, t0 = R0.contiguous(), t0.contiguous()
+    build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
+    build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
+    shapes = [_check_level(fn, lv, b, dev) for lv in levels]
+    R = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    hist = torch.empty((b, len(levels), n_iters), dtype=torch.float32, device=dev)
+    ptrs, strides, ints, flts = [], [], [], []
+    for lv, (k, h, w) in zip(levels, shapes):
+        ptrs += [lv.pts.data_ptr(), lv.intensity.data_ptr(), lv.J.data_ptr(), lv.A.data_ptr(),
+                 lv.valid.data_ptr(), lv.img.data_ptr()]
+        strides.append(lv.img.stride(0))
+        ints += [k, h, w]
+        flts += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
+    nl = len(levels)
+    lib = build.bind("level_photo", fn, _ARGTYPES)
+    with build.traced(fn):
+        code = lib.level_photo(
+            dev.index or 0, nl, b, R0.data_ptr(), t0.data_ptr(),
+            (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_longlong * nl)(*strides),
+            (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(flts))(*flts),
+            n_iters, float(cfg.eps_norm_exit), int(bool(cfg.use_huber)), float(cfg.huber_delta),
+            float(cfg.max_step), int(bool(cfg.reweight_normal_matrix)), int(bool(cfg.bilinear)),
+            R.data_ptr(), t.data_ptr(), hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(lib, code, "level_photo launch")
+    level_photo.launches += 1
+    return R, t, hist
+
+
+level_photo.launches = 0

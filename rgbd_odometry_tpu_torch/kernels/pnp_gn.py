@@ -14,10 +14,11 @@ inliers. Two entry points:
   raises.
 - `pnp_gn`: B independent Gauss-Newton problems over the same K
   correspondences and their inlier counts, which the step-by-step route
-  calls twice (the hypotheses at B = 64, the refine at B = 1): CPU tensors
-  go to `pnp_gn_plain`, CUDA tensors to its kernel, which no path launches
-  since the fused kernel; `chip_smoke.py` holds the fused kernel to the
-  step-by-step route over it bit for bit.
+  calls twice (the hypotheses at B = 64, the refine at B = 1), and
+  `solvers/pnp.gn_pnp` once (B = 1, with the residual norm before each
+  iteration): CPU tensors go to `pnp_gn_plain`, CUDA tensors to its kernel;
+  `chip_smoke.py` holds the fused kernel to the step-by-step route over it
+  bit for bit.
 
 The plain version performs the kernel's operations in the kernel's order:
 each per-point term with one rounding per operation, the sums over points
@@ -45,7 +46,7 @@ from rgbd_odometry_tpu_torch.kernels.se3_plain import chol_solve6, mat3, se3_exp
 THREADS = 128  # the kernel's block size: the partial-sum layout both versions share
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
-    + [ctypes.c_void_p] * 5
+    + [ctypes.c_void_p] * 6
 )
 _RANSAC_ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -137,18 +138,29 @@ def score_plain(obj, imn, R, t, score_mask, inlier_thresh):
     return score_mask[None, :] & (err < inlier_thresh)
 
 
+def residual_norm_plain(obj, imn, R, t, mask):
+    """|r| (B,) over the points of mask (B,K) at poses (R, t): the squares
+    r0^2 + r1^2 summed in the kernel's order, a correctly rounded root."""
+    r0, r1, _, _ = point_terms(obj, imn, R, t)
+    sq = torch.where(mask, r0 * r0 + r1 * r1, torch.zeros_like(r0))
+    return sqrt(_block_sum(sq[..., None])[:, 0])
+
+
 def pnp_gn_plain(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask,
-                 write_inliers=False):
+                 write_inliers=False, rnorm_out=None):
     """The plain PyTorch version: (R (B,3,3), t (B,3), counts (B,) int32,
-    inliers (B,K) bool | None)."""
+    inliers (B,K) bool | None); fills rnorm_out (B, iters) when given."""
     R, t = R0, t0
-    for _ in range(iters):
+    for it in range(iters):
+        if rnorm_out is not None:
+            rnorm_out[:, it] = residual_norm_plain(obj, imn, R, t, masks)
         R, t = gn_step_plain(obj, imn, R, t, masks)
     inl = score_plain(obj, imn, R, t, score_mask, inlier_thresh)
     return R, t, inl.sum(-1, dtype=torch.int32), inl if write_inliers else None
 
 
-def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inliers=False):
+def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inliers=False,
+           rnorm_out=None):
     """B Gauss-Newton PnP problems over shared correspondences obj (K,3)
     (metres, the stored keyframe's camera frame) and imn (K,2) (the query's
     normalized image points): problem b starts at (R0[b], t0[b]) and runs
@@ -156,10 +168,12 @@ def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inli
     points of score_mask (K,) bool with reprojection error < inlier_thresh.
     Returns (R (B,3,3), t (B,3), counts (B,) int32, inliers (B,K) bool when
     write_inliers, else None), in the solver's p_query = R (p - t)
-    convention."""
+    convention. `rnorm_out`, a (B, iters) float32 tensor, receives the
+    residual norm over each problem's masked points before each
+    iteration."""
     if obj.device.type == "cpu":
         return pnp_gn_plain(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask,
-                            write_inliers)
+                            write_inliers, rnorm_out)
     if obj.device.type != "cuda":
         raise ValueError(f"pnp_gn: unsupported device {obj.device}")
     dev = obj.device
@@ -173,6 +187,8 @@ def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inli
     build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
     build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
     build.check_arg(fn, "score_mask", score_mask, (k,), torch.bool, dev)
+    if rnorm_out is not None:
+        build.check_arg(fn, "rnorm_out", rnorm_out, (b, int(iters)), torch.float32, dev)
     R = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
     t = torch.empty((b, 3), dtype=torch.float32, device=dev)
     counts = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -183,7 +199,9 @@ def pnp_gn(obj, imn, masks, R0, t0, iters, inlier_thresh, score_mask, write_inli
             dev.index or 0, obj.data_ptr(), imn.data_ptr(), masks.data_ptr(), R0.data_ptr(),
             t0.data_ptr(), score_mask.data_ptr(), b, k, int(iters), float(inlier_thresh),
             R.data_ptr(), t.data_ptr(), counts.data_ptr(),
-            inl.data_ptr() if write_inliers else None, torch.cuda.current_stream(dev).cuda_stream,
+            inl.data_ptr() if write_inliers else None,
+            None if rnorm_out is None else rnorm_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "pnp_gn launch")
     pnp_gn.launches += 1

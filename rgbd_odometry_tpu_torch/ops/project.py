@@ -28,6 +28,13 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+def div_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded once, as XLA divides, on every device: on a CUDA tensor
+    torch takes x / c as x times the float32 reciprocal of c (two
+    roundings), so c is given as a tensor."""
+    return x / torch.full_like(x, c)
+
+
 def project_points(R, t, pts, valid, h, w, fx, fy, cx, cy, fma_uv=False):
     """Warp X' = R^T (X - t) of pts (B,K,3) at poses (R (B,3,3), t (B,3)) and
     project: (xn, yn, z, safe_z, u, v, visible), visibility inclusive of

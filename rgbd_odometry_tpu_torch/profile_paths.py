@@ -83,6 +83,17 @@ out-and-back path, its host clock split (each part synchronised) between
 digest of every output (both gate floors, every `RansacResult` field, the
 closures), so that an A/B call shows the bits equal.
 
+`--paths secondary` (not in the default; run it alone) profiles the
+secondary solvers' kernels at the shapes their commands give them: device
+us and launches per call of `imu_scan` (dead reckoning B = 1 over T = 400
+samples, the `imu` command; B = 1, T = 1, `fused`'s prior a frame;
+preintegration of B = 29 one-sample windows, `fused --imu-refine`, and B
+= 64, T = 10), of `level_photo` (levels 3 and 2, 3 iterations each, the
+`photometric` command's configuration, on a rendered pair at 640x480 and
+320x240, B = 1, and at 640x480, B = 64) and of `gn_pnp` (the `pnp`
+command: 54 chessboard points, 5 iterations, one `pnp_gn` launch), with a
+digest of each output.
+
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
 `FrameMetrics.solve_ms`, the CLI's `avg solve`) and once under the profiler
@@ -882,6 +893,55 @@ def profile_map(device, reps: int = 20) -> dict:
     return out
 
 
+def profile_secondary(device, reps: int = 20) -> dict:
+    """The secondary solvers' kernels (see the module docstring, `--paths
+    secondary`). Prints one JSON line."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig, PhotometricConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.io.synthetic import render_pair
+    from rgbd_odometry_tpu_torch.kernels import imu, level_photo
+    from rgbd_odometry_tpu_torch.solvers import photometric, pnp
+
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = {"path": "secondary"}
+    params = torch.tensor([0.03] * 3 + [-0.01] * 3 + [1e-2, 1e-4, 0.0, 9.7874, 0.0], **f32)
+    for name, mode, b, n in (("imu_propagate_B1_T400", imu.PROPAGATE, 1, 400),
+                             ("imu_propagate_B1_T1", imu.PROPAGATE, 1, 1),
+                             ("imu_preintegrate_B29_T1", imu.PREINTEGRATE, 29, 1),
+                             ("imu_preintegrate_B64_T10", imu.PREINTEGRATE, 64, 10)):
+        a = torch.as_tensor(rng.normal(0, 2.0, (b, n, 3)), **f32)
+        w = torch.as_tensor(rng.normal(0, 0.8, (b, n, 3)), **f32)
+        s0 = torch.tensor([[0.0] * 9 + [1.0]], **f32).expand(b, 10).contiguous()
+        call = lambda a=a, w=w, s0=s0, mode=mode: imu.imu_scan(mode, a, w, params, 0.01, s0)  # noqa: E731
+        res = call()
+        out[name] = _device_us(call, reps) + [_digest(res if isinstance(res, tuple) else (res,))]
+    cfg = PhotometricConfig(use_huber=True)
+    for width, b in ((640, 1), (320, 1), (640, 64)):
+        cam = CameraConfig().scaled(width / 320.0)
+        (rg, rd), (ng, nd), _ = render_pair(
+            cam, np.array([0.01, -0.006, 0.004, 0.003, -0.004, 0.002], np.float32), seed=0)
+        t = lambda x: torch.as_tensor(x, **f32)[None].expand(b, -1, -1).contiguous()  # noqa: E731
+        ref, now = build_pyramid(t(rg), t(rd), 4), build_pyramid(t(ng), t(nd), 4)
+        intr = Intrinsics.from_config(cam)
+        refs = photometric.extract_photo_ref(ref.gray, ref.depth, intr, cfg, cfg.max_points)
+        call = lambda refs=refs, now=now, intr=intr: photometric.solve_pyramid(  # noqa: E731
+            refs, now.gray, intr, cfg)
+        R, tt, _ = call()
+        out[f"level_photo_{width}_B{b}"] = _device_us(call, reps) + [_digest((R, tt))]
+    obj = torch.as_tensor(pnp.chessboard_object_points(6, 9, 0.05), **f32) + torch.tensor(
+        [0.0, 0.0, 1.5], **f32)
+    imn = obj[:, :2] / obj[:, 2:3] + 0.01
+    valid = torch.ones(obj.shape[0], dtype=torch.bool, device=device)
+    call = lambda: pnp.gn_pnp(obj, imn, valid, iterations=5)  # noqa: E731
+    out["pnp_gn_chessboard"] = _device_us(call, reps) + [_digest(call())]
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -920,6 +980,9 @@ def main(argv=None) -> int:
             continue
         if name == "map":
             profile_map(device)
+            continue
+        if name == "secondary":
+            profile_secondary(device)
             continue
         cfg = configs["stream" if name == "pipelined" else name]
         # VGA one sample a pixel: three take ~3 s a frame on the host

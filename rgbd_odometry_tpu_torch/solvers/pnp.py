@@ -6,14 +6,16 @@ right-multiplied exponential update) and the `cv::solvePnPRansac` stage of
 `PnPOdometry::pnpEstimation` (src/PnPOdometry.cpp:537-592) with every
 hypothesis solved at once. On CUDA tensors both RANSAC phases (the
 hypotheses and the winner's refine) are one launch each of the hand-written
-kernel in `kernels/pnp_gn.py`. The random subsets come from an (S, K)
-tensor of uniforms in [0, 1) given by the caller.
-
-Not ported yet: the chessboard front-end (ROADMAP.md Queue 1, items 8/9).
+kernel in `kernels/pnp_gn.py`, and `gn_pnp` is one launch of its batched
+Gauss-Newton kernel. The random subsets come from an (S, K) tensor of
+uniforms in [0, 1) given by the caller. The chessboard front end
+(`chessboard_object_points`, `find_chessboard`) is the reference's input
+path (src/SolvePnP.cpp:97-140).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.kernels import pnp_gn as _kernel
@@ -30,23 +32,27 @@ def normalized_residuals(obj_pts, im_pts_norm, R, t, valid):
 
 def gn_pnp_step(obj_pts, im_pts_norm, R, t, valid):
     """One Gauss-Newton iteration of `SolvePnP::PnP` (:156-194) for one pose:
-    (R, t) updated, and the pre-update residual norm."""
-    rn = torch.linalg.vector_norm(normalized_residuals(obj_pts, im_pts_norm, R, t, valid))
-    R2, t2 = _kernel.gn_step_plain(obj_pts, im_pts_norm, R[None], t[None], valid[None])
-    return R2[0], t2[0], rn
+    (R, t) updated, and the pre-update residual norm (`gn_pnp` of one
+    iteration)."""
+    R2, t2, rn = gn_pnp(obj_pts, im_pts_norm, valid, R, t, iterations=1)
+    return R2, t2, rn[0]
 
 
 def gn_pnp(obj_pts, im_pts_norm, valid, R0=None, t0=None, iterations: int = 5):
-    """Fixed-iteration GN PnP (5 iterations as the reference, :156): (R, t,
-    residual norm before each iteration (iterations,))."""
+    """Fixed-iteration GN PnP (5 iterations as the reference, :156) on the
+    points of valid (K,) bool: (R, t, residual norm before each iteration
+    (iterations,)). One launch of the `pnp_gn` kernel on CUDA tensors (B =
+    1), its plain version on CPU tensors."""
     dev = obj_pts.device
-    R = torch.eye(3, dtype=torch.float32, device=dev) if R0 is None else R0
-    t = torch.zeros(3, dtype=torch.float32, device=dev) if t0 is None else t0
-    norms = []
-    for _ in range(iterations):
-        R, t, rn = gn_pnp_step(obj_pts, im_pts_norm, R, t, valid)
-        norms.append(rn)
-    return R, t, torch.stack(norms)
+    f32 = dict(dtype=torch.float32, device=dev)
+    R = torch.eye(3, **f32) if R0 is None else R0.to(**f32)
+    t = torch.zeros(3, **f32) if t0 is None else t0.to(**f32)
+    rn = torch.empty((1, iterations), **f32)
+    mask = valid.to(device=dev, dtype=torch.bool).contiguous()
+    R, t, _, _ = _kernel.pnp_gn(obj_pts.contiguous(), im_pts_norm.contiguous(), mask[None],
+                                R[None].contiguous(), t[None].contiguous(), iterations, 0.0, mask,
+                                rnorm_out=rn)
+    return R[0], t[0], rn[0]
 
 
 def normalize_image_points(im_pts: torch.Tensor, intr) -> torch.Tensor:
@@ -75,3 +81,31 @@ def ransac_pnp(
     PnPOdometry.cpp:571)."""
     return _kernel.ransac_pnp(u, obj_pts, im_pts_norm, valid, sample_size, inlier_thresh,
                               hypothesis_iters, refine_iters, R0, t0)
+
+
+# ----------------------------------------------------------------------
+# Chessboard front end (SolvePnP's input path)
+# ----------------------------------------------------------------------
+
+
+def chessboard_object_points(rows: int = 6, cols: int = 9, square: float = 1.0) -> np.ndarray:
+    """The planar chessboard model of the reference's 9x6 board
+    (`getChessBoardPts`, SolvePnP.cpp:97-140): (rows cols, 3) float32 corners
+    on the z = 0 plane, row-major."""
+    ys, xs = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    return np.stack([xs.reshape(-1) * square, ys.reshape(-1) * square, np.zeros(rows * cols)],
+                    -1).astype(np.float32)
+
+
+def find_chessboard(gray_u8, rows: int = 6, cols: int = 9):
+    """Chessboard corners of an 8-bit image by OpenCV's
+    `findChessboardCorners` (the reference's detector, SolvePnP.cpp:108):
+    (rows cols, 2) float pixel corners, or None when the board is not
+    found. OpenCV is imported here, at the call: without it this raises
+    ImportError; nothing else of the port needs it."""
+    import cv2
+
+    found, corners = cv2.findChessboardCorners(np.asarray(gray_u8).astype("uint8"), (cols, rows))
+    if not found:
+        return None
+    return np.asarray(corners).reshape(-1, 2)

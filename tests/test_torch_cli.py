@@ -3,8 +3,10 @@ CPU: `dvo` at the JAX CLI's defaults against the JAX `EdgeDvoOdometry` and
 ground truth, `eval`, `--gt` files, a short sub-gradient run, the feeder, TUM replay
 against the JAX `TumSource`, `--cam-scale 3`, the map backend (`--loop-close` in both
 refine modes, online and information-weighted, `--map-out`, `--relocalize`, and `refine`
-against the JAX CLI's JSON), `calib` and `probe` against the JAX commands, the
-unported subcommands, and no JAX at import. `--checkpoint`/`--resume` are in
+against the JAX CLI's JSON), `calib` and `probe` against the JAX commands,
+`photometric`, `imu` and `pnp` against the JAX commands, `feature-vo` and `fused
+--imu-refine` at the JAX CLI tests' bars, the unported subcommand, and no JAX at
+import. `--checkpoint`/`--resume` are in
 tests/test_torch_checkpoint.py, `--viz-dir` in test_torch_viz.py, `--trace-dir` in
 test_torch_tracing.py, `dump` and `xml:` in test_torch_xml_dump.py."""
 
@@ -135,20 +137,143 @@ def test_tum_source_matches_jax_and_runs_through_the_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd, item", [
-    ("photometric", "item 8 'Secondary solvers'"), ("feature-vo", "item 8 'Secondary solvers'"),
-    ("pnp", "item 8 'Secondary solvers'"), ("imu", "item 8 'Secondary solvers'"),
-    ("fused", "item 8 'Secondary solvers'"), ("bench", "item 1 'H100 bench protocol'"),
+    ("bench", "item 1 'H100 bench protocol'"),
 ])
 def test_cli_unported_subcommands_exit_naming_their_roadmap_item(cmd, item):
-    """The JAX subcommands not ported yet parse the JAX parser's flags, then
-    exit naming their ROADMAP.md Queue 1 item by number and by name."""
-    flags = {"photometric": ["--huber", "--frames", "2"], "feature-vo": ["--min-matches", "5"],
-             "pnp": [], "imu": ["--steps", "3"], "fused": ["--imu-refine", "--no-imu"],
-             "bench": ["--batch", "4"]}[cmd]
+    """The JAX subcommand not ported yet parses the JAX parser's flags, then
+    exits naming its ROADMAP.md Queue 1 item by number and by name."""
+    flags = {"bench": ["--batch", "4"]}[cmd]
     with pytest.raises(SystemExit) as exc:
         main([cmd, *flags])
     assert "not ported to rgbd_odometry_tpu_torch" in str(exc.value)
     assert f"ROADMAP.md Queue 1, {item}" in str(exc.value)
+
+
+def test_cli_photometric_matches_jax(tmp_path, capsys):
+    """`photometric --huber` at the 320x240 default camera and at the JAX
+    tests' 160x120 with every level solved to completion: the trajectory
+    file within 1e-5 of JAX's (the photometric pose bar), one stderr line a
+    solved frame with |eps| within 1e-4 relative of JAX's."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    for flags in (["--frames", "4", "--huber"], ["--frames", "3", "--cam-scale", "0.5"]):
+        files = {}
+        errs = {}
+        for name, fn in (("port", main), ("jax", jax_main)):
+            files[name] = str(tmp_path / f"{name}.txt")
+            extra = ["--device", "cpu"] if name == "port" else []
+            fn(["photometric", *flags, "--out", files[name], *extra])
+            errs[name] = [float(line.split()[-1]) for line in capsys.readouterr().err.splitlines()
+                          if line.startswith("frame ")]
+        R_p, t_p, ts_p = read_trajectory(files["port"])
+        R_j, t_j, ts_j = read_trajectory(files["jax"])
+        n = int(flags[1])
+        assert t_p.shape == (n, 3) and len(errs["port"]) == n - 1
+        np.testing.assert_allclose(ts_p, ts_j, atol=1e-6)
+        np.testing.assert_allclose(t_p, t_j, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(R_p, R_j, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(errs["port"], errs["jax"], rtol=1e-4)
+
+
+def test_cli_imu_matches_jax(tmp_path, capsys):
+    """`imu` (the synthetic yaw, 400 samples, with biases) and `imu --csv`
+    (random samples): the JSON within 1e-6 of JAX's."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    rng = np.random.default_rng(0)
+    csv = str(tmp_path / "imu.csv")
+    np.savetxt(csv, np.column_stack([np.arange(50) * 0.01, rng.normal(0, 1.0, (50, 3)),
+                                     rng.normal(0, 0.3, (50, 3))]), delimiter=",")
+    for flags in (["--steps", "400", "--accel-bias", "0.05", "--gyro-bias", "0.01"],
+                  ["--csv", csv]):
+        main(["imu", *flags, "--device", "cpu"])
+        got = _last_json(capsys.readouterr().out)
+        jax_main(["imu", *flags])
+        want = _last_json(capsys.readouterr().out)
+        assert got["steps"] == want["steps"]
+        np.testing.assert_allclose(got["final_p"], want["final_p"], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got["final_q"], want["final_q"], rtol=0, atol=1e-6)
+
+
+def _jax_pnp_norms():
+    """JAX's `pnp` command's board and solve (`cmd_pnp`): the float32
+    residual norms, and those of the same problem solved in float64."""
+    import jax
+    import jax.numpy as jnp
+
+    from rgbd_odometry_tpu.core import geometry as jgeo
+    from rgbd_odometry_tpu.solvers import pnp as jpnp
+
+    obj = jnp.asarray(jpnp.chessboard_object_points(6, 9, 0.05)) + jnp.asarray([0.0, 0.0, 1.5])
+    R_gt, t_gt = jgeo.se3_exp(jnp.asarray(np.array([0.08, -0.05, 0.03, 0.05, -0.06, 0.04],
+                                                   np.float32)))
+    pb = jnp.einsum("kj,nk->nj", R_gt, obj - t_gt)
+    imn = pb[:, :2] / pb[:, 2:3]
+    valid = jnp.ones(obj.shape[0], bool)
+    r32 = np.asarray(jpnp.gn_pnp(obj, imn, valid, iterations=5)[2], np.float64)
+    with jax.enable_x64():
+        r64 = jpnp.gn_pnp(jnp.asarray(np.asarray(obj), jnp.float64),
+                          jnp.asarray(np.asarray(imn), jnp.float64), valid, iterations=5)[2]
+        assert r64.dtype == jnp.float64
+        r64 = np.asarray(r64)
+    return r32, r64
+
+
+def test_cli_pnp_matches_jax(capsys):
+    """`pnp`: the chessboard pose to t_err < 1e-4 (as JAX's), and the first
+    residual norm within 1e-6 relative of JAX's. The later ones are float32
+    noise of the planar board's normal equations (condition ~5.7e4): against
+    the same problem solved in float64, the port's largest relative
+    distance over them is no larger than JAX's own (JAX's sit up to 4.6%
+    from float64's), and they are held within 5e-2 relative of JAX's
+    (PERF.md section 6: the 1e-6 bar is not met there)."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    got = main(["pnp", "--device", "cpu"])
+    out = _last_json(capsys.readouterr().out)
+    jax_main(["pnp"])
+    want = _last_json(capsys.readouterr().out)
+    assert out["t_err"] < 1e-4 and want["t_err"] < 1e-4
+    rn = np.asarray(got["residual_norms_raw"], np.float64)
+    assert len(rn) == len(want["residual_norms"]) == 5
+    assert abs(rn[0] - want["residual_norms"][0]) <= 1e-6 * want["residual_norms"][0] + 5e-7
+    np.testing.assert_allclose(rn, want["residual_norms"], rtol=5e-2, atol=1e-6)
+    r32, r64 = _jax_pnp_norms()
+    assert [round(float(x), 6) for x in r32] == want["residual_norms"]
+    port_off = np.abs(rn[1:] - r64[1:]) / r64[1:]
+    jax_off = np.abs(r32[1:] - r64[1:]) / r64[1:]
+    assert port_off.max() <= jax_off.max(), (port_off, jax_off)
+
+
+def test_cli_feature_vo(tmp_path, capsys):
+    """JAX's `test_cli_feature_vo` on the port (4 frames, --min-matches 8:
+    a line a frame naming the good matches, 4 trajectory rows), and the
+    final position within JAX's `test_feature_vo_tracks` bar of 0.1 m."""
+    est = str(tmp_path / "fv.txt")
+    got = main(["feature-vo", "--frames", "4", "--min-matches", "8", "--out", est,
+                "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert err.count("good matches") == 4
+    _, t, _ = read_trajectory(est)
+    assert t.shape == (4, 3)
+    gt_t = got["gt"][1]
+    assert np.linalg.norm(t[-1] - gt_t[3]) < 0.1
+
+
+def test_cli_fused_imu_refine(tmp_path, capsys):
+    """JAX's `test_cli_fused` on the port (6 frames, --imu-refine): the JSON
+    counts 6 frames, ATE < 0.02 m, the refined trajectory no worse than the
+    visual one (+1e-4), a stderr line a frame and 6 trajectory rows."""
+    est = str(tmp_path / "fused.txt")
+    main(["fused", "--frames", "6", "--iterations", "10,5,3,2", "--out", est, "--imu-refine",
+          "--device", "cpu"])
+    out = capsys.readouterr()
+    summary = _last_json(out.out)
+    assert summary["frames"] == 6
+    assert summary["ate_rmse"] < 0.02
+    assert summary["ate_rmse"] <= summary["ate_rmse_unrefined"] + 1e-4
+    assert sum(line.startswith("frame ") for line in out.err.splitlines()) == 6
+    assert np.loadtxt(est, comments="#").shape[0] == 6
 
 
 def test_cli_calib_matches_jax(tmp_path, capsys):
