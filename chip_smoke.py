@@ -470,6 +470,46 @@ def large_level_inputs(device) -> dict:
 
 IMU_CASES = (("propagate", 1, 400), ("propagate", 64, 100), ("preintegrate", 64, 10),
              ("preintegrate", 64, 1))
+# every window length at every batch: one chunk or less (1, 37), the `imu`
+# command's 400, and 4000 (62 or 125 chunks and a short one)
+IMU_LENGTHS, IMU_BATCHES = (1, 37, 400, 4000), (1, 29, 64)
+
+
+def _imu_inputs(rng, mode, b: int, n: int, device):
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import imu as kimu
+
+    f32 = dict(dtype=torch.float32, device=device)
+    a = torch.as_tensor(rng.normal(0.0, 2.0, (b, n, 3)), **f32).contiguous()
+    w = torch.as_tensor(rng.normal(0.0, 0.8, (b, n, 3)), **f32).contiguous()
+    s0 = None
+    if mode == kimu.PROPAGATE:
+        q = rng.normal(size=(b, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        s0 = torch.as_tensor(np.concatenate([rng.normal(0, 0.5, (b, 3)),
+                                             rng.normal(0, 0.3, (b, 3)), q], 1), **f32).contiguous()
+    return a, w, s0
+
+
+def _imu_case(what, mode, ker, pl) -> dict:
+    """Hold one `imu_scan` result against its plain version's: states, dR,
+    dv and dp bitwise, the covariance within 1e-5 of its largest entry (its
+    sums run in another order than torch.matmul's)."""
+    from rgbd_odometry_tpu_torch.kernels import imu as kimu
+
+    if mode == kimu.PROPAGATE:
+        ker, pl = (ker,), (pl,)
+    nominal = list(zip(ker, pl))[:3] if mode == kimu.PREINTEGRATE else list(zip(ker, pl))
+    err = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max())) for x, y in nominal)
+    bitwise = all(_same_bits(x, y.contiguous()) for x, y in nominal)
+    _require(bitwise, f"{what}: states, dR, dv or dp not bitwise the plain version's "
+             f"(relative error {err:.2e})")
+    cov_err = 0.0
+    if mode == kimu.PREINTEGRATE:
+        cov_err = _rel(ker[3], pl[3])
+        _require(cov_err <= 1e-5, f"{what}: covariance error {cov_err:.2e} > 1e-5")
+    return {"max_abs_err": err, "cov_rel_err": cov_err, "bitwise": bitwise}
 
 
 def check_imu(device, rng) -> dict:
@@ -477,11 +517,14 @@ def check_imu(device, rng) -> dict:
     propagate at B = 1, T = 400 (the `imu` command's window) and B = 64, T
     = 100 from random states; preintegrate at B = 64, T = 10 and T = 1
     (`fused --imu-refine` preintegrates one-sample windows), with noise and
-    biases. States, dR, dv and dp within 1e-6 of the largest magnitude (the
-    kernel performs the plain version's operations: the bitwise equality is
-    logged), the covariance within 1e-5 of its largest entry (its sums run
-    in another order than torch.matmul's); runs bitwise. Timed beside the
-    bound: the bytes in and out over 3.35 TB/s, or the float32 operations."""
+    biases; then both modes at T = 1, 37, 400 and 4000 (the kernel's chunks
+    hold 64 and 32 samples) at B = 1, 29 and 64, the plain version run once
+    a (mode, T) over the 94 windows and each batch held to its slice.
+    States, dR, dv and dp bitwise (the kernel performs the plain version's
+    operations), the covariance within 1e-5 of its largest entry (its sums
+    run in another order than torch.matmul's); runs bitwise. Timed beside
+    the bound: the bytes in and out over 3.35 TB/s, or the float32
+    operations."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import imu as kimu
@@ -489,50 +532,60 @@ def check_imu(device, rng) -> dict:
     f32 = dict(dtype=torch.float32, device=device)
     params = torch.tensor([0.03, 0.03, 0.03, -0.01, -0.01, -0.01, 0.08 ** 2, 0.02 ** 2, 0.0,
                            9.7874, 0.0], **f32)
+
+    def bound(mode, b, n):
+        nbytes = b * n * 24 + 44 + (b * 40 + b * n * 40 if mode == kimu.PROPAGATE else b * 96 * 4)
+        return _bound(nbytes, b * n * (OPS_IMU_SAMPLE if mode == kimu.PROPAGATE
+                                       else OPS_IMU_PRE_SAMPLE))
+
     cases, errs = [], []
     for mode_name, b, n in IMU_CASES:
         mode = kimu.PROPAGATE if mode_name == "propagate" else kimu.PREINTEGRATE
-        a = torch.as_tensor(rng.normal(0.0, 2.0, (b, n, 3)), **f32).contiguous()
-        w = torch.as_tensor(rng.normal(0.0, 0.8, (b, n, 3)), **f32).contiguous()
-        s0 = None
-        if mode == kimu.PROPAGATE:
-            q = rng.normal(size=(b, 4))
-            q /= np.linalg.norm(q, axis=1, keepdims=True)
-            s0 = torch.as_tensor(np.concatenate([rng.normal(0, 0.5, (b, 3)),
-                                                 rng.normal(0, 0.3, (b, 3)), q], 1),
-                                 **f32).contiguous()
+        a, w, s0 = _imu_inputs(rng, mode, b, n, device)
         args = (mode, a, w, params, 0.01, s0)
         ker, again = kimu.imu_scan(*args), kimu.imu_scan(*args)
         pl, p_ms = _timed_once(lambda: kimu.imu_plain(*args))
         what = f"imu_scan {mode_name} B={b} T={n}"
-        if mode == kimu.PROPAGATE:
-            ker, again, pl = (ker,), (again,), (pl,)
-        _require(all(_same_bits(x, y) for x, y in zip(ker, again)), f"{what}: runs differ")
-        nominal = list(zip(ker, pl))[:3] if mode == kimu.PREINTEGRATE else list(zip(ker, pl))
-        err = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max())) for x, y in nominal)
-        bitwise = all(_same_bits(x, y) for x, y in nominal)
-        _require(err <= 1e-6, f"{what}: nominal error {err:.2e} (relative) > 1e-6")
-        cov_err = 0.0
-        if mode == kimu.PREINTEGRATE:
-            cov_err = _rel(ker[3], pl[3])
-            _require(cov_err <= 1e-5, f"{what}: covariance error {cov_err:.2e} > 1e-5")
+        pairs = zip(ker, again) if mode == kimu.PREINTEGRATE else ((ker, again),)
+        _require(all(_same_bits(x, y) for x, y in pairs), f"{what}: runs differ")
+        res = _imu_case(what, mode, ker, pl)
         k_ms = _time_ms(lambda: kimu.imu_scan(*args), 20)
-        nbytes = b * n * 24 + 44 + (b * 40 + b * n * 40 if mode == kimu.PROPAGATE else b * 96 * 4)
-        ops = b * n * (OPS_IMU_SAMPLE if mode == kimu.PROPAGATE else OPS_IMU_PRE_SAMPLE)
-        bound = _bound(nbytes, ops)
-        _log(f"{what}: nominal error {err:.2e} (bitwise {bitwise}), covariance {cov_err:.2e}; "
-             f"kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {bound['bound_ms'] * 1000:.3f} us "
-             f"({bound['bound_by']})")
-        errs.append(max(err, cov_err))
-        cases.append({"mode": mode_name, "batch": b, "samples": n, "max_abs_err": err,
-                      "cov_rel_err": cov_err, "bitwise": bitwise, "ms": k_ms, "plain_ms": p_ms,
-                      **bound})
+        bd = bound(mode, b, n)
+        _log(f"{what}: nominal bitwise, covariance {res['cov_rel_err']:.2e}; kernel {k_ms:.4f} "
+             f"ms, plain {p_ms:.2f} ms, bound {bd['bound_ms'] * 1000:.3f} us ({bd['bound_by']})")
+        errs.append(max(res["max_abs_err"], res["cov_rel_err"]))
+        cases.append({"mode": mode_name, "batch": b, "samples": n, **res, "ms": k_ms,
+                      "plain_ms": p_ms, **bd})
+    for mode_name in ("propagate", "preintegrate"):
+        mode = kimu.PROPAGATE if mode_name == "propagate" else kimu.PREINTEGRATE
+        for n in IMU_LENGTHS:
+            a, w, s0 = _imu_inputs(rng, mode, sum(IMU_BATCHES), n, device)
+            pl, p_ms = _timed_once(lambda: kimu.imu_plain(mode, a, w, params, 0.01, s0))
+            pl = pl if isinstance(pl, tuple) else (pl,)
+            at = 0
+            for b in IMU_BATCHES:
+                sl = slice(at, at + b)
+                at += b
+                args = (mode, a[sl].contiguous(), w[sl].contiguous(), params, 0.01,
+                        None if s0 is None else s0[sl].contiguous())
+                ker = kimu.imu_scan(*args)
+                want = tuple(x[sl] for x in pl)
+                what = f"imu_scan {mode_name} B={b} T={n}"
+                res = _imu_case(what, mode, ker, want if len(want) > 1 else want[0])
+                k_ms = _time_ms(lambda: kimu.imu_scan(*args), 5)
+                bd = bound(mode, b, n)
+                _log(f"{what}: nominal bitwise, covariance {res['cov_rel_err']:.2e}; kernel "
+                     f"{k_ms:.4f} ms, bound {bd['bound_ms'] * 1000:.3f} us ({bd['bound_by']}); "
+                     f"plain {p_ms:.2f} ms for the {sum(IMU_BATCHES)} windows")
+                errs.append(max(res["max_abs_err"], res["cov_rel_err"]))
+                cases.append({"mode": mode_name, "batch": b, "samples": n, **res, "ms": k_ms,
+                              "plain_ms": p_ms, **bd})
     main = cases[0]
     return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
             **{k: main[k] for k in ("bound_ms", "bound_by", "library_ms")}, "cases": cases}
 
 
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=3)
 def photo_pairs(width: int, device, pairs: int = 2):
     """`pairs` rendered frame pairs at width x 3/4 width (distinct scenes and
     twists): the reference frames' 4-level pyramids and references
@@ -557,14 +610,14 @@ def photo_pairs(width: int, device, pairs: int = 2):
     return intr, refs, now.gray
 
 
-def _photo_levels(width: int, batch: int, device):
-    """The `level_photo` levels (3, 2) of `batch` pairs (the rendered pairs
-    tiled) at width x 3/4 width."""
+def _photo_levels(width: int, batch: int, device, pairs: int = 2):
+    """The `level_photo` levels (3, 2) of `batch` pairs (`pairs` rendered
+    pairs tiled) at width x 3/4 width."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels.level_photo import PhotoLevel
 
-    intr, refs, now = photo_pairs(width, device)
+    intr, refs, now = photo_pairs(width, device, pairs)
     idx = torch.arange(batch, device=now[0].device) % now[0].shape[0]
     out = []
     for lvl in (3, 2):
@@ -593,22 +646,44 @@ def _photo_bound(levels, batch: int, iters: int, cfg) -> dict:
     return _bound(nbytes, ops)
 
 
+PHOTO_CLUSTER_WIDTHS = (320, 640, 1280)  # `photometric --cam-scale` 1, 2, 4: levels 3 and 2
+
+
 def check_level_photo(device, rng) -> dict:
     """`level_photo` (levels 3 and 2, 3 iterations each, the reference's
     schedule) against `level_photo_plain` on the card: at 320x240 and
     640x480 (K = 1024 and 2048), B = 1 and 64 (rendered pairs tiled, each
     pair from its own random start pose), floor and bilinear sampling, Huber
-    on and off, the normal matrix cached and reweighted. Poses within 1e-5
-    and |eps| histories within 1e-4 of the largest (the kernel performs the
-    plain version's operations: the bitwise equality is logged); runs
-    bitwise. Each configuration timed beside its bound and its plain
-    version's one call; the entry's numbers are the `photometric` phase's
-    configuration (640x480, B = 1, floor, Huber, cached normal matrix)."""
+    on and off, the normal matrix cached and reweighted, on the rule's
+    route; then at B = 1 forced to every cluster size (1, 2, 4, 8 blocks a
+    pair) at 320x240, 640x480 and 1280x960, every option set again. Poses and |eps| histories bitwise (the kernel performs the
+    plain version's operations in its order, on the same ranks); runs
+    bitwise. Each rule-route configuration timed beside its bound and its
+    plain version's one call; the entry's numbers are the `photometric`
+    phase's configuration (640x480, B = 1, floor, Huber, cached normal
+    matrix)."""
     import torch
 
     from rgbd_odometry_tpu_torch.config import PhotometricConfig
     from rgbd_odometry_tpu_torch.core.geometry import se3_exp
     from rgbd_odometry_tpu_torch.kernels import level_photo as klp
+
+    options = [PhotometricConfig(bilinear=bilinear, use_huber=huber,
+                                 reweight_normal_matrix=reweight)
+               for bilinear in (False, True) for huber in (False, True)
+               for reweight in (False, True)]
+
+    def compare(what, args, cluster=None):
+        kw = {} if cluster is None else {"cluster": cluster}
+        ker, again = klp.level_photo(*args, **kw), klp.level_photo(*args, **kw)
+        pl, p_ms = _timed_once(lambda: klp.level_photo_plain(*args, cluster))
+        _require(all(_same_bits(x, y) for x, y in zip(ker, again)), f"{what}: runs differ")
+        err = max(float((ker[0] - pl[0]).abs().max()), float((ker[1] - pl[1]).abs().max()))
+        herr = _rel(ker[2], pl[2])
+        bitwise = all(_same_bits(x, y) for x, y in zip(ker, pl))
+        _require(bitwise, f"{what}: not bitwise the plain version (pose error {err:.2e}, "
+                 f"history {herr:.2e})")
+        return err, herr, p_ms
 
     cases, errs = [], []
     for width in (320, 640):
@@ -617,40 +692,43 @@ def check_level_photo(device, rng) -> dict:
             psi = torch.as_tensor(rng.normal(0, 0.004, (batch, 6)), dtype=torch.float32,
                                   device=device)
             R0, t0 = (x.contiguous() for x in se3_exp(psi))
-            for bilinear in (False, True):
-                for huber in (False, True):
-                    for reweight in (False, True):
-                        cfg = PhotometricConfig(bilinear=bilinear, use_huber=huber,
-                                                reweight_normal_matrix=reweight)
-                        args = (R0, t0, levels, cfg)
-                        ker, again = klp.level_photo(*args), klp.level_photo(*args)
-                        pl, p_ms = _timed_once(lambda: klp.level_photo_plain(*args))
-                        what = (f"level_photo {width}x{width * 3 // 4} B={batch} "
-                                f"{'bilinear' if bilinear else 'floor'} huber={huber} "
-                                f"reweight={reweight}")
-                        _require(all(_same_bits(x, y) for x, y in zip(ker, again)),
-                                 f"{what}: runs differ")
-                        err = max(float((ker[0] - pl[0]).abs().max()),
-                                  float((ker[1] - pl[1]).abs().max()))
-                        herr = _rel(ker[2], pl[2])
-                        bitwise = all(_same_bits(x, y) for x, y in zip(ker, pl))
-                        _require(err <= 1e-5 and herr <= 1e-4,
-                                 f"{what}: pose error {err:.2e}, history {herr:.2e}")
-                        k_ms = _time_ms(lambda: klp.level_photo(*args), 20)
-                        bound = _photo_bound(levels, batch, cfg.iterations_per_level, cfg)
-                        _log(f"{what}: pose err {err:.2e}, history {herr:.2e} (bitwise "
-                             f"{bitwise}); kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-                             f"{bound['bound_ms'] * 1000:.3f} us ({bound['bound_by']})")
-                        errs.append(err)
-                        cases.append({"size": f"{width}x{width * 3 // 4}", "batch": batch,
-                                      "bilinear": bilinear, "huber": huber,
-                                      "reweight": reweight, "max_abs_err": err,
-                                      "history_rel_err": herr, "bitwise": bitwise, "ms": k_ms,
-                                      "plain_ms": p_ms, **bound})
+            ranks = [klp.level_ranks(lv.pts.shape[1]) for lv in levels]
+            for cfg in options:
+                args = (R0, t0, levels, cfg)
+                what = (f"level_photo {width}x{width * 3 // 4} B={batch} "
+                        f"{'bilinear' if cfg.bilinear else 'floor'} huber={cfg.use_huber} "
+                        f"reweight={cfg.reweight_normal_matrix} ranks={ranks}")
+                err, herr, p_ms = compare(what, args)
+                k_ms = _time_ms(lambda: klp.level_photo(*args), 20)
+                bound = _photo_bound(levels, batch, cfg.iterations_per_level, cfg)
+                _log(f"{what}: bitwise; kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+                     f"{bound['bound_ms'] * 1000:.3f} us ({bound['bound_by']})")
+                errs.append(err)
+                cases.append({"size": f"{width}x{width * 3 // 4}", "batch": batch,
+                              "bilinear": cfg.bilinear, "huber": cfg.use_huber,
+                              "reweight": cfg.reweight_normal_matrix, "ranks": ranks,
+                              "max_abs_err": err, "history_rel_err": herr, "bitwise": True,
+                              "ms": k_ms, "plain_ms": p_ms, **bound})
+    forced = []
+    for width in PHOTO_CLUSTER_WIDTHS:
+        levels = _photo_levels(width, 1, device, pairs=1 if width > 640 else 2)
+        psi = torch.as_tensor(rng.normal(0, 0.004, (1, 6)), dtype=torch.float32, device=device)
+        R0, t0 = (x.contiguous() for x in se3_exp(psi))
+        for cluster in klp.CLUSTERS:
+            for cfg in options:
+                what = (f"level_photo {width}x{width * 3 // 4} B=1 cluster={cluster} "
+                        f"{'bilinear' if cfg.bilinear else 'floor'} huber={cfg.use_huber} "
+                        f"reweight={cfg.reweight_normal_matrix}")
+                err, herr, _ = compare(what, (R0, t0, levels, cfg), cluster)
+                errs.append(err)
+            forced.append(f"{width}x{width * 3 // 4} c={cluster}")
+    _log(f"level_photo B=1 at every forced cluster size, 8 option sets each, bitwise: "
+         f"{', '.join(forced)}")
     main = next(c for c in cases if c["size"] == "640x480" and c["batch"] == 1 and c["huber"]
                 and not c["bilinear"] and not c["reweight"])
     return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
-            **{k: main[k] for k in ("bound_ms", "bound_by", "library_ms")}, "cases": cases}
+            **{k: main[k] for k in ("bound_ms", "bound_by", "library_ms")}, "cases": cases,
+            "forced_clusters": forced}
 
 
 def _sampled_bytes(n_vis, hw: int, reads: int, size: int) -> float:

@@ -7,32 +7,59 @@
 // (:194-250), with the `jax.vmap` over windows around them
 // (rgbd_odometry_tpu/pipeline/fused.py:276).
 //
-// propagate_kernel: one thread a window. Each sample: R from the
-// quaternion, the bias-corrected specific force rotated into the world
-// frame plus gravity, p += v dt + acc dt^2 / 2, v += acc dt, q <- q exp(w
-// dt) normalized; the state after every sample is written out.
+// propagate: each sample, R from the quaternion, the bias-corrected specific
+// force rotated into the world frame plus gravity, p += v dt + acc dt^2 / 2,
+// v += acc dt, q <- q exp(w dt) normalized; the state after every sample is
+// written out. preintegrate: each sample, the window's (dR, dv, dp) and the
+// 9x9 covariance of its error state, cov <- A cov A^T + (B diag Q) B^T, A
+// the 9x9 error-state transition and B the 9x6 noise input of
+// kernels/imu.py `transition`.
 //
-// preintegrate_kernel: one warp a window. Every lane runs the nominal
-// chain (dR, dv, dp, and the sample's Exp(phi), right Jacobian and dR
-// hat(a)) alike; the 81 covariance entries are spread over the lanes
-// (entry e on lane e % 32), cov <- (A cov) A^T + (B diag Q) B^T through the
-// warp's shared memory, A the 9x9 error-state transition and B the 9x6
-// noise input of kernels/imu.py `transition`.
+// What bounds it on the H100: not the bytes (6 floats in a sample, 10 out
+// in propagate; B = 1, T = 400 is 0.008 us of traffic) nor the operations,
+// but the serial chain over the samples. Most of a sample's work does not
+// depend on the state: the bias corrections, the rotation vector's
+// quaternion (propagate) or Exp and the right Jacobian (preintegrate), each
+// with a correctly rounded root and division and a double sin and cos. The
+// design takes that work off the chain. A window's samples stream through
+// shared memory in chunks (kPropChunk or kPreChunk samples, the next
+// chunks' acc and gyr copied by cp.async while this one runs; any T, the
+// last chunk short):
 //
-// The nominal chain is the plain version's (kernels/imu.py) operation for
-// operation: round-to-nearest intrinsics, a fused multiply-add exactly where
-// the plain version takes one (where XLA:CPU contracts a product into a
-// sum), sin and cos in double rounded once, correctly rounded square roots
-// and divisions; so states, dR, dv and dp are bitwise the plain version's.
-// The covariance sums are fused multiply-add chains in index order, which
-// agree with torch.matmul's to float32 rounding.
+//   propagate     a window on four warps, three chunks in flight: warp 0
+//                 runs chunk i's carried chain q <- normalize(q dq) on
+//                 lanes 0..3 (a product, a sum of squares and a root alike,
+//                 then each lane divides one component and the four are
+//                 exchanged by shuffles: one division on the chain, not
+//                 four), while warps 1..3 take chunk i + 1's state-free half
+//                 (a, w dt, dq = quat_from_rotvec(w dt), a sample a thread)
+//                 and finish chunk i - 1 (R(q) a + g a sample a thread, the
+//                 p and v chains on three threads, the chunk's states copied
+//                 out coalesced); one 128-thread barrier a chunk. A window
+//                 of kSerialSteps samples or fewer (`fused`'s prior) runs on
+//                 one thread, without the hand-offs.
+//   preintegrate  a window on one warp: a sample a lane (16 or fewer: Exp
+//                 on lane k, Jr on lane 16 + k), a, phi, Exp(phi) and
+//                 Jr(phi) dt; lane 0 runs dR <- dR E; a sample a lane again,
+//                 dR a and A's blocks -dR hat(a) dt and -0.5 dR hat(a) dt^2;
+//                 B, B diag Q and N = (B diag Q) B^T spread over the lanes;
+//                 then lanes 0..8 carry the covariance, lane r row r of cov
+//                 <- (A cov) A^T + N from the whole previous cov in shared
+//                 memory, one warp barrier a sample, each entry the in-order
+//                 chain of multiply-adds torch.matmul forms in the plain
+//                 version over the dense terms, the zero ones left out (a
+//                 window's first sample is N itself); lanes 0..2 carry dv
+//                 and dp beside it. A window of one sample (`fused
+//                 --imu-refine`) skips the chunks: cov is N itself.
 //
-// What bounds it on the H100: not the bytes (6 floats in and 10 out a
-// sample; 5 us for B = 64, T = 400 at 3.35 TB/s is 0.03 us of traffic) but
-// the serial chain of T samples, each ~100 dependent float32 operations, a
-// correctly rounded square root and division, and a double sin and cos.
-// Windows run in parallel, so the time is T samples' latency for any B up
-// to the card's threads.
+// The nominal chain (states, dR, dv, dp) is the plain version's
+// (kernels/imu.py) operation for operation: round-to-nearest intrinsics, a
+// fused multiply-add exactly where the plain version takes one (where
+// XLA:CPU contracts a product into a sum), sin and cos in double rounded
+// once, correctly rounded square roots and divisions; so it is bitwise the
+// plain version's. So is the covariance wherever torch.matmul sums in order
+// (batched small products on an H100 do, a batch of one does not); it
+// agrees to float32 rounding in any case.
 
 #include <cstdint>
 
@@ -49,8 +76,12 @@ using rgbd::fsub;
 
 constexpr int kState = 10;
 constexpr int kParams = 11;  // accel bias (3), gyro bias (3), accel var, gyro var, gravity (3)
-constexpr int kPropThreads = 64;
-constexpr int kWarps = 4;  // windows a block in preintegrate
+constexpr int kPropChunk = 64;  // propagate: samples a chunk, two a lane
+constexpr int kPreChunk = 32;   // preintegrate: one a lane
+// a per-sample array's row stride in shared memory: one float past the
+// chunk, so that lanes reading different rows at one sample hit different
+// banks
+constexpr int kPropStride = kPropChunk + 1, kPreStride = kPreChunk + 1;
 
 __device__ __forceinline__ float ffma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
@@ -122,58 +153,6 @@ __device__ __forceinline__ void quat_mul(const float a[4], const float b[4], flo
   o[3] = ffma(-az, bz, ffma(-ay, by, ffma(aw, bw, -fmul(ax, bx))));
 }
 
-__global__ void __launch_bounds__(kPropThreads)
-propagate_kernel(int batch, int steps, const float* __restrict__ acc,
-                 const float* __restrict__ gyr, const float* __restrict__ params,
-                 const float* __restrict__ state0, float dt, float* __restrict__ traj) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  float prm[kParams];
-#pragma unroll
-  for (int i = 0; i < kParams; ++i) prm[i] = params[i];
-  float p[3], v[3], q[4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    p[i] = state0[(size_t)b * kState + i];
-    v[i] = state0[(size_t)b * kState + 3 + i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = state0[(size_t)b * kState + 6 + i];
-  const float* A = acc + (size_t)b * steps * 3;
-  const float* G = gyr + (size_t)b * steps * 3;
-  float* out = traj + (size_t)b * steps * kState;
-  for (int k = 0; k < steps; ++k) {
-    float R[9], a[3], w[3], ra[3];
-    rot_of_quat(q, R);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      a[i] = fsub(A[k * 3 + i], prm[i]);
-      w[i] = fmul(fsub(G[k * 3 + i], prm[3 + i]), dt);
-    }
-    mv3(R, a, ra);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float ac = fadd(ra[i], prm[8 + i]);
-      p[i] = ffma(fmul(fmul(0.5f, ac), dt), dt, ffma(v[i], dt, p[i]));
-      v[i] = ffma(ac, dt, v[i]);
-    }
-    float dq[4], qm[4];
-    quat_from_rotvec(w, dq);
-    quat_mul(q, dq, qm);
-    const float n = __fsqrt_rn(sq4(qm));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = fdiv(qm[i], n);
-    float* o = out + (size_t)k * kState;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      o[i] = p[i];
-      o[3 + i] = v[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[6 + i] = q[i];
-  }
-}
-
 // Exp(w) (core/geometry.so3_exp): I + a W + b W^2, Taylor below theta^2 = 1e-8.
 __device__ __forceinline__ void so3_exp(const float w[3], float E[9]) {
   const float theta2 = sq3(w);
@@ -210,130 +189,532 @@ __device__ __forceinline__ void right_jacobian(const float phi[3], float J[9]) {
     J[i] = fadd(fsub((i % 4 == 0) ? 1.0f : 0.0f, fmul(c1, K[i])), fmul(c2, KK[i]));
 }
 
-struct WarpScratch {
-  float A[81];
-  float B[54];
-  float cov[81];
-  float M[81];
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy samples k0 .. k0 + n - 1 of a window's acc and gyr (3 floats a
+// sample) into A and G, thread t of `threads`, one cp.async group.
+__device__ __forceinline__ void load_chunk(const float* acc, const float* gyr, int k0, int n,
+                                           float* A, float* G, int t, int threads = 32) {
+  for (int e = t; e < 3 * n; e += threads) {
+    cp_async4(A + e, acc + 3 * (size_t)k0 + e);
+    cp_async4(G + e, gyr + 3 * (size_t)k0 + e);
+  }
+  cp_async_commit();
+}
+
+// A named barrier of `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+constexpr int kPropThreads = 128;  // warp 0 the chain, warps 1..3 the rest
+constexpr int kSerialSteps = 2;    // windows this short run on one thread
+constexpr int kWorkers = kPropThreads - 32;
+
+struct PropShared {
+  float raw[2][2][3 * kPropChunk];   // [chunk parity][acc, gyr][sample, axis]
+  float a[3][3][kPropStride];        // [chunk mod 3] acc - b_a
+  float dq[2][4][kPropStride];       // [chunk parity] the sample's rotation increment
+  float qs[2][kPropChunk * 4];       // [chunk parity] q after each sample
+  float qin[2][4];                   // [chunk parity] q entering the chunk
+  float ac[3][kPropStride];          // R a + g
+  float out[kPropChunk * kState];    // a chunk's states, as traj lays them out
 };
 
-__global__ void __launch_bounds__(kWarps * 32)
-preintegrate_kernel(int batch, int steps, const float* __restrict__ acc,
-                    const float* __restrict__ gyr, const float* __restrict__ params, float dt,
-                    float* __restrict__ dR_out, float* __restrict__ dv_out,
-                    float* __restrict__ dp_out, float* __restrict__ cov_out) {
-  __shared__ WarpScratch scratch[kWarps];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= batch) return;  // a whole warp leaves together
-  WarpScratch& S = scratch[warp];
+// Propagation of one window on four warps, chunk i of its samples in
+// flight three ways at once: warp 0 (lanes 0..3) runs the carried chain of
+// chunk i while warps 1..3 take the state-free half of chunk i + 1 and
+// finish chunk i - 1 (R(q) a + g, the p and v chains on three threads, the
+// coalesced copy out); one 128-thread barrier hands the chunks on.
+__global__ void __launch_bounds__(kPropThreads)
+propagate_kernel(int steps, const float* __restrict__ acc, const float* __restrict__ gyr,
+                 const float* __restrict__ params, const float* __restrict__ state0, float dt,
+                 float* __restrict__ traj) {
+  __shared__ __align__(16) PropShared S;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool chain = tid < 32;
+  const int wt = tid - 32;  // a worker's index
   float prm[kParams];
 #pragma unroll
   for (int i = 0; i < kParams; ++i) prm[i] = params[i];
-  float Q[6];
-#pragma unroll
-  for (int n = 0; n < 6; ++n) Q[n] = n < 3 ? prm[7] : prm[6];
-  for (int e = lane; e < 81; e += 32) S.cov[e] = 0.0f;
-  float dR[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  float dv[3] = {0.0f, 0.0f, 0.0f}, dp[3] = {0.0f, 0.0f, 0.0f};
   const float* Aw = acc + (size_t)b * steps * 3;
   const float* Gw = gyr + (size_t)b * steps * 3;
-  for (int k = 0; k < steps; ++k) {
+  float* out = traj + (size_t)b * steps * kState;
+  if (steps <= kSerialSteps) {  // a window of a sample or two: one thread, no hand-offs
+    if (tid != 0) return;
+    float q[4], p[3], v[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p[i] = state0[(size_t)b * kState + i];
+      v[i] = state0[(size_t)b * kState + 3 + i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = state0[(size_t)b * kState + 6 + i];
+    for (int k = 0; k < steps; ++k) {
+      float R[9], a[3], w[3], ra[3], d[4], qm[4];
+      rot_of_quat(q, R);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        a[i] = fsub(Aw[3 * k + i], prm[i]);
+        w[i] = fmul(fsub(Gw[3 * k + i], prm[3 + i]), dt);
+      }
+      mv3(R, a, ra);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float ac = fadd(ra[i], prm[8 + i]);
+        p[i] = ffma(fmul(fmul(0.5f, ac), dt), dt, ffma(v[i], dt, p[i]));
+        v[i] = ffma(ac, dt, v[i]);
+      }
+      quat_from_rotvec(w, d);
+      quat_mul(q, d, qm);
+      const float nrm = __fsqrt_rn(sq4(qm));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = fdiv(qm[i], nrm);
+      float* o = out + (size_t)k * kState;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        o[i] = p[i];
+        o[3 + i] = v[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[6 + i] = q[i];
+    }
+    return;
+  }
+  const int chunks = (steps + kPropChunk - 1) / kPropChunk;
+  // lanes 0..3 of warp 0: q (the same on each); workers 0..2: p and v of axis wt
+  float q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = state0[(size_t)b * kState + 6 + i];
+  const int ax = wt >= 0 && wt < 3 ? wt : 0;
+  float p = state0[(size_t)b * kState + ax];
+  float v = state0[(size_t)b * kState + 3 + ax];
+
+  // the state-free half of chunk c's samples, from raw[c & 1]: a and dq
+  auto free_half = [&](int c) {
+    const int n = min(kPropChunk, steps - c * kPropChunk);
+    const float* A = S.raw[c & 1][0];
+    const float* G = S.raw[c & 1][1];
+    for (int k = wt; k < n; k += kWorkers) {
+      float w[3], d[4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        S.a[c % 3][i][k] = fsub(A[3 * k + i], prm[i]);
+        w[i] = fmul(fsub(G[3 * k + i], prm[3 + i]), dt);
+      }
+      quat_from_rotvec(w, d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) S.dq[c & 1][i][k] = d[i];
+    }
+  };
+
+  if (!chain) {
+    load_chunk(Aw, Gw, 0, min(kPropChunk, steps), S.raw[0][0], S.raw[0][1], wt, kWorkers);
+    cp_async_wait_all();
+    named_sync(2, kWorkers);
+    if (chunks > 1)
+      load_chunk(Aw, Gw, kPropChunk, min(kPropChunk, steps - kPropChunk), S.raw[1][0],
+                 S.raw[1][1], wt, kWorkers);
+    free_half(0);
+  }
+  named_sync(1, kPropThreads);
+  for (int i = 0; i <= chunks; ++i) {
+    if (chain) {
+      if (i < chunks && lane < 4) {
+        // the carried chain q <- normalize(q dq): each of lanes 0..3 forms
+        // the product, its sum of squares and root alike, divides its own
+        // component and takes the other three by shuffles (one division on
+        // the chain, not four)
+        const int n = min(kPropChunk, steps - i * kPropChunk);
+        const float(*dq)[kPropStride] = S.dq[i & 1];
+        float* qs = S.qs[i & 1];
+        S.qin[i & 1][lane] = q[lane == 0 ? 0 : lane == 1 ? 1 : lane == 2 ? 2 : 3];
+        float d[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[j] = dq[j][0];
+        for (int k = 0; k < n; ++k) {
+          const int kn = k + 1 < n ? k + 1 : k;  // the next sample's increment, read ahead
+          float dn[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dn[j] = dq[j][kn];
+          float qm[4];
+          quat_mul(q, d, qm);
+          const float nrm = __fsqrt_rn(sq4(qm));
+          const float own = lane == 0 ? qm[0] : lane == 1 ? qm[1] : lane == 2 ? qm[2] : qm[3];
+          const float mine = fdiv(own, nrm);
+          qs[4 * k + lane] = mine;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            q[j] = __shfl_sync(0xfu, mine, j);
+            d[j] = dn[j];
+          }
+        }
+      }
+    } else {
+      if (i + 1 < chunks) {  // chunk i + 1's state-free half, chunk i + 2's samples in flight
+        cp_async_wait_all();
+        named_sync(2, kWorkers);
+        if (i + 2 < chunks)
+          load_chunk(Aw, Gw, (i + 2) * kPropChunk, min(kPropChunk, steps - (i + 2) * kPropChunk),
+                     S.raw[i & 1][0], S.raw[i & 1][1], wt, kWorkers);
+        free_half(i + 1);
+      }
+      if (i >= 1) {  // finish chunk i - 1
+        const int c = i - 1, k0 = c * kPropChunk, n = min(kPropChunk, steps - k0);
+        const float* qs = S.qs[c & 1];
+        for (int k = wt; k < n; k += kWorkers) {
+          const float* qk = k == 0 ? S.qin[c & 1] : qs + 4 * (k - 1);
+          const float qq[4] = {qk[0], qk[1], qk[2], qk[3]};
+          float R[9], a[3], ra[3];
+          rot_of_quat(qq, R);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) a[j] = S.a[c % 3][j][k];
+          mv3(R, a, ra);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            S.ac[j][k] = fadd(ra[j], prm[8 + j]);
+            S.out[k * kState + 6 + j] = qs[4 * k + j];
+          }
+          S.out[k * kState + 9] = qs[4 * k + 3];
+        }
+        named_sync(2, kWorkers);
+        if (wt < 3) {  // the p and v chains, an axis a thread
+#pragma unroll 4
+          for (int k = 0; k < n; ++k) {
+            const float a = S.ac[wt][k];
+            p = ffma(fmul(fmul(0.5f, a), dt), dt, ffma(v, dt, p));
+            v = ffma(a, dt, v);
+            S.out[k * kState + wt] = p;
+            S.out[k * kState + 3 + wt] = v;
+          }
+        }
+        named_sync(2, kWorkers);
+        float* o = out + (size_t)k0 * kState;
+        for (int e = wt; e < n * kState; e += kWorkers) o[e] = S.out[e];
+      }
+    }
+    named_sync(1, kPropThreads);
+  }
+}
+
+struct PreShared {
+  float raw[2][2][3 * kPreChunk];  // [buffer][acc, gyr][sample, axis]
+  float a[3][kPreStride];          // acc - b_a
+  float E[9][kPreStride];          // Exp(phi)
+  float Jdt[9][kPreStride];        // Jr(phi) dt
+  float dR[9][kPreStride];         // dR before the sample
+  float X[9][kPreStride];          // A's dR hat(a) blocks: -dR hat(a) dt
+  float Y[9][kPreStride];          //   and -0.5 dR hat(a) dt^2
+  float B[54][kPreStride];         // the noise input B (9x6), and B diag Q
+  float BQ[54][kPreStride];
+  float N[81][kPreStride];         // (B diag Q) B^T
+  float ra[3][kPreStride];         // dR a
+  float cov[2][81];                // row-major, two buffers
+  float dRout[9];
+};
+
+__global__ void __launch_bounds__(32)
+preintegrate_kernel(int steps, const float* __restrict__ acc, const float* __restrict__ gyr,
+                    const float* __restrict__ params, float dt, float* __restrict__ dR_out,
+                    float* __restrict__ dv_out, float* __restrict__ dp_out,
+                    float* __restrict__ cov_out) {
+  __shared__ __align__(16) PreShared S;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  float prm[kParams];
+#pragma unroll
+  for (int i = 0; i < kParams; ++i) prm[i] = params[i];
+  const float qg = prm[7], qa = prm[6];  // Q: gyro variance (3), then accel variance (3)
+  const float* Aw = acc + (size_t)b * steps * 3;
+  const float* Gw = gyr + (size_t)b * steps * 3;
+  if (steps == 1) {  // a window of one sample (`fused --imu-refine`): no chunk, no chain
+    // Exp(phi) on lanes 0..15, Jr(phi) dt on lanes 16..31 (their double
+    // sincos side by side), into shared memory
     float a[3], phi[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      a[i] = fsub(Aw[k * 3 + i], prm[i]);
-      phi[i] = fmul(fsub(Gw[k * 3 + i], prm[3 + i]), dt);
+      a[i] = fsub(Aw[i], prm[i]);
+      phi[i] = fmul(fsub(Gw[i], prm[3 + i]), dt);
     }
-    float E[9], Jr[9], ha[9], hRa[9];
-    so3_exp(phi, E);
-    right_jacobian(phi, Jr);
-    hat(a, ha);
-    mm3(dR, ha, hRa);
-    // A and B of this sample into the warp's shared memory, entry e by lane
-    // e % 32 (constant indices into the registers above)
+    float M[9];
+    if (lane < 16) so3_exp(phi, M);
+    else right_jacobian(phi, M);
+    if (lane == 0 || lane == 16) {
 #pragma unroll
-    for (int r = 0; r < 9; ++r) {
-#pragma unroll
-      for (int c = 0; c < 9; ++c) {
-        if ((r * 9 + c) % 32 != lane) continue;
-        const int br = r / 3, bc = c / 3, i = r % 3, j = c % 3;
-        float x = 0.0f;
-        if (br == 0 && bc == 0) x = E[j * 3 + i];
-        if (br == 1 && bc == 0) x = fmul(-hRa[i * 3 + j], dt);
-        if (br == 1 && bc == 1) x = i == j ? 1.0f : 0.0f;
-        if (br == 2 && bc == 0) x = fmul(fmul(fmul(-0.5f, hRa[i * 3 + j]), dt), dt);
-        if (br == 2 && bc == 1) x = i == j ? dt : 0.0f;
-        if (br == 2 && bc == 2) x = i == j ? 1.0f : 0.0f;
-        S.A[r * 9 + c] = x;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 9; ++r) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        if ((r * 6 + c) % 32 != lane) continue;
-        const int br = r / 3, bc = c / 3, i = r % 3, j = c % 3;
-        float x = 0.0f;
-        if (br == 0 && bc == 0) x = fmul(Jr[i * 3 + j], dt);
-        if (br == 1 && bc == 1) x = fmul(dR[i * 3 + j], dt);
-        if (br == 2 && bc == 1) x = fmul(fmul(fmul(0.5f, dR[i * 3 + j]), dt), dt);
-        S.B[r * 6 + c] = x;
+      for (int i = 0; i < 9; ++i) {
+        if (lane == 0) S.E[i][0] = M[i];
+        else S.Jdt[i][0] = fmul(M[i], dt);
       }
     }
     __syncwarp();
-    for (int e = lane; e < 81; e += 32) {  // M = A cov
-      const int r = e / 9, c = e % 9;
-      float s = 0.0f;
-      for (int m = 0; m < 9; ++m) s = ffma(S.A[r * 9 + m], S.cov[m * 9 + c], s);
-      S.M[e] = s;
-    }
-    __syncwarp();
-    float next[3];
+    // dR = I E and dR a with dR before the sample the identity, dv and dp
+    // from zero, and cov = A 0 A^T + N = N (each entry of A 0 A^T is a
+    // zero, and a zero plus N is N): N's entries over the lanes, B (9x6)
+    // with the identity's rows
+    const float I3[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    float E[9], Jd[9], dR[9], ra[3];
 #pragma unroll
-    for (int u = 0; u < 3; ++u) {  // cov = M A^T + (B diag Q) B^T
+    for (int i = 0; i < 9; ++i) {
+      E[i] = S.E[i][0];
+      Jd[i] = S.Jdt[i][0];
+    }
+    mm3(I3, E, dR);
+    mv3(I3, a, ra);
+    float B[54];
+#pragma unroll
+    for (int r = 0; r < 9; ++r)
+#pragma unroll
+      for (int m = 0; m < 6; ++m) {
+        const int i = r % 3, j = m % 3;
+        float v = 0.0f;
+        if (r < 3 && m < 3) v = Jd[3 * i + j];
+        if (r >= 3 && r < 6 && m >= 3) v = fmul(I3[3 * i + j], dt);
+        if (r >= 6 && m >= 3) v = fmul(fmul(fmul(0.5f, I3[3 * i + j]), dt), dt);
+        B[r * 6 + m] = v;
+      }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
       const int e = lane + 32 * u;
-      if (e >= 81) break;
-      const int r = e / 9, c = e % 9;
-      float s = 0.0f;
-      for (int m = 0; m < 9; ++m) s = ffma(S.M[r * 9 + m], S.A[c * 9 + m], s);
-      float n = 0.0f;
+      if (e < 81) {
+        const int r = e / 9, c = e - 9 * r;
+        float v = 0.0f;
 #pragma unroll
-      for (int m = 0; m < 6; ++m) n = ffma(fmul(S.B[r * 6 + m], Q[m]), S.B[c * 6 + m], n);
-      next[u] = fadd(s, n);
-    }
-    __syncwarp();
+        for (int m = 0; m < 6; ++m) {
+          float br = 0.0f, bc = 0.0f;
 #pragma unroll
-    for (int u = 0; u < 3; ++u)
-      if (lane + 32 * u < 81) S.cov[lane + 32 * u] = next[u];
-    __syncwarp();
-    // the nominal update (pre-update dR and dv on the right)
-    float ra[3];
-    mv3(dR, a, ra);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      dp[i] = ffma(fmul(fmul(0.5f, ra[i]), dt), dt, ffma(dv[i], dt, dp[i]));
-      dv[i] = ffma(ra[i], dt, dv[i]);
-    }
-    float nR[9];
-    mm3(dR, E, nR);
-#pragma unroll
-    for (int i = 0; i < 9; ++i) dR[i] = nR[i];
-  }
-  for (int e = lane; e < 81; e += 32) cov_out[(size_t)b * 81 + e] = S.cov[e];
-  if (lane < 9) {
-#pragma unroll
-    for (int i = 0; i < 9; ++i)
-      if (i == lane) dR_out[(size_t)b * 9 + i] = dR[i];
-  }
-  if (lane < 3) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      if (i == lane) {
-        dv_out[(size_t)b * 3 + i] = dv[i];
-        dp_out[(size_t)b * 3 + i] = dp[i];
+          for (int rr = 0; rr < 9; ++rr) {
+            br = rr == r ? B[rr * 6 + m] : br;
+            bc = rr == c ? B[rr * 6 + m] : bc;
+          }
+          v = ffma(fmul(br, m < 3 ? qg : qa), bc, v);
+        }
+        cov_out[(size_t)b * 81 + e] = v;
       }
+    }
+    if (lane < 9) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i)
+        if (i == lane) dR_out[(size_t)b * 9 + i] = dR[i];
+    }
+    if (lane < 3) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (i == lane) {
+          dp_out[(size_t)b * 3 + i] = ffma(fmul(fmul(0.5f, ra[i]), dt), dt, ffma(0.0f, dt, 0.0f));
+          dv_out[(size_t)b * 3 + i] = ffma(ra[i], dt, 0.0f);
+        }
+    }
+    return;
+  }
+  // lane 0: dR; lanes 0..2: dv and dp of axis `lane`
+  float dR[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  float dv = 0.0f, dp = 0.0f;
+  for (int e = lane; e < 81; e += 32) S.cov[0][e] = 0.0f;
+  int cb = 0;  // the buffer holding cov
+  load_chunk(Aw, Gw, 0, min(kPreChunk, steps), S.raw[0][0], S.raw[0][1], lane);
+  for (int k0 = 0, c = 0; k0 < steps; k0 += kPreChunk, c ^= 1) {
+    const int n = min(kPreChunk, steps - k0);
+    const float* A = S.raw[c][0];
+    const float* G = S.raw[c][1];
+    cp_async_wait_all();
+    __syncwarp();
+    if (k0 + kPreChunk < steps)
+      load_chunk(Aw, Gw, k0 + kPreChunk, min(kPreChunk, steps - k0 - kPreChunk),
+                 S.raw[c ^ 1][0], S.raw[c ^ 1][1], lane);
+    // the state-free half of the sample: a, phi, Exp(phi), Jr(phi) dt, a
+    // lane a sample, or with 16 samples or fewer Exp on lane k and Jr on
+    // lane 16 + k, each with its double sincos
+    {
+      const int k = n <= 16 ? (lane & 15) : lane;
+      const bool exp_here = n > 16 || lane < 16, jr_here = n > 16 || lane >= 16;
+      if (k < n) {
+        float a[3], phi[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          a[i] = fsub(A[3 * k + i], prm[i]);
+          phi[i] = fmul(fsub(G[3 * k + i], prm[3 + i]), dt);
+        }
+        if (exp_here) {
+          float E[9];
+          so3_exp(phi, E);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) S.a[i][k] = a[i];
+#pragma unroll
+          for (int i = 0; i < 9; ++i) S.E[i][k] = E[i];
+        }
+        if (jr_here) {
+          float Jr[9];
+          right_jacobian(phi, Jr);
+#pragma unroll
+          for (int i = 0; i < 9; ++i) S.Jdt[i][k] = fmul(Jr[i], dt);
+        }
+      }
+    }
+    __syncwarp();
+    // the carried rotation: dR before each sample, then dR <- dR E
+    if (lane == 0) {
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        float E[9], nR[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          E[i] = S.E[i][k];
+          S.dR[i][k] = dR[i];
+        }
+        mm3(dR, E, nR);
+#pragma unroll
+        for (int i = 0; i < 9; ++i) dR[i] = nR[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 9; ++i) S.dRout[i] = dR[i];
+    }
+    __syncwarp();
+    // what the sample's dR gives: dR a, A's blocks -dR hat(a) dt and
+    // -0.5 dR hat(a) dt^2, and N = (B diag Q) B^T
+    if (lane < n) {
+      const int k = lane;
+      float R[9], a[3], ha[9], hRa[9], ra[3];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) R[i] = S.dR[i][k];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) a[i] = S.a[i][k];
+      mv3(R, a, ra);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) S.ra[i][k] = ra[i];
+      hat(a, ha);
+      mm3(R, ha, hRa);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        S.X[i][k] = fmul(-hRa[i], dt);
+        S.Y[i][k] = fmul(fmul(fmul(-0.5f, hRa[i]), dt), dt);
+      }
+    }
+    __syncwarp();
+    // B (9x6): rows 0..2 Jr dt on the gyro noise; rows 3..5 dR dt and rows
+    // 6..8 0.5 dR dt^2 on the accel noise, zeros included; and B diag Q:
+    // the chunk's 54 n entries spread over the lanes
+    for (int x = lane; x < 54 * n; x += 32) {
+      const int k = x / 54, e = x - 54 * k, r = e / 6, m = e - 6 * r;
+      const int i = r % 3, j = m % 3;
+      float v = 0.0f;
+      if (r < 3 && m < 3) v = S.Jdt[3 * i + j][k];
+      if (r >= 3 && r < 6 && m >= 3) v = fmul(S.dR[3 * i + j][k], dt);
+      if (r >= 6 && m >= 3) v = fmul(fmul(fmul(0.5f, S.dR[3 * i + j][k]), dt), dt);
+      S.B[e][k] = v;
+      S.BQ[e][k] = fmul(v, m < 3 ? qg : qa);
+    }
+    __syncwarp();
+    // N = (B diag Q) B^T as torch.matmul forms it, each entry an in-order
+    // chain of multiply-adds over the 6 dense terms: the chunk's 81 n
+    // entries spread over the lanes
+    for (int x = lane; x < 81 * n; x += 32) {
+      const int k = x / 81, e = x - 81 * k, r = e / 9, c = e - 9 * r;
+      float v = 0.0f;
+#pragma unroll
+      for (int m = 0; m < 6; ++m) v = ffma(S.BQ[r * 6 + m][k], S.B[c * 6 + m][k], v);
+      S.N[e][k] = v;
+    }
+    __syncwarp();
+    // the carried covariance on lanes 0..8, lane r row r: cov <- (A cov)
+    // A^T + N as torch.matmul forms it, each entry the in-order chain of
+    // multiply-adds over the dense terms of which the zero ones are left
+    // out (a zero term adds nothing: the sums here are never -0 and the
+    // terms finite) and a unit coefficient's is an addition; the whole
+    // previous cov read from shared memory, one warp barrier a sample.
+    // Lanes 0..2 carry dv and dp beside it.
+    if (lane < 9) {
+      const int r = lane;
+      // the first sample of a window: cov is 0, so A 0 A^T + N is N (each
+      // entry of A 0 A^T is a zero, and a zero plus N is N)
+      const int k1 = k0 == 0 ? 1 : 0;
+      if (k0 == 0) {
+#pragma unroll
+        for (int c = 0; c < 9; ++c) S.cov[cb ^ 1][9 * r + c] = S.N[9 * r + c][0];
+        cb ^= 1;
+        if (r < 3) {
+          const float ra = S.ra[r][0];
+          dp = ffma(fmul(fmul(0.5f, ra), dt), dt, ffma(dv, dt, dp));
+          dv = ffma(ra, dt, dv);
+        }
+        __syncwarp(0x1ffu);
+      }
+      for (int k = k1; k < n; ++k) {
+        float E[9], X[9], Y[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          E[i] = S.E[i][k];
+          X[i] = S.X[i][k];
+          Y[i] = S.Y[i][k];
+        }
+        // row r of A: a[0..2] on cov's rows 0..2 (read by the lane's own
+        // index from shared memory, not from the arrays above, which would
+        // then live in local memory), dt on row r - 3 (rows 6..8), 1 on row
+        // r itself (rows 3..8)
+        const int ri = r < 3 ? r : (r < 6 ? r - 3 : r - 6);
+        float a[3];
+#pragma unroll
+        for (int n2 = 0; n2 < 3; ++n2)
+          a[n2] = r < 3 ? S.E[3 * n2 + ri][k] : (r < 6 ? S.X[3 * ri + n2][k] : S.Y[3 * ri + n2][k]);
+        const float d = r >= 6 ? dt : 0.0f, o = r >= 3 ? 1.0f : 0.0f;
+        const int rd = r >= 6 ? r - 3 : 0;
+        const float* C = S.cov[cb];
+        float M[9];  // row r of A cov
+#pragma unroll
+        for (int j = 0; j < 9; ++j) {
+          float v = fmul(a[0], C[j]);
+          v = ffma(a[1], C[9 + j], v);
+          v = ffma(a[2], C[18 + j], v);
+          v = ffma(d, C[9 * rd + j], v);
+          M[j] = ffma(o, C[9 * r + j], v);
+        }
+        // row r of (A cov) A^T + N
+        float* Cn = S.cov[cb ^ 1];
+#pragma unroll
+        for (int c = 0; c < 9; ++c) {
+          float v;
+          if (c < 3) {
+            v = ffma(M[2], E[6 + c], ffma(M[1], E[3 + c], fmul(M[0], E[c])));
+          } else if (c < 6) {
+            const int i = c - 3;
+            v = fadd(ffma(M[2], X[3 * i + 2], ffma(M[1], X[3 * i + 1], fmul(M[0], X[3 * i]))),
+                     M[c]);
+          } else {
+            const int i = c - 6;
+            v = fadd(ffma(M[c - 3], dt, ffma(M[2], Y[3 * i + 2],
+                                             ffma(M[1], Y[3 * i + 1], fmul(M[0], Y[3 * i])))),
+                     M[c]);
+          }
+          Cn[9 * r + c] = fadd(v, S.N[9 * r + c][k]);
+        }
+        cb ^= 1;
+        if (r < 3) {  // the nominal update of axis r (pre-update dR and dv on the right)
+          const float ra = S.ra[r][k];
+          dp = ffma(fmul(fmul(0.5f, ra), dt), dt, ffma(dv, dt, dp));
+          dv = ffma(ra, dt, dv);
+        }
+        __syncwarp(0x1ffu);
+      }
+    }
+    __syncwarp();
+    cb = __shfl_sync(0xffffffffu, cb, 0);
+  }
+  for (int e = lane; e < 81; e += 32) cov_out[(size_t)b * 81 + e] = S.cov[cb][e];
+  if (lane < 9) dR_out[(size_t)b * 9 + lane] = S.dRout[lane];
+  if (lane < 3) {
+    dv_out[(size_t)b * 3 + lane] = dv;
+    dp_out[(size_t)b * 3 + lane] = dp;
   }
 }
 
@@ -346,7 +727,7 @@ extern "C" const char* cuda_error_string(int code) {
 // mode 0 (propagate): traj (B,T,10) from state0 (B,10); out1..3 unused.
 // mode 1 (preintegrate): dR (B,3,3), dv (B,3), dp (B,3), cov (B,9,9) into
 // out0..out3; state0 unused. acc, gyr (B,T,3) and params (11,) float32, all
-// contiguous. Launches on `stream`, does not synchronize.
+// contiguous. One warp a window; launches on `stream`, does not synchronize.
 extern "C" int imu_scan(int device, int mode, int batch, int steps, const void* acc,
                         const void* gyr, const void* params, const void* state0, float dt,
                         void* out0, void* out1, void* out2, void* out3, void* stream) {
@@ -355,15 +736,13 @@ extern "C" int imu_scan(int device, int mode, int batch, int steps, const void* 
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   if (mode == 0) {
-    const int blocks = (batch + kPropThreads - 1) / kPropThreads;
-    propagate_kernel<<<blocks, kPropThreads, 0, s>>>(
-        batch, steps, (const float*)acc, (const float*)gyr, (const float*)params,
-        (const float*)state0, dt, (float*)out0);
+    propagate_kernel<<<batch, kPropThreads, 0, s>>>(steps, (const float*)acc, (const float*)gyr,
+                                          (const float*)params, (const float*)state0, dt,
+                                          (float*)out0);
   } else {
-    const int blocks = (batch + kWarps - 1) / kWarps;
-    preintegrate_kernel<<<blocks, kWarps * 32, 0, s>>>(
-        batch, steps, (const float*)acc, (const float*)gyr, (const float*)params, dt,
-        (float*)out0, (float*)out1, (float*)out2, (float*)out3);
+    preintegrate_kernel<<<batch, 32, 0, s>>>(steps, (const float*)acc, (const float*)gyr,
+                                             (const float*)params, dt, (float*)out0,
+                                             (float*)out1, (float*)out2, (float*)out3);
   }
   return (int)cudaGetLastError();
 }

@@ -19,9 +19,9 @@ __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b)
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
 
-// Solve H x = g for SPD H (6x6, row-major).
-__device__ inline void chol_solve6(const float H[36], const float g[6], float x[6]) {
-  float L[36];
+// The Cholesky factor of SPD H (6x6, row-major): L's lower triangle (row-
+// major, the diagonal included) is written; its upper entries are not.
+__device__ inline void chol_factor6(const float H[36], float L[36]) {
   for (int j = 0; j < 6; ++j) {
     float s[6];
     for (int r = j; r < 6; ++r) {
@@ -34,6 +34,10 @@ __device__ inline void chol_solve6(const float H[36], const float g[6], float x[
     const float inv = __frcp_rn(d);
     for (int r = j + 1; r < 6; ++r) L[r * 6 + j] = fmul(s[r - j], inv);
   }
+}
+
+// Solve L L^T x = g by the two substitutions, L from chol_factor6.
+__device__ inline void chol_subst6(const float L[36], const float g[6], float x[6]) {
   float y[6];
   for (int i = 0; i < 6; ++i) {
     float acc = 0.0f;
@@ -45,6 +49,15 @@ __device__ inline void chol_solve6(const float H[36], const float g[6], float x[
     for (int c = i + 1; c < 6; ++c) acc = fadd(acc, fmul(L[c * 6 + i], x[c]));
     x[i] = fdiv(fsub(y[i], acc), L[i * 6 + i]);
   }
+}
+
+// Solve H x = g for SPD H (6x6, row-major): the factor, then the
+// substitutions (a caller whose H does not change factors once and
+// substitutes each time, with the same bits).
+__device__ inline void chol_solve6(const float H[36], const float g[6], float x[6]) {
+  float L[36];
+  chol_factor6(H, L);
+  chol_subst6(L, g, x);
 }
 
 // C = A B for 3x3 row-major matrices.

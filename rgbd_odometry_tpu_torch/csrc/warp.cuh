@@ -1,6 +1,6 @@
 // The level solvers' serial step on one warp, and the fixed-order sum of a
 // pair's per-thread partials over one block or a thread-block cluster
-// (level_lm.cu, level_sg.cu).
+// (level_lm.cu, level_sg.cu, level_photo.cu).
 //
 // The step's values are those of the plain twins (kernels/se3_plain.py:
 // se3_exp, compose, rotationize_newton, se3_log, lm_psi), operation for
@@ -75,6 +75,28 @@ __device__ __forceinline__ float lane_compose(float p, float x, int lane) {
     const float bk = __shfl_sync(kFull, x, rot ? 3 * k + j : 9 + k);
     s[k] = fmul(ak, bk);
   }
+  const float d = fadd(fadd(s[0], s[1]), s[2]);
+  return rot ? d : fadd(p, d);
+}
+
+// T exp(psi)^-1 in the pose layout (level_photo.cu's update): for the pose
+// p = (R, t) and x = exp(psi) = (xR, xt) (lane_se3_exp's layout) the element
+// lane e < 12 holds of (R xR^T, t + R xti), xti = -(xR^T xt) formed on lanes
+// 9..11 first; each sum in the twin's order (kernels/level_photo._step).
+__device__ __forceinline__ float lane_compose_inv(float p, float x, int lane) {
+  const int e = lane < kPoseLanes ? lane : kPoseLanes - 1;
+  const bool rot = e < 9;
+  const int k = rot ? 0 : e - 9;
+  float s[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+    s[m] = fmul(__shfl_sync(kFull, x, 3 * m + k), __shfl_sync(kFull, x, 9 + m));
+  const float xti = -fadd(fadd(s[0], s[1]), s[2]);  // lanes 9..11
+  const float v = rot ? x : xti;
+  const int i = rot ? e / 3 : e - 9, j = rot ? e - 3 * (e / 3) : 0;
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+    s[m] = fmul(__shfl_sync(kFull, p, 3 * i + m), __shfl_sync(kFull, v, rot ? 3 * j + m : 9 + m));
   const float d = fadd(fadd(s[0], s[1]), s[2]);
   return rot ? d : fadd(p, d);
 }

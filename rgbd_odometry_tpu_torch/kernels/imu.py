@@ -10,11 +10,17 @@ the kernel; anything else raises. One launch runs B windows of T samples in
 one of two modes:
 
 - `propagate`: the state (p, v, q) after every sample, from a start state
-  and a gravity vector (the reference's `ImuDeadReckon`, one thread a
-  window);
+  and a gravity vector (the reference's `ImuDeadReckon`);
 - `preintegrate`: the window's (dR, dv, dp) and the 9x9 covariance of its
-  error state, cov <- A cov A^T + B diag(Q) B^T each sample (a warp a
-  window, the 81 entries over its lanes).
+  error state, cov <- A cov A^T + B diag(Q) B^T each sample.
+
+The kernel runs a window on a warp, its samples in chunks through shared
+memory; the work of a sample that does not depend on the state (the bias
+corrections, the rotation vector's quaternion, Exp and the right Jacobian)
+is taken for a chunk's samples at once, one a lane, and only the carried
+chain (q; dR; then p and v, dv and dp, the covariance) runs sample after
+sample. The plain version is laid out the same way (the state-free half
+for all samples at once, the chains in loops), which changes no value.
 
 The nominal chain (state, dR, dv, dp) is written below as single float32
 operations in a fixed order, each rounded once (sin and cos taken in
@@ -23,9 +29,10 @@ tensor over tensor), with a fused multiply-add wherever XLA:CPU contracts
 a product into a sum (the dot products' chains, and a product that is the
 first operand of a sum), and the kernel performs the same operations with
 round-to-nearest intrinsics: the two agree to the last bit. The covariance
-products are sums of 9 terms whose order differs between the kernel and
-`torch.matmul`: they agree to float32 rounding, and no nominal value depends
-on them.
+is `torch.matmul`'s here; the kernel forms each entry as the in-order chain
+of multiply-adds that batched small products on an H100 take, so the two
+agree to the last bit there and to float32 rounding where torch sums in
+another order (a batch of one); no nominal value depends on it.
 """
 
 from __future__ import annotations
@@ -141,73 +148,101 @@ def right_jacobian(phi):
 def propagate_plain(state0, accels, gyros, params, dt: float) -> torch.Tensor:
     """(B, T, 10) states after every sample, from state0 (B, 10) [p, v, q],
     accels, gyros (B, T, 3) and params (11,) (`PARAMS`): JAX
-    `propagate_step`'s operations one sample after another."""
+    `propagate_step`'s operations on every sample. As the kernel takes it,
+    the state-free half (a, w dt, the rotation vector's quaternion) is taken
+    for all samples at once; the loop carries q, then R(q) a + g is taken
+    for all samples at once, then the loop carries p and v."""
     ab, gb, g = params[0:3], params[3:6], params[8:11]
-    s = [state0[:, i] for i in range(STATE)]
-    out = []
-    for k in range(accels.shape[1]):
-        p, v, q = s[0:3], s[3:6], s[6:10]
-        R = rot_of_quat(q)
-        a = [accels[:, k, i] - ab[i] for i in range(3)]
-        w = [(gyros[:, k, i] - gb[i]) * dt for i in range(3)]
-        acc = [x + g[i] for i, x in enumerate(_mv(R, a))]
-        p = [fma(0.5 * acc[i] * dt, dt, fma(v[i], dt, p[i])) for i in range(3)]
-        v = [fma(acc[i], dt, v[i]) for i in range(3)]
-        q = quat_normalized(quat_mul(q, quat_from_rotvec(w)))
-        s = p + v + q
-        out.append(torch.stack(s, -1))
-    return torch.stack(out, 1)
+    n = accels.shape[1]
+    a = [accels[..., i] - ab[i] for i in range(3)]
+    dq = quat_from_rotvec([(gyros[..., i] - gb[i]) * dt for i in range(3)])
+    q = [state0[:, 6 + i] for i in range(4)]
+    qs = []  # the quaternion after each sample
+    for k in range(n):
+        q = quat_normalized(quat_mul(q, [d[:, k] for d in dq]))
+        qs.append(torch.stack(q, -1))
+    q_after = torch.stack(qs, 1)  # (B, T, 4)
+    q_before = torch.cat([state0[:, None, 6:10], q_after[:, :-1]], 1)
+    R = rot_of_quat([q_before[..., i] for i in range(4)])
+    acc = [x + g[i] for i, x in enumerate(_mv(R, a))]
+    half = [0.5 * acc[i] * dt for i in range(3)]
+    p, v = state0[:, 0:3], state0[:, 3:6]
+    acc, half = torch.stack(acc, -1), torch.stack(half, -1)
+    ps, vs = [], []
+    for k in range(n):
+        p = fma(half[:, k], dt, fma(v, dt, p))
+        v = fma(acc[:, k], dt, v)
+        ps.append(p)
+        vs.append(v)
+    return torch.cat([torch.stack(ps, 1), torch.stack(vs, 1), q_after], -1)
 
 
-def transition(dR, a, phi, dt: float):
-    """The error-state transition A (9x9) and noise input B (9x6) of one
-    preintegration sample (JAX `preintegrate`'s body), as (B, 9, 9) and
-    (B, 9, 6) tensors, from dR (3x3 nested list) and the bias-corrected
-    a and phi."""
-    E = so3_exp(phi)
+def transition(dR, a, E, Jr, dt: float):
+    """The error-state transition A (..., 9, 9) and noise input B (..., 9,
+    6) of preintegration samples (JAX `preintegrate`'s body), from dR before
+    the sample, its Exp(phi) E and right Jacobian Jr (3x3 nested lists) and
+    the bias-corrected a (three tensors), tensors of any one shape."""
     z = torch.zeros_like(a[0])
     hat_a = [[z, -a[2], a[1]], [a[2], z, -a[0]], [-a[1], a[0], z]]
     hRa = _mm(dR, hat_a)
-    Jr = right_jacobian(phi)
-    bsz = a[0].shape[0]
-    A = torch.zeros((bsz, 9, 9), dtype=z.dtype, device=z.device)
-    Bn = torch.zeros((bsz, 9, 6), dtype=z.dtype, device=z.device)
+    A = torch.zeros((*z.shape, 9, 9), dtype=z.dtype, device=z.device)
+    Bn = torch.zeros((*z.shape, 9, 6), dtype=z.dtype, device=z.device)
     for i in range(3):
-        A[:, 3 + i, 3 + i] = 1.0
-        A[:, 6 + i, 3 + i] = dt
-        A[:, 6 + i, 6 + i] = 1.0
+        A[..., 3 + i, 3 + i] = 1.0
+        A[..., 6 + i, 3 + i] = dt
+        A[..., 6 + i, 6 + i] = 1.0
         for j in range(3):
-            A[:, i, j] = E[j][i]
-            A[:, 3 + i, j] = -hRa[i][j] * dt
-            A[:, 6 + i, j] = -0.5 * hRa[i][j] * dt * dt
-            Bn[:, i, j] = Jr[i][j] * dt
-            Bn[:, 3 + i, 3 + j] = dR[i][j] * dt
-            Bn[:, 6 + i, 3 + j] = 0.5 * dR[i][j] * dt * dt
-    return E, A, Bn
+            A[..., i, j] = E[j][i]
+            A[..., 3 + i, j] = -hRa[i][j] * dt
+            A[..., 6 + i, j] = -0.5 * hRa[i][j] * dt * dt
+            Bn[..., i, j] = Jr[i][j] * dt
+            Bn[..., 3 + i, 3 + j] = dR[i][j] * dt
+            Bn[..., 6 + i, 3 + j] = 0.5 * dR[i][j] * dt * dt
+    return A, Bn
+
+
+def _mm_t(A, B):
+    """A B of (..., 3, 3) tensors, each entry `_mm`'s chain of fused
+    multiply-adds."""
+    return fma(A[..., :, 2, None], B[..., None, 2, :],
+               fma(A[..., :, 1, None], B[..., None, 1, :], A[..., :, 0, None] * B[..., None, 0, :]))
 
 
 def preintegrate_plain(accels, gyros, params, dt: float):
     """(dR (B,3,3), dv (B,3), dp (B,3), cov (B,9,9)) of B windows of T
-    samples (JAX `preintegrate`'s body one sample after another)."""
+    samples: JAX `preintegrate`'s body on every sample. As the kernel takes
+    it, the state-free half (a, phi, Exp(phi), the right Jacobian) is taken
+    for all samples at once; the loop carries dR, then everything dR gives
+    (dR a, the transition) is taken for all samples at once, then the loop
+    carries dv, dp and the covariance."""
     ab, gb = params[0:3], params[3:6]
     bsz, n = accels.shape[:2]
+    a = [accels[..., i] - ab[i] for i in range(3)]
+    phi = [(gyros[..., i] - gb[i]) * dt for i in range(3)]
+    E = so3_exp(phi)
+    Jr = right_jacobian(phi)
+    Et = torch.stack([torch.stack(r, -1) for r in E], -2)  # (B, T, 3, 3)
     f = dict(dtype=accels.dtype, device=accels.device)
-    one, zero = torch.ones(bsz, **f), torch.zeros(bsz, **f)
-    dR = [[one if i == j else zero for j in range(3)] for i in range(3)]
-    dv, dp = [zero] * 3, [zero] * 3
-    cov = torch.zeros((bsz, 9, 9), **f)
-    Q = torch.cat([params[7].expand(3), params[6].expand(3)])
+    dR = torch.eye(3, **f).expand(bsz, 3, 3)
+    before = []
     for k in range(n):
-        a = [accels[:, k, i] - ab[i] for i in range(3)]
-        phi = [(gyros[:, k, i] - gb[i]) * dt for i in range(3)]
-        E, A, Bn = transition(dR, a, phi, dt)
-        cov = A @ cov @ A.transpose(1, 2) + (Bn * Q) @ Bn.transpose(1, 2)
-        Ra = _mv(dR, a)
-        dp = [fma(0.5 * Ra[i] * dt, dt, fma(dv[i], dt, dp[i])) for i in range(3)]
-        dv = [fma(Ra[i], dt, dv[i]) for i in range(3)]
-        dR = _mm(dR, E)
-    return (torch.stack([torch.stack(r, -1) for r in dR], -2), torch.stack(dv, -1),
-            torch.stack(dp, -1), cov)
+        before.append(dR)
+        dR = _mm_t(dR, Et[:, k])
+    Rb = torch.stack(before, 1)  # dR before each sample, (B, T, 3, 3)
+    Rl = [[Rb[..., i, j] for j in range(3)] for i in range(3)]
+    A, Bn = transition(Rl, a, E, Jr, dt)
+    Q = torch.cat([params[7].expand(3), params[6].expand(3)])
+    N = (Bn * Q) @ Bn.transpose(-1, -2)
+    Ra = torch.stack(_mv(Rl, a), -1)
+    half = 0.5 * Ra * dt
+    dv = torch.zeros((bsz, 3), **f)
+    dp = torch.zeros((bsz, 3), **f)
+    cov = torch.zeros((bsz, 9, 9), **f)
+    for k in range(n):
+        cov = A[:, k] @ cov @ A[:, k].transpose(1, 2) + N[:, k]
+        dp = fma(half[:, k], dt, fma(dv, dt, dp))
+        dv = fma(Ra[:, k], dt, dv)
+    return dR.contiguous(), dv, dp, cov
 
 
 def imu_plain(mode: int, accels, gyros, params, dt: float, state0=None):

@@ -6,8 +6,9 @@ Replaces the JAX package's photometric Gauss-Newton: `solve_level`'s
 `solve_pyramid`'s level loop (:226): XLA code, no Pallas kernel.
 `level_photo` is the entry point: CPU tensors go to the plain PyTorch
 version `level_photo_plain` (the levels one after another, an iteration at
-a time), CUDA tensors to the kernel (one block a pair, every level and
-iteration in the one launch); anything else raises.
+a time), CUDA tensors to the kernel (every level and iteration in the one
+launch, a pair's level on `level_ranks` blocks of a thread-block cluster);
+anything else raises.
 
 An iteration at the pose (R, t): every point X of the level's reference is
 moved to R^T (X - t), projected (1 / z with |z| < 1e-12 taken as 1e-12),
@@ -24,10 +25,13 @@ freezes the pose for the rest of the level.
 Both versions perform the same float32 operations in the same order: the
 point terms one rounding an operation (the fused multiply-adds where
 XLA:CPU contracts a product into a sum: z of the warp, u and v, the
-bilinear blend), the sums over points as each of `THREADS` threads' running
-sum followed by a fixed pairwise tree, the step through the twins of
-`csrc/se3.cuh` in `kernels/se3_plain.py`. Kernel and plain version agree to
-the last bit.
+bilinear blend), the sums over points in the kernel's layout for the
+level's ranks (`_block_sum`: each thread's running sum, each warp's
+shuffle tree, the warps in order, the ranks in order), the step through the
+twins of `csrc/se3.cuh` and `csrc/warp.cuh` in `kernels/se3_plain.py` (the
+kernel factors a cached normal matrix once a level and substitutes each
+iteration: the operations `chol_solve6` performs, so the same bits). Kernel
+and plain version agree to the last bit at every cluster size.
 """
 
 from __future__ import annotations
@@ -42,12 +46,20 @@ from rgbd_odometry_tpu_torch.kernels.se3_plain import chol_solve6, se3_exp, sqrt
 from rgbd_odometry_tpu_torch.ops.project import fma_f32 as fma
 
 THREADS = 256  # the kernel's block: the partial-sum layout both versions share
+LANES = 32
+CLUSTERS = (1, 2, 4, 8)  # the blocks a pair's level may run on
+# points a rank takes before the rule splits a level further: measured on
+# an H100 (`profile_paths.py --paths secondary`, every forced size), a
+# cluster sum costs ~1500 cycles more than a block's, so the `photometric`
+# levels (K = 1024, 2048) gain 4-6% at B = 1 on 4 or 8 blocks and
+# lose 2x-3x at B = 64 (clusters of 4 or 8 do not all fit the card at once)
+POINTS_A_RANK = 2048
 MAX_LEVELS = 8
 SNAP_EPS = 2e-3
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
              + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)]
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
 _UPPER = [(i, j) for i in range(6) for j in range(i, 6)]
 
 
@@ -138,25 +150,53 @@ def _weights(eps, visible, cfg):
     return visible.to(eps.dtype)
 
 
-def _block_sum(x: torch.Tensor) -> torch.Tensor:
-    """(B, K, C) -> (B, C): thread k % THREADS adds its points in order,
-    then the pairwise tree over the threads (the kernel's order)."""
+def level_ranks(k: int, cluster=None) -> int:
+    """The route rule: the blocks (ranks of a thread-block cluster) one
+    pair's level of K points runs on, a function of K alone, never of the
+    batch, so that a pair's bits are the same alone and in any batch: the
+    fewest ranks (1, 2, 4, 8) with at most `POINTS_A_RANK` points each.
+    `cluster` forces that many ranks for checks and profiles."""
+    if cluster is not None:
+        if cluster not in CLUSTERS:
+            raise ValueError(f"level_photo: cluster must be one of {CLUSTERS}, got {cluster}")
+        return cluster
+    ranks = 1
+    while ranks < CLUSTERS[-1] and k > POINTS_A_RANK * ranks:
+        ranks *= 2
+    return ranks
+
+
+def _block_sum(x: torch.Tensor, ranks: int) -> torch.Tensor:
+    """(B, K, C) -> (B, C) in the kernel's order on `ranks` blocks: point i
+    belongs to rank (i // THREADS) % ranks and thread i % THREADS, which adds
+    its points in order from 0; each warp's shuffle-down tree (lane l + s
+    onto lane l, s = 16, ..., 1); the warps' sums in order; the ranks' sums
+    in order."""
     b, k, c = x.shape
-    m = -(-k // THREADS)
-    x = torch.nn.functional.pad(x, (0, 0, 0, m * THREADS - k)).reshape(b, m, THREADS, c)
-    acc = x[:, 0]
-    for i in range(1, m):
+    span = THREADS * ranks
+    m = -(-k // span)
+    x = torch.nn.functional.pad(x, (0, 0, 0, m * span - k))
+    x = x.reshape(b, m, ranks, THREADS // LANES, LANES, c)
+    acc = torch.zeros_like(x[:, 0])
+    for i in range(m):
         acc = acc + x[:, i]
-    s = THREADS // 2
+    s = LANES // 2
     while s >= 1:
-        acc = acc[:, :s] + acc[:, s:2 * s]
+        acc = acc[..., :s, :] + acc[..., s:2 * s, :]
         s //= 2
-    return acc[:, 0]
+    acc = acc[..., 0, :]  # (B, ranks, warps, C)
+    warps = acc[:, :, 0]
+    for q in range(1, THREADS // LANES):
+        warps = warps + acc[:, :, q]
+    out = warps[:, 0]
+    for q in range(1, ranks):
+        out = out + warps[:, q]
+    return out
 
 
-def _sums(R, t, lv: PhotoLevel, cfg):
+def _sums(R, t, lv: PhotoLevel, cfg, ranks: int):
     """(B, C) sums of |eps|^2, J^T W eps (6) and, when reweighting, the 21
-    upper entries of J^T W J."""
+    upper entries of J^T W J, over `ranks` blocks."""
     eps, visible = point_residuals(R, t, lv, cfg.bilinear)
     wgt = _weights(eps, visible, cfg)
     we = wgt * eps
@@ -164,7 +204,7 @@ def _sums(R, t, lv: PhotoLevel, cfg):
     if cfg.reweight_normal_matrix:
         jw = [lv.J[..., i] * wgt for i in range(6)]
         terms += [jw[i] * lv.J[..., j] for i, j in _UPPER]
-    return _block_sum(torch.stack(terms, -1))
+    return _block_sum(torch.stack(terms, -1), ranks)
 
 
 def _step(R, t, sums, lv: PhotoLevel, cfg):
@@ -193,18 +233,20 @@ def _step(R, t, sums, lv: PhotoLevel, cfg):
     return (torch.stack([torch.stack(r, -1) for r in Rn], -2), torch.stack(tn, -1))
 
 
-def level_photo_plain(R0, t0, levels, cfg):
-    """The plain PyTorch version of `level_photo`."""
+def level_photo_plain(R0, t0, levels, cfg, cluster=None):
+    """The plain PyTorch version of `level_photo` (a level's sums in the
+    kernel's order on `level_ranks` blocks)."""
     R, t = R0, t0
     hist = []
     b = R0.shape[0]
     for lv in levels:
+        ranks = level_ranks(lv.pts.shape[1], cluster)
         done = torch.zeros(b, dtype=torch.bool, device=R.device)
         best_e = torch.full((b,), 1e30, dtype=torch.float32, device=R.device)
         best_R, best_t = R, t
         enorms = []
         for _ in range(cfg.iterations_per_level):
-            sums = _sums(R, t, lv, cfg)
+            sums = _sums(R, t, lv, cfg, ranks)
             enorm = sqrt(sums[:, 0])
             enorms.append(enorm)
             better = enorm <= best_e
@@ -241,19 +283,23 @@ def _check_level(fn: str, lv: PhotoLevel, b: int, dev) -> tuple:
     return k, h, w
 
 
-def level_photo(R0: torch.Tensor, t0: torch.Tensor, levels, cfg):
+def level_photo(R0: torch.Tensor, t0: torch.Tensor, levels, cfg, cluster=None, clocks=None):
     """The photometric pyramid for B pairs from the start poses (R0 (B,3,3),
     t0 (B,3)), the levels (`PhotoLevel`s) in the order given, each
     `cfg.iterations_per_level` Gauss-Newton iterations (a
     `PhotometricConfig`: `eps_norm_exit`, `use_huber`, `huber_delta`,
     `max_step`, `reweight_normal_matrix`, `bilinear`). Returns (R (B,3,3),
     t (B,3)) the last level's best iterate and the |eps| history (B,
-    levels, iterations). CPU tensors run `level_photo_plain`, CUDA tensors
-    one launch. Arguments are checked before anything is built or
-    launched."""
+    levels, iterations). A level runs on `level_ranks` blocks a pair;
+    `cluster` forces that many (1, 2, 4, 8) for checks and profiles;
+    `clocks` (a (levels, iterations + 1, 4) int64 CUDA tensor) receives pair
+    0's clock64() at the phases of each iteration and level (the C entry's
+    note in `csrc/level_photo.cu`). CPU tensors run `level_photo_plain`,
+    CUDA tensors one launch. Arguments are checked before anything is built
+    or launched."""
     levels = tuple(levels)
     if not levels or levels[0].pts.device.type == "cpu":
-        return level_photo_plain(R0, t0, levels, cfg)
+        return level_photo_plain(R0, t0, levels, cfg, cluster)
     fn = "level_photo"
     dev = levels[0].pts.device
     if dev.type != "cuda":
@@ -268,26 +314,30 @@ def level_photo(R0: torch.Tensor, t0: torch.Tensor, levels, cfg):
     build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
     build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
     shapes = [_check_level(fn, lv, b, dev) for lv in levels]
+    ranks = [level_ranks(k, cluster) for k, _, _ in shapes]
     R = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
     t = torch.empty((b, 3), dtype=torch.float32, device=dev)
     hist = torch.empty((b, len(levels), n_iters), dtype=torch.float32, device=dev)
+    if clocks is not None:
+        build.check_arg(fn, "clocks", clocks, (len(levels), n_iters + 1, 4), torch.int64, dev)
     ptrs, strides, ints, flts = [], [], [], []
-    for lv, (k, h, w) in zip(levels, shapes):
+    for lv, (k, h, w), r in zip(levels, shapes, ranks):
         ptrs += [lv.pts.data_ptr(), lv.intensity.data_ptr(), lv.J.data_ptr(), lv.A.data_ptr(),
                  lv.valid.data_ptr(), lv.img.data_ptr()]
         strides.append(lv.img.stride(0))
-        ints += [k, h, w]
+        ints += [k, h, w, r]
         flts += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
     nl = len(levels)
     lib = build.bind("level_photo", fn, _ARGTYPES)
     with build.traced(fn):
         code = lib.level_photo(
-            dev.index or 0, nl, b, R0.data_ptr(), t0.data_ptr(),
+            dev.index or 0, nl, b, max(ranks), R0.data_ptr(), t0.data_ptr(),
             (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_longlong * nl)(*strides),
             (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(flts))(*flts),
             n_iters, float(cfg.eps_norm_exit), int(bool(cfg.use_huber)), float(cfg.huber_delta),
             float(cfg.max_step), int(bool(cfg.reweight_normal_matrix)), int(bool(cfg.bilinear)),
-            R.data_ptr(), t.data_ptr(), hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            R.data_ptr(), t.data_ptr(), hist.data_ptr(),
+            None if clocks is None else clocks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "level_photo launch")
     level_photo.launches += 1

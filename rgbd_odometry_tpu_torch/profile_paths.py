@@ -89,10 +89,16 @@ us and launches per call of `imu_scan` (dead reckoning B = 1 over T = 400
 samples, the `imu` command; B = 1, T = 1, `fused`'s prior a frame;
 preintegration of B = 29 one-sample windows, `fused --imu-refine`, and B
 = 64, T = 10), of `level_photo` (levels 3 and 2, 3 iterations each, the
-`photometric` command's configuration, on a rendered pair at 640x480 and
-320x240, B = 1, and at 640x480, B = 64) and of `gn_pnp` (the `pnp`
-command: 54 chessboard points, 5 iterations, one `pnp_gn` launch), with a
-digest of each output.
+`photometric` command's configuration, on a rendered pair at 640x480,
+320x240 and 1280x960, B = 1, and at 640x480, B = 64: the `solve_pyramid`
+call, the kernel alone on the rule's route and on every forced cluster
+size, pair 0's phase cycles from its clock stamps) and of `gn_pnp` (the
+`pnp` command: 54 chessboard points, 5 iterations, one `pnp_gn` launch),
+with a digest of each output; and a photometric frame at 640x480 as the
+command runs it, device us, kernels and copies: the keyframe (pyramid and
+`extract_photo_ref`) and an ordinary frame (pyramid, solve, the pose's
+copy to the host). Copied into an older checkout, it measures what that
+checkout's wrapper takes.
 
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
@@ -893,6 +899,42 @@ def profile_map(device, reps: int = 20) -> dict:
     return out
 
 
+def _named_us(fn, reps: int, name: str) -> list:
+    """[device us per launch, launches per call] of the kernels of `fn`
+    whose name holds `name`, from `reps` calls under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        recs = [ev for ev in prof.key_averages() if ev.device_time_total > 0 and name in ev.key]
+        n = sum(ev.count for ev in recs)
+        if n:
+            return [sum(ev.device_time_total for ev in recs) / n, n / reps]
+    raise RuntimeError(f"profile_secondary: no {name} kernel record")
+
+
+def _photo_cycles(clk, level_ids) -> dict:
+    """Per level, pair 0's cycles from `level_photo`'s clock64() stamps
+    (`csrc/level_photo.cu`): the wait for its staged data and its prologue,
+    then per iteration the pass, the sum and the step (0 where skipped)."""
+    out = {}
+    start = clk[0, -1, 0]
+    for lvl, c in zip(level_ids, clk):
+        row = c[-1]
+        out[f"level {lvl}"] = {
+            "begin": int(row[1] - start), "wait and prologue": int(row[2] - row[1]),
+            "pass": [int(x) for x in c[:-1, 1] - c[:-1, 0]],
+            "sum": [int(x) for x in c[:-1, 2] - c[:-1, 1]],
+            "step": [int(x) for x in c[:-1, 3] - c[:-1, 2]], "end": int(row[3] - start)}
+    return out
+
+
 def profile_secondary(device, reps: int = 20) -> dict:
     """The secondary solvers' kernels (see the module docstring, `--paths
     secondary`). Prints one JSON line."""
@@ -920,7 +962,8 @@ def profile_secondary(device, reps: int = 20) -> dict:
         res = call()
         out[name] = _device_us(call, reps) + [_digest(res if isinstance(res, tuple) else (res,))]
     cfg = PhotometricConfig(use_huber=True)
-    for width, b in ((640, 1), (320, 1), (640, 64)):
+    params = inspect.signature(level_photo.level_photo).parameters
+    for width, b in ((640, 1), (320, 1), (640, 64), (1280, 1)):
         cam = CameraConfig().scaled(width / 320.0)
         (rg, rd), (ng, nd), _ = render_pair(
             cam, np.array([0.01, -0.006, 0.004, 0.003, -0.004, 0.002], np.float32), seed=0)
@@ -931,7 +974,42 @@ def profile_secondary(device, reps: int = 20) -> dict:
         call = lambda refs=refs, now=now, intr=intr: photometric.solve_pyramid(  # noqa: E731
             refs, now.gray, intr, cfg)
         R, tt, _ = call()
-        out[f"level_photo_{width}_B{b}"] = _device_us(call, reps) + [_digest((R, tt))]
+        key = f"level_photo_{width}_B{b}"
+        out[key] = _device_us(call, reps) + [_digest((R, tt))]
+        # the kernel alone, on the rule's route and on every forced cluster
+        # size, and pair 0's phase cycles (a checkout whose wrapper takes them)
+        lv = [photometric._levels(refs[lvl], now.gray[lvl], intr.at_level(lvl))
+              for lvl in cfg.levels]
+        R0 = torch.eye(3, **f32).expand(b, 3, 3).contiguous()
+        t0 = torch.zeros((b, 3), **f32)
+        routes = [None] + (list(level_photo.CLUSTERS) if "cluster" in params else [])
+        for c in routes:
+            kw = {} if c is None else {"cluster": c}
+            res = level_photo.level_photo(R0, t0, lv, cfg, **kw)
+            out[f"{key}_kernel" + ("" if c is None else f"_c{c}")] = _named_us(
+                lambda kw=kw: level_photo.level_photo(R0, t0, lv, cfg, **kw), reps,
+                "level_photo") + [_digest(res)]
+        if "clocks" in params:
+            clk = torch.zeros((len(lv), cfg.iterations_per_level + 1, 4), dtype=torch.int64,
+                              device=device)
+            level_photo.level_photo(R0, t0, lv, cfg, clocks=clk)
+            torch.cuda.synchronize()
+            out[f"{key}_cycles"] = _photo_cycles(clk.cpu().numpy(), cfg.levels)
+        if width == 640 and b == 1:
+            # a photometric frame as the command runs it: the keyframe's
+            # pyramid and references, then an ordinary frame's pyramid, solve
+            # and the pose's copy to the host
+            def keyframe():
+                pyr = build_pyramid(t(rg), t(rd), 4)
+                photometric.extract_photo_ref(pyr.gray, pyr.depth, intr, cfg, cfg.max_points)
+
+            def frame():
+                pyr = build_pyramid(t(ng), t(nd), 4)
+                Rf, tf, _ = photometric.solve_pyramid(refs, pyr.gray, intr, cfg)
+                Rf.cpu(), tf.cpu()
+
+            out["photometric_keyframe_640"] = _device_split(keyframe, reps)
+            out["photometric_frame_640"] = _device_split(frame, reps)
     obj = torch.as_tensor(pnp.chessboard_object_points(6, 9, 0.05), **f32) + torch.tensor(
         [0.0, 0.0, 1.5], **f32)
     imn = obj[:, :2] / obj[:, 2:3] + 0.01

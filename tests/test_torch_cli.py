@@ -175,6 +175,29 @@ def test_cli_photometric_matches_jax(tmp_path, capsys):
         np.testing.assert_allclose(errs["port"], errs["jax"], rtol=1e-4)
 
 
+def test_cli_photometric_matches_jax_over_25_frames(tmp_path, capsys):
+    """`photometric --huber --frames 25` at the 320x240 default camera, a
+    longer run than the test above (both packages take ~58 s on one CPU
+    worker; 30 frames take ~64 s): every pose of the trajectory file within
+    1e-5 of JAX's, every solved frame's |eps| within 1e-4 relative."""
+    from rgbd_odometry_tpu.cli import main as jax_main
+
+    files, errs = {}, {}
+    for name, fn in (("port", main), ("jax", jax_main)):
+        files[name] = str(tmp_path / f"{name}.txt")
+        extra = ["--device", "cpu"] if name == "port" else []
+        fn(["photometric", "--frames", "25", "--huber", "--out", files[name], *extra])
+        errs[name] = [float(line.split()[-1]) for line in capsys.readouterr().err.splitlines()
+                      if line.startswith("frame ")]
+    R_p, t_p, ts_p = read_trajectory(files["port"])
+    R_j, t_j, ts_j = read_trajectory(files["jax"])
+    assert t_p.shape == (25, 3) and len(errs["port"]) == 24
+    np.testing.assert_allclose(ts_p, ts_j, atol=1e-6)
+    np.testing.assert_allclose(t_p, t_j, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(R_p, R_j, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(errs["port"], errs["jax"], rtol=1e-4)
+
+
 def test_cli_imu_matches_jax(tmp_path, capsys):
     """`imu` (the synthetic yaw, 400 samples, with biases) and `imu --csv`
     (random samples): the JSON within 1e-6 of JAX's."""

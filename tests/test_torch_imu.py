@@ -2,13 +2,15 @@
 tensors `kernels/imu.imu_scan` runs its plain version) against the JAX
 package on the CPU: dead reckoning over 400 samples, preintegration with
 noise, composition against the dead reckoner (JAX's own setup), the pose
-information, the IMU edges, the velocities and `refine_trajectory_with_imu`.
+information, the IMU edges, the velocities and `refine_trajectory_with_imu`;
+the scan's plain version over B = 29 windows of 1, 37 and 4000 samples.
 Inputs are made from seeds with numpy and handed to both."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from rgbd_odometry_tpu.core import geometry as jgeo  # noqa: E402
@@ -255,3 +257,71 @@ def test_imu_scan_checks_its_device_and_mode():
     with pytest.raises(ValueError, match="unsupported device"):
         kimu.imu_scan(kimu.PROPAGATE, a, a, p, 0.01, torch.zeros((1, 10), device="meta"))
     assert kimu.imu_scan.launches == 0
+
+
+def _windows29(n):
+    """29 windows of n samples and 29 random start states, numpy float32."""
+    rng = np.random.default_rng(n)
+    a = rng.normal(0.0, 2.0, (29, n, 3)).astype(np.float32)
+    w = rng.normal(0.0, 0.8, (29, n, 3)).astype(np.float32)
+    q = rng.normal(size=(29, 4))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    p, v = (rng.normal(0.0, s, (29, 3)).astype(np.float32) for s in (0.5, 0.3))
+    return a, w, (p, v, q)
+
+
+@pytest.mark.parametrize("n", [1, 37, 4000])
+def test_propagate_windows_of_any_length_match_jax(n):
+    """`propagate_batch` over B = 29 windows of n samples from random
+    states (the kernel's chunks are 64 samples, so 1 and 37 are one short
+    chunk and 4000 is 62 chunks and a short one) against JAX's vmapped
+    `propagate_batch`: every state within 1e-6 of each quantity's largest
+    magnitude up to 37 samples (the bar of the 400-sample test). Over 4000
+    samples the two float32 chains part further (XLA:CPU's order of the
+    fused quaternion update leaves an ulp in q now and then, and p
+    integrates it under gravity for 40 s): there the port must be no
+    further from the float64 trajectory (JAX under `enable_x64`) than twice
+    JAX's own distance, and within 1e-5 of JAX relative."""
+    a, w, (p, v, q) = _windows29(n)
+    ji, pi = _intr(accel_bias=0.03, gyro_bias=-0.01)
+    run = jax.vmap(lambda s, a, w: jimu.propagate_batch(s, a, w, ji))
+    _, jt = run(jimu.ImuState(p=jnp.asarray(p), v=jnp.asarray(v), q=jnp.asarray(q)),
+                jnp.asarray(a), jnp.asarray(w))
+    _, pt = pimu.propagate_batch(
+        pimu.ImuState(p=torch.from_numpy(p), v=torch.from_numpy(v), q=torch.from_numpy(q)),
+        torch.from_numpy(a), torch.from_numpy(w), pi)
+    assert pt.p.shape == (29, n, 3) and pt.q.shape == (29, n, 4)
+    rel = max(np.abs(_np(y) - _np(x)).max() / max(1.0, np.abs(_np(x)).max())
+              for x, y in zip(jt, pt))
+    if n <= 400:
+        assert rel <= 1e-6
+        return
+    assert rel <= 1e-5
+    with jax.enable_x64():
+        ji64 = jimu.ImuIntrinsics.from_scalars(accel_bias=0.03, gyro_bias=-0.01)
+        ji64 = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), ji64)
+        f64 = lambda x: jnp.asarray(x, jnp.float64)  # noqa: E731
+        _, t64 = jax.vmap(lambda s, a, w: jimu.propagate_batch(s, a, w, ji64))(
+            jimu.ImuState(p=f64(p), v=f64(v), q=f64(q)), f64(a), f64(w))
+        t64 = [np.asarray(x) for x in t64]
+    for x64, x, y in zip(t64, jt, pt):
+        assert np.abs(_np(y) - x64).max() <= 2.0 * np.abs(_np(x) - x64).max()
+
+
+@pytest.mark.parametrize("n", [1, 37, 4000])
+def test_preintegrate_windows_of_any_length_match_jax(n):
+    """`preintegrate` over B = 29 windows of n samples (the kernel's chunks
+    are 32 samples) against JAX's vmapped `preintegrate`: dR, dv and dp
+    within 1e-6 of each quantity's largest magnitude (at 4000 samples dp
+    reaches ~100 m, where 1e-6 absolute is below an ulp), the covariance
+    within 1e-5 of its largest entry."""
+    a, w, _ = _windows29(n)
+    ji, pi = _intr(accel_var=0.08 ** 2, gyro_var=0.02 ** 2, accel_bias=0.03, gyro_bias=-0.01)
+    jp = jax.vmap(lambda a, w: jimu.preintegrate(a, w, ji))(jnp.asarray(a), jnp.asarray(w))
+    pp = pimu.preintegrate(torch.from_numpy(a), torch.from_numpy(w), pi)
+    for name in ("dR", "dv", "dp"):
+        x, y = _np(getattr(jp, name)), _np(getattr(pp, name))
+        assert np.abs(y - x).max() <= 1e-6 * max(1.0, np.abs(x).max()), name
+    cj = _np(jp.cov)
+    assert pp.cov.shape == (29, 9, 9)
+    assert np.abs(_np(pp.cov) - cj).max() <= 1e-5 * np.abs(cj).max()

@@ -2,7 +2,12 @@
 on CPU tensors `kernels/level_photo.level_photo` runs its plain version)
 against the JAX package on the CPU, on the 160x120 camera of the JAX tests:
 reference extraction, the residual, the sampler and `solve_pyramid` in JAX's
-scenarios (tests/test_secondary_solvers.py) and under every option."""
+scenarios (tests/test_secondary_solvers.py) and under every option; a
+level's sums in the kernel's order at every cluster size (`_block_sum`
+against a model of the kernel's threads, warps and ranks) and held to JAX
+there."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -211,3 +216,102 @@ def test_level_photo_checks_its_device():
         klp.level_photo(torch.zeros((1, 3, 3), **m), torch.zeros((1, 3), **m), (lv,),
                         PhotometricConfig())
     assert klp.level_photo.launches == 0
+
+
+@pytest.mark.parametrize("ranks", klp.CLUSTERS)
+def test_block_sum_is_the_kernels_order(ranks):
+    """`_block_sum` bitwise a model of the kernel's sum on `ranks` blocks of
+    256 threads: point i on rank (i // 256) % ranks, thread i % 256, each
+    thread's running sum from 0 in point order, each warp's shuffle-down
+    tree (lane l gets lane l + s at s = 16, ..., 1), the 8 warps' sums in
+    order, the ranks' sums in order; at K = 37, 1000 and 2048, within float32
+    rounding of the float64 sum."""
+    rng = np.random.default_rng(ranks)
+    for k in (37, 1000, 2048):
+        x = rng.normal(0.0, 100.0, (2, k, 7)).astype(np.float32)
+        got = klp._block_sum(torch.from_numpy(x), ranks).numpy()
+        want = np.zeros((2, 7), np.float32)
+        for b in range(2):
+            rank_sums = []
+            for q in range(ranks):
+                acc = np.zeros((256, 7), np.float32)
+                for i in range(k):
+                    if (i // 256) % ranks == q:
+                        acc[i % 256] = acc[i % 256] + x[b, i]
+                warps = []
+                for w in range(8):
+                    lanes = acc[32 * w:32 * w + 32].copy()
+                    s = 16
+                    while s >= 1:
+                        lanes[:s] = lanes[:s] + lanes[s:2 * s]
+                        s //= 2
+                    warps.append(lanes[0])
+                tot = warps[0]
+                for v in warps[1:]:
+                    tot = tot + v
+                rank_sums.append(tot)
+            tot = rank_sums[0]
+            for v in rank_sums[1:]:
+                tot = tot + v
+            want[b] = tot
+        np.testing.assert_array_equal(got, want)
+        exact = x.astype(np.float64).sum(1)
+        assert np.abs(got - exact).max() <= 1e-5 * np.abs(x).sum(1).max()
+
+
+def test_level_ranks_rule_and_forced_clusters():
+    """The route rule is a function of K alone: the fewest ranks with at
+    most `POINTS_A_RANK` points each, at most 8; `cluster` forces 1, 2, 4 or
+    8 and nothing else."""
+    p = klp.POINTS_A_RANK
+    assert [klp.level_ranks(k) for k in (1, p, p + 1, 2 * p, 2 * p + 1, 4 * p + 1, 100 * p)] == [
+        1, 1, 2, 2, 4, 8, 8]
+    assert [klp.level_ranks(37, c) for c in klp.CLUSTERS] == list(klp.CLUSTERS)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        klp.level_ranks(1000, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_case(k: int, reweight: bool):
+    """A level of K points and JAX's `solve_level` on it from a moved start.
+    K = 1000 and 2048: the 160x120 level 0 reference (634 selected pixels,
+    then raster-ordered invalid padding). K = 37: the reference of the same
+    frame with depth only on a 4-pixel grid (43 selected pixels spread over
+    the image; the first 37 taken). The first 37 selected pixels of the full
+    frame lie on one strip of rows, where the 6x6 system is so ill-
+    conditioned that the two packages' float32 sum orders alone part by
+    1.6e-5 (2.6e-4 reweighted), the same on one rank as on eight."""
+    (rg, rd), (ng, _), _ = render_pair(CAM, PSI)
+    if k < 256:
+        grid = np.zeros_like(rd, bool)
+        grid[::4, ::4] = True
+        rd = np.where(grid, rd, 0.0).astype(rd.dtype)
+    kw = dict(use_huber=True, eps_norm_exit=0.0, iterations_per_level=5,
+              reweight_normal_matrix=reweight)
+    jc, pc = JaxPhotoConfig(**kw), PhotometricConfig(**kw)
+    jintr = JaxIntrinsics.from_config(CAM)
+    jr = jphoto.extract_photo_ref_level(jnp.asarray(rg), jnp.asarray(rd), jintr, k, jc)
+    pr = pphoto.extract_photo_ref_level(torch.from_numpy(rg), torch.from_numpy(rd), INTR, k, pc)
+    R0, t0 = jphoto.geo.se3_exp(jnp.asarray(PSI * 0.3))
+    want = jphoto.solve_level(jr, jnp.asarray(ng), jintr, R0, t0, jc)
+    return pc, pr, torch.from_numpy(ng), (np.asarray(R0), np.asarray(t0)), [np.asarray(x)
+                                                                         for x in want]
+
+
+@pytest.mark.parametrize("reweight", [False, True])
+@pytest.mark.parametrize("k", [37, 1000, 2048])
+@pytest.mark.parametrize("cluster", klp.CLUSTERS)
+def test_level_photo_plain_matches_jax_at_every_cluster(cluster, k, reweight):
+    """`level_photo` (plain on the CPU) on a level of K = 37, 1000 or 2048
+    points (not multiples of 32 or 256) with its sums in the kernel's order
+    on 1, 2, 4 and 8 ranks, cached and reweighted normal matrix: pose within
+    1e-5 of JAX's `solve_level`, |eps| history within 1e-4 of its largest
+    value (the bars of `test_solve_pyramid_matches_jax`)."""
+    pc, pr, now, (R0, t0), (Rj, tj, hj) = _level_case(k, reweight)
+    assert pr.pts3d.shape == (k, 3) and int(pr.count) >= min(k, 43)
+    lv = pphoto._levels(pr, now, INTR)
+    R, t, hist = klp.level_photo(torch.from_numpy(R0)[None], torch.from_numpy(t0)[None], (lv,),
+                                 pc, cluster=cluster)
+    np.testing.assert_allclose(R[0].numpy(), Rj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(t[0].numpy(), tj, rtol=0, atol=1e-5)
+    assert np.abs(hist[0, 0].numpy() - hj).max() <= 1e-4 * np.abs(hj).max()
