@@ -109,7 +109,9 @@ through their user entry points:
                    from frame 25 on the CPU in both packages);
   cli_imu          `imu --steps 400`: the JSON within 1e-6 of `--device
                    cpu`'s;
-  cli_pnp          `pnp`: t_err < 1e-4, one `pnp_gn` launch.
+  cli_pnp          `pnp`: t_err < 1e-4; its `gn_pnp` call one `pnp_gn`
+                   launch and no other device work (no aten operation but
+                   unfilled allocations and views).
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -160,8 +162,15 @@ solvers' phases (`PHASE_KERNELS`). `check_imu` and `check_level_photo` hold
 the two secondary kernels against their plain versions at the paths' shapes
 (propagate B = 1 T = 400 and B = 64 T = 100, preintegrate B = 64 T = 10
 and 1; the photometric pyramid at 320x240 and 640x480, B = 1 and 64, every
-option). Any failed check raises (exit code != 0). The line before the last
-is the kernel summary as JSON: per kernel its launches on the paths, its
+option). `check_pnp` holds `pnp_gn` bitwise to its plain version (R, t,
+counts, inliers, residual norms) at the chessboard, the RANSAC route's
+hypotheses and refine of K = 384, and B = 3 and 65 at K = 1, 33, 1025 and
+4096; `check_ransac` the fused `ransac_pnp` bitwise to the step-by-step
+routes over the kernel and over the plain `pnp_gn`, at K = 384 and past
+the small route at K = 1025, 2048, 4097, 8192, 16384 and the card's
+largest K, one launch a verification at each K ("k2048", "k8192",
+"k16384", "k_max": its time and bound there). Any failed check raises (exit code
+!= 0). The line before the last is the kernel summary as JSON: per kernel its launches on the paths, its
 error against the plain version, its and the plain version's CUDA-event
 time, and its bound (the larger of the bytes it must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s, from the check's own inputs);
@@ -1442,16 +1451,15 @@ def check_match(device, rng) -> dict:
             "full": out["full S=64"], "s512": out["rendered S=512"], "full_s512": out["full S=512"]}
 
 
-def pnp_inputs(rng, device):
-    """K = 384 correspondences of a PnP problem: points 1-3 m in front of
-    the stored camera, their normalized projections in the query camera
-    with 0.001 noise, 15% gross outliers, 90% valid; 64 four-point
-    hypothesis masks drawn from the valid points."""
+def pnp_inputs(rng, device, k: int = PNP_K):
+    """K correspondences of a PnP problem: points 1-3 m in front of the
+    stored camera, their normalized projections in the query camera with
+    0.001 noise, 15% gross outliers, 90% valid; 64 four-point hypothesis
+    masks drawn from the valid points."""
     import torch
 
     from rgbd_odometry_tpu_torch.core.geometry import se3_exp
 
-    k = PNP_K
     obj = np.stack([rng.uniform(-1.2, 1.2, k), rng.uniform(-0.9, 0.9, k), rng.uniform(1.0, 3.0, k)],
                    -1).astype(np.float32)
     R, t = (x.numpy().astype(np.float64) for x in se3_exp(torch.tensor(
@@ -1464,60 +1472,107 @@ def pnp_inputs(rng, device):
     masks = np.zeros((PNP_HYPOTHESES, k), bool)
     idx = np.nonzero(valid)[0]
     for b in range(PNP_HYPOTHESES):
-        masks[b, rng.choice(idx, 4, replace=False)] = True
+        masks[b, rng.choice(idx, min(4, len(idx)), replace=False)] = True
     f = lambda a: torch.as_tensor(a).to(device).contiguous()  # noqa: E731
     return f(obj), f(imn.astype(np.float32)), f(valid), f(masks)
 
 
-def check_pnp(device, rng) -> dict:
-    """Kernel B's `pnp_gn` vs its plain version at both RANSAC phases: B = 64
-    four-point hypotheses (4 iterations) and B = 1 over the best
-    hypothesis's inliers (5 iterations), K = 384. R and t within 1e-5,
-    counts and inliers equal except for points within 1e-6 of the
-    threshold, runs bitwise."""
+def chessboard_inputs(device):
+    """The `pnp` command's problem (cli.cmd_pnp): the 9x6 board of 5 cm
+    squares 1.5 m away seen from a known pose, every corner valid."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    f32 = dict(dtype=torch.float32, device=device)
+    obj = torch.as_tensor(pnp.chessboard_object_points(6, 9, 0.05), **f32)
+    obj = obj + torch.tensor([0.0, 0.0, 1.5], **f32)
+    R_gt, t_gt = geo.se3_exp(torch.tensor([0.08, -0.05, 0.03, 0.05, -0.06, 0.04], **f32))
+    pb = (obj - t_gt) @ R_gt
+    return obj.contiguous(), (pb[:, :2] / pb[:, 2:3]).contiguous()
+
+
+def _pnp_case(what, args, norm: bool) -> tuple:
+    """`pnp_gn` on the card against its plain version on the same card
+    inputs: R, t, counts, inliers and (with `norm`) the residual norms
+    bitwise, and two runs bitwise. Returns the kernel's CUDA-event ms and
+    the largest |kernel - plain| over R and t."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import pnp_gn
 
-    obj, imn, valid, masks = pnp_inputs(rng, device)
+    b, iters = args[2].shape[0], args[5]
+
+    def run(fn):
+        rn = torch.empty((b, iters), dtype=torch.float32, device=args[0].device) if norm else None
+        out = fn(*args, write_inliers=True, rnorm_out=rn)
+        return tuple(out) + ((rn,) if norm else ())
+
+    pl = run(pnp_gn.pnp_gn_plain)
+    ker, again = run(pnp_gn.pnp_gn), run(pnp_gn.pnp_gn)
+    torch.cuda.synchronize()
+    _require(all(_same_bits(x, y) for x, y in zip(ker, again)), f"{what}: runs differ")
+    for field, x, y in zip(("R", "t", "counts", "inliers", "residual norms"), ker, pl):
+        _require(_same_bits(x, y), f"{what}: {field} differ from the plain version")
+    err = max(float((x - y).abs().max()) for x, y in zip(ker[:2], pl[:2]))
+    ms = _time_ms(lambda: pnp_gn.pnp_gn(*args), 50)
+    _log(f"{what}: every output bitwise the plain version's, runs bitwise; "
+         f"inliers max {int(pl[2].max())} of {int(args[7].sum())}; kernel {ms:.4f} ms")
+    return ms, err
+
+
+def check_pnp(device, rng) -> dict:
+    """Kernel B's `pnp_gn` vs its plain version, bitwise (R, t, counts,
+    inliers, residual norms): the `pnp` command's chessboard (B = 1, K =
+    54, 5 iterations from the identity, the norms requested), both RANSAC phases of K = 384 (the
+    hypotheses: B = 64, 4 points each, 4 iterations; the refine: B = 1 over
+    the best hypothesis's inliers, 5 iterations) and ragged shapes (B = 3
+    and 65, K = 1, 33, 1025 and 4096, random masks and start poses)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+
     thresh = 0.01
-
-    def phase(name, m, R0, t0, iters):
-        args = (obj, imn, m, R0, t0, iters, thresh, valid)
-        ker = pnp_gn.pnp_gn(*args, write_inliers=True)
-        again = pnp_gn.pnp_gn(*args, write_inliers=True)
-        pl = pnp_gn.pnp_gn_plain(*args, write_inliers=True)
-        torch.cuda.synchronize()
-        what = f"pnp_gn {name} B={m.shape[0]} K={PNP_K} iters={iters}"
-        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
-        _require(torch.equal(torch.isfinite(ker[0]), torch.isfinite(pl[0])),
-                 f"{what}: non-finite poses differ")
-        ok = torch.isfinite(pl[0]).flatten(1).all(1) & torch.isfinite(pl[1]).all(1)
-        err = max(float((ker[0] - pl[0]).abs()[ok].max()), float((ker[1] - pl[1]).abs()[ok].max()))
-        _require(err <= 1e-5, f"{what}: pose error {err:.2e} > 1e-5")
-        r0, r1, _, _ = pnp_gn.point_terms(obj, imn, pl[0], pl[1])
-        near = ((torch.sqrt(r0.double() ** 2 + r1.double() ** 2) - thresh).abs() <= 1e-6) & valid
-        _require(not bool(((ker[3] != pl[3]) & ~near).any()), f"{what}: inliers differ")
-        _require(bool(((ker[2] - pl[2]).abs() <= near.sum(1)).all()), f"{what}: counts differ")
-        k_ms = _time_ms(lambda: pnp_gn.pnp_gn(*args), 50)
-        p_ms = _time_ms(lambda: pnp_gn.pnp_gn_plain(*args), 5)
-        _log(f"{what}: pose err {err:.2e}, {int(near.sum())} points within 1e-6 of the "
-             f"threshold, runs bitwise equal; inliers max {int(pl[2].max())} of "
-             f"{int(valid.sum())} valid; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        return pl, err, k_ms, p_ms
-
+    cobj, cimn = chessboard_inputs(device)
+    every = torch.ones(cobj.shape[0], dtype=torch.bool, device=device)
+    c_ms, c_err = _pnp_case(f"pnp_gn chessboard B=1 K={cobj.shape[0]} iters=5",
+                            (cobj, cimn, every[None], None, None, 5, 0.0, every), True)
+    obj, imn, valid, masks = pnp_inputs(rng, device)
     eye = torch.eye(3, device=device).expand(PNP_HYPOTHESES, 3, 3).contiguous()
     zero = torch.zeros((PNP_HYPOTHESES, 3), device=device)
-    pl, err_h, k_ms, p_ms = phase("hypotheses", masks, eye, zero, 4)
+    args = (obj, imn, masks, eye, zero, 4, thresh, valid)
+    k_ms, k_err = _pnp_case(f"pnp_gn hypotheses B={PNP_HYPOTHESES} K={PNP_K} iters=4", args, False)
+    p_ms = _time_ms(lambda: pnp_gn.pnp_gn_plain(*args), 5)
+    pl = pnp_gn.pnp_gn_plain(*args, write_inliers=True)
+    b = int(torch.argmax(pl[2]))
+    _require(int(pl[2][b]) >= 250, f"pnp_gn: the best hypothesis has {int(pl[2][b])} inliers")
+    r_ms, r_err = _pnp_case(f"pnp_gn refine B=1 K={PNP_K} iters=5 over {int(pl[2][b])} inliers",
+                            (obj, imn, pl[3][b : b + 1].contiguous(), pl[0][b : b + 1],
+                             pl[1][b : b + 1], 5, thresh, valid), True)
+    errs = [c_err, k_err, r_err]
+    for k in (1, 33, 1025, 4096):
+        o, i_, v, _ = pnp_inputs(rng, device, k)
+        if k == 1:
+            v = torch.ones_like(v)
+        for bb in (3, 65):
+            frac = torch.linspace(0.05, 0.95, bb, device=device)[:, None]
+            m = (torch.as_tensor(rng.random((bb, k)), device=device) < frac) & v
+            tw = torch.as_tensor(rng.normal(0, 0.01, (bb, 6)), dtype=torch.float32, device=device)
+            R0, t0 = se3_exp(tw)
+            errs.append(_pnp_case(
+                f"pnp_gn ragged B={bb} K={k} iters=4",
+                (o, i_, m.contiguous(), R0.contiguous(), t0.contiguous(), 4, thresh, v),
+                bb == 3)[1])
     # correspondences, masks and start poses in; poses, counts, inliers out
     b_n, k_n = masks.shape
     bound = _bound(k_n * 21 + b_n * k_n + b_n * 48 + b_n * (52 + k_n),
                    4 * int(masks.sum()) * OPS_PNP_POINT + b_n * int(valid.sum()) * OPS_PNP_SCORE)
-    b = int(torch.argmax(pl[2]))
-    _require(int(pl[2][b]) >= 250, f"pnp_gn: the best hypothesis has {int(pl[2][b])} inliers")
-    _, err_r, _, _ = phase("refine", pl[3][b : b + 1].contiguous(), pl[0][b : b + 1],
-                           pl[1][b : b + 1], 5)
-    return {"max_abs_err": max(err_h, err_r), "ms": k_ms, "plain_ms": p_ms, **bound}
+    _log(f"pnp_gn: hypotheses kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+         f"{bound['bound_ms'] * 1e3:.4f} us; chessboard {c_ms:.4f} ms; refine {r_ms:.4f} ms")
+    return {"max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms, "chessboard_ms": c_ms,
+            "refine_ms": r_ms, **bound}
 
 
 @contextlib.contextmanager
@@ -1553,16 +1608,21 @@ def _ransac_against_steps(tally: list):
 
 def _kernel_launches(fn) -> int:
     """The CUDA kernels one call of fn() runs (device copies apart), from the
-    profiler."""
+    profiler (a window whose records the profiler dropped is profiled
+    again)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(6):
         torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_time_total > 0 and not ev.key.startswith(("Memcpy", "Memset")))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.device_time_total > 0 and not ev.key.startswith(("Memcpy", "Memset")))
+        if n:
+            return n
+    return 0
 
 
 def check_ransac(device, rng) -> dict:
@@ -1571,8 +1631,11 @@ def check_ransac(device, rng) -> dict:
     hypotheses' and the refine's `pnp_gn` launches and the torch ops
     between them), every field bitwise, on chip_smoke's PnP problem with
     six draws of 64 hypotheses' uniforms, with 3 valid points and with
-    none; and against the route over `pnp_gn`'s plain version, bitwise.
-    Records the launches a verification of both."""
+    none, and past the small route's 1024 points at K = 1025, 2048, 4097
+    and 8192 (the correspondences staged in shared memory), 16384 and the
+    card's largest K, `max_points` (read through L1), one draw each; and
+    against the route over `pnp_gn`'s plain version, bitwise. Records the
+    launches a verification of both."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import pnp_gn
@@ -1582,13 +1645,18 @@ def check_ransac(device, rng) -> dict:
     g.manual_seed(0)
     few = torch.zeros_like(valid)
     few[torch.nonzero(valid)[:3, 0]] = True
-    cases = [(f"draw {i}", torch.rand((PNP_HYPOTHESES, PNP_K), generator=g, device=device), valid)
-             for i in range(6)]
+    cases = [(f"draw {i}", torch.rand((PNP_HYPOTHESES, PNP_K), generator=g, device=device),
+              obj, imn, valid) for i in range(6)]
     u = cases[0][1]
-    cases += [("3 valid", u, few), ("none valid", u, torch.zeros_like(valid))]
+    cases += [("3 valid", u, obj, imn, few), ("none valid", u, obj, imn, torch.zeros_like(valid))]
+    large = {}
+    for k in (1025, 2048, 4097, 8192, 16384, pnp_gn.max_points(device)):
+        o, i_, v, _ = pnp_inputs(rng, device, k)
+        large[k] = (torch.rand((PNP_HYPOTHESES, k), generator=g, device=device), o, i_, v)
+        cases.append((f"K={k}", *large[k]))
     plain = lambda: _patched(pnp_gn, pnp_gn=pnp_gn.pnp_gn_plain)  # noqa: E731
-    for name, uu, vv in cases:
-        args = (uu, obj, imn, vv)
+    err = 0.0
+    for name, *args in cases:
         ker = pnp_gn.ransac_pnp(*args)
         again = pnp_gn.ransac_pnp(*args)
         steps = pnp_gn.ransac_pnp_steps(*args)
@@ -1601,31 +1669,47 @@ def check_ransac(device, rng) -> dict:
                  f"{what}: differs from the step-by-step route on the card")
         _require(all(_same_bits(a, b) for a, b in zip(ker, pl)),
                  f"{what}: differs from the route over the plain pnp_gn")
+        err = max([err] + [float((a - b).abs().max()) for a, b in zip(ker[:2], pl[:2])])
         _log(f"{what}: every field bitwise the step-by-step route's and the plain route's; "
              f"best hypothesis {int(ker.best_hypothesis)} with {int(ker.num_inliers)} inliers")
     args = (u, obj, imn, valid)
     fused_n = _kernel_launches(lambda: pnp_gn.ransac_pnp(*args))
     steps_n = _kernel_launches(lambda: pnp_gn.ransac_pnp_steps(*args))
     _require(fused_n == 1, f"ransac_pnp: {fused_n} kernels a verification, not 1")
+    for k, a in large.items():
+        n = _kernel_launches(lambda a=a: pnp_gn.ransac_pnp(*a))
+        _require(n == 1, f"ransac_pnp K={k}: {n} kernels a verification, not 1")
     k_ms = _time_ms(lambda: pnp_gn.ransac_pnp(*args), 50)
     s_ms = _time_ms(lambda: pnp_gn.ransac_pnp_steps(*args), 20)
     with plain():
         p_ms = _time_ms(lambda: pnp_gn.ransac_pnp_steps(*args), 3)
-    res = pnp_gn.ransac_pnp(*args)
-    sub = pnp_gn.select_sample(u, valid, 4)
-    s_n, k_n = u.shape
-    # uniforms, correspondences and the mask in; the pose, inliers, count
-    # and index out; the hypotheses' iterations on their sample points, the
-    # scores, the refine's iterations on the winner's inliers
-    bound = _bound(s_n * k_n * 4 + k_n * 21 + 48 + k_n + 12,
-                   4 * int(sub.sum()) * OPS_PNP_POINT + s_n * k_n * OPS_PNP_SCORE
-                   + 5 * int(res.num_inliers) * OPS_PNP_POINT)
-    _log(f"ransac_pnp: {fused_n} kernel a verification (the step-by-step route {steps_n}); "
-         f"kernel {k_ms:.4f} ms, the route on the card {s_ms:.4f} ms, over the plain pnp_gn "
-         f"{p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']})")
-    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "steps_ms": s_ms,
+    large_ms = {k: _time_ms(lambda a=a: pnp_gn.ransac_pnp(*a), 20) for k, a in large.items()}
+
+    def ransac_bound(u_, obj_, imn_, v_) -> dict:
+        # uniforms, correspondences and the mask in; the pose, inliers, count
+        # and index out; the hypotheses' iterations on their sample points,
+        # the scores, the refine's iterations on the winner's inliers
+        res = pnp_gn.ransac_pnp(u_, obj_, imn_, v_)
+        sub = pnp_gn.select_sample(u_, v_, 4)
+        s_n, k_n = u_.shape
+        return _bound(s_n * k_n * 4 + k_n * 21 + 48 + k_n + 12,
+                      4 * int(sub.sum()) * OPS_PNP_POINT + s_n * k_n * OPS_PNP_SCORE
+                      + 5 * int(res.num_inliers) * OPS_PNP_POINT)
+
+    bound = ransac_bound(*args)
+    _log(f"ransac_pnp: {fused_n} kernel a verification at every K (the step-by-step route "
+         f"{steps_n}); kernel {k_ms:.4f} ms, the route on the card {s_ms:.4f} ms, over the plain "
+         f"pnp_gn {p_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']}); "
+         + ", ".join(f"K={k} {ms:.4f} ms" for k, ms in large_ms.items())
+         + f"; the kernel takes K <= {pnp_gn.max_points(device)} on this card")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "steps_ms": s_ms,
             "launches_per_verification": fused_n, "steps_launches_per_verification": steps_n,
-            **bound}
+            "max_points": pnp_gn.max_points(device),
+            "k2048": {"ms": large_ms[2048], **ransac_bound(*large[2048])},
+            "k8192": {"ms": large_ms[8192], **ransac_bound(*large[8192])},
+            "k16384": {"ms": large_ms[16384], **ransac_bound(*large[16384])},
+            "k_max": {"k": max(large), "ms": large_ms[max(large)],
+                      **ransac_bound(*large[max(large)])}, **bound}
 
 
 @contextlib.contextmanager
@@ -3564,14 +3648,54 @@ def run_cli_imu() -> dict:
     return {"plain_route_err": err}
 
 
-def run_cli_pnp() -> dict:
-    """`pnp`: the chessboard pose to t_err < 1e-4, one `pnp_gn` launch."""
-    from rgbd_odometry_tpu_torch import cli
+# aten operations that put no work on the device: allocations left
+# unfilled, and views
+_NO_DEVICE_WORK = {"empty", "empty_strided", "select", "unsqueeze", "squeeze", "view", "alias",
+                   "slice", "expand", "as_strided", "detach", "t", "transpose", "permute"}
 
-    got, _, _, _ = _quiet(cli.main, ["pnp"])
-    _log(f"cli_pnp: pnp: residual norms {got['residual_norms']}, t_err {got['t_err']:.3e}")
+
+def run_cli_pnp() -> dict:
+    """`pnp`: the chessboard pose to t_err < 1e-4; its `gn_pnp` call is one
+    `pnp_gn` launch (the wrapper's count) and no other device work: every
+    aten operation the call dispatches is an unfilled allocation or a view
+    (a dispatch mode records them; the profiler's device records, which a
+    long process can lose, are not relied on)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from rgbd_odometry_tpu_torch import cli
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    calls = []
+
+    def recorded(*a, **k):
+        before = pnp_gn.pnp_gn.launches
+        with Ops() as ops:
+            out = gn_pnp(*a, **k)
+        calls.append((pnp_gn.pnp_gn.launches - before, ops.names))
+        return out
+
+    gn_pnp = pnp.gn_pnp
+    with _patched(pnp, gn_pnp=recorded):
+        got, _, _, _ = _quiet(cli.main, ["pnp"])
+    _log(f"cli_pnp: pnp: residual norms {got['residual_norms_raw'].tolist()}, t_err "
+         f"{got['t_err']!r}; its gn_pnp call: {calls[0][0] if calls else 0} pnp_gn launch, aten "
+         f"operations {calls[0][1] if calls else []}")
     _require(got["t_err"] < 1e-4, f"cli_pnp: t_err {got['t_err']:.3e}")
-    return {"t_err": got["t_err"]}
+    _require(len(calls) == 1 and calls[0][0] == 1,
+             f"cli_pnp: gn_pnp calls and their pnp_gn launches {calls}, not one launch")
+    work = [n for n in calls[0][1] if n not in _NO_DEVICE_WORK]
+    _require(not work, f"cli_pnp: gn_pnp ran aten operations that use the device: {work}")
+    return {"t_err": got["t_err"], "residual_norms": got["residual_norms_raw"].tolist()}
 
 
 def _count_solves() -> dict:
@@ -3786,8 +3910,8 @@ def main() -> int:
          "replaces": "rgbd_odometry_tpu/pipeline/kf_matcher.py:103 (XLA, no Pallas kernel)",
          "launches": launches["match"], **res["match"]},
         {"name": "pnp_gn", "route": "cuda", "source": src + "pnp_gn.cu",
-         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:152 and gn_pnp :85 (XLA, no Pallas "
-                     "kernel)",
+         "replaces": "rgbd_odometry_tpu/solvers/pnp.py:46 gn_pnp (XLA, no Pallas kernel; "
+                     "vmapped over the hypotheses :152)",
          "launches": launches["pnp"], **res["pnp"]},
         {"name": "ransac_pnp", "route": "cuda", "source": src + "pnp_gn.cu",
          "replaces": "rgbd_odometry_tpu/solvers/pnp.py:116 ransac_pnp (XLA, no Pallas kernel: "

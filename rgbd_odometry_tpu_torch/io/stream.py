@@ -1,6 +1,6 @@
 """Frame sources and stream manipulation: port of
-`rgbd_odometry_tpu/io/stream.py` (`SyntheticCamera`, `TumSource`,
-`skip_frames`, `preprocess_vga`).
+`rgbd_odometry_tpu/io/stream.py` (the `FrameSource` protocol,
+`SyntheticCamera`, `TumSource`, `skip_frames`, `preprocess_vga`).
 
 A source yields (gray level-0 float32 0..255, depth level-0 float32 mm,
 timestamp s) as numpy arrays; the driver or `pipeline/feeder.FrameFeeder`
@@ -14,12 +14,18 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.config import CameraConfig
+
+
+class FrameSource(Protocol):
+    """A stream of (gray level-0, depth_mm level-0, timestamp) frames."""
+
+    def frames(self) -> Iterator[Tuple[np.ndarray, np.ndarray, float]]: ...
 
 
 @dataclass

@@ -81,9 +81,10 @@ def list_dump_frames(directory: str) -> List[Tuple[int, str]]:
 
 @dataclass
 class XmlDumpSource:
-    """Replay a directory of XML dumps as a frame source (the reference's
-    `__DATA_FROM_XML_FILES__` offline mode with START/END). Yields (gray
-    level 0, depth_mm level 0 with 0 -> 1, timestamp = index / fps)."""
+    """Replay a directory of XML dumps as a FrameSource (`io.stream`; the
+    reference's `__DATA_FROM_XML_FILES__` offline mode with START/END).
+    Yields (gray level 0, depth_mm level 0 with 0 -> 1, timestamp = index /
+    fps)."""
 
     root: str
     start: int = 0

@@ -92,12 +92,17 @@ preintegration of B = 29 one-sample windows, `fused --imu-refine`, and B
 `photometric` command's configuration, on a rendered pair at 640x480,
 320x240 and 1280x960, B = 1, and at 640x480, B = 64: the `solve_pyramid`
 call, the kernel alone on the rule's route and on every forced cluster
-size, pair 0's phase cycles from its clock stamps) and of `gn_pnp` (the
+size, pair 0's phase cycles from its clock stamps), of `gn_pnp` (the
 `pnp` command: 54 chessboard points, 5 iterations, one `pnp_gn` launch),
-with a digest of each output; and a photometric frame at 640x480 as the
-command runs it, device us, kernels and copies: the keyframe (pyramid and
-`extract_photo_ref`) and an ordinary frame (pyramid, solve, the pose's
-copy to the host). Copied into an older checkout, it measures what that
+`pnp_gn` at the step-by-step RANSAC route's two shapes (B = 64 hypotheses
+of 4 points of K = 384, 4 iterations; B = 1 over the best one's inliers, 5
+iterations) with problem 0's phase cycles, and
+`ransac_pnp` at K = 384 and 2048 (the PnP calls also timed by CUDA events
+behind a sleep kernel), with a digest of each output; and a photometric
+frame at 640x480 as the command runs it, device us, kernels and copies:
+the keyframe (pyramid and `extract_photo_ref`) and an ordinary frame
+(pyramid, solve, the pose's copy to the host). Copied into an older
+checkout, it measures what that
 checkout's wrapper takes.
 
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
@@ -754,14 +759,13 @@ def _map_store(device):
     return desc, valid, kps[-2].desc.contiguous(), kps[-2].valid.contiguous()
 
 
-def _pnp_problem(device):
-    """A PnP problem like chip_smoke.py's: K = 384 correspondences 1-3 m
-    away, 0.001 noise, 15% gross outliers, 90% valid; 64 hypotheses'
+def _pnp_problem(device, k: int = 384):
+    """A PnP problem like chip_smoke.py's: K correspondences 1-3 m away,
+    0.001 noise, 15% gross outliers, 90% valid; 64 hypotheses'
     uniforms."""
     import torch
 
     rng = np.random.default_rng(1)
-    k = 384
     obj = np.stack([rng.uniform(-1.2, 1.2, k), rng.uniform(-0.9, 0.9, k),
                     rng.uniform(1.0, 3.0, k)], -1).astype(np.float32)
     th = np.array([0.02, -0.03, 0.01])
@@ -899,6 +903,25 @@ def profile_map(device, reps: int = 20) -> dict:
     return out
 
 
+def _event_us(fn, reps: int) -> float:
+    """Device us per call of `fn` from CUDA events around `reps` calls
+    queued behind a ~10 ms sleep kernel, so that the host has enqueued them
+    all before the device reaches the first and they run back to back (a
+    check on the profiler's sums, which can drop a window's records)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
 def _named_us(fn, reps: int, name: str) -> list:
     """[device us per launch, launches per call] of the kernels of `fn`
     whose name holds `name`, from `reps` calls under the profiler."""
@@ -1010,13 +1033,84 @@ def profile_secondary(device, reps: int = 20) -> dict:
 
             out["photometric_keyframe_640"] = _device_split(keyframe, reps)
             out["photometric_frame_640"] = _device_split(frame, reps)
+    out.update(_profile_pnp(device, reps))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _gn_cycles(clk) -> dict:
+    """The median cycles of a `pnp_gn` iteration and of its phases, and of
+    the score, from problem 0's clock64() stamps (`csrc/pnp_gn.cu`)."""
+    it = clk[:-1]
+    d = {name: float(np.median(it[:, b] - it[:, a]))
+         for name, a, b in (("pass", 0, 1), ("sum", 1, 2), ("step", 2, 3))}
+    if len(it) > 1:
+        d["iteration"] = float(np.median(np.diff(it[:, 0])))
+    d["first pass"] = float(it[0, 1] - it[0, 0])  # its loads cold in L1
+    d["score"] = float(clk[-1, 1] - clk[-1, 0])
+    return d
+
+
+def _profile_pnp(device, reps: int) -> dict:
+    """`gn_pnp` on the `pnp` command's chessboard (54 points, 5 iterations),
+    `pnp_gn` at the step-by-step RANSAC route's two shapes (the hypotheses:
+    B = 64, 4 points each of K = 384, 4 iterations; the refine: B = 1 over
+    the best hypothesis's inliers, 5 iterations) and `ransac_pnp` at K = 384
+    and 2048: device us and launches a call, a digest of the outputs; where
+    the checkout's `pnp_gn` takes `clocks`, problem 0's phase cycles."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import pnp_gn
+    from rgbd_odometry_tpu_torch.solvers import pnp
+
+    f32 = dict(dtype=torch.float32, device=device)
+    params = inspect.signature(pnp_gn.pnp_gn).parameters
+    out = {}
     obj = torch.as_tensor(pnp.chessboard_object_points(6, 9, 0.05), **f32) + torch.tensor(
         [0.0, 0.0, 1.5], **f32)
     imn = obj[:, :2] / obj[:, 2:3] + 0.01
     valid = torch.ones(obj.shape[0], dtype=torch.bool, device=device)
     call = lambda: pnp.gn_pnp(obj, imn, valid, iterations=5)  # noqa: E731
     out["pnp_gn_chessboard"] = _device_us(call, reps) + [_digest(call())]
-    print(json.dumps(out), flush=True)
+    out["pnp_gn_chessboard_event_us"] = _event_us(call, reps)
+    eye = torch.eye(3, **f32)
+    shapes = {"chessboard": (obj, imn, valid[None], eye[None], torch.zeros((1, 3), **f32), 5, 0.0,
+                             valid)}
+    u, kobj, kimn, kv = _pnp_problem(device)
+    sub = pnp_gn.select_sample(u, kv, 4)
+    b = u.shape[0]
+    hyp = (kobj, kimn, sub, eye.expand(b, 3, 3).contiguous(), torch.zeros((b, 3), **f32), 4, 0.01,
+           kv)
+    Rs, ts, counts, inl = pnp_gn.pnp_gn(*hyp, write_inliers=True)
+    best = int(torch.argmax(counts))
+    shapes["hypotheses"] = hyp
+    shapes["refine"] = (kobj, kimn, inl[best][None].contiguous(), Rs[best][None].contiguous(),
+                        ts[best][None].contiguous(), 5, 0.01, kv)
+    for name, args in shapes.items():
+        key = f"pnp_gn_{name}"
+        # the chessboard as gn_pnp calls it (timed above): the norms requested
+        kw = {"rnorm_out": torch.empty((1, 5), **f32)} if name == "chessboard" else {}
+        if name != "chessboard":
+            fn = lambda args=args: pnp_gn.pnp_gn(*args, write_inliers=True)  # noqa: E731
+            out[key] = _named_us(fn, reps, "pnp_gn") + [_digest(fn())]
+            out[f"{key}_event_us"] = _event_us(fn, reps)
+        if "clocks" in params:
+            clk = torch.zeros((args[5] + 1, 4), dtype=torch.int64, device=device)
+            pnp_gn.pnp_gn(*args, write_inliers=True, clocks=clk, **kw)
+            torch.cuda.synchronize()
+            out[f"{key}_cycles"] = _gn_cycles(clk.cpu().numpy())
+    for k in (384, 2048):
+        u, kobj, kimn, kv = _pnp_problem(device, k)
+        try:
+            res = pnp.ransac_pnp(u, kobj, kimn, kv)
+        except ValueError as exc:  # a checkout whose kernel caps K
+            out[f"ransac_pnp_k{k}"] = {"error": str(exc)}
+            continue
+        fn = lambda u=u, kobj=kobj, kimn=kimn, kv=kv: pnp.ransac_pnp(u, kobj, kimn, kv)  # noqa: E731
+        out[f"ransac_pnp_k{k}"] = {**_device_split(fn, reps), "event_us": _event_us(fn, reps),
+                                   "digest": _digest(res, 5), "inliers": int(res.num_inliers)}
+    for key, val in out.items():
+        print(f"secondary {key}: {json.dumps(val)}", flush=True)
     return out
 
 

@@ -4,8 +4,8 @@ The reference's Gauss-Newton PnP on normalized-plane residuals
 (`SolvePnP::PnP`, src/SolvePnP.cpp:148-203: 5 fixed iterations,
 right-multiplied exponential update) and the `cv::solvePnPRansac` stage of
 `PnPOdometry::pnpEstimation` (src/PnPOdometry.cpp:537-592) with every
-hypothesis solved at once. On CUDA tensors both RANSAC phases (the
-hypotheses and the winner's refine) are one launch each of the hand-written
+hypothesis solved at once. On CUDA tensors the whole RANSAC (the
+hypotheses and the winner's refine) is one launch of the hand-written
 kernel in `kernels/pnp_gn.py`, and `gn_pnp` is one launch of its batched
 Gauss-Newton kernel. The random subsets come from an (S, K) tensor of
 uniforms in [0, 1) given by the caller. The chessboard front end
@@ -40,18 +40,18 @@ def gn_pnp_step(obj_pts, im_pts_norm, R, t, valid):
 
 def gn_pnp(obj_pts, im_pts_norm, valid, R0=None, t0=None, iterations: int = 5):
     """Fixed-iteration GN PnP (5 iterations as the reference, :156) on the
-    points of valid (K,) bool: (R, t, residual norm before each iteration
-    (iterations,)). One launch of the `pnp_gn` kernel on CUDA tensors (B =
-    1), its plain version on CPU tensors."""
+    points of valid (K,) bool from (R0, t0) (None: the identity): (R, t,
+    residual norm before each iteration (iterations,)). On CUDA tensors one
+    launch of the `pnp_gn` kernel (B = 1) and no other device work, its
+    plain version on CPU tensors."""
     dev = obj_pts.device
     f32 = dict(dtype=torch.float32, device=dev)
-    R = torch.eye(3, **f32) if R0 is None else R0.to(**f32)
-    t = torch.zeros(3, **f32) if t0 is None else t0.to(**f32)
+    R0 = None if R0 is None else R0.to(**f32)[None].contiguous()
+    t0 = None if t0 is None else t0.to(**f32)[None].contiguous()
     rn = torch.empty((1, iterations), **f32)
     mask = valid.to(device=dev, dtype=torch.bool).contiguous()
     R, t, _, _ = _kernel.pnp_gn(obj_pts.contiguous(), im_pts_norm.contiguous(), mask[None],
-                                R[None].contiguous(), t[None].contiguous(), iterations, 0.0, mask,
-                                rnorm_out=rn)
+                                R0, t0, iterations, 0.0, mask, rnorm_out=rn)
     return R[0], t[0], rn[0]
 
 

@@ -14,7 +14,9 @@ versions, and the RANSAC PnP route against the JAX package.
   `_block_sum`; the sample's selection against `lax.top_k` on tied scores
   (which `torch.topk` resolves otherwise); the RANSAC route against JAX's
   `ransac_pnp` with fewer than four valid points, none valid and tied best
-  counts; the wrappers' argument checks.
+  counts; the wrappers' argument checks. Past 1024 points: the large
+  route's sample rule against the stable sort, and both sum layouts
+  against `_block_sum` at any K.
 """
 
 import numpy as np
@@ -198,6 +200,126 @@ def test_warp_sum_is_the_block_sum(k, points):
     x = torch.where(mask[..., None], x, torch.zeros_like(x))
     got, want = _warp_sum(x), pnp_gn._block_sum(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _warp_tree(lanes: torch.Tensor) -> torch.Tensor:
+    """csrc/warp.cuh's warp_tree for N = 27 or 28 sums (P = 32 slots): at
+    each offset o = 16, ..., 1 lane l keeps the half of its slots [0, 2o)
+    its bit o names and adds the other half of lane l ^ o's. lanes (32, N,
+    B) -> (N, B), sum m from lane m's slot 0."""
+    n, b = lanes.shape[1:]
+    x = torch.zeros((32, 32, b), dtype=torch.float32)
+    x[:, :n] = lanes
+    lane = torch.arange(32)
+    o = 16
+    while o >= 1:
+        hi = ((lane & o) != 0)[:, None, None]
+        keep = torch.where(hi, x[:, o : 2 * o], x[:, :o])
+        send = torch.where(hi, x[:, :o], x[:, o : 2 * o])
+        x = keep + send[lane ^ o]
+        o //= 2
+    return x[:n, 0]
+
+
+def _warp_route_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, K, N) terms, (B, K) mask -> (B, N) as a warp of csrc/pnp_gn.cu
+    sums a problem (LaneSums, ransac_pnp_kernel's hypotheses): lane l takes
+    its masked points l + 32 q chunk by chunk (q0 = 0, 32, ...; bit b of a
+    chunk is q = q0 + b) into virtual thread l + 32 (b % 4)'s running sum,
+    folds (v0 + v2) + (v1 + v3), then warp_tree."""
+    b, k, n = x.shape
+    lanes = torch.zeros((32, n, b), dtype=torch.float32)
+    for lane in range(32):
+        v = [torch.zeros((n, b), dtype=torch.float32) for _ in range(4)]
+        for q0 in range(0, -(-k // 32), 32):
+            for bit in range(32):
+                i = lane + 32 * (q0 + bit)
+                if i < k:
+                    m = mask[:, i]
+                    v[bit % 4] = torch.where(m, v[bit % 4] + x[:, i].T, v[bit % 4])
+        lanes[lane] = (v[0] + v[2]) + (v[1] + v[3])
+    return _warp_tree(lanes).T
+
+
+def _split_route_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, K, N) terms, (B, K) mask -> (B, N) as a block of four warps sums
+    a problem (pnp_gn_kernel, ransac_pnp_kernel's refine): thread v takes its masked points v + 128 j in ascending j, warp
+    0's lane l folds (red[l] + red[l + 64]) + (red[l + 32] + red[l + 96]) from
+    shared memory, then warp_tree."""
+    b, k, n = x.shape
+    red = torch.zeros((128, n, b), dtype=torch.float32)
+    for v in range(128):
+        acc = torch.zeros((n, b), dtype=torch.float32)
+        for i in range(v, k, 128):
+            acc = torch.where(mask[:, i], acc + x[:, i].T, acc)
+        red[v] = acc
+    return _warp_tree((red[:32] + red[64:96]) + (red[32:64] + red[96:])).T
+
+
+@pytest.mark.parametrize("route", ["warp", "split"])
+@pytest.mark.parametrize("k", [1, 31, 33, 54, 127, 384, 1025, 4097])
+def test_pnp_gn_routes_sum_as_the_block_sum(k, route):
+    """Both layouts of csrc/pnp_gn.cu's sums, a problem on a warp ("warp":
+    ransac_pnp_kernel's hypotheses) and on a block of four warps ("split":
+    pnp_gn_kernel and the refine), assign the points to the 128 virtual
+    threads and add them up in `_block_sum`'s bits (the plain version's
+    order) for 28 sums over masked points at any K: masks from 3% to 100%
+    of the points."""
+    rng = np.random.default_rng(k)
+    b = 3
+    x = torch.from_numpy(rng.normal(size=(b, k, 28)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((b, k)) < np.array([[0.03], [0.5], [1.0]]))
+    want = pnp_gn._block_sum(torch.where(mask[..., None], x, torch.zeros_like(x)))
+    got = (_warp_route_sum if route == "warp" else _split_route_sum)(x, mask)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _ordered(f: np.ndarray) -> np.ndarray:
+    """csrc/pnp_gn.cu's `ordered`: float32 bits as uint32 keys in the
+    floats' order."""
+    u = f.astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _large_route_sample(u: np.ndarray, valid: np.ndarray, size: int) -> np.ndarray:
+    """(S, K) samples as ransac_pnp_kernel's large route (K > 1024) takes
+    them, with no word of taken points: a round's open points are those
+    after the last one taken in descending (key, -index); lane l takes its
+    first largest open score among points l + 32 q, the warp the largest
+    key, then the lowest index holding it; the pick is kept if valid."""
+    s, k = u.shape
+    sel = np.zeros((s, k), bool)
+    idx = np.arange(k)
+    for h in range(s):
+        sc = u[h] + np.where(valid, np.float32(1), np.float32(-1))
+        key = _ordered(sc)
+        last_key, last_i = 0xFFFFFFFF, -1
+        for _ in range(size):
+            open_ = (key < last_key) | ((key == last_key) & (idx > last_i))
+            best = []  # each lane's (key, index)
+            for lane in range(32):
+                pts = idx[lane::32][open_[lane::32]]
+                if len(pts):
+                    i = pts[np.argmax(sc[pts])]  # the first largest
+                    best.append((int(key[i]), int(i)))
+            top = max(kk for kk, _ in best)
+            pick = min(i for kk, i in best if kk == top)
+            sel[h, pick] |= bool(valid[pick])
+            last_key, last_i = top, pick
+    return sel
+
+
+@pytest.mark.parametrize("k,size", [(1025, 4), (2048, 4), (4097, 37)])
+def test_large_route_sample_is_the_stable_sort(k, size):
+    """Past 1024 points the fused kernel knows a taken point by its place in
+    the order, not by a bit: on heavily tied scores, valid and not, its
+    rounds take the sample `select_sample` takes (a stable descending
+    sort, `lax.top_k`'s ties to the lower index)."""
+    rng = np.random.default_rng(k)
+    u = (np.floor(rng.random((8, k)) * 4) / 4).astype(np.float32)
+    valid = rng.random(k) < 0.7
+    want = pnp_gn.select_sample(torch.from_numpy(u), torch.from_numpy(valid), size).numpy()
+    np.testing.assert_array_equal(_large_route_sample(u, valid, size), want)
 
 
 @pytest.mark.parametrize("k", [7, 24, 384])

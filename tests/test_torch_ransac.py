@@ -156,6 +156,59 @@ def test_ransac_pnp_matches_jax(corr, seed):
     assert np.linalg.norm(got.R.numpy() - R_gt) < 0.02
 
 
+def _synthetic_pnp(seed: int, k: int):
+    """K correspondences of a known pose: points 1-3 m in front of the
+    stored camera, normalized projections with 0.001 noise, 15% gross
+    outliers, 90% valid; the pose (R, t), the valid mask and the outliers."""
+    rng = np.random.default_rng(seed)
+    obj = np.stack([rng.uniform(-1.2, 1.2, k), rng.uniform(-0.9, 0.9, k),
+                    rng.uniform(1.0, 3.0, k)], -1).astype(np.float32)
+    R, t = (np.asarray(x, np.float64) for x in jgeo.se3_exp(
+        jnp.asarray([0.03, -0.02, 0.01, 0.02, -0.03, 0.01], jnp.float32)))
+    pq = (obj - t) @ R
+    imn = pq[:, :2] / pq[:, 2:] + rng.normal(0, 0.001, (k, 2))
+    bad = rng.random(k) < 0.15
+    imn[bad] += rng.uniform(-0.1, 0.1, (int(bad.sum()), 2))
+    return obj, imn.astype(np.float32), rng.random(k) < 0.9, bad, (R, t)
+
+
+@pytest.mark.parametrize("k", [1500, 4097])
+def test_ransac_pnp_past_1024_points_matches_jax(k):
+    """Past the fused kernel's small route (K > 1024, which JAX's
+    `ransac_pnp` takes as any K): the plain route with JAX's draws gives
+    JAX's hypothesis, inliers and count, and its pose, at
+    test_ransac_pnp_matches_jax's bars."""
+    obj, imn, valid, _, (R_gt, t_gt) = _synthetic_pnp(k, k)
+    key = jax.random.PRNGKey(k)
+    want = jpnp.ransac_pnp(key, jnp.asarray(obj), jnp.asarray(imn), jnp.asarray(valid))
+    got = ppnp.ransac_pnp(_draws(key, 64, k), _t(obj), _t(imn), _t(valid))
+    assert int(got.best_hypothesis) == int(want.best_hypothesis)
+    np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
+    assert int(got.num_inliers) == int(want.num_inliers) >= 12
+    np.testing.assert_allclose(got.R.numpy(), np.asarray(want.R), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), rtol=0, atol=1e-5)
+    assert np.linalg.norm(got.t.numpy() - t_gt) < 0.02
+    assert np.linalg.norm(got.R.numpy() - R_gt) < 0.02
+
+
+def test_gn_pnp_at_2048_points_matches_jax():
+    """`gn_pnp` over 2048 correspondences (the inliers of 90% valid) from a
+    perturbed start, at test_gn_pnp_matches_jax's bars."""
+    obj, imn, valid, bad, _ = _synthetic_pnp(5, 2048)
+    mask = valid & ~bad
+    R0, t0 = jgeo.se3_exp(jnp.asarray([0.01, -0.01, 0.005, 0.01, 0.0, -0.01], jnp.float32))
+    Rj, tj, nj = jpnp.gn_pnp(jnp.asarray(obj), jnp.asarray(imn), jnp.asarray(mask), R0, t0,
+                             iterations=5)
+    Rp, tp, np_ = ppnp.gn_pnp(_t(obj), _t(imn), _t(mask), _t(R0), _t(t0), iterations=5)
+    np.testing.assert_allclose(Rp.numpy(), np.asarray(Rj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(tj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np_.numpy(), np.asarray(nj), rtol=1e-4, atol=1e-4 * float(nj[0]))
+    r_j = jpnp.normalized_residuals(jnp.asarray(obj), jnp.asarray(imn), Rj, tj,
+                                    jnp.asarray(mask))[0]
+    r_p = ppnp.normalized_residuals(_t(obj), _t(imn), Rp, tp, _t(mask))
+    np.testing.assert_allclose(r_p.numpy(), np.asarray(r_j), rtol=0, atol=1e-5)
+
+
 def test_gn_pnp_matches_jax(corr):
     c = corr
     mask = c["valid"] & c["ov"]

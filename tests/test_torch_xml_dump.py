@@ -96,6 +96,32 @@ def test_sources_and_listing_match_jax(tmp_path):
             assert all(np.array_equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
 
 
+def test_frame_source_protocol_matches_jax(tmp_path):
+    """The port's `io.stream.FrameSource` declares `frames()` as JAX's does
+    (a typing Protocol, the same signature and annotation), and the sources
+    the port replays, the XML dumps' among them, provide it and yield its
+    (gray, depth_mm, timestamp) triples."""
+    import inspect
+    from typing import Protocol
+
+    from rgbd_odometry_tpu.io import stream as jax_stream
+    from rgbd_odometry_tpu_torch.io import stream
+
+    mine, theirs = stream.FrameSource, jax_stream.FrameSource
+    assert Protocol in mine.__bases__ and Protocol in theirs.__bases__
+    assert [n for n in vars(mine) if not n.startswith("_")] == ["frames"]
+    assert inspect.signature(mine.frames) == inspect.signature(theirs.frames)
+    assert mine.frames.__annotations__ == theirs.frames.__annotations__
+    assert "FrameSource" in xml_dump.XmlDumpSource.__doc__
+    assert "FrameSource" in jax_xml.XmlDumpSource.__doc__
+    for source in (xml_dump.XmlDumpSource, stream.SyntheticCamera, stream.TumSource):
+        assert inspect.signature(source.frames) == inspect.signature(mine.frames).replace(
+            return_annotation=inspect.Signature.empty)
+    xml_dump.write_frame_dump(str(tmp_path), 0, *_pyramid(np.random.default_rng(3), 16, 16))
+    gray, depth, ts = next(iter(xml_dump.XmlDumpSource(str(tmp_path)).frames()))
+    assert gray.shape == depth.shape == (16, 16) and ts == 0.0
+
+
 @pytest.fixture(scope="module")
 def dumps(tmp_path_factory):
     """`dump` of 4 rendered 160x120 frames by the port and by JAX, and a
