@@ -111,7 +111,20 @@ through their user entry points:
                    cpu`'s;
   cli_pnp          `pnp`: t_err < 1e-4; its `gn_pnp` call one `pnp_gn`
                    launch and no other device work (no aten operation but
-                   unfilled allocations and views).
+                   unfilled allocations and views);
+  parity_batch     `align_pair` in the reference-parity mode on the batch
+                   phase's 64 pairs (8192/4096/2048/1024 points), once per
+                   family (the sub-gradient with `interpolate_dt` by mxu
+                   and take, with the SVD `rotationize`, with the textbook
+                   Jacobian; Gauss-Newton with take, with "channels" and
+                   float32 channels, with the reference Jacobian): no level
+                   kernel (`run_level_loop`), the path's 7 target and
+                   extraction launches a call, pairs 0-3 within the
+                   family's bar of the port's CPU run of the same inputs;
+  parity_stream    `EdgeDvoOdometry` under parity_320 + `interpolate_dt` +
+                   the SVD `rotationize` over the stream phase's 30 frames:
+                   ATE under the JAX package's CPU ATE + 5 mm
+                   (`PARITY_STREAM_ATE_MM`), ms/frame, launches a frame.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -158,7 +171,13 @@ the loop_closure, relocalize, cli_loop_close, cli_weighted_refine and
 cli_checkpoint phases; `level_sg` in probe too; `extract_pyramid` in every phase that extracts keyframe features
 (every Gauss-Newton phase, the lockstep and sequence phases among them, and
 cli_subgradient); `imu_scan`, `level_photo` and `pnp_gn` in the secondary
-solvers' phases (`PHASE_KERNELS`). `check_imu` and `check_level_photo` hold
+solvers' phases (`PHASE_KERNELS`); no level kernel in the parity phases
+(`PARITY_PHASES`). `check_level_traj` holds the two level kernels'
+trajectory output (JAX's `collect_trajectory`) at the `dvo` commands'
+level 0, B = 64 and 1: every other output bitwise the launch without it,
+`level_sg`'s rows bitwise its trace's next pose, the plain twins' rows
+within each level check's pose bar, timed with and without it (the
+kernels' JSON entries' "trajectory"). `check_imu` and `check_level_photo` hold
 the two secondary kernels against their plain versions at the paths' shapes
 (propagate B = 1 T = 400 and B = 64 T = 100, preintegrate B = 64 T = 10
 and 1; the photometric pyramid at 320x240 and 640x480, B = 1 and 64, every
@@ -249,7 +268,14 @@ MAP_PHASES = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refi
 # the phases at production_vga's 640x480 (their launches go in the kernels' "vga" entries)
 VGA_PHASES = ("stream_vga", "batch_vga")
 # the phases that extract keyframe features: extract_pyramid must launch there
-EXTRACT_PHASES = GN_PHASES + ("cli_subgradient",)
+# the reference-parity phases: the targets and extraction on the kernels, the
+# level solves on run_level_loop (no level kernel)
+PARITY_PHASES = ("parity_batch", "parity_stream")
+EXTRACT_PHASES = GN_PHASES + ("cli_subgradient",) + PARITY_PHASES
+# parity_stream's bar: cli_subgradient's 25 mm, but the JAX package's own CPU
+# run of the same 30 frames under the same configuration misses it (ATE
+# 25.097 mm; PERF.md), so JAX's ATE + 5 mm
+PARITY_STREAM_ATE_MM = 25.097 + 5.0
 MULTI_STREAMS, MULTI_FRAMES = 8, 12  # the multistream phase: N streams, frames each
 FR1_DISTORTION = (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)  # TUM freiburg1's RGB camera
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -2411,6 +2437,300 @@ def check_level_sg(device, rng) -> dict:
     return {"max_abs_err": worst, **summary, "pyramid": pyramids}
 
 
+def _level0_inputs(device, cfg, batch: int):
+    """Level 0 (240x320, the parity capacity 8192) of the batch phase's
+    rendered pairs under `cfg`, through the path's own extraction and
+    targets: (RefLevel, NowLevel, level intrinsics)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig, profiles
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    cam = profiles.production_320().camera
+    rg, rd, ng, nd, _ = render_batch(cam, batch)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    ref_pyr, now_pyr = build_pyramid(f(rg), f(rd), 4), build_pyramid(f(ng), f(nd), 4)
+    intr = Intrinsics.from_config(cam)
+    refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg,
+                                         PipelineConfig().pyramid.max_points)
+    return refs[0], edge_dvo.prepare_now_targets(now_pyr.gray, cfg)[0], intr.at_level(0)
+
+
+def _traj_frozen(what: str, traj, ran) -> None:
+    """A pair done after `ran` iterations holds the pose it ended on in every
+    later row of its trajectory, bit for bit."""
+    n = traj.shape[1]
+    for b in range(traj.shape[0]):
+        d = int(ran[b])
+        if 0 < d < n:
+            _require(_same_bits(traj[b, d:], traj[b, d - 1].expand(n - d, -1).contiguous()),
+                     f"{what}: pair {b}'s rows after it is done are not its frozen pose")
+
+
+def check_level_traj(device) -> dict:
+    """The trajectory output of the two level kernels (JAX's
+    `collect_trajectory` on a production configuration, `run_level`'s route
+    on the card) at the `dvo` commands' level 0 of the batch phase's pairs
+    (240x320, 8192 points), B = 64 and 1, from the identity: `level_sg`
+    under `SolverConfig()` (50 iterations, the reference's sub-gradient) and
+    `level_lm` on the standard LM of the `dvo` defaults (18 iterations, the
+    normal equations on every 4th point, the all-point tail). Every other
+    output bitwise the same with and without the trajectory (the trace
+    too); for a pair still running, `level_sg`'s trace row i+1's pose bitwise
+    trajectory row i, and a done pair's frozen pose in every later row; the
+    result the best row's pose re-orthogonalized (1e-6). Against the plain
+    twins with their trajectory: `check_level_sg`'s bars (`_check_sg_curves`)
+    and the rows of the pairs that never part within its pose bar, 1e-5;
+    `check_level_lm`'s bars (`_check_level_curves`) and the rows of the pairs
+    whose decisions all agree within its pose bar, 1e-3 (the LM's damped
+    step turns the sums' last bits into ~1e-5 of pose). CUDA-event times
+    with and without the output, in turns (with, without, without, with)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import SolverConfig
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.kernels import level_lm, level_sg
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    out = {}
+    for name, cfg in (("level_sg", SolverConfig()),
+                      ("level_lm", SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3)))):
+        ref, now, li = _level0_inputs(device, cfg, BATCH)
+        n = cfg.iterations[0]
+        for b in (BATCH, 1):
+            pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
+            R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+            t0 = torch.zeros((b, 3), device=device)
+            traj = torch.full((b, n, 12), float("nan"), device=device)
+            traj_p = torch.full((b, n, 12), float("nan"), device=device)
+            what = f"{name} B={b} level 0 with its trajectory"
+            if name == "level_sg":
+                args = (R0, t0, pts, valid, count, now.dt[:b], *li, cfg, n)
+                trace, trace2 = (torch.zeros((b, n, 18), device=device) for _ in range(2))
+                ker = level_sg.level_sg(*args, trace=trace, traj=traj)
+                bare = level_sg.level_sg(*args, trace=trace2)
+                pl = level_sg.level_sg_plain(*args, traj=traj_p)
+                run = lambda t=None: level_sg.level_sg(*args, traj=t)  # noqa: E731
+            else:
+                jstride, stride = edge_dvo.level_strides(cfg, pts.shape[1])
+                args = (R0, t0, pts, valid, count, now.chans[:b, 0], now.scale[:b], *li, cfg, n,
+                        jstride, stride)
+                ker = level_lm.level_lm(*args, traj=traj)
+                bare = level_lm.level_lm(*args)
+                pl = level_lm.level_lm_plain(*args, traj=traj_p)
+                run = lambda t=None: level_lm.level_lm(*args, traj=t)  # noqa: E731
+            torch.cuda.synchronize()
+            _require(all(_same_bits(a, c) for a, c in zip(ker, bare)),
+                     f"{what}: an output differs from the launch without the trajectory")
+            _require(bool(torch.isfinite(traj).all()), f"{what}: a row was not written")
+            ran = (ker.energy != 0).sum(-1)
+            _traj_frozen(what, traj, ran)
+            if name == "level_sg":
+                _require(torch.equal(trace, trace2), f"{what}: the trace differs without it")
+                steps = 0
+                for i in range(n - 1):
+                    live = ran > i + 1
+                    if bool(live.any()):
+                        _require(_same_bits(traj[live, i], trace[live, i + 1, :12]),
+                                 f"{what}: row {i} is not trace row {i + 1}'s pose")
+                        steps += int(live.sum())
+                together, err, never = _check_sg_curves(what, ker, pl)
+                _require(2 * never >= b, f"{what}: only {never} pairs never part")
+            else:
+                err = _check_level_curves(what, cfg, ker, pl)
+                e_k, e_p = ker.energy.cpu().numpy(), pl.energy.cpu().numpy()
+                together = torch.from_numpy(((e_k == 0) == (e_p == 0)).all(1) & (
+                    np.sign(np.diff(e_k, axis=1)) == np.sign(np.diff(e_p, axis=1))).all(1)
+                    & (ker.best_iter == pl.best_iter).cpu().numpy()).to(device)
+            rows = (traj - traj_p)[together].abs()
+            row_err = float(rows.max()) if rows.numel() else 0.0
+            row_bar = 1e-5 if name == "level_sg" else 1e-3  # each check's pose bar
+            _require(row_err <= row_bar,
+                     f"{what}: rows differ from the plain twin's by {row_err:.2e}")
+            # the result is the best row's pose (the start at iteration 0), re-orthogonalized
+            best = ker.best_iter.long()
+            prev = traj[torch.arange(b, device=device), (best - 1).clamp(min=0)]
+            bR = torch.where((best > 0)[:, None, None], prev[:, :9].reshape(b, 3, 3), R0)
+            bt = torch.where((best > 0)[:, None], prev[:, 9:], t0)
+            best_err = max(float((geo.rotationize_newton(bR) - ker.R).abs().max()),
+                           float((bt - ker.t).abs().max()))
+            _require(best_err <= 1e-6, f"{what}: the result is not the best row's pose "
+                                       f"({best_err:.2e})")
+            # with, without, without, with, after 50 calls that bring the card's
+            # clock back up from the plain twin's idle stretch
+            _time_ms(run, 50)
+            times = [_time_ms(lambda: run(traj), 50), _time_ms(run, 50), _time_ms(run, 50),
+                     _time_ms(lambda: run(traj), 50)]
+            with_ms, without_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+            rows_how = (f"{steps} rows bitwise the trace's next pose" if name == "level_sg"
+                        else "the rows after a pair is done its frozen pose")
+            _log(f"{what} ({n} iterations, {int(ran.sum())} run): every other output bitwise "
+                 f"the launch without it, {rows_how}, "
+                 f"{int(together.sum())} pairs' rows within {row_err:.2e} of the plain twin's, "
+                 f"pose err {err:.2e}; {with_ms * 1e3:.1f} us with the trajectory, "
+                 f"{without_ms * 1e3:.1f} us without")
+            out[f"{name} B={b}"] = {"ms": with_ms, "ms_without": without_ms,
+                                    "max_abs_err": max(err, row_err)}
+    return out
+
+
+def _parity_families():
+    """One configuration of each reference-parity family (`kernel_route`
+    False), with the pose bar of its comparison between the card and the
+    CPU: tests/test_torch_parity_drivers.py's 1e-4 where every gather is
+    float32 and 2e-3 where the gathers are bf16; the sub-gradient 1e-2.
+    Its steps keep the trust region's length (3e-3) through all 200
+    iterations, so two free runs that part where a reduction's last bit
+    differs (a floor decision, or the interpolated DT's descent) wander
+    apart within the few steps of its oscillation around the optimum and
+    return other visited poses as their best."""
+    from rgbd_odometry_tpu_torch import SolverConfig
+
+    sg = SolverConfig()
+    gn = SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3))
+    rep = dataclasses.replace
+    return {
+        "sg_interpolate_dt_mxu": (rep(sg, interpolate_dt=True), 1e-2),
+        "sg_interpolate_dt_take": (rep(sg, interpolate_dt=True, gather_mode="take"), 1e-2),
+        "sg_rotationize_svd": (rep(sg, rotationize_method="svd"), 1e-2),
+        "sg_true_jacobian": (rep(sg, jacobian_mode="true"), 1e-2),
+        "gn_take": (rep(gn, gather_mode="take"), 1e-4),
+        "gn_channels_float32": (rep(gn, gn_gradient_mode="channels", gather_dtype="float32"),
+                                1e-4),
+        "gn_reference_jacobian": (rep(gn, jacobian_mode="reference"), 2e-3),
+    }
+
+
+PARITY_CPU_PAIRS = 4  # the pairs of parity_batch held against the CPU run
+# an align_pair call in the parity mode: Canny of both pyramids, the 4 levels'
+# targets, the keyframe's extraction; the level solves launch no kernel
+PARITY_CALL_LAUNCHES = {"canny_pyramid": 2, "dt_channels": 4, "extract": 1}
+
+
+def run_parity_batch(device) -> dict:
+    """`align_pair` in the reference-parity mode on the batch phase's 64
+    rendered 320x240 pairs (capacities 8192/4096/2048/1024) from a generic
+    start pose, once per
+    family of `_parity_families`: the kernels' targets and extraction
+    (`canny_pyramid`, `dt_channels`, `extract_pyramid`) and the level solves
+    as `run_level_loop` (no level kernel), every pose finite, the pose error
+    against ground truth, the launches and host ms a call (for the first
+    family of each method every CUDA kernel of a call, from the profiler),
+    and the first `PARITY_CPU_PAIRS` pairs against the port's CPU run of
+    the same inputs: the coarsest level's first energy (the start pose,
+    before the runs can part) within 1e-5 relative, the poses within the
+    family's bar."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig, align_pair, profiles
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    cam = profiles.production_320().camera
+    caps = PipelineConfig().pyramid.max_points
+    rg, rd, ng, nd, gt = render_batch(cam, BATCH)
+    intr = Intrinsics.from_config(cam)
+    gt_t = np.stack([p[1] for p in gt])
+    # a generic start, as the JAX package's oracle tests take: at the identity
+    # every point lies on a pixel boundary, where the last bit of u (the card
+    # divides the back-projection by a scalar's reciprocal, the CPU truly)
+    # flips floor lookups and border visibility between the two devices
+    start = geo.se3_exp(torch.tensor([0.003, -0.002, 0.001, 0.002, 0.001, -0.002]))
+    counters = _launch_counters()
+    out = {}
+    for card, (dev, n) in enumerate(((device, BATCH), (torch.device("cpu"), PARITY_CPU_PAIRS))):
+        card = card == 0
+        f = lambda a: torch.from_numpy(a[:n]).to(dev)  # noqa: E731
+        pyr = (build_pyramid(f(rg), f(rd), 4), build_pyramid(f(ng), f(nd), 4))
+        R0 = start[0].expand(n, 3, 3).contiguous().to(dev)
+        t0 = start[1].expand(n, 3).contiguous().to(dev)
+        for fam, (cfg, bar) in _parity_families().items():
+            _require(not edge_dvo.kernel_route(cfg), f"parity_batch {fam}: on the kernels' route")
+            before = {k: fn.launches for k, fn in counters.items()}
+            _sync(dev)
+            tic = time.perf_counter()
+            R, t, diags = align_pair(pyr[0].gray, pyr[0].depth, pyr[1].gray, intr, cfg, caps,
+                                     R0, t0)
+            e0 = diags[-1].energy[:PARITY_CPU_PAIRS, 0].cpu()
+            _sync(dev)
+            ms = (time.perf_counter() - tic) * 1000.0
+            if card:
+                n_l = {k: fn.launches - before[k] for k, fn in counters.items()}
+                kernels = None
+                if fam in ("sg_interpolate_dt_mxu", "gn_take"):
+                    kernels = _kernel_launches(lambda: align_pair(
+                        pyr[0].gray, pyr[0].depth, pyr[1].gray, intr, cfg, caps, R0, t0))
+                t_np = t.cpu().numpy().astype(np.float64)
+                _require(np.isfinite(t_np).all() and bool(torch.isfinite(R).all()),
+                         f"parity_batch {fam}: non-finite poses")
+                err = np.linalg.norm(t_np - gt_t, axis=-1)
+                _require(n_l["level_lm"] == 0 and n_l["level_sg"] == 0,
+                         f"parity_batch {fam}: a level kernel was launched")
+                _require({k: v for k, v in n_l.items() if v} == PARITY_CALL_LAUNCHES,
+                         f"parity_batch {fam}: launches {n_l}, not {PARITY_CALL_LAUNCHES}")
+                out[fam] = {"R": R[:PARITY_CPU_PAIRS].cpu(), "t": t[:PARITY_CPU_PAIRS].cpu(),
+                            "e0": e0,
+                            "median_mm": float(np.median(err)) * 1000.0,
+                            "max_mm": float(err.max()) * 1000.0, "ms": ms,
+                            "launches": {k: v for k, v in n_l.items() if v},
+                            "cuda_kernels": kernels}
+            else:
+                gap = max(float((out[fam]["R"] - R).abs().max()),
+                          float((out[fam]["t"] - t).abs().max()))
+                e0_gap = _rel(out[fam]["e0"][:, None], e0[:, None])
+                out[fam]["cpu_gap"], out[fam]["cpu_ms"] = gap, ms
+                _log(f"parity_batch {fam}: {BATCH} pairs, |t-t_gt| median "
+                     f"{out[fam]['median_mm']:.3f} mm max {out[fam]['max_mm']:.3f} mm, "
+                     f"{out[fam]['ms']:.1f} ms a call on the card (launches "
+                     f"{out[fam]['launches']}, {out[fam]['cuda_kernels']} CUDA kernels in "
+                     f"all), pairs 0-{n - 1} within {gap:.2e} of the CPU run ({ms:.0f} ms; "
+                     f"bar {bar:g}), first energy {e0_gap:.2e}")
+                _require(e0_gap <= 1e-5, f"parity_batch {fam}: the first energy is {e0_gap:.2e} "
+                                         "from the CPU's")
+                _require(gap <= bar, f"parity_batch {fam}: the card is {gap:.2e} from the CPU")
+    return {fam: {k: v for k, v in r.items() if k not in ("R", "t", "e0")}
+            for fam, r in out.items()}
+
+
+def run_parity_stream(device) -> dict:
+    """`EdgeDvoOdometry` over the stream phase's 30 frames under
+    parity_320 with the reference's own switches, `interpolate_dt` and the
+    SVD `rotationize` (keyframe every 5 with rollback): ATE, ms/frame and
+    the launches a frame (the kernels' counters over the run, and every
+    CUDA kernel of frame 2, a frame solved against keyframe 0, from the
+    profiler). The bar is `PARITY_STREAM_ATE_MM`."""
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    prof = profiles.parity_320()
+    solver = dataclasses.replace(prof.solver, interpolate_dt=True, rotationize_method="svd")
+    _require(not edge_dvo.kernel_route(solver), "parity_stream: on the kernels' route")
+    frames, poses = stream_frames()
+    counters = _launch_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    out = _run_stream(_stream_config(prof._replace(solver=solver)), frames, poses, device)
+    per_frame = {k: (fn.launches - before[k]) / len(frames) for k, fn in counters.items()
+                 if fn.launches != before[k]}
+    from rgbd_odometry_tpu_torch import EdgeDvoOdometry
+
+    odo = EdgeDvoOdometry(_stream_config(prof._replace(solver=solver)), device=device)
+    for i in range(2):
+        odo.process_frame(*frames[i], timestamp=float(i))
+    per_frame["cuda_kernels_frame_2"] = _kernel_launches(
+        lambda: odo.process_frame(*frames[2], timestamp=2.0))
+    _log(f"parity_stream: {len(frames)} frames 320x240, parity_320 + interpolate_dt + svd, ATE "
+         f"{out['ate_mm']:.3f} mm, keyframes {out['keyframes']}, rollbacks {out['rollbacks']}, "
+         f"{out['ms_per_frame']:.3f} ms/frame, launches a frame {per_frame}")
+    _require(out["ate_mm"] < PARITY_STREAM_ATE_MM,
+             f"parity_stream: ATE {out['ate_mm']:.3f} mm >= {PARITY_STREAM_ATE_MM} mm")
+    return {"ate_mm": out["ate_mm"], "ms_per_frame": out["ms_per_frame"],
+            "launches_a_frame": per_frame}
+
+
 def _trajectory(n: int, step: float = 0.002):
     ts = np.arange(n)
     return np.stack(
@@ -3701,22 +4021,26 @@ def run_cli_pnp() -> dict:
 def _count_solves() -> dict:
     """Counts, by solver method, of `edge_dvo.solve_pyramid` calls (and the
     levels they solve) and of single-level `edge_dvo.run_level` calls from
-    here on (the path's modules call both through the module)."""
+    here on (the path's modules call both through the module) on the
+    kernels' route, and of both on the general loop's ("loop")."""
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
-    counts = {(what, m): 0 for what in ("pyramid", "levels", "level")
+    counts = {(what, m): 0 for what in ("pyramid", "levels", "level", "loop")
               for m in ("gauss_newton", "subgradient")}
     solve, run = edge_dvo.solve_pyramid, edge_dvo.run_level
 
     def solve_pyramid(ref_levels, now_levels, intr, cfg, *a, **k):
-        counts[("pyramid", cfg.method)] += 1
-        counts[("levels", cfg.method)] += sum(
-            1 for lv in range(len(ref_levels))
-            if (cfg.iterations[lv] if lv < len(cfg.iterations) else cfg.iterations[-1]) > 0)
+        if not edge_dvo.kernel_route(cfg):
+            counts[("loop", cfg.method)] += 1
+        else:
+            counts[("pyramid", cfg.method)] += 1
+            counts[("levels", cfg.method)] += sum(
+                1 for lv in range(len(ref_levels))
+                if (cfg.iterations[lv] if lv < len(cfg.iterations) else cfg.iterations[-1]) > 0)
         return solve(ref_levels, now_levels, intr, cfg, *a, **k)
 
     def run_level(ref, now, intr_level, R0, t0, cfg, *a, **k):
-        counts[("level", cfg.method)] += 1
+        counts[("level" if edge_dvo.kernel_route(cfg) else "loop", cfg.method)] += 1
         return run(ref, now, intr_level, R0, t0, cfg, *a, **k)
 
     edge_dvo.solve_pyramid, edge_dvo.run_level = solve_pyramid, run_level
@@ -3783,7 +4107,12 @@ def main() -> int:
         "extract": check_extract(device, rng),
         "imu": check_imu(device, rng),
         "level_photo": check_level_photo(device, rng),
+        "level_traj": check_level_traj(device),
     }
+    res["level_lm"]["trajectory"] = {k: v for k, v in res["level_traj"].items()
+                                     if k.startswith("level_lm")}
+    res["level_sg"]["trajectory"] = {k: v for k, v in res["level_traj"].items()
+                                     if k.startswith("level_sg")}
 
     counters = _launch_counters()
     for fn in counters.values():
@@ -3815,6 +4144,8 @@ def main() -> int:
         ("cli_trace", lambda: run_cli_trace(results["cli_default"])),
         ("cli_xml", lambda: run_cli_xml(device)),
         ("probe", run_probe),
+        ("parity_batch", lambda: run_parity_batch(device)),
+        ("parity_stream", lambda: run_parity_stream(device)),
         ("cli_cam_scale_3", lambda: run_cli_cam_scale(3, 4)),
         ("cli_cam_scale_4", lambda: run_cli_cam_scale(4, 6)),
         ("cli_photometric", run_cli_photometric),
@@ -3843,6 +4174,9 @@ def main() -> int:
         ns = {k: solves[k] - solves_before[k] for k in solves}
         _log(f"launches in {name}: " + ", ".join(f"{k} {v}" for k, v in n.items())
              + f" ({time.perf_counter() - t0:.1f} s)")
+        for method in ("gauss_newton", "subgradient"):
+            if ns[("loop", method)]:
+                _log(f"  {name}: {ns[('loop', method)]} {method} solves on run_level_loop")
         # a pyramid solve is one launch of its level kernel, every level in it
         for key, method in (("level_lm", "gauss_newton"), ("level_sg", "subgradient")):
             want = ns[("pyramid", method)] + ns[("level", method)]
@@ -3854,7 +4188,10 @@ def main() -> int:
         if name in MAP_PHASES:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
                      f"{name}: the matching or PnP kernel was not launched")
-        if name in GN_PHASES or name == "cli_subgradient":
+        if name in PARITY_PHASES:
+            _require(n["level_lm"] == 0 and n["level_sg"] == 0,
+                     f"{name}: a level kernel was launched for a parity configuration")
+        if name in GN_PHASES or name in ("cli_subgradient",) + PARITY_PHASES:
             _require(all(n[k] > 0 for k in TARGET_KERNELS),
                      f"{name}: the canny_pyramid or dt_channels kernel was not launched")
         if name in GN_PHASES:

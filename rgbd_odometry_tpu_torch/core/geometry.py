@@ -158,6 +158,25 @@ def rotationize_newton(R: torch.Tensor, iters: int = 3) -> torch.Tensor:
     return X
 
 
+def rotationize_svd(R: torch.Tensor) -> torch.Tensor:
+    """The reference's exact projection onto O(3) (JAX `rotationize_svd`):
+    R = U S V^T, each singular value replaced by its sign (+1 where it is
+    positive, -1 where it is not), U sign(S) V^T. A reflection keeps its
+    determinant of -1, as in JAX. On the card the SVD of a (..., 3, 3)
+    batch is `torch.linalg.svd`, as JAX leaves it to XLA."""
+    U, S, Vh = torch.linalg.svd(R)
+    signs = torch.where(S > 0, 1.0, -1.0).to(R.dtype)
+    return (U * signs[..., None, :]) @ Vh
+
+
+def rotationize(R: torch.Tensor, method: str = "newton") -> torch.Tensor:
+    """`rotationize_svd` for method "svd", else `rotationize_newton` (JAX
+    `rotationize`)."""
+    if method == "svd":
+        return rotationize_svd(R)
+    return rotationize_newton(R)
+
+
 def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> unit quaternion (x, y, z, w): the JAX version's four
     cases (w when the trace is positive, else the largest diagonal)."""

@@ -26,7 +26,14 @@
 //             rejected step never terminates (the `dvo` command).
 //
 // Both keep the best iterate over the evaluated poses (<=, later ties win)
-// and write the energy curve with zeros after a pair is done. The level's
+// and write the energy curve with zeros after a pair is done. Where asked
+// for, the standard LM writes its trajectory (JAX's `collect_trajectory`,
+// edge_dvo.py:570): warp 0 the pose after each iteration's decision, and
+// the tail the frozen pose in every row after a pair is done; it only adds
+// stores, so every other output is the same with it or without.
+// Its pointers sit beside the level table (`Pyramid::traj`) and each block
+// selects its rows once a level, so the level struct the loop copies is
+// the one without it. The level's
 // diagnostics (per-point residuals and visibility, energy, visible ratio):
 // with `track` (standard, Jacobian stride 1) the best iterate's, from the
 // Gauss-Newton pass itself; otherwise (deferred, or a Jacobian stride > 1)
@@ -101,7 +108,7 @@ using rgbd::kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = rgbd::kGnTerms;
 constexpr int kMaxLevels = 8;
-constexpr int kLevelPtrs = 15, kLevelInts = 8, kLevelFloats = 4;  // the host's table rows
+constexpr int kLevelPtrs = 16, kLevelInts = 8, kLevelFloats = 4;  // the host's table rows
 constexpr int kStamps = 8;  // iteration start, pass, sum, step, barrier; standard: pass, step, barrier
 
 // One level of the table, in solve order (coarsest first).
@@ -131,6 +138,7 @@ struct Level {
 
 struct Pyramid {
   Level lv[kMaxLevels];
+  float* traj[kMaxLevels];  // each level's (B, n_iters, 12) trajectory (standard LM), or null
   const float* R0;
   const float* t0;
   int levels, cluster;
@@ -171,6 +179,17 @@ __device__ __forceinline__ Level level_at(const Pyramid& P, int l) {
   for (int i = 1; i < kMaxLevels; ++i)
     if (i == l) L = P.lv[i];
   return L;
+}
+
+// Pair b's rows of level l's trajectory output (n iterations) where this
+// block writes the outputs, else null; selected with constant indices, as
+// `level_at` selects the level.
+__device__ __forceinline__ float* traj_rows(const Pyramid& P, int l, int b, int n, bool writer) {
+  float* t = P.traj[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i)
+    if (i == l) t = P.traj[i];
+  return writer && t != nullptr ? t + (size_t)b * n * kPoseLanes : nullptr;
 }
 
 // Pair 0's first rank's thread 0 records the clock at stamp `at` of
@@ -264,6 +283,7 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
     float* seps = reinterpret_cast<float*>(spts + L.n_local);
     uint8_t* svis = reinterpret_cast<uint8_t*>(seps + L.n_local);
     const __nv_bfloat16* I = L.img + (size_t)b * L.img_batch_stride;
+    float* const trow = traj_rows(P, l, b, n, writer);
     const float* Pb = L.pts + (size_t)b * L.k * 3;
     const uint8_t* Vb = L.valid + (size_t)b * L.k;
     const float sc = L.scale[b];
@@ -421,6 +441,8 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
           const bool newly_done = accept && psi_norm < P.psi_term;
           if (writer && lane == 0) L.energy_out[(size_t)b * n + itr] = e;
           if (accept && !newly_done) cur = 1 - cur;
+          if (trow != nullptr && lane < kPoseLanes)
+            trow[itr * kPoseLanes + lane] = sh.pose[cur][lane];
           if (lane == 0) {
             sh.cur = cur;
             sh.done = newly_done ? 1 : 0;
@@ -438,6 +460,10 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
     if (warp == 0) {
       if (writer)
         for (int i = itr + 1 + lane; i < n; i += 32) L.energy_out[(size_t)b * n + i] = 0.0f;
+      // a pair done early: its frozen pose in the trajectory's remaining rows
+      if (trow != nullptr)
+        for (int x = lane; x < (n - itr - 1) * kPoseLanes; x += 32)
+          trow[(itr + 1) * kPoseLanes + x] = sh.pose[cur][x % kPoseLanes];
       float be = lane < kPoseLanes ? sh.best[lane] : 0.0f;
       if (P.rotationize) be = rgbd::lane_rotationize(be, lane);
       if (lane < kPoseLanes) {
@@ -534,7 +560,7 @@ extern "C" const char* cuda_error_string(int code) {
 // solve order (coarsest first), each starting from the pose the one before
 // returned; the first from R0 (B,3,3), t0 (B,3) float32 contiguous. Level
 // l's row of each host table:
-//   ptrs   (15)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
+//   ptrs   (16)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
 //                img (B,H,W) bf16 (rows contiguous), scale (B,) float32; the
 //                outputs R_out (B,3,3), t_out (B,3), energy_out (B,n_iters),
 //                best_iter_out (B,) int32, best_energy_out (B,),
@@ -545,6 +571,9 @@ extern "C" const char* cuda_error_string(int code) {
 //                pass, its sum, its step and the barrier after it, and
 //                (standard LM) after the residual pass's sum, the decision
 //                and the barrier after it (left as they were where not run);
+//                traj_out (B,n_iters,12) or null (the standard LM's): the
+//                pose after each iteration (R, t), the frozen pose once a
+//                pair is done;
 //   strides (1)  img's batch stride in elements;
 //   ints   (8)   k, k_jac, jstride, stride, n_iters (>= 1), h, w, ranks;
 //   floats (4)   fx, fy, cx, cy.
@@ -599,6 +628,7 @@ extern "C" int level_lm_pyramid(int device, int levels, int batch, int cluster, 
     L.vis_out = (uint8_t*)q[12];
     L.vis_ratio_out = (float*)q[13];
     L.clocks = (long long*)q[14];
+    P.traj[l] = (float*)q[15];
     L.img_batch_stride = strides[l];
     L.k = n[0];
     L.k_jac = n[1];
@@ -615,7 +645,8 @@ extern "C" int level_lm_pyramid(int device, int levels, int batch, int cluster, 
     L.track = !deferred && L.jstride == 1;
     const int r = L.ranks;
     if (L.k < 1 || L.k_jac < 1 || L.jstride < 1 || L.stride < 1 || L.n_iters < 1 ||
-        (r != 1 && r != 2 && r != 4 && r != 8) || cluster % r != 0 || (L.stride > 1 && r > 1))
+        (r != 1 && r != 2 && r != 4 && r != 8) || cluster % r != 0 || (L.stride > 1 && r > 1) ||
+        (P.traj[l] != nullptr && deferred))
       return (int)cudaErrorInvalidValue;
     const long long chunks = (L.k_jac + (long long)kThreads * r - 1) / ((long long)kThreads * r);
     L.n_local = (int)(chunks * kThreads < L.k_jac ? chunks * kThreads : L.k_jac);

@@ -26,6 +26,17 @@
 //
 // After the loop the best pose is re-orthogonalized and written with its
 // energy, iteration, visible ratio and per-point residuals and visibility.
+// Where asked for, the trajectory output (JAX's `collect_trajectory`,
+// edge_dvo.py:570) takes the pose after each iteration, stored from shared
+// memory by the block's last warp after the barrier that ends the
+// iteration (off the step warp's chain), and the frozen pose in every row
+// after a pair is done from the tail; it only adds stores, so every other
+// output is the same with it or without. A launch with it runs its own
+// instantiation of the kernel (`kTraj`); without it, the code is the one
+// before the output, whose loop measured 2-3% faster than one that only
+// tested a null pointer (profile_paths.py --paths levels, PERF.md PR 18).
+// Its pointers sit beside the level table (`Pyramid::traj`) and each block
+// selects its rows once a level.
 //
 // Design. A pair's level runs on `ranks` blocks (1, 2, 4 or 8, a function
 // of the level's capacity alone, kernels/level_sg.level_ranks), the ranks
@@ -87,7 +98,7 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kTerms = rgbd::kSgTerms;
 constexpr int kTrace = 18;  // a trace row: the pose entering an iteration (R 9, t 3) and its g (6)
 constexpr int kMaxLevels = 8;
-constexpr int kLevelPtrs = 14, kLevelInts = 6, kLevelFloats = 4;  // the host's table rows
+constexpr int kLevelPtrs = 15, kLevelInts = 6, kLevelFloats = 4;  // the host's table rows
 constexpr int kStamps = 8;  // iteration start, pass, sum, step, barrier (5 of 8 used)
 
 // One level of the table, in solve order (coarsest first).
@@ -116,6 +127,7 @@ struct Level {
 
 struct Pyramid {
   Level lv[kMaxLevels];
+  float* traj[kMaxLevels];  // each level's (B, n_iters, 12) trajectory output, or null
   const float* R0;
   const float* t0;
   int levels, cluster;
@@ -154,6 +166,17 @@ __device__ __forceinline__ Level level_at(const Pyramid& P, int l) {
   for (int i = 1; i < kMaxLevels; ++i)
     if (i == l) L = P.lv[i];
   return L;
+}
+
+// Pair b's rows of level l's trajectory output (n iterations) where this
+// block writes the outputs, else null; selected with constant indices, as
+// `level_at` selects the level.
+__device__ __forceinline__ float* traj_rows(const Pyramid& P, int l, int b, int n, bool writer) {
+  float* t = P.traj[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i)
+    if (i == l) t = P.traj[i];
+  return writer && t != nullptr ? t + (size_t)b * n * kPoseLanes : nullptr;
 }
 
 // Pair 0's first rank's thread 0 records the clock at stamp `at` of
@@ -213,7 +236,9 @@ __device__ __forceinline__ void pull_direction(const float* pose, int lane, floa
 
 // kMaxT: the most threads a launch's blocks have (544: up to 512 working
 // threads and the step warp, with 120 registers a thread; 1024: 64).
-template <int kMaxT>
+// kTraj: a launch with a trajectory output (an instantiation of its own, so
+// that the loop without it is the code it was before the output).
+template <int kMaxT, bool kTraj>
 __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__ Pyramid P) {
   extern __shared__ float4 spts[];
   __shared__ Shared sh;
@@ -241,6 +266,7 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
     const bool passer = p >= 0 && p < T;
     const size_t ob = (size_t)b * L.k;
     const float* D = L.dt + (size_t)b * L.dt_batch_stride;
+    float* const trow = kTraj ? traj_rows(P, l, b, n, writer) : nullptr;
     if (warp == 0) {
       best_e = 1.0e10f;
       best_vis = 1.0f;
@@ -335,6 +361,10 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
       stamp(L, itr, 3);
       __syncthreads();
       stamp(L, itr, 4);
+      // the pose after this iteration, by the last warp from shared memory,
+      // off the step warp's chain (the next step writes the other slot)
+      if (kTraj && trow != nullptr && warp == (int)(blockDim.x >> 5) - 1 && lane < kPoseLanes)
+        trow[itr * kPoseLanes + lane] = sh.pose[sh.cur][lane];
       if (sh.done) break;
     }
 
@@ -343,6 +373,10 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
     if (warp == 0) {
       if (writer)
         for (int i = itr + 1 + lane; i < n; i += 32) L.energy_out[(size_t)b * n + i] = 0.0f;
+      // a pair done early: its frozen pose in the trajectory's remaining rows
+      if (kTraj && trow != nullptr)
+        for (int x = lane; x < (n - itr - 1) * kPoseLanes; x += 32)
+          trow[(itr + 1) * kPoseLanes + x] = sh.pose[cur][x % kPoseLanes];
       if (lane == 0) sh.any = best_iter >= 0 ? 1 : 0;
     }
     __syncthreads();
@@ -418,7 +452,7 @@ extern "C" const char* cuda_error_string(int code) {
 // levels in solve order (coarsest first), each starting from the pose the
 // one before returned; the first from R0 (B,3,3), t0 (B,3) float32
 // contiguous. Level l's row of each host table:
-//   ptrs   (14)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
+//   ptrs   (15)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
 //                dt (B,H,W) float32 (rows contiguous); the outputs R_out
 //                (B,3,3), t_out (B,3), energy_out (B,n_iters), best_iter_out
 //                (B,) int32, best_energy_out (B,), eps_out (B,K) float32,
@@ -428,6 +462,8 @@ extern "C" const char* cuda_error_string(int code) {
 //                left as they were); clocks (64, 8) int64 or null: pair 0's
 //                clock64() at the start of each of its first 64 iterations,
 //                after its pass, its sum, its step and the barrier after it;
+//                traj_out (B,n_iters,12) or null: the pose after each
+//                iteration (R, t), the frozen pose once a pair is done;
 //   strides (1)  dt's batch stride in elements;
 //   ints   (6)   k, n_iters (>= 1), h, w, ranks, threads;
 //   floats (4)   fx, fy, cx, cy.
@@ -484,6 +520,7 @@ extern "C" int level_sg_pyramid(int device, int levels, int batch, int cluster, 
     L.vis_ratio_out = (float*)q[11];
     L.trace_out = (float*)q[12];
     L.clocks = (long long*)q[13];
+    P.traj[l] = (float*)q[14];
     L.dt_batch_stride = strides[l];
     L.k = n[0];
     L.n_iters = n[1];
@@ -506,16 +543,28 @@ extern "C" int level_sg_pyramid(int device, int levels, int batch, int cluster, 
     const int need_t = T + 32 <= kMaxThreads ? T + 32 : T;
     threads = need_t > threads ? need_t : threads;
   }
+  bool traj = false;
+  for (int l = 0; l < levels; ++l) traj = traj || P.traj[l] != nullptr;
   const dim3 grid((unsigned)(batch * cluster));
   cudaStream_t s = (cudaStream_t)stream;
   if (threads <= kSmallBlock) {
+    if (traj) {
+      static rgbd::ClusterLaunch small_traj;
+      return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, true>, device, grid,
+                                       dim3(threads), smem, cluster, s, &small_traj, P);
+    }
     static rgbd::ClusterLaunch small;
-    return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock>, device, grid, dim3(threads),
-                                     smem, cluster, s, &small, P);
+    return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, false>, device, grid,
+                                     dim3(threads), smem, cluster, s, &small, P);
+  }
+  if (traj) {
+    static rgbd::ClusterLaunch large_traj;
+    return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, true>, device, grid,
+                                     dim3(threads), smem, cluster, s, &large_traj, P);
   }
   static rgbd::ClusterLaunch large;
-  return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads>, device, grid, dim3(threads), smem,
-                                   cluster, s, &large, P);
+  return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, false>, device, grid,
+                                   dim3(threads), smem, cluster, s, &large, P);
 }
 
 // R (n,3,3), t (n,3) float32 contiguous -> psi_out (n,6): warp_se3_log of

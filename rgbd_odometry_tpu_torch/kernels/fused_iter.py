@@ -38,6 +38,15 @@ def jacobian_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2, scale=None):
     g1 = torch.where(visible, gv, zero)
     eps_px = eps if scale is None else eps / scale[:, None]
     wgt = torch.where(visible, 6.0 / (6.0 + eps_px * eps_px * (1.0 / sigma2)), zero)
+    return true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible), eps, wgt, visible
+
+
+def true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible):
+    """The textbook image Jacobian (B,K,6) of the right-multiplied update
+    (JAX `_jacobian_residual`'s "true" mode, :382-395) from the sampled DT
+    gradients g0, g1 at the projections (xn, yn, z; zs the guarded depth):
+    [-GA | GA x X'] with GA = (g0 fx, g1 fy, -(g0 fx xn + g1 fy yn)) / z;
+    zeros where invisible."""
     ga0 = g0 * fx / zs
     ga1 = g1 * fy / zs
     ga2 = -(g0 * fx * xn + g1 * fy * yn) / zs
@@ -46,8 +55,7 @@ def jacobian_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2, scale=None):
         [-ga0, -ga1, -ga2, ga1 * z - ga2 * yz, ga2 * xz - ga0 * z, ga0 * yz - ga1 * xz],
         dim=-1,
     )
-    J = torch.where(visible[..., None], J, torch.zeros_like(J))
-    return J, eps, wgt, visible
+    return torch.where(visible[..., None], J, torch.zeros_like(J))
 
 
 def fused_gn_terms_plain(R, t, pts, valid, img, fx, fy, cx, cy, sigma2=1.0, scale=None,

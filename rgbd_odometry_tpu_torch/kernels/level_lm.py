@@ -40,6 +40,7 @@ CLUSTERS = (1, 2, 4, 8)  # the blocks a pair's level may run on
 # on 2 blocks: a cluster barrier a sum costs more than the halved pass)
 POINTS_A_RANK = 8192
 MAX_LEVELS = 8  # levels of one launch
+POSE = 12  # a trajectory row: R (9, row-major), t (3)
 _LL, _INT, _FLT = (ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_float))
 _ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [_LL, _LL, _INT, _FLT]
@@ -65,6 +66,12 @@ class LevelLM(NamedTuple):
 def sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.where with a per-pair (B,) mask broadcast over trailing dims."""
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def write_pose(traj: torch.Tensor, itr: int, R: torch.Tensor, t: torch.Tensor) -> None:
+    """Row `itr` of a (B, n_iters, 12) trajectory output: R (B,3,3), t (B,3)."""
+    traj[:, itr, :9] = R.reshape(-1, 9)
+    traj[:, itr, 9:] = t
 
 
 def trust_region(psi: torch.Tensor, radius: float) -> torch.Tensor:
@@ -146,14 +153,16 @@ def _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters):
     return best_R, best_t, energies, best_iter, best_energy, None, None, None
 
 
-def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg, n_iters):
+def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg, n_iters,
+                    traj=None):
     """The standard LM (the JAX `lax.scan` body's Gauss-Newton branch,
     :493-622): the Gauss-Newton pass on the Jacobian subset at the current
     pose, then the residual pass on the proposal subset at the proposal. A
     decrease accepts it and lowers lambda, an exact tie neither moves nor
     raises lambda, an increase raises it; a rejected step never terminates.
     With `track` (Jacobian stride 1) the Gauss-Newton pass's per-point
-    outputs at the best iterate are kept."""
+    outputs at the best iterate are kept; `traj` receives the pose after
+    each iteration."""
     dev, dt = R0.device, R0.dtype
     b, k = R0.shape[0], pj.shape[1]
     n_valid = torch.clamp(count, min=1).to(dt)
@@ -203,6 +212,8 @@ def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f,
 
         energies.append(torch.where(done, torch.zeros_like(energy), energy))
         R, t = sel(do_update, new_R, R), sel(do_update, new_t, t)
+        if traj is not None:
+            write_pose(traj, itr, R, t)
         done = done | newly_done
     if not track:
         return best_R, best_t, energies, best_iter, best_energy, None, None, None
@@ -210,11 +221,14 @@ def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f,
 
 
 def level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters: int,
-                   jstride: int, stride: int = 1) -> LevelLM:
+                   jstride: int, stride: int = 1, traj: torch.Tensor | None = None) -> LevelLM:
     """The plain PyTorch version of `level_lm`: the level loops one
     iteration at a time over `fused_gn_terms_plain` and
     `residual_pass_plain`, then, unless the best iterate's own diagnostics
-    were tracked, one all-point `residual_pass_plain` at the returned pose."""
+    were tracked, one all-point `residual_pass_plain` at the returned pose.
+    `traj` (standard LM only) receives the pose after each iteration."""
+    if traj is not None and cfg.lm_deferred_accept:
+        raise ValueError("level_lm: the trajectory output is the standard LM's")
     f = (fx, fy, cx, cy)
     pj, vj = _strided(pts, jstride), _strided(valid, jstride)
     track = not cfg.lm_deferred_accept and jstride == 1
@@ -223,7 +237,7 @@ def level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n
     else:
         ps, vs = _strided(pj, stride), _strided(vj, stride)
         out = _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg,
-                              n_iters)
+                              n_iters, traj)
     best_R, best_t, energies, best_iter, best_energy, eps, visible, vis = out
     if cfg.rotationize:
         best_R = geo.rotationize_newton(best_R)
@@ -237,13 +251,13 @@ def level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n
                    eps, visible, vis)
 
 
-def level_lm_pyramid_plain(R0, t0, levels, cfg) -> tuple:
+def level_lm_pyramid_plain(R0, t0, levels, cfg, trajs=None) -> tuple:
     """The plain version of `level_lm_pyramid`: `level_lm_plain` on each
     level in turn, each from the pose the one before returned."""
     out, R, t = [], R0, t0
-    for lv in levels:
+    for lv, traj in zip(levels, (None,) * len(levels) if trajs is None else trajs):
         res = level_lm_plain(R, t, lv.pts, lv.valid, lv.count, lv.img, lv.scale, lv.fx, lv.fy,
-                             lv.cx, lv.cy, cfg, lv.n_iters, lv.jstride, lv.stride)
+                             lv.cx, lv.cy, cfg, lv.n_iters, lv.jstride, lv.stride, traj)
         out.append(res)
         R, t = res.R, res.t
     return tuple(out)
@@ -305,7 +319,7 @@ class LmLevel(NamedTuple):
     stride: int = 1
 
 
-def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool) -> tuple:
+def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool, traj) -> tuple:
     """The checks of one level's arguments; returns (k, h, w, k_jac)."""
     if lv.pts.dim() != 3 or lv.img.dim() != 3:
         raise ValueError(f"{fn}: pts must be (B, K, 3) and img (B, H, W)")
@@ -323,10 +337,14 @@ def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool) -> tuple:
                          "strides (stride > 1 needs the standard LM at jstride 1)")
     if lv.n_iters < 1:
         raise ValueError(f"{fn}: n_iters must be >= 1, got {lv.n_iters}")
+    if traj is not None:
+        if deferred:
+            raise ValueError(f"{fn}: the trajectory output is the standard LM's")
+        build.check_arg(fn, "traj", traj, (b, lv.n_iters, POSE), torch.float32, dev)
     return k, h, w, -(-k // jstride)
 
 
-def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None) -> tuple:
+def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None, trajs=None) -> tuple:
     """Every level of a Levenberg-Marquardt pyramid for B frame pairs in one
     launch: `levels` (`LmLevel`s, in solve order, coarsest first), each run
     as `level_lm` runs it from the pose the level before returned, the first
@@ -334,14 +352,16 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None) -> tuple:
     order given. A level runs on `level_ranks` blocks a pair (the launch's
     cluster is the largest); `cluster` forces every level onto that many.
     `clocks`, a (levels, 64, 8) int64 tensor, receives pair 0's clock64()
-    at the phases of its first 64 iterations a level (`csrc/level_lm.cu`).
+    at the phases of its first 64 iterations a level (`csrc/level_lm.cu`);
+    `trajs` (a (B, n_iters, 12) float32 tensor or None a level, standard LM
+    only) the levels' trajectories (see `level_lm`).
     CPU tensors go to `level_lm_pyramid_plain`. Arguments are checked before
     anything is built or launched."""
     levels = tuple(levels)
     if not levels:
         raise ValueError("level_lm_pyramid: no level")
     if levels[0].pts.device.type == "cpu":
-        return level_lm_pyramid_plain(R0, t0, levels, cfg)
+        return level_lm_pyramid_plain(R0, t0, levels, cfg, trajs)
     fn = "level_lm"
     dev = levels[0].pts.device
     b = levels[0].pts.shape[0] if levels[0].pts.dim() == 3 else -1
@@ -349,9 +369,11 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None) -> tuple:
     build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
     build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
     deferred = bool(cfg.lm_deferred_accept)
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch, got {len(levels)}")
-    shapes = [_check_level(fn, lv, b, dev, deferred) for lv in levels]
+    trajs = (None,) * len(levels) if trajs is None else tuple(trajs)
+    if len(levels) > MAX_LEVELS or len(trajs) != len(levels):
+        raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch and a trajectory (or "
+                         f"None) each, got {len(levels)} and {len(trajs)}")
+    shapes = [_check_level(fn, lv, b, dev, deferred, tj) for lv, tj in zip(levels, trajs)]
     if clocks is not None:
         build.check_arg(fn, "clocks", clocks, (len(levels), 64, 8), torch.int64, dev)
     ranks = [level_ranks(k, lv.jstride, lv.stride, deferred, cluster)
@@ -366,7 +388,7 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None) -> tuple:
     vis = torch.empty((b * sum(ks),), dtype=torch.bool, device=dev)
     outs, ptrs, rows, fl = [], [], [], []
     fo = vo = 0
-    for i, (lv, (k, h, w, k_jac), r) in enumerate(zip(levels, shapes, ranks)):
+    for i, (lv, (k, h, w, k_jac), r, tj) in enumerate(zip(levels, shapes, ranks, trajs)):
         n = lv.n_iters
         take = []
         for size in (9, 3, n, 1, 1, k, 1):  # R, t, energy, best energy, final, eps, ratio
@@ -381,7 +403,8 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None) -> tuple:
                  lv.scale.data_ptr(), R.data_ptr(), t.data_ptr(), energy.data_ptr(),
                  ints[i].data_ptr(), best_energy.data_ptr(), final.data_ptr(), eps.data_ptr(),
                  v.data_ptr(), ratio.data_ptr(),
-                 0 if clocks is None else clocks[i].data_ptr()]
+                 0 if clocks is None else clocks[i].data_ptr(),
+                 0 if tj is None else tj.data_ptr()]
         rows += [k, k_jac, int(lv.jstride), int(lv.stride), int(n), h, w, r]
         fl += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
     nl = len(levels)
@@ -405,7 +428,8 @@ level_lm_pyramid.launches = 0
 
 
 def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters: int,
-             jstride: int, stride: int = 1, cluster=None) -> LevelLM:
+             jstride: int, stride: int = 1, cluster=None,
+             traj: torch.Tensor | None = None) -> LevelLM:
     """The `n_iters` Levenberg-Marquardt iterations of one pyramid level for
     B frame pairs from the start poses (R0 (B,3,3), t0 (B,3)), over the
     level's points (pts (B,K,3) float32, valid (B,K) bool, count (B,) int32)
@@ -420,7 +444,11 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
     all K points come with it: with the standard LM at jstride 1 the best
     iterate's (`track`), otherwise those of one more pass at the returned
     pose. On the card it is a pyramid of one level (`level_lm_pyramid`);
-    `cluster` forces its blocks a pair. Arguments are checked before
-    anything is built or launched."""
+    `cluster` forces its blocks a pair. With the standard LM, `traj`, a (B,
+    n_iters, 12) float32 tensor, receives the pose after each iteration (R
+    9, t 3), the frozen pose in every row once a pair is done (JAX's
+    `collect_trajectory`); every other output is the same bit for bit with
+    it or without it. Arguments are checked before anything is built or
+    launched."""
     level = LmLevel(pts, valid, count, img, scale, fx, fy, cx, cy, n_iters, jstride, stride)
-    return level_lm_pyramid(R0, t0, (level,), cfg, cluster)[0]
+    return level_lm_pyramid(R0, t0, (level,), cfg, cluster, trajs=(traj,))[0]

@@ -25,7 +25,13 @@ import torch
 
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.kernels import build
-from rgbd_odometry_tpu_torch.kernels.level_lm import SMEM_BYTES, sel, trust_region
+from rgbd_odometry_tpu_torch.kernels.level_lm import (
+    POSE,
+    SMEM_BYTES,
+    sel,
+    trust_region,
+    write_pose,
+)
 from rgbd_odometry_tpu_torch.kernels.sg_terms import subgradient_terms_plain
 
 THREADS = (128, 256, 512, 1024)  # the working threads a block may be given
@@ -69,13 +75,15 @@ def subgradient_step(R, t, g, descent, itr: int, cfg, precond: torch.Tensor):
     return trust_region(-step * precond * descent, cfg.trust_region_radius), descent
 
 
-def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int) -> LevelSG:
+def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
+                   traj: torch.Tensor | None = None) -> LevelSG:
     """The plain PyTorch version of `level_sg` (the JAX `lax.scan` body,
     :493-622, sub-gradient branch): `subgradient_terms_plain` on every point
     at the pose entering each iteration, then the damped, projected step.
     The best iterate (<=, later ties win) is returned with its per-point
     residuals and visibility; early termination freezes the pair and zeroes
-    its remaining energy entries."""
+    its remaining energy entries. `traj` (B, n_iters, 12) receives the pose
+    after each iteration (R 9, t 3), the frozen pose once a pair is done."""
     dev, dtype = R0.device, R0.dtype
     b, k = R0.shape[0], pts.shape[1]
     precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dtype, device=dev)
@@ -116,6 +124,8 @@ def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: 
 
         energies.append(torch.where(done, torch.zeros_like(energy), energy))
         R, t = sel(do_update, new_R, R), sel(do_update, new_t, t)
+        if traj is not None:
+            write_pose(traj, itr, R, t)
         done = done | newly_done
 
     if cfg.rotationize:
@@ -176,19 +186,19 @@ class SgLevel(NamedTuple):
     n_iters: int
 
 
-def level_sg_pyramid_plain(R0, t0, levels, cfg) -> tuple:
+def level_sg_pyramid_plain(R0, t0, levels, cfg, trajs=None) -> tuple:
     """The plain version of `level_sg_pyramid`: `level_sg_plain` on each
     level in turn, each from the pose the one before returned."""
     out, R, t = [], R0, t0
-    for lv in levels:
+    for lv, traj in zip(levels, (None,) * len(levels) if trajs is None else trajs):
         res = level_sg_plain(R, t, lv.pts, lv.valid, lv.count, lv.dt, lv.fx, lv.fy, lv.cx, lv.cy,
-                             cfg, lv.n_iters)
+                             cfg, lv.n_iters, traj)
         out.append(res)
         R, t = res.R, res.t
     return tuple(out)
 
 
-def _check_level(fn: str, lv: SgLevel, b: int, dev, trace, threads, cluster) -> tuple:
+def _check_level(fn: str, lv: SgLevel, b: int, dev, trace, traj, threads, cluster) -> tuple:
     """The checks of one level's arguments; returns (k, h, w, ranks, threads)."""
     if lv.pts.dim() != 3 or lv.dt.dim() != 3:
         raise ValueError(f"{fn}: pts must be (B, K, 3) and dt (B, H, W)")
@@ -201,6 +211,8 @@ def _check_level(fn: str, lv: SgLevel, b: int, dev, trace, threads, cluster) -> 
     build.check_rows(fn, "dt", lv.dt)
     if trace is not None:
         build.check_arg(fn, "trace", trace, (b, lv.n_iters, 18), torch.float32, dev)
+    if traj is not None:
+        build.check_arg(fn, "traj", traj, (b, lv.n_iters, POSE), torch.float32, dev)
     if lv.n_iters < 1:
         raise ValueError(f"{fn}: n_iters must be >= 1, got {lv.n_iters}")
     ranks = level_ranks(k, cluster)
@@ -215,7 +227,7 @@ def _check_level(fn: str, lv: SgLevel, b: int, dev, trace, threads, cluster) -> 
 
 
 def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=None,
-                     clocks=None) -> tuple:
+                     clocks=None, trajs=None) -> tuple:
     """Every level of a sub-gradient pyramid for B frame pairs in one
     launch: `levels` (`SgLevel`s, in solve order, coarsest first), each run
     as `level_sg` runs it from the pose the level before returned, the first
@@ -223,8 +235,9 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
     given. A level runs on `level_ranks` blocks a pair with `RANK_THREADS`
     working threads each and a warp for the step beside them; `cluster` forces every level onto that many blocks,
     `threads` their threads, and `traces` (a (B, n_iters, 18) float32
-    tensor or None a level) receive the levels' traces (see `level_sg`);
-    `clocks`, a (levels, 64, 8) int64 tensor, pair 0's clock64() at the
+    tensor or None a level) receive the levels' traces and `trajs` (a (B,
+    n_iters, 12) float32 tensor or None a level) their trajectories (see
+    `level_sg`); `clocks`, a (levels, 64, 8) int64 tensor, pair 0's clock64() at the
     phases of its first 64 iterations a level (`csrc/level_sg.cu`).
     CPU tensors go to `level_sg_pyramid_plain`. Arguments are checked before
     anything is built or launched."""
@@ -232,7 +245,7 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
     if not levels:
         raise ValueError("level_sg_pyramid: no level")
     if levels[0].pts.device.type == "cpu":
-        return level_sg_pyramid_plain(R0, t0, levels, cfg)
+        return level_sg_pyramid_plain(R0, t0, levels, cfg, trajs)
     fn = "level_sg"
     dev = levels[0].pts.device
     b = levels[0].pts.shape[0] if levels[0].pts.dim() == 3 else -1
@@ -240,11 +253,13 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
     build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
     build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
     traces = (None,) * len(levels) if traces is None else tuple(traces)
-    if len(levels) > MAX_LEVELS or len(traces) != len(levels):
-        raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch and a trace (or None) "
-                         f"each, got {len(levels)} and {len(traces)}")
-    shapes = [_check_level(fn, lv, b, dev, tr, threads, cluster)
-              for lv, tr in zip(levels, traces)]
+    trajs = (None,) * len(levels) if trajs is None else tuple(trajs)
+    if len(levels) > MAX_LEVELS or len(traces) != len(levels) or len(trajs) != len(levels):
+        raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch, and a trace and a "
+                         f"trajectory (or None) each, got {len(levels)}, {len(traces)} and "
+                         f"{len(trajs)}")
+    shapes = [_check_level(fn, lv, b, dev, tr, tj, threads, cluster)
+              for lv, tr, tj in zip(levels, traces, trajs)]
     if clocks is not None:
         build.check_arg(fn, "clocks", clocks, (len(levels), 64, 8), torch.int64, dev)
     if dev.type != "cuda":
@@ -256,7 +271,7 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
     vis = torch.empty((b * sum(ks),), dtype=torch.bool, device=dev)
     outs, ptrs, rows, fl = [], [], [], []
     fo = vo = 0
-    for i, (lv, (k, h, w, r, nt), tr) in enumerate(zip(levels, shapes, traces)):
+    for i, (lv, (k, h, w, r, nt), tr, tj) in enumerate(zip(levels, shapes, traces, trajs)):
         n = lv.n_iters
         take = []
         for size in (9, 3, n, 1, k, 1):  # R, t, energy, best energy, eps, ratio
@@ -271,7 +286,8 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
                  R.data_ptr(), t.data_ptr(), energy.data_ptr(), ints[i].data_ptr(),
                  best_energy.data_ptr(), eps.data_ptr(), v.data_ptr(), ratio.data_ptr(),
                  0 if tr is None else tr.data_ptr(),
-                 0 if clocks is None else clocks[i].data_ptr()]
+                 0 if clocks is None else clocks[i].data_ptr(),
+                 0 if tj is None else tj.data_ptr()]
         rows += [k, int(n), h, w, r, nt]
         fl += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
     nl = len(levels)
@@ -298,7 +314,7 @@ level_sg_pyramid.launches = 0
 
 def level_sg(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
              threads: int | None = None, trace: torch.Tensor | None = None,
-             cluster=None) -> LevelSG:
+             cluster=None, traj: torch.Tensor | None = None) -> LevelSG:
     """The `n_iters` sub-gradient iterations of one pyramid level for B
     frame pairs from the start poses (R0 (B,3,3), t0 (B,3)), over every
     point of the level (pts (B,K,3) float32, valid (B,K) bool, count (B,)
@@ -313,10 +329,14 @@ def level_sg(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
     `trace`, a (B, n_iters, 18)
     float32 tensor, receives for every iteration a pair runs the pose
     entering it (R 9, t 3) and its J^T W eps (6); rows after a pair is done
-    keep what they held. Arguments are checked before anything is built or
-    launched."""
+    keep what they held. `traj`, a (B, n_iters, 12) float32 tensor, receives
+    the pose after each iteration (R 9, t 3), the frozen pose in every row
+    once a pair is done (JAX's `collect_trajectory`); every other output is
+    the same bit for bit with it or without it. Arguments are checked
+    before anything is built or launched."""
     level = SgLevel(pts, valid, count, dt, fx, fy, cx, cy, n_iters)
-    return level_sg_pyramid(R0, t0, (level,), cfg, cluster, threads, (trace,))[0]
+    return level_sg_pyramid(R0, t0, (level,), cfg, cluster, threads, (trace,),
+                            trajs=(traj,))[0]
 
 
 def se3_log_device(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,15 @@ def reference_jacobian_terms(R, t, pts, valid, dt, fx, fy, cx, cy, sigma2):
     g0 = torch.where(visible, gx, zero)
     g1 = torch.where(visible, gy, zero)
     wgt = torch.where(visible, 6.0 / (6.0 + eps * eps * (1.0 / sigma2)), zero)
+    return reference_jacobian(g0, g1, xn, yn, R, fx, fy, visible), eps, wgt, visible
+
+
+def reference_jacobian(g0, g1, xn, yn, R, fx, fy, visible):
+    """The reference's dehomogenized-coordinate Jacobian (B,K,6) (JAX
+    `_jacobian_residual`'s "reference" mode, :362-380) from the sampled DT
+    gradients g0, g1 at the projections (xn, yn) and the poses' R (B,3,3):
+    [-R GA | GA x R^T (xn, yn, 1)] with GA = (g0 fx, g1 fy, -(g0 fx xn +
+    g1 fy yn)), in the kernel's operation order; zeros where invisible."""
     ga0 = g0 * fx
     ga1 = g1 * fy
     ga2 = -(ga0 * xn + ga1 * yn)
@@ -53,8 +62,7 @@ def reference_jacobian_terms(R, t, pts, valid, dt, fx, fy, cx, cy, sigma2):
     m = [xn * Rc[0][j] + yn * Rc[1][j] + Rc[2][j] for j in range(3)]
     jr = [ga1 * m[2] - ga2 * m[1], ga2 * m[0] - ga0 * m[2], ga0 * m[1] - ga1 * m[0]]
     J = torch.stack(jt + jr, dim=-1)
-    J = torch.where(visible[..., None], J, torch.zeros_like(J))
-    return J, eps, wgt, visible
+    return torch.where(visible[..., None], J, torch.zeros_like(J))
 
 
 def subgradient_terms_plain(R, t, pts, valid, dt, fx, fy, cx, cy, sigma2):

@@ -4,12 +4,17 @@
 These are the reference versions of kernel 1 (`kernels/edt.py`): the CPU
 path and what the CUDA kernel is held against, bit for bit. Every value is
 an exact integer or one float32 rounding of a sum, exactly as in the JAX
-functions, so the results are bitwise equal to theirs.
+functions, so the results are bitwise equal to theirs. `edt_l2`,
+`normalize_minmax` and `distance_transform_of_edges` complete the JAX
+module (its exact-EDT branch): on a CUDA tensor the two transforms are one
+`dt_channels` launch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rgbd_odometry_tpu_torch.ops.project import fma_f32
 
 _BIG = 1.0e7  # "no edge in this column" sentinel; clamped before squaring
 _G_MAX = 65504.0  # column-distance clamp that keeps g^2 finite
@@ -69,3 +74,40 @@ def edt_l2_squared_windowed(zero_mask: torch.Tensor, radius: int) -> torch.Tenso
             left = right = torch.full_like(g2, _PAD)
         d2 = torch.minimum(d2, torch.minimum(left, right) + c)
     return d2
+
+
+def edt_l2(zero_mask: torch.Tensor) -> torch.Tensor:
+    """Exact L2 distance to the nearest True of `zero_mask` (B, H, W) (JAX
+    `edt_l2`): the correctly rounded float32 sqrt of `edt_l2_squared`, as
+    XLA takes it. A CUDA tensor goes to the `dt_channels` kernel, which
+    computes the same (`kernels/edt.py`)."""
+    if zero_mask.device.type != "cpu":
+        from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
+
+        return dt_channels(zero_mask.contiguous(), 0, False, False)[0]
+    d2 = edt_l2_squared(zero_mask.bool())
+    return torch.sqrt(d2.to(torch.float64)).to(torch.float32)
+
+
+def normalize_minmax(dt: torch.Tensor, lo: float = 0.0, hi: float = 255.0) -> torch.Tensor:
+    """cv::normalize(..., lo, hi, NORM_MINMAX) of each (H, W) image of `dt`
+    (JAX `normalize_minmax`): (dt - min) (hi - lo) / max(max - min, 1e-12)
+    + lo, the scale a true division and the last step one fused
+    multiply-add, as XLA computes them on the CPU."""
+    dmin = torch.amin(dt, dim=(-2, -1), keepdim=True)
+    span = torch.clamp(torch.amax(dt, dim=(-2, -1), keepdim=True) - dmin, min=1e-12)
+    scale = torch.full_like(span, hi - lo) / span
+    return fma_f32(dt - dmin, scale, lo)
+
+
+def distance_transform_of_edges(edges: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """The reference's chain (JAX `distance_transform_of_edges`): the EDT of
+    the inverted edge map (B, H, W), optionally min-max normalized to
+    0-255. A CUDA tensor goes to one `dt_channels` launch, which computes
+    both (`kernels/edt.py`)."""
+    if edges.device.type != "cpu":
+        from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
+
+        return dt_channels(edges.contiguous(), 0, bool(normalize), False)[0]
+    dt = edt_l2(edges)
+    return normalize_minmax(dt) if normalize else dt

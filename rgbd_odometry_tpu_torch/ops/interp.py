@@ -14,11 +14,17 @@ Replaces the JAX package's one-hot MXU gathers:
   integer pixel and its central-difference gradients there, REFLECT_101 at
   the borders. Every value is one read or one rounding of a difference, so
   the results are bitwise equal to the JAX versions.
+
+`gather_bilinear` and `gather_sqrt_bilinear` are the JAX package's
+`take`-mode samplers (`ops/interp.py`) of the reference-parity mode, in
+JAX's operation order and bitwise equal to them on float32.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rgbd_odometry_tpu_torch.ops.project import fma_f32
 
 
 def _corners(n: int, coord: torch.Tensor):
@@ -51,10 +57,16 @@ def sample_bilinear_value_grad(img: torch.Tensor, u: torch.Tensor, v: torch.Tens
     return val, gu, gv
 
 
-def _floor_index(n: int, coord: torch.Tensor) -> torch.Tensor:
-    """floor(clamp(coord, 0, n-1)) as an index (NaN -> 0, as `_corners`)."""
+def _clamped(coord: torch.Tensor, n: int):
+    """(c, floor(c) as an index) of the coordinate clamped to [0, n-1]
+    (NaN -> 0, as `_corners`)."""
     c = torch.clamp(torch.nan_to_num(coord, nan=0.0), 0.0, n - 1.0)
-    return torch.floor(c).to(torch.long)
+    return c, torch.floor(c).to(torch.long)
+
+
+def _floor_index(n: int, coord: torch.Tensor) -> torch.Tensor:
+    """floor(clamp(coord, 0, n-1)) as an index."""
+    return _clamped(coord, n)[1]
 
 
 def gather_floor(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -84,3 +96,48 @@ def gather_floor_value_cgrads(img: torch.Tensor, u: torch.Tensor, v: torch.Tenso
     gx = 0.5 * (at(i0, refl(j0 + 1, w)) - at(i0, refl(j0 - 1, w)))
     gy = 0.5 * (at(refl(i0 + 1, h), j0) - at(refl(i0 - 1, h), j0))
     return val, gx, gy
+
+
+def _take(img: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """img (B, H, W) at rows i, columns j (B, K)."""
+    b, h, w = img.shape
+    return torch.gather(img.reshape(b, h * w), 1, i * w + j)
+
+
+def gather_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """JAX `ops/interp.gather_bilinear`, batched: img (B, H, W) float32 at
+    clamped (u, v) (B, K), i1 = min(i0+1, n-1), blended top row, bottom
+    row, then vertically. Each a*x + b*y of the blend is one fused
+    multiply-add over the second product, as XLA contracts it on the CPU,
+    so the result is bitwise JAX's."""
+    b, h, w = img.shape
+    u, x0 = _clamped(u, w)
+    v, y0 = _clamped(v, h)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = u - x0.to(img.dtype)
+    fy = v - y0.to(img.dtype)
+    top = fma_f32(_take(img, y0, x0), 1.0 - fx, _take(img, y0, x1) * fx)
+    bot = fma_f32(_take(img, y1, x0), 1.0 - fx, _take(img, y1, x1) * fx)
+    return fma_f32(top, 1.0 - fy, bot * fy)
+
+
+def gather_sqrt_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """JAX `ops/interp.gather_sqrt_bilinear` (the reference's `interpolate`,
+    sqrt of the bilinear blend of F^2), batched: the far corner is
+    clamp(ceil(c), 0, n-1), so an integer coordinate reads one pixel. The
+    multiply-adds contract as XLA's do on the CPU and the sqrt is correctly
+    rounded, so the result is bitwise JAX's."""
+    b, h, w = img.shape
+    u, x0 = _clamped(u, w)
+    v, y0 = _clamped(v, h)
+    x1 = torch.clamp(torch.ceil(u).to(torch.long), 0, w - 1)
+    y1 = torch.clamp(torch.ceil(v).to(torch.long), 0, h - 1)
+    fx = u - x0.to(img.dtype)
+    fy = v - y0.to(img.dtype)
+    f00, f01 = _take(img, y0, x0), _take(img, y0, x1)
+    f10, f11 = _take(img, y1, x0), _take(img, y1, x1)
+    top2 = fma_f32((1.0 - fx) * f00, f00, fx * f01 * f01)
+    bot2 = fma_f32(fx * f11, f11, (1.0 - fx) * f10 * f10)
+    s2 = fma_f32(1.0 - fy, top2, fy * bot2)
+    return torch.sqrt(s2.to(torch.float64)).to(s2.dtype)

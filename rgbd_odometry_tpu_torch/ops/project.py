@@ -35,7 +35,7 @@ def div_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full_like(x, c)
 
 
-def project_points(R, t, pts, valid, h, w, fx, fy, cx, cy, fma_uv=False):
+def project_points(R, t, pts, valid, h, w, fx, fy, cx, cy, fma_uv=False, fma_z=False):
     """Warp X' = R^T (X - t) of pts (B,K,3) at poses (R (B,3,3), t (B,3)) and
     project: (xn, yn, z, safe_z, u, v, visible), visibility inclusive of
     the far image edge (u <= W, v <= H) as in the JAX `_project`.
@@ -48,14 +48,20 @@ def project_points(R, t, pts, valid, h, w, fx, fy, cx, cy, fma_uv=False):
     changes value). With `fma_uv`, u = fx * xn + cx and v likewise are one
     fused multiply-add each, as XLA computes them: the floor lookups of the
     sub-gradient then take JAX's pixel decisions at an identity start, where
-    every point lands exactly on a pixel boundary."""
+    every point lands exactly on a pixel boundary. With `fma_z`, z is the
+    chain fma(d2, R20, fma(d1, R10, d0 R00)), as XLA's CPU dot forms the
+    third column of the JAX `_project`'s warp (its first two are the plain
+    sums): the reference-parity branches then project as JAX does."""
     d0 = pts[..., 0] - t[:, None, 0]
     d1 = pts[..., 1] - t[:, None, 1]
     d2 = pts[..., 2] - t[:, None, 2]
     Rc = [[R[:, None, i, j] for j in range(3)] for i in range(3)]
     x0 = d0 * Rc[0][0] + d1 * Rc[1][0] + d2 * Rc[2][0]
     x1 = d0 * Rc[0][1] + d1 * Rc[1][1] + d2 * Rc[2][1]
-    z = d0 * Rc[0][2] + d1 * Rc[1][2] + d2 * Rc[2][2]
+    if fma_z:
+        z = fma_f32(d2, Rc[2][2], fma_f32(d1, Rc[1][2], d0 * Rc[0][2]))
+    else:
+        z = d0 * Rc[0][2] + d1 * Rc[1][2] + d2 * Rc[2][2]
     zs = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
     inv = 1.0 / zs
     xn = x0 * inv

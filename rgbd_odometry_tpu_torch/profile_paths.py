@@ -24,6 +24,12 @@ process_frame`, keyframe every 5:
                over the same trajectory rendered at 640x480 (one sample a
                pixel; not in the default).
 
+`--paths levels` (not in the default) calls `level_lm` / `level_sg` once a
+level at every level of production_320, production_vga, the `dvo`
+defaults and cli_subgradient, B = 1 and 64: device us, launches and a
+digest of every output (parent against change: the same bits), and where
+the checkout has it, the same call with the trajectory output.
+
 `--paths pipelined` (not in the default) runs the stream path's frames
 through `EdgeDvoOdometry.process_stream` (frame n+1 launched off frame n's
 unresolved outputs) and through the sequential `process_pyramid`, each fed
@@ -1114,6 +1120,52 @@ def _profile_pnp(device, reps: int) -> dict:
     return out
 
 
+def profile_levels(device, reps: int = 20) -> dict:
+    """Every level of production_320, production_vga, the `dvo` defaults
+    and cli_subgradient (`_solve_inputs`, B = 1 and 64), one `level_lm` or
+    `level_sg` call a level from the identity at its iterations: device us
+    and kernel launches a call (`_device_us`) and a digest of every output,
+    to compare checkouts bit for bit; where the checkout's wrappers take
+    `traj=`, the same call with the trajectory output beside it (device us,
+    the digest of the other outputs)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_lm, level_sg
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    inputs = _solve_inputs(device, 64)
+    out = {}
+    for name, (cfg, levels) in inputs.items():
+        gn = cfg.method == "gauss_newton"
+        fn = level_lm.level_lm if gn else level_sg.level_sg
+        traj_ok = "traj" in inspect.signature(fn).parameters and not (
+            gn and cfg.lm_deferred_accept)
+        for b in (1, 64):
+            for lvl, ref, now, li, n in levels:
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+
+                def call(b=b, ref=ref, now=now, li=li, n=n, R0=R0, t0=t0, **kw):
+                    if gn:
+                        js, st = edge_dvo.level_strides(cfg, ref.pts3d.shape[1])
+                        return fn(R0, t0, ref.pts3d[:b], ref.valid[:b], ref.count[:b],
+                                  now.chans[:b, 0], now.scale[:b], *li, cfg, n, js, st, **kw)
+                    return fn(R0, t0, ref.pts3d[:b], ref.valid[:b], ref.count[:b], now.dt[:b],
+                              *li, cfg, n, **kw)
+
+                res = call()
+                case = {"us": _device_us(call, reps), "digest": _digest(res, len(res))}
+                if traj_ok:
+                    traj = torch.empty((b, n, 12), device=device)
+                    with_t = functools.partial(call, traj=traj)
+                    case["traj_us"] = _device_us(with_t, reps)
+                    case["traj_digest"] = _digest(with_t(), len(res))
+                key = f"{name} B={b} level {lvl}"
+                out[key] = case
+                print(f"levels {key}: {json.dumps(case)}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1155,6 +1207,9 @@ def main(argv=None) -> int:
             continue
         if name == "secondary":
             profile_secondary(device)
+            continue
+        if name == "levels":
+            profile_levels(device)
             continue
         cfg = configs["stream" if name == "pipelined" else name]
         # VGA one sample a pixel: three take ~3 s a frame on the host

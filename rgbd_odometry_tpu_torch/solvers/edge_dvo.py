@@ -4,15 +4,15 @@
 Reference-keyframe edge points are aligned coarse-to-fine against the
 distance transform of the current frame's edge map. Every function takes a
 leading batch dimension of frame pairs where the JAX version is `vmap`ped.
-Three level solvers are ported:
+Every `SolverConfig` the JAX package accepts runs here; `check_config`
+rejects only an unknown `method`. Three level solvers:
 
 * deferred-accept Levenberg-Marquardt (`profiles.production_320`);
 * standard LM with an accept/reject residual pass per iteration (the
   `dvo` command's defaults), optionally on a 0-255 normalized DT;
 * the reference's damped, projected sub-gradient method (`profiles.
   parity_320`, `SolverConfig()`): momentum, preconditioner, L2 pull on the
-  normalized log-pose, floor gathers of a float32 DT, the "reference"
-  Jacobian.
+  normalized log-pose, the "reference" Jacobian.
 
 The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
 a frame's edge maps are one `canny_pyramid` call over all levels
@@ -23,30 +23,54 @@ launch (`kernels/extract.py`: selection and back-projection, whose plain
 version is `extract_ref_level`); a whole Gauss-Newton pyramid, both LM
 loops and every level's all-point diagnostics, in one launch
 (`kernels/level_lm.py`); a whole sub-gradient pyramid in one launch
-(`kernels/level_sg.py`). Configurations
-outside these raise `NotImplementedError` naming the ROADMAP item that will
-port them (`check_config`).
+(`kernels/level_sg.py`). The kernels compute the production semantics
+(bilinear bf16 gathers with interpolant gradients and the textbook
+Jacobian for Gauss-Newton; floor gathers of the float32 DT and the
+"reference" Jacobian for the sub-gradient; Newton-Schulz re-orthogonalization).
+The reference-parity semantics beyond them (`interpolate_dt`, `take`
+gathers for Gauss-Newton, the "channels" gradients, float32 channels, the
+swapped Jacobians, the SVD `rotationize`) run their level solve as
+`run_level_loop`, PyTorch ops over the per-point functions below (JAX's
+XLA branches, which have no Pallas kernel); `kernel_route` is the rule.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.config import SolverConfig
+from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.extract import RefLevel, extract_pyramid
-from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms
-from rgbd_odometry_tpu_torch.kernels.level_lm import LmLevel, level_lm, level_lm_pyramid
+from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms, true_jacobian
+from rgbd_odometry_tpu_torch.kernels.level_lm import (
+    POSE,
+    LmLevel,
+    level_lm,
+    level_lm_pyramid,
+    lm_psi,
+    sel,
+)
 from rgbd_odometry_tpu_torch.kernels.level_sg import SgLevel, level_sg, level_sg_pyramid
-from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step as _subgradient_step  # noqa: F401
-from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian_terms
+from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step
+from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian, reference_jacobian_terms
+from rgbd_odometry_tpu_torch.ops.interp import (
+    gather_bilinear,
+    gather_floor,
+    gather_floor_value_cgrads,
+    gather_sqrt_bilinear,
+    sample_bilinear_value_grad,
+)
+from rgbd_odometry_tpu_torch.ops.project import div_scalar, project_points
 
-_PARITY = "ROADMAP.md Queue 1, item 5 'reference-parity mode'"
+_METHODS = ("gauss_newton", "subgradient")
+_subgradient_step = subgradient_step  # the JAX module's name for it
 
 
 class NowLevel(NamedTuple):
@@ -73,34 +97,48 @@ class LevelDiagnostics(NamedTuple):
 
 
 def check_config(cfg: SolverConfig) -> None:
-    """Raise NotImplementedError for a configuration outside the semantics
-    this package ports. Accepted: `method` gauss_newton (bilinear bf16
-    gathers with interpolant gradients, textbook Jacobian) or subgradient
-    (floor gathers of a float32 DT, "reference" Jacobian; `gather_mode`
-    "mxu" and "take" are both floor semantics, bit-equal), deferred or
-    standard LM, `normalize_dt` either way. (`fuse_level_canny` and
-    `edt_backend` select between bit-identical JAX implementations; the
-    port has one implementation for either value.)"""
-    gn = cfg.method == "gauss_newton"
-    jac = cfg.jacobian_mode if cfg.jacobian_mode != "auto" else ("true" if gn else "reference")
-    unsupported = [
-        (cfg.method not in ("gauss_newton", "subgradient"), f"method={cfg.method!r}"),
-        (cfg.interpolate_dt, "interpolate_dt=True"),
-        (jac != ("true" if gn else "reference"),
-         f"jacobian_mode={cfg.jacobian_mode!r} with method={cfg.method!r}"),
-        (gn and cfg.gather_mode != "mxu", f"gather_mode={cfg.gather_mode!r} for gauss_newton"),
-        (not gn and cfg.gather_mode not in ("mxu", "take"), f"gather_mode={cfg.gather_mode!r}"),
-        (gn and cfg.gn_gradient_mode != "interpolant",
-         f"gn_gradient_mode={cfg.gn_gradient_mode!r}"),
-        (gn and cfg.gather_dtype != "bfloat16", f"gather_dtype={cfg.gather_dtype!r} for gauss_newton"),
-        (cfg.rotationize and cfg.rotationize_method != "newton",
-         f"rotationize_method={cfg.rotationize_method!r}"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to rgbd_odometry_tpu_torch yet; see {_PARITY}"
-            )
+    """Raise ValueError unless `cfg.method` is one of the two solvers,
+    "gauss_newton" or "subgradient". Every other setting the JAX package
+    accepts runs (`kernel_route` says where)."""
+    if cfg.method not in _METHODS:
+        raise ValueError(f"SolverConfig.method must be one of {_METHODS}, got {cfg.method!r}")
+
+
+def jacobian_mode(cfg: SolverConfig) -> str:
+    """The Jacobian the configuration solves with, as JAX reads
+    `jacobian_mode` (:359-361): "auto" picks "true" for Gauss-Newton and
+    "reference" for the sub-gradient; any value but "reference" is "true"."""
+    if cfg.jacobian_mode == "auto":
+        return "true" if cfg.method == "gauss_newton" else "reference"
+    return "reference" if cfg.jacobian_mode == "reference" else "true"
+
+
+def kernel_route(cfg: SolverConfig) -> bool:
+    """The routing rule: True where the level kernels (`level_lm`,
+    `level_sg`) compute this configuration's semantics, so its level solves
+    go to them; False sends them to `run_level_loop`, on the CPU and on
+    the card alike. A choice of semantics, never a fallback: the kernels'
+    per-point terms (`kernel_terms`), and no re-orthogonalization or
+    Newton-Schulz's (`rotationize_method` other than "svd")."""
+    return kernel_terms(cfg) and not (cfg.rotationize and cfg.rotationize_method == "svd")
+
+
+def kernel_terms(cfg: SolverConfig) -> bool:
+    """True where a point's residual, weight and Jacobian are the level
+    kernels' (their plain versions `jacobian_terms`,
+    `reference_jacobian_terms`):
+
+    * Gauss-Newton: the textbook Jacobian ("auto" or "true"), `gather_mode`
+      "mxu" with "interpolant" gradients on bf16 channels (`gather_dtype`
+      "bfloat16"). JAX's Gauss-Newton branches never read
+      `interpolate_dt`, so it does not matter here;
+    * sub-gradient: the "reference" Jacobian ("auto" or "reference") on
+      floor gathers, `interpolate_dt` off; any `gather_mode` (JAX's "mxu"
+      and "take" floor branches are bit-equal)."""
+    if cfg.method == "gauss_newton":
+        return (jacobian_mode(cfg) == "true" and cfg.gather_mode == "mxu"
+                and cfg.gn_gradient_mode == "interpolant" and cfg.gather_dtype == "bfloat16")
+    return jacobian_mode(cfg) == "reference" and not cfg.interpolate_dt
 
 
 # --------------------------------------------------------------------------
@@ -164,6 +202,131 @@ def prepare_now_targets(
 
 
 # --------------------------------------------------------------------------
+# Per-point terms (JAX :227-398), for every branch
+# --------------------------------------------------------------------------
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 sqrt XLA takes (in float64, rounded once)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def _channel(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One channel's bilinear sample, float32: JAX's `gather_channels_mm(...,
+    bilinear=True)` by direct indexing (`ops/interp.py`)."""
+    return sample_bilinear_value_grad(img, u, v)[0]
+
+
+def _project(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics, cfg: SolverConfig):
+    """Warp + project the points (JAX `_project`, :227-238): (xn, yn, z,
+    safe_z, u, v, visible). Where `kernel_terms` holds, as the kernels
+    project (`csrc/project.cuh`: u, v by fused multiply-adds for the
+    sub-gradient), so that the residual pass agrees with the point terms
+    bit for bit at one pose; otherwise z, u and v with the fused
+    multiply-adds XLA forms on the CPU (`project_points`)."""
+    h, w = now.dt.shape[-2:]
+    if kernel_terms(cfg):
+        return project_points(R, t, ref.pts3d, ref.valid, h, w, *intr,
+                              fma_uv=cfg.method != "gauss_newton")
+    return project_points(R, t, ref.pts3d, ref.valid, h, w, *intr, fma_uv=True, fma_z=True)
+
+
+def _sample_dt(now: NowLevel, u, v, cfg: SolverConfig) -> torch.Tensor:
+    """The DT residual at (u, v) (B, K) by the configured semantics (JAX
+    `_sample_dt`, :241-258)."""
+    gn = cfg.method == "gauss_newton"
+    if cfg.gather_mode == "mxu":
+        if gn:
+            return _channel(now.chans[:, 0], u, v)
+        if cfg.interpolate_dt:
+            # the reference's sqrt-of-squares == sqrt(bilinear(F^2))
+            return _sqrt(torch.clamp(_channel(now.dt * now.dt, u, v), min=0.0))
+        return gather_floor(now.dt, u, v)
+    if gn:
+        return gather_bilinear(now.dt, u, v)
+    if cfg.interpolate_dt:
+        return gather_sqrt_bilinear(now.dt, u, v)
+    return gather_floor(now.dt, u, v)
+
+
+def _robust_weights(eps, visible, now: NowLevel, cfg: SolverConfig) -> torch.Tensor:
+    """w = 6 / (6 + r^2 / sigma^2) (JAX `_robust_weights`, :278-290), r in
+    pixels (eps / scale) for Gauss-Newton, in DT units for the
+    sub-gradient; 0 where invisible."""
+    if cfg.method == "gauss_newton":
+        r = eps / now.scale[:, None]
+        sigma2 = cfg.gn_weight_sigma2_px
+    else:
+        r, sigma2 = eps, cfg.weight_sigma2
+    six = torch.full_like(eps, 6.0)
+    return torch.where(visible, six / (6.0 + div_scalar(r * r, sigma2)), torch.zeros_like(eps))
+
+
+def _energy_and_ratio(eps, visible, count):
+    """||eps|| (B,) and the visible share of the tracked points (B,)."""
+    n_valid = torch.clamp(count, min=1).to(eps.dtype)
+    return torch.sqrt((eps * eps).sum(-1)), visible.sum(-1).to(eps.dtype) / n_valid
+
+
+def _project_and_sample(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
+                        cfg: SolverConfig):
+    """The residual pass without the Jacobian (JAX `_project_and_sample`,
+    :261-275): (eps (B,K), wgt (B,K), visible (B,K), energy (B,),
+    vis_ratio (B,))."""
+    *_, u, v, visible = _project(R, t, ref, now, intr, cfg)
+    eps = torch.where(visible, _sample_dt(now, u, v, cfg), torch.zeros_like(u))
+    wgt = _robust_weights(eps, visible, now, cfg)
+    energy, vis_ratio = _energy_and_ratio(eps, visible, ref.count)
+    return eps, wgt, visible, energy, vis_ratio
+
+
+def _jacobian_residual(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
+                       cfg: SolverConfig):
+    """Warp, project, gather the residuals and the DT gradients, and build
+    each point's 6-vector Jacobian (JAX `_jacobian_residual`, :293-398),
+    every branch: (J (B,K,6), eps (B,K), wgt (B,K), visible (B,K), energy
+    (B,), vis_ratio (B,)). The production semantics are the level kernels'
+    plain point terms (`jacobian_terms`, `reference_jacobian_terms`); the
+    one-hot MXU gathers are direct indexing: the three channels' bilinear
+    samples, the bilinear F^2 then sqrt(max(., 0)), the floor value with
+    its central gradients (`gather_floor_value_cgrads`)."""
+    gn = cfg.method == "gauss_newton"
+    mode = jacobian_mode(cfg)
+    if gn and kernel_terms(cfg):
+        J, eps, wgt, visible = jacobian_terms(R, t, ref.pts3d, ref.valid, now.chans[:, 0], *intr,
+                                              cfg.gn_weight_sigma2_px, now.scale)
+    elif kernel_terms(cfg):
+        J, eps, wgt, visible = reference_jacobian_terms(R, t, ref.pts3d, ref.valid, now.dt,
+                                                        *intr, cfg.weight_sigma2)
+    else:
+        xn, yn, z, zs, u, v, visible = _project(R, t, ref, now, intr, cfg)
+        if cfg.gather_mode == "mxu":
+            if gn and cfg.gn_gradient_mode == "interpolant":
+                eps_raw, g0, g1 = sample_bilinear_value_grad(now.chans[:, 0], u, v)
+            elif gn:
+                eps_raw, g0, g1 = (_channel(now.chans[:, c], u, v) for c in range(3))
+            else:
+                eps_raw, g0, g1 = gather_floor_value_cgrads(now.dt, u, v)
+                if cfg.interpolate_dt:
+                    eps_raw = _sample_dt(now, u, v, cfg)
+        else:
+            eps_raw = _sample_dt(now, u, v, cfg)
+            gather = gather_bilinear if gn else gather_floor
+            g0, g1 = gather(now.dgx, u, v), gather(now.dgy, u, v)
+        zero = torch.zeros_like(eps_raw)
+        eps = torch.where(visible, eps_raw, zero)
+        wgt = _robust_weights(eps, visible, now, cfg)
+        g0, g1 = torch.where(visible, g0, zero), torch.where(visible, g1, zero)
+        fx, fy = intr[0], intr[1]
+        if mode == "reference":
+            J = reference_jacobian(g0, g1, xn, yn, R, fx, fy, visible)
+        else:
+            J = true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible)
+    energy, vis_ratio = _energy_and_ratio(eps, visible, ref.count)
+    return J, eps, wgt, visible, energy, vis_ratio
+
+
+# --------------------------------------------------------------------------
 # Level solve
 # --------------------------------------------------------------------------
 
@@ -180,6 +343,20 @@ def level_strides(cfg: SolverConfig, cap: int) -> Tuple[int, int]:
     return jstride, stride
 
 
+def _standard(cfg: SolverConfig) -> SolverConfig:
+    """`cfg` with the standard LM: `collect_trajectory` runs it even where
+    `lm_deferred_accept` is set (JAX :483)."""
+    if cfg.method == "gauss_newton" and cfg.lm_deferred_accept:
+        return dataclasses.replace(cfg, lm_deferred_accept=False)
+    return cfg
+
+
+def _trajectory(traj: torch.Tensor):
+    """A (B, n, 12) trajectory output -> (Rs (B,n,3,3), ts (B,n,3))."""
+    b, n = traj.shape[:2]
+    return traj[..., :9].reshape(b, n, 3, 3), traj[..., 9:]
+
+
 def run_level(
     ref: RefLevel,
     now: NowLevel,
@@ -190,29 +367,39 @@ def run_level(
     n_iters: int,
     collect_trajectory: bool = False,
 ):
-    """One pyramid level (JAX `run_level`, :421-622). Gauss-Newton runs
-    the whole level in one `level_lm` launch (deferred or standard LM): it
-    forms the normal equations on every Nth point, N = jstride = max(1,
-    min(lm_jacobian_stride, K // 512)) (:467); when N == 1 the standard LM
-    tests proposals on every Mth point, M = max(1, min(lm_proposal_stride,
-    K // 512)), else on the Jacobian's own subset. With a stride-1 standard
-    LM the diagnostics are the level's own at the best iterate; otherwise
-    the launch's all-point pass at the returned pose (JAX
-    `_project_and_sample`, :593-609, :758-771). A sub-gradient level
-    is one `level_sg` launch over every point, with the diagnostics of its
-    best iterate. Returns (R (B,3,3), t (B,3), LevelDiagnostics)."""
+    """One pyramid level (JAX `run_level`, :421-622). Where `kernel_route`
+    holds, Gauss-Newton runs the whole level in one `level_lm` launch
+    (deferred or standard LM): it forms the normal equations on every Nth
+    point, N = jstride = max(1, min(lm_jacobian_stride, K // 512)) (:467);
+    when N == 1 the standard LM tests proposals on every Mth point, M =
+    max(1, min(lm_proposal_stride, K // 512)), else on the Jacobian's own
+    subset. With a stride-1 standard LM the diagnostics are the level's own
+    at the best iterate; otherwise the launch's all-point pass at the
+    returned pose (JAX `_project_and_sample`, :593-609, :758-771). A
+    sub-gradient level is one `level_sg` launch over every point, with the
+    diagnostics of its best iterate. Any other configuration runs
+    `run_level_loop`. Returns (R (B,3,3), t (B,3), LevelDiagnostics), and
+    with `collect_trajectory` also (Rs (B,n,3,3), ts (B,n,3)), the pose
+    after each iteration (the frozen pose once a pair is done); the
+    kernels write it as their trajectory output, and Gauss-Newton then runs
+    the standard LM (JAX :483)."""
     check_config(cfg)
+    if not kernel_route(cfg):
+        return run_level_loop(ref, now, intr_level, R0, t0, cfg, n_iters, collect_trajectory)
+    b = ref.pts3d.shape[0]
+    traj = None
     if collect_trajectory:
-        raise NotImplementedError(
-            f"collect_trajectory is not ported to rgbd_odometry_tpu_torch yet; see {_PARITY}"
-        )
+        cfg = _standard(cfg)
+        traj = torch.empty((b, n_iters, POSE), dtype=torch.float32, device=ref.pts3d.device)
     if cfg.method != "gauss_newton":
-        out = level_sg(R0, t0, ref.pts3d, ref.valid, ref.count, now.dt, *intr_level, cfg, n_iters)
+        out = level_sg(R0, t0, ref.pts3d, ref.valid, ref.count, now.dt, *intr_level, cfg, n_iters,
+                       traj=traj)
     else:
         jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
         out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
-                       *intr_level, cfg, n_iters, jstride, stride)
-    return out.R, out.t, _diagnostics(out, ref.count)
+                       *intr_level, cfg, n_iters, jstride, stride, traj=traj)
+    result = (out.R, out.t, _diagnostics(out, ref.count))
+    return result + (_trajectory(traj),) if collect_trajectory else result
 
 
 def _diagnostics(out, count: torch.Tensor) -> LevelDiagnostics:
@@ -225,6 +412,172 @@ def _diagnostics(out, count: torch.Tensor) -> LevelDiagnostics:
     )
 
 
+def _strided(ref: RefLevel, s: int) -> RefLevel:
+    """Every s-th point of a level, its count max(count // s, 1) (JAX
+    `run_level._strided`)."""
+    if s == 1:
+        return ref
+    return RefLevel(pts3d=ref.pts3d[:, ::s].contiguous(), uv=ref.uv[:, ::s],
+                    valid=ref.valid[:, ::s].contiguous(),
+                    count=torch.clamp(torch.div(ref.count, s, rounding_mode="floor"), min=1))
+
+
+def _rotationize(R: torch.Tensor, cfg: SolverConfig) -> torch.Tensor:
+    return geo.rotationize(R, cfg.rotationize_method) if cfg.rotationize else R
+
+
+def _update(R, t, psi, cfg: SolverConfig):
+    """(R, t) exp(psi), re-orthogonalized as configured (JAX :514-518)."""
+    xR, xt = geo.se3_exp(psi)
+    return _rotationize(R @ xR, cfg), t + (R @ xt[..., None])[..., 0]
+
+
+def _normal_equations(J, eps, wgt):
+    """J^T W J (B,6,6) and J^T W eps (B,6)."""
+    Jw = J * wgt[..., None]
+    return Jw.transpose(-1, -2) @ J, (Jw * eps[..., None]).sum(-2)
+
+
+def _lambda(lam, accept, worse):
+    """Marquardt's lambda after a verdict: /3 (min 1e-8) on accept, x4 (max
+    1e6) on an increase, kept on a tie."""
+    return torch.where(accept, torch.clamp(div_scalar(lam, 3.0), min=1e-8), torch.where(
+        worse, torch.clamp(lam * 4.0, max=1e6), lam))
+
+
+def run_level_loop(ref: RefLevel, now: NowLevel, intr_level: Intrinsics, R0, t0,
+                   cfg: SolverConfig, n_iters: int, collect_trajectory: bool = False):
+    """The general level loop: JAX `run_level` (:421-622) and
+    `_run_level_lm_deferred` (:625-772), one iteration at a time in
+    PyTorch ops over `_jacobian_residual` and `_project_and_sample`, with
+    the LM step `lm_psi` or the reference's `subgradient_step` and
+    `rotationize(., cfg.rotationize_method)` at JAX's sites. It runs every
+    configuration; `run_level`, `solve_pyramid` and `pose_information`
+    send it those outside `kernel_route`. Returns what `run_level`
+    returns."""
+    gn = cfg.method == "gauss_newton"
+    dev, dtype = R0.device, R0.dtype
+    b, cap = ref.pts3d.shape[:2]
+    jstride, stride = level_strides(_standard(cfg) if collect_trajectory else cfg, cap)
+    if not gn:
+        jstride, stride = 1, 1
+    ref_jac = _strided(ref, jstride)
+    if gn and cfg.lm_deferred_accept and not collect_trajectory:
+        return _loop_deferred(ref, ref_jac, now, intr_level, R0, t0, cfg, n_iters)
+    ref_sub = ref_jac if jstride > 1 else _strided(ref, stride)
+    k = ref_jac.pts3d.shape[1]
+    precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dtype, device=dev)
+    R, t = R0, t0
+    descent = torch.zeros((b, 6), dtype=dtype, device=dev)
+    lam = torch.full((b,), cfg.lm_damping, dtype=dtype, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    best_energy = torch.full((b,), 1.0e10, dtype=dtype, device=dev)
+    best_R = torch.eye(3, dtype=dtype, device=dev).expand(b, 3, 3).contiguous()
+    best_t = torch.zeros((b, 3), dtype=dtype, device=dev)
+    best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    best_vis = torch.ones((b,), dtype=dtype, device=dev)
+    best_eps = torch.zeros((b, k), dtype=dtype, device=dev)
+    best_visible = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    energies, Rs, ts = [], [], []
+    for itr in range(n_iters):
+        J, eps, wgt, visible, energy, vis_ratio = _jacobian_residual(R, t, ref_jac, now,
+                                                                     intr_level, cfg)
+        is_better = (energy <= best_energy) & (~done)
+        best_energy = torch.where(is_better, energy, best_energy)
+        best_R, best_t = sel(is_better, R, best_R), sel(is_better, t, best_t)
+        best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
+        best_vis = torch.where(is_better, vis_ratio, best_vis)
+        best_eps, best_visible = sel(is_better, eps, best_eps), sel(is_better, visible,
+                                                                    best_visible)
+        if gn:
+            psi = lm_psi(*_normal_equations(J, eps, wgt), lam, cfg.lm_trust_region)
+            descent_new = descent
+        else:
+            g = (J * (wgt * eps)[..., None]).sum(-2)
+            psi, descent_new = subgradient_step(R, t, g, descent, itr, cfg, precond)
+        psi_norm = torch.linalg.vector_norm(psi, dim=-1)
+        new_R, new_t = _update(R, t, psi, cfg)
+        if gn:
+            e_new = _project_and_sample(new_R, new_t, ref_sub, now, intr_level, cfg)[3]
+            e_cur = (torch.sqrt((eps[:, ::stride] * eps[:, ::stride]).sum(-1)) if stride > 1
+                     else energy)
+            accept, worse = e_new < e_cur, e_new > e_cur
+            newly_done = accept & (psi_norm < cfg.psi_norm_termination)
+            do_update = (~done) & (~newly_done) & accept
+            lam = torch.where(done, lam, _lambda(lam, accept, worse))
+        else:
+            newly_done = psi_norm < cfg.psi_norm_termination
+            do_update = (~done) & (~newly_done)
+        R, t = sel(do_update, new_R, R), sel(do_update, new_t, t)
+        descent = sel(done, descent, descent_new)
+        energies.append(torch.where(done, torch.zeros_like(energy), energy))
+        Rs.append(R)
+        ts.append(t)
+        done = done | newly_done
+    best_R = _rotationize(best_R, cfg)  # the reference re-rotationizes the returned best
+    if jstride > 1:
+        best_eps, _, best_visible, best_energy, best_vis = _project_and_sample(
+            best_R, best_t, ref, now, intr_level, cfg)
+    diag = LevelDiagnostics(torch.stack(energies, dim=-1), best_energy, best_iter, best_vis,
+                            best_eps, best_visible, ref.count)
+    if collect_trajectory:
+        return best_R, best_t, diag, (torch.stack(Rs, dim=1), torch.stack(ts, dim=1))
+    return best_R, best_t, diag
+
+
+def _loop_deferred(ref, ref_jac, now, intr_level, R0, t0, cfg, n_iters):
+    """Deferred-accept LM (JAX `_run_level_lm_deferred`, :625-772): each
+    iteration's Jacobian pass is the verdict on the pending proposal; on
+    reject the pose reverts to the backup and the step is recomputed from
+    the backup's carried normal equations (JAX carries its (J, eps, wgt),
+    used only through them) with raised lambda. The diagnostics are an
+    all-point residual pass at the returned pose."""
+    dev, dtype = R0.device, R0.dtype
+    b = R0.shape[0]
+    R, t, Rb, tb = R0, t0, R0, t0
+    Hb = torch.zeros((b, 6, 6), dtype=dtype, device=dev)
+    gb = torch.zeros((b, 6), dtype=dtype, device=dev)
+    eb = torch.full((b,), float("inf"), dtype=dtype, device=dev)
+    pending = torch.zeros((b,), dtype=torch.bool, device=dev)
+    lam = torch.full((b,), cfg.lm_damping, dtype=dtype, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    best_energy = torch.full((b,), 1.0e10, dtype=dtype, device=dev)
+    best_R, best_t = R0, t0
+    best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    energies = []
+    for itr in range(n_iters):
+        J, eps, wgt, _, energy, _ = _jacobian_residual(R, t, ref_jac, now, intr_level, cfg)
+        H, g = _normal_equations(J, eps, wgt)
+        accept = (~pending) | (energy < eb)
+        worse = pending & (energy > eb)
+        lam = torch.where(done, lam, _lambda(lam, pending & accept, worse))
+        R_cur, t_cur = sel(accept, R, Rb), sel(accept, t, tb)
+        H_use, g_use = sel(accept, H, Hb), sel(accept, g, gb)
+        e_use = torch.where(accept, energy, eb)
+        is_better = (energy <= best_energy) & (~done)
+        best_energy = torch.where(is_better, energy, best_energy)
+        best_R, best_t = sel(is_better, R, best_R), sel(is_better, t, best_t)
+        best_iter = torch.where(is_better, torch.full_like(best_iter, itr), best_iter)
+        psi = lm_psi(H_use, g_use, lam, cfg.lm_trust_region)
+        newly_done = accept & pending & (
+            torch.linalg.vector_norm(psi, dim=-1) < cfg.psi_norm_termination)
+        do_update = (~done) & (~newly_done)
+        R_prop, t_prop = _update(R_cur, t_cur, psi, cfg)
+        energies.append(torch.where(done, torch.zeros_like(energy), energy))
+        R, t = sel(do_update, R_prop, R_cur), sel(do_update, t_prop, t_cur)
+        Rb, tb = sel(do_update, R_cur, Rb), sel(do_update, t_cur, tb)
+        Hb, gb = sel(do_update, H_use, Hb), sel(do_update, g_use, gb)
+        eb = torch.where(do_update, e_use, eb)
+        pending = torch.where(done | newly_done, torch.zeros_like(pending), do_update)
+        done = done | newly_done
+    best_R = _rotationize(best_R, cfg)
+    eps_f, _, visible_f, energy_f, vis_f = _project_and_sample(best_R, best_t, ref, now,
+                                                               intr_level, cfg)
+    diag = LevelDiagnostics(torch.stack(energies, dim=-1), energy_f, best_iter, vis_f, eps_f,
+                            visible_f, ref.count)
+    return best_R, best_t, diag
+
+
 def solve_pyramid(
     ref_levels: Tuple[RefLevel, ...],
     now_levels: Tuple[NowLevel, ...],
@@ -234,10 +587,11 @@ def solve_pyramid(
     t0: torch.Tensor | None = None,
 ):
     """Coarse-to-fine over all levels (coarsest first), each warm-starting
-    the next, levels with no iteration skipped: one `level_lm_pyramid`
-    launch (Gauss-Newton) or `level_sg_pyramid` launch (sub-gradient) for
-    the whole pyramid, each level as `run_level` runs it. Returns (R
-    (B,3,3), t (B,3), per-level diagnostics, finest first)."""
+    the next, levels with no iteration skipped. Where `kernel_route` holds,
+    one `level_lm_pyramid` launch (Gauss-Newton) or `level_sg_pyramid`
+    launch (sub-gradient) for the whole pyramid, each level as `run_level`
+    runs it; otherwise `run_level_loop` a level. Returns (R (B,3,3), t
+    (B,3), per-level diagnostics, finest first)."""
     check_config(cfg)
     pts = ref_levels[0].pts3d
     b, dev, dt = pts.shape[0], pts.device, pts.dtype
@@ -251,6 +605,12 @@ def solve_pyramid(
             order.append((level, n_iters))
     if not order:
         return R, t, ()
+    if not kernel_route(cfg):
+        diags = {}
+        for level, n_iters in order:
+            R, t, diags[level] = run_level_loop(ref_levels[level], now_levels[level],
+                                                intr.at_level(level), R, t, cfg, n_iters)
+        return R, t, tuple(diags[level] for level in sorted(diags))
     gn = cfg.method == "gauss_newton"
     levels = []
     for level, n_iters in order:
@@ -273,17 +633,13 @@ def pose_information(ref_level: RefLevel, now_level: NowLevel, intr_level: Intri
     at poses (R (B,3,3), t (B,3)), the weighted residual variance sigma2 =
     sum(w eps^2) / sum(w) (B,) and the effective point count n_eff =
     sum(w) (B,), over all points of the level (JAX `pose_information`): the
-    per-point terms of the solver's own Jacobian, bilinear on the bf16 DT
-    channel for Gauss-Newton, floor gathers with the "reference" Jacobian
-    for the sub-gradient. Twist layout (translation, rotation)."""
+    per-point terms of the solver's own Jacobian (`_jacobian_residual`:
+    for the production semantics the level kernels' plain point terms,
+    bilinear on the bf16 DT channel for Gauss-Newton, floor gathers with
+    the "reference" Jacobian for the sub-gradient). Twist layout
+    (translation, rotation)."""
     check_config(cfg)
-    if cfg.method == "gauss_newton":
-        J, eps, wgt, _ = jacobian_terms(R, t, ref_level.pts3d, ref_level.valid,
-                                        now_level.chans[:, 0], *intr_level,
-                                        cfg.gn_weight_sigma2_px, now_level.scale)
-    else:
-        J, eps, wgt, _ = reference_jacobian_terms(R, t, ref_level.pts3d, ref_level.valid,
-                                                  now_level.dt, *intr_level, cfg.weight_sigma2)
+    J, eps, wgt, *_ = _jacobian_residual(R, t, ref_level, now_level, intr_level, cfg)
     info = (J * wgt[..., None]).transpose(-1, -2) @ J
     n_eff = wgt.sum(-1)
     sigma2 = (wgt * eps * eps).sum(-1) / torch.clamp(n_eff, min=1e-6)
