@@ -65,6 +65,23 @@ through their user entry points:
   align_sequence   `parallel.sequence.align_sequence` over the stream phase's
                    30 frames under production_320, keyframe-anchored every 5:
                    the last frame within tests/test_sharding.py's bar;
+  multigpu         the port's multi-GPU path over `torch.distributed` ranks
+                   (every kernel built here first; the ranks are spawned
+                   processes that load them): (a) NCCL at world 1 on the
+                   card, the sharded train step over the batch phase's 64
+                   pairs bitwise `build_batch_step`'s; (b) 4 ranks sharing
+                   the card over gloo: the sharded aligner and train step
+                   over the 64 pairs, lockstep at 16 streams x 12 frames
+                   (hold and constant velocity) and `align_sequence`, each
+                   bitwise the one-process call, no collective inside a
+                   lockstep step, one `all_reduce` a train step; `multistream
+                   --world-size 4` as 4 processes, every ATE < 20 mm; each
+                   job (aligner, train step, each lockstep model, the timed
+                   loops, the sequence, the command) counted on its own on
+                   every rank, launching the four path kernels;
+                   lockstep frames/s at W = 1, 2 and 4 on the card; (c)
+                   NCCL across cards, a rank a card, where there are two
+                   or more (else a line says it was not run);
   cli_checkpoint   `dvo --frames 30 --loop-close --refine-every 2 --relocalize`
                    against 15 frames with `--checkpoint` and `--resume` for
                    the rest, in hold and constant-velocity modes: the same
@@ -253,8 +270,8 @@ PHASE_KERNELS = {
 GN_PHASES = ("stream", "stream_vga", "batch", "batch_vga", "cli_default",
              "cli_default_no_feeder", "cli_pipelined", "relocalize", "stream_pipelined",
              "stream_vga_ingest", "cli_loop_close", "cli_weighted_refine", "multistream",
-             "cli_multistream", "align_sequence", "cli_checkpoint", "cli_viz", "cli_trace",
-             "cli_xml", "probe", "cli_cam_scale_3", "cli_cam_scale_4")
+             "cli_multistream", "align_sequence", "multigpu", "cli_checkpoint", "cli_viz",
+             "cli_trace", "cli_xml", "probe", "cli_cam_scale_3", "cli_cam_scale_4")
 # the map-backend phases: the matching and PnP kernels must launch there
 # `feature-vo --frames 30` (320x240, --min-matches 40): the JAX package's
 # good-match counts a frame and the first frame its FeatureVo puts past 0.1 m
@@ -3485,6 +3502,458 @@ def run_align_sequence(device) -> dict:
     return {"last_mm": float(err[-1]) * 1000.0, "ms": ms}
 
 
+# ---------------------------------------------------------------------------
+# multigpu: the pair batch, the lockstep streams and the sequence over ranks
+# ---------------------------------------------------------------------------
+
+MULTIGPU_STREAMS, MULTIGPU_FRAMES = 16, 12  # the multistream command's production cell
+MULTIGPU_JOIN_S = 300  # every rank is joined by this deadline
+FPS_RUNS = 3  # the timed lockstep loops a world size (the median is kept)
+# the kernels every rank of the path must launch
+RANK_KERNELS = ("canny_pyramid", "dt_channels", "level_lm", "extract")
+# the per-iteration and step-by-step kernels no job of the path may launch
+RANK_IDLE = ("gn", "sg", "residual", "pnp")
+
+
+@contextlib.contextmanager
+def _job(name: str, jobs: dict, solves: dict):
+    """One job of the path, counted on its own: every launch counter and
+    the solve counts are set to 0 just before it and read just after into
+    `jobs[name]`; afterwards the counters hold what they held before plus
+    the job's, so that an enclosing count goes on."""
+    counters = _launch_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    saved_solves = dict(solves)
+    for fn in counters.values():
+        fn.launches = 0
+    for k in solves:
+        solves[k] = 0
+    yield
+    jobs[name] = {"launches": {k: fn.launches for k, fn in counters.items()},
+                  "solves": dict(solves)}
+    for k, fn in counters.items():
+        fn.launches += saved[k]
+    for k in solves:
+        solves[k] += saved_solves[k]
+
+
+def _check_job(what: str, job: dict) -> None:
+    """A job of the path launched each of its kernels (`RANK_KERNELS`),
+    one `level_lm` launch a Gauss-Newton solve, and none of `RANK_IDLE`."""
+    n, ns = job["launches"], job["solves"]
+    _require(all(n[k] > 0 for k in RANK_KERNELS),
+             f"{what}: a kernel of the path was not launched: {n}")
+    want = ns[("pyramid", "gauss_newton")] + ns[("level", "gauss_newton")]
+    _require(n["level_lm"] == want, f"{what}: level_lm launched {n['level_lm']} times for "
+             f"{want} solves")
+    _require(all(n[k] == 0 for k in RANK_IDLE), f"{what}: launched one of {RANK_IDLE}: {n}")
+
+
+@contextlib.contextmanager
+def _uncounted(solves: dict):
+    """The launches and solves inside do not count: the one-process
+    references the ranks are held against."""
+    counters = _launch_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    saved_solves = dict(solves)
+    yield
+    for k, fn in counters.items():
+        fn.launches = saved[k]
+    solves.update(saved_solves)
+
+
+def _lockstep_run(multi, gray, depth) -> float:
+    """Drive `multi` over frames (N, F, H, W); the loop's wall seconds,
+    ending in a sync of its device."""
+    import torch
+
+    torch.cuda.synchronize(multi.device)
+    t0 = time.perf_counter()
+    for f in range(gray.shape[1]):
+        multi.process_batch(gray[:, f], depth[:, f], timestamp=f / 30.0)
+    torch.cuda.synchronize(multi.device)
+    return time.perf_counter() - t0
+
+
+def _gops_out(gops) -> dict:
+    return {"R": np.stack([g.poses()[0] for g in gops]),
+            "t": np.stack([g.poses()[1] for g in gops]),
+            "keyframes": [g.keyframe_indices() for g in gops]}
+
+
+def _multigpu_rank(rank: int, world: int, address: str, backend: str, device, inputs: str,
+                   out_dir: str, jobs: tuple, cli_address) -> None:
+    """A spawned rank of the multigpu phase, on `device` (None: card
+    `rank % cards`): its share of each job in `jobs`, each job's launches
+    and solves counted on their own (`_job`), written beside the other
+    ranks' results. The jobs: "batch" the sharded aligner ("align") and
+    train step ("step") over the batch phase's 64 pairs, "lockstep" the 16
+    streams in both motion models (the collectives of their steps
+    counted), "fps" the timed lockstep loops, "sequence" `align_sequence`;
+    with `cli_address`, then the `multistream` command ("cli") as one of
+    `world` processes."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.cli import multistream_config
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import build
+    from rgbd_odometry_tpu_torch.parallel import launch
+    from rgbd_odometry_tpu_torch.parallel import mesh as pmesh
+    from rgbd_odometry_tpu_torch.parallel import multihost
+    from rgbd_odometry_tpu_torch.parallel.sequence import align_sequence
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+
+    build.load_all(KERNELS)
+    out = {"built": [n for n in KERNELS if build.build_record(n)["built"]], "jobs": {}}
+    solves = _count_solves()
+    multihost.initialize(address, world, rank, backend=backend, timeout_s=MULTIGPU_JOIN_S)
+    mesh = multihost.global_mesh(device)
+    out["device"] = str(mesh.device)
+    data = np.load(inputs)
+    prof = profiles.production_320()
+    intr = Intrinsics.from_config(prof.camera)
+    if "batch" in jobs:
+        rg, rd, ng, nd = pmesh.shard_batch(mesh, tuple(data[k] for k in ("rg", "rd", "ng", "nd")))
+        ref, now = build_pyramid(rg, rd, prof.num_levels), build_pyramid(ng, nd, prof.num_levels)
+        counts: dict = {}
+        with _job("align", out["jobs"], solves), launch.counted_collectives(counts):
+            R, t = pmesh.build_sharded_aligner(mesh, intr, prof.solver, prof.max_points)(
+                ref.gray, ref.depth, now.gray)
+        out["align"] = {"R": R.numpy(), "t": t.numpy(), "collectives": counts}
+        counts = {}
+        with _job("step", out["jobs"], solves), launch.counted_collectives(counts):
+            (R, t), stats = pmesh.build_sharded_train_step(
+                mesh, intr, prof.solver, prof.max_points)(ref.gray, ref.depth, now.gray)
+        out["step"] = {"R": R.cpu().numpy(), "t": t.cpu().numpy(), "collectives": counts,
+                       **{k: v.item() for k, v in stats.items()}}
+    for model in ("hold", "constant_velocity") if "lockstep" in jobs else ():
+        with _job(model, out["jobs"], solves):
+            multi = MultiStreamOdometry(MULTIGPU_STREAMS, multistream_config(
+                CameraConfig(), motion_model=model), mesh=mesh)
+            counts = {}
+            with launch.counted_collectives(counts):
+                _lockstep_run(multi, data["gray"], data["depth"])
+            gops = multi.all_gops()
+        out[model] = {**_gops_out(gops), "collectives": counts,
+                      "streams": (multi.lo, multi.hi), "diverged": multi.diverged_frames}
+    if "fps" in jobs:
+        # the hold loop after a warm-up run, FPS_RUNS times, started together on every rank
+        walls = []
+        with _job("fps", out["jobs"], solves):
+            for run in range(FPS_RUNS + 1):
+                multi = MultiStreamOdometry(MULTIGPU_STREAMS, multistream_config(CameraConfig()),
+                                            mesh=mesh)
+                dist.barrier()
+                slowest = torch.tensor([_lockstep_run(multi, data["gray"], data["depth"])],
+                                       dtype=torch.float64)
+                dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+                walls += [float(slowest[0])] if run else []
+        out["fps"] = MULTIGPU_STREAMS * MULTIGPU_FRAMES / float(np.median(walls))
+    if "sequence" in jobs:
+        with _job("sequence", out["jobs"], solves):
+            R, t, rel_R, rel_t = align_sequence(
+                list(data["seq_gray"]), list(data["seq_depth"]), intr, prof.solver,
+                prof.max_points, prof.num_levels, 5, mesh=mesh)
+        out["sequence"] = {"R": R, "t": t, "rel_R": rel_R, "rel_t": rel_t}
+    multihost.shutdown()
+    if cli_address:
+        from rgbd_odometry_tpu_torch import cli
+
+        stdout = io.StringIO()
+        with _job("cli", out["jobs"], solves), contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(io.StringIO()):
+            summary = cli.main(["multistream", "--streams", str(world), "--frames",
+                                str(MULTIGPU_FRAMES), "--world-size", str(world), "--rank",
+                                str(rank), "--dist-address", cli_address,
+                                "--device", device or "cuda"])
+        out["cli"] = {"stdout": stdout.getvalue(), "ate": summary["ate_rmse_per_stream"],
+                      "devices": summary["devices"]}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _spawn_ranks(world: int, backend: str, device, inputs: str, jobs: tuple, cli: bool,
+                 solves: dict) -> list:
+    """`world` ranks of `_multigpu_rank` on `device` (None: a card a
+    rank), started with the `spawn` method (this process holds a CUDA
+    context) and joined by a deadline (`parallel/launch.Ranks`): a rank
+    that fails or hangs fails the phase. Every job of every rank must pass
+    `_check_job`; the ranks' launches and solves are added to this
+    process's counts, which the phase's checks read. Their results, in
+    rank order."""
+    from rgbd_odometry_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = (f"127.0.0.1:{launch.free_port()}", backend, device, inputs, out_dir, jobs,
+                f"127.0.0.1:{launch.free_port()}" if cli else None)
+        try:
+            launch.Ranks(_multigpu_rank, world, args, out_dir, MULTIGPU_JOIN_S).join()
+        except RuntimeError as e:
+            _require(False, f"multigpu ({backend}): {e}")
+        res = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    counters = _launch_counters()
+    for r, out in enumerate(res):
+        _require(not out["built"], f"multigpu: rank {r} built {out['built']} (the parent builds)")
+        for name, job in out["jobs"].items():
+            _check_job(f"multigpu: rank {r} of {world} ({backend}), job {name}", job)
+            for k, fn in counters.items():
+                fn.launches += job["launches"][k]
+            for k in solves:
+                solves[k] += job["solves"][k]
+    return res
+
+
+def _check_ranks(what: str, res: list, ref: dict, cv_bitwise: bool) -> dict:
+    """Hold the ranks' results against the one-process references `ref`:
+    the aligner's and the train step's poses bitwise, the stats within
+    1e-6 (total points exact), one gather a call and one `all_reduce` a
+    step; lockstep's keyframes equal and no collective inside a step, hold
+    bitwise, constant velocity within 1e-2 and bitwise where `cv_bitwise`;
+    the sequence bitwise."""
+    out = {}
+    world = len(res)
+    if "align" in res[0]:
+        for r, o in enumerate(res):
+            _require(o["align"]["collectives"] == {"all_gather": 1},
+                     f"{what}: the aligner's collectives {o['align']['collectives']}")
+            _require(np.array_equal(o["align"]["R"], ref["align"][0]) and
+                     np.array_equal(o["align"]["t"], ref["align"][1]),
+                     f"{what}: rank {r}'s gathered aligner poses are not the one-process call's")
+            _require(o["step"]["collectives"] == {"all_reduce": 1},
+                     f"{what}: the train step's collectives {o['step']['collectives']}")
+            _require(o["step"]["total_points"] == ref["step"]["total_points"],
+                     f"{what}: total points {o['step']['total_points']}")
+            for k in ("mean_energy", "mean_visible_ratio"):
+                rel = abs(o["step"][k] / ref["step"][k] - 1.0)
+                _require(rel <= 1e-6, f"{what}: rank {r} {k} {o['step'][k]} vs {ref['step'][k]}")
+        R = np.concatenate([o["step"]["R"] for o in res])
+        t = np.concatenate([o["step"]["t"] for o in res])
+        _require(np.array_equal(R, ref["step"]["R"]) and np.array_equal(t, ref["step"]["t"]),
+                 f"{what}: the train step's poses are not build_batch_step's")
+        out["stats"] = {k: res[0]["step"][k] for k in ("mean_energy", "mean_visible_ratio",
+                                                       "total_points")}
+    for model in ("hold", "constant_velocity") if "hold" in res[0] else ():
+        o = res[0][model]
+        _require(o["keyframes"] == ref[model]["keyframes"],
+                 f"{what} {model}: keyframes {o['keyframes']} != {ref[model]['keyframes']}")
+        worst = max(float(np.abs(o["R"] - ref[model]["R"]).max()),
+                    float(np.abs(o["t"] - ref[model]["t"]).max()))
+        bitwise = bool(np.array_equal(o["R"], ref[model]["R"])
+                       and np.array_equal(o["t"], ref[model]["t"]))
+        for r, orank in enumerate(res):
+            _require(orank[model]["collectives"] == {},
+                     f"{what} {model}: rank {r} ran collectives in its steps: "
+                     f"{orank[model]['collectives']}")
+            _require(not orank[model]["diverged"], f"{what} {model}: diverged")
+        if model == "hold":
+            _require(bitwise, f"{what}: lockstep hold is not bitwise the one-process run "
+                     f"({worst:.3e})")
+        else:
+            _require(worst <= 1e-2 and (bitwise or not cv_bitwise),
+                     f"{what}: constant velocity {worst:.3e} from the one-process run, "
+                     f"although cv_extrapolate is bitwise across batch sizes")
+        out[model] = {"max_pose_diff": worst, "bitwise": bitwise}
+    if "sequence" in res[0]:
+        for r, o in enumerate(res):
+            _require(all(np.array_equal(o["sequence"][k], ref["sequence"][k])
+                         for k in ("R", "t", "rel_R", "rel_t")),
+                     f"{what}: rank {r}'s align_sequence is not the one-process call's")
+    _log(f"{what}: {world} ranks on {sorted({o['device'] for o in res})}, every result held; "
+         f"{out}")
+    _log_jobs(what, res)
+    return out
+
+
+def _log_jobs(what: str, res: list) -> None:
+    """Each job's launches of the path's kernels, rank by rank."""
+    for name in res[0]["jobs"]:
+        _log(f"{what}: job {name}: launches a rank (" + ", ".join(RANK_KERNELS) + "): "
+             + "; ".join("/".join(str(o["jobs"][name]["launches"][k]) for k in RANK_KERNELS)
+                         for o in res))
+
+
+def _check_cli(what: str, res: list) -> None:
+    """`multistream --world-size W` run by the W ranks: only rank 0 prints,
+    `"devices"` is W, every stream's ATE < 20 mm."""
+    world = len(res)
+    for r, o in enumerate(res):
+        _require(o["cli"]["devices"] == world and max(o["cli"]["ate"]) < 0.02,
+                 f"{what}: multistream --world-size {world}, rank {r}: {o['cli']}")
+        _require(bool(o["cli"]["stdout"]) == (r == 0),
+                 f"{what}: rank {r} printed {o['cli']['stdout']!r}")
+    line = json.loads(res[0]["cli"]["stdout"].strip().splitlines()[-1])
+    _log(f"{what}: multistream --streams {world} --world-size {world} as {world} processes: "
+         f"{line}")
+
+
+def run_multigpu(device, solves: dict) -> dict:
+    """The port's multi-GPU path (`parallel/` over `torch.distributed`).
+    Every kernel is already built here, so the spawned ranks load them.
+    (a) NCCL at world 1 on the card: the sharded train step over the batch
+    phase's 64 pairs, its poses bitwise `build_batch_step`'s and its stats
+    within 1e-6 (`initialize` is a no-op for one process, so the phase
+    opens the group itself). (b) 4 ranks sharing the card over gloo: the
+    sharded aligner and train step over the 64 pairs, lockstep over the
+    `multistream` command's configuration, 16 streams x 12 frames, and
+    `align_sequence` over the stream phase's 30 frames, each held against
+    the one-process call (`_check_ranks`); then `multistream --streams 4`
+    as 4 processes, every ATE < 20 mm; and lockstep frames/s at W = 1, 2
+    and 4 ranks on the card (the hold loop after a warm-up, started
+    together, over the slowest rank's wall, the median of `FPS_RUNS`).
+    (c) where there are two cards or more: W = min(count, 4) ranks, one a
+    card, over NCCL, held as (b). Each job of the path, in this process
+    and in every rank, is counted on its own and must launch the path's
+    kernels (`_check_job`); the phase's launches are those jobs' (the
+    one-process references are not counted, `_uncounted`)."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_odometry_tpu_torch import profiles
+    from rgbd_odometry_tpu_torch.cli import multistream_config, render_streams
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.geometry import se3_exp
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.parallel import launch
+    from rgbd_odometry_tpu_torch.parallel import mesh as pmesh
+    from rgbd_odometry_tpu_torch.parallel import multihost
+    from rgbd_odometry_tpu_torch.parallel.sequence import align_sequence
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+    from rgbd_odometry_tpu_torch.pipeline.odometry import cv_extrapolate
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    prof = profiles.production_320()
+    intr = Intrinsics.from_config(prof.camera)
+    rg, rd, ng, nd, _ = render_batch(prof.camera, BATCH)
+    seqs, _ = render_streams(CameraConfig(), MULTIGPU_STREAMS, MULTIGPU_FRAMES)
+    gray = np.stack([[f[0] for f in sq] for sq in seqs])
+    depth = np.stack([[f[1] for f in sq] for sq in seqs])
+    frames, _ = stream_frames()
+
+    # the one-process references (their launches are not the path's)
+    with _uncounted(solves):
+        f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        ref = build_pyramid(f(rg), f(rd), prof.num_levels)
+        now = build_pyramid(f(ng), f(nd), prof.num_levels)
+        R, t, _ = edge_dvo.align_pair(ref.gray, ref.depth, now.gray, intr, prof.solver,
+                                      prof.max_points)
+        refs = {"align": (R.cpu().numpy(), t.cpu().numpy())}
+        (R, t), stats = pmesh.build_batch_step(intr, prof.solver, prof.max_points)(
+            ref.gray, ref.depth, now.gray)
+        refs["step"] = {"R": R.cpu().numpy(), "t": t.cpu().numpy(),
+                        **{k: v.item() for k, v in stats.items()}}
+        fps = {}
+        for model in ("hold", "constant_velocity"):
+            multi = MultiStreamOdometry(MULTIGPU_STREAMS, multistream_config(
+                CameraConfig(), motion_model=model), device=device)
+            _lockstep_run(multi, gray, depth)
+            refs[model] = _gops_out(multi.gops)
+        walls = [_lockstep_run(MultiStreamOdometry(MULTIGPU_STREAMS, multistream_config(
+            CameraConfig()), device=device), gray, depth) for _ in range(FPS_RUNS)]
+        fps[1] = MULTIGPU_STREAMS * MULTIGPU_FRAMES / float(np.median(walls))
+        R, t, rel_R, rel_t = align_sequence([g for g, _ in frames], [d for _, d in frames], intr,
+                                            prof.solver, prof.max_points, prof.num_levels, 5,
+                                            device=device)
+        refs["sequence"] = {"R": R, "t": t, "rel_R": rel_R, "rel_t": rel_t}
+    # cv_extrapolate at a rank's batch against the whole batch's
+    twists = torch.from_numpy((np.random.default_rng(7).uniform(-1, 1, (
+        2 * MULTIGPU_STREAMS, 6)) * 0.05).astype(np.float32)).to(device)
+    Rt, tt = se3_exp(twists)
+    poses = (Rt[:MULTIGPU_STREAMS], tt[:MULTIGPU_STREAMS], Rt[MULTIGPU_STREAMS:],
+             tt[MULTIGPU_STREAMS:])
+    whole = cv_extrapolate(*poses)
+    cv_bitwise = {}
+    for world in (2, 4):
+        b = MULTIGPU_STREAMS // world
+        parts = [cv_extrapolate(*(x[i:i + b] for x in poses))
+                 for i in range(0, MULTIGPU_STREAMS, b)]
+        cv_bitwise[world] = all(_same_bits(torch.cat([p[i] for p in parts]), whole[i])
+                                for i in (0, 1))
+    _log(f"multigpu: cv_extrapolate at B = 8 / 4 {'equals' if cv_bitwise[2] else 'differs from'}"
+         f" / {'equals' if cv_bitwise[4] else 'differs from'} B = 16 bitwise")
+
+    out = {}
+    # (a) NCCL at world 1 on the card
+    dist.init_process_group(multihost.NCCL,
+                            init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                            world_size=1, rank=0)
+    jobs: dict = {}
+    try:
+        mesh = multihost.global_mesh(device)
+        counts: dict = {}
+        with _job("step", jobs, solves), launch.counted_collectives(counts):
+            (R, t), stats = pmesh.build_sharded_train_step(mesh, intr, prof.solver,
+                                                           prof.max_points)(
+                ref.gray, ref.depth, now.gray)
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    _check_job("multigpu (a): the NCCL train step", jobs["step"])
+    _require(counts == {"all_reduce": 1}, f"multigpu (a): collectives {counts}")
+    _require(_same_bits(R.cpu(), torch.from_numpy(refs["step"]["R"])) and
+             _same_bits(t.cpu(), torch.from_numpy(refs["step"]["t"])),
+             "multigpu (a): the NCCL train step's poses are not build_batch_step's")
+    for k in ("mean_energy", "mean_visible_ratio"):
+        _require(abs(stats[k].item() / refs["step"][k] - 1.0) <= 1e-6,
+                 f"multigpu (a): {k} {stats[k].item()} vs {refs['step'][k]}")
+    _require(stats["total_points"].item() == refs["step"]["total_points"],
+             "multigpu (a): total points")
+    _log(f"multigpu (a): NCCL at world 1 on {torch.cuda.get_device_name(0)}: the train step "
+         f"over {BATCH} pairs bitwise build_batch_step's, stats "
+         f"{ {k: v.item() for k, v in stats.items()} } (one all_reduce); launches ("
+         + ", ".join(RANK_KERNELS) + "): "
+         + "/".join(str(jobs["step"]["launches"][k]) for k in RANK_KERNELS))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, rg=rg, rd=rd, ng=ng, nd=nd, gray=gray, depth=depth,
+                 seq_gray=np.stack([g for g, _ in frames]),
+                 seq_depth=np.stack([d for _, d in frames]))
+        # (b) 4 ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        res = _spawn_ranks(4, multihost.GLOO, str(device), inputs,
+                           ("batch", "lockstep", "fps", "sequence"), True, solves)
+        out["gloo_4"] = _check_ranks("multigpu (b) gloo x4", res, refs, cv_bitwise[4])
+        fps[4] = res[0]["fps"]
+        _check_cli("multigpu (b)", res)
+        _log(f"multigpu (b): {time.perf_counter() - t0:.1f} s")
+        res = _spawn_ranks(2, multihost.GLOO, str(device), inputs, ("fps",), False, solves)
+        fps[2] = res[0]["fps"]
+        _log_jobs("multigpu (b) gloo x2", res)
+        # (c) NCCL across cards, one rank a card
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            world = min(cards, 4)
+            cv_world = cv_bitwise.get(world, False)
+            res = _spawn_ranks(world, multihost.NCCL, None, inputs,
+                               ("batch", "lockstep", "fps", "sequence"), True, solves)
+            out["nccl_cards"] = _check_ranks(f"multigpu (c) NCCL x{world} cards", res, refs,
+                                             cv_world)
+            _check_cli("multigpu (c)", res)
+            out["nccl_cards"]["fps"] = res[0]["fps"]
+            _log(f"multigpu (c): lockstep frames/s over {world} cards (NCCL, a rank a card): "
+                 f"{res[0]['fps']:.1f}")
+        else:
+            _log(f"multigpu (c): not run: {cards} CUDA device (NCCL across cards needs two or "
+                 f"more; run on a host with several cards)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          f"--id={device.index or 0}"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    _log(f"multigpu: lockstep frames/s on one card, {MULTIGPU_STREAMS} streams x "
+         f"{MULTIGPU_FRAMES} frames (hold, after a warm-up, the slowest rank's loop, the median "
+         f"of {FPS_RUNS}): "
+         + ", ".join(f"W = {w}: {v:.1f}" for w, v in sorted(fps.items())) + f" ({smi})")
+    out["frames_per_s"] = fps
+    return out
+
+
 def run_cli_cam_scale(scale: int, frames: int) -> dict:
     """`dvo --cam-scale <scale> --frames <frames>`: level 0 at 960x720 (3) or
     1280x960 (4, where Canny's hysteresis and extraction run level 0 on a
@@ -4139,6 +4608,7 @@ def main() -> int:
         ("multistream", lambda: run_multistream(device)),
         ("cli_multistream", run_cli_multistream),
         ("align_sequence", lambda: run_align_sequence(device)),
+        ("multigpu", lambda: run_multigpu(device, solves)),
         ("cli_checkpoint", lambda: run_cli_checkpoint(device)),
         ("cli_viz", lambda: run_cli_viz(results["cli_default"])),
         ("cli_trace", lambda: run_cli_trace(results["cli_default"])),

@@ -8,6 +8,8 @@
     python -m rgbd_odometry_tpu_torch.cli dvo --loop-close --map-out map.ply --out est.txt
     python -m rgbd_odometry_tpu_torch.cli refine est.txt --constraints lc.txt --out ref.txt
     python -m rgbd_odometry_tpu_torch.cli multistream --streams 16 --frames 20 --out-dir streams
+    python -m rgbd_odometry_tpu_torch.cli multistream --world-size 2 --rank 0 \
+        --dist-address 127.0.0.1:29500   # and the same with --rank 1, in a second process
     python -m rgbd_odometry_tpu_torch.cli eval est.txt groundtruth.txt
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 15 --checkpoint c.npz
     python -m rgbd_odometry_tpu_torch.cli dvo --frames 30 --resume c.npz --out est.txt
@@ -32,7 +34,8 @@ trace -> ...`, and last on stdout the JSON `{"ate_rmse", "drift_mean_per_s",
 "drift_rms_per_s"}` against the synthetic ground truth; for `refine`,
 `probe`, `calib`, `dump`, `pnp` and `imu` their JSON; for `multistream`
 the JSON `{"streams", "devices", "frames", "aggregate_frames_per_s",
-"ate_rmse_per_stream", "ate_rmse_max"}`, where `devices` is 1 (one card);
+"ate_rmse_per_stream", "ate_rmse_max"}`, where `devices` is the number of
+ranks (`--world-size`; only rank 0 prints it);
 for `photometric` and `feature-vo` a line a frame on stderr; for `fused` a
 line a frame on stderr and the JSON `{"frames", "fallback_frames",
 "ate_rmse"[, "ate_rmse_unrefined"]}`. The JAX subcommand not ported yet
@@ -864,49 +867,100 @@ def render_streams(cam, n_streams: int, n_frames: int):
     return [f for f, _ in out], [np.stack([p[1] for p in ps]) for _, ps in out]
 
 
+def multistream_backend(device: str, local_world_size: int) -> str:
+    """The process group's backend for `multistream`'s ranks: NCCL (device
+    tensors; host objects through gloo) where each rank has a card of its
+    own (`--device cuda`, as many cards on each host as ranks there, local
+    rank l on card l), else gloo: on the CPU, and where ranks share a card
+    (fewer cards than a host's ranks, or one card named for all, `--device
+    cuda:k`)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.parallel import multihost
+
+    if device == "cuda" and torch.cuda.is_available() \
+            and local_world_size <= torch.cuda.device_count():
+        return multihost.NCCL
+    return multihost.GLOO
+
+
 def cmd_multistream(args):
-    """N synthetic cameras tracked in lockstep on one device
-    (`parallel/streams.MultiStreamOdometry`): every step advances all
-    streams by one frame in one batched solve. Each stream runs an
-    independent synthetic trajectory; prints one JSON line with the
-    per-stream ATE against exact ground truth and the aggregate frame rate
-    of the lockstep loop (rendering excluded, as in the JAX command), and
-    returns it with the loop's wall time and each stream's keyframes."""
+    """N synthetic cameras tracked in lockstep (`parallel/streams.
+    MultiStreamOdometry`): every step advances all streams by one frame in
+    one batched solve. Each stream runs an independent synthetic
+    trajectory; prints one JSON line with the per-stream ATE against exact
+    ground truth and the aggregate frame rate of the lockstep loop
+    (rendering excluded, as in the JAX command), and returns it with the
+    loop's wall time and each stream's keyframes.
+
+    With `--world-size W` the command is one of W processes, rank `--rank`
+    of a process group that rank 0 serves at `--dist-address host:port`:
+    every rank renders every stream and tracks its N/W of them on its own
+    device (card `local rank % cards` of its host; `multistream_backend`
+    names the backend),
+    the trajectories are gathered once at the end, and rank 0 prints the
+    line: `devices` W, the aggregate rate over the slowest rank's loop."""
     import time
 
+    import torch
+
     from rgbd_odometry_tpu_torch.config import CameraConfig
-    from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.eval.ate import ate_rmse
+    from rgbd_odometry_tpu_torch.parallel import multihost
+    from rgbd_odometry_tpu_torch.parallel.mesh import make_mesh
     from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
 
-    device = resolve_device(args.device)
-    n_streams = args.streams or 2
-    cam = CameraConfig()
-    if args.cam_scale != 1.0:
-        cam = cam.scaled(args.cam_scale)
-    pcfg = multistream_config(cam, tuple(int(x) for x in args.iterations.split(",")),
-                              args.keyframe_every, args.quality_triggers, args.motion_model)
-    t0 = time.perf_counter()
-    seqs, gts = render_streams(cam, n_streams, args.frames)
-    print(f"rendered {n_streams} x {args.frames} frames in {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
+    world = args.world_size
+    if world > 1 and not args.dist_address:
+        raise SystemExit("--world-size > 1 needs --dist-address host:port (rank 0 serves it)")
+    n_streams = args.streams or max(world, 2)
+    if n_streams % world != 0:
+        raise SystemExit(
+            f"--streams {n_streams} must be a multiple of the world size ({world}): the "
+            f"stream axis is split evenly over the ranks")
+    local_rank, local_world = multihost.local_layout(
+        world, args.rank, args.local_rank, args.local_world_size) if world > 1 else (0, 1)
+    multihost.initialize(args.dist_address, world, args.rank,
+                         backend=multistream_backend(args.device, local_world),
+                         local_rank=local_rank, local_world_size=local_world)
+    try:
+        # "cuda": card local rank % cards; a named device (cpu, cuda:k) for every rank
+        mesh = make_mesh(args.device if args.device != "cuda" else None)
+        cam = CameraConfig()
+        if args.cam_scale != 1.0:
+            cam = cam.scaled(args.cam_scale)
+        pcfg = multistream_config(cam, tuple(int(x) for x in args.iterations.split(",")),
+                                  args.keyframe_every, args.quality_triggers, args.motion_model)
+        t0 = time.perf_counter()
+        seqs, gts = render_streams(cam, n_streams, args.frames)
+        print(f"rendered {n_streams} x {args.frames} frames in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
 
-    ms = MultiStreamOdometry(n_streams, pcfg, device=device)
-    if device.type == "cuda":
-        import torch
+        ms = MultiStreamOdometry(n_streams, pcfg, mesh=mesh)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for f in range(args.frames):
+            gray_b = np.stack([seqs[s][f][0] for s in range(n_streams)])
+            depth_b = np.stack([seqs[s][f][1] for s in range(n_streams)])
+            ms.process_batch(gray_b, depth_b, timestamp=f / 30.0)
+        wall = time.perf_counter() - t0
+        gops = ms.all_gops()  # every stream's, on every rank: one gather
+        if mesh.group is not None:
+            import torch.distributed as dist
 
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    for f in range(args.frames):
-        gray_b = np.stack([seqs[s][f][0] for s in range(n_streams)])
-        depth_b = np.stack([seqs[s][f][1] for s in range(n_streams)])
-        ms.process_batch(gray_b, depth_b, timestamp=f / 30.0)
-    wall = time.perf_counter() - t0
+            slowest = torch.tensor([wall], dtype=torch.float64)
+            dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=mesh.group)
+            wall = float(slowest[0])
+    finally:
+        if world > 1:
+            multihost.shutdown()
 
     ates = []
-    for s, (R_est, t_est, stamps) in enumerate(ms.trajectories()):
+    for s, g in enumerate(gops):
+        R_est, t_est, stamps = g.poses()
         ates.append(ate_rmse(np.asarray(t_est), gts[s]))
-        if args.out_dir:
+        if args.out_dir and mesh.rank == 0:
             import os
 
             from rgbd_odometry_tpu_torch.io.tum import write_trajectory
@@ -915,14 +969,15 @@ def cmd_multistream(args):
             write_trajectory(os.path.join(args.out_dir, f"stream{s:02d}.txt"), R_est, t_est, stamps)
     out = {
         "streams": n_streams,
-        "devices": 1,
+        "devices": mesh.world_size,
         "frames": args.frames,
         "aggregate_frames_per_s": round(n_streams * args.frames / wall, 2),
         "ate_rmse_per_stream": [round(float(a), 6) for a in ates],
         "ate_rmse_max": round(float(max(ates)), 6),
     }
-    print(json.dumps(out))
-    return {**out, "wall_s": wall, "keyframes": [g.keyframe_indices() for g in ms.gops]}
+    if mesh.rank == 0:
+        print(json.dumps(out))
+    return {**out, "wall_s": wall, "keyframes": [g.keyframe_indices() for g in gops]}
 
 
 def main(argv=None):
@@ -999,10 +1054,11 @@ def main(argv=None):
     p.set_defaults(fn=cmd_refine)
 
     p = sub.add_parser("multistream",
-                       help="N lockstep odometry streams on one device (parallel/streams.py)")
+                       help="N lockstep odometry streams, split over --world-size ranks "
+                       "(parallel/streams.py)")
     p.add_argument("--streams", type=int, default=0,
-                   help="stream count (default 2: the JAX command's device count, min 2, on "
-                   "one card)")
+                   help="stream count, a multiple of --world-size (default max(world size, 2), "
+                   "as the JAX command's device count)")
     p.add_argument("--frames", type=int, default=12)
     p.add_argument("--cam-scale", type=float, default=1.0)
     p.add_argument("--iterations", default="18,6,4,3")
@@ -1013,7 +1069,19 @@ def main(argv=None):
     p.add_argument("--motion-model", default="hold", choices=["hold", "constant_velocity"],
                    help="per-stream warm-start model (see dvo --motion-model)")
     p.add_argument("--device", default="cuda",
-                   help="torch device: 'cuda' (default) or 'cpu' (the kernels' plain versions)")
+                   help="torch device: 'cuda' (default: card local rank %% cards), 'cuda:k' "
+                   "(every rank on card k) or 'cpu' (the kernels' plain versions)")
+    p.add_argument("--dist-address", default=None, metavar="HOST:PORT",
+                   help="with --world-size > 1: the TCP rendezvous rank 0 serves")
+    p.add_argument("--world-size", type=int, default=1,
+                   help="ranks of the run, one process each (start one per rank), on one host "
+                   "or several: NCCL when each has a card of its own, else gloo")
+    p.add_argument("--rank", type=int, default=0, help="this process's rank")
+    p.add_argument("--local-rank", type=int, default=None,
+                   help="this process's rank among its host's ranks (default LOCAL_RANK, else "
+                   "--rank: every rank on one host)")
+    p.add_argument("--local-world-size", type=int, default=None,
+                   help="the ranks on this host (default LOCAL_WORLD_SIZE, else --world-size)")
     p.set_defaults(fn=cmd_multistream)
 
     p = sub.add_parser("eval", help="ATE/RPE/drift vs a GT trajectory (loadGTPath role)")

@@ -10,7 +10,10 @@ the host in float64:
 
 The frames go to the device in one host-to-device copy; the pyramids are
 built once for the whole sequence and the relative poses come back in one
-device-to-host copy.
+device-to-host copy. With a `Mesh` of W ranks (`parallel/mesh.py`) the
+pairs are padded to a multiple of W, each rank uploads the frames of its
+own contiguous block of pairs and aligns them, the relative poses are
+gathered once, and every rank composes the same trajectory.
 """
 
 from __future__ import annotations
@@ -23,22 +26,19 @@ import torch
 from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
-from rgbd_odometry_tpu_torch.device import resolve_device
-from rgbd_odometry_tpu_torch.solvers import edge_dvo
+from rgbd_odometry_tpu_torch.parallel.mesh import Mesh, _aligner, build_sharded_aligner, local_mesh
 
 
-def build_pair_aligner(intr: Intrinsics, cfg: SolverConfig, max_points: Tuple[int, ...]):
+def build_pair_aligner(intr: Intrinsics, cfg: SolverConfig, max_points: Tuple[int, ...],
+                       mesh: Optional[Mesh] = None):
     """A batched pair aligner: (ref gray pyramid, ref depth pyramid, now
     gray pyramid), each a tuple of (B, H_l, W_l) levels, -> (R (B,3,3),
-    t (B,3)), one `align_pair` call."""
-    edge_dvo.check_config(cfg)
-
-    def aligner(ref_gray_pyr, ref_depth_pyr, now_gray_pyr):
-        R, t, _ = edge_dvo.align_pair(ref_gray_pyr, ref_depth_pyr, now_gray_pyr, intr, cfg,
-                                      max_points)
-        return R, t
-
-    return aligner
+    t (B,3)) on the host: the sharded aligner (`mesh.build_sharded_aligner`:
+    this rank's rows in, every rank's poses out), of one process without
+    `mesh`."""
+    if mesh is None:
+        return _aligner(None, intr, cfg, max_points)
+    return build_sharded_aligner(mesh, intr, cfg, max_points)
 
 
 def pair_indices(t_frames: int, keyframe_every: Optional[int] = None):
@@ -60,28 +60,43 @@ def align_sequence(
     num_levels: int = 4,
     keyframe_every: Optional[int] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ):
     """Align a whole frame sequence in one batched call. Returns (R_global
     (T,3,3), t_global (T,3), rel_R (T-1,3,3), rel_t (T-1,3)), float64.
 
     keyframe_every=None pairs consecutive frames; otherwise frames pair
     against their group keyframe (the reference's keyframe cadence is 5)
-    and the relative poses chain through the keyframes."""
+    and the relative poses chain through the keyframes. With `mesh`, every
+    rank makes the same call and gets the same result (module docstring);
+    without one, the world-1 `local_mesh(device)`."""
     t_frames = len(grays)
     if t_frames < 2 or len(depths) != t_frames:
         raise ValueError(f"align_sequence: needs >= 2 frames with depths, got {t_frames}")
-    device = resolve_device(device)
-    host = np.stack([np.stack([np.asarray(g, np.float32) for g in grays]),
-                     np.stack([np.asarray(d, np.float32) for d in depths])])
-    frames = torch.from_numpy(host).to(device)  # one host-to-device copy
-    pyr = build_pyramid(frames[0], frames[1], num_levels)
+    if mesh is None:
+        mesh = local_mesh(device)
+    elif device is not None:
+        raise ValueError("align_sequence: give a device or a mesh (the pairs run on its "
+                         "device), not both")
     ref_idx, now_idx = pair_indices(t_frames, keyframe_every)
-    ref = torch.from_numpy(ref_idx).to(device)
-    now = torch.from_numpy(now_idx).to(device)
-    aligner = build_pair_aligner(intr, cfg, tuple(max_points[:num_levels]))
-    R_d, t_d = aligner(tuple(g[ref] for g in pyr.gray), tuple(d[ref] for d in pyr.depth),
+    n_pairs = len(now_idx)
+    # pad the pairs to a multiple of the world size: the padding repeats the last pair
+    pad = (-n_pairs) % mesh.world_size
+    rows = mesh.rows(n_pairs + pad)
+    ref_loc = np.concatenate([ref_idx, np.repeat(ref_idx[-1], pad)])[rows]
+    now_loc = np.concatenate([now_idx, np.repeat(now_idx[-1], pad)])[rows]
+    # the frames these pairs use, in one host-to-device copy
+    used, pos = np.unique(np.concatenate([ref_loc, now_loc]), return_inverse=True)
+    host = np.stack([np.stack([np.asarray(grays[i], np.float32) for i in used]),
+                     np.stack([np.asarray(depths[i], np.float32) for i in used])])
+    frames = torch.from_numpy(host).to(mesh.device)
+    pyr = build_pyramid(frames[0], frames[1], num_levels)
+    ref = torch.from_numpy(pos[:len(ref_loc)]).to(mesh.device)
+    now = torch.from_numpy(pos[len(ref_loc):]).to(mesh.device)
+    aligner = build_sharded_aligner(mesh, intr, cfg, tuple(max_points[:num_levels]))
+    R_h, t_h = aligner(tuple(g[ref] for g in pyr.gray), tuple(d[ref] for d in pyr.depth),
                        tuple(g[now] for g in pyr.gray))
-    rel = torch.cat([R_d.reshape(-1, 9), t_d], dim=1).cpu().numpy().astype(np.float64)
+    rel = torch.cat([R_h.reshape(-1, 9), t_h], dim=1).numpy().astype(np.float64)[:n_pairs]
     rel_R, rel_t = rel[:, :9].reshape(-1, 3, 3), rel[:, 9:]
 
     # host-side composition (float64, like the GOP)

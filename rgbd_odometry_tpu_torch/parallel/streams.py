@@ -1,5 +1,5 @@
-"""N independent odometry streams in lockstep on one device: port of
-`rgbd_odometry_tpu/parallel/streams.MultiStreamOdometry`.
+"""N independent odometry streams in lockstep, over the ranks of a process
+group: port of `rgbd_odometry_tpu/parallel/streams.MultiStreamOdometry`.
 
 One camera stream per batch slot; every step advances all N streams by one
 frame with batched work: one host-to-device copy of the N frames, one
@@ -26,9 +26,12 @@ for the divergence guard. Both motion models are supported: "hold" and
 motion; a stream whose pose basis changed at a refresh, or that diverged,
 drops its velocity evidence for one frame).
 
-The JAX version shards the stream axis over a device mesh; on one card the
-batch is the whole story, and multi-GPU sharding is ROADMAP.md's
-multi-GPU item.
+The JAX version shards the stream axis over a device mesh. Here a `Mesh`
+(`parallel/mesh.py`) of W ranks splits the N streams into W contiguous
+blocks: rank r owns streams [r N/W, (r+1) N/W) and runs the step above on
+them alone, at B = N/W on its own device. Streams never exchange data, so
+no collective runs inside a step; `all_gops` and `trajectories` gather the
+host bookkeeping of every stream once, at the end of a run.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 from rgbd_odometry_tpu_torch.config import PipelineConfig
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
-from rgbd_odometry_tpu_torch.device import resolve_device
+from rgbd_odometry_tpu_torch.parallel.mesh import Mesh, local_mesh
 from rgbd_odometry_tpu_torch.pipeline.gop import (
     REASON_FIRST_FRAME,
     REASON_LAPLACIAN_THRESH,
@@ -64,10 +67,15 @@ def _merge(old, new, mask: torch.Tensor):
 
 
 class MultiStreamOdometry:
-    """N lockstep odometry streams on one device. Each stream is an
-    independent camera; streams never exchange data."""
+    """N lockstep odometry streams. Each stream is an independent camera;
+    streams never exchange data. With a `mesh` of W ranks, `n_streams` must
+    be a multiple of W and this rank owns streams [lo, hi) on the mesh's
+    device; without one (the world-1 `local_mesh(device)`) it owns them all
+    on `device`. `gops` and `diverged_frames` (frame, global stream) are
+    this rank's streams'."""
 
-    def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None, device=None):
+    def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = config or PipelineConfig()
         kf = self.cfg.keyframe
         if kf.rollback_resolve:
@@ -88,9 +96,20 @@ class MultiStreamOdometry:
             )
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        if mesh is None:
+            mesh = local_mesh(device)
+        elif device is not None:
+            raise ValueError("MultiStreamOdometry: give a device or a mesh (the streams run on "
+                             "its device), not both")
+        if n_streams % mesh.world_size:
+            raise ValueError(
+                f"n_streams={n_streams} not a multiple of mesh size {mesh.world_size}")
         edge_dvo.check_config(self.cfg.solver)
-        self.device = resolve_device(device)
-        self.n = int(n_streams)
+        self.mesh, self.device = mesh, mesh.device
+        self.n_streams = int(n_streams)
+        rows = mesh.rows(self.n_streams)
+        self.lo, self.hi = rows.start, rows.stop
+        self.n = self.hi - self.lo  # this rank's streams
         self.intr = Intrinsics.from_config(self.cfg.camera)
         self.gops: List[Gop] = [Gop() for _ in range(self.n)]
         self.diverged_frames: List[Tuple[int, int]] = []  # (frame, stream)
@@ -121,13 +140,16 @@ class MultiStreamOdometry:
     def process_batch(self, gray0_b: np.ndarray, depth0_b: np.ndarray,
                       timestamp: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
         """Advance every stream by one frame: `gray0_b` (N, H, W) level-0
-        gray and `depth0_b` (N, H, W) depth in mm, one frame per stream.
-        Returns the global poses (R (N,3,3), t (N,3)) after this frame."""
+        gray and `depth0_b` (N, H, W) depth in mm, one frame per stream of
+        all N (the same call on every rank; this rank uploads its rows).
+        Returns this rank's streams' global poses (R (n,3,3), t (n,3))
+        after this frame."""
         self._frame_num += 1
         scfg, kf = self.cfg.solver, self.cfg.keyframe
-        host = np.stack([np.asarray(gray0_b, np.float32), np.asarray(depth0_b, np.float32)])
-        if host.shape[1] != self.n:
-            raise ValueError(f"process_batch: {host.shape[1]} frames for {self.n} streams")
+        if len(gray0_b) != self.n_streams or len(depth0_b) != self.n_streams:
+            raise ValueError(f"process_batch: {len(gray0_b)} frames for {self.n_streams} streams")
+        host = np.stack([np.asarray(gray0_b[self.lo:self.hi], np.float32),
+                         np.asarray(depth0_b[self.lo:self.hi], np.float32)])
         frames = torch.from_numpy(host).to(self.device)  # one host-to-device copy
         pyr = build_pyramid(frames[0], frames[1], self.cfg.pyramid.num_levels)
 
@@ -154,7 +176,7 @@ class MultiStreamOdometry:
         for s in np.nonzero(~finite)[0]:
             # failure containment per stream: keep the previous relative pose
             R[s], t[s] = self._R[s], self._t[s]
-            self.diverged_frames.append((self._frame_num, int(s)))
+            self.diverged_frames.append((self._frame_num, self.lo + int(s)))
         self._R, self._t = R, t
 
         # per-stream keyframe decision, EdgeDvoOdometry._resolve's predicate order
@@ -214,6 +236,20 @@ class MultiStreamOdometry:
         poses = [g.global_pose(-1) for g in self.gops]
         return np.stack([p[0] for p in poses]), np.stack([p[1] for p in poses])
 
+    def all_gops(self) -> List[Gop]:
+        """Every stream's `Gop`, all N in stream order, on every rank. A
+        collective with a mesh of a process group: every rank must call
+        it; one `all_gather_object` of the ranks' host objects."""
+        if self.mesh.group is None:
+            return list(self.gops)
+        import torch.distributed as dist
+
+        parts = [None] * self.mesh.world_size
+        dist.all_gather_object(parts, self.gops, group=self.mesh.group)
+        return [g for part in parts for g in part]
+
     def trajectories(self) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """Per-stream (R (T,3,3), t (T,3), timestamps) absolute trajectories."""
-        return [g.poses() for g in self.gops]
+        """Per-stream (R (T,3,3), t (T,3), timestamps) absolute
+        trajectories of all N streams, on every rank: a collective with a
+        mesh of a process group (`all_gops`)."""
+        return [g.poses() for g in self.all_gops()]

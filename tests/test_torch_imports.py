@@ -32,7 +32,9 @@ def test_port_modules_import_without_jax():
               "io.stream", "io.tum", "cli", "kernels.match", "kernels.pnp_gn", "ops.features",
               "ops.epipolar", "solvers.pnp", "solvers.pose_graph", "pipeline.kf_matcher",
               "pipeline.loop_closure", "pipeline.relocalize", "viz.pointcloud", "core.camera",
-              "core.pyramid", "pipeline.odometry", "profile_paths"):
+              "core.pyramid", "pipeline.odometry", "profile_paths", "parallel.mesh",
+              "parallel.multihost", "parallel.streams", "parallel.sequence",
+              "parallel.launch"):
         assert f"rgbd_odometry_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -175,6 +177,39 @@ def test_slice_runs_with_the_jax_package_and_cv2_blocked(tmp_path):
                                            "Freiburg_ROS_default_640x480.xml"]
     assert '"best_iter"' in r.stdout and r.stdout.count('"ate_rmse"') == 2
     assert r.stderr.rstrip().split("avg solve: ")[-1].endswith("over 2 frames")  # the xml: run
+
+
+def test_ranks_run_with_the_jax_package_blocked(tmp_path):
+    """`multistream --world-size 2` as two processes over gloo, each with
+    `rgbd_odometry_tpu`, `jax` and `cv2` blocked: rank 0 prints the line
+    with `"devices": 2`, rank 1 prints none, and neither loads them."""
+    from rgbd_odometry_tpu_torch.parallel.launch import free_port
+
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(sys.executable))
+    procs = []
+    for rank in range(2):
+        argv = ["multistream", "--device", "cpu", "--streams", "2", "--frames", "3",
+                "--cam-scale", "0.25", "--iterations", "4,3", "--world-size", "2", "--rank",
+                str(rank), "--dist-address", f"127.0.0.1:{port}"]
+        code = _BLOCKER + (
+            "from rgbd_odometry_tpu_torch.cli import main\n"
+            f"main({argv!r})\n"
+            + _LOADED
+        )
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, out + err
+        assert "LOADED []" in out
+    assert '"devices": 2' in outs[0][0] and '"devices"' not in outs[1][0]
 
 
 _SLICE_MODULES = ("utils/checkpoint.py", "utils/tracing.py", "viz/live.py", "viz/png.py",
