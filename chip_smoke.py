@@ -131,17 +131,21 @@ through their user entry points:
                    unfilled allocations and views);
   parity_batch     `align_pair` in the reference-parity mode on the batch
                    phase's 64 pairs (8192/4096/2048/1024 points), once per
-                   family (the sub-gradient with `interpolate_dt` by mxu
-                   and take, with the SVD `rotationize`, with the textbook
-                   Jacobian; Gauss-Newton with take, with "channels" and
-                   float32 channels, with the reference Jacobian): no level
-                   kernel (`run_level_loop`), the path's 7 target and
-                   extraction launches a call, pairs 0-3 within the
-                   family's bar of the port's CPU run of the same inputs;
+                   family (`point_sem.PARITY_FAMILIES`: the sub-gradient
+                   with `interpolate_dt` by mxu and take, with the SVD
+                   `rotationize`, with the textbook Jacobian; Gauss-Newton
+                   with take, with "channels" and float32 channels, with
+                   the reference Jacobian, with the SVD): the pyramid in
+                   one `level_lm` or `level_sg` launch beside the path's 7
+                   target and extraction launches a call, no
+                   `run_level_loop` solve, ms a call, pairs 0-3 within the
+                   family's bar of the port's CPU run (the plain twins) of
+                   the same inputs;
   parity_stream    `EdgeDvoOdometry` under parity_320 + `interpolate_dt` +
                    the SVD `rotationize` over the stream phase's 30 frames:
                    ATE under the JAX package's CPU ATE + 5 mm
-                   (`PARITY_STREAM_ATE_MM`), ms/frame, launches a frame.
+                   (`PARITY_STREAM_ATE_MM`), ms/frame, launches a frame
+                   (one `level_sg` a solve).
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -163,7 +167,17 @@ one by one; it times each level on each route beside the per-iteration
 route it replaced. `check_level_sg` does the same for the sub-gradient
 pyramid kernel at the four parity capacities (50 iterations, B = 64 and B
 = 1), after `check_se3_log` has held the step's `warp_se3_log` against its
-plain twin in all three branches. `check_extract` holds keyframe extraction
+plain twin in all three branches and `check_rotationize_svd` the step's SVD
+projection bitwise against its twin. Both then hold their reference-parity
+semantics (`_check_parity_lm`: "take", "channels" on float32 and bf16,
+"interpolant" on float32, the reference Jacobian by mxu and take, the SVD,
+the deferred accept; `_check_parity_sg`: `interpolate_dt` by mxu and take,
+the textbook Jacobian, the SVD) at the four parity capacities, B = 64 and
+1, on the rule's route and forced to every other: runs bitwise, the
+per-point values (the LM's all-point tail, the sub-gradient's best
+iterate) bitwise the plain point terms on the CPU, each sub-gradient step
+and the LM's first step against the plain terms and step, the
+free-running plain twins within the level checks' bars. `check_extract` holds keyframe extraction
 over a pyramid bitwise against its plain version on every output, invalid
 slots included (production_320's, the `dvo` defaults' and production_vga's
 capacities, B = 64 and 1, rendered, edge-free, all-edge and shallow-depth
@@ -188,8 +202,9 @@ the loop_closure, relocalize, cli_loop_close, cli_weighted_refine and
 cli_checkpoint phases; `level_sg` in probe too; `extract_pyramid` in every phase that extracts keyframe features
 (every Gauss-Newton phase, the lockstep and sequence phases among them, and
 cli_subgradient); `imu_scan`, `level_photo` and `pnp_gn` in the secondary
-solvers' phases (`PHASE_KERNELS`); no level kernel in the parity phases
-(`PARITY_PHASES`). `check_level_traj` holds the two level kernels'
+solvers' phases (`PHASE_KERNELS`); a level kernel in the parity phases
+(`PARITY_PHASES`), one a pyramid solve; no phase solves a level on
+`run_level_loop`. `check_level_traj` holds the two level kernels'
 trajectory output (JAX's `collect_trajectory`) at the `dvo` commands'
 level 0, B = 64 and 1: every other output bitwise the launch without it,
 `level_sg`'s rows bitwise its trace's next pose, the plain twins' rows
@@ -285,8 +300,8 @@ MAP_PHASES = ("loop_closure", "relocalize", "cli_loop_close", "cli_weighted_refi
 # the phases at production_vga's 640x480 (their launches go in the kernels' "vga" entries)
 VGA_PHASES = ("stream_vga", "batch_vga")
 # the phases that extract keyframe features: extract_pyramid must launch there
-# the reference-parity phases: the targets and extraction on the kernels, the
-# level solves on run_level_loop (no level kernel)
+# the reference-parity phases: the targets, extraction and level solves on the
+# kernels (the level kernels under the reference-parity semantics)
 PARITY_PHASES = ("parity_batch", "parity_stream")
 EXTRACT_PHASES = GN_PHASES + ("cli_subgradient",) + PARITY_PHASES
 # parity_stream's bar: cli_subgradient's 25 mm, but the JAX package's own CPU
@@ -1952,6 +1967,8 @@ def check_level_lm(device, rng) -> dict:
         intr = Intrinsics.from_config(shapes.camera)
         refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, max_points)
         nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        if name == "dvo":
+            dvo_inputs = (refs, now_pyr, intr)
         deferred = cfg.lm_deferred_accept
         for b in (BATCH, 1):
             table = []
@@ -2049,7 +2066,7 @@ def check_level_lm(device, rng) -> dict:
             def chained():
                 R, t, outs = R0, t0, []
                 for lv in table:
-                    o = level_lm.level_lm(R, t, *lv[:9], cfg, *lv[9:])
+                    o = level_lm.level_lm(R, t, *lv[:9], cfg, *lv[9:12], grads=lv.grads)
                     outs.append(o)
                     R, t = o.R, o.t
                 return outs
@@ -2065,7 +2082,9 @@ def check_level_lm(device, rng) -> dict:
             pyramids[f"{name} B={b}"] = {"ms": pyr_ms, "levels_one_by_one_ms": chain_ms}
             _log(f"level_lm {name} B={b}: the {n_lv}-level pyramid in one launch bitwise the "
                  f"levels one by one; {pyr_ms:.4f} ms against {chain_ms:.4f} ms")
-    return {"max_abs_err": worst, **summary[("dvo", BATCH)], "pyramid": pyramids,
+    parity = _check_parity_lm(device, *dvo_inputs, (BATCH, 1))
+    return {"max_abs_err": max(worst, parity["max_abs_err"]), **summary[("dvo", BATCH)],
+            "pyramid": pyramids, "parity": parity["variants"],
             "vga": {"shape": "production_vga level 0 (jstride 8, 512 + 4096 points, 4 "
                              "iterations, 480x640), B=64",
                     "max_abs_err": worst_by["production_vga"],
@@ -2143,7 +2162,7 @@ def check_se3_log(device, rng) -> None:
         torch.set_num_threads(threads)
 
 
-def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
+def _check_sg_steps(what: str, cfg, args, ker, trace, terms=None) -> float:
     """Every iteration of a `level_sg` launch held on its own, from the
     launch's trace (the pose entering each iteration and its g): the
     sub-gradient descent revisits poses and does not contract, so two free
@@ -2155,11 +2174,15 @@ def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
     a norm on the right side of the termination norm (0.1% slack) where the
     pair stops or goes on. The result is the curve's last minimum exactly
     (<=, later ties win), its energy, and that trace pose, re-orthogonalized,
-    within 1e-6. Returns the largest one-step pose difference."""
+    within 1e-6. `terms` replaces `subgradient_terms` (a reference-parity
+    configuration: its plain point terms on the card); the steps
+    re-orthogonalize as `cfg` does (`level_lm.rotationize`: Newton-Schulz
+    or the device SVD's twin). Returns the largest one-step pose
+    difference."""
     import torch
 
     from rgbd_odometry_tpu_torch.core import geometry as geo
-    from rgbd_odometry_tpu_torch.kernels import level_sg, sg_terms
+    from rgbd_odometry_tpu_torch.kernels import level_lm, level_sg, sg_terms
 
     R0, t0, pts, valid, count, dt, fx, fy, cx, cy, _, n_iters = args
     b, dev = R0.shape[0], R0.device
@@ -2172,8 +2195,8 @@ def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
         if not bool(live.any()):
             break
         R, t, g = trace[:, i, :9].reshape(b, 3, 3), trace[:, i, 9:12], trace[:, i, 12:]
-        at = sg_terms.subgradient_terms(R.contiguous(), t.contiguous(), pts, valid, dt, fx, fy,
-                                        cx, cy, cfg.weight_sigma2)
+        at = (terms or sg_terms.subgradient_terms)(R.contiguous(), t.contiguous(), pts, valid, dt,
+                                                   fx, fy, cx, cy, cfg.weight_sigma2)
         e_err = max(e_err, _rel(ker.energy[live, i, None], at[1][live, None]))
         g_err = max(g_err, _rel(g[live], at[0][live]))
         psi, descent = level_sg.subgradient_step(R, t, g, descent, i, cfg, precond)
@@ -2186,8 +2209,7 @@ def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
         if bool(goes.any()):
             xR, xt = geo.se3_exp(psi)
             nR, nt = geo.compose(R, t, xR, xt)
-            if cfg.rotationize:
-                nR = geo.rotationize_newton(nR)
+            nR = level_lm.rotationize(nR, cfg)
             nxt = torch.cat([nR.reshape(b, 9), nt], -1)
             step_err = max(step_err, float((nxt - trace[:, i + 1, :12])[goes].abs().max()))
     _require(e_err <= 1e-5 and g_err <= 1e-4,
@@ -2205,7 +2227,7 @@ def _check_sg_steps(what: str, cfg, args, ker, trace) -> float:
     at_best = trace[rows, best.long()]
     bR = at_best[:, :9].reshape(b, 3, 3)
     if cfg.rotationize:
-        bR = geo.rotationize_newton(bR)
+        bR = level_lm.rotationize(bR, cfg)
         best_err = max(float((ker.R - bR).abs().max()), float((ker.t - at_best[:, 9:12]).abs().max()))
         _require(best_err <= 1e-6, f"{what}: the result is not the best iterate ({best_err:.2e})")
     else:
@@ -2270,7 +2292,8 @@ def _check_sg_curves(what: str, ker, pl) -> tuple:
     _log(f"  {what}: against the free-running plain version {int(parted.sum())} of {len(rows)} "
          f"pairs part (first at iteration {int(first[parted].min()) if parted.any() else -1}, "
          f"by at most {gaps.max() if parted.any() else 0.0:.2e}); the others within "
-         f"{rel[together].max():.2e}, {int((together & (bk != bp)).sum())} best iterations on a "
+         f"{rel[together].max() if together.any() else 0.0:.2e}, "
+         f"{int((together & (bk != bp)).sum())} best iterations on a "
          f"tie, pose err {err:.2e}")
     return mask, err, int(together.sum())
 
@@ -2311,6 +2334,7 @@ def check_level_sg(device, rng) -> dict:
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
     check_se3_log(device, rng)
+    svd = check_rotationize_svd(device, rng)
     cam = profiles.production_320().camera
     base = SolverConfig()
     _require(base.method == "subgradient" and base.iterations == (50, 50, 50, 50),
@@ -2451,7 +2475,381 @@ def check_level_sg(device, rng) -> dict:
         pyramids[f"cli_subgradient B={b}"] = {"ms": pyr_ms, "levels_one_by_one_ms": chain_ms}
         _log(f"level_sg B={b}: the 4-level pyramid in one launch bitwise the levels one by one; "
              f"{pyr_ms:.4f} ms against {chain_ms:.4f} ms")
-    return {"max_abs_err": worst, **summary, "pyramid": pyramids}
+    parity = _check_parity_sg(device, refs, now_pyr, intr, (BATCH, 1))
+    return {"max_abs_err": max(worst, parity["max_abs_err"]), **summary, "pyramid": pyramids,
+            "parity": parity["variants"], "rotationize_svd": svd}
+
+
+def check_rotationize_svd(device, rng) -> dict:
+    """The step's SVD projection `lane_rotationize_svd` (`csrc/warp.cuh`,
+    one warp a matrix) bitwise its twin `kernels/se3_plain.rotationize_svd`
+    on the CPU (float64 operations, each correctly rounded on both): 4096
+    composed near-rotations (the solver's inputs), 1024 of them with 1e-3
+    of noise, 1024 reflections, 1024 Gaussian matrices, a rank-2 matrix and
+    the zero matrix; and within 1e-6 of `core/geometry.rotationize_svd`
+    (`torch.linalg.svd`) on the near-rotations. Its cycles on the step are
+    `profile_paths.py --paths solve`'s."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.kernels import level_sg, se3_plain
+
+    psi = torch.from_numpy(rng.standard_normal((4096, 6)).astype(np.float32))
+    R, _ = geo.se3_exp(psi * 0.5)
+    xR, _ = geo.se3_exp(psi.roll(1, 0) * 3e-3)
+    near = R @ xR
+    noise = rng.standard_normal((1024, 3, 3)).astype(np.float32)
+    noisy = near[:1024] + torch.from_numpy(noise) * 1e-3
+    refl = near[:1024] * torch.tensor([1.0, 1.0, -1.0])
+    gauss = torch.from_numpy(rng.standard_normal((1024, 3, 3)).astype(np.float32))
+    rank2 = torch.from_numpy((np.outer([1.0, 2.0, 3.0], [0.5, -1.0, 0.25])
+                              + np.outer([0.0, 1.0, 0.0], [1.0, 0.0, 0.0])).astype(np.float32))
+    A = torch.cat([near, noisy, refl, gauss, rank2[None], torch.zeros(1, 3, 3)])
+    twin = se3_plain.from_rows(se3_plain.rotationize_svd(se3_plain.to_rows(A)))
+    dev = level_sg.rotationize_svd_device(A.to(device))
+    again = level_sg.rotationize_svd_device(A.to(device))
+    torch.cuda.synchronize()
+    _require(_same_bits(dev, again), "rotationize_svd: runs differ")
+    dev = dev.cpu()
+    differ = int((dev != twin).any(-1).any(-1).sum())
+    lapack = float((twin[:4096] - geo.rotationize_svd(near)).abs().max())
+    _log(f"rotationize_svd device function vs twin: {len(A)} matrices, {differ} not bitwise "
+         f"equal, max {float((dev - twin).abs().max()):.2e}; the twin within {lapack:.2e} of "
+         "torch.linalg.svd's on the near-rotations")
+    _require(differ == 0, f"rotationize_svd: {differ} matrices differ from the twin")
+    _require(lapack <= 1e-6, f"rotationize_svd: {lapack:.2e} from torch.linalg.svd's")
+    return {"matrices": len(A), "max_abs_err": float((dev - twin).abs().max()),
+            "lapack_err": lapack}
+
+
+def _parity_lm_variants():
+    """Gauss-Newton reference-parity configurations of `level_lm`
+    (`point_sem.parity`), each on the `dvo` defaults' standard LM (18/6/4/3
+    iterations, the normal equations on every 4th point, the all-point
+    tail): the Gauss-Newton families of `point_sem.PARITY_FAMILIES`, the
+    reference Jacobian on the bf16 channels too, float32 channels with
+    interpolant gradients, and two on the deferred accept."""
+    from rgbd_odometry_tpu_torch import SolverConfig
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
+    gn = SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3))
+    rep = dataclasses.replace
+    fams = point_sem.parity_families(SolverConfig(), gn)
+    return {
+        **{name: cfg for name, (cfg, _) in fams.items() if cfg.method == "gauss_newton"},
+        "gn_take_deferred": rep(gn, gather_mode="take", lm_deferred_accept=True),
+        "gn_channels_bf16_deferred": rep(gn, gn_gradient_mode="channels",
+                                         lm_deferred_accept=True),
+        "gn_interpolant_float32": rep(gn, gather_dtype="float32"),
+        "gn_reference_jacobian_mxu": rep(gn, jacobian_mode="reference"),
+    }
+
+
+def _parity_sg_variants():
+    """The sub-gradient families of `point_sem.PARITY_FAMILIES` on the
+    reference's `SolverConfig()` (50 iterations a level)."""
+    from rgbd_odometry_tpu_torch import SolverConfig
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
+    fams = point_sem.parity_families(SolverConfig(), SolverConfig(method="gauss_newton"))
+    return {name: cfg for name, (cfg, _) in fams.items() if cfg.method == "subgradient"}
+
+
+# at most one pair in this many may part from the plain twin: the reference
+# Jacobian's (measured 9 of 64 at the `dvo` defaults' level 0 with bf16
+# gathers, 2 of 64 with "take"; 12 of 64 allowed), the textbook Jacobian's
+PARITY_LM_PARTED_REFERENCE = 5
+PARITY_LM_PARTED = 16
+# where a parting pair first parts, its energy gap (measured <= 1.19e-4)
+PARITY_LM_FIRST_GAP = 1e-3
+# the first step's direction against the plain normal equations (measured
+# <= 2.3e-5 with the plain twin's own step on the CPU; one column of the
+# reference Jacobian negated gives 0.088-0.35)
+PARITY_LM_STEP = 1e-2
+
+
+def _parity_lm_curves(what: str, cfg, ker, pl) -> float:
+    """A reference-parity `level_lm` launch against its free-running plain
+    twin: `_check_level_curves`' bars on the pairs that do not part, where
+    a pair parts when its energies leave those bars. The reference
+    Jacobian's normal equations are ill-conditioned (the translation block
+    scaled by each point's depth), so the last bits of two sum orders can
+    send a pair's damped step elsewhere after the first iteration; a pair
+    that parts must start within 1e-5 (iteration 0) and part by less than
+    `PARITY_LM_FIRST_GAP` where it first parts by more than 1e-5 (the same
+    function, rounded otherwise), and at most one pair in
+    `PARITY_LM_PARTED_REFERENCE` may part (with the textbook Jacobian one in
+    `PARITY_LM_PARTED`). The first step itself is held on its own
+    (`_check_lm_first_step`). Returns the largest pose difference over the
+    pairs that do not part."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
+    e_k, e_p = ker.energy.cpu().numpy(), pl.energy.cpu().numpy()
+    n_k, n_p = (e_k != 0).sum(1), (e_p != 0).sum(1)
+    head = np.arange(e_k.shape[1])[None, :] < np.minimum(n_k, n_p)[:, None]
+    rel = np.where(head, np.abs(e_k - e_p) / np.maximum(np.abs(e_p), 1e-30), 0.0)
+    rtol = 3e-3 if cfg.lm_deferred_accept else 1e-3
+    parted = rel.max(1) > rtol
+    b = len(parted)
+    if parted.any():
+        apart = rel > 1e-5
+        first = apart.argmax(1)
+        rows = np.nonzero(parted)[0]
+        ref = point_sem.point_sem(cfg).reference
+        cap = PARITY_LM_PARTED_REFERENCE if ref else PARITY_LM_PARTED
+        _require(rel[rows, 0].max() <= 1e-5, f"{what}: a pair parts at its start pose")
+        _require(rel[rows, first[rows]].max() < PARITY_LM_FIRST_GAP,
+                 f"{what}: a pair parts by {rel[rows, first[rows]].max():.2e}")
+        _require(int(parted.sum()) * cap <= max(b, cap),
+                 f"{what}: {int(parted.sum())} of {b} pairs part from the plain twin")
+        _log(f"  {what}: {int(parted.sum())} of {b} pairs part from the plain twin (first at "
+             f"iteration {int(first[rows].min())}, by at most {rel[rows, first[rows]].max():.2e})")
+    keep = torch.from_numpy(~parted).to(ker.R.device)
+    if not bool(keep.any()):
+        return 0.0
+    return _check_level_curves(what, cfg, type(ker)(*(x[keep] for x in ker)),
+                               type(pl)(*(x[keep] for x in pl)))
+
+
+def _check_lm_first_step(what: str, cfg, args, grads, cluster=None) -> float:
+    """A reference-parity `level_lm` launch's first step, from the identity,
+    against the plain normal equations there: the launch at 2 iterations
+    returns the proposal of iteration 0 (rotationized) where it was taken
+    and scored best; its twist psi (`se3_log`, float64) must solve the
+    plain damped system (H + lam0 diag(H)) psi = -g of the plain point
+    terms (`fused_gn_terms_plain` under the configuration's semantics, on
+    the card) in direction, the trust region scaling only its length:
+    |A psi / |A psi| + g / |g|| within `PARITY_LM_STEP`. The kernel's H
+    and g are never written out; a wrong Jacobian or weight turns this
+    direction (the twin's own step measured <= 2.3e-5, on the CPU). Returns
+    the largest direction error."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core import geometry as geo
+    from rgbd_odometry_tpu_torch.kernels import fused_iter, level_lm, point_sem
+
+    R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, _, _, js, st = args
+    ker = level_lm.level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, 2, js,
+                            st, cluster=cluster, grads=grads)
+    H, g, _, _ = fused_iter.fused_gn_terms_plain(
+        R0, t0, pts[:, ::js], valid[:, ::js], img, fx, fy, cx, cy, cfg.gn_weight_sigma2_px, scale,
+        sem=point_sem.point_sem(cfg), planes=(img, *grads))
+    H, g = H.double(), g.double()
+    A = H + cfg.lm_damping * torch.diag_embed(
+        torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8))
+    moved = (ker.best_iter == 1) & (ker.t != t0).any(-1) & (g.norm(dim=-1) > 0)
+    _require(bool(moved.any()) or R0.shape[0] == 1, f"{what}: no pair took its first step")
+    if not bool(moved.any()):
+        return 0.0
+    psi = geo.se3_log(ker.R.double(), ker.t.double())
+    Ap = (A @ psi[..., None])[..., 0]
+    d = (Ap / Ap.norm(dim=-1, keepdim=True) + g / g.norm(dim=-1, keepdim=True)).norm(dim=-1)
+    err = float(d[moved].max())
+    _require(err <= PARITY_LM_STEP, f"{what}: the first step is {err:.2e} off the plain normal "
+                                    f"equations' direction")
+    return err
+
+
+def _plain_tail(what, cfg, ker, pts, valid, count, img, li) -> None:
+    """A reference-parity level's all-point tail at the returned pose
+    against the plain point terms there, evaluated on the CPU: residuals
+    and visibility bitwise, the visible ratio bitwise, the energy within
+    1e-6 (the two sum in other orders)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+    from rgbd_odometry_tpu_torch.kernels.residual import residual_pass_plain
+
+    e, n, eps, vis = residual_pass_plain(ker.R.cpu(), ker.t.cpu(), pts.cpu(), valid.cpu(),
+                                         img.cpu(), *li, True, write_points=True,
+                                         sem=point_sem.point_sem(cfg))
+    ratio = n.float() / torch.clamp(count.cpu(), min=1).float()
+    _require(torch.equal(ker.eps.cpu(), eps) and torch.equal(ker.visible.cpu(), vis)
+             and _same_bits(ker.visible_ratio.cpu(), ratio),
+             f"{what}: the all-point tail differs from the plain point terms at the returned "
+             "pose")
+    _require(_rel(ker.final_energy.cpu()[:, None], e[:, None]) <= 1e-6,
+             f"{what}: the tail's energy is off the plain one")
+
+
+def _check_parity_lm(device, refs, now_pyr, intr, batches) -> dict:
+    """`level_lm` under the reference-parity semantics (`_parity_lm_variants`)
+    at the four parity capacities (the `dvo` defaults' 8192/4096/2048/1024
+    points on the batch phase's rendered pairs, 240x320 ... 30x40), each
+    variant's own targets (`prepare_now_targets`), B = 64 and 1, every
+    level from the identity: a second launch bitwise equal; against the
+    plain twin (`level_lm_plain` on the card) within `check_level_lm`'s
+    bars (`_parity_lm_curves`: a pair of the ill-conditioned reference
+    Jacobian may part) and its first step on the plain normal equations
+    (`_check_lm_first_step`); the all-point tail bitwise the plain point
+    terms at the returned pose on the CPU (`_plain_tail`); on every cluster
+    size the level can be forced to, the rule's bitwise the route it takes,
+    the others within the bars, their first steps and their tails bitwise.
+    CUDA-event ms of level 0 at B = 64 beside the plain twin's."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_lm, point_sem
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    out, worst, worst_step = {}, 0.0, 0.0
+    for tag, cfg in _parity_lm_variants().items():
+        _require(point_sem.parity(cfg), f"level_lm parity {tag}: not a parity configuration")
+        nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        deferred = cfg.lm_deferred_accept
+        for b in batches:
+            for lvl in range(3, -1, -1):
+                ref, now = refs[lvl], nows[lvl]
+                pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
+                img, grads = edge_dvo.lm_planes(now, cfg)
+                img, grads, scale = img[:b], tuple(g[:b] for g in grads), now.scale[:b]
+                li, n_iters, k = intr.at_level(lvl), cfg.iterations[lvl], pts.shape[1]
+                js, st = edge_dvo.level_strides(cfg, k)
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+                args = (R0, t0, pts, valid, count, img, scale, *li, cfg, n_iters, js, st)
+                ker = level_lm.level_lm(*args, grads=grads)
+                again = level_lm.level_lm(*args, grads=grads)
+                pl = level_lm.level_lm_plain(*args, grads=grads)
+                torch.cuda.synchronize()
+                what = f"level_lm parity {tag} B={b} level {lvl}"
+                _require(all(_same_bits(a, c) for a, c in zip(ker, again)), f"{what}: runs differ")
+                _require(bool(torch.isfinite(ker.R).all() and torch.isfinite(ker.t).all()),
+                         f"{what}: non-finite pose")
+                err = _parity_lm_curves(what, cfg, ker, pl)
+                step = _check_lm_first_step(what, cfg, args, grads)
+                tail = deferred or js > 1
+                if tail:
+                    _plain_tail(what, cfg, ker, pts, valid, count, img, li)
+                ranks = level_lm.level_ranks(k, js, st, deferred)
+                for c in _forced_routes(level_lm.level_ranks, k, js, st, deferred):
+                    kc = level_lm.level_lm(*args, cluster=c, grads=grads)
+                    torch.cuda.synchronize()
+                    if c == ranks:
+                        _require(all(_same_bits(a, x) for a, x in zip(ker, kc)),
+                                 f"{what}: forced to c={c}, the rule's route, it differs")
+                    else:
+                        err = max(err, _parity_lm_curves(f"{what} c={c}", cfg, kc, pl))
+                        step = max(step, _check_lm_first_step(f"{what} c={c}", cfg, args, grads,
+                                                              c))
+                        if tail:
+                            _plain_tail(f"{what} c={c}", cfg, kc, pts, valid, count, img, li)
+                worst, worst_step = max(worst, err), max(worst_step, step)
+                if lvl == 0 and b == batches[0]:
+                    k_ms = _time_ms(lambda: level_lm.level_lm(*args, grads=grads), 20)
+                    p_ms = _time_ms(lambda: level_lm.level_lm_plain(*args, grads=grads), 2)
+                    # check_level_lm's count: the points and their sampled
+                    # corners (of every plane read) in, the outputs out
+                    ran, n_valid = (ker.energy != 0).sum(-1), valid[:, ::js].sum(-1)
+                    passes = OPS_GN_POINT + (0 if deferred else OPS_RESIDUAL_POINT)
+                    flops = (float((ran * n_valid).sum()) * passes + float(ran.sum()) * OPS_LM_STEP
+                             + (float(valid.sum()) * OPS_RESIDUAL_POINT if tail else 0.0))
+                    hw, planes = img.shape[1] * img.shape[2], 1 + len(grads)
+                    k_read = k if tail else -(-k // js)
+                    nbytes = b * (k_read * 13 + planes * min(hw, 4 * k_read) * img.element_size()
+                                  + 120 + 4 * n_iters + k * 5)
+                    out[tag] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err,
+                                **_bound(nbytes, flops)}
+                    _log(f"{what} (jstride {js}, {n_iters} iterations, rule c={ranks}): runs "
+                         f"bitwise equal, pose err {err:.2e} against the plain twin, the first "
+                         f"step {step:.2e} off the plain normal equations"
+                         f"{', the tail bitwise the plain point terms' if tail else ''}; "
+                         f"level_lm {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    _log(f"level_lm parity: the first step at most {worst_step:.2e} off the plain normal "
+         f"equations' direction (bar {PARITY_LM_STEP:g})")
+    return {"max_abs_err": worst, "first_step_err": worst_step, "variants": out}
+
+
+def _check_parity_sg(device, refs, now_pyr, intr, batches) -> dict:
+    """`level_sg` under the reference-parity semantics (`_parity_sg_variants`)
+    at the four parity capacities, each variant's own targets, B = 64 and
+    1, 50 iterations a level from the identity: a second launch bitwise
+    equal; every iteration on its own from the launch's trace against the
+    plain point terms on the card and the plain step with the configured
+    re-orthogonalization (`_check_sg_steps`); the returned per-point values
+    bitwise the plain point terms on the CPU at the trace's best pose; the
+    free-running plain twin within `_check_sg_curves`' bars (no share of
+    pairs is held to never parting, as `check_level_sg` holds half: the
+    interpolated DT's residual is continuous in the pose, so two runs
+    drift apart in every pair, slowly, and the steps are held one by one);
+    on every
+    cluster size the level can be forced to the rule's bitwise its route,
+    the others through the same per-point and curve checks (the steps,
+    held on the rule's route, are the same code on every route). CUDA-event
+    ms of level 0 at B = 64 beside the plain twin's."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_sg, point_sem, sg_terms
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    out, worst = {}, 0.0
+    for tag, cfg in _parity_sg_variants().items():
+        _require(point_sem.parity(cfg), f"level_sg parity {tag}: not a parity configuration")
+        sem = point_sem.point_sem(cfg)
+        terms = functools.partial(sg_terms.subgradient_terms_plain, sem=sem)
+        nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        for b in batches:
+            for lvl in range(3, -1, -1):
+                ref, dt = refs[lvl], nows[lvl].dt[:b]
+                pts, valid, count = ref.pts3d[:b], ref.valid[:b], ref.count[:b]
+                li, n_iters, k = intr.at_level(lvl), cfg.iterations[lvl], pts.shape[1]
+                R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+                t0 = torch.zeros((b, 3), device=device)
+                args = (R0, t0, pts, valid, count, dt, *li, cfg, n_iters)
+                trace = torch.zeros((b, n_iters, 18), device=device)
+                ker = level_sg.level_sg(*args, trace=trace)
+                again = level_sg.level_sg(*args)
+                pl = level_sg.level_sg_plain(*args)
+                torch.cuda.synchronize()
+                what = f"level_sg parity {tag} B={b} level {lvl} K={k}"
+                _require(all(_same_bits(a, c) for a, c in zip(ker, again)), f"{what}: runs differ")
+                _require(bool(torch.isfinite(ker.R).all() and torch.isfinite(ker.t).all()),
+                         f"{what}: non-finite pose")
+                err = _check_sg_steps(what, cfg, args, ker, trace, terms)
+
+                def best_points(what, ker, trace):
+                    rows = torch.arange(b, device=device)
+                    bp = trace[rows, ker.best_iter.long()].cpu()
+                    _, eps, _, vis = sg_terms.sg_point_terms(
+                        bp[:, :9].reshape(b, 3, 3), bp[:, 9:12], pts.cpu(), valid.cpu(),
+                        dt.cpu(), *li, cfg.weight_sigma2, sem)
+                    _require(torch.equal(ker.eps.cpu(), eps)
+                             and torch.equal(ker.visible.cpu(), vis),
+                             f"{what}: the returned per-point values differ from the plain "
+                             "point terms at the best iterate")
+
+                best_points(what, ker, trace)
+                worst = max(worst, err, _check_sg_curves(what, ker, pl)[1])
+                ranks = level_sg.level_ranks(k)
+                for c in _forced_routes(level_sg.level_ranks, k):
+                    trace_c = torch.zeros((b, n_iters, 18), device=device)
+                    kc = level_sg.level_sg(*args, trace=trace_c, cluster=c)
+                    torch.cuda.synchronize()
+                    if c == ranks:
+                        _require(all(_same_bits(a, x) for a, x in zip(ker, kc)),
+                                 f"{what}: forced to c={c}, the rule's route, it differs")
+                    else:
+                        best_points(f"{what} c={c}", kc, trace_c)
+                        worst = max(worst, _check_sg_curves(f"{what} c={c}", kc, pl)[1])
+                if lvl == 0 and b == batches[0]:
+                    k_ms = _time_ms(lambda: level_sg.level_sg(*args), 20)
+                    p_ms = _time_ms(lambda: level_sg.level_sg_plain(*args), 2)
+                    # check_level_sg's count (the SVD's ~500 double operations
+                    # a step beside it, counted as float32 ones)
+                    ran, n_vis = (ker.energy != 0).sum(-1), ker.visible.sum(-1)
+                    h, w = dt.shape[1:]
+                    nbytes = b * (k * 13 + 52 + 60 + 4 * n_iters + 5 * k) + _sampled_bytes(
+                        n_vis * ran, h * w, 5, 4)
+                    step = OPS_SG_STEP + (500 if point_sem.svd(cfg) else 0)
+                    flops = float((ran * n_vis).sum()) * OPS_SG_POINT + float(ran.sum()) * step
+                    out[tag] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err,
+                                **_bound(nbytes, flops)}
+                    _log(f"{what} (rule c={ranks}): runs bitwise equal, every step within the "
+                         "bars of the plain terms and step, the per-point values bitwise the "
+                         f"plain terms at the best iterate; level_sg {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms")
+    return {"max_abs_err": worst, "variants": out}
 
 
 def _level0_inputs(device, cfg, batch: int):
@@ -2593,37 +2991,38 @@ def check_level_traj(device) -> dict:
     return out
 
 
-def _parity_families():
-    """One configuration of each reference-parity family (`kernel_route`
-    False), with the pose bar of its comparison between the card and the
-    CPU: tests/test_torch_parity_drivers.py's 1e-4 where every gather is
-    float32 and 2e-3 where the gathers are bf16; the sub-gradient 1e-2.
-    Its steps keep the trust region's length (3e-3) through all 200
-    iterations, so two free runs that part where a reduction's last bit
-    differs (a floor decision, or the interpolated DT's descent) wander
-    apart within the few steps of its oscillation around the optimum and
-    return other visited poses as their best."""
-    from rgbd_odometry_tpu_torch import SolverConfig
+# parity_batch's pose bar between the card and the CPU by the kind of a
+# family's residual: the 1e-4 of tests/test_torch_parity_drivers.py where
+# every gather is float32 and 2e-3 where the gathers are bf16; the
+# sub-gradient's (`PARITY_SG_BAR`) whatever its residual
+PARITY_BARS = {"float32": 1e-4, "bf16": 2e-3}
+PARITY_SG_BAR = 1e-2
 
-    sg = SolverConfig()
+
+def _parity_families():
+    """Each family of `point_sem.PARITY_FAMILIES` (the sub-gradient on
+    `SolverConfig()`, Gauss-Newton on the `dvo` defaults' 18/6/4/3
+    iterations) with the pose bar of its comparison between the card and
+    the CPU (`PARITY_BARS`, `PARITY_SG_BAR`). The sub-gradient's steps keep
+    the trust region's length (3e-3) through all 200 iterations, so two
+    free runs that part where a reduction's last bit differs (a floor
+    decision, or the interpolated DT's descent) wander apart within the few
+    steps of its oscillation around the optimum and return other visited
+    poses as their best."""
+    from rgbd_odometry_tpu_torch import SolverConfig
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
     gn = SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3))
-    rep = dataclasses.replace
-    return {
-        "sg_interpolate_dt_mxu": (rep(sg, interpolate_dt=True), 1e-2),
-        "sg_interpolate_dt_take": (rep(sg, interpolate_dt=True, gather_mode="take"), 1e-2),
-        "sg_rotationize_svd": (rep(sg, rotationize_method="svd"), 1e-2),
-        "sg_true_jacobian": (rep(sg, jacobian_mode="true"), 1e-2),
-        "gn_take": (rep(gn, gather_mode="take"), 1e-4),
-        "gn_channels_float32": (rep(gn, gn_gradient_mode="channels", gather_dtype="float32"),
-                                1e-4),
-        "gn_reference_jacobian": (rep(gn, jacobian_mode="reference"), 2e-3),
-    }
+    return {name: (cfg, PARITY_SG_BAR if cfg.method == "subgradient" else PARITY_BARS[kind])
+            for name, (cfg, kind) in point_sem.parity_families(SolverConfig(), gn).items()}
 
 
 PARITY_CPU_PAIRS = 4  # the pairs of parity_batch held against the CPU run
 # an align_pair call in the parity mode: Canny of both pyramids, the 4 levels'
-# targets, the keyframe's extraction; the level solves launch no kernel
-PARITY_CALL_LAUNCHES = {"canny_pyramid": 2, "dt_channels": 4, "extract": 1}
+# targets, the keyframe's extraction and the pyramid's one level launch
+# ("level": `level_lm` for Gauss-Newton, `level_sg` for the sub-gradient)
+PARITY_CALL_LAUNCHES = {"canny_pyramid": 2, "dt_channels": 4, "extract": 1, "level": 1}
+PARITY_TIMED_CALLS = 5  # parity_batch's ms a call: the median of these, after the checked call
 
 
 def run_parity_batch(device) -> dict:
@@ -2631,20 +3030,22 @@ def run_parity_batch(device) -> dict:
     rendered 320x240 pairs (capacities 8192/4096/2048/1024) from a generic
     start pose, once per
     family of `_parity_families`: the kernels' targets and extraction
-    (`canny_pyramid`, `dt_channels`, `extract_pyramid`) and the level solves
-    as `run_level_loop` (no level kernel), every pose finite, the pose error
-    against ground truth, the launches and host ms a call (for the first
-    family of each method every CUDA kernel of a call, from the profiler),
-    and the first `PARITY_CPU_PAIRS` pairs against the port's CPU run of
-    the same inputs: the coarsest level's first energy (the start pose,
-    before the runs can part) within 1e-5 relative, the poses within the
-    family's bar."""
+    (`canny_pyramid`, `dt_channels`, `extract_pyramid`) and the pyramid in
+    one `level_lm` or `level_sg` launch (`PARITY_CALL_LAUNCHES`), every
+    pose finite, the pose error against ground truth, the launches and host
+    ms a call (the median of `PARITY_TIMED_CALLS` calls ending in a sync;
+    for the first family of each method every CUDA kernel of a call, from
+    the profiler), and the first `PARITY_CPU_PAIRS` pairs against the
+    port's CPU run (the plain twins) of the same inputs: the coarsest
+    level's first energy (the start pose, before the runs can part) within
+    1e-5 relative, the poses within the family's bar."""
     import torch
 
     from rgbd_odometry_tpu_torch import PipelineConfig, align_pair, profiles
     from rgbd_odometry_tpu_torch.core import geometry as geo
     from rgbd_odometry_tpu_torch.core.camera import Intrinsics
     from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import point_sem
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
     cam = profiles.production_320().camera
@@ -2666,7 +3067,8 @@ def run_parity_batch(device) -> dict:
         R0 = start[0].expand(n, 3, 3).contiguous().to(dev)
         t0 = start[1].expand(n, 3).contiguous().to(dev)
         for fam, (cfg, bar) in _parity_families().items():
-            _require(not edge_dvo.kernel_route(cfg), f"parity_batch {fam}: on the kernels' route")
+            _require(edge_dvo.kernel_route(cfg) and point_sem.parity(cfg),
+                     f"parity_batch {fam}: not a parity configuration on the kernels' route")
             before = {k: fn.launches for k, fn in counters.items()}
             _sync(dev)
             tic = time.perf_counter()
@@ -2677,6 +3079,14 @@ def run_parity_batch(device) -> dict:
             ms = (time.perf_counter() - tic) * 1000.0
             if card:
                 n_l = {k: fn.launches - before[k] for k, fn in counters.items()}
+                times = []
+                for _ in range(PARITY_TIMED_CALLS):
+                    _sync(dev)
+                    tic = time.perf_counter()
+                    align_pair(pyr[0].gray, pyr[0].depth, pyr[1].gray, intr, cfg, caps, R0, t0)
+                    _sync(dev)
+                    times.append((time.perf_counter() - tic) * 1000.0)
+                ms_first, ms = ms, float(np.median(times))
                 kernels = None
                 if fam in ("sg_interpolate_dt_mxu", "gn_take"):
                     kernels = _kernel_launches(lambda: align_pair(
@@ -2685,14 +3095,15 @@ def run_parity_batch(device) -> dict:
                 _require(np.isfinite(t_np).all() and bool(torch.isfinite(R).all()),
                          f"parity_batch {fam}: non-finite poses")
                 err = np.linalg.norm(t_np - gt_t, axis=-1)
-                _require(n_l["level_lm"] == 0 and n_l["level_sg"] == 0,
-                         f"parity_batch {fam}: a level kernel was launched")
-                _require({k: v for k, v in n_l.items() if v} == PARITY_CALL_LAUNCHES,
-                         f"parity_batch {fam}: launches {n_l}, not {PARITY_CALL_LAUNCHES}")
+                level = "level_lm" if cfg.method == "gauss_newton" else "level_sg"
+                want = {level if k == "level" else k: v for k, v in PARITY_CALL_LAUNCHES.items()}
+                _require({k: v for k, v in n_l.items() if v} == want,
+                         f"parity_batch {fam}: launches {n_l}, not {want}")
                 out[fam] = {"R": R[:PARITY_CPU_PAIRS].cpu(), "t": t[:PARITY_CPU_PAIRS].cpu(),
                             "e0": e0,
                             "median_mm": float(np.median(err)) * 1000.0,
                             "max_mm": float(err.max()) * 1000.0, "ms": ms,
+                            "ms_first_call": ms_first,
                             "launches": {k: v for k, v in n_l.items() if v},
                             "cuda_kernels": kernels}
             else:
@@ -2702,8 +3113,10 @@ def run_parity_batch(device) -> dict:
                 out[fam]["cpu_gap"], out[fam]["cpu_ms"] = gap, ms
                 _log(f"parity_batch {fam}: {BATCH} pairs, |t-t_gt| median "
                      f"{out[fam]['median_mm']:.3f} mm max {out[fam]['max_mm']:.3f} mm, "
-                     f"{out[fam]['ms']:.1f} ms a call on the card (launches "
-                     f"{out[fam]['launches']}, {out[fam]['cuda_kernels']} CUDA kernels in "
+                     f"{out[fam]['ms']:.3f} ms a call on the card (median of "
+                     f"{PARITY_TIMED_CALLS}; the checked call {out[fam]['ms_first_call']:.1f} "
+                     f"ms; launches {out[fam]['launches']}, {out[fam]['cuda_kernels']} CUDA "
+                     "kernels in "
                      f"all), pairs 0-{n - 1} within {gap:.2e} of the CPU run ({ms:.0f} ms; "
                      f"bar {bar:g}), first energy {e0_gap:.2e}")
                 _require(e0_gap <= 1e-5, f"parity_batch {fam}: the first energy is {e0_gap:.2e} "
@@ -2723,9 +3136,12 @@ def run_parity_stream(device) -> dict:
     from rgbd_odometry_tpu_torch import profiles
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
     prof = profiles.parity_320()
     solver = dataclasses.replace(prof.solver, interpolate_dt=True, rotationize_method="svd")
-    _require(not edge_dvo.kernel_route(solver), "parity_stream: on the kernels' route")
+    _require(edge_dvo.kernel_route(solver) and point_sem.parity(solver),
+             "parity_stream: not a parity configuration on the kernels' route")
     frames, poses = stream_frames()
     counters = _launch_counters()
     before = {k: fn.launches for k, fn in counters.items()}
@@ -4489,19 +4905,19 @@ def run_cli_pnp() -> dict:
 
 def _count_solves() -> dict:
     """Counts, by solver method, of `edge_dvo.solve_pyramid` calls (and the
-    levels they solve) and of single-level `edge_dvo.run_level` calls from
-    here on (the path's modules call both through the module) on the
-    kernels' route, and of both on the general loop's ("loop")."""
+    levels they solve) and of single-level `edge_dvo.run_level` calls on
+    CUDA tensors (a CPU solve, parity_batch's reference run, launches
+    nothing), and of `edge_dvo.run_level_loop` calls on any device ("loop",
+    which no route reaches) from here on (the path's modules call them
+    through the module)."""
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
     counts = {(what, m): 0 for what in ("pyramid", "levels", "level", "loop")
               for m in ("gauss_newton", "subgradient")}
-    solve, run = edge_dvo.solve_pyramid, edge_dvo.run_level
+    solve, run, loop = edge_dvo.solve_pyramid, edge_dvo.run_level, edge_dvo.run_level_loop
 
     def solve_pyramid(ref_levels, now_levels, intr, cfg, *a, **k):
-        if not edge_dvo.kernel_route(cfg):
-            counts[("loop", cfg.method)] += 1
-        else:
+        if ref_levels[0].pts3d.is_cuda:
             counts[("pyramid", cfg.method)] += 1
             counts[("levels", cfg.method)] += sum(
                 1 for lv in range(len(ref_levels))
@@ -4509,10 +4925,16 @@ def _count_solves() -> dict:
         return solve(ref_levels, now_levels, intr, cfg, *a, **k)
 
     def run_level(ref, now, intr_level, R0, t0, cfg, *a, **k):
-        counts[("level" if edge_dvo.kernel_route(cfg) else "loop", cfg.method)] += 1
+        if ref.pts3d.is_cuda:
+            counts[("level", cfg.method)] += 1
         return run(ref, now, intr_level, R0, t0, cfg, *a, **k)
 
+    def run_level_loop(ref, now, intr_level, R0, t0, cfg, *a, **k):
+        counts[("loop", cfg.method)] += 1
+        return loop(ref, now, intr_level, R0, t0, cfg, *a, **k)
+
     edge_dvo.solve_pyramid, edge_dvo.run_level = solve_pyramid, run_level
+    edge_dvo.run_level_loop = run_level_loop
     return counts
 
 
@@ -4645,8 +5067,8 @@ def main() -> int:
         _log(f"launches in {name}: " + ", ".join(f"{k} {v}" for k, v in n.items())
              + f" ({time.perf_counter() - t0:.1f} s)")
         for method in ("gauss_newton", "subgradient"):
-            if ns[("loop", method)]:
-                _log(f"  {name}: {ns[('loop', method)]} {method} solves on run_level_loop")
+            _require(ns[("loop", method)] == 0,
+                     f"{name}: {ns[('loop', method)]} {method} solves on run_level_loop")
         # a pyramid solve is one launch of its level kernel, every level in it
         for key, method in (("level_lm", "gauss_newton"), ("level_sg", "subgradient")):
             want = ns[("pyramid", method)] + ns[("level", method)]
@@ -4659,8 +5081,8 @@ def main() -> int:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
                      f"{name}: the matching or PnP kernel was not launched")
         if name in PARITY_PHASES:
-            _require(n["level_lm"] == 0 and n["level_sg"] == 0,
-                     f"{name}: a level kernel was launched for a parity configuration")
+            _require(n["level_lm"] + n["level_sg"] > 0,
+                     f"{name}: no level kernel was launched for the parity configurations")
         if name in GN_PHASES or name in ("cli_subgradient",) + PARITY_PHASES:
             _require(all(n[k] > 0 for k in TARGET_KERNELS),
                      f"{name}: the canny_pyramid or dt_channels kernel was not launched")
@@ -4727,12 +5149,14 @@ def main() -> int:
         {"name": "level_lm", "route": "cuda", "source": src + "level_lm.cu",
          "replaces": "rgbd_odometry_tpu/pallas/fused_iter.py:159 + solvers/edge_dvo.py:261 "
                      "(the lax.scan level loops :586, :754, the all-point diagnostics "
-                     ":593-609, :758-771)",
+                     ":593-609, :758-771; the parity branches _sample_dt :241-259, "
+                     "_jacobian_residual :293-398, rotationize :518, :592, :715, :757)",
          "launches": launches["level_lm"], **res["level_lm"]},
         {"name": "level_sg", "route": "cuda", "source": src + "level_sg.cu",
          "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:586 (XLA, no Pallas kernel: the "
                      "lax.scan level loop's sub-gradient branch :493-622 with :775 and "
-                     "core/geometry.py:169)",
+                     "core/geometry.py:169; the parity branches :241-259, :293-398, "
+                     "rotationize_svd core/geometry.py:209 at :518, :592)",
          "launches": launches["level_sg"], **res["level_sg"]},
         {"name": "extract_pyramid", "route": "cuda", "source": src + "extract.cu",
          "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:100 extract_ref_level over every "

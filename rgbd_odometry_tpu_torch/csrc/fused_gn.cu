@@ -16,8 +16,8 @@
 //   -> J^T W J (6x6), J^T W eps (6), sum eps^2, visible count
 //
 // so nothing between the point tensor and the 6x6 outputs touches device
-// memory (one point's terms: `gn_point` of project.cuh, which level_lm.cu
-// shares). Outputs: H (B,6,6), g (B,6), e2 (B,) float32 and n (B,) int32
+// memory (one point's terms: `gn_point` of project.cuh under its production
+// semantics, which level_lm.cu shares). Outputs: H (B,6,6), g (B,6), e2 (B,) float32 and n (B,) int32
 // (the wrapper takes sqrt(e2) as the energy), and when eps_out is not null
 // the per-point eps (B,K) float32 (0 where invisible) and visible (B,K)
 // uint8, as residual.cu writes them (a stride-1 scan tracks both at its
@@ -77,8 +77,9 @@ fused_gn(const float* __restrict__ R, const float* __restrict__ T,
   for (int i = tid; i < k; i += kThreads) {
     float eps;
     bool vis;
-    rgbd::gn_point(pose, P[3 * i], P[3 * i + 1], P[3 * i + 2], V[i] != 0, I, h, w, fx, fy, cx,
-                   cy, sc, inv_sigma2, acc, &eps, &vis);
+    rgbd::gn_point(pose, P[3 * i], P[3 * i + 1], P[3 * i + 2], V[i] != 0,
+                   rgbd::Planes<__nv_bfloat16>{{I, I, I}}, h, w, fx, fy, cx, cy, sc, inv_sigma2,
+                   1.0f / inv_sigma2, rgbd::gn_production(), acc, &eps, &vis);
     if (eps_out != nullptr) {
       eps_out[(size_t)b * k + i] = eps;
       vis_out[(size_t)b * k + i] = vis ? 1 : 0;

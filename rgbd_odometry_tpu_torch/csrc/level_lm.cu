@@ -44,6 +44,25 @@
 // forms e2 and the count with residual.cu's thread-to-point map,
 // multiply-add and tree, so its outputs are bitwise that pass's.
 //
+// Every configuration runs the same loops over project.cuh's gn_point in
+// all four places a point is evaluated (the Gauss-Newton pass, the
+// proposal pass on the Jacobian subset or on every stride-th point, and
+// the all-point tail) under the launch's `PointSem`. The production
+// semantics are folded in at compile time; a reference-parity
+// configuration (`kParity`) reads its own from the launch's parameters,
+// uniform over the grid: the float32 dt, dgx, dgy of JAX's "take" gathers,
+// the three channels of "channels" gradients, bf16 or float32 planes (`T`),
+// the reference's Jacobian, the projection with XLA's fused multiply-adds
+// and the weight by divisions; and, where asked for, the SVD projection
+// (warp.cuh lane_rotationize_svd) in place of Newton-Schulz after every
+// update and on the returned best. One instantiation reading the
+// semantics at run time for every configuration measured 4-8% slower on
+// the production levels (H100, profile_paths.py --paths levels). The
+// planes are three pointers a level with one batch stride. The SVD (twelve
+// double-precision Jacobi rotations on every lane of the step warp) takes
+// the step from ~4150 to ~14300 cycles; the other point terms cost about
+// what the production ones do.
+//
 // Design. A pair's level runs on `ranks` blocks of 256 threads (1, 2, 4 or
 // 8, a function of the level's shape alone, kernels/level_lm.level_ranks:
 // one for every level of the profiles, where a split measured slower), the
@@ -108,7 +127,7 @@ using rgbd::kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTerms = rgbd::kGnTerms;
 constexpr int kMaxLevels = 8;
-constexpr int kLevelPtrs = 16, kLevelInts = 8, kLevelFloats = 4;  // the host's table rows
+constexpr int kLevelPtrs = 18, kLevelInts = 8, kLevelFloats = 4;  // the host's table rows
 constexpr int kStamps = 8;  // iteration start, pass, sum, step, barrier; standard: pass, step, barrier
 
 // One level of the table, in solve order (coarsest first).
@@ -116,7 +135,7 @@ struct Level {
   const float* pts;          // (B, K, 3)
   const uint8_t* valid;      // (B, K)
   const int* count;          // (B,)
-  const __nv_bfloat16* img;  // (B, H, W), rows contiguous
+  const void* img[3];        // planes 0, 1, 2 (B, H, W) of the launch's type, rows contiguous
   long long img_batch_stride;
   const float* scale;        // (B,) DT units per pixel
   int k, k_jac, jstride, stride, n_iters, h, w;
@@ -143,7 +162,9 @@ struct Pyramid {
   const float* t0;
   int levels, cluster;
   float inv_sigma2, lam0, radius, psi_term;
-  int deferred, rotationize;
+  int deferred, rotationize;  // rotationize: 0 none, 1 Newton-Schulz, 2 the SVD
+  rgbd::PointSem sem;         // the point terms of a kParity launch
+  float sigma2;               // gn_weight_sigma2_px, for the weight by divisions
 };
 
 // A block's shared state besides the staged points.
@@ -225,41 +246,31 @@ __device__ __forceinline__ void stage(const Level& L, int b, const rgbd::Split& 
 
 // The squared residual of one point of the proposal subset at a pose,
 // added to *e2 exactly as gn_point adds it.
-__device__ __forceinline__ void add_e2(const rgbd::Pose& pose, const float4& q,
-                                       const __nv_bfloat16* __restrict__ I, const Level& L,
+template <typename T>
+__device__ __forceinline__ void add_e2(const rgbd::PointSem& sem, const rgbd::Pose& pose,
+                                       const float4& q, const rgbd::Planes<T>& I, const Level& L,
                                        float* e2) {
-  if (q.w != 0.0f) {
-    const rgbd::Projected p = rgbd::project_xyz(pose, q.x, q.y, q.z, L.fx, L.fy, L.cx, L.cy);
-    if (rgbd::in_image(p.u, p.v, L.h, L.w)) {
-      float eps, gu, gv;
-      rgbd::sample_bilinear(I, L.h, L.w, p.u, p.v, &eps, &gu, &gv);
-      *e2 = __fmaf_rn(eps, eps, *e2);
-    }
-  }
+  bool vis;
+  const float eps = rgbd::residual_gn(pose, q.x, q.y, q.z, q.w != 0.0f, I, L.h, L.w, L.fx, L.fy,
+                                      L.cx, L.cy, sem, &vis);
+  if (vis) *e2 = __fmaf_rn(eps, eps, *e2);
 }
 
-// One point of the all-point tail: residual.cu's bilinear per-point pass.
-__device__ __forceinline__ void tail_point(const rgbd::Pose& pose, const Level& L,
-                                           const float* P, const uint8_t* V,
-                                           const __nv_bfloat16* I, int i, float* eps_o,
-                                           bool* vis_o) {
-  float eps = 0.0f;
-  bool vis = false;
-  if (V[i]) {
-    const rgbd::Projected q = rgbd::project<false>(pose, P + 3 * i, L.fx, L.fy, L.cx, L.cy);
-    vis = rgbd::in_image(q.u, q.v, L.h, L.w);
-    if (vis) {
-      float gu, gv;
-      rgbd::sample_bilinear(I, L.h, L.w, q.u, q.v, &eps, &gu, &gv);
-    }
-  }
-  *eps_o = eps;
-  *vis_o = vis;
+// The launch's point semantics: the production ones, constants the
+// compiler folds, or (kParity) those of the launch's parameters.
+template <bool kParity>
+__device__ __forceinline__ rgbd::PointSem sem_of(const Pyramid& P) {
+  if constexpr (kParity) return P.sem;
+  return rgbd::gn_production();
 }
 
+// T: the planes' element type (__nv_bfloat16 or float; production: bf16).
+// kParity: the semantics and the SVD of a reference-parity configuration.
+template <typename T, bool kParity>
 __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constant__ Pyramid P) {
   extern __shared__ float4 spts[];
   __shared__ Shared sh;
+  const rgbd::PointSem sem = sem_of<kParity>(P);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / P.cluster, rank = blockIdx.x - b * P.cluster;
   // warp 0's registers: the pair's solver state, the same on every lane
@@ -282,7 +293,10 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
     const size_t ob = (size_t)b * L.k;  // this pair's per-point outputs
     float* seps = reinterpret_cast<float*>(spts + L.n_local);
     uint8_t* svis = reinterpret_cast<uint8_t*>(seps + L.n_local);
-    const __nv_bfloat16* I = L.img + (size_t)b * L.img_batch_stride;
+    const size_t io = (size_t)b * L.img_batch_stride;
+    const T* I0 = static_cast<const T*>(L.img[0]) + io;
+    const rgbd::Planes<T> I{{I0, L.img[1] ? static_cast<const T*>(L.img[1]) + io : I0,
+                             L.img[2] ? static_cast<const T*>(L.img[2]) + io : I0}};
     float* const trow = traj_rows(P, l, b, n, writer);
     const float* Pb = L.pts + (size_t)b * L.k * 3;
     const uint8_t* Vb = L.valid + (size_t)b * L.k;
@@ -327,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
           float eps;
           bool vis;
           rgbd::gn_point(pose, q.x, q.y, q.z, q.w != 0.0f, I, L.h, L.w, L.fx, L.fy, L.cx, L.cy,
-                         sc, P.inv_sigma2, acc, &eps, &vis);
+                         sc, P.inv_sigma2, P.sigma2, sem, acc, &eps, &vis);
           if (L.track) {
             seps[j] = eps;
             svis[j] = vis ? 1 : 0;
@@ -363,8 +377,9 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
           if (writer && lane == 0) L.energy_out[(size_t)b * n + itr] = e;
           if (!newly_done) {
             const float x = rgbd::lane_se3_exp(psi, lane);
-            float np = rgbd::lane_compose(lane < kPoseLanes ? sh.pose[from][lane] : 0.0f, x, lane);
-            if (P.rotationize) np = rgbd::lane_rotationize(np, lane);
+            const float np = rgbd::lane_rotationize_by<kParity>(
+                P.rotationize,
+                rgbd::lane_compose(lane < kPoseLanes ? sh.pose[from][lane] : 0.0f, x, lane), lane);
             if (lane < kPoseLanes) sh.pose[1 - from][lane] = np;
             cur = 1 - from;  // the proposal; the backup is `from`
             carry = hu;
@@ -391,8 +406,9 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
           rgbd::warp_lm_psi(sh.sums, sh.sums + 21, lam, P.radius, psi);
           psi_norm = rgbd::norm6(psi);
           const float x = rgbd::lane_se3_exp(psi, lane);
-          float np = rgbd::lane_compose(lane < kPoseLanes ? sh.pose[cur][lane] : 0.0f, x, lane);
-          if (P.rotationize) np = rgbd::lane_rotationize(np, lane);
+          const float np = rgbd::lane_rotationize_by<kParity>(
+              P.rotationize,
+              rgbd::lane_compose(lane < kPoseLanes ? sh.pose[cur][lane] : 0.0f, x, lane), lane);
           if (lane < kPoseLanes) sh.pose[1 - cur][lane] = np;  // the proposal
           if (lane == 0) sh.better = better ? 1 : 0;
         }
@@ -417,14 +433,14 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
         if (L.stride == 1) {
           for (int j = tid, i = sp.q * kThreads + tid; i < L.k_jac;
                j += kThreads, i += kThreads * sp.ranks)
-            add_e2(pn, spts[j], I, L, &acc[0]);
+            add_e2(sem, pn, spts[j], I, L, &acc[0]);
         } else {  // one rank
           const rgbd::Pose pc = pose_of(sh.pose[sh.cur]);
           const int k_sub = (L.k_jac + L.stride - 1) / L.stride;
           for (int j = tid; j < k_sub; j += kThreads) {
             const float4 q = spts[j * L.stride];
-            add_e2(pn, q, I, L, &acc[0]);
-            add_e2(pc, q, I, L, &acc[1]);
+            add_e2(sem, pn, q, I, L, &acc[0]);
+            add_e2(sem, pc, q, I, L, &acc[1]);
           }
         }
         s = rgbd::pair_sum(acc, sh.part, sh.slot, 0, kWarps, sp, par, tid);
@@ -464,8 +480,8 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
       if (trow != nullptr)
         for (int x = lane; x < (n - itr - 1) * kPoseLanes; x += 32)
           trow[(itr + 1) * kPoseLanes + x] = sh.pose[cur][x % kPoseLanes];
-      float be = lane < kPoseLanes ? sh.best[lane] : 0.0f;
-      if (P.rotationize) be = rgbd::lane_rotationize(be, lane);
+      const float be = rgbd::lane_rotationize_by<kParity>(
+          P.rotationize, lane < kPoseLanes ? sh.best[lane] : 0.0f, lane);
       if (lane < kPoseLanes) {
         sh.best[lane] = be;
         sh.pose[0][lane] = be;
@@ -498,9 +514,10 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
         if (writer) {
           float acc[2] = {0.0f, 0.0f};  // e2, count
           for (int i = tid; i < L.k; i += kThreads) {
-            float eps;
             bool vis;
-            tail_point(pose, L, Pb, Vb, I, i, &eps, &vis);
+            const float eps = rgbd::residual_gn(pose, Pb[3 * i], Pb[3 * i + 1], Pb[3 * i + 2],
+                                                Vb[i] != 0, I, L.h, L.w, L.fx, L.fy, L.cx, L.cy,
+                                                sem, &vis);
             if (vis) {
               acc[0] = __fmaf_rn(eps, eps, acc[0]);
               acc[1] += 1.0f;
@@ -519,9 +536,10 @@ __global__ void __launch_bounds__(kThreads) level_lm_kernel(const __grid_constan
         // written residuals in residual.cu's map
         if (writer) {
           for (int i = sp.q * kThreads + tid; i < L.k; i += kThreads * sp.ranks) {
-            float eps;
             bool vis;
-            tail_point(pose, L, Pb, Vb, I, i, &eps, &vis);
+            const float eps = rgbd::residual_gn(pose, Pb[3 * i], Pb[3 * i + 1], Pb[3 * i + 2],
+                                                Vb[i] != 0, I, L.h, L.w, L.fx, L.fy, L.cx, L.cy,
+                                                sem, &vis);
             L.eps_out[ob + i] = eps;
             L.vis_out[ob + i] = vis ? 1 : 0;
           }
@@ -560,8 +578,8 @@ extern "C" const char* cuda_error_string(int code) {
 // solve order (coarsest first), each starting from the pose the one before
 // returned; the first from R0 (B,3,3), t0 (B,3) float32 contiguous. Level
 // l's row of each host table:
-//   ptrs   (16)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
-//                img (B,H,W) bf16 (rows contiguous), scale (B,) float32; the
+//   ptrs   (18)  pts (B,K,3) float32, valid (B,K) uint8, count (B,) int32,
+//                img (B,H,W) (rows contiguous), scale (B,) float32; the
 //                outputs R_out (B,3,3), t_out (B,3), energy_out (B,n_iters),
 //                best_iter_out (B,) int32, best_energy_out (B,),
 //                final_energy_out (B,), eps_out (B,K) float32, vis_out (B,K)
@@ -573,8 +591,8 @@ extern "C" const char* cuda_error_string(int code) {
 //                and the barrier after it (left as they were where not run);
 //                traj_out (B,n_iters,12) or null (the standard LM's): the
 //                pose after each iteration (R, t), the frozen pose once a
-//                pair is done;
-//   strides (1)  img's batch stride in elements;
+//                pair is done; planes 1 and 2 (as img, or null: not read);
+//   strides (1)  the planes' batch stride in elements;
 //   ints   (8)   k, k_jac, jstride, stride, n_iters (>= 1), h, w, ranks;
 //   floats (4)   fx, fy, cx, cy.
 // The Jacobian subset is points 0, jstride, 2 jstride, ... (k_jac of them);
@@ -585,18 +603,31 @@ extern "C" const char* cuda_error_string(int code) {
 // iterate's (0 where no iterate was evaluated), else the all-point tail's
 // at the returned pose. Launches on `stream`, does not synchronize; a
 // cluster the card cannot hold is not launched (cudaErrorInvalidConfiguration).
+// The planes are bf16, or float32 with `planes_f32`; rotationize: 0 none, 1
+// Newton-Schulz, 2 the SVD. The point terms follow `sem` (5 ints: sampler,
+// reference, fma_uv, fma_z, div_weight; kernels/point_sem.py), with
+// `sigma2` (gn_weight_sigma2_px) for the weight by divisions; any
+// semantics but the production ones, float32 planes or the SVD run the
+// reference-parity instantiation.
 extern "C" int level_lm_pyramid(int device, int levels, int batch, int cluster, const void* R0,
                                 const void* t0, const long long* ptrs, const long long* strides,
                                 const int* ints, const float* floats, float inv_sigma2,
                                 float lam0, float radius, float psi_term, int deferred,
-                                int rotationize, void* stream) {
+                                int rotationize, const int* sem, float sigma2, int planes_f32,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (levels < 1 || levels > kMaxLevels || batch < 1 ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      (long long)batch * cluster > 0x7fffffffLL)
+      (long long)batch * cluster > 0x7fffffffLL || rotationize < 0 || rotationize > 2 ||
+      sem[0] < rgbd::kGnInterp || sem[0] > rgbd::kGnTake ||
+      (sem[0] == rgbd::kGnTake && !planes_f32))
     return (int)cudaErrorInvalidValue;
   Pyramid P{};
+  P.sem = rgbd::PointSem{sem[0], sem[1], sem[2], sem[3], sem[4]};
+  const bool parity =
+      !rgbd::same_sem(P.sem, rgbd::gn_production()) || planes_f32 || rotationize == 2;
+  P.sigma2 = sigma2;
   P.R0 = (const float*)R0;
   P.t0 = (const float*)t0;
   P.levels = levels;
@@ -616,7 +647,9 @@ extern "C" int level_lm_pyramid(int device, int levels, int batch, int cluster, 
     L.pts = (const float*)q[0];
     L.valid = (const uint8_t*)q[1];
     L.count = (const int*)q[2];
-    L.img = (const __nv_bfloat16*)q[3];
+    L.img[0] = (const void*)q[3];
+    L.img[1] = (const void*)q[16];
+    L.img[2] = (const void*)q[17];
     L.scale = (const float*)q[4];
     L.R_out = (float*)q[5];
     L.t_out = (float*)q[6];
@@ -646,15 +679,27 @@ extern "C" int level_lm_pyramid(int device, int levels, int batch, int cluster, 
     const int r = L.ranks;
     if (L.k < 1 || L.k_jac < 1 || L.jstride < 1 || L.stride < 1 || L.n_iters < 1 ||
         (r != 1 && r != 2 && r != 4 && r != 8) || cluster % r != 0 || (L.stride > 1 && r > 1) ||
-        (P.traj[l] != nullptr && deferred))
+        (P.traj[l] != nullptr && deferred) ||
+        (P.sem.sampler != rgbd::kGnInterp && (!L.img[1] || !L.img[2])))
       return (int)cudaErrorInvalidValue;
     const long long chunks = (L.k_jac + (long long)kThreads * r - 1) / ((long long)kThreads * r);
     L.n_local = (int)(chunks * kThreads < L.k_jac ? chunks * kThreads : L.k_jac);
     const long long need = (long long)L.n_local * (16 + (L.track ? 5 : 0));
     smem = need > smem ? need : smem;
   }
+  const dim3 grid((unsigned)(batch * cluster));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (planes_f32) {
+    static rgbd::ClusterLaunch parity_f32;
+    return (int)rgbd::launch_cluster(level_lm_kernel<float, true>, device, grid, dim3(kThreads),
+                                     smem, cluster, s, &parity_f32, P);
+  }
+  if (parity) {
+    static rgbd::ClusterLaunch parity_bf16;
+    return (int)rgbd::launch_cluster(level_lm_kernel<__nv_bfloat16, true>, device, grid,
+                                     dim3(kThreads), smem, cluster, s, &parity_bf16, P);
+  }
   static rgbd::ClusterLaunch state;
-  return (int)rgbd::launch_cluster(level_lm_kernel, device, dim3((unsigned)(batch * cluster)),
-                                   dim3(kThreads), smem, cluster, (cudaStream_t)stream, &state,
-                                   P);
+  return (int)rgbd::launch_cluster(level_lm_kernel<__nv_bfloat16, false>, device, grid,
+                                   dim3(kThreads), smem, cluster, s, &state, P);
 }

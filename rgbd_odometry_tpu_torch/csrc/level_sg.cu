@@ -38,6 +38,22 @@
 // Its pointers sit beside the level table (`Pyramid::traj`) and each block
 // selects its rows once a level.
 //
+// Every configuration runs the same loop over project.cuh's sg_point under
+// the launch's `PointSem`: the production semantics folded in at compile
+// time, or (`kParity`, an instantiation of its own) a reference-parity
+// configuration's from the launch's parameters, uniform over the grid (the
+// interpolated DT of either JAX route, the textbook Jacobian, the
+// projection with XLA's fused multiply-adds, the weight by divisions);
+// and, where asked for, the SVD projection (warp.cuh lane_rotationize_svd)
+// takes Newton-Schulz's place after every update and on the returned best;
+// the trajectory rows come after it. One instantiation reading the
+// semantics at run time for every configuration measured up to 8% slower
+// on the production levels (H100, profile_paths.py --paths levels). The
+// SVD, twelve double-precision Jacobi rotations with their divisions and
+// square roots on every lane of the step warp, takes the step to
+// ~11800-12200 cycles against ~2500-2800 with Newton-Schulz; the other
+// point terms cost about what the production ones do.
+//
 // Design. A pair's level runs on `ranks` blocks (1, 2, 4 or 8, a function
 // of the level's capacity alone, kernels/level_sg.level_ranks), the ranks
 // of a thread-block cluster, each with the level's `threads` working
@@ -133,7 +149,9 @@ struct Pyramid {
   int levels, cluster;
   float inv_sigma2, l2_lambda, one_minus_momentum, momentum, step_length, precond_rot, radius,
       psi_term;
-  int l2, rotationize;
+  int l2, rotationize;  // rotationize: 0 none, 1 Newton-Schulz, 2 the SVD
+  rgbd::PointSem sem;   // the point terms of a kParity launch
+  float sigma2;         // weight_sigma2, for the weight by divisions
 };
 
 // A block's shared state besides the staged points.
@@ -234,12 +252,24 @@ __device__ __forceinline__ void pull_direction(const float* pose, int lane, floa
   }
 }
 
+// The launch's point semantics: the production ones, constants the
+// compiler folds, or (kParity) those of the launch's parameters.
+template <bool kParity>
+__device__ __forceinline__ rgbd::PointSem sem_of(const Pyramid& P) {
+  if constexpr (kParity) return P.sem;
+  return rgbd::sg_production();
+}
+
 // kMaxT: the most threads a launch's blocks have (544: up to 512 working
 // threads and the step warp, with 120 registers a thread; 1024: 64).
 // kTraj: a launch with a trajectory output (an instantiation of its own, so
 // that the loop without it is the code it was before the output).
-template <int kMaxT, bool kTraj>
+// kParity: the semantics and the SVD of a reference-parity configuration
+// (the trajectory output is then read from its pointer).
+template <int kMaxT, bool kTraj, bool kParity>
 __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__ Pyramid P) {
+  constexpr bool kRows = kTraj || kParity;
+  const rgbd::PointSem sem = sem_of<kParity>(P);
   extern __shared__ float4 spts[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -266,7 +296,7 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
     const bool passer = p >= 0 && p < T;
     const size_t ob = (size_t)b * L.k;
     const float* D = L.dt + (size_t)b * L.dt_batch_stride;
-    float* const trow = kTraj ? traj_rows(P, l, b, n, writer) : nullptr;
+    float* const trow = kRows ? traj_rows(P, l, b, n, writer) : nullptr;
     if (warp == 0) {
       best_e = 1.0e10f;
       best_vis = 1.0f;
@@ -302,8 +332,8 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
             const float4 q = spts[j];
             float eps;
             bool vis;
-            rgbd::sg_point(pose, q.x, q.y, q.z, q.w != 0.0f, D, L.h, L.w, L.fx, L.fy, L.cx,
-                           L.cy, P.inv_sigma2, acc, &eps, &vis);
+            rgbd::sg_point(pose, q.x, q.y, q.z, q.w != 0.0f, D, L.h, L.w, L.fx, L.fy, L.cx, L.cy,
+                           P.inv_sigma2, P.sigma2, sem, acc, &eps, &vis);
           }
         }
         stamp(L, itr, 1);
@@ -348,8 +378,8 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
         const bool done = rgbd::norm6(psi) < P.psi_term;
         if (!done) {
           const float x = rgbd::lane_se3_exp(psi, lane);
-          float np = rgbd::lane_compose(pe, x, lane);
-          if (P.rotationize) np = rgbd::lane_rotationize(np, lane);
+          const float np = rgbd::lane_rotationize_by<kParity>(
+              P.rotationize, rgbd::lane_compose(pe, x, lane), lane);
           if (lane < kPoseLanes) sh.pose[1 - cur][lane] = np;
           cur = 1 - cur;
         }
@@ -363,7 +393,7 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
       stamp(L, itr, 4);
       // the pose after this iteration, by the last warp from shared memory,
       // off the step warp's chain (the next step writes the other slot)
-      if (kTraj && trow != nullptr && warp == (int)(blockDim.x >> 5) - 1 && lane < kPoseLanes)
+      if (kRows && trow != nullptr && warp == (int)(blockDim.x >> 5) - 1 && lane < kPoseLanes)
         trow[itr * kPoseLanes + lane] = sh.pose[sh.cur][lane];
       if (sh.done) break;
     }
@@ -374,7 +404,7 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
       if (writer)
         for (int i = itr + 1 + lane; i < n; i += 32) L.energy_out[(size_t)b * n + i] = 0.0f;
       // a pair done early: its frozen pose in the trajectory's remaining rows
-      if (kTraj && trow != nullptr)
+      if (kRows && trow != nullptr)
         for (int x = lane; x < (n - itr - 1) * kPoseLanes; x += 32)
           trow[(itr + 1) * kPoseLanes + x] = sh.pose[cur][x % kPoseLanes];
       if (lane == 0) sh.any = best_iter >= 0 ? 1 : 0;
@@ -391,15 +421,15 @@ __global__ void __launch_bounds__(kMaxT) level_sg_kernel(const __grid_constant__
         float eps;
         bool vis;
         rgbd::sg_point(pose, q.x, q.y, q.z, any && q.w != 0.0f, D, L.h, L.w, L.fx, L.fy, L.cx,
-                       L.cy, P.inv_sigma2, acc, &eps, &vis);
+                       L.cy, P.inv_sigma2, P.sigma2, sem, acc, &eps, &vis);
         L.eps_out[ob + i] = eps;
         L.vis_out[ob + i] = vis ? 1 : 0;
       }
     }
     // the result, re-orthogonalized, is the next level's start
     if (warp == 0) {
-      float be = lane < kPoseLanes ? sh.best[lane] : 0.0f;
-      if (P.rotationize) be = rgbd::lane_rotationize(be, lane);
+      const float be = rgbd::lane_rotationize_by<kParity>(
+          P.rotationize, lane < kPoseLanes ? sh.best[lane] : 0.0f, lane);
       if (lane < kPoseLanes) {
         sh.pose[0][lane] = be;
         if (writer) {
@@ -442,6 +472,17 @@ __global__ void se3_log_kernel(const float* __restrict__ R, const float* __restr
   }
 }
 
+// The device function lane_rotationize_svd on n 3x3 matrices, one warp
+// each: Q_out (n, 9).
+__global__ void rotationize_svd_kernel(const float* __restrict__ A, int n,
+                                       float* __restrict__ Q_out) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (i >= n) return;  // whole warps leave together
+  const float x = A[(size_t)i * 9 + (lane < 9 ? lane : 0)];
+  const float q = rgbd::lane_rotationize_svd(x, lane);
+  if (lane < 9) Q_out[(size_t)i * 9 + lane] = q;
+}
+
 }  // namespace
 
 extern "C" const char* cuda_error_string(int code) {
@@ -467,6 +508,11 @@ extern "C" const char* cuda_error_string(int code) {
 //   strides (1)  dt's batch stride in elements;
 //   ints   (6)   k, n_iters (>= 1), h, w, ranks, threads;
 //   floats (4)   fx, fy, cx, cy.
+// rotationize: 0 none, 1 Newton-Schulz, 2 the SVD. The point terms follow
+// `sem` (5 ints: sampler, reference, fma_uv, fma_z, div_weight;
+// kernels/point_sem.py), with `sigma2` (weight_sigma2) for the weight by
+// divisions; any semantics but the production ones, or the SVD, run the
+// reference-parity instantiation.
 // A level runs on `ranks` blocks a pair (1, 2, 4, 8), a divisor of
 // `cluster`, with `threads` working threads each (a multiple of 32 up to
 // 1024); the blocks have the most threads any level has. Launches on
@@ -477,14 +523,19 @@ extern "C" int level_sg_pyramid(int device, int levels, int batch, int cluster, 
                                 const int* ints, const float* floats, float inv_sigma2,
                                 float l2_lambda, float one_minus_momentum, float momentum,
                                 float step_length, float precond_rot, float radius,
-                                float psi_term, int l2, int rotationize, void* stream) {
+                                float psi_term, int l2, int rotationize, const int* sem,
+                                float sigma2, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (levels < 1 || levels > kMaxLevels || batch < 1 ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      (long long)batch * cluster > 0x7fffffffLL)
+      (long long)batch * cluster > 0x7fffffffLL || rotationize < 0 || rotationize > 2 ||
+      sem[0] < rgbd::kSgFloor || sem[0] > rgbd::kSgSqrtTake)
     return (int)cudaErrorInvalidValue;
   Pyramid P{};
+  P.sem = rgbd::PointSem{sem[0], sem[1], sem[2], sem[3], sem[4]};
+  const bool parity = !rgbd::same_sem(P.sem, rgbd::sg_production()) || rotationize == 2;
+  P.sigma2 = sigma2;
   P.R0 = (const float*)R0;
   P.t0 = (const float*)t0;
   P.levels = levels;
@@ -547,23 +598,33 @@ extern "C" int level_sg_pyramid(int device, int levels, int batch, int cluster, 
   for (int l = 0; l < levels; ++l) traj = traj || P.traj[l] != nullptr;
   const dim3 grid((unsigned)(batch * cluster));
   cudaStream_t s = (cudaStream_t)stream;
+  if (parity) {
+    if (threads <= kSmallBlock) {
+      static rgbd::ClusterLaunch small_parity;
+      return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, false, true>, device, grid,
+                                       dim3(threads), smem, cluster, s, &small_parity, P);
+    }
+    static rgbd::ClusterLaunch large_parity;
+    return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, false, true>, device, grid,
+                                     dim3(threads), smem, cluster, s, &large_parity, P);
+  }
   if (threads <= kSmallBlock) {
     if (traj) {
       static rgbd::ClusterLaunch small_traj;
-      return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, true>, device, grid,
+      return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, true, false>, device, grid,
                                        dim3(threads), smem, cluster, s, &small_traj, P);
     }
     static rgbd::ClusterLaunch small;
-    return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, false>, device, grid,
+    return (int)rgbd::launch_cluster(level_sg_kernel<kSmallBlock, false, false>, device, grid,
                                      dim3(threads), smem, cluster, s, &small, P);
   }
   if (traj) {
     static rgbd::ClusterLaunch large_traj;
-    return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, true>, device, grid,
+    return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, true, false>, device, grid,
                                      dim3(threads), smem, cluster, s, &large_traj, P);
   }
   static rgbd::ClusterLaunch large;
-  return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, false>, device, grid,
+  return (int)rgbd::launch_cluster(level_sg_kernel<kMaxThreads, false, false>, device, grid,
                                    dim3(threads), smem, cluster, s, &large, P);
 }
 
@@ -575,5 +636,16 @@ extern "C" int se3_log_batch(int device, const void* R, const void* t, int n, vo
   if (err != cudaSuccess) return (int)err;
   se3_log_kernel<<<(n + 3) / 4, 128, 0, (cudaStream_t)stream>>>(
       (const float*)R, (const float*)t, n, (float*)psi_out);
+  return (int)cudaGetLastError();
+}
+
+// A (n,3,3) float32 contiguous -> Q_out (n,3,3): lane_rotationize_svd of
+// every matrix, one warp each. Launches on `stream`, does not synchronize.
+extern "C" int rotationize_svd_batch(int device, const void* A, int n, void* Q_out,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  rotationize_svd_kernel<<<(n + 3) / 4, 128, 0, (cudaStream_t)stream>>>(
+      (const float*)A, n, (float*)Q_out);
   return (int)cudaGetLastError();
 }

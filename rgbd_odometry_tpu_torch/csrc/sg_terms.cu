@@ -18,7 +18,8 @@
 //      J = [-R GA | GA x R^T (xn, yn, 1)]
 //   -> g = sum J (w eps), sum eps^2, count
 //
-// (one point's share of this is sg_point of project.cuh, which level_sg.cu,
+// (one point's share of this is sg_point of project.cuh under its production
+// semantics, which level_sg.cu,
 // the whole-level kernel that took this one's place in the solver, runs too).
 // Outputs: g (B,6), e2 (B,) float32 (the wrapper takes sqrt), n (B,) int32,
 // eps (B,K) float32 and visible (B,K) uint8, written on every call.
@@ -62,7 +63,7 @@ sg_terms(const float* __restrict__ R, const float* __restrict__ T,
     float eps;
     bool vis;
     rgbd::sg_point(q, P[3 * i], P[3 * i + 1], P[3 * i + 2], V[i] != 0, D, h, w, fx, fy, cx, cy,
-                   inv_sigma2, acc, &eps, &vis);
+                   inv_sigma2, 1.0f / inv_sigma2, rgbd::sg_production(), acc, &eps, &vis);
     eps_out[(size_t)b * k + i] = eps;
     vis_out[(size_t)b * k + i] = vis ? 1 : 0;
   }

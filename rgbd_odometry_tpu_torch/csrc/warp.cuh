@@ -114,6 +114,132 @@ __device__ __forceinline__ float lane_rotationize(float x, int lane) {
   return x;
 }
 
+constexpr int kSvdSweeps = 4;          // kernels/se3_plain.py SVD_SWEEPS
+constexpr double kSvdDegenerate = 0x1p-40;  // se3_plain.SVD_DEGENERATE
+
+__device__ __forceinline__ double dmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double dsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double ddiv(double a, double b) { return __ddiv_rn(a, b); }
+
+// The reference's SVD projection (JAX `rotationize_svd`, core/geometry.py:
+// 209: U diag(sign S) V^T, sign(0) = -1) of a 3x3 row-major float32 A, as
+// its twin kernels/se3_plain.rotationize_svd takes it, operation for
+// operation in double precision (round-to-nearest intrinsics, nothing
+// fused), rounded once to float32: the eigenvectors V of M = A^T A by
+// kSvdSweeps cyclic Jacobi sweeps over (0,1), (0,2), (1,2) (tan from theta
+// = (m_qq - m_pp) / 2 m_pq, no rotation where m_pq is 0), S = sqrt(max(diag
+// M, 0)), u_m = A v_m / S_m (v_m where S_m is 0), then sum_m sign(S_m) u_m
+// v_m^T; the smallest eigenvalue k at most kSvdDegenerate of a positive
+// largest is a zero singular value whose column is the completion -(u_i x
+// u_j). A fixed count of steps, no data-dependent loop: every branch is a
+// select, so the twin mirrors it. In float32 the product A^T A would round
+// away most of a near-rotation's deviation from I.
+__device__ inline void rotationize_svd3(const float Af[9], float Q[9]) {
+  double A[9], M[3][3], V[3][3];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) A[e] = (double)Af[e];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      M[i][j] = dadd(dadd(dmul(A[i], A[j]), dmul(A[3 + i], A[3 + j])), dmul(A[6 + i], A[6 + j]));
+      V[i][j] = i == j ? 1.0 : 0.0;
+    }
+#pragma unroll
+  for (int sw = 0; sw < kSvdSweeps; ++sw) {
+#pragma unroll
+    for (int pq = 0; pq < 3; ++pq) {
+      const int p = pq == 2 ? 1 : 0, q = pq == 0 ? 1 : 2, r = 3 - p - q;
+      const double mpq = M[p][q];
+      const double th = ddiv(dsub(M[q][q], M[p][p]), dmul(2.0, mpq));
+      const double sg = th >= 0.0 ? 1.0 : -1.0;
+      double t = ddiv(sg, dadd(fabs(th), __dsqrt_rn(dadd(dmul(th, th), 1.0))));
+      t = mpq == 0.0 ? 0.0 : t;
+      const double c = ddiv(1.0, __dsqrt_rn(dadd(dmul(t, t), 1.0)));
+      const double sn = dmul(t, c);
+      const double mpp = M[p][p], mqq = M[q][q], mrp = M[r][p], mrq = M[r][q];
+      M[p][p] = dsub(mpp, dmul(t, mpq));
+      M[q][q] = dadd(mqq, dmul(t, mpq));
+      M[p][q] = M[q][p] = 0.0;
+      M[r][p] = M[p][r] = dsub(dmul(c, mrp), dmul(sn, mrq));
+      M[r][q] = M[q][r] = dadd(dmul(sn, mrp), dmul(c, mrq));
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const double vp = V[i][p], vq = V[i][q];
+        V[i][p] = dsub(dmul(c, vp), dmul(sn, vq));
+        V[i][q] = dadd(dmul(sn, vp), dmul(c, vq));
+      }
+    }
+  }
+  const double lam[3] = {M[0][0], M[1][1], M[2][2]};
+  int k = 0;
+  double lmin = lam[0], lmax = lam[0];
+#pragma unroll
+  for (int m = 1; m < 3; ++m) {
+    if (lam[m] < lmin) k = m;
+    lmin = fmin(lmin, lam[m]);
+    lmax = fmax(lmax, lam[m]);
+  }
+  const bool deg = lmin <= dmul(lmax, kSvdDegenerate) && lmax > 0.0;
+  double u[3][3];
+  bool pos[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const double S = __dsqrt_rn(fmax(lam[m], 0.0));
+    pos[m] = S > 0.0;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const double av = dadd(dadd(dmul(A[3 * r], V[0][m]), dmul(A[3 * r + 1], V[1][m])),
+                             dmul(A[3 * r + 2], V[2][m]));
+      u[m][r] = pos[m] ? ddiv(av, S) : V[r][m];
+    }
+  }
+  double su[3][3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int ia = (m + 1) % 3, ib = (m + 2) % 3;
+    const double cr[3] = {dsub(dmul(u[ia][1], u[ib][2]), dmul(u[ia][2], u[ib][1])),
+                          dsub(dmul(u[ia][2], u[ib][0]), dmul(u[ia][0], u[ib][2])),
+                          dsub(dmul(u[ia][0], u[ib][1]), dmul(u[ia][1], u[ib][0]))};
+    const bool dk = deg && k == m;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) su[m][r] = dk ? cr[r] : (pos[m] ? u[m][r] : -u[m][r]);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      Q[3 * r + c] = (float)dadd(dadd(dmul(su[0][r], V[c][0]), dmul(su[1][r], V[c][1])),
+                                 dmul(su[2][r], V[c][2]));
+}
+
+// rotationize_svd3 in the pose layout: R gathered to every lane, the
+// projection computed by every lane alike (as warp_lm_psi's Cholesky), lane
+// e < 9 keeps Q[e]; lanes 9..11 keep t.
+__device__ __forceinline__ float lane_rotationize_svd(float x, int lane) {
+  float A[9], Q[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) A[e] = __shfl_sync(kFull, x, e);
+  rotationize_svd3(A, Q);
+  float out = x;
+#pragma unroll
+  for (int e = 0; e < 9; ++e)
+    if (lane == e) out = Q[e];
+  return out;
+}
+
+// The pose element a lane holds, re-orthogonalized by `how` (the same on
+// every lane): 0 not at all, 1 Newton-Schulz (lane_rotationize), 2 the SVD
+// projection (lane_rotationize_svd), compiled in only with kSvd.
+template <bool kSvd>
+__device__ __forceinline__ float lane_rotationize_by(int how, float x, int lane) {
+  if constexpr (kSvd) {
+    if (how == 2) return lane_rotationize_svd(x, lane);
+  }
+  return how ? lane_rotationize(x, lane) : x;
+}
+
 // se3_exp (se3.cuh's, in the pose layout): the twist psi (uniform, six
 // values on every lane) -> the element lane e < 12 holds of (R, t).
 __device__ __forceinline__ float lane_se3_exp(const float psi[6], int lane) {

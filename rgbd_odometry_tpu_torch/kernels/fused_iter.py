@@ -14,7 +14,16 @@ import ctypes
 import torch
 
 from rgbd_odometry_tpu_torch.kernels import build
-from rgbd_odometry_tpu_torch.ops.interp import sample_bilinear_value_grad
+from rgbd_odometry_tpu_torch.kernels.point_sem import (
+    GN_CHANNELS,
+    GN_INTERP,
+    GN_PRODUCTION,
+    PointSem,
+    reference_jacobian,
+    robust_weight,
+    true_jacobian,
+)
+from rgbd_odometry_tpu_torch.ops.interp import gather_bilinear, sample_bilinear_value_grad
 from rgbd_odometry_tpu_torch.ops.project import project_points
 
 _ARGTYPES = (
@@ -23,47 +32,51 @@ _ARGTYPES = (
 )
 
 
-def jacobian_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2, scale=None):
-    """Per-point (J (B,K,6), eps (B,K), wgt (B,K), visible (B,K)) at pose
-    (R (B,3,3), t (B,3)), with the same math as the kernel (operation for
-    operation) and as the JAX `_jacobian_residual` in Gauss-Newton mode
-    (the weight takes eps / scale, the residual in pixels); invisible points
-    are zeros."""
-    h, w = img.shape[-2:]
-    xn, yn, z, zs, u, v, visible = project_points(R, t, pts, valid, h, w, fx, fy, cx, cy)
-    val, gu, gv = sample_bilinear_value_grad(img, u, v)
+def sample_gn(planes, u, v, sampler: int):
+    """(value, d/du, d/dv) (B,K) float32 of a Gauss-Newton level's planes
+    at (u, v) by `sampler` (`point_sem`): `GN_INTERP` the bilinear sample of
+    plane 0 and its interpolant's gradients, `GN_CHANNELS` the bilinear
+    samples of planes 0, 1, 2, `GN_TAKE` `gather_bilinear` of the float32
+    dt, dgx, dgy (JAX `_jacobian_residual`, :318-350)."""
+    if sampler == GN_INTERP:
+        return sample_bilinear_value_grad(planes[0], u, v)
+    if sampler == GN_CHANNELS:
+        return tuple(sample_bilinear_value_grad(p, u, v)[0] for p in planes)
+    return tuple(gather_bilinear(p, u, v) for p in planes)
+
+
+def gn_point_terms(R, t, pts, valid, planes, fx, fy, cx, cy, sigma2, scale, sem: PointSem):
+    """Per-point (J (B,K,6), eps (B,K), wgt (B,K), visible (B,K)) of a
+    Gauss-Newton level under any semantics `sem` (`point_sem`), on the
+    level's planes (plane 0 alone for `GN_INTERP`): the projection as
+    `sem` fuses it, `sample_gn`, the weight of the residual in pixels
+    (eps / scale) and the textbook or the reference Jacobian, as
+    `csrc/project.cuh`'s `gn_point` computes them; invisible points are
+    zeros."""
+    h, w = planes[0].shape[-2:]
+    xn, yn, z, zs, u, v, visible = project_points(R, t, pts, valid, h, w, fx, fy, cx, cy,
+                                                  fma_uv=sem.fma_uv, fma_z=sem.fma_z)
+    val, gu, gv = sample_gn(planes, u, v, sem.sampler)
     zero = torch.zeros_like(val)
     eps = torch.where(visible, val, zero)
     g0 = torch.where(visible, gu, zero)
     g1 = torch.where(visible, gv, zero)
-    eps_px = eps if scale is None else eps / scale[:, None]
-    wgt = torch.where(visible, 6.0 / (6.0 + eps_px * eps_px * (1.0 / sigma2)), zero)
-    return true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible), eps, wgt, visible
-
-
-def true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible):
-    """The textbook image Jacobian (B,K,6) of the right-multiplied update
-    (JAX `_jacobian_residual`'s "true" mode, :382-395) from the sampled DT
-    gradients g0, g1 at the projections (xn, yn, z; zs the guarded depth):
-    [-GA | GA x X'] with GA = (g0 fx, g1 fy, -(g0 fx xn + g1 fy yn)) / z;
-    zeros where invisible."""
-    ga0 = g0 * fx / zs
-    ga1 = g1 * fy / zs
-    ga2 = -(g0 * fx * xn + g1 * fy * yn) / zs
-    xz, yz = xn * z, yn * z
-    J = torch.stack(
-        [-ga0, -ga1, -ga2, ga1 * z - ga2 * yz, ga2 * xz - ga0 * z, ga0 * yz - ga1 * xz],
-        dim=-1,
-    )
-    return torch.where(visible[..., None], J, torch.zeros_like(J))
+    wgt = robust_weight(eps, visible, sem, sigma2, scale)
+    if sem.reference:
+        J = reference_jacobian(g0, g1, xn, yn, R, fx, fy, visible)
+    else:
+        J = true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible)
+    return J, eps, wgt, visible
 
 
 def fused_gn_terms_plain(R, t, pts, valid, img, fx, fy, cx, cy, sigma2=1.0, scale=None,
-                         write_points=False):
+                         write_points=False, sem: PointSem = GN_PRODUCTION, planes=None):
     """The plain PyTorch version: (H (B,6,6), g (B,6), energy (B,),
     n_visible (B,) int32), and with `write_points` also (eps (B,K),
-    visible (B,K))."""
-    J, eps, wgt, visible = jacobian_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2, scale)
+    visible (B,K)). The point terms are `gn_point_terms` under `sem` on
+    `planes` (default (img,))."""
+    J, eps, wgt, visible = gn_point_terms(R, t, pts, valid, planes or (img,), fx, fy, cx, cy,
+                                          sigma2, scale, sem)
     Jw = J * wgt[..., None]
     H = Jw.transpose(-1, -2) @ J
     g = (Jw * eps[..., None]).sum(-2)
@@ -73,7 +86,7 @@ def fused_gn_terms_plain(R, t, pts, valid, img, fx, fy, cx, cy, sigma2=1.0, scal
 
 
 def fused_gn_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2=1.0, scale=None,
-                   write_points=False):
+                   write_points=False, sem: PointSem = GN_PRODUCTION, planes=None):
     """J^T W J (B,6,6), J^T W eps (B,6), energy (B,) and the visible count
     (B,) int32 of B frame pairs at poses (R (B,3,3), t (B,3)) over points
     (pts (B,K,3) float32, valid (B,K) bool) against the DT channel img
@@ -83,12 +96,17 @@ def fused_gn_terms(R, t, pts, valid, img, fx, fy, cx, cy, sigma2=1.0, scale=None
     1), by which the robust weight measures the residual in pixels. With
     `write_points`, two more outputs: the per-point residuals eps (B,K) (0
     where invisible) and visibility (B,K) bool, bitwise those of the
-    bilinear `residual_pass` at the same pose."""
+    bilinear `residual_pass` at the same pose. `sem` and `planes` are
+    those of `fused_gn_terms_plain`; the kernel computes the production
+    semantics on img alone, and raises for any other."""
     if pts.device.type == "cpu":
         return fused_gn_terms_plain(R, t, pts, valid, img, fx, fy, cx, cy, sigma2, scale,
-                                    write_points)
+                                    write_points, sem, planes)
     if pts.device.type != "cuda":
         raise ValueError(f"fused_gn_terms: unsupported device {pts.device}")
+    if sem != GN_PRODUCTION or (planes is not None and tuple(planes) != (img,)):
+        raise ValueError("fused_gn_terms: the kernel computes the production semantics on img "
+                         "alone")
     dev = pts.device
     if pts.dim() != 3 or img.dim() != 3:
         raise ValueError("fused_gn_terms: pts must be (B, K, 3) and img (B, H, W)")

@@ -15,7 +15,13 @@ diagnostics too: where they are not the best iterate's own (deferred
 accept, or a Jacobian stride > 1) the kernel's all-point tail computes them
 at the returned pose, in place of the residual pass (`edge_dvo.py:593-609`,
 `:758-771`) that ran after the level before. A level runs on `level_ranks`
-blocks a pair, a thread-block cluster where its points are many.
+blocks a pair, a thread-block cluster where its points are many. Every
+configuration runs the same kernel with its point semantics
+(`point_sem.point_sem`: the production ones, or a reference-parity
+configuration's float32 "take" gathers, three "channels", float32
+channels or reference Jacobian) on the planes it reads, and the SVD
+`rotationize` where asked (`rotationize`, the device SVD's twin on the
+CPU).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from rgbd_odometry_tpu_torch.core import geometry as geo
-from rgbd_odometry_tpu_torch.kernels import build
+from rgbd_odometry_tpu_torch.kernels import build, point_sem, se3_plain
 from rgbd_odometry_tpu_torch.kernels.fused_iter import fused_gn_terms_plain
 from rgbd_odometry_tpu_torch.kernels.residual import residual_pass_plain
 from rgbd_odometry_tpu_torch.ops.linalg6 import chol_solve6
@@ -44,7 +50,8 @@ POSE = 12  # a trajectory row: R (9, row-major), t (3)
 _LL, _INT, _FLT = (ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_float))
 _ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [_LL, _LL, _INT, _FLT]
-             + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+             + [_INT, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 class LevelLM(NamedTuple):
@@ -74,6 +81,17 @@ def write_pose(traj: torch.Tensor, itr: int, R: torch.Tensor, t: torch.Tensor) -
     traj[:, itr, 9:] = t
 
 
+def rotationize(R: torch.Tensor, cfg) -> torch.Tensor:
+    """R (B,3,3) re-orthogonalized as the level kernels do under `cfg`:
+    not at all, by Newton-Schulz, or (`rotationize_method` "svd") by the
+    twin of the device SVD (`se3_plain.rotationize_svd`)."""
+    if not cfg.rotationize:
+        return R
+    if cfg.rotationize_method == "svd":
+        return se3_plain.from_rows(se3_plain.rotationize_svd(se3_plain.to_rows(R)))
+    return geo.rotationize_newton(R)
+
+
 def trust_region(psi: torch.Tensor, radius: float) -> torch.Tensor:
     """psi (B,6) scaled back onto the ball |psi| <= radius."""
     norm = torch.linalg.vector_norm(psi, dim=-1)
@@ -92,7 +110,7 @@ def _strided(x: torch.Tensor, s: int) -> torch.Tensor:
     return x[:, ::s].contiguous() if s > 1 else x
 
 
-def _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters):
+def _deferred_plain(R0, t0, pj, vj, scale, f, cfg, n_iters, sem, planes):
     """Deferred-accept LM (JAX `:625-772`): each iteration is one
     Gauss-Newton pass at the current pose, whose energy is the verdict on
     the pending proposal. On reject the pose reverts to the backup and the
@@ -114,8 +132,9 @@ def _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters):
     best_iter = torch.full((b,), -1, dtype=torch.int32, device=dev)
     energies = []
     for itr in range(n_iters):
-        H, g, energy, _ = fused_gn_terms_plain(R, t, pj, vj, img, *f, cfg.gn_weight_sigma2_px,
-                                               scale)
+        H, g, energy, _ = fused_gn_terms_plain(R, t, pj, vj, planes[0], *f,
+                                               cfg.gn_weight_sigma2_px, scale, sem=sem,
+                                               planes=planes)
         accept = (~pending) | (energy < eb)
         worse = pending & (energy > eb)
         lam = torch.where(done, lam, torch.where(
@@ -138,9 +157,7 @@ def _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters):
         do_update = (~done) & (~newly_done)
 
         xR, xt = geo.se3_exp(psi)
-        R_prop = R_cur @ xR
-        if cfg.rotationize:
-            R_prop = geo.rotationize_newton(R_prop)
+        R_prop = rotationize(R_cur @ xR, cfg)
         t_prop = t_cur + (R_cur @ xt[..., None])[..., 0]
 
         energies.append(torch.where(done, torch.zeros_like(energy), energy))
@@ -153,8 +170,8 @@ def _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters):
     return best_R, best_t, energies, best_iter, best_energy, None, None, None
 
 
-def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg, n_iters,
-                    traj=None):
+def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, scale, f, cfg, n_iters, traj,
+                    sem, planes):
     """The standard LM (the JAX `lax.scan` body's Gauss-Newton branch,
     :493-622): the Gauss-Newton pass on the Jacobian subset at the current
     pose, then the residual pass on the proposal subset at the proposal. A
@@ -179,7 +196,8 @@ def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f,
     energies = []
     for itr in range(n_iters):
         H, g, energy, n_vis, *pts_out = fused_gn_terms_plain(
-            R, t, pj, vj, img, *f, cfg.gn_weight_sigma2_px, scale, write_points=track)
+            R, t, pj, vj, planes[0], *f, cfg.gn_weight_sigma2_px, scale, write_points=track,
+            sem=sem, planes=planes)
         is_better = (energy <= best_energy) & (~done)
         best_energy = torch.where(is_better, energy, best_energy)
         best_R, best_t = sel(is_better, R, best_R), sel(is_better, t, best_t)
@@ -194,14 +212,13 @@ def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f,
         psi_norm = torch.linalg.vector_norm(psi, dim=-1)
         xR, xt = geo.se3_exp(psi)
         new_t = t + (R @ xt[..., None])[..., 0]
-        new_R = R @ xR
-        if cfg.rotationize:
-            new_R = geo.rotationize_newton(new_R)
+        new_R = rotationize(R @ xR, cfg)
 
-        e_new = residual_pass_plain(new_R, new_t, ps, vs, img, *f, True)[0]
+        e_new = residual_pass_plain(new_R, new_t, ps, vs, planes[0], *f, True, sem=sem)[0]
         # the current energy over the same subset, by the same pass: an
         # exact tie at an unchanged pose stays a tie (JAX :529-532)
-        e_cur = energy if stride == 1 else residual_pass_plain(R, t, ps, vs, img, *f, True)[0]
+        e_cur = energy if stride == 1 else residual_pass_plain(R, t, ps, vs, planes[0], *f, True,
+                                                               sem=sem)[0]
         accept = e_new < e_cur
         worse = e_new > e_cur
         lam_next = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), torch.where(
@@ -221,31 +238,34 @@ def _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f,
 
 
 def level_lm_plain(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters: int,
-                   jstride: int, stride: int = 1, traj: torch.Tensor | None = None) -> LevelLM:
+                   jstride: int, stride: int = 1, traj: torch.Tensor | None = None,
+                   grads=()) -> LevelLM:
     """The plain PyTorch version of `level_lm`: the level loops one
     iteration at a time over `fused_gn_terms_plain` and
-    `residual_pass_plain`, then, unless the best iterate's own diagnostics
-    were tracked, one all-point `residual_pass_plain` at the returned pose.
-    `traj` (standard LM only) receives the pose after each iteration."""
+    `residual_pass_plain` (with the configuration's point semantics,
+    `point_sem.point_sem`, on the planes (img, *grads)), then, unless the
+    best iterate's own diagnostics were tracked, one all-point
+    `residual_pass_plain` at the returned pose. `traj` (standard LM only)
+    receives the pose after each iteration."""
     if traj is not None and cfg.lm_deferred_accept:
         raise ValueError("level_lm: the trajectory output is the standard LM's")
     f = (fx, fy, cx, cy)
+    sem, planes = point_sem.point_sem(cfg), (img, *grads)
     pj, vj = _strided(pts, jstride), _strided(valid, jstride)
     track = not cfg.lm_deferred_accept and jstride == 1
     if cfg.lm_deferred_accept:
-        out = _deferred_plain(R0, t0, pj, vj, img, scale, f, cfg, n_iters)
+        out = _deferred_plain(R0, t0, pj, vj, scale, f, cfg, n_iters, sem, planes)
     else:
         ps, vs = _strided(pj, stride), _strided(vj, stride)
-        out = _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, img, scale, f, cfg,
-                              n_iters, traj)
+        out = _standard_plain(R0, t0, pj, vj, ps, vs, count, stride, track, scale, f, cfg,
+                              n_iters, traj, sem, planes)
     best_R, best_t, energies, best_iter, best_energy, eps, visible, vis = out
-    if cfg.rotationize:
-        best_R = geo.rotationize_newton(best_R)
+    best_R = rotationize(best_R, cfg)
     best_R, best_t = best_R.contiguous(), best_t.contiguous()
     final = best_energy
     if not track:
         final, n, eps, visible = residual_pass_plain(best_R, best_t, pts, valid, img, *f, True,
-                                                     write_points=True)
+                                                     write_points=True, sem=sem)
         vis = n.to(final.dtype) / torch.clamp(count, min=1).to(final.dtype)
     return LevelLM(best_R, best_t, torch.stack(energies, dim=-1), best_iter, best_energy, final,
                    eps, visible, vis)
@@ -257,7 +277,7 @@ def level_lm_pyramid_plain(R0, t0, levels, cfg, trajs=None) -> tuple:
     out, R, t = [], R0, t0
     for lv, traj in zip(levels, (None,) * len(levels) if trajs is None else trajs):
         res = level_lm_plain(R, t, lv.pts, lv.valid, lv.count, lv.img, lv.scale, lv.fx, lv.fy,
-                             lv.cx, lv.cy, cfg, lv.n_iters, lv.jstride, lv.stride, traj)
+                             lv.cx, lv.cy, cfg, lv.n_iters, lv.jstride, lv.stride, traj, lv.grads)
         out.append(res)
         R, t = res.R, res.t
     return tuple(out)
@@ -317,9 +337,20 @@ class LmLevel(NamedTuple):
     n_iters: int
     jstride: int
     stride: int = 1
+    grads: tuple = ()  # planes 1 and 2 where the sampler reads them (`GN_CHANNELS`, `GN_TAKE`)
 
 
-def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool, traj) -> tuple:
+def _plane_dtype(cfg, sem) -> torch.dtype:
+    """The dtype a level's planes must have: float32 for "take" gathers or
+    `gather_dtype` "float32", else bf16 (the channels `prepare_now_level`
+    builds)."""
+    if sem.sampler == point_sem.GN_TAKE or cfg.gather_dtype != "bfloat16":
+        return torch.float32
+    return torch.bfloat16
+
+
+def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool, traj, sem,
+                 dtype) -> tuple:
     """The checks of one level's arguments; returns (k, h, w, k_jac)."""
     if lv.pts.dim() != 3 or lv.img.dim() != 3:
         raise ValueError(f"{fn}: pts must be (B, K, 3) and img (B, H, W)")
@@ -329,8 +360,18 @@ def _check_level(fn: str, lv: LmLevel, b: int, dev, deferred: bool, traj) -> tup
     build.check_arg(fn, "valid", lv.valid, (b, k), torch.bool, dev)
     build.check_arg(fn, "count", lv.count, (b,), torch.int32, dev)
     build.check_arg(fn, "scale", lv.scale, (b,), torch.float32, dev)
-    build.check_arg(fn, "img", lv.img, (b, h, w), torch.bfloat16, dev, contiguous=False)
+    build.check_arg(fn, "img", lv.img, (b, h, w), dtype, dev, contiguous=False)
     build.check_rows(fn, "img", lv.img)
+    need = 0 if sem.sampler == point_sem.GN_INTERP else 2
+    if len(lv.grads) != need:
+        raise ValueError(f"{fn}: the configuration's sampler reads {need} planes beside img, "
+                         f"got {len(lv.grads)}")
+    for i, g in enumerate(lv.grads):
+        build.check_arg(fn, f"grads[{i}]", g, (b, h, w), dtype, dev, contiguous=False)
+        build.check_rows(fn, f"grads[{i}]", g)
+        if g.stride(0) != lv.img.stride(0):
+            raise ValueError(f"{fn}: grads[{i}] must have img's batch stride {lv.img.stride(0)}, "
+                             f"got {g.stride(0)}")
     jstride, stride = lv.jstride, lv.stride
     if jstride < 1 or stride < 1 or (stride > 1 and (jstride > 1 or deferred)):
         raise ValueError(f"{fn}: jstride {jstride} and stride {stride} are not a level's "
@@ -369,11 +410,14 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None, trajs=None)
     build.check_arg(fn, "R0", R0, (b, 3, 3), torch.float32, dev)
     build.check_arg(fn, "t0", t0, (b, 3), torch.float32, dev)
     deferred = bool(cfg.lm_deferred_accept)
+    sem = point_sem.point_sem(cfg)
+    dtype = _plane_dtype(cfg, sem)
     trajs = (None,) * len(levels) if trajs is None else tuple(trajs)
     if len(levels) > MAX_LEVELS or len(trajs) != len(levels):
         raise ValueError(f"{fn}: at most {MAX_LEVELS} levels a launch and a trajectory (or "
                          f"None) each, got {len(levels)} and {len(trajs)}")
-    shapes = [_check_level(fn, lv, b, dev, deferred, tj) for lv, tj in zip(levels, trajs)]
+    shapes = [_check_level(fn, lv, b, dev, deferred, tj, sem, dtype)
+              for lv, tj in zip(levels, trajs)]
     if clocks is not None:
         build.check_arg(fn, "clocks", clocks, (len(levels), 64, 8), torch.int64, dev)
     ranks = [level_ranks(k, lv.jstride, lv.stride, deferred, cluster)
@@ -404,10 +448,12 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None, trajs=None)
                  ints[i].data_ptr(), best_energy.data_ptr(), final.data_ptr(), eps.data_ptr(),
                  v.data_ptr(), ratio.data_ptr(),
                  0 if clocks is None else clocks[i].data_ptr(),
-                 0 if tj is None else tj.data_ptr()]
+                 0 if tj is None else tj.data_ptr(),
+                 *(g.data_ptr() for g in lv.grads), *(0,) * (2 - len(lv.grads))]
         rows += [k, k_jac, int(lv.jstride), int(lv.stride), int(n), h, w, r]
         fl += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
     nl = len(levels)
+    rot = 0 if not cfg.rotationize else 2 if point_sem.svd(cfg) else 1
     lib = build.bind("level_lm", "level_lm_pyramid", _ARGTYPES)
     with build.traced("level_lm"):
         code = lib.level_lm_pyramid(
@@ -416,8 +462,10 @@ def level_lm_pyramid(R0, t0, levels, cfg, cluster=None, clocks=None, trajs=None)
             (ctypes.c_longlong * nl)(*(lv.img.stride(0) for lv in levels)),
             (ctypes.c_int * len(rows))(*rows), (ctypes.c_float * len(fl))(*fl),
             float(1.0 / cfg.gn_weight_sigma2_px), float(cfg.lm_damping),
-            float(cfg.lm_trust_region), float(cfg.psi_norm_termination), int(deferred),
-            int(bool(cfg.rotationize)), torch.cuda.current_stream(dev).cuda_stream,
+            float(cfg.lm_trust_region), float(cfg.psi_norm_termination), int(deferred), rot,
+            (ctypes.c_int * 5)(*(int(x) for x in sem)), float(cfg.gn_weight_sigma2_px),
+            int(dtype == torch.float32),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "level_lm launch")
     level_lm_pyramid.launches += 1
@@ -429,13 +477,20 @@ level_lm_pyramid.launches = 0
 
 def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters: int,
              jstride: int, stride: int = 1, cluster=None,
-             traj: torch.Tensor | None = None) -> LevelLM:
+             traj: torch.Tensor | None = None, grads=()) -> LevelLM:
     """The `n_iters` Levenberg-Marquardt iterations of one pyramid level for
     B frame pairs from the start poses (R0 (B,3,3), t0 (B,3)), over the
     level's points (pts (B,K,3) float32, valid (B,K) bool, count (B,) int32)
     against the bf16 DT channel img (B,H,W) (rows contiguous; the batch
     stride may be larger, e.g. `chans[:, 0]`) with each pair's DT units per
     pixel `scale` (B,) float32 and the level's intrinsics fx, fy, cx, cy.
+    The point semantics are the configuration's (`point_sem.point_sem`:
+    those of `gather_mode`, `gn_gradient_mode`, `gather_dtype` and
+    `jacobian_mode`): img is plane 0 of the sampler (the float32 dt for
+    "take" gathers, else `chans[:, 0]` in bf16 or, with `gather_dtype`
+    "float32", float32) and `grads` the planes 1 and 2 it reads ((dgx, dgy) for "take", `chans[:, 1]`,
+    `chans[:, 2]` for "channels"; empty otherwise), with img's dtype and
+    batch stride (`solvers/edge_dvo.lm_planes`).
     The Gauss-Newton passes use every `jstride`-th point; the standard LM's
     proposal passes every `stride`-th point of those (stride > 1 only with
     jstride 1). `cfg` (a `SolverConfig`) supplies `lm_deferred_accept`,
@@ -450,5 +505,6 @@ def level_lm(R0, t0, pts, valid, count, img, scale, fx, fy, cx, cy, cfg, n_iters
     `collect_trajectory`); every other output is the same bit for bit with
     it or without it. Arguments are checked before anything is built or
     launched."""
-    level = LmLevel(pts, valid, count, img, scale, fx, fy, cx, cy, n_iters, jstride, stride)
+    level = LmLevel(pts, valid, count, img, scale, fx, fy, cx, cy, n_iters, jstride, stride,
+                    tuple(grads))
     return level_lm_pyramid(R0, t0, (level,), cfg, cluster, trajs=(traj,))[0]

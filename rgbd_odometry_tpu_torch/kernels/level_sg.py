@@ -10,9 +10,14 @@ point: CPU tensors go to the plain PyTorch version `level_sg_pyramid_plain`
 `subgradient_terms_plain`), CUDA tensors to the kernel; anything else
 raises. `level_sg` is one level, a pyramid of one. A level runs on
 `level_ranks` blocks a pair, a thread-block cluster where its points are
-many. `se3_log_device` runs the step's `warp_se3_log` (`csrc/warp.cuh`) on
-a batch of poses, to hold it against its plain twin
-`kernels/se3_plain.se3_log`.
+many. Every configuration runs the same kernel with its point semantics
+(`point_sem.point_sem`: the production ones, or a reference-parity
+configuration's interpolated DT of either JAX route or textbook
+Jacobian) and, where asked, the SVD `rotationize`. `se3_log_device`
+runs the step's `warp_se3_log` (`csrc/warp.cuh`) on a batch of poses, to
+hold it against its plain twin `kernels/se3_plain.se3_log`;
+`rotationize_svd_device` the step's SVD projection, against
+`se3_plain.rotationize_svd`.
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.core import geometry as geo
-from rgbd_odometry_tpu_torch.kernels import build
+from rgbd_odometry_tpu_torch.kernels import build, point_sem
 from rgbd_odometry_tpu_torch.kernels.level_lm import (
     POSE,
     SMEM_BYTES,
+    rotationize,
     sel,
     trust_region,
     write_pose,
@@ -42,7 +48,7 @@ MAX_LEVELS = 8  # levels of one launch
 _LL, _INT, _FLT = (ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_float))
 _ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [_LL, _LL, _INT, _FLT]
-             + [ctypes.c_float] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 8 + [ctypes.c_int] * 2 + [_INT, ctypes.c_float, ctypes.c_void_p])
 
 
 class LevelSG(NamedTuple):
@@ -78,8 +84,10 @@ def subgradient_step(R, t, g, descent, itr: int, cfg, precond: torch.Tensor):
 def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
                    traj: torch.Tensor | None = None) -> LevelSG:
     """The plain PyTorch version of `level_sg` (the JAX `lax.scan` body,
-    :493-622, sub-gradient branch): `subgradient_terms_plain` on every point
-    at the pose entering each iteration, then the damped, projected step.
+    :493-622, sub-gradient branch): `subgradient_terms_plain` (with the
+    configuration's point semantics, `point_sem.point_sem`) on every point
+    at the pose entering each iteration, then the damped, projected step
+    and `rotationize`.
     The best iterate (<=, later ties win) is returned with its per-point
     residuals and visibility; early termination freezes the pair and zeroes
     its remaining energy entries. `traj` (B, n_iters, 12) receives the pose
@@ -88,6 +96,7 @@ def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: 
     b, k = R0.shape[0], pts.shape[1]
     precond = torch.tensor([1.0, 1.0, 1.0] + [cfg.precondition_rot] * 3, dtype=dtype, device=dev)
     n_valid = torch.clamp(count, min=1).to(dtype)
+    sem = point_sem.point_sem(cfg)
     R, t = R0, t0
     descent = torch.zeros((b, 6), dtype=dtype, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -101,7 +110,7 @@ def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: 
     energies = []
     for itr in range(n_iters):
         g, energy, n_vis, eps, visible = subgradient_terms_plain(
-            R, t, pts, valid, dt, fx, fy, cx, cy, cfg.weight_sigma2
+            R, t, pts, valid, dt, fx, fy, cx, cy, cfg.weight_sigma2, sem=sem
         )
         is_better = (energy <= best_energy) & (~done)
         best_energy = torch.where(is_better, energy, best_energy)
@@ -115,9 +124,7 @@ def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: 
         psi_norm = torch.linalg.vector_norm(psi, dim=-1)
         xR, xt = geo.se3_exp(psi)
         new_t = t + (R @ xt[..., None])[..., 0]
-        new_R = R @ xR
-        if cfg.rotationize:
-            new_R = geo.rotationize_newton(new_R)
+        new_R = rotationize(R @ xR, cfg)
         newly_done = psi_norm < cfg.psi_norm_termination
         do_update = (~done) & (~newly_done)
         descent = sel(done, descent, descent_new)
@@ -128,8 +135,7 @@ def level_sg_plain(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: 
             write_pose(traj, itr, R, t)
         done = done | newly_done
 
-    if cfg.rotationize:
-        best_R = geo.rotationize_newton(best_R)
+    best_R = rotationize(best_R, cfg)
     return LevelSG(best_R.contiguous(), best_t.contiguous(), torch.stack(energies, dim=-1),
                    best_iter, best_energy, best_eps, best_visible, best_vis)
 
@@ -291,6 +297,8 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
         rows += [k, int(n), h, w, r, nt]
         fl += [float(lv.fx), float(lv.fy), float(lv.cx), float(lv.cy)]
     nl = len(levels)
+    sem = point_sem.point_sem(cfg)
+    rot = 0 if not cfg.rotationize else 2 if point_sem.svd(cfg) else 1
     lib = build.bind("level_sg", "level_sg_pyramid", _ARGTYPES)
     with build.traced("level_sg"):
         code = lib.level_sg_pyramid(
@@ -301,7 +309,8 @@ def level_sg_pyramid(R0, t0, levels, cfg, cluster=None, threads=None, traces=Non
             float(1.0 / cfg.weight_sigma2), float(cfg.l2_lambda), float(1.0 - cfg.momentum),
             float(cfg.momentum), float(cfg.step_length), float(cfg.precondition_rot),
             float(cfg.trust_region_radius), float(cfg.psi_norm_termination),
-            int(bool(cfg.enable_l2_regularization)), int(bool(cfg.rotationize)),
+            int(bool(cfg.enable_l2_regularization)), rot,
+            (ctypes.c_int * 5)(*(int(x) for x in sem)), float(cfg.weight_sigma2),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "level_sg launch")
@@ -322,8 +331,10 @@ def level_sg(R0, t0, pts, valid, count, dt, fx, fy, cx, cy, cfg, n_iters: int,
     stride may be larger) with the level's intrinsics fx, fy, cx, cy. `cfg`
     (a `SolverConfig`) supplies `weight_sigma2`, `enable_l2_regularization`,
     `l2_lambda`, `momentum`, `step_length`, `precondition_rot`,
-    `trust_region_radius`, `psi_norm_termination` and `rotationize`. On a
-    CUDA tensor it is a pyramid of one level (`level_sg_pyramid`):
+    `trust_region_radius`, `psi_norm_termination`, `rotationize` with
+    `rotationize_method` ("svd": the device SVD) and the point semantics
+    (`point_sem.point_sem`: `interpolate_dt`, `gather_mode`,
+    `jacobian_mode`). On a CUDA tensor it is a pyramid of one level (`level_sg_pyramid`):
     `cluster` forces its blocks a pair (`level_ranks`), `threads` their
     working threads (`THREADS`; 1024 leaves no room for the step warp), and
     `trace`, a (B, n_iters, 18)
@@ -357,3 +368,23 @@ def se3_log_device(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                              torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "se3_log_batch launch")
     return psi
+
+
+def rotationize_svd_device(A: torch.Tensor) -> torch.Tensor:
+    """The SVD projections (n,3,3) of matrices A (n,3,3), a float32 CUDA
+    tensor, by the step's device function `lane_rotationize_svd`
+    (`csrc/warp.cuh`), one warp a matrix: held against its plain twin
+    `kernels/se3_plain.rotationize_svd`."""
+    dev = A.device
+    if dev.type != "cuda":
+        raise ValueError(f"rotationize_svd_device: unsupported device {dev}")
+    n = A.shape[0]
+    build.check_arg("rotationize_svd_device", "A", A, (n, 3, 3), torch.float32, dev)
+    Q = torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    lib = build.bind("level_sg", "rotationize_svd_batch",
+                     [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    code = lib.rotationize_svd_batch(dev.index or 0, A.data_ptr(), n, Q.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, "rotationize_svd_batch launch")
+    return Q

@@ -15,8 +15,8 @@ import ctypes
 
 import torch
 
-from rgbd_odometry_tpu_torch.kernels import build
-from rgbd_odometry_tpu_torch.ops.interp import gather_floor, sample_bilinear_value_grad
+from rgbd_odometry_tpu_torch.kernels import build, fused_iter, sg_terms
+from rgbd_odometry_tpu_torch.kernels.point_sem import GN_INTERP, PointSem, production
 from rgbd_odometry_tpu_torch.ops.project import project_points
 
 _ARGTYPES = (
@@ -25,24 +25,39 @@ _ARGTYPES = (
 )
 
 
-def residual_pass_plain(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points=False):
+def sample_value(img, u, v, sampler: int):
+    """The DT residual (B,K) at (u, v) by a `point_sem` sampler on plane 0
+    `img` (JAX `_sample_dt`, :241-258): the value of the level kernels'
+    point terms under it (`fused_iter.sample_gn`, `sg_terms.sample_sg`)."""
+    sample = fused_iter.sample_gn if sampler >= GN_INTERP else sg_terms.sample_sg
+    return sample((img,) if sampler >= GN_INTERP else img, u, v, sampler)[0]
+
+
+def _sem(bilinear: bool, sem: PointSem | None) -> PointSem:
+    """The semantics of a residual pass: `sem`, else the production ones
+    of the method `bilinear` names (Gauss-Newton, else the sub-gradient)."""
+    return sem or production("gauss_newton" if bilinear else "subgradient")
+
+
+def residual_pass_plain(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points=False,
+                        sem: PointSem | None = None):
     """The plain PyTorch version: (energy (B,), n_visible (B,) int32,
-    eps (B,K) float32 | None, visible (B,K) bool | None)."""
+    eps (B,K) float32 | None, visible (B,K) bool | None). The projection
+    and the sample are those of the semantics (`sem`, else the production
+    ones `bilinear` names: `sample_value` on plane 0 `img`)."""
     h, w = img.shape[-2:]
-    *_, u, v, visible = project_points(
-        R, t, pts, valid, h, w, fx, fy, cx, cy, fma_uv=not bilinear
-    )
-    if bilinear:
-        val, _, _ = sample_bilinear_value_grad(img, u, v)
-    else:
-        val = gather_floor(img, u, v)
+    sem = _sem(bilinear, sem)
+    *_, u, v, visible = project_points(R, t, pts, valid, h, w, fx, fy, cx, cy,
+                                       fma_uv=sem.fma_uv, fma_z=sem.fma_z)
+    val = sample_value(img, u, v, sem.sampler)
     eps = torch.where(visible, val, torch.zeros_like(val))
     energy = torch.sqrt((eps * eps).sum(-1))
     n = visible.sum(-1, dtype=torch.int32)
     return (energy, n, eps, visible) if write_points else (energy, n, None, None)
 
 
-def residual_pass(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points=False):
+def residual_pass(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points=False,
+                  sem: PointSem | None = None):
     """Energy ||eps|| (B,) and visible count (B,) int32 of B frame pairs at
     poses (R (B,3,3), t (B,3)) over points (pts (B,K,3) float32, valid
     (B,K) bool). `bilinear` samples the bf16 DT channel img (B,H,W) with
@@ -51,11 +66,16 @@ def residual_pass(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points=
     sub-gradient, projected as `subgradient_terms` projects). img rows are
     contiguous; its batch stride may be larger. With `write_points`, also
     the per-point residuals eps (B,K) (0 where invisible) and visibility
-    (B,K) bool; else those two are None."""
+    (B,K) bool; else those two are None. `sem` is that of
+    `residual_pass_plain`; the kernel computes the production semantics,
+    and raises for any other."""
     if pts.device.type == "cpu":
-        return residual_pass_plain(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points)
+        return residual_pass_plain(R, t, pts, valid, img, fx, fy, cx, cy, bilinear, write_points,
+                                   sem)
     if pts.device.type != "cuda":
         raise ValueError(f"residual_pass: unsupported device {pts.device}")
+    if _sem(bilinear, sem) != _sem(bilinear, None):
+        raise ValueError("residual_pass: the kernel computes the production semantics")
     dev = pts.device
     if pts.dim() != 3 or img.dim() != 3:
         raise ValueError("residual_pass: pts must be (B, K, 3) and img (B, H, W)")

@@ -5,8 +5,8 @@ One camera stream per batch slot; every step advances all N streams by one
 frame with batched work: one host-to-device copy of the N frames, one
 pyramid build, one `prepare_now_targets` (one `canny_pyramid` call, a
 `dt_channels` call a level) and one `solve_pyramid` (one `level_lm` or
-`level_sg` launch; a reference-parity configuration's levels run
-`run_level_loop`), each at B = N, then ONE device-to-host copy
+`level_sg` launch, under every configuration), each at B = N, then ONE
+device-to-host copy
 for every stream's control decisions (`pipeline/odometry.pull_batch`).
 
 Keyframe semantics are the single-stream odometry's naive ref update (the

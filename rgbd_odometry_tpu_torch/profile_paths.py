@@ -28,7 +28,11 @@ process_frame`, keyframe every 5:
 level at every level of production_320, production_vga, the `dvo`
 defaults and cli_subgradient, B = 1 and 64: device us, launches and a
 digest of every output (parent against change: the same bits), and where
-the checkout has it, the same call with the trajectory output.
+the checkout has it, the same call with the trajectory output; then each
+reference-parity family (`profile_parity`) as one `solve_pyramid` call at
+the `dvo` defaults' capacities, B = 1 and 64: device us, launches, host ms
+and a digest (an older checkout solves them on `run_level_loop`), and the
+level-0 step's cycles where the checkout's kernels take them.
 
 `--paths pipelined` (not in the default) runs the stream path's frames
 through `EdgeDvoOdometry.process_stream` (frame n+1 launched off frame n's
@@ -126,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import inspect
 import json
 import re
@@ -1163,7 +1168,104 @@ def profile_levels(device, reps: int = 20) -> dict:
                 key = f"{name} B={b} level {lvl}"
                 out[key] = case
                 print(f"levels {key}: {json.dumps(case)}", flush=True)
+    out.update(profile_parity(device))
     return out
+
+
+def _parity_configs() -> dict:
+    """Each family of `point_sem.PARITY_FAMILIES`, the sub-gradient on
+    `SolverConfig()`, Gauss-Newton on the `dvo` defaults' 18/6/4/3
+    iterations (chip_smoke's `_parity_families`); none in a checkout
+    without the module (whose parity levels ran plain PyTorch ops)."""
+    from rgbd_odometry_tpu_torch import SolverConfig
+
+    sg = SolverConfig()
+    gn = SolverConfig(method="gauss_newton", iterations=(18, 6, 4, 3))
+    if importlib.util.find_spec("rgbd_odometry_tpu_torch.kernels.point_sem") is None:
+        return {}
+    from rgbd_odometry_tpu_torch.kernels import point_sem
+
+    return {name: cfg for name, (cfg, _) in point_sem.parity_families(sg, gn).items()}
+
+
+def profile_parity(device, reps: int = 2) -> dict:
+    """Each reference-parity family (`_parity_configs`) at the `dvo`
+    defaults' capacities (8192/4096/2048/1024) on `_solve_inputs`' rendered
+    pairs, B = 1 and 64: one `edge_dvo.solve_pyramid` call from the
+    identity: device us and kernel launches a call (`_device_us`, `reps`
+    calls), host ms a call ending in a sync (the median of `reps`) and a
+    digest of the pose and the levels' energies; and pair 0's median step
+    cycles at level 0 (the SVD's cost on the step)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import PipelineConfig
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    cam = _configs()["stream"].camera
+    frames, _ = render_sequence(cam, _trajectory(65), seed=0, supersample=1)
+    gray, depth = [torch.from_numpy(np.stack([f[i] for f in frames])).to(device) for i in (0, 1)]
+    ref_pyr = build_pyramid(gray[:-1].contiguous(), depth[:-1].contiguous(), 4)
+    now_pyr = build_pyramid(gray[1:].contiguous(), depth[1:].contiguous(), 4)
+    intr = Intrinsics.from_config(cam)
+    caps = PipelineConfig().pyramid.max_points
+    out = {}
+    for fam, cfg in _parity_configs().items():
+        refs = edge_dvo.extract_ref_features(ref_pyr.gray, ref_pyr.depth, intr, cfg, caps)
+        nows = edge_dvo.prepare_now_targets(now_pyr.gray, cfg)
+        for b in (1, 64):
+            rb = tuple(type(r)(*(x[:b] for x in r)) for r in refs)
+            nb = tuple(type(n)(*(x[:b] for x in n)) for n in nows)
+
+            def call(rb=rb, nb=nb, cfg=cfg):
+                return edge_dvo.solve_pyramid(rb, nb, intr, cfg)
+
+            res = call()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(reps):
+                tic = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - tic) * 1e3)
+            us, launches = _device_us(call, reps)
+            case = {"us": us, "launches": launches, "host_ms": float(np.median(host)),
+                    "digest": _digest((res[0], res[1], *(d.energy for d in res[2])), 6)}
+            case["step_cycles_level0"] = _parity_step_cycles(cfg, rb[0], nb[0], intr, device)
+            key = f"parity {fam} B={b}"
+            out[key] = case
+            print(f"levels {key}: {json.dumps(case)}", flush=True)
+    return out
+
+
+def _parity_step_cycles(cfg, ref, now, intr, device):
+    """Pair 0's median step cycles at level 0 under `cfg` (the kernels'
+    clock stamps)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import level_lm, level_sg
+    from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+    b = ref.pts3d.shape[0]
+    R0 = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
+    t0 = torch.zeros((b, 3), device=device)
+    clk = torch.zeros((1, 64, 8), dtype=torch.int64, device=device)
+    n = cfg.iterations[0]
+    if cfg.method == "gauss_newton":
+        img, grads = edge_dvo.lm_planes(now, cfg)
+        js, st = edge_dvo.level_strides(cfg, ref.pts3d.shape[1])
+        lv = level_lm.LmLevel(ref.pts3d, ref.valid, ref.count, img, now.scale, *intr, n, js, st,
+                              grads)
+        level_lm.level_lm_pyramid(R0, t0, (lv,), cfg, clocks=clk)
+    else:
+        lv = level_sg.SgLevel(ref.pts3d, ref.valid, ref.count, now.dt, *intr, n)
+        level_sg.level_sg_pyramid(R0, t0, (lv,), cfg, clocks=clk)
+    torch.cuda.synchronize()
+    c = clk[0].cpu().numpy()
+    ran = int((c[:, 0] != 0).sum())
+    return float(np.median(c[:ran, 3] - c[:ran, 2])) if ran > 1 else None
 
 
 def main(argv=None) -> int:

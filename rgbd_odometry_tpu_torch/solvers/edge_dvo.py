@@ -14,7 +14,8 @@ rejects only an unknown `method`. Three level solvers:
   parity_320`, `SolverConfig()`): momentum, preconditioner, L2 pull on the
   normalized log-pose, the "reference" Jacobian.
 
-The hot loops run through the hand-written CUDA kernels on a CUDA tensor:
+The hot loops run through the hand-written CUDA kernels on a CUDA tensor,
+for every configuration:
 a frame's edge maps are one `canny_pyramid` call over all levels
 (`kernels/canny.py`, hysteresis fixpoints on the device), then per level
 one `dt_channels` call (`kernels/edt.py`: EDT, sqrt, normalization,
@@ -23,15 +24,17 @@ launch (`kernels/extract.py`: selection and back-projection, whose plain
 version is `extract_ref_level`); a whole Gauss-Newton pyramid, both LM
 loops and every level's all-point diagnostics, in one launch
 (`kernels/level_lm.py`); a whole sub-gradient pyramid in one launch
-(`kernels/level_sg.py`). The kernels compute the production semantics
-(bilinear bf16 gathers with interpolant gradients and the textbook
-Jacobian for Gauss-Newton; floor gathers of the float32 DT and the
-"reference" Jacobian for the sub-gradient; Newton-Schulz re-orthogonalization).
-The reference-parity semantics beyond them (`interpolate_dt`, `take`
-gathers for Gauss-Newton, the "channels" gradients, float32 channels, the
-swapped Jacobians, the SVD `rotationize`) run their level solve as
-`run_level_loop`, PyTorch ops over the per-point functions below (JAX's
-XLA branches, which have no Pallas kernel); `kernel_route` is the rule.
+(`kernels/level_sg.py`). Besides the production semantics (bilinear bf16
+gathers with interpolant gradients and the textbook Jacobian for
+Gauss-Newton; floor gathers of the float32 DT and the "reference" Jacobian
+for the sub-gradient; Newton-Schulz re-orthogonalization) the kernels
+compute every reference-parity branch JAX accepts (`interpolate_dt`,
+`take` gathers for Gauss-Newton, the "channels" gradients, float32
+channels, the swapped Jacobians, the SVD `rotationize`), chosen by
+`kernels/point_sem.point_sem` and launch-uniform. `run_level_loop`, JAX's
+level loops as PyTorch ops over the plain point terms (`_jacobian_residual`,
+`_project_and_sample`), is reached by no route: the tests hold the
+kernels' plain twins against it.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
 from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 from rgbd_odometry_tpu_torch.kernels.extract import RefLevel, extract_pyramid
-from rgbd_odometry_tpu_torch.kernels.fused_iter import jacobian_terms, true_jacobian
+from rgbd_odometry_tpu_torch.kernels.fused_iter import gn_point_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import (
     POSE,
     LmLevel,
@@ -59,15 +62,10 @@ from rgbd_odometry_tpu_torch.kernels.level_lm import (
 )
 from rgbd_odometry_tpu_torch.kernels.level_sg import SgLevel, level_sg, level_sg_pyramid
 from rgbd_odometry_tpu_torch.kernels.level_sg import subgradient_step
-from rgbd_odometry_tpu_torch.kernels.sg_terms import reference_jacobian, reference_jacobian_terms
-from rgbd_odometry_tpu_torch.ops.interp import (
-    gather_bilinear,
-    gather_floor,
-    gather_floor_value_cgrads,
-    gather_sqrt_bilinear,
-    sample_bilinear_value_grad,
-)
-from rgbd_odometry_tpu_torch.ops.project import div_scalar, project_points
+from rgbd_odometry_tpu_torch.kernels.point_sem import GN_CHANNELS, GN_TAKE, point_sem
+from rgbd_odometry_tpu_torch.kernels.residual import residual_pass_plain
+from rgbd_odometry_tpu_torch.kernels.sg_terms import sg_point_terms
+from rgbd_odometry_tpu_torch.ops.project import div_scalar
 
 _METHODS = ("gauss_newton", "subgradient")
 _subgradient_step = subgradient_step  # the JAX module's name for it
@@ -99,46 +97,32 @@ class LevelDiagnostics(NamedTuple):
 def check_config(cfg: SolverConfig) -> None:
     """Raise ValueError unless `cfg.method` is one of the two solvers,
     "gauss_newton" or "subgradient". Every other setting the JAX package
-    accepts runs (`kernel_route` says where)."""
+    accepts runs, on the level kernels."""
     if cfg.method not in _METHODS:
         raise ValueError(f"SolverConfig.method must be one of {_METHODS}, got {cfg.method!r}")
 
 
-def jacobian_mode(cfg: SolverConfig) -> str:
-    """The Jacobian the configuration solves with, as JAX reads
-    `jacobian_mode` (:359-361): "auto" picks "true" for Gauss-Newton and
-    "reference" for the sub-gradient; any value but "reference" is "true"."""
-    if cfg.jacobian_mode == "auto":
-        return "true" if cfg.method == "gauss_newton" else "reference"
-    return "reference" if cfg.jacobian_mode == "reference" else "true"
-
-
 def kernel_route(cfg: SolverConfig) -> bool:
-    """The routing rule: True where the level kernels (`level_lm`,
-    `level_sg`) compute this configuration's semantics, so its level solves
-    go to them; False sends them to `run_level_loop`, on the CPU and on
-    the card alike. A choice of semantics, never a fallback: the kernels'
-    per-point terms (`kernel_terms`), and no re-orthogonalization or
-    Newton-Schulz's (`rotationize_method` other than "svd")."""
-    return kernel_terms(cfg) and not (cfg.rotationize and cfg.rotationize_method == "svd")
+    """The routing rule: the level kernels (`level_lm`, `level_sg`, their
+    plain twins on CPU tensors) solve the levels of every configuration
+    `check_config` accepts, so this is True for each of them (and raises
+    ValueError for an unknown method). No configuration reaches
+    `run_level_loop`, and nothing falls back to it."""
+    check_config(cfg)
+    return True
 
 
-def kernel_terms(cfg: SolverConfig) -> bool:
-    """True where a point's residual, weight and Jacobian are the level
-    kernels' (their plain versions `jacobian_terms`,
-    `reference_jacobian_terms`):
-
-    * Gauss-Newton: the textbook Jacobian ("auto" or "true"), `gather_mode`
-      "mxu" with "interpolant" gradients on bf16 channels (`gather_dtype`
-      "bfloat16"). JAX's Gauss-Newton branches never read
-      `interpolate_dt`, so it does not matter here;
-    * sub-gradient: the "reference" Jacobian ("auto" or "reference") on
-      floor gathers, `interpolate_dt` off; any `gather_mode` (JAX's "mxu"
-      and "take" floor branches are bit-equal)."""
-    if cfg.method == "gauss_newton":
-        return (jacobian_mode(cfg) == "true" and cfg.gather_mode == "mxu"
-                and cfg.gn_gradient_mode == "interpolant" and cfg.gather_dtype == "bfloat16")
-    return jacobian_mode(cfg) == "reference" and not cfg.interpolate_dt
+def lm_planes(now: "NowLevel", cfg: SolverConfig):
+    """A Gauss-Newton level's planes for `level_lm` under `cfg`: (plane 0,
+    (planes 1, 2) or ()): the float32 dt, dgx, dgy for "take" gathers, the
+    three channels for "channels" gradients, else the DT channel alone
+    (`chans[:, 0]`, bf16 or float32 as `gather_dtype`)."""
+    sampler = point_sem(cfg).sampler
+    if sampler == GN_TAKE:
+        return now.dt, (now.dgx, now.dgy)
+    if sampler == GN_CHANNELS:
+        return now.chans[:, 0], (now.chans[:, 1], now.chans[:, 2])
+    return now.chans[:, 0], ()
 
 
 # --------------------------------------------------------------------------
@@ -206,49 +190,6 @@ def prepare_now_targets(
 # --------------------------------------------------------------------------
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 sqrt XLA takes (in float64, rounded once)."""
-    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
-
-
-def _channel(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """One channel's bilinear sample, float32: JAX's `gather_channels_mm(...,
-    bilinear=True)` by direct indexing (`ops/interp.py`)."""
-    return sample_bilinear_value_grad(img, u, v)[0]
-
-
-def _project(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics, cfg: SolverConfig):
-    """Warp + project the points (JAX `_project`, :227-238): (xn, yn, z,
-    safe_z, u, v, visible). Where `kernel_terms` holds, as the kernels
-    project (`csrc/project.cuh`: u, v by fused multiply-adds for the
-    sub-gradient), so that the residual pass agrees with the point terms
-    bit for bit at one pose; otherwise z, u and v with the fused
-    multiply-adds XLA forms on the CPU (`project_points`)."""
-    h, w = now.dt.shape[-2:]
-    if kernel_terms(cfg):
-        return project_points(R, t, ref.pts3d, ref.valid, h, w, *intr,
-                              fma_uv=cfg.method != "gauss_newton")
-    return project_points(R, t, ref.pts3d, ref.valid, h, w, *intr, fma_uv=True, fma_z=True)
-
-
-def _sample_dt(now: NowLevel, u, v, cfg: SolverConfig) -> torch.Tensor:
-    """The DT residual at (u, v) (B, K) by the configured semantics (JAX
-    `_sample_dt`, :241-258)."""
-    gn = cfg.method == "gauss_newton"
-    if cfg.gather_mode == "mxu":
-        if gn:
-            return _channel(now.chans[:, 0], u, v)
-        if cfg.interpolate_dt:
-            # the reference's sqrt-of-squares == sqrt(bilinear(F^2))
-            return _sqrt(torch.clamp(_channel(now.dt * now.dt, u, v), min=0.0))
-        return gather_floor(now.dt, u, v)
-    if gn:
-        return gather_bilinear(now.dt, u, v)
-    if cfg.interpolate_dt:
-        return gather_sqrt_bilinear(now.dt, u, v)
-    return gather_floor(now.dt, u, v)
-
-
 def _robust_weights(eps, visible, now: NowLevel, cfg: SolverConfig) -> torch.Tensor:
     """w = 6 / (6 + r^2 / sigma^2) (JAX `_robust_weights`, :278-290), r in
     pixels (eps / scale) for Gauss-Newton, in DT units for the
@@ -272,9 +213,13 @@ def _project_and_sample(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
                         cfg: SolverConfig):
     """The residual pass without the Jacobian (JAX `_project_and_sample`,
     :261-275): (eps (B,K), wgt (B,K), visible (B,K), energy (B,),
-    vis_ratio (B,))."""
-    *_, u, v, visible = _project(R, t, ref, now, intr, cfg)
-    eps = torch.where(visible, _sample_dt(now, u, v, cfg), torch.zeros_like(u))
+    vis_ratio (B,)). The projection and the sample are the configuration's
+    point semantics (`point_sem`) on plane 0 of its planes, as in
+    `_jacobian_residual`."""
+    gn = cfg.method == "gauss_newton"
+    img = lm_planes(now, cfg)[0] if gn else now.dt
+    _, _, eps, visible = residual_pass_plain(R, t, ref.pts3d, ref.valid, img, *intr, gn,
+                                             write_points=True, sem=point_sem(cfg))
     wgt = _robust_weights(eps, visible, now, cfg)
     energy, vis_ratio = _energy_and_ratio(eps, visible, ref.count)
     return eps, wgt, visible, energy, vis_ratio
@@ -285,43 +230,19 @@ def _jacobian_residual(R, t, ref: RefLevel, now: NowLevel, intr: Intrinsics,
     """Warp, project, gather the residuals and the DT gradients, and build
     each point's 6-vector Jacobian (JAX `_jacobian_residual`, :293-398),
     every branch: (J (B,K,6), eps (B,K), wgt (B,K), visible (B,K), energy
-    (B,), vis_ratio (B,)). The production semantics are the level kernels'
-    plain point terms (`jacobian_terms`, `reference_jacobian_terms`); the
-    one-hot MXU gathers are direct indexing: the three channels' bilinear
-    samples, the bilinear F^2 then sqrt(max(., 0)), the floor value with
-    its central gradients (`gather_floor_value_cgrads`)."""
-    gn = cfg.method == "gauss_newton"
-    mode = jacobian_mode(cfg)
-    if gn and kernel_terms(cfg):
-        J, eps, wgt, visible = jacobian_terms(R, t, ref.pts3d, ref.valid, now.chans[:, 0], *intr,
-                                              cfg.gn_weight_sigma2_px, now.scale)
-    elif kernel_terms(cfg):
-        J, eps, wgt, visible = reference_jacobian_terms(R, t, ref.pts3d, ref.valid, now.dt,
-                                                        *intr, cfg.weight_sigma2)
+    (B,), vis_ratio (B,)). The point terms are the level kernels' plain ones
+    under the configuration's semantics (`point_sem`): `gn_point_terms` on
+    its planes (`lm_planes`) for Gauss-Newton, `sg_point_terms` on the
+    float32 DT for the sub-gradient (JAX's one-hot MXU gathers are direct
+    indexing there)."""
+    sem = point_sem(cfg)
+    if cfg.method == "gauss_newton":
+        img, grads = lm_planes(now, cfg)
+        J, eps, wgt, visible = gn_point_terms(R, t, ref.pts3d, ref.valid, (img, *grads), *intr,
+                                              cfg.gn_weight_sigma2_px, now.scale, sem)
     else:
-        xn, yn, z, zs, u, v, visible = _project(R, t, ref, now, intr, cfg)
-        if cfg.gather_mode == "mxu":
-            if gn and cfg.gn_gradient_mode == "interpolant":
-                eps_raw, g0, g1 = sample_bilinear_value_grad(now.chans[:, 0], u, v)
-            elif gn:
-                eps_raw, g0, g1 = (_channel(now.chans[:, c], u, v) for c in range(3))
-            else:
-                eps_raw, g0, g1 = gather_floor_value_cgrads(now.dt, u, v)
-                if cfg.interpolate_dt:
-                    eps_raw = _sample_dt(now, u, v, cfg)
-        else:
-            eps_raw = _sample_dt(now, u, v, cfg)
-            gather = gather_bilinear if gn else gather_floor
-            g0, g1 = gather(now.dgx, u, v), gather(now.dgy, u, v)
-        zero = torch.zeros_like(eps_raw)
-        eps = torch.where(visible, eps_raw, zero)
-        wgt = _robust_weights(eps, visible, now, cfg)
-        g0, g1 = torch.where(visible, g0, zero), torch.where(visible, g1, zero)
-        fx, fy = intr[0], intr[1]
-        if mode == "reference":
-            J = reference_jacobian(g0, g1, xn, yn, R, fx, fy, visible)
-        else:
-            J = true_jacobian(g0, g1, xn, yn, z, zs, fx, fy, visible)
+        J, eps, wgt, visible = sg_point_terms(R, t, ref.pts3d, ref.valid, now.dt, *intr,
+                                              cfg.weight_sigma2, sem)
     energy, vis_ratio = _energy_and_ratio(eps, visible, ref.count)
     return J, eps, wgt, visible, energy, vis_ratio
 
@@ -367,9 +288,11 @@ def run_level(
     n_iters: int,
     collect_trajectory: bool = False,
 ):
-    """One pyramid level (JAX `run_level`, :421-622). Where `kernel_route`
-    holds, Gauss-Newton runs the whole level in one `level_lm` launch
-    (deferred or standard LM): it forms the normal equations on every Nth
+    """One pyramid level (JAX `run_level`, :421-622), under every
+    configuration with its point semantics (`point_sem`) and
+    re-orthogonalization. Gauss-Newton runs the whole level in one
+    `level_lm` launch (deferred or standard LM): it forms the normal
+    equations on every Nth
     point, N = jstride = max(1, min(lm_jacobian_stride, K // 512)) (:467);
     when N == 1 the standard LM tests proposals on every Mth point, M =
     max(1, min(lm_proposal_stride, K // 512)), else on the Jacobian's own
@@ -377,15 +300,12 @@ def run_level(
     at the best iterate; otherwise the launch's all-point pass at the
     returned pose (JAX `_project_and_sample`, :593-609, :758-771). A
     sub-gradient level is one `level_sg` launch over every point, with the
-    diagnostics of its best iterate. Any other configuration runs
-    `run_level_loop`. Returns (R (B,3,3), t (B,3), LevelDiagnostics), and
-    with `collect_trajectory` also (Rs (B,n,3,3), ts (B,n,3)), the pose
+    diagnostics of its best iterate. Returns (R (B,3,3), t (B,3),
+    LevelDiagnostics), and with `collect_trajectory` also (Rs (B,n,3,3), ts (B,n,3)), the pose
     after each iteration (the frozen pose once a pair is done); the
     kernels write it as their trajectory output, and Gauss-Newton then runs
     the standard LM (JAX :483)."""
     check_config(cfg)
-    if not kernel_route(cfg):
-        return run_level_loop(ref, now, intr_level, R0, t0, cfg, n_iters, collect_trajectory)
     b = ref.pts3d.shape[0]
     traj = None
     if collect_trajectory:
@@ -396,8 +316,9 @@ def run_level(
                        traj=traj)
     else:
         jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
-        out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
-                       *intr_level, cfg, n_iters, jstride, stride, traj=traj)
+        img, grads = lm_planes(now, cfg)
+        out = level_lm(R0, t0, ref.pts3d, ref.valid, ref.count, img, now.scale,
+                       *intr_level, cfg, n_iters, jstride, stride, traj=traj, grads=grads)
     result = (out.R, out.t, _diagnostics(out, ref.count))
     return result + (_trajectory(traj),) if collect_trajectory else result
 
@@ -447,14 +368,15 @@ def _lambda(lam, accept, worse):
 
 def run_level_loop(ref: RefLevel, now: NowLevel, intr_level: Intrinsics, R0, t0,
                    cfg: SolverConfig, n_iters: int, collect_trajectory: bool = False):
-    """The general level loop: JAX `run_level` (:421-622) and
-    `_run_level_lm_deferred` (:625-772), one iteration at a time in
-    PyTorch ops over `_jacobian_residual` and `_project_and_sample`, with
-    the LM step `lm_psi` or the reference's `subgradient_step` and
-    `rotationize(., cfg.rotationize_method)` at JAX's sites. It runs every
-    configuration; `run_level`, `solve_pyramid` and `pose_information`
-    send it those outside `kernel_route`. Returns what `run_level`
-    returns."""
+    """The general level loop, the tests' op-for-op mirror of JAX: JAX
+    `run_level` (:421-622) and `_run_level_lm_deferred` (:625-772), one
+    iteration at a time in PyTorch ops over `_jacobian_residual` and
+    `_project_and_sample`, with the LM step `lm_psi` or the reference's
+    `subgradient_step` and `rotationize(., cfg.rotationize_method)` at
+    JAX's sites. It runs every configuration, and no route reaches it:
+    `run_level` and `solve_pyramid` send every level to the level kernels
+    (their plain twins on the CPU), which the tests hold against it.
+    Returns what `run_level` returns."""
     gn = cfg.method == "gauss_newton"
     dev, dtype = R0.device, R0.dtype
     b, cap = ref.pts3d.shape[:2]
@@ -587,11 +509,11 @@ def solve_pyramid(
     t0: torch.Tensor | None = None,
 ):
     """Coarse-to-fine over all levels (coarsest first), each warm-starting
-    the next, levels with no iteration skipped. Where `kernel_route` holds,
-    one `level_lm_pyramid` launch (Gauss-Newton) or `level_sg_pyramid`
-    launch (sub-gradient) for the whole pyramid, each level as `run_level`
-    runs it; otherwise `run_level_loop` a level. Returns (R (B,3,3), t
-    (B,3), per-level diagnostics, finest first)."""
+    the next, levels with no iteration skipped: one `level_lm_pyramid`
+    launch (Gauss-Newton) or `level_sg_pyramid` launch (sub-gradient) for
+    the whole pyramid, each level as `run_level` runs it, under every
+    configuration. Returns (R (B,3,3), t (B,3), per-level diagnostics,
+    finest first)."""
     check_config(cfg)
     pts = ref_levels[0].pts3d
     b, dev, dt = pts.shape[0], pts.device, pts.dtype
@@ -605,20 +527,15 @@ def solve_pyramid(
             order.append((level, n_iters))
     if not order:
         return R, t, ()
-    if not kernel_route(cfg):
-        diags = {}
-        for level, n_iters in order:
-            R, t, diags[level] = run_level_loop(ref_levels[level], now_levels[level],
-                                                intr.at_level(level), R, t, cfg, n_iters)
-        return R, t, tuple(diags[level] for level in sorted(diags))
     gn = cfg.method == "gauss_newton"
     levels = []
     for level, n_iters in order:
         ref, now, li = ref_levels[level], now_levels[level], intr.at_level(level)
         if gn:
             jstride, stride = level_strides(cfg, ref.pts3d.shape[1])
-            levels.append(LmLevel(ref.pts3d, ref.valid, ref.count, now.chans[:, 0], now.scale,
-                                  *li, n_iters, jstride, stride))
+            img, grads = lm_planes(now, cfg)
+            levels.append(LmLevel(ref.pts3d, ref.valid, ref.count, img, now.scale,
+                                  *li, n_iters, jstride, stride, grads))
         else:
             levels.append(SgLevel(ref.pts3d, ref.valid, ref.count, now.dt, *li, n_iters))
     outs = (level_lm_pyramid if gn else level_sg_pyramid)(R, t, levels, cfg)
@@ -633,11 +550,9 @@ def pose_information(ref_level: RefLevel, now_level: NowLevel, intr_level: Intri
     at poses (R (B,3,3), t (B,3)), the weighted residual variance sigma2 =
     sum(w eps^2) / sum(w) (B,) and the effective point count n_eff =
     sum(w) (B,), over all points of the level (JAX `pose_information`): the
-    per-point terms of the solver's own Jacobian (`_jacobian_residual`:
-    for the production semantics the level kernels' plain point terms,
-    bilinear on the bf16 DT channel for Gauss-Newton, floor gathers with
-    the "reference" Jacobian for the sub-gradient). Twist layout
-    (translation, rotation)."""
+    per-point terms of the solver's own Jacobian (`_jacobian_residual`, the
+    level kernels' plain point terms under the configuration's semantics).
+    Twist layout (translation, rotation)."""
     check_config(cfg)
     J, eps, wgt, *_ = _jacobian_residual(R, t, ref_level, now_level, intr_level, cfg)
     info = (J * wgt[..., None]).transpose(-1, -2) @ J

@@ -85,7 +85,6 @@ CASES = {
 @pytest.fixture
 def bf16_like_jax(monkeypatch):
     monkeypatch.setattr(fused_iter, "sample_bilinear_value_grad", _sample_bf16_like_jax)
-    monkeypatch.setattr(residual, "sample_bilinear_value_grad", _sample_bf16_like_jax)
 
 
 def _inputs(cfg, shape, cap, flat=()):

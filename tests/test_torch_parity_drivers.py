@@ -1,10 +1,11 @@
 """The port's reference-parity configurations through the entry points a
 user calls, on the CPU against the JAX package: `align_pair` on two
 rendered pairs, `pose_information` at JAX's solved pose and a 5-frame
-`EdgeDvoOdometry` run, for one configuration of each family the kernels do
-not compute (`edge_dvo.kernel_route` False: their level solves run
-`run_level_loop`); and the lockstep driver (`parallel/streams.py`) with one
-of them against its single streams.
+`EdgeDvoOdometry` run, for one configuration of each family outside the
+production semantics (`point_sem.PARITY_FAMILIES`: their level solves run
+the level kernels, here their plain twins); and the lockstep
+driver (`parallel/streams.py`) with one of them against its single
+streams.
 
 Bars: poses within 1e-4 (metres and rotation entries) where every gather is
 float32 and within the edge drivers' 2e-3 where JAX rounds to bf16; the
@@ -49,6 +50,7 @@ from rgbd_odometry_tpu.solvers import edge_dvo as jed  # noqa: E402
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid  # noqa: E402
 from rgbd_odometry_tpu_torch.io.synthetic import render_pair, render_sequence  # noqa: E402
+from rgbd_odometry_tpu_torch.kernels import point_sem  # noqa: E402
 from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry  # noqa: E402
 from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry  # noqa: E402
 from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted  # noqa: E402
@@ -60,19 +62,7 @@ CAPS = (1024, 512)
 SG = SolverConfig(iterations=(12, 8))
 GN = SolverConfig(method="gauss_newton", iterations=(10, 6))
 # family -> (config, kind of residual: "float32" gathers, "bf16" gathers, "floor" lookups)
-FAMILIES = {
-    "sg_interpolate_dt_mxu": (dataclasses.replace(SG, interpolate_dt=True), "float32"),
-    "sg_interpolate_dt_take": (dataclasses.replace(SG, interpolate_dt=True, gather_mode="take"),
-                               "float32"),
-    "sg_rotationize_svd": (dataclasses.replace(SG, rotationize_method="svd"), "floor"),
-    "sg_true_jacobian": (dataclasses.replace(SG, jacobian_mode="true"), "floor"),
-    "gn_take": (dataclasses.replace(GN, gather_mode="take"), "float32"),
-    "gn_channels_float32": (dataclasses.replace(GN, gn_gradient_mode="channels",
-                                                gather_dtype="float32"), "float32"),
-    "gn_reference_jacobian": (dataclasses.replace(GN, jacobian_mode="reference",
-                                                  gather_mode="take"), "float32"),
-    "gn_rotationize_svd": (dataclasses.replace(GN, rotationize_method="svd"), "bf16"),
-}
+FAMILIES = point_sem.parity_families(SG, GN)
 BARS = {"float32": (1e-4, 1e-5), "bf16": (2e-3, 1e-2), "floor": (5e-3, 1e-5)}  # pose, info
 START = np.array([0.003, -0.002, 0.001, 0.002, 0.001, -0.002], np.float32)
 TWISTS = [np.array([0.012, -0.008, 0.006, 0.004, -0.005, 0.003], np.float32) * s
@@ -89,7 +79,7 @@ def test_align_pair_and_pose_information_match_jax(family, pairs):
     """Both pairs in one batch from a generic start; the finest level's
     information at JAX's pose."""
     cfg, kind = FAMILIES[family]
-    assert not ted.kernel_route(cfg)
+    assert ted.kernel_route(cfg) and point_sem.parity(cfg)
     pose_bar, info_bar = BARS[kind]
     st = lambda i, j: torch.from_numpy(np.stack([p[i][j] for p in pairs]))  # noqa: E731
     ref, now = build_pyramid(st(0, 0), st(0, 1), 2), build_pyramid(st(1, 0), st(1, 1), 2)

@@ -15,11 +15,12 @@ Jacobians, the SVD `rotationize`, `collect_trajectory`).
   rounds to bf16;
 * `run_level(..., collect_trajectory=True)` against JAX's (trajectory
   1e-5, energies rtol 1e-4, the oracle tests' bars) on the kernels' plain
-  twins and on the general loop, and the default sub-gradient against the
-  float64 numpy oracle `tests/oracle_subgradient.py`;
-* the routing rule: the production configurations never reach
-  `run_level_loop`, and the plain twins' outputs are bitwise the same with
-  and without the trajectory output.
+  twins, the general loop's deferred LM against JAX's, and the default
+  sub-gradient against the float64 numpy oracle
+  `tests/oracle_subgradient.py`;
+* the routing rule: no configuration reaches `run_level_loop` (every one
+  takes the level kernels' plain twins on the CPU), and the plain twins'
+  outputs are bitwise the same with and without the trajectory output.
 """
 
 import dataclasses
@@ -45,6 +46,7 @@ from rgbd_odometry_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbd_odometry_tpu_torch.io.synthetic import render_pair  # noqa: E402
 from rgbd_odometry_tpu_torch.kernels import level_lm as klm  # noqa: E402
 from rgbd_odometry_tpu_torch.kernels import level_sg as klsg  # noqa: E402
+from rgbd_odometry_tpu_torch.kernels import point_sem  # noqa: E402
 from rgbd_odometry_tpu_torch.ops import distance_transform as tdt  # noqa: E402
 from rgbd_odometry_tpu_torch.ops import interp as tinterp  # noqa: E402
 from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted  # noqa: E402
@@ -236,14 +238,14 @@ def test_jacobian_residual_every_branch_matches_jax(branch):
 
 @pytest.mark.parametrize("method", ["gauss_newton", "subgradient"])
 def test_residual_pass_agrees_with_the_point_terms(method):
-    """With the kernels' point terms (here under the SVD `rotationize`, which
-    takes the loop), `_project_and_sample` projects as they do: at one pose
+    """With the kernels' production point terms (here under the SVD
+    `rotationize`), `_project_and_sample` projects as they do: at one pose
     its residuals, visibility and energy are bitwise `_jacobian_residual`'s
     and `residual_pass`'s, so the standard LM's exact ties stay ties."""
     from rgbd_odometry_tpu_torch.kernels.residual import residual_pass_plain
 
     cfg = dataclasses.replace(GN if method == "gauss_newton" else SG, rotationize_method="svd")
-    assert ted.kernel_terms(cfg) and not ted.kernel_route(cfg)
+    assert point_sem.point_sem(cfg) == point_sem.production(method) and ted.kernel_route(cfg)
     *_, ref_t, now_t, (R0, t0), intr_t = _level(cfg)
     _, eps, _, visible, energy, ratio = ted._jacobian_residual(R0, t0, ref_t, now_t, intr_t, cfg)
     eps2, _, visible2, energy2, ratio2 = ted._project_and_sample(R0, t0, ref_t, now_t, intr_t, cfg)
@@ -283,8 +285,9 @@ TRAJECTORY_CASES = {
 def bf16_like_jax(monkeypatch):
     """The port's bilinear sampler of a bf16 image rounding as JAX's one-hot
     matmuls round (`test_torch_parity_solve._sample_bf16_like_jax`, bitwise
-    JAX's gathers); float32 images keep the float32 blend."""
-    from rgbd_odometry_tpu_torch.kernels import fused_iter, residual
+    JAX's gathers); float32 images keep the float32 blend. Every bilinear
+    point term of the port samples through `fused_iter`'s."""
+    from rgbd_odometry_tpu_torch.kernels import fused_iter
     from test_torch_parity_solve import _sample_bf16_like_jax
 
     plain = tinterp.sample_bilinear_value_grad
@@ -292,8 +295,7 @@ def bf16_like_jax(monkeypatch):
     def sample(img, u, v):
         return (_sample_bf16_like_jax if img.dtype == torch.bfloat16 else plain)(img, u, v)
 
-    for module in (fused_iter, residual, ted):
-        monkeypatch.setattr(module, "sample_bilinear_value_grad", sample)
+    monkeypatch.setattr(fused_iter, "sample_bilinear_value_grad", sample)
 
 
 @pytest.mark.parametrize("case", sorted(TRAJECTORY_CASES))
@@ -349,11 +351,12 @@ def test_deferred_loop_matches_jax(case):
     against JAX's, B = 2, 10 iterations, float32 gathers: poses within
     1e-5, energies within rtol 1e-4, the same best iteration, and the
     all-point diagnostics at the returned pose (energy 1e-4, visibility
-    exact)."""
+    exact). `run_level` sends these configurations to `level_lm`'s plain
+    twin (tests/test_torch_parity_levels.py holds it against this loop)."""
     cfg = DEFERRED_CASES[case]
-    assert not ted.kernel_route(cfg)
+    assert ted.kernel_route(cfg)
     refs, nows, starts, intr, ref_t, now_t, (R0, t0), intr_t = _level(cfg)
-    R, t, diag = ted.run_level(ref_t, now_t, intr_t, R0, t0, cfg, TRAJ_ITERS)
+    R, t, diag = ted.run_level_loop(ref_t, now_t, intr_t, R0, t0, cfg, TRAJ_ITERS)
     fn = jax.jit(lambda r, n, R_, t_: jed.run_level(r, n, intr, R_, t_, cfg, TRAJ_ITERS))
     for b, (r, n, s) in enumerate(zip(refs, nows, starts)):
         R_j, t_j, d_j = fn(r, n, *s)
@@ -400,13 +403,17 @@ def test_collect_trajectory_matches_numpy_oracle(scene, level):
 
 
 def _dispatch_configs():
-    """The production configurations (the kernels' semantics), with their
-    iteration ladders cut to three levels of a 160x120 frame."""
+    """The production configurations and one of each reference-parity
+    family of tests/test_torch_parity_drivers.py, with their iteration
+    ladders cut to three levels of a 160x120 frame."""
     from rgbd_odometry_tpu_torch import profiles as tprofiles
     from rgbd_odometry_tpu_torch.config import SolverConfig as TSolverConfig
 
     cut = lambda s, it: dataclasses.replace(s, iterations=it)  # noqa: E731
+    sg = TSolverConfig(iterations=(8, 6, 4))
+    gn = TSolverConfig(method="gauss_newton", iterations=(6, 4, 3))
     return {
+        **{name: c for name, (c, _) in point_sem.parity_families(sg, gn).items()},
         "production_320": cut(tprofiles.production_320().solver, (6, 4, 3)),
         "production_vga": cut(tprofiles.production_vga().solver, (4, 6, 4)),
         "dvo_defaults": TSolverConfig(method="gauss_newton", iterations=(6, 4, 3)),
@@ -421,7 +428,7 @@ def _dispatch_configs():
 @pytest.fixture
 def loop_forbidden(monkeypatch):
     def refuse(*a, **k):
-        raise AssertionError("a production configuration reached run_level_loop")
+        raise AssertionError("a configuration reached run_level_loop")
 
     monkeypatch.setattr(ted, "run_level_loop", refuse)
 
@@ -430,7 +437,8 @@ def loop_forbidden(monkeypatch):
 def test_production_configurations_never_reach_the_loop(name, loop_forbidden):
     """`align_pair`, `run_level` (with and without `collect_trajectory`),
     `pose_information` and a 3-frame `EdgeDvoOdometry` run on the CPU with
-    `run_level_loop` patched to raise: the kernels' plain twins take every
+    `run_level_loop` patched to raise, for the production configurations
+    and every reference-parity family: the kernels' plain twins take every
     level."""
     from rgbd_odometry_tpu_torch.config import (
         CameraConfig as TCameraConfig, KeyframeConfig, PipelineConfig, PyramidConfig,
@@ -465,20 +473,29 @@ def test_production_configurations_never_reach_the_loop(name, loop_forbidden):
 
 
 def test_parity_configurations_take_the_loop():
-    """Every configuration outside the kernels' semantics is routed to the
-    general loop, and only an unknown method is refused."""
+    """The inverse of the rule it once held: every configuration
+    `check_config` accepts takes the level kernels (`kernel_route`), the
+    reference-parity ones with their own point semantics or the SVD
+    (`point_sem.parity`: every branch but the three production ones, and
+    the SVD `rotationize` everywhere), and only an unknown method is
+    refused."""
     for branch, (cfg, _) in BRANCHES.items():
-        on_kernels = branch in ("gn_mxu_interpolant_bfloat16_auto", "sg_mxu_floor_auto",
+        production = branch in ("gn_mxu_interpolant_bfloat16_auto", "sg_mxu_floor_auto",
                                 "sg_take_floor_auto")
-        assert ted.kernel_route(cfg) == on_kernels, branch
-        assert not ted.kernel_route(dataclasses.replace(cfg, rotationize_method="svd"))
-        assert ted.kernel_route(dataclasses.replace(cfg, rotationize=False,
-                                                    rotationize_method="svd")) == on_kernels
+        sem = point_sem.point_sem(cfg)
+        assert ted.kernel_route(cfg) and (sem == point_sem.production(cfg.method)) == production, \
+            branch
+        assert point_sem.parity(cfg) != production, branch
+        svd = dataclasses.replace(cfg, rotationize_method="svd")
+        assert ted.kernel_route(svd) and point_sem.parity(svd)
+        off = dataclasses.replace(cfg, rotationize=False, rotationize_method="svd")
+        assert ted.kernel_route(off) and point_sem.parity(off) != production
     # JAX's Gauss-Newton never reads interpolate_dt
-    assert ted.kernel_route(dataclasses.replace(GN, interpolate_dt=True))
+    assert not point_sem.parity(dataclasses.replace(GN, interpolate_dt=True))
     ted.check_config(dataclasses.replace(SG, gather_mode="take", interpolate_dt=True))
-    with pytest.raises(ValueError, match="method"):
-        ted.check_config(dataclasses.replace(SG, method="newton"))
+    for fn in (ted.check_config, ted.kernel_route):
+        with pytest.raises(ValueError, match="method"):
+            fn(dataclasses.replace(SG, method="newton"))
 
 
 # --------------------------------------------------------------------------

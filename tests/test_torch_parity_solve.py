@@ -36,7 +36,7 @@ from rgbd_odometry_tpu_torch import convert  # noqa: E402
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid  # noqa: E402
 from rgbd_odometry_tpu_torch.io.synthetic import render_pair  # noqa: E402
-from rgbd_odometry_tpu_torch.kernels import fused_iter, residual  # noqa: E402
+from rgbd_odometry_tpu_torch.kernels import fused_iter  # noqa: E402
 from rgbd_odometry_tpu_torch.ops import interp  # noqa: E402
 from rgbd_odometry_tpu_torch.solvers import edge_dvo as ted  # noqa: E402
 
@@ -151,7 +151,6 @@ def test_standard_lm_with_bf16_samples_matches_jax(regime, seed, monkeypatch):
     default-2 a few plateau decisions with drops <= 2.7e-4 differ, where the
     step's own float32 arithmetic moves the pose by ~1e-5 m)."""
     monkeypatch.setattr(fused_iter, "sample_bilinear_value_grad", _sample_bf16_like_jax)
-    monkeypatch.setattr(residual, "sample_bilinear_value_grad", _sample_bf16_like_jax)
     cfg = LM if regime == "default" else dataclasses.replace(LM, lm_damping=1e-9,
                                                              lm_trust_region=0.5)
     intr, ref, now, _ = _level(cfg, seed)
