@@ -93,11 +93,12 @@ through their user entry points:
   cli_viz          `dvo --frames 30 --viz-dir`: the JAX sink's file set, each
                    PNG decoded (the port's reader) to its shape, the
                    trajectory file of cli_default;
-  cli_trace        `dvo --frames 30 --trace-dir`: the trace names the
-                   `canny_pyramid`, `dt_channels`, `level_lm` and
-                   `extract_pyramid` calls (host ranges) and holds their
-                   kernels (device events); the trajectory file of
-                   cli_default;
+  cli_trace        `dvo --frames 30 --trace-dir`: the trace names every
+                   frame step replay (`frame_step`; the step is captured
+                   before the trace starts) and `extract_pyramid` call
+                   (host ranges) and holds the `canny_pyramid`,
+                   `dt_channels`, `level_lm` and `extract_pyramid` kernels
+                   (device events); the trajectory file of cli_default;
   cli_xml          `dump --frames 15 --levels 4`, every level read back
                    bitwise, then `dvo --source xml:<dir>`: ATE < 20 mm;
   probe            `probe --method subgradient` and `--method gauss_newton`
@@ -145,7 +146,24 @@ through their user entry points:
                    the SVD `rotationize` over the stream phase's 30 frames:
                    ATE under the JAX package's CPU ATE + 5 mm
                    (`PARITY_STREAM_ATE_MM`), ms/frame, launches a frame
-                   (one `level_sg` a solve).
+                   (one `level_sg` a solve);
+  uncaptured       the paths again on both routes of the drivers: the frame
+                   step's CUDA graphs (every phase above runs on them) and
+                   the uncaptured route (`graphs=False`): stream,
+                   stream_vga, parity_stream, cli_default (the feeder,
+                   `--no-feeder`, `--pipelined`), cli_subgradient and
+                   `MultiStreamOdometry` at N = 16 (`--quality-triggers`,
+                   hold and constant velocity): poses, keyframes and every
+                   FrameMetrics field but solve_ms bitwise equal; each
+                   route's kernel launches, graph launches, copies and host
+                   syncs a frame from the profiler, the step's capture time
+                   and pool bytes a slot.
+
+A solved frame of `EdgeDvoOdometry` and a lockstep step are one CUDA graph
+replay (`pipeline/step.py`); the kernels' launch counters (and the solve
+counts, registered in `step.COUNTED`) are put back after a capture and
+advanced by its delta at every replay, so every count below is per frame
+as the uncaptured route's would be.
 
 `check_canny_pyramid` and `check_dt_channels` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
@@ -3164,6 +3182,174 @@ def run_parity_stream(device) -> dict:
             "launches_a_frame": per_frame}
 
 
+# the `dvo` runs the uncaptured phase repeats on both routes
+UNCAPTURED_CLI = (
+    ("cli_default", ["--frames", "30"]),
+    ("cli_default_no_feeder", ["--frames", "30", "--no-feeder"]),
+    ("cli_pipelined", ["--frames", "30", "--pipelined"]),
+    ("cli_subgradient", ["--method", "subgradient", "--iterations", "50,50,50,50",
+                         "--frames", "10"]),
+)
+# runtime calls counted a frame: kernel launches, graph launches, copies, syncs
+_API_KERNEL = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+_API_SYNC = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _api_calls(fn, steps: int) -> dict:
+    """fn() under the profiler: its kernel launches, graph launches,
+    cudaMemcpyAsync calls and host syncs, a step of `steps`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+
+    def count(keys):
+        return sum(e.count for e in avg if e.key in keys) / steps
+
+    out = {"kernel_launches": count(_API_KERNEL), "graph_launches": count(("cudaGraphLaunch",)),
+           "copies": count(("cudaMemcpyAsync",)), "syncs": count(_API_SYNC)}
+    out["launches"] = out["kernel_launches"] + out["graph_launches"] + out["copies"]
+    return out
+
+
+def _same_drivers(what: str, a, b) -> None:
+    """Two `EdgeDvoOdometry` runs: poses, keyframes and every FrameMetrics
+    field but solve_ms bitwise equal."""
+    R1, t1, ts1 = a.trajectory()
+    R2, t2, ts2 = b.trajectory()
+    _require(_np_same(R1, R2) and _np_same(t1, t2) and _np_same(ts1, ts2),
+             f"{what}: the poses differ between the routes")
+    _require([e.reason for e in a.gop.elements] == [e.reason for e in b.gop.elements],
+             f"{what}: the keyframes differ between the routes")
+    _require(len(a.metrics) == len(b.metrics), f"{what}: metrics count")
+    for m1, m2 in zip(a.metrics, b.metrics):
+        bad = [f for f in METRIC_FIELDS if not _np_same(getattr(m1, f), getattr(m2, f))]
+        _require(not bad, f"{what}: frame {m1.frame_num} FrameMetrics {bad} differ")
+
+
+@contextlib.contextmanager
+def _drivers(graphs: bool, made: list):
+    """`pipeline.odometry.EdgeDvoOdometry` (the name the `dvo` command
+    imports) on the route `graphs` picks, each driver made appended to
+    `made`."""
+    from rgbd_odometry_tpu_torch.pipeline import odometry
+
+    base = odometry.EdgeDvoOdometry
+
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, graphs=graphs, **k)
+            made.append(self)
+
+    odometry.EdgeDvoOdometry = Recorded
+    try:
+        yield
+    finally:
+        odometry.EdgeDvoOdometry = base
+
+
+def run_uncaptured(device) -> dict:
+    """The paths again on both routes: the frame step's CUDA graphs (the
+    drivers' default) and the uncaptured route (`graphs=False`, each
+    frame's work launched op by op into fresh tensors). stream,
+    stream_vga and parity_stream through `EdgeDvoOdometry.process_frame`,
+    the `dvo` runs of cli_default (the feeder, `--no-feeder`,
+    `--pipelined`) and cli_subgradient, and `MultiStreamOdometry` at N =
+    16 over the `multistream` command's streams (`--quality-triggers`, hold
+    and constant velocity): poses, keyframes and every FrameMetrics field
+    but solve_ms bitwise equal (the `dvo` runs: the trajectory file and the
+    printed metrics too; the lockstep runs: every stream's poses and
+    keyframes). The runtime calls a frame (kernel launches, graph launches,
+    copies, host syncs) of each route's driver runs after two warm frames
+    (bootstrap, first solved frame and capture), from the profiler, and the
+    step's capture time and pool bytes a slot."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig, EdgeDvoOdometry, profiles
+    from rgbd_odometry_tpu_torch.cli import multistream_config, render_streams
+    from rgbd_odometry_tpu_torch.parallel.streams import MultiStreamOdometry
+
+    frames, _ = stream_frames()
+    parity = profiles.parity_320()
+    parity = parity._replace(solver=dataclasses.replace(parity.solver, interpolate_dt=True,
+                                                         rotationize_method="svd"))
+    paths = (("stream", _stream_config(profiles.production_320()), frames),
+             ("stream_vga", _stream_config(profiles.production_vga()), vga_frames()[0]),
+             ("parity_stream", _stream_config(parity), frames))
+    out = {}
+    for name, cfg, seq in paths:
+        runs, calls = {}, {}
+        for graphs in (True, False):
+            odo = EdgeDvoOdometry(cfg, device=device, graphs=graphs)
+            odo.keep_residuals = True
+            for i in range(2):
+                odo.process_frame(*seq[i], timestamp=float(i))
+
+            def rest(odo=odo):
+                for i in range(2, len(seq)):
+                    odo.process_frame(*seq[i], timestamp=float(i))
+
+            calls[graphs] = _api_calls(rest, len(seq) - 2)
+            runs[graphs] = odo
+        _same_drivers(f"uncaptured {name}", runs[True], runs[False])
+        step = runs[True].frame_steps()[0]
+        out[name] = {"graphs": calls[True], "uncaptured": calls[False],
+                     "capture_s": step.capture_s,
+                     "pool_bytes_a_slot": [s.pool_bytes for s in step.slots]}
+        _log(f"uncaptured {name}: {len(seq)} frames bitwise equal on both routes (poses, "
+             f"keyframes {runs[True].gop.keyframe_indices()}, every FrameMetrics field but "
+             f"solve_ms); a frame: graphs {calls[True]}, uncaptured {calls[False]}; capture "
+             f"{step.capture_s * 1000:.1f} ms, pool bytes a slot {out[name]['pool_bytes_a_slot']}")
+
+    for name, argv in UNCAPTURED_CLI:
+        runs, made = {}, {True: [], False: []}
+        for graphs in (True, False):
+            with _drivers(graphs, made[graphs]):
+                runs[graphs] = _quiet(run_cli, f"uncaptured {name}", argv, 0.025)[0]
+        a, b = runs[True], runs[False]
+        _require(a["trajectory"] == b["trajectory"] and a["metrics"] == b["metrics"]
+                 and a["keyframes"] == b["keyframes"],
+                 f"uncaptured {name}: the trajectory file, metrics or keyframes differ")
+        _require(len(made[True]) == len(made[False]) == 1, f"uncaptured {name}: drivers made")
+        _same_drivers(f"uncaptured {name}", made[True][0], made[False][0])
+        _log(f"uncaptured {name}: dvo {' '.join(argv)}: trajectory file, metrics, keyframes and "
+             f"every FrameMetrics field but solve_ms bitwise equal on both routes")
+        out[name] = {"bitwise": True}
+
+    n, steps = 16, MULTI_FRAMES
+    seqs, _ = render_streams(CameraConfig(), n, steps)
+    gray = np.stack([np.stack([sq[f][0] for sq in seqs]) for f in range(steps)])
+    depth = np.stack([np.stack([sq[f][1] for sq in seqs]) for f in range(steps)])
+    for model in ("hold", "constant_velocity"):
+        cfg = multistream_config(CameraConfig(), motion_model=model, quality_triggers=True)
+        runs, calls = {}, {}
+        for graphs in (True, False):
+            multi = MultiStreamOdometry(n, cfg, device=device, graphs=graphs)
+            for f in range(2):
+                multi.process_batch(gray[f], depth[f], timestamp=f / 30.0)
+
+            def rest(multi=multi):
+                for f in range(2, steps):
+                    multi.process_batch(gray[f], depth[f], timestamp=f / 30.0)
+
+            calls[graphs] = _api_calls(rest, steps - 2)
+            runs[graphs] = _gops_out(multi.gops)
+        a, b = runs[True], runs[False]
+        _require(_np_same(a["R"], b["R"]) and _np_same(a["t"], b["t"])
+                 and a["keyframes"] == b["keyframes"],
+                 f"uncaptured multistream {model}: the routes differ")
+        out[f"multistream_{model}"] = {"graphs": calls[True], "uncaptured": calls[False]}
+        _log(f"uncaptured multistream {model}: {n} streams x {steps} frames, --quality-triggers, "
+             f"every stream's poses and keyframes bitwise equal on both routes; a step: graphs "
+             f"{calls[True]}, uncaptured {calls[False]}")
+    torch.cuda.synchronize()
+    return out
+
+
 def _trajectory(n: int, step: float = 0.002):
     ts = np.arange(n)
     return np.stack(
@@ -3252,13 +3438,14 @@ def _stream_config(prof, **kw):
 def _run_stream(cfg, frames, poses, device, ingest=None) -> dict:
     """`EdgeDvoOdometry.process_frame` over `frames` (each through
     `ingest` first, when given): ms/frame over frames 1.. (host clock; every
-    frame ends in its result copy), unaligned ATE RMSE, keyframes and
-    rollbacks."""
+    frame ends in its result copy; the frame step captured before the
+    clock starts), unaligned ATE RMSE, keyframes and rollbacks."""
     from rgbd_odometry_tpu_torch import EdgeDvoOdometry
 
     feed = ingest or (lambda f: f)
     odo = EdgeDvoOdometry(cfg, device=device)
     odo.process_frame(*feed(frames[0]), timestamp=0.0)  # bootstrap (untimed)
+    odo.prepare("process_frame")  # the frame step's capture (untimed, set-up)
     _sync(device)
     t0 = time.perf_counter()
     for i, f in enumerate(frames[1:], start=1):
@@ -3823,6 +4010,7 @@ def run_multistream(device) -> dict:
     for model, bar in (("hold", 0.0), ("constant_velocity", 1e-2)):
         cfg = multistream_config(CameraConfig(), motion_model=model)
         multi = MultiStreamOdometry(n, cfg, device=device)
+        multi.prepare()  # the frame step's capture, outside the timed loop
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for f in range(frames):
@@ -4063,6 +4251,7 @@ def _multigpu_rank(rank: int, world: int, address: str, backend: str, device, in
             for run in range(FPS_RUNS + 1):
                 multi = MultiStreamOdometry(MULTIGPU_STREAMS, multistream_config(CameraConfig()),
                                             mesh=mesh)
+                multi.prepare()  # the frame step's capture, outside the timed loop
                 dist.barrier()
                 slowest = torch.tensor([_lockstep_run(multi, data["gray"], data["depth"])],
                                        dtype=torch.float64)
@@ -4538,6 +4727,10 @@ def run_cli_viz(cli_default: dict) -> dict:
 
 
 _TRACED = ("canny_pyramid", "dt_channels", "level_lm", "extract_pyramid")
+# the host ranges of a traced `dvo` run: a solved frame's targets and solve
+# are one frame step replay (its kernels run inside the graph), a keyframe
+# one extraction call
+_TRACED_HOST = ("frame_step", "extract_pyramid")
 
 
 def _trace_names(tmp: str) -> dict:
@@ -4550,7 +4743,7 @@ def _trace_names(tmp: str) -> dict:
     host, device = {}, {}
     for e in events:
         name, cat = str(e.get("name", "")), str(e.get("cat", ""))
-        if cat == "user_annotation" and name in _TRACED:
+        if cat == "user_annotation" and name in _TRACED + _TRACED_HOST:
             host[name] = host.get(name, 0) + 1
         elif cat == "kernel":
             device[name] = device.get(name, 0) + 1
@@ -4559,13 +4752,14 @@ def _trace_names(tmp: str) -> dict:
 
 def run_cli_trace(cli_default: dict) -> dict:
     """`dvo --frames 30 --trace-dir`: a Chrome trace whose host ranges name
-    every `canny_pyramid`, `dt_channels`, `level_lm` and `extract_pyramid`
-    call, and whose device events hold those kernels (`canny_pyramid_*`,
-    `edt_*`, `level_lm`, `extract_pyramid_kernel`); the trajectory file of
-    cli_default."""
+    every frame step replay (`frame_step`: the frame's `canny_pyramid`,
+    `dt_channels` and `level_lm` launches are inside its graph, captured
+    before the trace starts) and `extract_pyramid` call, and whose device
+    events hold the four kernels (`canny_pyramid_*`, `edt_*`, `level_lm`,
+    `extract_pyramid_kernel`); the trajectory file of cli_default."""
     out = run_cli("cli_trace", ["--frames", "30", "--trace-dir", "{tmp}/trace"], 0.020,
                   inspect=_trace_names)
-    _require(all(out["host"].get(k, 0) > 0 for k in _TRACED),
+    _require(all(out["host"].get(k, 0) > 0 for k in _TRACED_HOST),
              f"cli_trace: host ranges {out['host']}")
     dev = out["device"]
     kernels = {k: sum(v for n, v in dev.items() if key in n)
@@ -4935,7 +5129,28 @@ def _count_solves() -> dict:
 
     edge_dvo.solve_pyramid, edge_dvo.run_level = solve_pyramid, run_level
     edge_dvo.run_level_loop = run_level_loop
+    # a frame step's capture calls solve_pyramid once and a replay not at
+    # all: it puts these counts back after the capture and adds its delta
+    # at every replay, as it does the kernels' launch counters
+    from rgbd_odometry_tpu_torch.pipeline import step
+
+    step.COUNTED[:] = [_Tally(counts, k) for k in counts]
     return counts
+
+
+class _Tally:
+    """One entry of a counts dict as a launch counter (`step.COUNTED`)."""
+
+    def __init__(self, counts: dict, key):
+        self.counts, self.key = counts, key
+
+    @property
+    def launches(self) -> int:
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.counts[self.key] = n
 
 
 def _launch_counters():
@@ -5038,6 +5253,7 @@ def main() -> int:
         ("probe", run_probe),
         ("parity_batch", lambda: run_parity_batch(device)),
         ("parity_stream", lambda: run_parity_stream(device)),
+        ("uncaptured", lambda: run_uncaptured(device)),
         ("cli_cam_scale_3", lambda: run_cli_cam_scale(3, 4)),
         ("cli_cam_scale_4", lambda: run_cli_cam_scale(4, 6)),
         ("cli_photometric", run_cli_photometric),

@@ -290,6 +290,10 @@ def cmd_dvo(args):
         n = sum(1 for _ in frames)
         print(f"dry loop: ingested {n} frames", file=sys.stderr)
         return {"frames": n}
+    # the frame step of the entry point below captured before the loop (set-up,
+    # outside the frames' solve_ms; and no capture while a profiler records)
+    odo.prepare("process_stream" if args.pipelined
+                else "process_pyramid" if args.feeder else "process_frame")
     trace = contextlib.nullcontext()
     if args.trace_dir:
         from rgbd_odometry_tpu_torch.utils.tracing import profiler_trace
@@ -937,6 +941,7 @@ def cmd_multistream(args):
               file=sys.stderr)
 
         ms = MultiStreamOdometry(n_streams, pcfg, mesh=mesh)
+        ms.prepare()  # the frame step's capture: set-up, before the clock
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
         t0 = time.perf_counter()

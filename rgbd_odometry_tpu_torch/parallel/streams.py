@@ -2,12 +2,16 @@
 group: port of `rgbd_odometry_tpu/parallel/streams.MultiStreamOdometry`.
 
 One camera stream per batch slot; every step advances all N streams by one
-frame with batched work: one host-to-device copy of the N frames, one
+frame with batched work: the N frames staged in one pinned buffer and sent
+to the card in one asynchronous copy, then one frame step
+(`pipeline/step.py`, JAX's jitted `_one` / `_one_cv` under `vmap`): the
 pyramid build, one `prepare_now_targets` (one `canny_pyramid` call, a
 `dt_channels` call a level) and one `solve_pyramid` (one `level_lm` or
-`level_sg` launch, under every configuration), each at B = N, then ONE
-device-to-host copy
-for every stream's control decisions (`pipeline/odometry.pull_batch`).
+`level_sg` launch, under every configuration), each at B = N, and ONE
+device-to-host copy for every stream's control decisions, replayed on a
+card as one CUDA graph from a ring of 2 slots. `graphs=False` takes the
+uncaptured route (the same work op by op into fresh tensors, from a
+pageable copy), which the tests hold the step against bit for bit.
 
 Keyframe semantics are the single-stream odometry's naive ref update (the
 reference's __OLD__REF_UPDATE): the periodic refresh and the per-stream
@@ -53,7 +57,14 @@ from rgbd_odometry_tpu_torch.pipeline.gop import (
     REASON_TOO_FEW_REPROJECTIONS,
     Gop,
 )
-from rgbd_odometry_tpu_torch.pipeline.odometry import cv_extrapolate, pull_batch, residual_b_cap
+from rgbd_odometry_tpu_torch.pipeline.odometry import (
+    PendingPull,
+    cv_extrapolate,
+    finish_pull,
+    pull_batch,
+    residual_b_cap,
+)
+from rgbd_odometry_tpu_torch.pipeline.step import FrameStep, level_shapes
 from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
 
@@ -72,10 +83,11 @@ class MultiStreamOdometry:
     be a multiple of W and this rank owns streams [lo, hi) on the mesh's
     device; without one (the world-1 `local_mesh(device)`) it owns them all
     on `device`. `gops` and `diverged_frames` (frame, global stream) are
-    this rank's streams'."""
+    this rank's streams'. `graphs=False` takes the uncaptured route
+    (module docstring)."""
 
     def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None, device=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, graphs: bool = True):
         self.cfg = config or PipelineConfig()
         kf = self.cfg.keyframe
         if kf.rollback_resolve:
@@ -127,6 +139,8 @@ class MultiStreamOdometry:
         # host mirror of each stream's relative pose, float64 (divergence guard)
         self._R = np.tile(np.eye(3), (self.n, 1, 1))
         self._t = np.zeros((self.n, 3))
+        self._graphs = bool(graphs)
+        self._steps: dict = {}  # level shapes -> FrameStep
 
     def _identity(self):
         """Identity poses (N,3,3), (N,3) made on the device."""
@@ -148,19 +162,15 @@ class MultiStreamOdometry:
         scfg, kf = self.cfg.solver, self.cfg.keyframe
         if len(gray0_b) != self.n_streams or len(depth0_b) != self.n_streams:
             raise ValueError(f"process_batch: {len(gray0_b)} frames for {self.n_streams} streams")
-        host = np.stack([np.asarray(gray0_b[self.lo:self.hi], np.float32),
-                         np.asarray(depth0_b[self.lo:self.hi], np.float32)])
+        frame = (gray0_b[self.lo:self.hi], depth0_b[self.lo:self.hi])
+        if self._graphs:
+            return self._graph_batch(frame, timestamp)
+        host = np.stack([np.asarray(x, np.float32) for x in frame])
         frames = torch.from_numpy(host).to(self.device)  # one host-to-device copy
         pyr = build_pyramid(frames[0], frames[1], self.cfg.pyramid.num_levels)
 
         if self._frame_num == 0:
-            self._ref_feats = edge_dvo.extract_ref_features(
-                pyr.gray, pyr.depth, self.intr, scfg, self._max_pts)
-            self._last_ref[:] = 0
-            self._warm = self._identity()
-            for g in self.gops:
-                g.push_keyframe(0, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), timestamp)
-            return self._global_poses()
+            return self._bootstrap(pyr, timestamp)
 
         dispatch_warm = self._warm
         R0, t0 = self._warm
@@ -170,6 +180,60 @@ class MultiStreamOdometry:
         R_d, t_d, diags = edge_dvo.solve_pyramid(self._ref_feats, targets, self.intr, scfg, R0, t0)
         # ONE device->host copy for every stream's control decisions
         pulled = pull_batch(R_d, t_d, diags[0] if kf.enable_quality_triggers else None)
+        return self._advance(pyr, targets, R_d, t_d, pulled, dispatch_warm, timestamp)
+
+    def _graph_batch(self, frame, timestamp: float):
+        """`process_batch` through the frame step: the frames staged into
+        the next slot and sent in one asynchronous copy; a solved step one
+        graph replay and one wait on its event."""
+        step = self._frame_step(np.shape(frame[0])[-2:])
+        s = step.slot()
+        if self._frame_num == 0:
+            step.stage(s, frame)
+            return self._bootstrap(build_pyramid(s.frame[0], s.frame[1],
+                                                 self.cfg.pyramid.num_levels), timestamp)
+        dispatch_warm = self._warm
+        step.load(s, self._ref_feats, self._warm, self._prev, frame=frame)
+        out = step.run(s)
+        pulled = finish_pull(PendingPull(s.row, s.event, step.pull_iters, step.pull_points))
+        return self._advance(out.pyr, out.targets, out.R, out.t, pulled, dispatch_warm, timestamp)
+
+    def _frame_step(self, hw) -> FrameStep:
+        """The frame step for frames of (H, W) `hw` (made on first use)."""
+        levels = level_shapes(hw, self.cfg.pyramid.num_levels)
+        if levels not in self._steps:
+            self._steps[levels] = FrameStep(
+                self.cfg.solver, self.intr, self.device, self.n, levels, self._max_pts, self._cv,
+                self.cfg.keyframe.enable_quality_triggers, "frame", 2)
+        return self._steps[levels]
+
+    def prepare(self) -> Optional[FrameStep]:
+        """Make and capture now the frame step for frames of the configured
+        camera, as the first solved step would: set-up to take out of a
+        timed loop, and what a caller does before a profiler starts
+        recording (a capture while one records raises). Returns the step
+        (None on the uncaptured route)."""
+        if not self._graphs:
+            return None
+        step = self._frame_step((self.cfg.camera.height, self.cfg.camera.width))
+        step.capture()
+        return step
+
+    def _bootstrap(self, pyr, timestamp: float):
+        """Frame 0: every stream's reference features from its own frame."""
+        self._ref_feats = edge_dvo.extract_ref_features(
+            pyr.gray, pyr.depth, self.intr, self.cfg.solver, self._max_pts)
+        self._last_ref[:] = 0
+        self._warm = self._identity()
+        for g in self.gops:
+            g.push_keyframe(0, REASON_FIRST_FRAME, np.eye(3), np.zeros(3), timestamp)
+        return self._global_poses()
+
+    def _advance(self, pyr, targets, R_d, t_d, pulled, dispatch_warm, timestamp: float):
+        """The host's part of a solved step: the divergence guard, every
+        stream's keyframe decision, the masked re-extraction and the next
+        warm pairs, from the step's device outputs and their pulled copy."""
+        scfg, kf = self.cfg.solver, self.cfg.keyframe
         R = pulled.R.astype(np.float64)
         t = pulled.t.astype(np.float64)
         finite = np.isfinite(R).all(axis=(1, 2)) & np.isfinite(t).all(axis=1)
@@ -217,7 +281,10 @@ class MultiStreamOdometry:
             else:
                 self._warm = self._upload(self._R, self._t)
         elif finite.all():
-            self._warm = (R_d, t_d)  # stays on the device, no upload
+            # stays on the device, no upload: the step's slot outputs, read by
+            # the next step's load and (as its `_prev`) the one after, within
+            # the ring of 2
+            self._warm = (R_d, t_d)
         else:
             self._warm = self._upload(R, t)
         if self._cv:
@@ -231,6 +298,11 @@ class MultiStreamOdometry:
             else:
                 self._prev = dispatch_warm
         return self._global_poses()
+
+    def frame_steps(self) -> tuple:
+        """The frame steps made so far (for their capture times and pool
+        sizes)."""
+        return tuple(self._steps.values())
 
     def _global_poses(self) -> Tuple[np.ndarray, np.ndarray]:
         poses = [g.global_pose(-1) for g in self.gops]

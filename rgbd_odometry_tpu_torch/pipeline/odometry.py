@@ -42,7 +42,20 @@ from rgbd_odometry_tpu_torch.pipeline.gop import (
     REASON_TOO_FEW_REPROJECTIONS,
     Gop,
 )
+# cv_extrapolate stays importable from here, where the lockstep driver takes it
+from rgbd_odometry_tpu_torch.pipeline.step import (  # noqa: F401
+    FrameStep,
+    cv_extrapolate,
+    level_shapes,
+    pack_results,
+)
 from rgbd_odometry_tpu_torch.solvers import edge_dvo
+
+# the slots of a frame step's ring (pipeline/step.py): the sequential entry
+# points keep frame n-1 (the rollback's targets and pyramid) while frame n
+# runs; process_stream keeps frame n-1, frame n and the speculated frame n+1
+_SLOTS = 2
+_STREAM_SLOTS = 3
 
 
 @dataclass
@@ -90,18 +103,6 @@ def residual_histogram(epsilons: np.ndarray, valid: np.ndarray, bins: int = 260)
     return h / max(len(e), 1)
 
 
-def cv_extrapolate(R0, t0, Rp, tp):
-    """Constant-velocity warm start in the solver's pose parameterization
-    p_now = R (p_ref - t): from the current relative pose T0 = (R0, t0) and
-    the previous frame's Tp = (Rp, tp) (same keyframe), the last
-    inter-frame motion D = T0 Tp^-1 applied once more, D T0:
-    R_warm = R0 Rp^T R0, t_warm = t0 + R0^T Rp (t0 - tp). Batched (B,3,3),
-    (B,3); composed on the device, no host transfer."""
-    Rw = R0 @ (Rp.transpose(-1, -2) @ R0)
-    tw = t0 + (R0.transpose(-1, -2) @ (Rp @ (t0 - tp)[..., None]))[..., 0]
-    return Rw, tw
-
-
 @dataclass
 class PulledBatch:
     """Host copy of B pairs' poses and finest diagnostics (`pull_batch`)."""
@@ -137,21 +138,13 @@ def enqueue_pull(R_d: torch.Tensor, t_d: torch.Tensor,
     is launched after it. The pinned buffer lives in the returned handle;
     dropped before its copy ends, it goes back to PyTorch's pinned-memory
     cache, which keeps it until the copy's stream has passed it."""
-    f32 = torch.float32
-    b = R_d.shape[0]
-    parts = [R_d.reshape(b, 9), t_d.reshape(b, 3)]
+    packed = pack_results(R_d, t_d, finest)
     n_it = k = 0
     if finest is not None:
         n_it, k = finest.energy.shape[-1], finest.final_epsilons.shape[-1]
-        parts += [
-            torch.stack([finest.best_energy, finest.best_iter.to(f32), finest.visible_ratio,
-                         finest.num_points.to(f32)], dim=-1),
-            finest.energy, finest.final_epsilons, finest.final_valid.to(f32),
-        ]
-    packed = torch.cat([p.to(f32) for p in parts], dim=1)
     if packed.device.type != "cuda":
         return PendingPull(packed, None, n_it, k)
-    host = torch.empty(packed.shape, dtype=f32, pin_memory=True)
+    host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
     host.copy_(packed, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
@@ -210,12 +203,21 @@ class _Dispatched(NamedTuple):
     pull: PendingPull
     warm: tuple  # the warm pair the solve started from
     t_start: float
+    slot: object = None  # the frame step's slot that holds the outputs (None: uncaptured)
 
 
 class EdgeDvoOdometry:
-    """Streaming odometry over a sequence of RGB-D frames on one device."""
+    """Streaming odometry over a sequence of RGB-D frames on one device.
 
-    def __init__(self, config: PipelineConfig | None = None, device=None):
+    A solved frame's targets and pyramid solve run as one frame step
+    (`pipeline/step.py`): on a card one CUDA graph replay a frame, from a
+    ring of slots (2 for `process_frame` and `process_pyramid`, 3 for
+    `process_stream`), on the CPU the same step eagerly in the same slots.
+    `graphs=False` takes the uncaptured route instead, each frame's work
+    dispatched op by op into fresh tensors: the route the tests and
+    `chip_smoke.py` hold the step against, bit for bit."""
+
+    def __init__(self, config: PipelineConfig | None = None, device=None, graphs: bool = True):
         self.cfg = config or PipelineConfig()
         edge_dvo.check_config(self.cfg.solver)
         self.device = resolve_device(device)
@@ -242,6 +244,8 @@ class EdgeDvoOdometry:
         self._prevpose = None
         self._dispatch_warm = None
         self.keep_residuals = False
+        self._graphs = bool(graphs)
+        self._steps: dict = {}  # (source, slots, level shapes) -> FrameStep
         self.discarded_dispatches = 0  # speculative solves of process_stream launched again
         # relocalization after tracking loss: `trigger_consecutive` lost
         # frames in a row query the appearance database
@@ -263,14 +267,18 @@ class EdgeDvoOdometry:
         """Feed one frame (level-0 gray + depth in mm, numpy arrays or
         tensors as `io.stream.preprocess_vga` returns them); returns the
         current global pose (R, t). `pose_prior`, if given, is a delta (R, t)
-        composed onto the warm start."""
+        composed onto the warm start. A solved frame is staged into the
+        frame step, which builds its pyramid; the bootstrap frame is built
+        here."""
+        if self._graphs and self._frame_num >= 0:
+            return self._process(None, timestamp, pose_prior, frame=(gray0, depth0_mm))
         f32 = dict(dtype=torch.float32, device=self.device)
         pyr = build_pyramid(
             torch.as_tensor(gray0, **f32)[None],
             torch.as_tensor(depth0_mm, **f32)[None],
             self.cfg.pyramid.num_levels,
         )
-        return self.process_pyramid(pyr, timestamp, pose_prior)
+        return self._process(pyr, timestamp, pose_prior)
 
     def process_pyramid(
         self,
@@ -281,6 +289,11 @@ class EdgeDvoOdometry:
         """Feed one already-built pyramid of batch 1 on this driver's device
         (the entry `FrameFeeder` uses, so the host build and the copy to the
         card overlap the previous frame's solve)."""
+        return self._process(pyr, timestamp, pose_prior)
+
+    def _process(self, pyr, timestamp, pose_prior, frame=None):
+        """One frame of the sequential loop: `pyr`, or with `frame` the
+        level-0 (gray, depth) a frame step builds its pyramid from."""
         self._frame_num += 1
         if pose_prior is not None:
             dR, dt = pose_prior
@@ -291,7 +304,7 @@ class EdgeDvoOdometry:
         if self._frame_num == 0:
             return self._bootstrap(pyr, timestamp)
         return self._resolve(self._dispatch(pyr, timestamp, self._frame_num, self._resolved_warm(),
-                                            self._prevpose))
+                                            self._prevpose, frame=frame))
 
     def process_stream(self, pyramids):
         """Pipelined streaming over (pyramid, timestamp) items, as
@@ -316,14 +329,15 @@ class EdgeDvoOdometry:
                 continue
             if pend is None:
                 pend = self._dispatch(pyr, ts, self._frame_num, self._resolved_warm(),
-                                      self._prevpose)
+                                      self._prevpose, slots=_STREAM_SLOTS)
                 continue
-            spec = self._dispatch(pyr, ts, self._frame_num, (pend.R_d, pend.t_d), pend.warm)
+            spec = self._dispatch(pyr, ts, self._frame_num, (pend.R_d, pend.t_d), pend.warm,
+                                  slots=_STREAM_SLOTS)
             pose = self._resolve(pend)
             if self._warm is None or self._warm[0] is not pend.R_d:
                 self.discarded_dispatches += 1
                 spec = self._dispatch(pyr, ts, self._frame_num, self._resolved_warm(),
-                                      self._prevpose, targets=spec.targets)
+                                      self._prevpose, slots=_STREAM_SLOTS, again=spec)
             pend = spec
             yield pose
         if pend is not None:
@@ -340,20 +354,73 @@ class EdgeDvoOdometry:
             )
         return self._warm
 
-    def _dispatch(self, pyr, timestamp, frame_num, warm, prev, targets=None) -> _Dispatched:
-        """Launch one frame's targets (unless given) and solve from the warm
-        pair `warm` (`prev`: the previous pose for constant velocity, None
-        for none yet), and enqueue the copy of its results to the host."""
+    def _dispatch(self, pyr, timestamp, frame_num, warm, prev, frame=None, slots=_SLOTS,
+                  again: Optional[_Dispatched] = None) -> _Dispatched:
+        """Launch one frame's targets and solve from the warm pair `warm`
+        (`prev`: the previous pose for constant velocity, None for none
+        yet), and enqueue the copy of its results to the host: through the
+        frame step of `slots` slots, from `pyr`'s gray levels or, with
+        `frame`, the level-0 (gray, depth). `again`, a discarded dispatch of
+        the same frame, is launched again in its own slot (uncaptured: on
+        its targets)."""
         t_start = time.perf_counter()
+        if self._graphs:
+            if frame is not None:
+                levels = level_shapes(np.shape(frame[0])[-2:], self.cfg.pyramid.num_levels)
+                step = self._step("frame", slots, levels)
+            else:
+                step = self._step("levels", slots, tuple(tuple(g.shape[-2:]) for g in pyr.gray))
+            s = step.slot() if again is None else again.slot
+            step.load(s, self._ref_feats, warm, prev, frame=frame,
+                      gray=None if frame is not None else pyr.gray)
+            out = step.run(s)
+            pull = PendingPull(s.row, s.event, step.pull_iters, step.pull_points)
+            return _Dispatched(out.pyr if frame is not None else pyr, timestamp, frame_num, out.R,
+                               out.t, out.targets, pull, warm, t_start, s)
         R0, t0 = warm
         if self._cv:
             R0, t0 = cv_extrapolate(R0, t0, *(prev or warm))
         scfg = self.cfg.solver
-        if targets is None:
-            targets = edge_dvo.prepare_now_targets(pyr.gray, scfg)
+        targets = again.targets if again is not None else edge_dvo.prepare_now_targets(pyr.gray,
+                                                                                      scfg)
         R_d, t_d, diags = edge_dvo.solve_pyramid(self._ref_feats, targets, self.intr, scfg, R0, t0)
         return _Dispatched(pyr, timestamp, frame_num, R_d, t_d, targets,
                            enqueue_pull(R_d, t_d, diags[0]), warm, t_start)
+
+    def _step(self, source: str, slots: int, shapes) -> FrameStep:
+        """The frame step for this input kind, ring and level shapes (made
+        on first use)."""
+        key = (source, slots, shapes)
+        if key not in self._steps:
+            self._steps[key] = FrameStep(self.cfg.solver, self.intr, self.device, 1, shapes,
+                                         self._max_pts, self._cv, True, source, slots)
+        return self._steps[key]
+
+    def prepare(self, entry: str = "process_frame") -> FrameStep:
+        """Make and capture now the frame step that `entry`
+        ("process_frame", "process_pyramid" or "process_stream") takes for
+        frames of the configured camera, as its first solved frame would:
+        what a caller does before a profiler starts recording, since a
+        capture while one records raises. Returns the step (None on the
+        uncaptured route)."""
+        if not self._graphs:
+            return None
+        levels = level_shapes((self.cfg.camera.height, self.cfg.camera.width),
+                              self.cfg.pyramid.num_levels)
+        if entry == "process_frame":
+            step = self._step("frame", _SLOTS, levels)
+        elif entry in ("process_pyramid", "process_stream"):
+            step = self._step("levels", _SLOTS if entry == "process_pyramid" else _STREAM_SLOTS,
+                              levels)
+        else:
+            raise ValueError(f"prepare: unknown entry point {entry!r}")
+        step.capture()
+        return step
+
+    def frame_steps(self) -> tuple:
+        """The frame steps made so far (for their capture times and pool
+        sizes)."""
+        return tuple(self._steps.values())
 
     def _bootstrap(self, pyr: FramePyramid, timestamp: float):
         """The first frame becomes the reference keyframe."""
@@ -449,12 +516,16 @@ class EdgeDvoOdometry:
             # the warm pair this frame started from is its predecessor's
             # resolved pose: the constant-velocity "previous pose"
             self._prevpose = self._dispatch_warm
+            # a frame step's slot outputs: read by the next frame's load
+            # (and, as its previous pose, the one after), within the ring
             self._warm = (R_d, t_d)
         else:
             self._warm = None
             self._prevpose = None
         self.gop.push_ordinary(frame_num, self._R, self._t, timestamp)
         self._record(frame_num, solve_ms, finest, b_cap, vis, reason, rolled_back, diverged)
+        # the next frame's rollback reads these one frame later: the slot
+        # that holds them is not handed out before then (_SLOTS, _STREAM_SLOTS)
         self._prev_pyr = pyr
         self._prev_targets = targets
         return self.gop.global_pose(-1)

@@ -22,7 +22,14 @@ process_frame`, keyframe every 5:
   stream_vga   `profiles.production_vga` (5 levels from 640x480, capacities
                4096/2048/1024/512/512, LM 4/18/6/4/3) with rollback re-solves
                over the same trajectory rendered at 640x480 (one sample a
-               pixel; not in the default).
+               pixel; not in the default);
+  parity_stream  `profiles.parity_320` with `interpolate_dt` and the SVD
+               `rotationize`, rollback re-solves (chip_smoke.py's
+               parity_stream; not in the default).
+
+A solved frame of a checkout that has the frame step (`pipeline/step.py`)
+is one CUDA graph replay; the warm-up frames capture it, and the step's
+capture time and pool bytes a slot are reported with the path.
 
 `--paths levels` (not in the default) calls `level_lm` / `level_sg` once a
 level at every level of production_320, production_vga, the `dvo`
@@ -118,10 +125,12 @@ checkout's wrapper takes.
 The first `--warmup` frames run unprofiled; the rest run once unprofiled
 (host clock, ending in a synchronise: ms/frame, and the mean
 `FrameMetrics.solve_ms`, the CLI's `avg solve`) and once under the profiler
-from a fresh odometry at the same frame: `cudaLaunchKernel` calls per frame,
-the kernels' summed device time per frame, the device's busy share (the
-union of the kernel intervals over the profiled wall time, which the
-profiler itself lengthens) and the top kernels by device time. Prints the
+from a fresh odometry at the same frame: launches per frame (kernel
+launches, `cudaGraphLaunch` calls and `cudaMemcpyAsync` copies, each also
+on its own), host syncs per frame, the kernels' summed device time per
+frame, the device's busy share (the union of the kernel and copy
+intervals over the profiled wall time, which the profiler itself
+lengthens) and the top kernels by device time. Prints the
 card's name and power limit first, one JSON line per path last. Needs a
 CUDA device (exits 2 without one).
 """
@@ -173,8 +182,25 @@ def _configs():
             pyramid=PyramidConfig(num_levels=p.num_levels, max_points=p.max_points),
             solver=p.solver,
             keyframe=KeyframeConfig(force_every=5, rollback_resolve=True),
-        ) for name, p in (("stream", prof), ("stream_vga", profiles.production_vga()))},
+        ) for name, p in (("stream", prof), ("stream_vga", profiles.production_vga()),
+                          ("parity_stream", _parity(profiles.parity_320())))},
     }
+
+
+def _parity(p):
+    """parity_320 with chip_smoke.py's parity_stream switches."""
+    import dataclasses
+
+    return p._replace(solver=dataclasses.replace(p.solver, interpolate_dt=True,
+                                                 rotationize_method="svd"))
+
+
+def _steps(odo) -> dict:
+    """The capture time and pool bytes a slot of a driver's frame steps
+    (a checkout without them: none)."""
+    steps = getattr(odo, "frame_steps", lambda: ())()
+    return {"capture_ms": [st.capture_s * 1000.0 for st in steps],
+            "pool_bytes_a_slot": [[sl.pool_bytes for sl in st.slots] for st in steps]}
 
 
 def _busy_us(kernels) -> float:
@@ -222,6 +248,9 @@ def profile_path(name, cfg, frames, warmup: int, device) -> dict:
     out = {
         "path": name, "frames": len(window), "ms_per_frame": ms, "avg_solve_ms": solve_ms,
         "launches_per_frame": prof["launches"], "syncs_per_frame": prof["syncs"],
+        "kernel_launches_per_frame": prof["kernel_launches"],
+        "graph_launches_per_frame": prof["graph_launches"], "copies_per_frame": prof["copies"],
+        **_steps(odo),
         "kernels_per_frame": prof["kernels"], "kernel_ms_per_frame": prof["kernel_ms"],
         "busy_share": prof["busy_share"], "profiled_ms_per_frame": prof["profiled_ms"],
         "top_kernels_ms_per_frame": prof["top_kernels_ms"],
@@ -252,6 +281,10 @@ def profile_pipelined(cfg, frames, warmup: int, device) -> list:
         odo = EdgeDvoOdometry(cfg, device=device)
         for i, (g, d) in enumerate(frames[:warmup]):
             odo.process_frame(g, d, timestamp=float(i))
+        # the frame steps of the two entry points captured before the clock
+        # and the profiler start (a checkout without them: nothing)
+        for entry in ("process_stream", "process_pyramid"):
+            getattr(odo, "prepare", lambda entry: None)(entry)
         torch.cuda.synchronize()
         return odo
 
@@ -282,6 +315,8 @@ def profile_pipelined(cfg, frames, warmup: int, device) -> list:
             "path": "pipelined", "mode": case[0], "source": case[1], "frames": len(window),
             "ms_per_frame": ms[case], "discarded_dispatches": discarded[case],
             "launches_per_frame": prof["launches"], "syncs_per_frame": prof["syncs"],
+            "kernel_launches_per_frame": prof["kernel_launches"],
+            "graph_launches_per_frame": prof["graph_launches"], "copies_per_frame": prof["copies"],
             "kernels_per_frame": prof["kernels"], "kernel_ms_per_frame": prof["kernel_ms"],
             "busy_share": prof["busy_share"], "profiled_ms_per_frame": prof["profiled_ms"],
             "top_kernels_ms_per_frame": prof["top_kernels_ms"],
@@ -292,9 +327,10 @@ def profile_pipelined(cfg, frames, warmup: int, device) -> list:
 
 
 def _profile_window(run, steps: int) -> dict:
-    """`run()` under the profiler: per step the `cudaLaunchKernel` calls,
-    host syncs, kernels and their device time, the busy share and the top
-    kernels."""
+    """`run()` under the profiler: per step the launches (kernel launches,
+    graph launches and `cudaMemcpyAsync` copies, and each alone), host
+    syncs, kernels and their device time, the busy share and the top
+    kernels (copies among them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -305,8 +341,10 @@ def _profile_window(run, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     avg = prof.key_averages()
-    launches = sum(e.count for e in avg
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    kernel_launches = sum(e.count for e in avg if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    graph_launches = sum(e.count for e in avg if e.key == "cudaGraphLaunch")
+    copies = sum(e.count for e in avg if e.key == "cudaMemcpyAsync")
     syncs = sum(e.count for e in avg
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                              "cudaEventSynchronize"))
@@ -316,7 +354,9 @@ def _profile_window(run, steps: int) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "launches": launches / steps, "syncs": syncs / steps, "kernels": len(kernels) / steps,
+        "launches": (kernel_launches + graph_launches + copies) / steps,
+        "kernel_launches": kernel_launches / steps, "graph_launches": graph_launches / steps,
+        "copies": copies / steps, "syncs": syncs / steps, "kernels": len(kernels) / steps,
         "kernel_ms": sum(by_name.values()) / steps / 1000.0,
         "busy_share": _busy_us(kernels) / wall_us, "profiled_ms": wall_us / steps / 1000.0,
         "top_kernels_ms": [(k[:60], v / steps / 1000.0) for k, v in top],
@@ -368,6 +408,9 @@ def profile_multistream(device, frames: int, warmup: int, streams=(16, 64)) -> l
             "stream_refreshes_per_step": refreshes / steps,
             "launches_per_step": prof["launches"], "launches_per_stream_frame":
             prof["launches"] / n, "syncs_per_step": prof["syncs"],
+            "kernel_launches_per_step": prof["kernel_launches"],
+            "graph_launches_per_step": prof["graph_launches"], "copies_per_step": prof["copies"],
+            **_steps(ms),
             "kernels_per_step": prof["kernels"], "kernel_ms_per_step": prof["kernel_ms"],
             "busy_share": prof["busy_share"], "profiled_ms_per_step": prof["profiled_ms"],
             "top_kernels_ms_per_step": prof["top_kernels_ms"], "render_s": render_s,
@@ -899,7 +942,7 @@ def profile_map(device, reps: int = 20) -> dict:
     ak = {"keyframes": n, "ms_median": float(np.median(wall[1:])), "ms_mean": float(np.mean(wall[1:])),
           "split_run_ms_mean": float(np.mean(split_wall)),
           "ms_per_keyframe": {k: v / n for k, v in parts.items()}, "calls": calls,
-          "launches_per_keyframe": prof["launches"], "syncs_per_keyframe": prof["syncs"],
+          "launches_per_keyframe": prof["kernel_launches"], "syncs_per_keyframe": prof["syncs"],
           "kernel_ms_per_keyframe": prof["kernel_ms"],
           "closures": [(int(c[0]), int(c[1]), int(c[4])) for c in lc.closures],
           "digest": _digest([torch.as_tensor(np.stack([c[2] for c in lc.closures] or [np.zeros((3, 3))])),
