@@ -97,7 +97,7 @@ through their user entry points:
                    frame step replay (`frame_step`; the step is captured
                    before the trace starts) and `extract_pyramid` call
                    (host ranges) and holds the `canny_pyramid`,
-                   `dt_channels`, `level_lm` and `extract_pyramid` kernels
+                   `dt_pyramid`, `level_lm` and `extract_pyramid` kernels
                    (device events); the trajectory file of cli_default;
   cli_xml          `dump --frames 15 --levels 4`, every level read back
                    bitwise, then `dvo --source xml:<dir>`: ATE < 20 mm;
@@ -165,14 +165,15 @@ counts, registered in `step.COUNTED`) are put back after a capture and
 advanced by its delta at every replay, so every count below is per frame
 as the uncaptured route's would be.
 
-`check_canny_pyramid` and `check_dt_channels` hold the now-frame target
+`check_canny_pyramid` and `check_dt_pyramid` hold the now-frame target
 kernels against their plain versions bitwise at the 4 level shapes and at
 production_vga's (5 levels from 640x480, rendered frames), B = 64 and B = 1
-(Canny on rendered frames, on a serpentine weak chain and on noise, the
-whole pyramid in one call, with the fixpoints' pass counts and the pyramid
-call timed beside one single-level call a level; `dt_channels` for
-the +-16 window and the whole row, with and without normalization, bf16 and
-float32 channels).
+(Canny on rendered frames, on a serpentine weak chain and on noise; the
+distance transforms for the +-16 window and the whole row, with and
+without normalization, bf16 and float32 channels; each the whole pyramid
+in one call, timed beside one single-level call a level, and every level
+alone; Canny with the fixpoints' pass counts, `dt_pyramid` on every forced
+cluster size).
 `check_level_lm` holds the LM pyramid kernel, one level a launch, against
 its plain version on rendered pairs at both Gauss-Newton configurations'
 level shapes (the `dvo` defaults and production_320, all 4 levels, and
@@ -199,16 +200,18 @@ free-running plain twins within the level checks' bars. `check_extract` holds ke
 over a pyramid bitwise against its plain version on every output, invalid
 slots included (production_320's, the `dvo` defaults' and production_vga's
 capacities, B = 64 and 1, rendered, edge-free, all-edge and shallow-depth
-inputs). `check_canny_pyramid`, `check_dt_channels` and `check_extract`
+inputs). `check_canny_pyramid`, `check_dt_pyramid` and `check_extract`
 also hold their kernels at 720x960 and 1280x960 (`dvo --cam-scale 3` and
 `4`, B = 8 and 1) and on single levels of 1600x2560 and 2560x1600 (B = 1),
-timed beside their bounds; Canny and extraction on every route (one block
-or a cluster of 2, 4 or 8 blocks a (level, image)) the levels fit, forced,
-bitwise the route their rule takes. Every
+timed beside their bounds; each on every route (one block or a cluster of
+2, 4 or 8 blocks a (level, image)) the levels fit, forced, bitwise the
+route its rule takes. Every
 kernel's launch counter is set to 0 before the path phases and read around
 each one: each kernel of the paths must launch; `canny_pyramid` and
-`dt_channels` in every Gauss-Newton phase and in cli_subgradient
-(`edt_squared`, whose phases `dt_channels` runs, keeps its check and
+`dt_pyramid` in every Gauss-Newton phase, in cli_subgradient and the
+parity phases, one `dt_pyramid` launch for each target preparation
+(`prepare_now_targets`, counted and required: no call a level);
+(`edt_squared`, whose phases `dt_pyramid` runs, keeps its check and
 launches on no path); `level_lm` in every Gauss-Newton phase, one launch
 for each pyramid solve (`solve_pyramid`) and each single level
 (`run_level`), counted and required, where the per-iteration
@@ -245,11 +248,14 @@ time, and its bound (the larger of the bytes it must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s, from the check's own inputs);
 for the four kernels of the VGA path the same at production_vga's shapes
 under "vga" (launches: those of stream_vga and batch_vga), and for
-`dt_channels` and `extract_pyramid` at 720x960 under "cam_scale_3"
+`dt_pyramid` and `extract_pyramid` at 720x960 under "cam_scale_3"
 (launches: those of cli_cam_scale_3), and for the three target kernels at
 1280x960 under "cam_scale_4" (launches: those of cli_cam_scale_4) and at
 the large single levels under "large"; "cluster" is the route the rule
-took there and "cluster_ms" the time of each forced route.
+took there and "cluster_ms" the time of each forced route (for `dt_pyramid`
+"ranks" the blocks a level its rule took, "ms" the device time of one call
+queued behind a sleep kernel and "levels_ms" that of one `dt_channels`
+call a level).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. Imports no JAX.
 """
@@ -284,7 +290,7 @@ MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per 
 PNP_K, PNP_HYPOTHESES = 384, 64
 KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
            "level_sg", "extract", "imu", "level_photo")
-TARGET_KERNELS = ("canny_pyramid", "dt_channels")  # every frame's targets launch both
+TARGET_KERNELS = ("canny_pyramid", "dt_pyramid")  # every frame's targets launch both
 # entries that keep their check and launch on no path
 OFF_PATH = ("edt", "gn", "residual", "sg")
 MAP_KERNELS = ("match", "ransac")  # the launch counters the map-backend phases must move
@@ -494,15 +500,15 @@ def _bound(nbytes: float, flops: float) -> dict:
             "library_ms": None}
 
 
-def _dt_bound(b: int, h: int, w: int, radius: int, bf16: bool) -> dict:
-    """`dt_channels`' bound: the mask read; dt, dgx, dgy and the channels
-    written; per pixel the column distance, the row's min-plus (R = 16: the
-    33 candidates of the window, a multiply-add and a min each; R = 0: the
-    linear-time envelope, fewer operations than the kernel's whole-row
-    scan) and the tail."""
-    n = b * h * w
+def _dt_pyramid_bound(b: int, shapes, radius: int, bf16: bool) -> dict:
+    """The targets' bound over the levels `shapes` of B images: the masks
+    read; dt, dgx, dgy, the channels and the scales written; per pixel the
+    column distance, the row's min-plus (R = 16: the 33 candidates of the
+    window, a multiply-add and a min each; R = 0: the linear-time envelope,
+    the least any whole-row method needs) and the tail."""
+    n = b * sum(h * w for h, w in shapes)
     row = 2 * (2 * radius + 1) if radius else OPS_DT_ROW_ENVELOPE
-    return _bound(n * (1 + 12 + (6 if bf16 else 12)) + 4 * b,
+    return _bound(n * (1 + 12 + (6 if bf16 else 12)) + 4 * b * len(shapes),
                   n * (OPS_DT_COLUMN + row + OPS_DT_TAIL))
 
 
@@ -836,24 +842,26 @@ def _rel(a, b) -> float:
 
 
 def check_edt(device, rng) -> dict:
-    """Kernel 1 vs its plain version, bitwise, at the 4 level shapes."""
+    """Kernel 1 vs its plain version, bitwise, at the 4 level shapes (B =
+    64) and at 37x45 and 480x640 (B = 3)."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import edt
 
     worst, out = 0.0, {}
-    for h, w in EDT_SHAPES:
-        mask = torch.from_numpy(edge_masks(rng, BATCH, h, w)).to(device)
+    for h, w in EDT_SHAPES + EXTRA_SHAPES:
+        b = 3 if (h, w) in EXTRA_SHAPES else BATCH
+        mask = torch.from_numpy(edge_masks(rng, b, h, w)).to(device)
         for radius in (16, 0):
             k = edt.edt_squared(mask, radius)
             p = edt.edt_squared_plain(mask, radius)
             torch.cuda.synchronize()
-            _require(k.shape == (BATCH, h, w) and k.dtype == torch.float32, "edt shape/dtype")
+            _require(k.shape == (b, h, w) and k.dtype == torch.float32, "edt shape/dtype")
             err = float((k - p).abs().max())
             _require(torch.equal(k, p), f"edt kernel != plain at {h}x{w} R={radius} (max {err})")
             k_ms = _time_ms(lambda: edt.edt_squared(mask, radius), 20)
             p_ms = _time_ms(lambda: edt.edt_squared_plain(mask, radius), 3 if radius == 0 else 10)
-            _log(f"edt {h}x{w} B={BATCH} R={radius}: bitwise equal; kernel {k_ms:.4f} ms, "
+            _log(f"edt {h}x{w} B={b} R={radius}: bitwise equal; kernel {k_ms:.4f} ms, "
                  f"plain {p_ms:.4f} ms")
             out[(h, w, radius)] = (k_ms, p_ms)
             worst = max(worst, err)
@@ -998,99 +1006,155 @@ def check_canny_pyramid(device, rng) -> dict:
                       "2560x1600": summaries[("2560x1600", 1)]}}
 
 
-def check_dt_channels(device, rng) -> dict:
-    """`dt_channels` vs its plain version: every output bitwise equal for
-    R = 16 / 0, normalization on / off, bf16 / float32 channels, at the 4
-    level shapes, B = 64 (an empty and a full mask among them) and B = 1,
-    and at 37x45 (odd sizes: no cp.async staging, ragged tiles) and 480x640,
-    B = 3; on the Canny edges of rendered 640x480 frames (production_vga's
-    level 0), B = 64 and 1; on those of rendered 960x720 frames (`dvo
-    --cam-scale 3`'s level 0, where the column phase opts in to more than
-    48 KB of shared memory) and of rendered 1280x960 frames (`dvo
-    --cam-scale 4`) for the `dvo` defaults (R = 0, normalized, bf16) and the
-    +-16 window, B = 8 and 1; on the edges of one level of 1600x2560 (the
-    row phase opted in past 48 KB) and one of 2560x1600 (the column phase in
-    strips of 16), both variants, B = 1; a second launch bitwise equal."""
+def _queued_ms(fn, reps: int) -> float:
+    """Device ms per call of fn(): CUDA events around `reps` calls queued
+    behind a ~10 ms sleep kernel, so that the host has enqueued them all
+    before the device reaches the first and they run back to back (the
+    host's dispatch is not in the number)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+DT_VARIANTS = tuple((r, n, bf) for r in (16, 0) for n in (False, True) for bf in (True, False))
+# the `dvo` defaults (the whole row, normalized, bf16) and production's (+-16, pixels, bf16)
+DT_MAIN = ((0, True, True), (16, False, True))
+
+
+def check_dt_pyramid(device, rng) -> dict:
+    """`dt_pyramid` vs its plain twin (`dt_channels_plain` a level): every
+    output of every level bitwise equal, a second launch bitwise equal, on
+    the rule's route and forced to each cluster size (1, 2, 4, 8 blocks a
+    (level, image)) and to the per-level route (the largest levels'), for
+    R = 16 / 0, normalization on / off, bf16 / float32
+    channels: the 4 level shapes as one pyramid and each level alone, B =
+    64 (an empty and a full mask among them) and B = 1; 37x45 (odd sizes:
+    no vector loads, ragged tiles) and 480x640, B = 3, as a pyramid and
+    alone; for the `dvo` defaults and production's flags the Canny edges of
+    rendered frames: production_vga's 5 levels from 640x480, B = 64 and 1,
+    `dvo --cam-scale 3`'s and `4`'s 4 levels from 720x960 and 960x1280, B =
+    8 and 1 (each pyramid whole and its level 0 alone); one level of
+    1600x2560 and one of 2560x1600, B = 1. A pyramid's call is timed (device
+    ms, queued) beside one call a level and the plain twin, with its bound
+    summed over the levels. Then `dt_channels` on the card: one pyramid
+    launch, equal to the plain version."""
     import torch
 
     from rgbd_odometry_tpu_torch import profiles
-    from rgbd_odometry_tpu_torch.kernels import canny, edt
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.kernels import build, canny, edt
 
     names = ("dt", "dgx", "dgy", "scale", "chans")
     vga = profiles.production_vga()
-    vga_variant = (vga.solver.edt_window, vga.solver.normalize_dt, True)
-    vga_label = "production_vga rendered edges 480x640"
-    cam3_label = "cam_scale_3 rendered edges 720x960"
-    cam3_variants = ((0, True, True), (16, False, True))
-    cases = []  # (label, mask, whether a variant times the plain version, the variants)
-    for h, w in (*EDT_SHAPES, *EXTRA_SHAPES):
-        n_img = 3 if (h, w) in EXTRA_SHAPES else BATCH
-        masks = torch.from_numpy(edge_masks(rng, n_img, h, w)).to(device)
-        first = n_img == BATCH and (h, w) == EDT_SHAPES[0]
-        cases += [(f"{h}x{w}", masks, lambda v, first=first: first and v[2], None),
-                  (f"{h}x{w}", masks[2:3].contiguous(), lambda v: False, None)]
-    # production_vga's level 0 (its levels 1-4 are the shapes above) on the
-    # Canny edges of 64 rendered 640x480 frames
-    _, _, ng, _, _ = render_batch(vga.camera, BATCH)
-    vga_edges = canny.canny(torch.from_numpy(ng).to(device), vga.solver.canny_low,
-                            vga.solver.canny_high)
-    cases += [(vga_label, vga_edges[:b].contiguous(), lambda v: v == vga_variant, None)
-              for b in (BATCH, 1)]
-    _, cam3_edges, _ = cam_scale_inputs(device, 3)
-    cases += [(cam3_label, cam3_edges[0][:b].contiguous(), lambda v: True, cam3_variants)
-              for b in (8, 1)]
-    cam4_label = "cam_scale_4 rendered edges 960x1280"
-    _, cam4_edges, _ = cam_scale_inputs(device, 4)
-    cases += [(cam4_label, cam4_edges[0][:b].contiguous(), lambda v: True, cam3_variants)
-              for b in (8, 1)]
+    # (label, levels, variants, the levels also checked alone, whether the plain twin is timed)
+    cases = []
+    masks = tuple(torch.from_numpy(edge_masks(rng, BATCH, h, w)).to(device) for h, w in EDT_SHAPES)
+    one = tuple(m[2:3].contiguous() for m in masks)
+    for levels in (masks, one):
+        cases.append(("4 levels from 240x320", levels, DT_VARIANTS, 4, True))
+    extra = tuple(torch.from_numpy(edge_masks(rng, 3, h, w)).to(device)
+                  for h, w in reversed(EXTRA_SHAPES))
+    cases.append(("480x640 and 37x45", extra, DT_VARIANTS, 2, False))
+    _, _, ng, nd, _ = render_batch(vga.camera, BATCH)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    vga_pyr = build_pyramid(f(ng), f(nd), vga.num_levels).gray
+    vga_edges = canny.canny_pyramid(vga_pyr, vga.solver.canny_low, vga.solver.canny_high)
+    rendered = {"production_vga rendered, 5 levels from 480x640": (vga_edges, (BATCH, 1)),
+                "cam_scale_3 rendered, 4 levels from 720x960": (cam_scale_inputs(device, 3)[1],
+                                                                 (8, 1)),
+                "cam_scale_4 rendered, 4 levels from 960x1280": (cam_scale_inputs(device, 4)[1],
+                                                                  (8, 1))}
+    for label, (edges, batches) in rendered.items():
+        for b in batches:
+            levels = tuple(e[:b].contiguous() for e in edges)
+            cases.append((label, levels, DT_MAIN, 1, True))
     large = large_level_inputs(device)
-    cases += [(f"upsampled rendered edges {name}", large[name][2], lambda v: v[1],
-               cam3_variants) for name in ("1600x2560", "2560x1600")]
+    cases += [(f"upsampled rendered edges {name}", (large[name][2],), DT_MAIN, 0, True)
+              for name in ("1600x2560", "2560x1600")]
     out = {}
-    for label, mask, plain_timed, variants in cases:
-        b, h, w = mask.shape
-        for radius in (16, 0):
-            for normalize in (False, True):
-                for bf16 in (True, False):
-                    variant = (radius, normalize, bf16)
-                    if variants is not None and variant not in variants:
-                        continue
-                    args = (mask, *variant)
-                    k = edt.dt_channels(*args)
-                    again = edt.dt_channels(*args)
-                    p = edt.dt_channels_plain(*args)
-                    torch.cuda.synchronize()
-                    what = (f"dt_channels {label} B={b} R={radius} "
-                            f"{'normalized' if normalize else 'pixels'} "
-                            f"{'bf16' if bf16 else 'f32'}")
-                    for name, a, c, d in zip(names, k, again, p):
-                        _require(a.shape == d.shape and a.dtype == d.dtype,
-                                 f"{what}: {name} shape/dtype")
-                        _require(_same_bits(a, c), f"{what}: {name} runs differ")
-                        _require(_same_bits(a, d), f"{what}: {name} kernel != plain")
-                    k_ms = _time_ms(lambda: edt.dt_channels(*args), 20)
-                    p_ms = _time_ms(lambda: edt.dt_channels_plain(*args),
-                                    3 if radius else 2) if plain_timed(variant) else float("nan")
-                    bound = _dt_bound(b, h, w, radius, bf16)
-                    _log(f"{what}: 5 outputs bitwise equal, runs bitwise equal; kernel "
-                         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+    for label, levels, variants, alone, timed in cases:
+        b = levels[0].shape[0]
+        shapes = [tuple(e.shape[1:]) for e in levels]
+        ranks, c_rule = edt.dt_route(shapes, b, sms=build.sm_count(device.index or 0))
+        for variant in variants:
+            radius, normalize, bf16 = variant
+            what = (f"dt_pyramid {label} B={b} R={radius} "
+                    f"{'normalized' if normalize else 'pixels'} {'bf16' if bf16 else 'f32'}")
+            plain = edt.dt_pyramid_plain(levels, *variant)
+            k = edt.dt_pyramid(levels, *variant)
+            again = edt.dt_pyramid(levels, *variant)
+            forced = {c: edt.dt_pyramid(levels, *variant, cluster=c)
+                      for c in (0,) + edt.CLUSTERS}
+            torch.cuda.synchronize()
+            for lvl, (got, got2, want) in enumerate(zip(k, again, plain)):
+                for name, a, a2, d in zip(names, got, got2, want):
+                    at = f"{what} level {lvl} {name}"
+                    _require(a.shape == d.shape and a.dtype == d.dtype and a.is_contiguous(),
+                             f"{at}: shape/dtype/layout")
+                    _require(_same_bits(a, a2), f"{at}: runs differ")
+                    _require(_same_bits(a, d), f"{at}: kernel != plain")
+                for c, route in forced.items():
+                    for name, a, d in zip(names, route[lvl], want):
+                        _require(_same_bits(a, d), f"{what} level {lvl} {name}: cluster {c} "
+                                 f"!= plain")
+                if lvl < alone:  # the level alone: a pyramid of one, on its rule and forced
+                    for c in (None, 0) + edt.CLUSTERS:
+                        single = edt.dt_pyramid(levels[lvl:lvl + 1], *variant, cluster=c)[0]
+                        for name, a, d in zip(names, single, want):
+                            _require(_same_bits(a, d), f"{what} level {lvl} alone {name}: "
+                                     f"cluster {c or 'rule'} != plain")
+            line = (f"{what}: {len(levels)} level(s) x 5 outputs bitwise plain, runs bitwise, "
+                    f"every forced route (per level, c=1, 2, 4, 8) bitwise, the first {alone} "
+                    f"level(s) alone too; rule: blocks a level {list(ranks)} (0: the per-level "
+                    f"route; c={c_rule})")
+            if timed:
+                k_ms = _queued_ms(lambda: edt.dt_pyramid(levels, *variant), 20)
+                lvl_ms = _queued_ms(lambda: [edt.dt_channels(e, *variant) for e in levels], 20)
+                p_ms = (_time_ms(lambda: edt.dt_pyramid_plain(levels, *variant), 2)
+                        if timed and variant in DT_MAIN + ((16, False, False),) else float("nan"))
+                bound = _dt_pyramid_bound(b, shapes, radius, bf16)
+                line += (f"; dt_pyramid {k_ms * 1e3:.2f} us (device, queued), one dt_channels "
+                         f"call a level {lvl_ms * 1e3:.2f} us, plain {p_ms:.4f} ms; bound "
                          f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']})")
-                    out[(label, b, *variant)] = {
-                        "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound}
-    return {**out[(f"{EDT_SHAPES[0][0]}x{EDT_SHAPES[0][1]}", BATCH, 16, False, True)],
-            "vga": {"shape": "480x640 R=16 pixels bf16, B=64",
-                    **out[(vga_label, BATCH, *vga_variant)],
-                    "b1": out[(vga_label, 1, *vga_variant)]},
-            "cam_scale_3": {"shape": "720x960 R=0 normalized bf16 (the dvo defaults), B=8",
-                            **out[(cam3_label, 8, *cam3_variants[0])],
-                            "b1": out[(cam3_label, 1, *cam3_variants[0])],
-                            "r16": out[(cam3_label, 8, *cam3_variants[1])]},
-            "cam_scale_4": {"shape": "960x1280 R=0 normalized bf16 (the dvo defaults), B=8",
-                            **out[(cam4_label, 8, *cam3_variants[0])],
-                            "b1": out[(cam4_label, 1, *cam3_variants[0])],
-                            "r16": out[(cam4_label, 8, *cam3_variants[1])]},
-            "large": {"shape": "R=0 normalized bf16, B=1",
-                      **{name: out[(f"upsampled rendered edges {name}", 1, *cam3_variants[0])]
+                out[(label, b, *variant)] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                                             "levels_ms": lvl_ms, "ranks": list(ranks),
+                                             **bound}
+            _log(line)
+    one_level = masks[1]
+    n0 = edt.dt_pyramid.launches
+    k = edt.dt_channels(one_level, 16, False, True)
+    torch.cuda.synchronize()
+    _require(edt.dt_pyramid.launches == n0 + 1, "dt_channels: not one dt_pyramid launch")
+    for name, a, d in zip(names, k, edt.dt_channels_plain(one_level, 16, False, True)):
+        _require(_same_bits(a, d), f"dt_channels {name} != plain")
+    _log(f"dt_channels {one_level.shape[1]}x{one_level.shape[2]} B={one_level.shape[0]}: one "
+         f"dt_pyramid launch, bitwise plain")
+    p320 = "4 levels from 240x320"
+    vga_label = "production_vga rendered, 5 levels from 480x640"
+    cam = {s: (f"cam_scale_{s} rendered, 4 levels from {w}", w)
+           for s, w in ((3, "720x960"), (4, "960x1280"))}
+    return {"shape": "4 levels from 240x320 R=16 pixels bf16 (production_320), B=64",
+            **out[(p320, BATCH, *DT_MAIN[1])], "b1": out[(p320, 1, *DT_MAIN[1])],
+            "dvo": {"shape": "R=0 normalized bf16 (the dvo defaults)",
+                    **out[(p320, BATCH, *DT_MAIN[0])], "b1": out[(p320, 1, *DT_MAIN[0])]},
+            "vga": {"shape": "5 levels from 480x640 R=16 pixels bf16, B=64",
+                    **out[(vga_label, BATCH, *DT_MAIN[1])], "b1": out[(vga_label, 1, *DT_MAIN[1])]},
+            **{f"cam_scale_{s}": {"shape": f"4 levels from {w} R=0 normalized bf16, B=8",
+                                  **out[(label, 8, *DT_MAIN[0])],
+                                  "b1": out[(label, 1, *DT_MAIN[0])],
+                                  "r16": out[(label, 8, *DT_MAIN[1])]}
+               for s, (label, w) in cam.items()},
+            "large": {"shape": "one level, R=0 normalized bf16, B=1",
+                      **{name: out[(f"upsampled rendered edges {name}", 1, *DT_MAIN[0])]
                          for name in ("1600x2560", "2560x1600")}}}
 
 
@@ -3037,9 +3101,9 @@ def _parity_families():
 
 PARITY_CPU_PAIRS = 4  # the pairs of parity_batch held against the CPU run
 # an align_pair call in the parity mode: Canny of both pyramids, the 4 levels'
-# targets, the keyframe's extraction and the pyramid's one level launch
+# targets in one launch, the keyframe's extraction and the pyramid's one level launch
 # ("level": `level_lm` for Gauss-Newton, `level_sg` for the sub-gradient)
-PARITY_CALL_LAUNCHES = {"canny_pyramid": 2, "dt_channels": 4, "extract": 1, "level": 1}
+PARITY_CALL_LAUNCHES = {"canny_pyramid": 2, "dt_pyramid": 1, "extract": 1, "level": 1}
 PARITY_TIMED_CALLS = 5  # parity_batch's ms a call: the median of these, after the checked call
 
 
@@ -3048,7 +3112,7 @@ def run_parity_batch(device) -> dict:
     rendered 320x240 pairs (capacities 8192/4096/2048/1024) from a generic
     start pose, once per
     family of `_parity_families`: the kernels' targets and extraction
-    (`canny_pyramid`, `dt_channels`, `extract_pyramid`) and the pyramid in
+    (`canny_pyramid`, `dt_pyramid`, `extract_pyramid`) and the pyramid in
     one `level_lm` or `level_sg` launch (`PARITY_CALL_LAUNCHES`), every
     pose finite, the pose error against ground truth, the launches and host
     ms a call (the median of `PARITY_TIMED_CALLS` calls ending in a sync;
@@ -4114,7 +4178,7 @@ MULTIGPU_STREAMS, MULTIGPU_FRAMES = 16, 12  # the multistream command's producti
 MULTIGPU_JOIN_S = 300  # every rank is joined by this deadline
 FPS_RUNS = 3  # the timed lockstep loops a world size (the median is kept)
 # the kernels every rank of the path must launch
-RANK_KERNELS = ("canny_pyramid", "dt_channels", "level_lm", "extract")
+RANK_KERNELS = ("canny_pyramid", "dt_pyramid", "level_lm", "extract")
 # the per-iteration and step-by-step kernels no job of the path may launch
 RANK_IDLE = ("gn", "sg", "residual", "pnp")
 
@@ -4143,10 +4207,14 @@ def _job(name: str, jobs: dict, solves: dict):
 
 def _check_job(what: str, job: dict) -> None:
     """A job of the path launched each of its kernels (`RANK_KERNELS`),
-    one `level_lm` launch a Gauss-Newton solve, and none of `RANK_IDLE`."""
+    one `dt_pyramid` launch a target preparation, one `level_lm` launch a
+    Gauss-Newton solve, and none of `RANK_IDLE`."""
     n, ns = job["launches"], job["solves"]
     _require(all(n[k] > 0 for k in RANK_KERNELS),
              f"{what}: a kernel of the path was not launched: {n}")
+    targets = ns[("targets", "gauss_newton")] + ns[("targets", "subgradient")]
+    _require(n["dt_pyramid"] == targets, f"{what}: dt_pyramid launched {n['dt_pyramid']} times "
+             f"for {targets} target preparations")
     want = ns[("pyramid", "gauss_newton")] + ns[("level", "gauss_newton")]
     _require(n["level_lm"] == want, f"{what}: level_lm launched {n['level_lm']} times for "
              f"{want} solves")
@@ -4726,7 +4794,7 @@ def run_cli_viz(cli_default: dict) -> dict:
     return out
 
 
-_TRACED = ("canny_pyramid", "dt_channels", "level_lm", "extract_pyramid")
+_TRACED = ("canny_pyramid", "dt_pyramid", "level_lm", "extract_pyramid")
 # the host ranges of a traced `dvo` run: a solved frame's targets and solve
 # are one frame step replay (its kernels run inside the graph), a keyframe
 # one extraction call
@@ -4753,17 +4821,18 @@ def _trace_names(tmp: str) -> dict:
 def run_cli_trace(cli_default: dict) -> dict:
     """`dvo --frames 30 --trace-dir`: a Chrome trace whose host ranges name
     every frame step replay (`frame_step`: the frame's `canny_pyramid`,
-    `dt_channels` and `level_lm` launches are inside its graph, captured
+    `dt_pyramid` and `level_lm` launches are inside its graph, captured
     before the trace starts) and `extract_pyramid` call, and whose device
-    events hold the four kernels (`canny_pyramid_*`, `edt_*`, `level_lm`,
-    `extract_pyramid_kernel`); the trajectory file of cli_default."""
+    events hold the four kernels (`canny_pyramid_*`, `dt_pyramid_kernel`,
+    `level_lm`, `extract_pyramid_kernel`); the trajectory file of cli_default."""
     out = run_cli("cli_trace", ["--frames", "30", "--trace-dir", "{tmp}/trace"], 0.020,
                   inspect=_trace_names)
     _require(all(out["host"].get(k, 0) > 0 for k in _TRACED_HOST),
              f"cli_trace: host ranges {out['host']}")
     dev = out["device"]
     kernels = {k: sum(v for n, v in dev.items() if key in n)
-               for k, key in zip(_TRACED, ("canny_pyramid", "edt_", "level_lm", "extract_pyramid"))}
+               for k, key in zip(_TRACED, ("canny_pyramid", "dt_pyramid", "level_lm",
+                                           "extract_pyramid"))}
     _require(all(v > 0 for v in kernels.values()), f"cli_trace: device kernels {kernels} "
              f"(of {sum(dev.values())} kernel events)")
     _require(out["trajectory"] == cli_default["trajectory"],
@@ -5099,16 +5168,23 @@ def run_cli_pnp() -> dict:
 
 def _count_solves() -> dict:
     """Counts, by solver method, of `edge_dvo.solve_pyramid` calls (and the
-    levels they solve) and of single-level `edge_dvo.run_level` calls on
-    CUDA tensors (a CPU solve, parity_batch's reference run, launches
-    nothing), and of `edge_dvo.run_level_loop` calls on any device ("loop",
-    which no route reaches) from here on (the path's modules call them
-    through the module)."""
+    levels they solve), of single-level `edge_dvo.run_level` calls and of
+    `edge_dvo.prepare_now_targets` calls ("targets") on CUDA tensors (a CPU
+    solve, parity_batch's reference run, launches nothing), and of
+    `edge_dvo.run_level_loop` calls on any device ("loop", which no route
+    reaches) from here on (the path's modules call them through the
+    module)."""
     from rgbd_odometry_tpu_torch.solvers import edge_dvo
 
-    counts = {(what, m): 0 for what in ("pyramid", "levels", "level", "loop")
+    counts = {(what, m): 0 for what in ("pyramid", "levels", "level", "loop", "targets")
               for m in ("gauss_newton", "subgradient")}
     solve, run, loop = edge_dvo.solve_pyramid, edge_dvo.run_level, edge_dvo.run_level_loop
+    targets = edge_dvo.prepare_now_targets
+
+    def prepare_now_targets(gray_pyr, cfg, *a, **k):
+        if gray_pyr[0].is_cuda:
+            counts[("targets", cfg.method)] += 1
+        return targets(gray_pyr, cfg, *a, **k)
 
     def solve_pyramid(ref_levels, now_levels, intr, cfg, *a, **k):
         if ref_levels[0].pts3d.is_cuda:
@@ -5129,6 +5205,7 @@ def _count_solves() -> dict:
 
     edge_dvo.solve_pyramid, edge_dvo.run_level = solve_pyramid, run_level
     edge_dvo.run_level_loop = run_level_loop
+    edge_dvo.prepare_now_targets = prepare_now_targets
     # a frame step's capture calls solve_pyramid once and a replay not at
     # all: it puts these counts back after the capture and adds its delta
     # at every replay, as it does the kernels' launch counters
@@ -5160,7 +5237,7 @@ def _launch_counters():
     )
 
     return {"edt": edt.edt_squared, "canny_pyramid": canny.canny_pyramid,
-            "dt_channels": edt.dt_channels,
+            "dt_pyramid": edt.dt_pyramid,
             "gn": fused_iter.fused_gn_terms,
             "residual": residual.residual_pass, "sg": sg_terms.subgradient_terms,
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "ransac": pnp_gn.ransac_pnp,
@@ -5201,7 +5278,7 @@ def main() -> int:
     res = {
         "edt": check_edt(device, rng),
         "canny_pyramid": check_canny_pyramid(device, rng),
-        "dt_channels": check_dt_channels(device, rng),
+        "dt_pyramid": check_dt_pyramid(device, rng),
         "gn": check_fused_gn(device, rng),
         "residual": check_residual(device, rng),
         "sg": check_sg_terms(device, rng),
@@ -5301,7 +5378,13 @@ def main() -> int:
                      f"{name}: no level kernel was launched for the parity configurations")
         if name in GN_PHASES or name in ("cli_subgradient",) + PARITY_PHASES:
             _require(all(n[k] > 0 for k in TARGET_KERNELS),
-                     f"{name}: the canny_pyramid or dt_channels kernel was not launched")
+                     f"{name}: the canny_pyramid or dt_pyramid kernel was not launched")
+            targets = ns[("targets", "gauss_newton")] + ns[("targets", "subgradient")]
+            _log(f"  {name}: dt_pyramid {n['dt_pyramid']} launches for {targets} target "
+                 f"preparations")
+            _require(n["dt_pyramid"] == targets, f"{name}: dt_pyramid launched "
+                     f"{n['dt_pyramid']} times for {targets} target preparations (one a "
+                     f"preparation: no call a level)")
         if name in GN_PHASES:
             _require(n["level_lm"] > 0, f"{name}: the level_lm kernel was not launched")
         if name in ("cli_subgradient", "probe"):
@@ -5320,11 +5403,11 @@ def main() -> int:
             _require(n["level_photo"] == 29, f"{name}: {n['level_photo']} level_photo launches")
     launches = {k: fn.launches for k, fn in counters.items()}
     _log(f"launches on the main paths: {launches}")
-    for key in ("canny_pyramid", "dt_channels", "level_lm", "extract"):
+    for key in ("canny_pyramid", "dt_pyramid", "level_lm", "extract"):
         res[key]["vga"]["launches"] = sum(per_phase[p][key] for p in VGA_PHASES)
-    for key in ("dt_channels", "extract"):
+    for key in ("dt_pyramid", "extract"):
         res[key]["cam_scale_3"]["launches"] = per_phase["cli_cam_scale_3"][key]
-    for key in ("canny_pyramid", "dt_channels", "extract"):
+    for key in ("canny_pyramid", "dt_pyramid", "extract"):
         res[key]["cam_scale_4"]["launches"] = per_phase["cli_cam_scale_4"][key]
     _require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
              "a kernel was not launched on the main paths")
@@ -5334,10 +5417,12 @@ def main() -> int:
         {"name": "edt_squared", "route": "cuda", "source": src + "edt.cu",
          "replaces": "rgbd_odometry_tpu/pallas/edt.py:58", "launches": launches["edt"],
          **res["edt"]},
-        {"name": "dt_channels", "route": "cuda", "source": src + "edt.cu",
-         "replaces": "rgbd_odometry_tpu/pallas/edt.py:58 + solvers/edge_dvo.py:183 (XLA: sqrt, "
-                     "normalization :206, central_gradient, channels)",
-         "launches": launches["dt_channels"], **res["dt_channels"]},
+        {"name": "dt_pyramid", "route": "cuda", "source": src + "edt.cu",
+         "replaces": "rgbd_odometry_tpu/pallas/edt.py:58 + solvers/edge_dvo.py:183 "
+                     "prepare_now_level over prepare_now_targets :941 (XLA: sqrt, "
+                     "normalization :206, central_gradient, channels) over every level in one "
+                     "launch; dt_channels is a pyramid of one level",
+         "launches": launches["dt_pyramid"], **res["dt_pyramid"]},
         {"name": "canny_pyramid", "route": "cuda", "source": src + "canny.cu",
          "replaces": "rgbd_odometry_tpu/solvers/edge_dvo.py:933 _pyramid_edges (XLA, no Pallas "
                      "kernel: ops/canny.py:182 canny_multi, :234 canny, the lax.while_loop :148)",

@@ -19,7 +19,8 @@ counterparts in `ops/project.py` and `kernels/se3_plain.py`):
   fixpoint on the device (XLA in the JAX package);
 * `kernels/edt.py` + `csrc/edt.cu` — the squared-L2 distance transform
   (replaces `rgbd_odometry_tpu/pallas/edt.py`), full or +-R windowed, and
-  `dt_channels`, the rest of a now-frame target on the same phases;
+  `dt_pyramid`, the rest of every level's now-frame target on the same
+  phases in one launch (`dt_channels` is one level);
 * `kernels/fused_iter.py` + `csrc/fused_gn.cu` — one Gauss-Newton
   iteration's J^T W J, J^T W eps, energy and visible count (replaces
   `rgbd_odometry_tpu/pallas/fused_iter.py`), with a per-pair DT scale;

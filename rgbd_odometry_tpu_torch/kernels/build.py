@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,12 @@ def traced(name: str):
     if ranges and torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index` (read once per device)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

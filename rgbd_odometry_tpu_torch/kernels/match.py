@@ -23,7 +23,6 @@ rounding) passes the same matches in all three.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -43,11 +42,6 @@ def cluster_size(slots: int, sms: int) -> int:
     """Blocks a slot: the largest of 1, 2, 4, 8 with slots x blocks <= the
     card's `sms` (one block an SM)."""
     return max([c for c in CLUSTERS if slots * c <= sms] or [1])
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pair_d2(slot_desc: torch.Tensor, slot_valid: torch.Tensor, q_desc: torch.Tensor,
@@ -109,7 +103,7 @@ def match_mutual(slot_desc, slot_valid, q_desc, q_valid, dist_gate_factor=3.0, r
         raise ValueError(f"match_mutual: the kernel takes 64-wide descriptors, got {d}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"match_mutual: the kernel takes 1 to {MAX_K} keypoints a frame, got {k}")
-    ranks = cluster_size(s, _sms(dev.index or 0)) if cluster is None else cluster
+    ranks = cluster_size(s, build.sm_count(dev.index or 0)) if cluster is None else cluster
     if ranks not in CLUSTERS:
         raise ValueError(f"match_mutual: cluster must be one of {CLUSTERS}, got {cluster}")
     fn = "match_mutual"

@@ -7,7 +7,7 @@ an exact integer or one float32 rounding of a sum, exactly as in the JAX
 functions, so the results are bitwise equal to theirs. `edt_l2`,
 `normalize_minmax` and `distance_transform_of_edges` complete the JAX
 module (its exact-EDT branch): on a CUDA tensor the two transforms are one
-`dt_channels` launch.
+`dt_channels` call (one `dt_pyramid` launch).
 """
 
 from __future__ import annotations
@@ -79,8 +79,8 @@ def edt_l2_squared_windowed(zero_mask: torch.Tensor, radius: int) -> torch.Tenso
 def edt_l2(zero_mask: torch.Tensor) -> torch.Tensor:
     """Exact L2 distance to the nearest True of `zero_mask` (B, H, W) (JAX
     `edt_l2`): the correctly rounded float32 sqrt of `edt_l2_squared`, as
-    XLA takes it. A CUDA tensor goes to the `dt_channels` kernel, which
-    computes the same (`kernels/edt.py`)."""
+    XLA takes it. A CUDA tensor goes to `dt_channels` (one `dt_pyramid`
+    launch), which computes the same (`kernels/edt.py`)."""
     if zero_mask.device.type != "cpu":
         from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 
@@ -103,8 +103,8 @@ def normalize_minmax(dt: torch.Tensor, lo: float = 0.0, hi: float = 255.0) -> to
 def distance_transform_of_edges(edges: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     """The reference's chain (JAX `distance_transform_of_edges`): the EDT of
     the inverted edge map (B, H, W), optionally min-max normalized to
-    0-255. A CUDA tensor goes to one `dt_channels` launch, which computes
-    both (`kernels/edt.py`)."""
+    0-255. A CUDA tensor goes to one `dt_channels` call (one `dt_pyramid`
+    launch), which computes both (`kernels/edt.py`)."""
     if edges.device.type != "cpu":
         from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
 

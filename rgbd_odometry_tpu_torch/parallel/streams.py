@@ -5,8 +5,8 @@ One camera stream per batch slot; every step advances all N streams by one
 frame with batched work: the N frames staged in one pinned buffer and sent
 to the card in one asynchronous copy, then one frame step
 (`pipeline/step.py`, JAX's jitted `_one` / `_one_cv` under `vmap`): the
-pyramid build, one `prepare_now_targets` (one `canny_pyramid` call, a
-`dt_channels` call a level) and one `solve_pyramid` (one `level_lm` or
+pyramid build, one `prepare_now_targets` (one `canny_pyramid` call, one
+`dt_pyramid` call over every level) and one `solve_pyramid` (one `level_lm` or
 `level_sg` launch, under every configuration), each at B = N, and ONE
 device-to-host copy for every stream's control decisions, replayed on a
 card as one CUDA graph from a ring of 2 slots. `graphs=False` takes the

@@ -122,7 +122,7 @@ COUNTED: list = []
 def counters() -> tuple:
     """The launch counters a frame step can move: the four kernel wrappers
     its graph calls, then `COUNTED`."""
-    return (canny.canny_pyramid, edt.dt_channels, level_lm.level_lm_pyramid,
+    return (canny.canny_pyramid, edt.dt_pyramid, level_lm.level_lm_pyramid,
             level_sg.level_sg_pyramid, *COUNTED)
 
 

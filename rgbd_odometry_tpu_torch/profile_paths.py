@@ -67,7 +67,13 @@ behind `canny_pyramid` (the 4-level pyramid; production_vga's 5 levels on
 the frames doubled to 640x480; 4 levels on the frames quadrupled to
 1280x960), `canny` (a pyramid of one level: level 0, and the four levels
 one call each), `dt_channels` (+-16 window in pixels, and the whole row
-normalized), `edt_squared` and `extract_pyramid` (production_320's and the
+normalized), the targets' distance transforms of every level (`dt_pyramid`
+in one call, on its rule's route and forced to each cluster size, against
+one `dt_channels` call a level, as the parent ran them: production_320's
+and the `dvo` defaults' flags on the 4 levels, production_vga's on its 5,
+the `dvo` defaults' on the 1280x960 pyramid and, at B = 8 and 1, on
+`dvo --cam-scale 3`'s own 960x720 renders), `edt_squared` and
+`extract_pyramid` (production_320's and the
 `dvo` defaults' capacities, production_vga's on the 640x480 pyramid and the
 `dvo` defaults' on the 1280x960 one); `canny_pyramid` and `extract_pyramid`
 on the route their rule takes and forced to each cluster size (1, 2, 4, 8
@@ -505,15 +511,113 @@ def _canny_cases(pyramids) -> dict:
     return out
 
 
+_DT_CASES = (("production_320", "320x240", (16, False, True)),
+             ("dvo defaults", "320x240", (0, True, True)),
+             ("production_vga", "vga", (16, False, True)),
+             ("dvo defaults 1280x960", "1280x960", (0, True, True)))
+
+
+def _dt_cases(pyramids, which=_DT_CASES) -> dict:
+    """The targets' distance transforms of the rendered pyramids' edge maps
+    under production_320's and production_vga's flags (+-16, pixels, bf16)
+    and the `dvo` defaults' (the whole row, normalized, bf16; also at
+    1280x960, `dvo --cam-scale 4`), or the (label, pyramid, flags) of
+    `which`, as functions of the batch size: one `dt_channels` call a
+    level, and one `dt_pyramid` call on the rule's route and forced to each
+    cluster size (absent in a checkout without `dt_pyramid`; None where the
+    checkout cannot take the pyramid)."""
+    from rgbd_odometry_tpu_torch.kernels import edt
+
+    pyramid = getattr(edt, "dt_pyramid", None)
+
+    def cut(edges, b):
+        return tuple(e[:b].contiguous() for e in edges)
+
+    out = {}
+    for label, name, flags in which:
+        edges = pyramids[name][1]
+        ok = edges is not None
+        out[f"dt_channels a level, {label}"] = ok and (
+            lambda b, e=edges, f=flags: [edt.dt_channels(x, *f) for x in cut(e, b)])
+        if pyramid is None:
+            continue
+        out[f"dt_pyramid {label}"] = ok and (
+            lambda b, e=edges, f=flags: pyramid(cut(e, b), *f))
+        for c in (0,) + _forced(pyramid):  # 0: every level on the per-level route
+            out[f"dt_pyramid {label} c={c}"] = ok and (
+                lambda b, e=edges, f=flags, c=c: pyramid(cut(e, b), *f, cluster=c))
+    return {k: v or None for k, v in out.items()}
+
+
+def _kernel_us(fn, what: str, reps: int) -> dict:
+    """Per call of `fn`, [device time (us), launches] of each CUDA kernel it
+    runs, from `reps` calls under the profiler (a window the profiler
+    dropped is profiled again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # the profiler was seen to drop all kernel records of one window after
+    # many windows in one process: such a window is profiled again
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_time_total > 0 and ev.count >= reps]
+        if kernels:
+            return {re.search(r"(\w+(?:<[^>]*>)?)\(", ev.key).group(1):
+                    [ev.device_time_total / reps, ev.count / reps] for ev in kernels}
+        print(f"profile_targets: no kernel record for {what}; again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"profile_targets: no kernel record for {what}")
+
+
+def _profile_cases(out: dict, cases: dict, b: int, reps: int) -> None:
+    """`_kernel_us` of every case (a function of nothing, or None where the
+    checkout cannot take it) into out["<name> B=<b>"]; a case that raises
+    ValueError is "not supported" there."""
+    for name, fn in cases.items():
+        try:
+            if fn is None:
+                raise ValueError("the shape")
+            fn()
+        except ValueError as exc:  # a route or shape this checkout does not take
+            out[f"{name} B={b}"] = f"not supported: {exc}"
+            continue
+        out[f"{name} B={b}"] = _kernel_us(fn, f"{name} B={b}", reps)
+
+
+def _cam_scale_3_edges(device, frames: int = 8) -> dict:
+    """`dvo --cam-scale 3`'s 4-level pyramid of `frames` rendered 960x720
+    frames (one sample a pixel: the edge density of a real frame at that
+    size, not an upsampled one) with its Canny edges at the `dvo` defaults,
+    in `_pyramids`' form."""
+    import torch
+
+    from rgbd_odometry_tpu_torch import CameraConfig
+    from rgbd_odometry_tpu_torch.core.pyramid import build_pyramid
+    from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
+    from rgbd_odometry_tpu_torch.kernels import canny
+
+    rendered, _ = render_sequence(CameraConfig().scaled(3), _trajectory(frames), seed=0,
+                                  supersample=1)
+    gray = torch.from_numpy(np.stack([g for g, _ in rendered])).to(device)
+    depth = torch.from_numpy(np.stack([d for _, d in rendered])).to(device)
+    pyr = build_pyramid(gray, depth, 4)
+    return {"960x720": (pyr, canny.canny_pyramid(pyr.gray))}
+
+
 def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
     """Per call of each target entry point, [device time (us), launches] of
     each CUDA kernel behind it, at 240x320 on `batch` rendered frames and on
-    one; `canny_pyramid` and `extract_pyramid` also at 640x480 and 1280x960
-    (the frames upsampled) and on each cluster size the kernel can be
-    forced to ("not supported": that route or shape raises in this
-    checkout)."""
+    one; `canny_pyramid`, the distance transforms (`_dt_cases`) and
+    `extract_pyramid` also at 640x480 and 1280x960 (the frames upsampled)
+    and on each cluster size the kernel can be forced to ("not supported":
+    that route or shape raises in this checkout); the distance transforms
+    of `dvo --cam-scale 3` (the `dvo` defaults on its own 960x720 renders)
+    at B = 8 and 1."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from rgbd_odometry_tpu_torch import CameraConfig
     from rgbd_odometry_tpu_torch.io.synthetic import render_sequence
@@ -529,44 +633,24 @@ def profile_targets(device, batch: int = 64, reps: int = 20) -> dict:
     for b in (batch, 1):
         g, e = gray[:b].contiguous(), edges[:b].contiguous()
         levels = tuple(x[:b].contiguous() for x in pyr)
-        cases = {
+        _profile_cases(out, {
             **{name: fn and functools.partial(fn, b)
                for name, fn in _canny_cases(pyramids).items()},
             "canny": lambda: canny.canny(g),
             "canny 4 levels": lambda: [canny.canny(x) for x in levels],
             "dt_channels R=16 pixels bf16": lambda: edt.dt_channels(e, 16, False, True),
             "dt_channels R=0 normalized bf16": lambda: edt.dt_channels(e, 0, True, True),
+            **{name: fn and functools.partial(fn, b) for name, fn in _dt_cases(pyramids).items()},
             "edt_squared R=16": lambda: edt.edt_squared(e, 16),
             **{name: fn and functools.partial(fn, b)
                for name, fn in _extract_cases(pyramids).items()},
-        }
-        for name, fn in cases.items():
-            try:
-                if fn is None:
-                    raise ValueError("the shape")
-                fn()
-            except ValueError as exc:  # a route or shape this checkout does not take
-                out[f"{name} B={b}"] = f"not supported: {exc}"
-                continue
-            torch.cuda.synchronize()
-            # the profiler was seen to drop all kernel records of one window
-            # after many windows in one process: such a window is profiled again
-            for _ in range(6):
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                kernels = [ev for ev in prof.key_averages()
-                           if ev.device_time_total > 0 and ev.count >= reps]
-                if kernels:
-                    break
-                print(f"profile_targets: no kernel record for {name} B={b}; again",
-                      file=sys.stderr, flush=True)
-            else:
-                raise RuntimeError(f"profile_targets: no kernel record for {name} B={b}")
-            out[f"{name} B={b}"] = {
-                re.search(r"(\w+(?:<[^>]*>)?)\(", ev.key).group(1):
-                [ev.device_time_total / reps, ev.count / reps] for ev in kernels}
+        }, b, reps)
+    cam3 = _cam_scale_3_edges(device)
+    for b in (8, 1):
+        _profile_cases(out, {
+            name: fn and functools.partial(fn, b) for name, fn in _dt_cases(
+                cam3, (("dvo defaults 960x720 (cam_scale_3)", "960x720", (0, True, True)),)).items()
+        }, b, reps)
     print(json.dumps(out), flush=True)
     return out
 

@@ -17,9 +17,9 @@ rejects only an unknown `method`. Three level solvers:
 The hot loops run through the hand-written CUDA kernels on a CUDA tensor,
 for every configuration:
 a frame's edge maps are one `canny_pyramid` call over all levels
-(`kernels/canny.py`, hysteresis fixpoints on the device), then per level
-one `dt_channels` call (`kernels/edt.py`: EDT, sqrt, normalization,
-gradients, channels); a keyframe's edge points of every level in one
+(`kernels/canny.py`, hysteresis fixpoints on the device), then one
+`dt_pyramid` call over all levels (`kernels/edt.py`: EDT, sqrt,
+normalization, gradients, channels, one launch); a keyframe's edge points of every level in one
 launch (`kernels/extract.py`: selection and back-projection, whose plain
 version is `extract_ref_level`); a whole Gauss-Newton pyramid, both LM
 loops and every level's all-point diagnostics, in one launch
@@ -49,7 +49,7 @@ from rgbd_odometry_tpu_torch.config import SolverConfig
 from rgbd_odometry_tpu_torch.core import geometry as geo
 from rgbd_odometry_tpu_torch.core.camera import Intrinsics
 from rgbd_odometry_tpu_torch.kernels.canny import canny, canny_pyramid
-from rgbd_odometry_tpu_torch.kernels.edt import dt_channels
+from rgbd_odometry_tpu_torch.kernels.edt import dt_channels, dt_pyramid
 from rgbd_odometry_tpu_torch.kernels.extract import RefLevel, extract_pyramid
 from rgbd_odometry_tpu_torch.kernels.fused_iter import gn_point_terms
 from rgbd_odometry_tpu_torch.kernels.level_lm import (
@@ -144,10 +144,18 @@ def prepare_now_level(
     check_config(cfg)
     if edges is None:
         edges = canny(gray, cfg.canny_low, cfg.canny_high)
+    return _now_level(edges, dt_channels(edges, *_dt_flags(cfg)))
+
+
+def _dt_flags(cfg: SolverConfig):
+    """`dt_channels` / `dt_pyramid`'s (radius, normalize, bf16) for `cfg`:
+    bf16 channels for Gauss-Newton with gather_dtype="bfloat16"."""
     gn_bf16 = cfg.method == "gauss_newton" and cfg.gather_dtype == "bfloat16"
-    dt, dgx, dgy, scale, chans = dt_channels(
-        edges, int(cfg.edt_window), bool(cfg.normalize_dt), gn_bf16
-    )
+    return int(cfg.edt_window), bool(cfg.normalize_dt), gn_bf16
+
+
+def _now_level(edges: torch.Tensor, target) -> NowLevel:
+    dt, dgx, dgy, scale, chans = target
     return NowLevel(dt=dt, dgx=dgx, dgy=dgy, edges=edges, scale=scale, chans=chans)
 
 
@@ -179,10 +187,13 @@ def _pyramid_edges(gray_pyr: Tuple[torch.Tensor, ...], cfg: SolverConfig):
 def prepare_now_targets(
     gray_pyr: Tuple[torch.Tensor, ...], cfg: SolverConfig
 ) -> Tuple[NowLevel, ...]:
-    """The pyramid's edge maps (`_pyramid_edges`), then `prepare_now_level`
-    on each level's."""
+    """`prepare_now_level` on every level: the pyramid's edge maps
+    (`_pyramid_edges`, one `canny_pyramid` call), then every level's target
+    in one `dt_pyramid` call (one launch on the card)."""
+    check_config(cfg)
     edges = _pyramid_edges(gray_pyr, cfg)
-    return tuple(prepare_now_level(g, cfg, edges=e) for g, e in zip(gray_pyr, edges))
+    targets = dt_pyramid(tuple(edges), *_dt_flags(cfg))
+    return tuple(_now_level(e, t) for e, t in zip(edges, targets))
 
 
 # --------------------------------------------------------------------------

@@ -16,7 +16,7 @@ its wrapper runs the plain version:
   rendered 1280x960 frame and on the serpentine image, and the route rule
   (`hysteresis_route`) either side of each boundary;
 * the solver's calls: `prepare_now_targets` is one `canny_pyramid` call and
-  one `dt_channels` call per level, `extract_ref_features` without edge maps
+  one `dt_pyramid` call (no `dt_channels` call a level), `extract_ref_features` without edge maps
   one `canny_pyramid` call;
 * the CUDA wrapper's argument checks (a forced route, the size limit),
   which run before anything is built.
@@ -374,9 +374,9 @@ def _count_calls(monkeypatch, *names):
 def test_prepare_now_targets_is_one_canny_pyramid_and_a_dt_channels_call_per_level(monkeypatch):
     pyr = _pyramid("frames", 2)
     cfg = TSolverConfig(method="gauss_newton")
-    calls = _count_calls(monkeypatch, "canny", "canny_pyramid", "dt_channels")
+    calls = _count_calls(monkeypatch, "canny", "canny_pyramid", "dt_channels", "dt_pyramid")
     nows = ted.prepare_now_targets(pyr, cfg)
-    assert calls == ["canny_pyramid"] + ["dt_channels"] * LEVELS
+    assert calls == ["canny_pyramid", "dt_pyramid"]
     for g, now in zip(pyr, nows):
         want = ted.prepare_now_level(g, cfg)
         for a, b in zip(now, want):

@@ -362,11 +362,11 @@ def test_cuda_wrappers_reject_bad_arguments_before_building(monkeypatch, name, f
                     "must be contiguous"),
         "device": (good, "unsupported device"),
     }[fault]
-    before = (kcanny.canny_pyramid.launches, kedt.edt_squared.launches, kedt.dt_channels.launches)
+    before = (kcanny.canny_pyramid.launches, kedt.edt_squared.launches, kedt.dt_pyramid.launches)
     with pytest.raises(ValueError, match=match):
         fn(arg)
     assert before == (kcanny.canny_pyramid.launches, kedt.edt_squared.launches,
-                      kedt.dt_channels.launches)
+                      kedt.dt_pyramid.launches)
 
 
 def test_wrappers_on_cpu_run_the_plain_versions():
@@ -376,7 +376,7 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     for flags in ((16, False, True), (0, True, False)):
         for a, b in zip(kedt.dt_channels(edges, *flags), kedt.dt_channels_plain(edges, *flags)):
             assert a.dtype == b.dtype and torch.equal(a, b)
-    assert kcanny.canny_pyramid.launches == 0 and kedt.dt_channels.launches == 0
+    assert kcanny.canny_pyramid.launches == 0 and kedt.dt_pyramid.launches == 0
 
 
 @pytest.mark.parametrize("shape, fits", [((720, 960), True), ((2560, 64), True),
