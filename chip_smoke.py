@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the twelve CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (fourteen
+Builds the fourteen CUDA sources of `rgbd_odometry_tpu_torch/csrc/` (sixteen
 kernel entries; one nvcc per source, all at once), holds each against its plain
 PyTorch version at the main paths' shapes, then drives the port's main paths
 through their user entry points:
@@ -120,11 +120,17 @@ through their user entry points:
                    gate here, so `match_mutual` does not run);
   fused_fallback   `FusedOdometry` as JAX's `test_fused_fallback_fires` sets
                    it up, at 320x240: a fallback frame, the last frame within
-                   0.12 m, `match_mutual` and `ransac_pnp` launched;
+                   0.12 m, `detect_describe`, `match_mutual` and `ransac_pnp`
+                   launched;
   cli_feature_vo   `feature-vo --frames 30`: 30 rows, the JAX package's
                    good-match counts a frame, frames 0-15 within 0.1 m and
                    the track lost from frame 16, where JAX's loses it (NaN
                    from frame 25 on the CPU in both packages);
+                   `detect_describe`, `match_mutual`,
+                   `fundamental_ransac` and `ransac_pnp` launched, one
+                   epipolar filter a PnP verification at least, every
+                   filter (K = 512) bitwise the twin on CPU copies of its
+                   inputs;
   cli_imu          `imu --steps 400`: the JSON within 1e-6 of `--device
                    cpu`'s;
   cli_pnp          `pnp`: t_err < 1e-4; its `gn_pnp` call one `pnp_gn`
@@ -241,7 +247,20 @@ hypotheses and refine of K = 384, and B = 3 and 65 at K = 1, 33, 1025 and
 routes over the kernel and over the plain `pnp_gn`, at K = 384 and past
 the small route at K = 1025, 2048, 4097, 8192, 16384 and the card's
 largest K, one launch a verification at each K ("k2048", "k8192",
-"k16384", "k_max": its time and bound there). Any failed check raises (exit code
+"k16384", "k_max": its time and bound there). `check_detect` holds the
+front end's detection (`detect_describe`, `csrc/features.cu`: Harris,
+peaks, top-K, descriptors and the back-projection in one launch) bitwise to
+its plain version on every output: rendered 320x240 frames exact and with
+noise, a flat image, checkerboards (ties), 37x45 and 640x480, K = 16, 384,
+512 and 1024, with and without depth; `check_epipolar` the 8-point RANSAC
+(`fundamental_ransac`, `csrc/epipolar.cu`, one launch) bitwise to its twin
+`fundamental_ransac_steps` (each hypothesis's count included), on the card
+and on CPU copies of the inputs, and against the plain cuSOLVER route on
+rendered matches (K = 384 and 512) and a well-posed two-view scene, with
+both pass-through guards; in loop_closure, relocalize and cli_feature_vo
+every epipolar filter is also held bitwise to the twin on the CPU. The map
+phases must launch detection, matching, the epipolar filter and RANSAC PnP.
+Any failed check raises (exit code
 != 0). The line before the last is the kernel summary as JSON: per kernel its launches on the paths, its
 error against the plain version, its and the plain version's CUDA-event
 time, and its bound (the larger of the bytes it must move over 3.35 TB/s
@@ -287,20 +306,23 @@ SG_KS = (1024, 2048, 4096, 8192)  # the parity capacities, coarse to fine
 BATCH = 64
 STREAM_FRAMES = 30
 MATCH_SLOTS, MATCH_K = 64, 384  # the slot store at capacity, the keypoints per frame
+FEATURE_VO_K = 512  # FeatureVoConfig.max_keypoints: feature-vo's keypoints per frame
 PNP_K, PNP_HYPOTHESES = 384, 64
 KERNELS = ("edt", "canny", "fused_gn", "residual", "sg_terms", "match", "pnp_gn", "level_lm",
-           "level_sg", "extract", "imu", "level_photo")
+           "level_sg", "extract", "imu", "level_photo", "features", "epipolar")
 TARGET_KERNELS = ("canny_pyramid", "dt_pyramid")  # every frame's targets launch both
 # entries that keep their check and launch on no path
 OFF_PATH = ("edt", "gn", "residual", "sg")
-MAP_KERNELS = ("match", "ransac")  # the launch counters the map-backend phases must move
+# the launch counters the map-backend phases must move (a verification runs in each)
+MAP_KERNELS = ("detect", "match", "epipolar", "ransac")
 # the secondary solvers' phases: the kernels each must launch (True) or not (False)
 PHASE_KERNELS = {
     "cli_photometric": (("level_photo", True), ("level_lm", False)),
     "cli_fused": (("imu", True), ("level_lm", True), ("canny_pyramid", True),
                   ("extract", True)),
-    "fused_fallback": (("match", True), ("ransac", True), ("level_lm", True)),
-    "cli_feature_vo": (("match", True), ("ransac", True), ("level_lm", False)),
+    "fused_fallback": (("detect", True), ("match", True), ("ransac", True), ("level_lm", True)),
+    "cli_feature_vo": (("detect", True), ("match", True), ("epipolar", True), ("ransac", True),
+                       ("level_lm", False)),
     "cli_imu": (("imu", True),),
     "cli_pnp": (("pnp", True), ("ransac", False)),
 }
@@ -373,6 +395,16 @@ OPS_PHOTO_POINT = 60  # level_photo.cu, a point and iteration: warp 15, projecti
 #                       adds into the sums (+12 bilinear, +4 Huber, +42 reweighting)
 OPS_PHOTO_STEP = 500  # the serial step a pair and iteration: the 6x6 Cholesky solve, the
 #                       clamp, se3_exp and the inverse compose
+OPS_HARRIS_PIXEL = 60  # features.cu, a pixel: two Sobel sums 14, the products 3, three box
+#                       sums 24, det, trace and the response 7, the peak test 8, threshold and
+#                       border 5
+OPS_DESCRIPTOR = 320  # features.cu, a valid slot: the mean 64, the centring 64, the squares
+#                       and their sum 127, the norm 2, the divisions 64
+OPS_EPIPOLAR_HYPOTHESIS = 3000  # epipolar.cu, a hypothesis, the least any route needs: the
+#                       normal matrix (45 entries x 8 points x 2) 720, a 9x9 symmetric
+#                       eigensolve (~4/3 n^3, float64 counted twice) ~2000, F, its rank 2 ~300
+OPS_SAMPSON = 30  # epipolar.cu, a valid pair and hypothesis: F x1, F^T x2, the residual,
+#                   the denominator, the division and the test
 
 
 def _log(msg: str) -> None:
@@ -1765,6 +1797,40 @@ def _kernel_launches(fn) -> int:
     return 0
 
 
+def _captured_kernels(fn) -> int:
+    """The CUDA kernels one call of fn() enqueues, counted exactly: after a
+    call outside it, one call is captured into a CUDA graph and the graph's
+    kernel nodes are counted through the driver (copies and memsets apart).
+    The profiler's windows sometimes record no device event at all for
+    such a call (six in a row for one `detect_describe` call on an H100), so
+    launch requirements count here. A call that synchronizes with the host
+    cannot be captured and raises, so a count also shows that fn() makes no
+    host sync."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    _require(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    _require(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _require(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                 "cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
+
+
 def check_ransac(device, rng) -> dict:
     """Kernel B's fused `ransac_pnp` (one launch a verification) against the
     step-by-step route on the card (`ransac_pnp_steps`: the sample, the
@@ -1775,7 +1841,8 @@ def check_ransac(device, rng) -> dict:
     and 8192 (the correspondences staged in shared memory), 16384 and the
     card's largest K, `max_points` (read through L1), one draw each; and
     against the route over `pnp_gn`'s plain version, bitwise. Records the
-    launches a verification of both."""
+    launches a verification of both (the kernel's by graph capture, which
+    shows it makes no host sync; the route's by the profiler)."""
     import torch
 
     from rgbd_odometry_tpu_torch.kernels import pnp_gn
@@ -1813,11 +1880,11 @@ def check_ransac(device, rng) -> dict:
         _log(f"{what}: every field bitwise the step-by-step route's and the plain route's; "
              f"best hypothesis {int(ker.best_hypothesis)} with {int(ker.num_inliers)} inliers")
     args = (u, obj, imn, valid)
-    fused_n = _kernel_launches(lambda: pnp_gn.ransac_pnp(*args))
+    fused_n = _captured_kernels(lambda: pnp_gn.ransac_pnp(*args))
     steps_n = _kernel_launches(lambda: pnp_gn.ransac_pnp_steps(*args))
     _require(fused_n == 1, f"ransac_pnp: {fused_n} kernels a verification, not 1")
     for k, a in large.items():
-        n = _kernel_launches(lambda a=a: pnp_gn.ransac_pnp(*a))
+        n = _captured_kernels(lambda a=a: pnp_gn.ransac_pnp(*a))
         _require(n == 1, f"ransac_pnp K={k}: {n} kernels a verification, not 1")
     k_ms = _time_ms(lambda: pnp_gn.ransac_pnp(*args), 50)
     s_ms = _time_ms(lambda: pnp_gn.ransac_pnp_steps(*args), 20)
@@ -1850,6 +1917,334 @@ def check_ransac(device, rng) -> dict:
             "k16384": {"ms": large_ms[16384], **ransac_bound(*large[16384])},
             "k_max": {"k": max(large), "ms": large_ms[max(large)],
                       **ransac_bound(*large[max(large)])}, **bound}
+
+
+def _on(a, device):
+    """A float32 array as a contiguous tensor on `device`."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+
+def _checkerboard(h: int, w: int, cell: int = 6):
+    """A checkerboard of 200 / 40 squares: many equal Harris responses, so
+    the selection's tie order decides the slots."""
+    y, x = np.mgrid[:h, :w]
+    return np.where(((y // cell) + (x // cell)) % 2 == 0, 200.0, 40.0).astype(np.float32)
+
+
+def detect_cases(device, rng) -> list:
+    """check_detect's inputs: (name, gray, depth or None, k_max) on the card."""
+    frames, _ = stream_frames()
+    vga, _ = vga_frames()
+    t = functools.partial(_on, device=device)
+    g0, d0 = frames[0]
+    g9, d9 = frames[9]
+    noisy = g9 + rng.normal(0, 2.0, g9.shape).astype(np.float32)
+    cases = []
+    for k in (16, 384, 512, 1024):
+        cases += [(f"rendered 320x240 K={k}", t(g0), t(d0), k),
+                  (f"rendered 320x240 K={k} no depth", t(g0), None, k),
+                  (f"noisy 320x240 K={k}", t(noisy), t(d9), k)]
+    cases += [
+        ("flat 320x240 K=384", t(np.full((240, 320), 87.0)), t(d0), 384),
+        ("checkerboard 320x240 K=384", t(_checkerboard(240, 320)), t(d0), 384),
+        ("checkerboard 320x240 K=1024", t(_checkerboard(240, 320)), None, 1024),
+        ("ragged 37x45 K=384", t(noisy[100:137, 150:195]), t(d9[100:137, 150:195]), 384),
+        ("rendered 640x480 K=512", t(vga[3][0]), t(vga[3][1]), 512),
+        ("rendered 640x480 K=1024 no depth", t(vga[3][0]), None, 1024),
+        ("checkerboard 640x480 K=512", t(_checkerboard(480, 640)), None, 512),
+    ]
+    return cases
+
+
+def _detect_bound(gray, k: int, count: int, depth: bool) -> dict:
+    """The least time for one detect_describe call: the image read once (and
+    a depth a slot), every output written once; the response, the peak test
+    and the threshold a pixel, the descriptor of every valid slot."""
+    h, w = gray.shape
+    out = k * (8 + 4 + 256 + 1) + 4 + (k * 13 if depth else 0)
+    return _bound(h * w * 4 + (k * 4 if depth else 0) + out,
+                  h * w * OPS_HARRIS_PIXEL + count * OPS_DESCRIPTOR)
+
+
+def check_detect(device, rng) -> dict:
+    """Kernel C against its plain version on the card, every output bitwise
+    (uv, score, desc, valid, count and, with depth, pts3d and pts_valid):
+    rendered 320x240 frames exact and with noise, a flat image (count 0,
+    every slot -inf in pixel order), checkerboards (equal responses: the tie
+    order), a 37x45 image (ragged tiles) and 640x480, K = 16, 384, 512,
+    1024, with and without depth; two runs bitwise. One kernel a call (its
+    header's memset apart) and no host sync, by graph capture, at the
+    matcher's call (320x240, K = 384, depth) and feature-vo's (640x480, K =
+    512); timed at both beside the plain version."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.core.camera import Intrinsics
+    from rgbd_odometry_tpu_torch.kernels import features as kfeat
+    from rgbd_odometry_tpu_torch.ops import features as pf
+    from rgbd_odometry_tpu_torch import profiles
+
+    intr = Intrinsics.from_config(profiles.production_320().camera)
+
+    def plain(g, d, k):
+        kps = pf.detect_and_describe_plain(g, k)
+        return tuple(kps) + (pf.backproject_keypoints_plain(kps, d, intr) if d is not None else ())
+
+    def kernel(g, d, k):
+        return kfeat.detect_describe(g, k, depth=d, intr=None if d is None else intr)
+
+    for name, g, d, k in detect_cases(device, rng):
+        ker, again, pl = kernel(g, d, k), kernel(g, d, k), plain(g, d, k)
+        torch.cuda.synchronize()
+        what = f"detect {name}"
+        _require(len(ker) == len(pl), f"{what}: {len(ker)} outputs, plain {len(pl)}")
+        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+        for field, a, b in zip(("uv", "score", "desc", "valid", "count", "pts3d", "pts_valid"),
+                               ker, pl):
+            _require(_same_bits(a, b), f"{what}: {field} differs from the plain version")
+        count = int(ker[4])
+        if name.startswith("flat"):
+            _require(count == 0 and bool(torch.isinf(ker[1]).all()) and torch.equal(
+                ker[0][:, 0] + g.shape[1] * ker[0][:, 1],
+                torch.arange(k, dtype=torch.float32, device=device)),
+                f"{what}: not every slot -inf in pixel order")
+        _log(f"{what}: every output bitwise the plain version's, {count} corners"
+             + (f", {int(ker[6].sum())} with depth" if d is not None else ""))
+    frames, _ = stream_frames()
+    g = torch.from_numpy(frames[0][0]).to(device)
+    d = torch.from_numpy(frames[0][1]).to(device)
+    vga, _ = vga_frames()
+    gv = torch.from_numpy(vga[3][0]).to(device)
+    n_kernels = _captured_kernels(lambda: kernel(g, d, 384))
+    v_kernels = _captured_kernels(lambda: kernel(gv, None, 512))
+    _require(n_kernels == 1 and v_kernels == 1,
+             f"detect: {n_kernels} kernels a call at 320x240 K=384 with depth and {v_kernels} at "
+             "640x480 K=512, not 1")
+    k_ms = _time_ms(lambda: kernel(g, d, 384), 50)
+    p_ms = _time_ms(lambda: plain(g, d, 384), 10)
+    v_ms = _time_ms(lambda: kernel(gv, None, 512), 50)
+    vp_ms = _time_ms(lambda: plain(gv, None, 512), 10)
+    count = int(kernel(g, d, 384)[4])
+    bound = _detect_bound(g, 384, count, True)
+    vbound = _detect_bound(gv, 512, int(kernel(gv, None, 512)[4]), False)
+    _log(f"detect: {n_kernels} kernel a call (the memset apart; captured: no host sync); "
+         f"320x240 K=384 with depth "
+         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound['bound_ms'] * 1e3:.3f} us "
+         f"({bound['bound_by']}); 640x480 K=512 kernel {v_ms:.4f} ms, plain {vp_ms:.4f} ms, "
+         f"bound {vbound['bound_ms'] * 1e3:.3f} us")
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "kernels_per_call": n_kernels,
+            "vga": {"ms": v_ms, "plain_ms": vp_ms, **vbound}, **bound}
+
+
+def _rendered_matches(device, pairs, k: int = MATCH_K) -> list:
+    """Matched pixel pairs of the stream phase's frames (a stored, b query)
+    through the port's own detection and matching on the card: (name, uv1,
+    uv2, valid) as `KeyframeMatcher.verify` (K = 384) and `FeatureVo` (K =
+    512) form them."""
+    from rgbd_odometry_tpu_torch.ops import features as pf
+
+    frames, _ = stream_frames()
+    out = []
+    for a, b in pairs:
+        ref = pf.detect_and_describe(_on(frames[a][0], device), k)
+        now = pf.detect_and_describe(_on(frames[b][0], device), k)
+        m = pf.match(ref, now)
+        valid = m.good & now.valid & ref.valid[m.ref_idx]
+        out.append((f"K={k} frames {a}->{b}", now.uv.contiguous(), ref.uv[m.ref_idx].contiguous(),
+                    valid.contiguous()))
+    return out
+
+
+def _general_scene(seed: int, device, n: int = 96):
+    """tests/test_torch_ransac.py's well-posed two-view scene: random points
+    at spread depths seen from two poses (numpy Rodrigues), a quarter of the
+    pairs corrupted, the last 6 invalid."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.8, 0.8, n), rng.uniform(1.5, 5, n)], -1)
+    w = np.array([0.02, 0.05, -0.01])
+    th = np.linalg.norm(w)
+    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    Q = (P - np.array([0.12, -0.04, 0.03])) @ R
+
+    def proj(X):
+        return np.stack([176.0 * X[:, 0] / X[:, 2] + 79.5, 176.0 * X[:, 1] / X[:, 2] + 59.5], -1)
+
+    uv1, uv2 = proj(Q), proj(P)
+    uv1 = uv1 + rng.normal(0, 0.3, uv1.shape)
+    bad = rng.random(n) < 0.25
+    uv1[bad] += rng.uniform(-25, 25, (int(bad.sum()), 2))
+    valid = np.ones(n, bool)
+    valid[-6:] = False
+    return _on(uv1, device), _on(uv2, device), torch.from_numpy(valid).to(device)
+
+
+def _F_close(a, b, tol: float) -> bool:
+    a, b = a / a.norm(), b / b.norm()
+    return min(float((a - b).abs().max()), float((a + b).abs().max())) < tol
+
+
+def _eigen_gaps(u, uv1, uv2, valid):
+    """Each hypothesis's relative gap between the two smallest eigenvalues
+    of its normal matrix (float64 `eigvalsh` of the float32 matrix)."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import epipolar as kepi
+
+    ev = torch.linalg.eigvalsh(kepi.normal_matrices(u, uv1, uv2, valid).double())
+    return (ev[:, 1] - ev[:, 0]) / ev[:, -1].abs().clamp(min=1e-300)
+
+
+def check_epipolar(device, rng) -> dict:
+    """Kernel D (one launch a filter) against its twin
+    `fundamental_ransac_steps`, every output and each hypothesis's count
+    bitwise, on the card and on CPU copies of the inputs (the route the CPU
+    tests hold to JAX's filter, the well-posed scene included), and against
+    the plain cuSOLVER route (`ransac_fundamental_filter_plain`): on
+    rendered matches (the stream phase's frames through the port's detection
+    and matching, at the matcher's K = 384 and feature-vo's K = 512, three
+    draws each) the count of every hypothesis whose normal matrix separates its
+    two smallest eigenvalues by 1e-3 relative or more equal (below, float32's
+    eigh leaves F off by eps / gap, 1e-4 or more, and a pair near the
+    threshold may fall either side: those are logged with their gaps, beside
+    the tally of the 62-of-64 bar), and the inlier set identical wherever the
+    kernel's best count leads the next by 2 or more; on the well-posed
+    two-view scene (two seeds, three draws each) 60% of the valid pairs
+    inliers at least, and identical inliers and F within 1e-3 up to sign and
+    scale where both routes' best is one hypothesis float32 resolves (gap
+    1e-3 or more; the winning 8-point samples' gaps run 1e-8 to 3e-4, and
+    the tally over every draw is logged); the two pass-through guards.
+    One kernel a filter and no host sync (graph capture) at K = 384 and
+    512. Timed at S = 64, K = 384."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.kernels import epipolar as kepi
+    from rgbd_odometry_tpu_torch.ops import epipolar as pepi
+
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    cases = []
+    rendered = _rendered_matches(device, ((0, 2), (0, 5), (10, 13), (20, 24)))
+    rendered += _rendered_matches(device, ((0, 1), (10, 12), (20, 23)), FEATURE_VO_K)
+    for name, uv1, uv2, valid in rendered:
+        for i in range(3):
+            u = torch.rand((PNP_HYPOTHESES, uv1.shape[0]), generator=g, device=device)
+            cases.append((f"{name} draw {i}", u, uv1, uv2, valid))
+    scenes = [(f"two-view scene {s} draw {i}",
+               torch.rand((PNP_HYPOTHESES, 96), generator=g, device=device),
+               *_general_scene(s, device)) for s in (0, 1) for i in range(3)]
+    bar_held, tally, scene_bar = 0, [], []
+    for name, *args in cases + scenes:
+        ker = kepi.fundamental_ransac(*args)
+        again = kepi.fundamental_ransac(*args)
+        twin = kepi.fundamental_ransac_steps(*args)
+        host = kepi.fundamental_ransac_steps(*(a.cpu() for a in args))
+        pl = pepi.ransac_fundamental_filter_plain(*args)
+        _, pc = pepi.hypotheses_plain(*args)
+        torch.cuda.synchronize()
+        what = f"epipolar {name}"
+        _require(all(_same_bits(a, b) for a, b in zip(ker, again)), f"{what}: runs differ")
+        for field, a, b, c in zip(("inliers", "num_inliers", "F", "counts"), ker, twin, host):
+            _require(_same_bits(a, b), f"{what}: {field} differs from the twin")
+            _require(_same_bits(a.cpu(), c), f"{what}: {field} differs from the twin on the CPU")
+        counts = ker[3]
+        differ = torch.nonzero(counts != pc)[:, 0].tolist()
+        gaps = _eigen_gaps(*args)
+        held = len(differ) <= 2 and int((counts - pc).abs().max()) <= 1
+        bar_held += held
+        tally.append(64 - len(differ))
+        firm = [h for h in differ if float(gaps[h]) >= 1e-3]
+        _require(not firm, f"{what}: hypotheses {firm} (relative eigen-gaps "
+                           f"{[float(gaps[h]) for h in firm]}) count otherwise than the plain route")
+        top2 = torch.topk(counts, 2).values.tolist()
+        kb, pb = int(torch.argmax(counts)), int(torch.argmax(pc))
+        same_in, close = torch.equal(ker[0], pl.inliers), _F_close(ker[2], pl.F, 1e-3)
+        _log(f"{what}: bitwise the twin on the card and on the CPU; {int(ker[1])} inliers "
+             f"(plain {int(pl.num_inliers)}), "
+             f"best counts {top2}, best hypothesis {kb} gap {float(gaps[kb]):.1e} (plain {pb} "
+             f"gap {float(gaps[pb]):.1e}); inliers {'identical' if same_in else 'differ'}, F "
+             f"{'within' if close else 'not within'} 1e-3 of the plain route's; "
+             f"{64 - len(differ)} of 64 counts equal the plain route's (differing: "
+             + ", ".join(f"h{h} {int(counts[h])}/{int(pc[h])} gap {float(gaps[h]):.1e}"
+                         for h in differ) + ")")
+        if name.startswith("two-view"):
+            scene_bar.append(same_in and close)
+            n_valid = int(args[3].sum())
+            _require(int(ker[1]) >= int(0.6 * n_valid),
+                     f"{what}: {int(ker[1])} inliers of {n_valid} valid pairs")
+            if kb == pb and float(gaps[kb]) >= 1e-3:
+                _require(same_in and close, f"{what}: inliers or F differ from the plain route "
+                         "on a hypothesis float32 resolves")
+        elif top2[0] - top2[1] >= 2:
+            _require(same_in, f"{what}: the inliers differ from the plain route's where the "
+                     f"best count leads by {top2[0] - top2[1]}")
+    _log(f"epipolar: the strict bar (62 of 64 counts equal the plain route's, the rest within "
+         f"1) held in {bar_held} of {len(cases) + len(scenes)} cases; equal counts {tally}; on "
+         f"the two-view scene identical inliers and F within 1e-3 of the plain route in "
+         f"{sum(scene_bar)} of {len(scene_bar)} draws")
+    # the guards: fewer than 8 slots (no launch), fewer than min_points valid
+    name, u, uv1, uv2, valid = cases[0]
+    before = kepi.fundamental_ransac.launches
+    five = pepi.ransac_fundamental_filter(u[:, :5], uv1[:5], uv2[:5], valid[:5])
+    _require(torch.equal(five.inliers, valid[:5]) and not bool(five.F.any())
+             and kepi.fundamental_ransac.launches == before, "epipolar: the 5-slot guard")
+    few = torch.zeros_like(valid)
+    few[torch.nonzero(valid)[:6, 0]] = True
+    got = pepi.ransac_fundamental_filter(u, uv1, uv2, few)
+    _require(torch.equal(got.inliers, few) and int(got.num_inliers) == 6,
+             "epipolar: the min_points guard")
+    kepi.fundamental_ransac.launches = before
+    args = (u, uv1, uv2, valid)
+    n_kernels = _captured_kernels(lambda: kepi.fundamental_ransac(*args))
+    v_args = cases[-1][1:]
+    v_kernels = _captured_kernels(lambda: kepi.fundamental_ransac(*v_args))
+    _require(n_kernels == 1 and v_kernels == 1,
+             f"epipolar: {n_kernels} kernels a filter at K={MATCH_K} and {v_kernels} at "
+             f"K={FEATURE_VO_K}, not 1")
+    k_ms = _time_ms(lambda: kepi.fundamental_ransac(*args), 50)
+    t_ms = _time_ms(lambda: kepi.fundamental_ransac_steps(*args), 3)
+    p_ms = _time_ms(lambda: pepi.ransac_fundamental_filter_plain(*args), 10)
+    s_n, k_n = u.shape
+    bound = _bound(s_n * k_n * 4 + k_n * 17 + k_n + 4 + 36 + s_n * 4,
+                   s_n * (OPS_EPIPOLAR_HYPOTHESIS + int(valid.sum()) * OPS_SAMPSON))
+    _log(f"epipolar: {n_kernels} kernel a filter (captured: no host sync); S={s_n} K={k_n} "
+         f"kernel {k_ms:.4f} ms, twin on "
+         f"the card {t_ms:.4f} ms, plain route (cuSOLVER) {p_ms:.4f} ms, bound "
+         f"{bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "twin_ms": t_ms,
+            "kernels_per_call": n_kernels, "strict_bar_held": bar_held,
+            "scene_bar_held": sum(scene_bar), "cases": len(cases) + len(scenes), **bound}
+
+
+@contextlib.contextmanager
+def _epipolar_against_twin(tally: list, caller):
+    """Every `ransac_fundamental_filter` call that module `caller` makes in
+    the block (kernel D on the card) is recorded with its inputs; after the
+    block the twin runs on CPU copies of each (the route the CPU tests hold
+    to JAX's filter) and must give every output bitwise. `tally` gets each
+    filter's inlier count."""
+    from rgbd_odometry_tpu_torch.kernels import epipolar as kepi
+
+    filt, calls = caller.ransac_fundamental_filter, []
+
+    def recorded(u, uv1, uv2, valid, **k):
+        res = filt(u, uv1, uv2, valid, **k)
+        calls.append(([x.clone() for x in (u, uv1, uv2, valid)], k, res))
+        return res
+
+    caller.ransac_fundamental_filter = recorded
+    try:
+        yield
+    finally:
+        caller.ransac_fundamental_filter = filt
+    for n, (a, k, res) in enumerate(calls):
+        twin = kepi.fundamental_ransac_steps(*(x.cpu() for x in a), **k)
+        _require(all(_same_bits(x.cpu(), y) for x, y in zip(res, twin[:3])),
+                 f"epipolar: filter {n} (K={a[1].shape[0]}) differs from the twin on the CPU")
+        tally.append(int(res.num_inliers))
 
 
 @contextlib.contextmanager
@@ -5232,8 +5627,8 @@ class _Tally:
 
 def _launch_counters():
     from rgbd_odometry_tpu_torch.kernels import (
-        canny, edt, extract, fused_iter, imu, level_lm, level_photo, level_sg, match, pnp_gn,
-        residual, sg_terms,
+        canny, edt, epipolar, extract, features, fused_iter, imu, level_lm, level_photo, level_sg,
+        match, pnp_gn, residual, sg_terms,
     )
 
     return {"edt": edt.edt_squared, "canny_pyramid": canny.canny_pyramid,
@@ -5243,7 +5638,8 @@ def _launch_counters():
             "match": match.match_mutual, "pnp": pnp_gn.pnp_gn, "ransac": pnp_gn.ransac_pnp,
             "level_lm": level_lm.level_lm_pyramid, "level_sg": level_sg.level_sg_pyramid,
             "extract": extract.extract_pyramid, "imu": imu.imu_scan,
-            "level_photo": level_photo.level_photo}
+            "level_photo": level_photo.level_photo, "detect": features.detect_describe,
+            "epipolar": epipolar.fundamental_ransac}
 
 
 def main() -> int:
@@ -5254,6 +5650,7 @@ def main() -> int:
         return 2
     from rgbd_odometry_tpu_torch.device import resolve_device
     from rgbd_odometry_tpu_torch.kernels import build
+    from rgbd_odometry_tpu_torch.pipeline import feature_vo, kf_matcher
 
     t_start = time.perf_counter()
     device = resolve_device("cuda:0")
@@ -5285,6 +5682,8 @@ def main() -> int:
         "match": check_match(device, rng),
         "pnp": check_pnp(device, rng),
         "ransac": check_ransac(device, rng),
+        "detect": check_detect(device, rng),
+        "epipolar": check_epipolar(device, rng),
         "level_lm": check_level_lm(device, rng),
         "level_sg": check_level_sg(device, rng),
         "extract": check_extract(device, rng),
@@ -5347,10 +5746,21 @@ def main() -> int:
         t0 = time.perf_counter()
         tally: list = []
         if name in ("loop_closure", "relocalize"):
-            with _ransac_against_steps(tally):
+            filters: list = []
+            with _ransac_against_steps(tally), _epipolar_against_twin(filters, kf_matcher):
                 results[name] = phase()
             _log(f"{name}: {len(tally)} verifications, each bitwise the step-by-step route "
-                 f"(inliers {tally})")
+                 f"(inliers {tally}); {len(filters)} epipolar filters, each bitwise the twin "
+                 f"on the CPU (inliers {filters})")
+        elif name == "cli_feature_vo":
+            filters = []
+            with _epipolar_against_twin(filters, feature_vo):
+                results[name] = phase()
+            launched = counters["epipolar"].launches - before["epipolar"]
+            _require(len(filters) == launched > 0,
+                     f"{name}: {len(filters)} epipolar filters recorded, {launched} launched")
+            _log(f"{name}: {len(filters)} epipolar filters (K={FEATURE_VO_K}), each bitwise the "
+                 f"twin on the CPU (inliers {filters})")
         else:
             results[name] = phase()
         torch.cuda.synchronize()
@@ -5372,7 +5782,11 @@ def main() -> int:
             _require(n[key] == want, f"{name}: {key} launched {n[key]} times for {want} solves")
         if name in MAP_PHASES:
             _require(all(n[k] > 0 for k in MAP_KERNELS),
-                     f"{name}: the matching or PnP kernel was not launched")
+                     f"{name}: the detection, matching, epipolar or PnP kernel was not launched")
+        if name in MAP_PHASES or name == "cli_feature_vo":
+            # every PnP verification follows one epipolar filter
+            _require(n["epipolar"] >= n["ransac"],
+                     f"{name}: {n['epipolar']} epipolar launches for {n['ransac']} verifications")
         if name in PARITY_PHASES:
             _require(n["level_lm"] + n["level_sg"] > 0,
                      f"{name}: no level kernel was launched for the parity configurations")
@@ -5472,6 +5886,15 @@ def main() -> int:
          "replaces": "rgbd_odometry_tpu/solvers/photometric.py:226 solve_pyramid (XLA, no Pallas "
                      "kernel: solve_level's lax.scan :213 over photometric_residual :147)",
          "launches": launches["level_photo"], **res["level_photo"]},
+        {"name": "detect_describe", "route": "cuda", "source": src + "features.cu",
+         "replaces": "rgbd_odometry_tpu/ops/features.py:69 detect_and_describe (XLA, no Pallas "
+                     "kernel: top_k :91, the one-hot MXU gather :106) and "
+                     "pipeline/kf_matcher.py:123 _detect_backproject",
+         "launches": launches["detect"], **res["detect"]},
+        {"name": "fundamental_ransac", "route": "cuda", "source": src + "epipolar.cu",
+         "replaces": "rgbd_odometry_tpu/ops/epipolar.py:91 ransac_fundamental_filter (XLA, no "
+                     "Pallas kernel: vmap :134, top_k :126, eigh :62, svd :69)",
+         "launches": launches["epipolar"], **res["epipolar"]},
     ]
     _log(f"synthetic frames: {rendered['rendered']} rendered, {rendered['reused']} reused")
     _log(f"chip_smoke: every check and phase passed, {time.perf_counter() - t_start:.1f} s")

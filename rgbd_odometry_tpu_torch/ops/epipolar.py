@@ -2,11 +2,16 @@
 `rgbd_odometry_tpu/ops/epipolar.py` (the counterpart of the reference's
 `PnPOdometry::ransacTest`, src/PnPOdometry.cpp:500-535).
 
-All hypotheses are solved at once: each draws 8 valid correspondences, solves
-the Hartley-normalized 8-point system as the smallest eigenvector of the 9x9
-normal matrix (batched `torch.linalg.eigh`), enforces rank 2 with a batched
-3x3 SVD and scores by the Sampson distance; the best hypothesis's inliers are
-the filter's output. The random draws come in as an (S, K) tensor of
+`ransac_fundamental_filter` sends CUDA tensors to kernel D
+(`kernels/epipolar.fundamental_ransac`: the whole filter in one launch,
+Jacobi eigensolvers in float64) and CPU tensors to the plain version
+`ransac_fundamental_filter_plain`: all hypotheses at once, each drawing 8
+valid correspondences, the Hartley-normalized 8-point system solved as the
+smallest eigenvector of the 9x9 normal matrix (batched `torch.linalg.eigh`),
+rank 2 by a batched 3x3 SVD, the Sampson scores; the best hypothesis's
+inliers are the filter's output. Both take each sample by `lax.top_k`'s
+rule, ties to the lower index (`kernels/pnp_gn.select_sample`; `torch.topk`
+does not keep it). The random draws come in as an (S, K) tensor of
 uniforms in [0, 1), so that a caller (or a test replaying another
 generator) decides them.
 """
@@ -17,6 +22,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from rgbd_odometry_tpu_torch.kernels.epipolar import fundamental_ransac
+from rgbd_odometry_tpu_torch.kernels.pnp_gn import select_sample
 
 
 class EpipolarFilterResult(NamedTuple):
@@ -75,6 +83,41 @@ def sampson_distance(F: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> t
     return num / torch.clamp(den, min=1e-12)
 
 
+def _pass_through(uv1: torch.Tensor, valid: torch.Tensor) -> EpipolarFilterResult:
+    """Fewer than 8 match slots: every candidate passes (JAX's static guard)."""
+    return EpipolarFilterResult(
+        inliers=valid, num_inliers=valid.sum(dtype=torch.int32),
+        F=torch.zeros((3, 3), dtype=uv1.dtype, device=uv1.device),
+    )
+
+
+def hypotheses_plain(u, uv1, uv2, valid, threshold_px: float = 3.0):
+    """The plain version's hypotheses: (F (S, 3, 3), inlier counts (S,)
+    int32), K >= 8."""
+    uv1n, T1 = _hartley_normalize(uv1, valid)
+    uv2n, T2 = _hartley_normalize(uv2, valid)
+    thr2 = threshold_px * threshold_px
+    w = select_sample(u, valid, 8)
+    Fn = _eight_point(uv1n, uv2n, w.to(uv1.dtype))
+    Fs = _rank2(T2.T @ Fn @ T1)  # back to pixel coordinates
+    counts = (valid & (sampson_distance(Fs, uv1, uv2) < thr2)).sum(-1, dtype=torch.int32)
+    return Fs, counts
+
+
+def ransac_fundamental_filter_plain(u, uv1, uv2, valid, threshold_px: float = 3.0,
+                                    min_points: int = 8) -> EpipolarFilterResult:
+    """The plain version of `ransac_fundamental_filter` (any device)."""
+    if uv1.shape[0] < 8:
+        return _pass_through(uv1, valid)
+    Fs, counts = hypotheses_plain(u, uv1, uv2, valid, threshold_px)
+    F_b = Fs[torch.argmax(counts)]
+    inliers = valid & (sampson_distance(F_b, uv1, uv2) < threshold_px * threshold_px)
+    enough = valid.sum() >= min_points
+    inliers = torch.where(enough, inliers, valid)
+    return EpipolarFilterResult(inliers=inliers, num_inliers=inliers.sum(dtype=torch.int32),
+                                F=F_b)
+
+
 def ransac_fundamental_filter(
     u: torch.Tensor,
     uv1: torch.Tensor,
@@ -87,25 +130,15 @@ def ransac_fundamental_filter(
     uv2 (K,2) (ref) with candidate mask valid (K,). `u` (S, K) holds the
     uniforms of the S hypotheses' draws. `threshold_px` is the reference's
     distance=3 (src/PnPOdometry.cpp:463). With fewer than 8 match slots, or
-    fewer than `min_points` valid matches, every candidate passes."""
-    k = uv1.shape[0]
-    if k < 8:
-        return EpipolarFilterResult(
-            inliers=valid, num_inliers=valid.sum(dtype=torch.int32),
-            F=torch.zeros((3, 3), dtype=uv1.dtype, device=uv1.device),
-        )
-    uv1n, T1 = _hartley_normalize(uv1, valid)
-    uv2n, T2 = _hartley_normalize(uv2, valid)
-    thr2 = threshold_px * threshold_px
-    scores = u + torch.where(valid, 1.0, -1.0).to(u.dtype)
-    sel = torch.topk(scores, 8, dim=-1).indices
-    w = torch.zeros_like(u, dtype=torch.bool).scatter_(1, sel, True) & valid
-    Fn = _eight_point(uv1n, uv2n, w.to(uv1.dtype))
-    Fs = _rank2(T2.T @ Fn @ T1)  # back to pixel coordinates
-    counts = (valid & (sampson_distance(Fs, uv1, uv2) < thr2)).sum(-1, dtype=torch.int32)
-    F_b = Fs[torch.argmax(counts)]
-    inliers = valid & (sampson_distance(F_b, uv1, uv2) < thr2)
-    enough = valid.sum() >= min_points
-    inliers = torch.where(enough, inliers, valid)
-    return EpipolarFilterResult(inliers=inliers, num_inliers=inliers.sum(dtype=torch.int32),
-                                F=F_b)
+    fewer than `min_points` valid matches, every candidate passes. CPU
+    tensors run the plain version, CUDA tensors kernel D (one launch, no
+    host sync); any other device raises."""
+    if uv1.device.type == "cpu":
+        return ransac_fundamental_filter_plain(u, uv1, uv2, valid, threshold_px, min_points)
+    if uv1.device.type != "cuda":
+        raise ValueError(f"ransac_fundamental_filter: unsupported device {uv1.device}")
+    if uv1.shape[0] < 8:
+        return _pass_through(uv1, valid)
+    inliers, num, F, _ = fundamental_ransac(u.contiguous(), uv1.contiguous(), uv2.contiguous(),
+                                            valid.contiguous(), threshold_px, min_points)
+    return EpipolarFilterResult(inliers=inliers, num_inliers=num, F=F)

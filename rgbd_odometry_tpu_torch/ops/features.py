@@ -6,8 +6,12 @@ on one frame (H, W). The descriptors index the patch around each corner
 directly (the JAX package gathers from a stack of shifted images with one-hot
 MXU matmuls, a TPU mechanism the port does not carry); the rows and columns
 wrap around the image as `jnp.roll` does, which only matters for slots that
-hold no corner and are zeroed anyway. `match` on CUDA tensors runs the
-hand-written kernel of `kernels/match.py`.
+hold no corner and are zeroed anyway. `detect_and_describe` and
+`detect_describe_backproject` on CUDA tensors run kernel C
+(`kernels/features.py`: Harris, peaks, top-K, descriptors and the
+back-projection in one launch), on CPU tensors the plain version
+`detect_and_describe_plain`; `match` on CUDA tensors runs the hand-written
+kernel of `kernels/match.py`.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from rgbd_odometry_tpu_torch.core.camera import Intrinsics, backproject_points
+from rgbd_odometry_tpu_torch.kernels.features import detect_describe
 from rgbd_odometry_tpu_torch.kernels.match import match_mutual
 from rgbd_odometry_tpu_torch.ops.gradient import _pad1, sobel3
 
@@ -84,17 +90,14 @@ def _nms3(resp: torch.Tensor) -> torch.Tensor:
     return resp >= m
 
 
-def detect_and_describe(
+def detect_and_describe_plain(
     gray: torch.Tensor,
     k_max: int = 512,
     patch: int = 8,
     min_response_frac: float = 1e-4,
     border: int = 8,
 ) -> Keypoints:
-    """Top-`k_max` Harris corners of gray (H, W) float32, with normalized
-    patch descriptors. Corners are ordered by response, the lower pixel
-    index first among equal responses (as `jax.lax.top_k`); slots past the
-    last corner score -inf and keep the order of their pixel index."""
+    """The plain version of `detect_and_describe` (any device)."""
     h, w = gray.shape
     resp = harris_response(gray)
     ys = torch.arange(h, device=gray.device)[:, None]
@@ -120,6 +123,56 @@ def detect_and_describe(
     desc = desc / torch.clamp(norm, min=1e-6)
     desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
     return Keypoints(uv=uv, score=scores, desc=desc, valid=valid, count=count)
+
+
+def backproject_keypoints_plain(kps: Keypoints, depth_mm: torch.Tensor, intr: Intrinsics,
+                                min_depth_mm: float = 100.0):
+    """Each keypoint at its depth (mm) through `core.camera.backproject_points`
+    (every division rounded once): (pts3d (K, 3) metres, pts_valid (K,) bool,
+    the valid keypoints deeper than `min_depth_mm`)."""
+    h, w = depth_mm.shape
+    ui = torch.clamp(kps.uv[:, 0].long(), 0, w - 1)
+    vi = torch.clamp(kps.uv[:, 1].long(), 0, h - 1)
+    z_mm = depth_mm.reshape(-1)[vi * w + ui]
+    return backproject_points(kps.uv, z_mm, intr), kps.valid & (z_mm > min_depth_mm)
+
+
+def _device_of(fn: str, gray: torch.Tensor) -> str:
+    if gray.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {gray.device}")
+    return gray.device.type
+
+
+def detect_and_describe(
+    gray: torch.Tensor,
+    k_max: int = 512,
+    patch: int = 8,
+    min_response_frac: float = 1e-4,
+    border: int = 8,
+) -> Keypoints:
+    """Top-`k_max` Harris corners of gray (H, W) float32, with normalized
+    patch descriptors. Corners are ordered by response, the lower pixel
+    index first among equal responses (as `jax.lax.top_k`); slots past the
+    last corner score -inf and keep the order of their pixel index. CPU
+    tensors run the plain version, CUDA tensors kernel C (one launch, no
+    host sync); any other device raises."""
+    if _device_of("detect_and_describe", gray) == "cpu":
+        return detect_and_describe_plain(gray, k_max, patch, min_response_frac, border)
+    return Keypoints(*detect_describe(gray.contiguous(), k_max, patch, min_response_frac, border))
+
+
+def detect_describe_backproject(gray: torch.Tensor, depth_mm: torch.Tensor, intr: Intrinsics,
+                                k_max: int = 512, min_depth_mm: float = 100.0):
+    """`detect_and_describe` at its defaults and each keypoint back-projected
+    at its depth: (Keypoints, pts3d (K, 3), pts_valid (K,)), the JAX
+    matcher's fused `_detect_backproject`. On CUDA tensors one launch of
+    kernel C."""
+    if _device_of("detect_describe_backproject", gray) == "cpu":
+        kps = detect_and_describe_plain(gray, k_max)
+        return (kps, *backproject_keypoints_plain(kps, depth_mm, intr, min_depth_mm))
+    *kps, pts3d, pts_valid = detect_describe(gray.contiguous(), k_max, depth=depth_mm.contiguous(),
+                                             intr=intr, min_depth_mm=min_depth_mm)
+    return Keypoints(*kps), pts3d, pts_valid
 
 
 def match(

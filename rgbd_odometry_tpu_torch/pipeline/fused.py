@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from rgbd_odometry_tpu_torch.config import PipelineConfig
-from rgbd_odometry_tpu_torch.core.camera import backproject_points
 from rgbd_odometry_tpu_torch.ops import features as feat
 from rgbd_odometry_tpu_torch.pipeline.odometry import EdgeDvoOdometry
 from rgbd_odometry_tpu_torch.solvers import imu as imu_mod
@@ -93,14 +92,9 @@ class FusedOdometry:
     def _refresh_kf_features(self, gray, depth_mm):
         """Keypoints of the new keyframe and their points at its depth
         (invalid below 100 mm)."""
-        d = self._tensor(depth_mm)
-        self._kf_kps = kps = feat.detect_and_describe(self._tensor(gray), self.fcfg.max_keypoints)
-        h, w = d.shape
-        ui = torch.clamp(kps.uv[:, 0].long(), 0, w - 1)
-        vi = torch.clamp(kps.uv[:, 1].long(), 0, h - 1)
-        z_mm = d[vi, ui]
-        self._kf_pts3d = backproject_points(kps.uv, z_mm, self.odo.intr)
-        self._kf_pts_valid = kps.valid & (z_mm > 100.0)
+        self._kf_kps, self._kf_pts3d, self._kf_pts_valid = feat.detect_describe_backproject(
+            self._tensor(gray), self._tensor(depth_mm), self.odo.intr, self.fcfg.max_keypoints,
+            100.0)
 
     def _pnp_fallback(self, gray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Sparse relative pose against the current keyframe (PnPOdometry's

@@ -96,25 +96,17 @@ class KeyframeMatcher:
         return torch.rand((s, k), generator=self._gen, device=self.device)
 
     # ---- store -----------------------------------------------------------
-    def _detect_backproject(self, gray: torch.Tensor, depth_mm: torch.Tensor):
-        kps = feat.detect_and_describe(gray, self.cfg.max_keypoints)
-        h, w = depth_mm.shape
-        ui = torch.clamp(kps.uv[:, 0].long(), 0, w - 1)
-        vi = torch.clamp(kps.uv[:, 1].long(), 0, h - 1)
-        z_mm = depth_mm.reshape(-1)[vi * w + ui]
-        valid = kps.valid & (z_mm > self.cfg.min_depth_mm)
-        z = z_mm / 1000.0
-        x = z * (kps.uv[:, 0] - self.intr.cx) / self.intr.fx
-        y = z * (kps.uv[:, 1] - self.intr.cy) / self.intr.fy
-        return kps, torch.stack([x, y, z], -1), valid
-
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
     def describe(self, gray, depth_mm) -> StoredKeyframe:
         """Keypoints, descriptors and back-projected 3D points of one frame
-        (numpy or tensor, (H, W)); not stored yet."""
-        kps, pts3d, pvalid = self._detect_backproject(self._tensor(gray), self._tensor(depth_mm))
+        (numpy or tensor, (H, W)); not stored yet. Detection and
+        back-projection are one call (the JAX `_detect_bp`): one launch of
+        kernel C on the card."""
+        kps, pts3d, pvalid = feat.detect_describe_backproject(
+            self._tensor(gray), self._tensor(depth_mm), self.intr, self.cfg.max_keypoints,
+            self.cfg.min_depth_mm)
         return StoredKeyframe(kps=kps, pts3d=pts3d, pts_valid=pvalid)
 
     def detect(self, gray) -> feat.Keypoints:

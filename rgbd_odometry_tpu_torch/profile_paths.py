@@ -102,8 +102,15 @@ copies apart) of one `solvers/pnp.ransac_pnp` call on chip_smoke.py's PnP
 problem; one `LoopCloser.add_keyframe` over chip_smoke.py's 12-frame
 out-and-back path, its host clock split (each part synchronised) between
 `detect_and_describe`, `match_all`, `ransac_fundamental_filter` and
-`ransac_pnp` with the calls of each, and its `cudaLaunchKernel` calls; a
-digest of every output (both gate floors, every `RansacResult` field, the
+`ransac_pnp` with the calls of each (the keyframe's detection with its
+back-projection, `detect_describe_backproject`, counted under
+`detect_and_describe`), and its `cudaLaunchKernel` calls; device us,
+kernels, copies and host syncs of one `detect_and_describe` call (320x240,
+K = 384) and one `ransac_fundamental_filter` call (S = 64, K = 384, the
+frame's matches with frame 2's); the `feature-vo` command's frame (its
+30 frames, host ms a frame over frames 10-29, then launches, syncs, kernels
+and device ms a frame under the profiler); a digest of every output (both
+gate floors, every `RansacResult` field, the front end's two calls, the
 closures), so that an A/B call shows the bits equal.
 
 `--paths secondary` (not in the default; run it alone) profiles the
@@ -937,7 +944,8 @@ def profile_map(device, reps: int = 20) -> dict:
     from rgbd_odometry_tpu_torch.pipeline.loop_closure import LoopClosureConfig
     from rgbd_odometry_tpu_torch.solvers import pnp
 
-    out = {"path": "map", "reps": reps, "match": {}, "ransac_pnp": {}, "add_keyframe": {}}
+    out = {"path": "map", "reps": reps, "match": {}, "ransac_pnp": {}, "add_keyframe": {},
+           "front_end": {}, "feature_vo": {}}
     desc, valid, qd, qv = _map_store(device)
     g = torch.Generator(device=device)
     g.manual_seed(0)
@@ -972,6 +980,21 @@ def profile_map(device, reps: int = 20) -> dict:
     print(f"map ransac_pnp: {rp['us']:.2f} us, {rp['kernels']:.0f} kernel launches, "
           f"{rp['copies']:.0f} copies a verification; best {rp['best']} with {rp['inliers']} "
           f"inliers; digest {rp['digest']}", flush=True)
+
+    out["front_end"] = fe = _profile_front_end(device, reps)
+    print(f"map front end: detect_and_describe (320x240, K=384) {fe['detect']['us']:.2f} us, "
+          f"{fe['detect']['kernels']:.0f} kernels, {fe['detect']['copies']:.0f} copies, "
+          f"{fe['detect']['syncs']:.0f} syncs a call (digest {fe['detect']['digest']}); "
+          f"ransac_fundamental_filter (S=64, K=384) {fe['epipolar']['us']:.2f} us, "
+          f"{fe['epipolar']['kernels']:.0f} kernels, {fe['epipolar']['copies']:.0f} copies, "
+          f"{fe['epipolar']['syncs']:.0f} syncs a call (digest {fe['epipolar']['digest']})",
+          flush=True)
+    out["feature_vo"] = fv = _profile_feature_vo(device)
+    print(f"map feature_vo frame (320x240, frames {fv['warmup']}-29): host ms a frame "
+          f"{fv['ms_mean']:.3f} mean, {fv['ms_median']:.3f} median; {fv['kernels']:.2f} kernels, "
+          f"{fv['launches']:.2f} launches ({fv['kernel_launches']:.2f} kernel, {fv['copies']:.2f} "
+          f"copies), {fv['syncs']:.2f} syncs, {fv['kernel_ms']:.4f} device ms a frame; good "
+          f"matches {fv['match_counts']}", flush=True)
 
     # one add_keyframe's split, each part synchronised on the host clock
     cam = CameraConfig()
@@ -1012,7 +1035,12 @@ def profile_map(device, reps: int = 20) -> dict:
     wall = run(lc)
     saved = (features.detect_and_describe, kf_matcher.KeyframeMatcher.match_all,
              kf_matcher.ransac_fundamental_filter, pnp.ransac_pnp)
+    # the keyframe's detection with its back-projection (one entry since the
+    # front end's kernels; an older checkout detects through detect_and_describe)
+    fused = getattr(features, "detect_describe_backproject", None)
     features.detect_and_describe = timed("detect_and_describe", saved[0])
+    if fused is not None:
+        features.detect_describe_backproject = timed("detect_and_describe", fused)
     kf_matcher.KeyframeMatcher.match_all = timed("match_all", saved[1])
     kf_matcher.ransac_fundamental_filter = timed("ransac_fundamental_filter", saved[2])
     pnp.ransac_pnp = timed("ransac_pnp", saved[3])
@@ -1021,6 +1049,8 @@ def profile_map(device, reps: int = 20) -> dict:
     finally:
         (features.detect_and_describe, kf_matcher.KeyframeMatcher.match_all,
          kf_matcher.ransac_fundamental_filter, pnp.ransac_pnp) = saved
+        if fused is not None:
+            features.detect_describe_backproject = fused
     prof = _profile_window(lambda: run(LoopCloser(intr, cfg, seed=0, device=device)), 12)
     n = len(dev_frames)
     ak = {"keyframes": n, "ms_median": float(np.median(wall[1:])), "ms_mean": float(np.mean(wall[1:])),
@@ -1039,6 +1069,80 @@ def profile_map(device, reps: int = 20) -> dict:
           f"keyframe; closures {ak['closures']} digest {ak['digest']}", flush=True)
     print(json.dumps(out), flush=True)
     return out
+
+
+def _profile_front_end(device, reps: int) -> dict:
+    """Device us, kernels, copies and host syncs of one `ops/features.
+    detect_and_describe` call (a 320x240 frame of the `feature-vo` source,
+    K = 384) and of one `ops/epipolar.ransac_fundamental_filter` call (S =
+    64 seeded uniforms over that frame's matches with frame 2's), with a
+    digest of each output; the syncs are the call's, those of an empty
+    profiler window taken off."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.ops import epipolar, features
+
+    frames = _feature_vo_frames()
+    g0, g2 = (torch.from_numpy(frames[i][0]).to(device) for i in (0, 2))
+    ref, now = features.detect_and_describe(g0, 384), features.detect_and_describe(g2, 384)
+    m = features.match(ref, now)
+    uv2 = ref.uv[m.ref_idx].contiguous()
+    valid = (m.good & now.valid & ref.valid[m.ref_idx]).contiguous()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    u = torch.rand((64, 384), generator=gen, device=device)
+    # the window's own syncs (its closing synchronize), taken off each call's
+    base = _profile_window(lambda: None, 1)["syncs"]
+    out = {"window_syncs": base}
+    for name, fn in (("detect", lambda: features.detect_and_describe(g0, 384)),
+                     ("epipolar", lambda: epipolar.ransac_fundamental_filter(u, now.uv, uv2, valid))):
+        split = _device_split(fn, reps)
+        window = _profile_window(fn, 1)
+        out[name] = {**split, "kernel_launches": window["kernel_launches"],
+                     "syncs": window["syncs"] - base, "digest": _digest(fn(), 5)}
+    out["epipolar"]["valid_pairs"] = int(valid.sum())
+    return out
+
+
+def _feature_vo_frames() -> list:
+    """The `feature-vo` command's frames at its defaults (30 synthetic
+    320x240 frames): (gray, depth, timestamp)."""
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.io.stream import SyntheticCamera
+
+    return list(SyntheticCamera(CameraConfig(), num_frames=30).frames())
+
+
+def _profile_feature_vo(device, warmup: int = 10) -> dict:
+    """The `feature-vo` command's frame (`FeatureVo` at --min-matches 40 over
+    its 30 frames): host ms a frame over frames `warmup`..29 (each ending
+    in a sync), then the same frames profiled from a fresh run brought to
+    the same frame: launches, host syncs, kernels and device ms a frame."""
+    import torch
+
+    from rgbd_odometry_tpu_torch.config import CameraConfig
+    from rgbd_odometry_tpu_torch.pipeline.feature_vo import FeatureVo, FeatureVoConfig
+
+    frames = _feature_vo_frames()
+
+    def fresh():
+        vo = FeatureVo(CameraConfig(), FeatureVoConfig(min_good_matches=40), device=device)
+        for gray, depth, ts in frames[:warmup]:
+            vo.process_frame(gray, depth, ts)
+        return vo
+
+    vo, ms = fresh(), []
+    for gray, depth, ts in frames[warmup:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vo.process_frame(gray, depth, ts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+    again = fresh()
+    prof = _profile_window(lambda: [again.process_frame(*f) for f in frames[warmup:]],
+                           len(frames) - warmup)
+    return {"warmup": warmup, "ms_mean": float(np.mean(ms)), "ms_median": float(np.median(ms)),
+            "ms": ms, "match_counts": vo.match_counts, **prof}
 
 
 def _event_us(fn, reps: int) -> float:
